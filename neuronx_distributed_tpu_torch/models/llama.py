@@ -1,0 +1,410 @@
+"""Llama for serving, in PyTorch (counterpart of
+``neuronx_distributed_tpu/models/llama.py``).
+
+The module tree and parameter names follow the JAX package's param tree
+(``model.layer_0.attn.qkv.q_kernel`` ...), so a JAX checkpoint loads by
+path (:mod:`..convert.jax_params`).  Carried: RoPE with Llama-3.1
+frequency scaling, the dense GQA core (prefill and the gather decode path),
+and three KV-cache writes -- the contiguous write at a scalar offset, the
+per-slot masked write at per-slot offsets, and the paged scatter through a
+block table -- followed by either the gather path or the paged-attention
+kernel.  The port writes caches IN PLACE (JAX returns updated arrays); the
+returned cache tuples are the same tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from neuronx_distributed_tpu_torch.ops.flash_attention import band_mask
+from neuronx_distributed_tpu_torch.ops.paged_attention import paged_attention
+from neuronx_distributed_tpu_torch.parallel.layers import (
+    ColumnParallelLinear,
+    ParallelEmbedding,
+    RowParallelLinear,
+)
+from neuronx_distributed_tpu_torch.parallel.norm import RMSNorm
+from neuronx_distributed_tpu_torch.parallel.qkv import GQAQKVColumnParallelLinear
+from neuronx_distributed_tpu_torch.utils.device import resolve_device
+
+KVCache = Tuple[torch.Tensor, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    """The serving fields of the JAX ``LlamaConfig`` (training-only fields
+    -- sequence parallelism, remat, flash/cp layouts, MoE, LoRA -- belong to
+    later slices).  ``dtype`` is the compute and weight type."""
+
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: int = 32
+    head_dim: Optional[int] = None
+    max_seq_len: int = 4096
+    rope_theta: float = 10000.0
+    rope_scaling_factor: float = 1.0
+    rope_scaling_low_freq_factor: float = 1.0
+    rope_scaling_high_freq_factor: float = 4.0
+    rope_scaling_original_max_seq: int = 8192
+    rms_eps: float = 1e-5
+    qkv_bias: bool = False
+    # Gemma-2 score knobs and Mistral sliding window, honored by the dense
+    # core and the paged kernel alike
+    attn_softcap: Optional[float] = None
+    attn_scale: Optional[float] = None
+    sliding_window: Optional[int] = None
+    dtype: torch.dtype = torch.bfloat16
+
+    @property
+    def head_dim_(self) -> int:
+        return self.head_dim or self.hidden_size // self.num_heads
+
+    @property
+    def rope_scaling_(self):
+        """``(factor, low, high, original_max_seq)`` or None when off."""
+        if self.rope_scaling_factor == 1.0:
+            return None
+        return (self.rope_scaling_factor, self.rope_scaling_low_freq_factor,
+                self.rope_scaling_high_freq_factor,
+                self.rope_scaling_original_max_seq)
+
+    @staticmethod
+    def llama3_8b(**overrides) -> "LlamaConfig":
+        return LlamaConfig(**{**dict(
+            vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+            num_layers=32, num_heads=32, num_kv_heads=8, rope_theta=500000.0),
+            **overrides})
+
+    @staticmethod
+    def tiny(**overrides) -> "LlamaConfig":
+        """Test-scale config."""
+        return LlamaConfig(**{**dict(
+            vocab_size=256, hidden_size=64, intermediate_size=128,
+            num_layers=2, num_heads=8, num_kv_heads=8, max_seq_len=128),
+            **overrides})
+
+
+def llama3_scale_freqs(inv_freq: torch.Tensor, factor: float,
+                       low_freq_factor: float = 1.0,
+                       high_freq_factor: float = 4.0,
+                       original_max_seq: int = 8192) -> torch.Tensor:
+    """Llama-3.1 "llama3" RoPE frequency scaling: wavelengths above
+    ``original_max_seq / low_freq_factor`` slow by ``factor``, those below
+    ``original_max_seq / high_freq_factor`` stay, the band between
+    interpolates linearly in ``original_max_seq / wavelength``."""
+    wavelen = 2.0 * np.pi / inv_freq
+    low_wl = original_max_seq / low_freq_factor
+    high_wl = original_max_seq / high_freq_factor
+    smooth = (original_max_seq / wavelen - low_freq_factor) / (
+        high_freq_factor - low_freq_factor)
+    mid = (1.0 - smooth) * inv_freq / factor + smooth * inv_freq
+    scaled = torch.where(wavelen > low_wl, inv_freq / factor, mid)
+    return torch.where(wavelen < high_wl, inv_freq, scaled)
+
+
+def rope_sin_cos(positions: torch.Tensor, head_dim: int, theta: float,
+                 scaling=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 RoPE tables for ``positions [..., s]`` -> ``(sin, cos)`` of
+    shape ``[..., s, head_dim / 2]``."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=positions.device) / head_dim
+    inv_freq = 1.0 / (theta ** exps)
+    if scaling is not None:
+        inv_freq = llama3_scale_freqs(inv_freq, *scaling)
+    angles = positions.float()[..., None] * inv_freq
+    return torch.sin(angles), torch.cos(angles)
+
+
+def apply_rope(x: torch.Tensor, sin: torch.Tensor,
+               cos: torch.Tensor) -> torch.Tensor:
+    """Rotate-half RoPE in fp32; ``x [B, S, n, d]``, sin/cos ``[B, S, d/2]``."""
+    d2 = x.shape[-1] // 2
+    xf = x.float()
+    x1, x2 = xf[..., :d2], xf[..., d2:]
+    sin, cos = sin[..., None, :], cos[..., None, :]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def _score_scale(cfg: LlamaConfig, D: int) -> float:
+    if cfg.attn_scale is not None:
+        return float(np.float32(cfg.attn_scale))
+    return float(np.float32(1.0) / np.sqrt(np.float32(D)))
+
+
+def core_attention(cfg: LlamaConfig, q, k, v, q_offset=0, kv_valid=None):
+    """Dense grouped (GQA) causal attention with an fp32 softmax: ``q [B, S,
+    NQ, D]`` over ``k/v [B, T, NKV, D]``.  ``q_offset`` is a scalar or a
+    per-slot ``[B]`` tensor; ``kv_valid [B, T]`` masks invalid keys."""
+    B, S, NQ, D = q.shape
+    T, NKV = k.shape[1], k.shape[2]
+    G = NQ // NKV
+    qg = q.reshape(B, S, NKV, G, D)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float())
+    scores = scores * _score_scale(cfg, D)
+    if cfg.attn_softcap is not None:
+        scores = cfg.attn_softcap * torch.tanh(scores / cfg.attn_softcap)
+    mask = band_mask(S, T, q_offset, cfg.sliding_window, device=q.device)
+    mask = mask[:, None, None] if mask.ndim == 3 else mask[None, None, None]
+    if kv_valid is not None:
+        mask = mask & (kv_valid[:, None, None, None, :] > 0)
+    scores = torch.where(mask, scores,
+                         torch.full_like(scores, torch.finfo(torch.float32).min))
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v.to(q.dtype))
+    return out.reshape(B, S, NQ, D)
+
+
+def paged_gather_views(kv_cache: KVCache, block_table: torch.Tensor):
+    """The gather decode path's ``[B, T, NKV, D]`` K/V views of the pool."""
+    ck, cv = kv_cache
+    B, T = block_table.shape[0], block_table.shape[1] * ck.shape[1]
+    bt = block_table.long()
+    return (ck[bt].reshape(B, T, ck.shape[2], ck.shape[3]),
+            cv[bt].reshape(B, T, cv.shape[2], cv.shape[3]))
+
+
+class PagedStep(NamedTuple):
+    """What every layer of one paged step shares, computed once per forward
+    by :func:`plan_paged_step`: where each new token is written
+    (``phys``/``cell``, with ``keep`` false for dropped cells) and what the
+    kernel reads (int32 offsets and the first valid key per slot)."""
+
+    block_table: torch.Tensor          # [B, PP] int32
+    offsets: torch.Tensor              # [B] int32
+    kv_start: Optional[torch.Tensor]   # [B] int32, None = from position 0
+    phys: torch.Tensor                 # [B, Sn] physical page per new token
+    cell: torch.Tensor                 # [B, Sn] cell within that page
+    keep: torch.Tensor                 # [B, Sn] bool
+    kernel: bool                       # paged-attention kernel, else gather
+
+
+def plan_paged_step(block_table, cache_offset, kv_valid, n_new: int,
+                    page: int, kernel: bool) -> PagedStep:
+    """Token ``s`` of slot ``b`` goes to logical index ``offset[b] + s``
+    through the block table.  Cells past the table (a parked slot at
+    ``offset >= T``) and invalid cells are dropped: they rewrite the NULL
+    page's first cell with its own value, so no host sync is needed and no
+    real page is touched.  Serving key validity is a contiguous band (left
+    pads, then the written prefix), so the kernel takes its first valid
+    index."""
+    if not (isinstance(cache_offset, torch.Tensor) and cache_offset.ndim == 1):
+        raise ValueError("the block-table decode path needs per-slot offsets "
+                         "[B] (continuous-batching decode)")
+    PP = block_table.shape[1]
+    T = PP * page
+    idx = cache_offset.long()[:, None] + torch.arange(
+        n_new, device=cache_offset.device)[None, :]                   # [B, Sn]
+    phys = block_table.long().gather(1, (idx // page).clamp(0, PP - 1))
+    keep = idx < T
+    kv_start = None
+    if kv_valid is not None:
+        keep = keep & (kv_valid.gather(1, idx.clamp(0, T - 1)) > 0)
+        if kernel:
+            kv_start = (kv_valid > 0).to(torch.float32).argmax(dim=1).to(
+                torch.int32)
+    return PagedStep(
+        block_table=block_table.to(torch.int32),
+        offsets=cache_offset.to(torch.int32), kv_start=kv_start,
+        phys=torch.where(keep, phys, torch.zeros_like(phys)),
+        cell=torch.where(keep, idx % page, torch.zeros_like(idx)),
+        keep=keep, kernel=bool(kernel))
+
+
+def _scatter_paged(kv_cache: KVCache, k, v, paged: PagedStep) -> None:
+    """Write the new tokens into the pool in place, at the cells
+    :func:`plan_paged_step` chose."""
+    hot = paged.keep[..., None, None]
+    for c, new in zip(kv_cache, (k, v)):
+        c[paged.phys, paged.cell] = torch.where(
+            hot, new.to(c.dtype), c[paged.phys, paged.cell])
+
+
+class LlamaAttention(nn.Module):
+    def __init__(self, cfg: LlamaConfig, device=None):
+        super().__init__()
+        self.config = cfg
+        D = cfg.head_dim_
+        self.qkv = GQAQKVColumnParallelLinear(
+            cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, D,
+            use_bias=cfg.qkv_bias, dtype=cfg.dtype, device=device)
+        self.o_proj = RowParallelLinear(cfg.num_heads * D, cfg.hidden_size,
+                                        use_bias=False, dtype=cfg.dtype,
+                                        device=device)
+
+    def forward(self, x, positions, kv_cache: Optional[KVCache] = None,
+                cache_offset=0, kv_valid=None,
+                paged: Optional[PagedStep] = None):
+        cfg = self.config
+        q, k, v = self.qkv(x)
+        sin, cos = rope_sin_cos(positions, cfg.head_dim_, cfg.rope_theta,
+                                cfg.rope_scaling_)
+        q = apply_rope(q, sin, cos)
+        k = apply_rope(k, sin, cos)
+
+        if kv_cache is not None:
+            ck, cv = kv_cache
+            per_slot = isinstance(cache_offset, torch.Tensor) \
+                and cache_offset.ndim == 1
+            if paged is not None:
+                _scatter_paged(kv_cache, k, v, paged)
+            elif per_slot:
+                # per-slot write positions: a masked select over the time
+                # axis; an offset >= T (a parked slot) writes nothing
+                if k.shape[1] != 1:
+                    raise ValueError(
+                        "per-example cache offsets support single-token "
+                        f"decode only, got {k.shape[1]} new positions")
+                hot = (torch.arange(ck.shape[1], device=ck.device)[None, :]
+                       == cache_offset[:, None])[:, :, None, None]
+                ck.copy_(torch.where(hot, k.to(ck.dtype), ck))
+                cv.copy_(torch.where(hot, v.to(cv.dtype), cv))
+            else:
+                off = int(cache_offset)
+                ck[:, off:off + k.shape[1]] = k.to(ck.dtype)
+                cv[:, off:off + v.shape[1]] = v.to(cv.dtype)
+
+        if kv_cache is not None and paged is not None and paged.kernel:
+            out = paged_attention(
+                q, kv_cache, paged.block_table, paged.offsets,
+                paged.kv_start, sm_scale=cfg.attn_scale,
+                window=cfg.sliding_window, softcap=cfg.attn_softcap)
+        else:
+            if kv_cache is None:
+                keys, values = k, v
+            elif paged is not None:
+                keys, values = paged_gather_views(kv_cache, paged.block_table)
+            else:
+                keys, values = kv_cache
+            out = core_attention(cfg, q, keys, values,
+                                 cache_offset if kv_cache is not None else 0,
+                                 kv_valid)
+        B, S = x.shape[0], q.shape[1]
+        return self.o_proj(out.reshape(B, S, -1)), kv_cache
+
+    def reset_parameters(self, generator=None) -> None:
+        self.qkv.reset_parameters(generator)
+        self.o_proj.reset_parameters(generator)
+
+
+class LlamaMLP(nn.Module):
+    def __init__(self, cfg: LlamaConfig, device=None):
+        super().__init__()
+        self.gate_up = ColumnParallelLinear(
+            cfg.hidden_size, 2 * cfg.intermediate_size, use_bias=False,
+            n_fused=2, dtype=cfg.dtype, device=device)
+        self.down = RowParallelLinear(cfg.intermediate_size, cfg.hidden_size,
+                                      use_bias=False, dtype=cfg.dtype,
+                                      device=device)
+
+    def forward(self, x):
+        gate_up = self.gate_up(x)
+        return self.down(F.silu(gate_up[..., 0, :]) * gate_up[..., 1, :])
+
+    def reset_parameters(self, generator=None) -> None:
+        self.gate_up.reset_parameters(generator)
+        self.down.reset_parameters(generator)
+
+
+class LlamaBlock(nn.Module):
+    def __init__(self, cfg: LlamaConfig, device=None):
+        super().__init__()
+        self.attn = LlamaAttention(cfg, device)
+        self.input_norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype,
+                                  device)
+        self.post_attn_norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype,
+                                      device)
+        self.mlp = LlamaMLP(cfg, device)
+
+    def forward(self, x, positions, kv_cache=None, cache_offset=0,
+                kv_valid=None, paged: Optional[PagedStep] = None):
+        h, cache = self.attn(self.input_norm(x), positions, kv_cache,
+                             cache_offset, kv_valid, paged)
+        x = x + h
+        return x + self.mlp(self.post_attn_norm(x)), cache
+
+
+class LlamaModel(nn.Module):
+    """Decoder stack without the LM head; layers are ``layer_0`` ... as in
+    the JAX param tree."""
+
+    def __init__(self, cfg: LlamaConfig, device=None):
+        super().__init__()
+        self.config = cfg
+        self.embed = ParallelEmbedding(cfg.vocab_size, cfg.hidden_size,
+                                       cfg.dtype, device)
+        for i in range(cfg.num_layers):
+            self.add_module(f"layer_{i}", LlamaBlock(cfg, device))
+        self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype,
+                                  device)
+
+    def layers(self) -> List[LlamaBlock]:
+        return [getattr(self, f"layer_{i}")
+                for i in range(self.config.num_layers)]
+
+    def forward(self, ids, positions=None, kv_caches=None, cache_offset=0,
+                kv_valid=None, block_table=None, paged_kernel=False):
+        if positions is None:
+            positions = torch.arange(ids.shape[1], device=ids.device
+                                     ).expand(ids.shape)
+        paged = None
+        if block_table is not None:
+            if kv_caches is None:
+                raise ValueError("a block table needs the page pool caches")
+            paged = plan_paged_step(block_table, cache_offset, kv_valid,
+                                    ids.shape[1], kv_caches[0][0].shape[1],
+                                    paged_kernel)
+        h = self.embed(ids)
+        for i, block in enumerate(self.layers()):
+            h, _ = block(h, positions,
+                         kv_caches[i] if kv_caches is not None else None,
+                         cache_offset, kv_valid, paged)
+        return self.final_norm(h)
+
+
+class LlamaForCausalLM(nn.Module):
+    """Causal LM: ``forward(ids, ...) -> logits`` without caches, ``->
+    (logits, caches)`` with them.  ``device`` defaults to CUDA (raises
+    without it); parameters are created uninitialized on that device --
+    load a state dict or call :meth:`init_random`."""
+
+    def __init__(self, cfg: LlamaConfig, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.config = cfg
+        self.model = LlamaModel(cfg, device)
+        self.lm_head = ColumnParallelLinear(cfg.hidden_size, cfg.vocab_size,
+                                            use_bias=False, dtype=cfg.dtype,
+                                            device=device)
+
+    @torch.no_grad()
+    def init_random(self, seed: int) -> "LlamaForCausalLM":
+        """Random weights from one seeded generator on the parameters'
+        device: kernels ~ N(0, 1/fan_in), embedding ~ N(0, 0.02^2), norms 1."""
+        g = torch.Generator(device=self.lm_head.kernel.device)
+        g.manual_seed(seed)
+        self.model.embed.reset_parameters(g)
+        for block in self.model.layers():
+            block.attn.reset_parameters(g)
+            block.mlp.reset_parameters(g)
+            nn.init.ones_(block.input_norm.weight)
+            nn.init.ones_(block.post_attn_norm.weight)
+        nn.init.ones_(self.model.final_norm.weight)
+        self.lm_head.reset_parameters(g)
+        return self
+
+    def forward(self, ids, positions=None, kv_caches=None, cache_offset=0,
+                kv_valid=None, block_table=None, paged_kernel=False):
+        h = self.model(ids, positions, kv_caches, cache_offset, kv_valid,
+                       block_table, paged_kernel)
+        logits = self.lm_head(h)
+        return (logits, kv_caches) if kv_caches is not None else logits

@@ -1,0 +1,103 @@
+"""Build and bind the port's CUDA kernels.
+
+Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface, at first use, into ``_build/`` beside the
+package (listed in ``.gitignore``), and loaded with ``ctypes``.  The library
+name carries a hash of the source, so an edited kernel rebuilds and a stale
+library is never loaded.  Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from typing import Dict, Tuple
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# C signature of every exported kernel entry, by library name
+SIGNATURES = {
+    "paged_attention": {
+        "paged_attention_fwd": (
+            [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,   # dtype, pointers
+             _I, _I, _I, _I, _I, _I, _I, _I,               # B S NQ NKV D NP page PP
+             _F, _I, _F, _I, _P],                          # scale window cap sk stream
+            _I),
+    },
+}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+# nvcc's -Xptxas -v report per library (registers, shared memory, spills)
+build_logs: Dict[str, str] = {}
+
+
+def find_nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin and PATH): the port's CUDA "
+        "kernels are built from source at first use")
+
+
+def _source(name: str) -> Tuple[str, str]:
+    path = os.path.join(CSRC, f"{name}.cu")
+    with open(path, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return path, digest.hexdigest()[:16]
+
+
+def build(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` unless a library of the same source hash
+    exists; returns the library path.  The compiler's report is kept in
+    :data:`build_logs`."""
+    src, digest = _source(name)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    lib = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    if os.path.exists(lib):
+        build_logs.setdefault(name, "(cached build)")
+        return lib
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed on {src} (rc {proc.returncode}):\n"
+                f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, lib)  # atomic: a reader never sees a partial file
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    build_logs[name] = (proc.stdout + proc.stderr).strip()
+    return lib
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The bound library ``name`` (built on first use), with ``argtypes``
+    and ``restype`` set for every entry in :data:`SIGNATURES`."""
+    with _lock:
+        if name not in _libs:
+            lib = ctypes.CDLL(build(name))
+            for fn, (argtypes, restype) in SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = restype
+            _libs[name] = lib
+        return _libs[name]

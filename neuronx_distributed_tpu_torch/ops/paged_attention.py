@@ -1,0 +1,254 @@
+"""Block-table-native paged-attention decode (hand-written CUDA on Hopper).
+
+Counterpart of ``neuronx_distributed_tpu/ops/paged_attention.py``.  The
+gather decode path rematerializes every slot's page chain into a contiguous
+``[B, T, NKV, D]`` view before attending over it; this op walks the block
+table in device memory instead, so a decode step reads only the pages each
+slot attends.
+
+- On a CUDA tensor :func:`paged_attention` launches the kernel in
+  ``csrc/paged_attention.cu`` (built by ``nvcc`` at first use, bound with
+  ``ctypes``) or raises; it never falls back.
+- On a CPU tensor it runs :func:`paged_attention_reference`, the plain
+  PyTorch version of the same arithmetic: gather, band-mask, per-split
+  online-softmax partials and the split-K logsumexp merge.
+
+Layout as in the JAX package: ``q [B, S, NQ, D]``; one layer's fp pool
+``(k, v)`` each ``[NP, page, NKV, D]``; ``block_table [B, PP]``;
+``cache_offset [B]`` (row ``s`` attends positions ``<= offset + s``; an
+offset ``>= PP * page`` parks the slot, whose rows come back exact zeros);
+``kv_start [B]`` (first valid key, the left-pad count).
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional, Sequence
+
+import torch
+
+from neuronx_distributed_tpu_torch.ops.flash_attention import NEG_INF
+
+# keys per kernel tile and query rows per block (csrc/paged_attention.cu)
+TILE_KEYS = 32
+MAX_ROWS = 16
+HEAD_DIMS = (64, 128, 256)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+INT8_DEFERRED = ("int8 page pools (kv_quant='int8') are not ported yet: the "
+                 "in-kernel dequant branch lands with the kv_quant slice")
+
+
+def resolve_paged_kernel(flag, device) -> bool:
+    """Resolve the ``paged_kernel`` knob (``"auto"`` | ``True`` |
+    ``False``): auto picks the kernel on a CUDA device and the gather path
+    on the CPU.  An explicit value is honored anywhere; on the CPU the
+    kernel flag runs the kernel's plain version."""
+    if flag is True or flag is False:
+        return flag
+    if flag not in ("auto", None):
+        raise ValueError(
+            f"paged_kernel must be 'auto', True or False, got {flag!r}")
+    return torch.device(device).type == "cuda"
+
+
+def _check_pool(q, kv_pages):
+    if len(kv_pages) not in (2, 6):
+        raise ValueError(
+            f"kv_pages must be a layer's fp pair or int8 six-tuple, got "
+            f"{len(kv_pages)} arrays")
+    if len(kv_pages) == 6:
+        raise NotImplementedError(INT8_DEFERRED)
+    if q.shape[2] % kv_pages[0].shape[2]:
+        raise ValueError(
+            f"q heads ({q.shape[2]}) must group over kv heads "
+            f"({kv_pages[0].shape[2]})")
+
+
+def merge_splits(acc, m, l, S: int, dtype) -> torch.Tensor:
+    """Flash-Decoding epilogue: merge split-K partials ``acc [B, NKV, sk,
+    G*S, D]``, ``m``/``l [B, NKV, sk, G*S]`` by logsumexp weight into
+    ``[B, S, NQ, D]``.  An empty split (``m = NEG_INF, l = 0, acc = 0``)
+    contributes nothing; a row with ``l* = 0`` (parked slot, or no visible
+    key) comes out exact zeros."""
+    B, NKV, _, rows, D = acc.shape
+    G = rows // S
+    m_star = m.max(dim=2, keepdim=True).values
+    w = torch.exp(m - m_star)
+    l_star = (l * w).sum(dim=2)                      # [B, NKV, rows]
+    o = (acc * w[..., None]).sum(dim=2)              # [B, NKV, rows, D]
+    safe_l = torch.where(l_star == 0.0, torch.ones_like(l_star), l_star)
+    o = o / safe_l[..., None]
+    return o.reshape(B, NKV, S, G, D).permute(0, 2, 1, 3, 4).reshape(
+        B, S, NKV * G, D).to(dtype)
+
+
+def paged_attention_reference(q, kv_pages, block_table, cache_offset,
+                              kv_start=None, *, sm_scale=None, window=None,
+                              softcap=None, split_k: int = 1) -> torch.Tensor:
+    """The plain version, in fp32 from the given inputs: gather the chain
+    into the contiguous ``[B, T]`` view (the gather path's math), band-mask,
+    compute unnormalized online-softmax partials over ``split_k`` equal
+    pieces of the chain, and merge them with :func:`merge_splits`.  Parked
+    slots and rows that see no key are exact zeros, as in the kernel."""
+    _check_pool(q, kv_pages)
+    ck, cv = kv_pages
+    B, S, NQ, D = q.shape
+    NKV = ck.shape[2]
+    G = NQ // NKV
+    PP = block_table.shape[1]
+    T = PP * ck.shape[1]
+    bt = block_table.long()
+    k = ck[bt].reshape(B, T, NKV, D).float()
+    v = cv[bt].reshape(B, T, NKV, D).float()
+    scale = (D ** -0.5) if sm_scale is None else sm_scale
+    qg = q.float().reshape(B, S, NKV, G, D)
+    s = torch.einsum("bskgd,btkd->bksgt", qg, k).reshape(B, NKV, S * G, T)
+    s = s * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    off = cache_offset.long()
+    qpos = off[:, None] + torch.arange(S, device=q.device)[None, :]   # [B, S]
+    kpos = torch.arange(T, device=q.device)
+    mask = kpos[None, None, :] <= qpos[:, :, None]                    # [B, S, T]
+    if window is not None:
+        mask = mask & (kpos[None, None, :] > qpos[:, :, None] - window)
+    if kv_start is not None:
+        mask = mask & (kpos[None, None, :] >= kv_start.long()[:, None, None])
+    mask = mask & (off < T)[:, None, None]
+    mask = mask[:, None, :, None, :].expand(B, 1, S, G, T).reshape(
+        B, 1, S * G, T)
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    accs, ms, ls = [], [], []
+    for idx in torch.arange(T, device=q.device).tensor_split(
+            max(1, min(int(split_k), T))):
+        sj, mj = s[..., idx], mask[..., idx]
+        m_j = sj.max(dim=-1).values
+        p = torch.where(mj, torch.exp(sj - m_j[..., None]),
+                        torch.zeros_like(sj))
+        ls.append(p.sum(dim=-1))
+        ms.append(m_j)
+        accs.append(torch.einsum("bkrt,btkd->bkrd", p, v[:, idx]))
+    return merge_splits(torch.stack(accs, 2), torch.stack(ms, 2),
+                        torch.stack(ls, 2), S, q.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def default_split_k(B: int, NKV: int, rows: int, T: int,
+                    device: torch.device) -> int:
+    """Enough splits for about two blocks per SM, and never so many that a
+    split walks fewer than four key tiles of the chain."""
+    blocks = B * NKV * -(-rows // MAX_ROWS)
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return max(1, min(2 * _sm_count(index) // max(blocks, 1),
+                      T // (4 * TILE_KEYS)))
+
+
+def _launch(q, ck, cv, bt, off, start, scale, window, softcap, split_k):
+    """Validate, allocate and launch on the current stream; raises on any
+    input the kernel does not take and on a refused launch."""
+    dev = q.device
+    named = (("q", q), ("k pool", ck), ("v pool", cv), ("block_table", bt),
+             ("cache_offset", off), ("kv_start", start))
+    for name, t in named:
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, q on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, t in named[1:3]:  # the kernel reads pages as 16-byte vectors
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"paged_attention kernel takes float32 or bfloat16 "
+                        f"q, got {q.dtype}")
+    if ck.dtype != q.dtype or cv.dtype != q.dtype:
+        raise TypeError(f"pool dtype ({ck.dtype}, {cv.dtype}) must match q "
+                        f"({q.dtype})")
+    for name, t in named[3:]:
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+    B, S, NQ, D = q.shape
+    NP, page, NKV, Dk = ck.shape
+    if cv.shape != ck.shape or Dk != D:
+        raise ValueError(f"pool shapes {tuple(ck.shape)}/{tuple(cv.shape)} "
+                         f"do not fit q {tuple(q.shape)}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
+    PP = bt.shape[1]
+    if bt.shape[0] != B or off.shape != (B,) or start.shape != (B,):
+        raise ValueError(
+            f"block_table {tuple(bt.shape)}, cache_offset "
+            f"{tuple(off.shape)}, kv_start {tuple(start.shape)} do not fit "
+            f"batch {B}")
+    rows = NQ // NKV * S
+    if split_k is None:
+        split_k = default_split_k(B, NKV, rows, PP * page, dev)
+    split_k = int(split_k)
+    if split_k < 1:
+        raise ValueError(f"split_k must be >= 1, got {split_k}")
+    from neuronx_distributed_tpu_torch.ops._build import load
+
+    lib = load("paged_attention")
+    out = torch.empty_like(q)
+    acc = m = l = None
+    if split_k > 1:  # the split-K workspace the kernel's epilogue merges
+        acc = torch.empty((B, NKV, split_k, rows, D), dtype=torch.float32,
+                          device=dev)
+        m = torch.empty((B, NKV, split_k, rows), dtype=torch.float32,
+                        device=dev)
+        l = torch.empty_like(m)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.paged_attention_fwd(
+            _DTYPE_CODE[q.dtype], ptr(q), ptr(ck), ptr(cv), ptr(bt), ptr(off),
+            ptr(start), ptr(out), ptr(acc), ptr(m), ptr(l),
+            B, S, NQ, NKV, D, NP, page, PP, float(scale),
+            int(window or 0), float(softcap or 0.0), split_k, stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_attention kernel launch failed "
+                           f"(code {rc})")
+    paged_attention.launches += 1
+    return out
+
+
+def paged_attention(q: torch.Tensor, kv_pages: Sequence[torch.Tensor],
+                    block_table: torch.Tensor, cache_offset: torch.Tensor,
+                    kv_start: Optional[torch.Tensor] = None, *,
+                    sm_scale: Optional[float] = None,
+                    window: Optional[int] = None,
+                    softcap: Optional[float] = None,
+                    split_k: Optional[int] = None) -> torch.Tensor:
+    """Decode attention straight over one layer's page pool; returns
+    ``[B, S, NQ, D]`` in ``q.dtype``.  ``window``/``softcap``/``sm_scale``
+    are the sliding window, logit softcap and score scale (default
+    ``D ** -0.5``).  ``split_k`` splits each slot's key range over that
+    many blocks (default: from the card's SM count) whose partials are
+    merged by logsumexp weight.  CUDA tensors launch the kernel (and
+    count in ``paged_attention.launches``); CPU tensors run
+    :func:`paged_attention_reference`."""
+    _check_pool(q, kv_pages)
+    if window is not None and window < 1:
+        raise ValueError(f"sliding window must be >= 1, got {window}")
+    scale = (q.shape[-1] ** -0.5) if sm_scale is None else sm_scale
+    if q.device.type == "cpu":
+        return paged_attention_reference(
+            q, kv_pages, block_table, cache_offset, kv_start,
+            sm_scale=scale, window=window, softcap=softcap,
+            split_k=split_k or 1)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention runs on cuda or cpu, got "
+                         f"{q.device}")
+    if kv_start is None:
+        kv_start = torch.zeros(q.shape[0], dtype=torch.int32,
+                               device=q.device)
+    return _launch(q, kv_pages[0], kv_pages[1], block_table, cache_offset,
+                   kv_start, scale, window, softcap, split_k)
+
+
+paged_attention.launches = 0

@@ -1,0 +1,128 @@
+"""PyTorch port: the hand-written CUDA kernels on the card.
+
+Every test here needs an NVIDIA GPU (``cuda`` marker) and skips without
+one.  The file imports nothing of JAX, so on a machine with a card and no
+JAX it runs on its own:
+
+    python -m pytest --noconftest tests/test_torch_cuda_kernels.py -m cuda
+
+Tolerances: the kernel against its plain version in fp32 computed from the
+same (possibly bf16) inputs -- 1e-4 for fp32 inputs, 2e-2 for bf16 (one
+bf16 rounding of outputs of magnitude ~1).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from neuronx_distributed_tpu_torch.ops.paged_attention import (
+    paged_attention,
+    paged_attention_reference,
+)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _inputs(seed, B, S, nq, nkv, D, page, PP, NP, dtype, device):
+    rs = np.random.RandomState(seed)
+    T = PP * page
+    f = lambda shape: torch.from_numpy(  # noqa: E731
+        rs.standard_normal(shape).astype(np.float32)).to(device, dtype)
+    q = f((B, S, nq, D))
+    pool = (f((NP, page, nkv, D)), f((NP, page, nkv, D)))
+    bt = rs.randint(1, NP, size=(B, PP)).astype(np.int32)
+    off = rs.randint(2, T - S, size=B).astype(np.int32)
+    off[1] = T  # parked slot
+    start = np.minimum(rs.randint(0, 6, size=B), off).astype(np.int32)
+    ints = [torch.from_numpy(a).to(device) for a in (bt, off, start)]
+    return q, pool, *ints
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("S,split_k", [(1, 1), (1, 3), (4, 1), (4, 2),
+                                       (20, 2)])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_kernel_matches_plain(dev, D, S, split_k, dtype, tol):
+    """D in {64, 128, 256}, decode and wide rows (S = 20 spans two row
+    tiles), split-K, a sliding window, a parked slot."""
+    q, pool, bt, off, start = _inputs(D + S, 3, S, 8, 2, D, 16, 8, 25, dtype,
+                                      dev)
+    before = paged_attention.launches
+    out = paged_attention(q, pool, bt, off, start, split_k=split_k,
+                          window=40)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 1
+    ref = paged_attention_reference(q.float(), tuple(p.float() for p in pool),
+                                    bt, off, start, window=40)
+    assert (out.float() - ref).abs().max().item() <= tol
+    assert torch.all(out[1] == 0)
+
+
+@pytest.mark.parametrize("page", [1, 5, 16, 64])
+def test_any_page_size_and_softcap(dev, page):
+    q, pool, bt, off, start = _inputs(page, 4, 2, 8, 8, 64, page, 96 // page,
+                                      40, torch.float32, dev)
+    out = paged_attention(q, pool, bt, off, start, softcap=30.0, sm_scale=0.2)
+    ref = paged_attention_reference(q, pool, bt, off, start, softcap=30.0,
+                                    sm_scale=0.2)
+    assert (out - ref).abs().max().item() <= 1e-4
+
+
+def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    q, pool, bt, off, start = _inputs(0, 2, 2, 4, 2, 64, 4, 4, 9,
+                                      torch.float32, dev)
+    with pytest.raises(TypeError, match="int32"):
+        paged_attention(q, pool, bt.long(), off, start)
+    with pytest.raises(TypeError, match="dtype"):
+        paged_attention(q, tuple(p.bfloat16() for p in pool), bt, off, start)
+    with pytest.raises(ValueError, match="head_dim"):
+        paged_attention(q[..., :48].contiguous(),
+                        tuple(p[..., :48].contiguous() for p in pool),
+                        bt, off, start)
+    with pytest.raises(ValueError, match="contiguous"):
+        paged_attention(q.transpose(1, 2), pool, bt, off, start)
+    with pytest.raises(ValueError, match="on cpu"):
+        paged_attention(q, pool, bt.cpu(), off, start)
+    with pytest.raises(NotImplementedError, match="kv_quant"):
+        paged_attention(q, pool * 3, bt, off, start)
+
+
+def test_served_tokens_kernel_equal_gather_fp32(dev):
+    """A tiny fp32 Llama served on the card: the kernel path and the gather
+    path give the same greedy tokens, and the kernel ran once per layer
+    per decode step."""
+    from neuronx_distributed_tpu_torch import (
+        InferenceConfig,
+        LlamaConfig,
+        LlamaForCausalLM,
+        ParallelInferenceModel,
+        Request,
+        ServingEngine,
+    )
+
+    cfg = LlamaConfig.tiny(num_kv_heads=2, head_dim=64, dtype=torch.float32)
+    model = LlamaForCausalLM(cfg, device=dev).init_random(0)
+    pim = ParallelInferenceModel(model, InferenceConfig(3, 16, 48,
+                                                        torch.float32))
+    rs = np.random.RandomState(1)
+    prompts = [rs.randint(1, cfg.vocab_size, size=rs.randint(2, 17)).tolist()
+               for _ in range(6)]
+    runs = {}
+    for pk in (True, False):
+        eng = ServingEngine(pim, page_size=8, paged_kernel=pk)
+        before = paged_attention.launches
+        for i, p in enumerate(prompts):
+            eng.submit(Request(request_id=i, prompt_ids=p, max_new_tokens=12))
+        runs[pk] = {o.request_id: o.token_ids
+                    for o in eng.run_until_complete(max_steps=200)}
+        launched = paged_attention.launches - before
+        assert launched == (eng.decode_steps * cfg.num_layers if pk else 0)
+    assert runs[True] == runs[False]

@@ -1,0 +1,139 @@
+"""PyTorch port: import boundaries and device defaults.
+
+The port and ``chip_smoke.py`` import ``torch`` and never ``jax``,
+``flax`` or the JAX package (``neuronx_distributed_tpu``): an AST scan of
+every file shows it, and a subprocess that blocks those modules imports
+every port module.  Entry points called without ``device=`` run on CUDA
+and raise when it is absent.
+"""
+
+import ast
+import os
+import pkgutil
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import neuronx_distributed_tpu_torch as port
+from neuronx_distributed_tpu_torch.kvcache.pool import PagePool
+from neuronx_distributed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+from neuronx_distributed_tpu_torch.serving import ServingEngine
+from neuronx_distributed_tpu_torch.trace import InferenceConfig, ParallelInferenceModel
+from neuronx_distributed_tpu_torch.utils.device import resolve_device
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.dirname(port.__file__)
+FORBIDDEN = ("jax", "flax", "neuronx_distributed_tpu")
+
+
+def _port_files():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(PKG):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return files
+
+
+def _forbidden(name):
+    return name is not None and name.split(".")[0] in FORBIDDEN
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_jax_import_in_source(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if _forbidden(node.module):
+                bad.append(node.module)
+    assert not bad, f"{path} imports {bad}"
+
+
+BLOCKED_IMPORT = """
+import importlib, pkgutil, sys
+for name in list(sys.modules):
+    if name.split(".")[0] in {forbidden!r}:
+        del sys.modules[name]
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in {forbidden!r}:
+            raise ImportError("blocked: " + name)
+
+sys.meta_path.insert(0, Block())
+import neuronx_distributed_tpu_torch as pkg
+mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for m in mods:
+    importlib.import_module(m)
+print(len(mods))
+"""
+
+
+def test_port_imports_with_jax_blocked():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", BLOCKED_IMPORT.format(forbidden=FORBIDDEN)],
+        capture_output=True, text=True, timeout=300, cwd=REPO, env=env)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert int(proc.stdout.split()[-1]) >= 20
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = LlamaConfig.tiny(dtype=torch.float32)
+    icfg = InferenceConfig(2, 4, 8, torch.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LlamaForCausalLM(cfg)
+    model = LlamaForCausalLM(cfg, device="cpu").init_random(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ParallelInferenceModel(model, icfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PagePool(2, 4, 4, 8, 8)
+    pim = ParallelInferenceModel(model, icfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingEngine(pim, page_size=4)
+    assert ServingEngine(pim, page_size=4, device="cpu").device.type == "cpu"
+
+
+def test_chip_smoke_refuses_without_cuda_or_package(tmp_path):
+    """No card: non-zero exit and no result line.  Alone in a directory
+    (without the package): the same."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), alone)
+    for script in (os.path.join(REPO, "chip_smoke.py"), str(alone)):
+        proc = subprocess.run([sys.executable, script], capture_output=True,
+                              text=True, timeout=300, env=env,
+                              cwd=os.path.dirname(script))
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout
+    # even where CUDA answers, the copy without the package refuses to run
+    fake_cuda = ("import runpy, sys, torch; torch.cuda.is_available = "
+                 "lambda: True; sys.argv = [sys.argv[1]]; "
+                 "runpy.run_path(sys.argv[0], run_name='__main__')")
+    proc = subprocess.run([sys.executable, "-c", fake_cuda, str(alone)],
+                          capture_output=True, text=True, timeout=300,
+                          env=env, cwd=str(tmp_path))
+    assert proc.returncode != 0 and "package" in proc.stderr
+    assert '"ok"' not in proc.stdout
+
+
+def test_walk_covers_the_slice():
+    names = {m.name for m in pkgutil.walk_packages(port.__path__,
+                                                   "neuronx_distributed_tpu_torch.")}
+    for mod in ("ops.paged_attention", "ops._build", "ops.flash_attention",
+                "parallel.norm", "parallel.layers", "parallel.qkv",
+                "models.llama", "convert.jax_params", "kvcache.allocator",
+                "kvcache.prefix", "kvcache.pool", "trace.engine",
+                "serving.request", "serving.scheduler", "serving.driver",
+                "serving.paged", "serving.engine", "utils.logger",
+                "utils.device", "version"):
+        assert f"neuronx_distributed_tpu_torch.{mod}" in names
