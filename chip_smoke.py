@@ -5,14 +5,26 @@ GPU and check it end to end.
     python3 chip_smoke.py
 
 Phase 0 prints the card and builds every CUDA kernel from the sources in
-the checkout (``nvcc -Xptxas -v`` report included).  Phase 1 holds each
-kernel against its plain PyTorch version at the serving path's shapes
-(Llama-3-8B attention geometry) and times the kernel, the plain version
-and one PyTorch library call doing the same work.  Phase 2 serves 16
-requests through ``ServingEngine`` on a full-width, full-depth Llama-3-8B
-with random bf16 weights from a seed, counts the kernel's launches on that
-run, checks page accounting, and compares the kernel path's logits with
-the gather path's.
+the checkout, one ``nvcc`` per source started together (``-Xptxas -v``
+report included).  Phase 1 holds the paged-attention kernel against its
+plain PyTorch version at the serving path's shapes (Llama-3-8B attention
+geometry) and times the kernel, the plain version and one PyTorch library
+call doing the same work.  Phase 2 serves 16 requests through
+``ServingEngine`` on a full-width, full-depth Llama-3-8B with random bf16
+weights from a seed, counts the kernel's launches on that run, checks page
+accounting, and compares the kernel path's logits with the gather path's.
+Phase 3 holds the flash-attention forward, dq and dk/dv kernels against
+their plain versions row by row (the training path's own shape, causal
+and not, GQA 4 and 1, a sliding window, a softcap, packed segments with
+padding, T > S, an lse cotangent, D 64 and 128, bf16 and fp32) and times
+them at the training path's shape.  Phase 4 trains a Llama-3-8B-width
+model cut to 4 layers (fp32 masters, bf16 compute, flash attention) for
+12 steps through the trainer's entry points, counts the flash kernels'
+launches on that run, compares one step's loss, gradient norm and
+attention-projection gradients through the flash and the dense core, and
+reports tokens/s, MFU, peak memory and the device-busy share of a
+profiled step.  A device time below the least time its work needs fails
+the run.
 
 Any failed check exits non-zero without the result line.  The line before
 the last is ``{"kernels": [...]}``; the last is ``{"ok": true, "device":
@@ -35,6 +47,10 @@ HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory
 PEAK_FLOPS = {"bfloat16": 989e12,   # dense tensor-core rate
               "float32": 67e12}     # fp32 outside the tensor cores
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the flash forward's lse, absolute: fp32 arithmetic on the same inputs in
+# kernel and plain version (bf16 inputs are exact in fp32), so only the
+# order of the sums differs
+LSE_TOL = {"float32": 1e-3, "bfloat16": 1e-3}
 
 # Phase 1 shapes: Llama-3-8B attention at the served engine's geometry
 NQ, NKV, D, PAGE, B, PP = 32, 8, 128, 16, 8, 64
@@ -95,33 +111,100 @@ def dev_us(event) -> float:
                    getattr(event, "self_cuda_time_total", 0.0))
 
 
-def device_ms(fns, iters: int, expect: str = "") -> float:
-    """Device time per call: the summed self time of every kernel (and
-    copy) that ``iters`` calls put on the card, as ``torch.profiler``
-    reads it, over ``iters``.  The calls cycle through ``fns``, one per
-    copy of the inputs, so that a call finds its inputs in device memory
-    and not in the 50 MB L2 the previous call filled.  ``expect`` names a
-    kernel that must be among those seen."""
+def device_events(prof):
+    """The profile's device-side rows (kernels, copies), without the GPU
+    ranges of user annotations such as ``Optimizer.step``, which span
+    kernels already counted."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    for fn in fns:
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def trace(run, warm):
+    """The device events of ``run()`` under ``torch.profiler``, after
+    ``warm()`` ran as the profiler's warm-up step.  Events are recorded
+    from the second step only: a session that traces from its first
+    kernel on dropped the kernels of 2 of 20 calls in one reading.  It
+    still drops one call's now and then (:func:`device_ms` allows for
+    that)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        warm()
+        torch.cuda.synchronize()
+        prof.step()
+        run()
+        torch.cuda.synchronize()
+        prof.step()
+    return device_events(prof)
+
+
+def device_ms(fns, iters: int, expect: str = "", show: str = "") -> float:
+    """Device time per call of the kernels (and copies) that ``iters``
+    calls put on the card, as ``torch.profiler`` reads them.  The calls
+    cycle through ``fns``, one per copy of the inputs, so that a call
+    finds its inputs in device memory and not in the 50 MB L2 the
+    previous call filled.  Every call launches the same kernels, ``n =
+    round(count / iters)`` of each; a kernel's time per call is its mean
+    recorded duration times ``n``, so a call whose kernels the profiler
+    dropped (the count falls short of ``n * iters``, and is logged)
+    does not read the time low.  ``expect`` names a kernel that must be
+    among those seen; ``show`` logs every device event per call under
+    that label."""
+    def run():
         for i in range(iters):
             fns[i % len(fns)]()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    total = sum(dev_us(e) for e in events)
+
+    def warm():
+        for fn in fns:
+            fn()
+
+    warm()
+    events = trace(run, warm)
+    per_call = [dev_us(e) / e.count * round(e.count / iters) for e in events]
+    total = sum(per_call)
     if total <= 0:
         raise RuntimeError("torch.profiler saw no device time")
+    lost = [f"{e.key[:60]} {e.count}/{round(e.count / iters) * iters}"
+            for e in events if e.count != round(e.count / iters) * iters]
+    if lost:
+        log(f"torch.profiler dropped device events over {iters} calls "
+            f"(recorded/expected): {lost}")
     if expect and not any(expect in e.key for e in events):
         raise RuntimeError(f"no {expect} among the device events: "
                            f"{[e.key[:60] for e in events]}")
-    return total / 1e3 / iters
+    if show:
+        log(f"{show}, device events per call: " + "; ".join(
+            f"{e.key[:90]} x{e.count / iters:g} {ms / 1e3:.5f} ms"
+            for ms, e in sorted(zip(per_call, events), key=lambda x: -x[0])))
+    return total / 1e3
+
+
+def check_events(name: str, profiler_ms: float, event_ms: float) -> None:
+    """For a call of a quarter millisecond and more, the wall time between
+    CUDA events over back-to-back calls is the device time plus small
+    launch gaps: a profiler sum below 90 % of it lost device work."""
+    log(f"{name}: device ms per call {profiler_ms:.5f} from torch.profiler, "
+        f"{event_ms:.5f} between CUDA events")
+    if not profiler_ms >= 0.9 * event_ms:
+        raise AssertionError(
+            f"{name}: torch.profiler reads {profiler_ms:.5f} ms per call, "
+            f"under 90 % of the {event_ms:.5f} ms between CUDA events")
+
+
+def check_bound(name: str, times: dict, bound: float) -> None:
+    """A device time below the least time the card needs for the work
+    means the profiler missed device work: fail rather than report it."""
+    for what, ms in times.items():
+        if not ms >= bound:
+            raise AssertionError(
+                f"{name}: {what} reads {ms:.5f} ms, below its bound "
+                f"{bound:.5f} ms; the profiler missed device work")
 
 
 # -- phase 1 ------------------------------------------------------------------
@@ -286,6 +369,10 @@ def phase1():
     log("phase1 split_k sweep, device ms per call: " + ", ".join(
         f"{sk}: {ms:.5f}" for sk, ms in sweep.items()))
     b_ms, b_by = bound_ms(1, "bfloat16", off.cpu(), start.cpu())
+    check_bound("paged_attention", {"kernel": kernel_ms, "plain": plain_ms,
+                                    "library": lib_ms, **{
+                                        f"split_k {sk}": ms
+                                        for sk, ms in sweep.items()}}, b_ms)
     log(f"phase1 timing (S=1 bf16 B={B} NQ={NQ} NKV={NKV} D={D} page={PAGE} "
         f"PP={PP}), device ms per call from torch.profiler: kernel "
         f"{kernel_ms:.5f}, plain {plain_ms:.5f}, library {lib_ms:.5f} "
@@ -352,7 +439,6 @@ def steady_decode_profile(model_pim, vocab: int, steps: int = 10) -> dict:
     the same steps under ``torch.profiler``: the device's busy share and
     the share spent in the paged-attention kernels."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from neuronx_distributed_tpu_torch import ServingEngine
 
@@ -367,16 +453,18 @@ def steady_decode_profile(model_pim, vocab: int, steps: int = 10) -> dict:
         eng.step()
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / steps * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    prof_wall = []
+
+    def run():
         t0 = time.perf_counter()
         for _ in range(steps):
             eng.step()
         torch.cuda.synchronize()
-        prof_ms = (time.perf_counter() - t0) / steps * 1e3
+        prof_wall.append(time.perf_counter() - t0)
+
     # device-side rows only (kernels, copies): CPU-op rows repeat their time
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = trace(run, eng.step)
+    prof_ms = prof_wall[0] / steps * 1e3
 
     busy_ms = sum(dev_us(e) for e in events) / 1e3 / steps
     attn_ms = sum(dev_us(e) for e in events
@@ -502,6 +590,515 @@ def phase2(kernel_entry):
             "logits_rel_l2": rel, "token_agreement": same / total}
 
 
+# -- phase 3 ------------------------------------------------------------------
+
+# the training path's attention shape: Llama-3-8B heads at batch 4 x 2048
+FB, FHQ, FHKV, FS, FD = 4, 32, 8, 2048, 128
+# the flash cases: (name, B, HQ, HKV, S, T, D, causal, window, softcap,
+# sm_scale, segments, lse cotangent); the first is the path's own shape
+FLASH_CASES = [
+    ("path_shape", FB, FHQ, FHKV, FS, FS, FD, True, None, None, None, False,
+     False),
+    ("causal_gqa4", 2, 32, 8, 1000, 1000, 128, True, None, None, None, False,
+     False),
+    ("noncausal_g1", 2, 8, 8, 520, 520, 128, False, None, None, None, False,
+     False),
+    ("t_gt_s", 2, 8, 2, 300, 700, 128, True, None, None, None, False, False),
+    # sm_scale 2.0 makes the softmax near one-hot, so dropping the window
+    # changes which key wins (at D^-0.5 it only reweighs a wide average)
+    ("window256", 1, 8, 2, 1100, 1100, 128, True, 256, None, SOFTCAP_SCALE,
+     False, False),
+    ("softcap50", 1, 8, 2, 512, 512, 128, True, None, 50.0, SOFTCAP_SCALE,
+     False, False),
+    ("segments", 2, 8, 2, 777, 777, 128, True, None, None, None, True, False),
+    ("lse_cotangent", 2, 8, 2, 400, 400, 128, True, None, None, None, True,
+     True),
+    ("causal_d64", 2, 8, 2, 333, 333, 64, True, None, None, None, False,
+     False),
+]
+FLASH_KERNELS = {
+    "fwd": ("flash_attention_fwd", "flash_fwd_kernel", 4, 154),
+    "dq": ("flash_attention_dq", "flash_dq_kernel", 6, 311),
+    "dkv": ("flash_attention_dkv", "flash_dkv_kernel", 8, 368),
+}
+
+
+def row_norms(ref):
+    """L2 norm of every row (over D) of a reference, and the median
+    nonzero row's norm."""
+    import torch
+
+    norms = ref.float().norm(dim=-1)
+    nonzero = norms[norms > 0]
+    return norms, (nonzero.median() if nonzero.numel() else torch.ones(()))
+
+
+def row_err(out, ref) -> float:
+    """The largest relative L2 error of one row (over D): ``|out - ref| /
+    max(|ref|, median / 10)`` per q row (o, dq) or key row (dk, dv).
+    Each row is held to its own size, so a late row whose values are
+    small (o over ~1000 keys, a late key's dk/dv) is held as tightly as
+    an early one.  The floor covers rows that are zero or nearly so:
+    empty query rows, padded keys, and the dq of a row whose softmax is
+    one-hot (the window case at sm_scale 2.0), where dS sums to zero and
+    what is left is rounding, in the fp32 plain version as well."""
+    norms, median = row_norms(ref)
+    diff = (out.float() - ref.float()).norm(dim=-1)
+    return (diff / norms.clamp(min=median / 10)).max().item()
+
+
+def median_row_rms(ref) -> float:
+    """The typical size of a reference's elements: the median nonzero
+    row's RMS over D."""
+    return (row_norms(ref)[1] / ref.shape[-1] ** 0.5).item()
+
+
+def flash_inputs(case, dtype, device, seed):
+    """Seeded inputs of one case; segment ids are three documents and a
+    padding run (id 0) at random cut points."""
+    import numpy as np
+    import torch
+
+    _, B, HQ, HKV, S, T, D = case[:7]
+    segs, lse_cot = case[11], case[12]
+    rs = np.random.RandomState(seed)
+    f = lambda *shape: torch.from_numpy(  # noqa: E731
+        rs.standard_normal(shape).astype(np.float32)).to(device, dtype)
+    q, k, v, do = f(B, HQ, S, D), f(B, HKV, T, D), f(B, HKV, T, D), \
+        f(B, HQ, S, D)
+    qs = ks = None
+    if segs:
+        ids = np.zeros((B, T), np.int32)
+        cuts = sorted(rs.choice(np.arange(16, T - 16), 3, replace=False))
+        for i, (a, b) in enumerate(zip([0] + cuts[:2], cuts)):
+            ids[:, a:b] = i + 1
+        ks = torch.from_numpy(ids).to(device)
+        qs = ks[:, T - S:].contiguous()
+    dlse = (torch.from_numpy(rs.standard_normal((B, HQ, S)).astype(
+        np.float32)).to(device) if lse_cot else None)
+    return q, k, v, do, qs, ks, dlse
+
+
+def flash_bound_ms(B, HQ, HKV, S, T, D, item, which) -> tuple:
+    """Least time for one kernel call at a causal S = T shape.  Operations:
+    per visible (q, k) pair 4D (q.k and p.v), 6D for dq (q.k, dO.v, dS.k)
+    and 8D for dk/dv (q.k, dO.v, p^T.dO, dS^T.q), at the bf16 tensor-core
+    peak; ``which="bwd"`` is one call producing dq, dk and dv together
+    (SDPA's backward), 10D per pair (q.k, dO.v, p^T.dO, dS.k, dS^T.q).
+    Bytes: each input read once, each output written once."""
+    pairs = B * HQ * (S * (S + 1) // 2 if S == T else S * T)
+    per = {"bwd": 10}.get(which) or FLASH_KERNELS[which][2]
+    flops = per * D * pairs
+    qd, kd = B * HQ * S * D * item, B * HKV * T * D * item
+    rows = B * HQ * S * 4
+    nbytes = {"fwd": qd + 2 * kd + qd + rows,           # q k v -> o lse
+              "dq": 2 * qd + 2 * kd + 2 * rows + qd,    # q k v do lse delta -> dq
+              "dkv": 2 * qd + 2 * kd + 2 * rows + 2 * kd,
+              # q k v o do lse -> dq dk dv
+              "bwd": 3 * qd + 2 * kd + rows + qd + 2 * kd}[which]
+    t_ops = flops / PEAK_FLOPS["bfloat16" if item == 2 else "float32"]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", flops, nbytes)
+
+
+def phase3():
+    import torch
+    import torch.nn.functional as F
+
+    from neuronx_distributed_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    worst = {w: {"abs": 0.0, "row_rel": 0.0} for w in FLASH_KERNELS}
+    worst_lse = {"bfloat16": 0.0, "float32": 0.0}
+    for ci, case in enumerate(FLASH_CASES):
+        name, B, HQ, HKV, S, T, D, causal, window, softcap, scale = case[:11]
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).replace("torch.", "")
+            q, k, v, do, qs, ks, dlse = flash_inputs(case, dtype, dev,
+                                                     SEED + ci)
+            opts = dict(causal=causal, sm_scale=scale, window=window,
+                        softcap=softcap)
+            o, lse = fa.flash_attention_fwd(q, k, v, qs, ks, **opts)
+            delta = (do.float() * o.float()).sum(-1)
+            if dlse is not None:
+                delta = delta - dlse
+            dq = fa.flash_attention_dq(q, k, v, do, lse, delta, qs, ks,
+                                       **opts)
+            dk, dv = fa.flash_attention_dkv(q, k, v, do, lse, delta, qs, ks,
+                                            **opts)
+            torch.cuda.synchronize()
+            f32 = [x.float() for x in (q, k, v)]
+            ro, rlse = fa.flash_fwd_reference(*f32, qs, ks, **opts)
+            rdq = fa.flash_dq_reference(*f32, do.float(), lse, delta, qs, ks,
+                                        **opts)
+            rdk, rdv = fa.flash_dkv_reference(*f32, do.float(), lse, delta,
+                                              qs, ks, **opts)
+            live = rlse > fa.NEG_INF / 2
+            errs = {"fwd": [row_err(o, ro)], "dq": [row_err(dq, rdq)],
+                    "dkv": [row_err(dk, rdk), row_err(dv, rdv)]}
+            lse_err = (lse[live] - rlse[live]).abs().max().item()
+            typical = {n: median_row_rms(r) for n, r in (
+                ("o", ro), ("dq", rdq), ("dk", rdk), ("dv", rdv))}
+            abs_errs = {
+                "fwd": (o.float() - ro.float()).abs().max().item(),
+                "dq": (dq.float() - rdq.float()).abs().max().item(),
+                "dkv": max((dk.float() - rdk.float()).abs().max().item(),
+                           (dv.float() - rdv.float()).abs().max().item())}
+            finite = all(bool(torch.isfinite(x.float()).all())
+                         for x in (o, lse, dq, dk, dv))
+            empty_ok = bool((lse[~live] <= -1e29).all()) and bool(
+                (o.float().permute(0, 2, 1, 3)[qs == 0] == 0).all()
+                if qs is not None else True)
+            bites = {}
+            for opt in ("window", "softcap"):
+                if opts[opt] is not None:
+                    without = dict(opts, **{opt: None})
+                    bites[opt] = row_err(fa.flash_fwd_reference(
+                        *f32, qs, ks, **without)[0], ro)
+            if qs is not None:
+                bites["segments"] = row_err(fa.flash_fwd_reference(
+                    *f32, **opts)[0], ro)
+            log(f"phase3: {name} {dn} B={B} HQ={HQ} HKV={HKV} S={S} T={T} "
+                f"D={D} largest row rel err o {errs['fwd'][0]:.3e} dq "
+                f"{errs['dq'][0]:.3e} dk {errs['dkv'][0]:.3e} dv "
+                f"{errs['dkv'][1]:.3e} (tol {TOL[dn]}); lse abs err "
+                f"{lse_err:.3e} (tol {LSE_TOL[dn]}); median row rms "
+                + " ".join(f"{n} {t:.3e}" for n, t in typical.items())
+                + f"; max abs err o {abs_errs['fwd']:.3e} dq "
+                f"{abs_errs['dq']:.3e} dk/dv {abs_errs['dkv']:.3e}; "
+                f"empty rows {int((~live).sum())}" + "".join(
+                    f"; without {o_} the plain output moves {d:.3e}"
+                    for o_, d in bites.items()))
+            for w, es in errs.items():
+                if not max(es) <= TOL[dn]:
+                    raise AssertionError(
+                        f"flash {w} disagrees with its plain version: "
+                        f"{es} > {TOL[dn]} in {name} {dn}")
+                if dtype == torch.bfloat16:
+                    worst[w]["row_rel"] = max(worst[w]["row_rel"], max(es))
+                    worst[w]["abs"] = max(worst[w]["abs"], abs_errs[w])
+            if not lse_err <= LSE_TOL[dn]:
+                raise AssertionError(f"flash fwd lse disagrees with its plain "
+                                     f"version: {lse_err} > {LSE_TOL[dn]} in "
+                                     f"{name} {dn}")
+            worst_lse[dn] = max(worst_lse[dn], lse_err)
+            if not finite or not empty_ok:
+                raise AssertionError(f"non-finite output or non-empty empty "
+                                     f"rows in {name} {dn}")
+            for opt, d in bites.items():
+                if not d > BITE * TOL[dn]:
+                    raise AssertionError(
+                        f"{opt} moves the plain output by only {d} in "
+                        f"{name}: the case cannot catch a kernel that "
+                        f"ignores it")
+            del q, k, v, do, o, lse, dq, dk, dv, ro, rdq, rdk, rdv, f32
+            torch.cuda.empty_cache()
+
+    # timing at the path's shape: bf16, causal, ROTATE input copies
+    case = FLASH_CASES[0]
+    copies = []
+    for i in range(ROTATE):
+        q, k, v, do, _, _, _ = flash_inputs(case, torch.bfloat16, dev,
+                                            SEED + 100 + i)
+        o, lse = fa.flash_attention_fwd(q, k, v)
+        delta = (do.float() * o.float()).sum(-1)
+        copies.append((q, k, v, do, lse, delta))
+    torch.cuda.synchronize()
+    calls = {
+        "fwd": (lambda c: fa.flash_attention_fwd(c[0], c[1], c[2]),
+                lambda c: fa.flash_fwd_reference(c[0], c[1], c[2])),
+        "dq": (lambda c: fa.flash_attention_dq(*c),
+               lambda c: fa.flash_dq_reference(*c)),
+        "dkv": (lambda c: fa.flash_attention_dkv(*c),
+                lambda c: fa.flash_dkv_reference(*c)),
+    }
+    # library yardstick: SDPA forward for B1; its autograd backward (dq, dk
+    # and dv together) for B2 and B3
+    lib_fwd = [lambda c=c: F.scaled_dot_product_attention(
+        c[0], c[1], c[2], is_causal=True, enable_gqa=True) for c in copies]
+    lib_bwd = []
+    for c in copies[:2]:
+        leaves = [x.detach().requires_grad_() for x in c[:3]]
+        out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                             enable_gqa=True)
+        lib_bwd.append(lambda out=out, leaves=leaves, do=c[3]:
+                       torch.autograd.grad(out, leaves, do,
+                                           retain_graph=True))
+    lib_err = row_err(lib_fwd[0](), fa.flash_attention_fwd(
+        *copies[0][:3])[0])
+    lib_fwd_ms = device_ms(lib_fwd, 20, show="phase3 SDPA forward")
+    lib_bwd_ms = device_ms(lib_bwd, 10, show="phase3 SDPA backward")
+    check_bound("SDPA forward", {"library": lib_fwd_ms},
+                flash_bound_ms(FB, FHQ, FHKV, FS, FS, FD, 2, "fwd")[0])
+    check_bound("SDPA backward", {"library": lib_bwd_ms},
+                flash_bound_ms(FB, FHQ, FHKV, FS, FS, FD, 2, "bwd")[0])
+    check_events("SDPA forward", lib_fwd_ms,
+                 cuda_time_ms(lib_fwd[0], iters=20))
+    check_events("SDPA backward", lib_bwd_ms,
+                 cuda_time_ms(lib_bwd[0], iters=10))
+    entries = {}
+    for w, (kernel, plain) in calls.items():
+        fn_name, kname, _, line = FLASH_KERNELS[w]
+        k_ms = device_ms([lambda c=c: kernel(c) for c in copies], 20,
+                         expect=kname)
+        p_ms = device_ms([lambda c=c: plain(c) for c in copies[:2]], 2)
+        b_ms, b_by, flops, nbytes = flash_bound_ms(FB, FHQ, FHKV, FS, FS, FD,
+                                                   2, w)
+        lib_ms = lib_fwd_ms if w == "fwd" else lib_bwd_ms
+        check_bound(fn_name, {"kernel": k_ms, "plain": p_ms}, b_ms)
+        check_events(fn_name, k_ms,
+                     cuda_time_ms(lambda: kernel(copies[0]), iters=20))
+        log(f"phase3 timing {fn_name} (B={FB} HQ={FHQ} HKV={FHKV} S=T={FS} "
+            f"D={FD} bf16 causal), device ms per call from torch.profiler: "
+            f"kernel {k_ms:.5f}, plain {p_ms:.5f}, library {lib_ms:.5f} "
+            f"({'SDPA forward' if w == 'fwd' else 'SDPA backward, dq+dk+dv'}"
+            f"); bound {b_ms:.5f} ({b_by}: {flops / 1e9:.1f} GFLOP, "
+            f"{nbytes / 1e6:.1f} MB), kernel / bound {k_ms / b_ms:.2f}, "
+            f"{flops / (k_ms * 1e-3) / 1e12:.1f} TFLOP/s")
+        entries[w] = {
+            "name": fn_name,
+            "route": "cuda",
+            "source": "neuronx_distributed_tpu_torch/ops/csrc/flash_attention.cu",
+            "replaces": f"neuronx_distributed_tpu/ops/flash_attention.py:{line}",
+            "launches": None,
+            "max_abs_err": worst[w]["abs"],
+            "max_err": worst[w]["row_rel"],
+            "max_err_is": "largest relative L2 error of one row, bf16",
+            "tolerance": TOL["bfloat16"],
+            "ms": k_ms,
+            "plain_ms": p_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": lib_ms,
+            "library_call": ("F.scaled_dot_product_attention forward"
+                             if w == "fwd" else
+                             "F.scaled_dot_product_attention backward "
+                             "(dq, dk and dv together)"),
+            "shapes": {"q": [FB, FHQ, FS, FD], "kv": [FB, FHKV, FS, FD],
+                       "dtype": "bfloat16", "causal": True},
+        }
+    entries["fwd"]["lse_max_abs_err"] = worst_lse
+    log(f"phase3: library forward agrees with the kernel to {lib_err:.2e} "
+        f"(largest row relative error)")
+    del copies, lib_fwd, lib_bwd
+    return entries
+
+
+# -- phase 4 ------------------------------------------------------------------
+
+TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_CHUNK = 4, 4, 2048, 512
+WARMUP_STEPS, TIMED_STEPS = 2, 10
+# one step through the flash and the dense core on the same weights and
+# batch, in bf16 compute (the path's) and in fp32: relative difference of
+# the loss, of the grad norm, and the largest relative L2 difference of
+# one attention projection's gradient (qkv, o_proj: these depend on the
+# flash kernels, where the loss at random init hardly does).  bf16 limits
+# are about 10x the readings for loss and norm; the projection gradients
+# read 1-2.3e-2 in bf16 (rounding through 4 layers, summed over 2048
+# tokens), so the tight check of them is the fp32 one
+FLASH_DENSE_RTOL = {"bfloat16": (5e-4, 6e-4, 5e-2),
+                    "float32": (1e-4, 1e-4, 1e-4)}
+
+
+def loss_and_grads(model, loss_fn, batch) -> tuple:
+    """One forward and backward: the loss, the global grad norm and the
+    gradients of the attention projections by name."""
+    from neuronx_distributed_tpu_torch.parallel.grads import get_grad_norm
+
+    loss_sum, tok = loss_fn(model, batch)
+    loss = loss_sum / tok
+    loss.backward()
+    norm = get_grad_norm([p.grad for p in model.parameters()])
+    attn = {n: p.grad.clone() for n, p in model.named_parameters()
+            if ".qkv." in n or ".o_proj." in n}
+    model.zero_grad(set_to_none=True)
+    return loss.item(), norm.item(), attn
+
+
+def flash_vs_dense(cfg, state, loss_fn, batch, dtype) -> list:
+    """One step's loss, grad norm and attention-projection gradients
+    through the flash and the dense core, on copies of the same weights
+    computing in ``dtype``; fails beyond :data:`FLASH_DENSE_RTOL`."""
+    import dataclasses
+
+    import torch
+
+    from neuronx_distributed_tpu_torch.models.llama import LlamaForCausalLM
+
+    runs = {}
+    for impl in ("flash", "dense"):
+        model = LlamaForCausalLM(dataclasses.replace(
+            cfg, attention_impl=impl, dtype=dtype),
+            device=batch["ids"].device)
+        model.load_state_dict(state)
+        runs[impl] = loss_and_grads(model, loss_fn, batch)
+        del model
+        torch.cuda.empty_cache()
+    f, d = runs["flash"], runs["dense"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(f[:2], d[:2])]
+    attn_rel = {n: ((g - d[2][n]).norm() / d[2][n].norm()).item()
+                for n, g in f[2].items()}
+    worst_leaf = max(attn_rel, key=attn_rel.get)
+    rel.append(attn_rel[worst_leaf])
+    name = str(dtype).replace("torch.", "")
+    tol = FLASH_DENSE_RTOL[name]
+    log(f"phase4: one step at batch 1 x {TRAIN_S} in {name} compute, flash "
+        f"vs dense core: loss {f[0]:.6f} vs {d[0]:.6f} (rel {rel[0]:.2e}, "
+        f"tol {tol[0]}), grad norm {f[1]:.6f} vs {d[1]:.6f} (rel "
+        f"{rel[1]:.2e}, tol {tol[1]}); attention projection gradients, "
+        f"relative L2 difference: " + ", ".join(
+            f"{n} {r:.2e}" for n, r in attn_rel.items())
+        + f" (largest {worst_leaf}, tol {tol[2]})")
+    if not all(r <= t for r, t in zip(rel, tol)):
+        raise AssertionError(f"flash and dense cores disagree in {name}: "
+                             f"{rel} against {tol}")
+    return rel
+
+
+def phase4(flash_entries):
+    import gc
+
+    import numpy as np
+    import torch
+
+    from neuronx_distributed_tpu_torch.config import training_config
+    from neuronx_distributed_tpu_torch.models.common import (
+        make_causal_lm_loss_sum,
+    )
+    from neuronx_distributed_tpu_torch.models.llama import (
+        LlamaConfig,
+        LlamaForCausalLM,
+    )
+    from neuronx_distributed_tpu_torch.ops import flash_attention as fa
+    from neuronx_distributed_tpu_torch.ops.paged_attention import paged_attention
+    from neuronx_distributed_tpu_torch.trainer import (
+        initialize_parallel_model,
+        initialize_parallel_optimizer,
+        make_train_step,
+        mfu,
+        transformer_flops_per_token,
+    )
+
+    # what earlier phases left (reference cycles hold their models and
+    # page pools until a collection) is not this phase's memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    cfg = LlamaConfig.llama3_8b(num_layers=TRAIN_LAYERS,
+                                attention_impl="flash", remat="none",
+                                dtype=torch.bfloat16,
+                                param_dtype=torch.float32)
+    config = training_config(learning_rate=1e-4, max_grad_norm=1.0,
+                             seed=SEED)
+    t0 = time.perf_counter()
+    model = initialize_parallel_model(
+        config, lambda d: LlamaForCausalLM(cfg, device=d), seed=SEED)
+    torch.cuda.synchronize()
+    n_params = model.num_parameters()
+    log(f"phase4: Llama-3-8B width, {cfg.num_layers} layers (cut from 32), "
+        f"vocab {cfg.vocab_size}, {n_params / 1e9:.3f}B params fp32 masters, "
+        f"bf16 compute, flash attention, remat none; random init in "
+        f"{time.perf_counter() - t0:.1f} s")
+    loss_fn = make_causal_lm_loss_sum(TRAIN_CHUNK)
+    rs = np.random.RandomState(SEED)
+    ids = rs.randint(0, cfg.vocab_size, size=(TRAIN_B, TRAIN_S))
+    batch = {"ids": ids, "labels": np.roll(ids, -1, axis=1)}
+
+    # flash core vs dense core: one step at batch 1, on copies of the
+    # trainer's weights
+    one = {k: torch.as_tensor(v[:1]).cuda() for k, v in batch.items()}
+    rel = {str(dt).replace("torch.", ""): flash_vs_dense(
+        cfg, model.module.state_dict(), loss_fn, one, dt)
+        for dt in (torch.bfloat16, torch.float32)}
+
+    opt = initialize_parallel_optimizer(config, model)
+    step = make_train_step(config, model, opt, loss_fn)
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: every launch count from 0 over the 12 steps
+    for fn in (fa.flash_attention_fwd, fa.flash_attention_dq,
+               fa.flash_attention_dkv, paged_attention):
+        fn.launches = 0
+    losses, norms = [], []
+    for _ in range(WARMUP_STEPS):
+        m = step(batch)
+        losses.append(m["loss"])
+        norms.append(m["grad_norm"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        m = step(batch)
+        losses.append(m["loss"])
+        norms.append(m["grad_norm"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {w: getattr(fa, FLASH_KERNELS[w][0]).launches
+                for w in FLASH_KERNELS}
+    steps = WARMUP_STEPS + TIMED_STEPS
+    losses = [x.item() for x in losses]
+    norms = [x.item() for x in norms]
+    peak = torch.cuda.max_memory_allocated()
+    tok_s = TRAIN_B * TRAIN_S * TIMED_STEPS / wall
+    fpt = transformer_flops_per_token(
+        cfg.num_layers, cfg.hidden_size, cfg.intermediate_size,
+        cfg.vocab_size, TRAIN_S, cfg.num_heads, cfg.num_kv_heads,
+        cfg.head_dim_)
+    util = mfu(tok_s, fpt, PEAK_FLOPS["bfloat16"])
+    log(f"phase4: {steps} steps at batch {TRAIN_B} x {TRAIN_S}, "
+        f"make_causal_lm_loss_sum({TRAIN_CHUNK}), lr 1e-4, clip 1.0: losses "
+        + ", ".join(f"{x:.4f}" for x in losses) + "; grad norms "
+        + ", ".join(f"{x:.3f}" for x in norms))
+    log(f"phase4: {TIMED_STEPS} timed steps in {wall:.3f} s = "
+        f"{wall / TIMED_STEPS * 1e3:.1f} ms/step, {tok_s:.1f} tokens/s, "
+        f"MFU {util:.4f} ({fpt / 1e9:.3f} GFLOP/token, 6N + attention, "
+        f"against 989 TFLOP/s bf16); peak memory {peak / 2**30:.2f} GiB "
+        f"({base / 2**30:.2f} GiB held before the phase); "
+        f"launches {launches} = {steps} steps x {cfg.num_layers} layers "
+        f"expected (remat none: no recompute)")
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"non-finite loss or grad norm: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    for w, n in launches.items():
+        if n != steps * cfg.num_layers:
+            raise AssertionError(f"{FLASH_KERNELS[w][0]} launched {n} times, "
+                                 f"expected {steps} x {cfg.num_layers}")
+        flash_entries[w]["launches"] = n
+
+    # where a step's device time goes
+    prof_wall = []
+
+    def run():
+        t0 = time.perf_counter()
+        for _ in range(2):
+            step(batch)
+        torch.cuda.synchronize()
+        prof_wall.append(time.perf_counter() - t0)
+
+    events = trace(run, lambda: step(batch))
+    prof_ms = prof_wall[0] / 2 * 1e3
+    busy_ms = sum(dev_us(e) for e in events) / 1e3 / 2
+    flash_ms = sum(dev_us(e) for e in events if "flash_" in e.key) / 1e3 / 2
+    top = sorted(events, key=dev_us, reverse=True)[:8]
+    log(f"phase4 profiled step: {prof_ms:.1f} ms wall, device busy "
+        f"{busy_ms:.1f} ms ({busy_ms / prof_ms:.1%}), flash kernels "
+        f"{flash_ms:.2f} ms ({flash_ms / busy_ms:.1%} of device time)")
+    log("phase4 top device time per step: " + "; ".join(
+        f"{e.key[:60]} {dev_us(e) / 1e3 / 2:.2f} ms" for e in top))
+    if busy_ms <= 0:
+        raise AssertionError("the profiler saw no device time")
+    del opt, step, model
+    torch.cuda.empty_cache()
+    return {"layers": cfg.num_layers, "params": n_params, "steps": steps,
+            "losses": losses, "grad_norms": norms, "step_ms":
+            wall / TIMED_STEPS * 1e3, "tok_s": tok_s, "mfu": util,
+            "flops_per_token": fpt, "peak_gib": peak / 2**30,
+            "base_gib": base / 2**30,
+            "profiled_step_ms": prof_ms, "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / prof_ms, "flash_ms": flash_ms,
+            "launches": launches, "flash_vs_dense_rel": rel}
+
+
 def main() -> int:
     try:
         import torch
@@ -529,18 +1126,25 @@ def main() -> int:
         from neuronx_distributed_tpu_torch.ops import _build
 
         t0 = time.perf_counter()
-        _build.build("paged_attention")
-        log(f"phase0: kernel built in {time.perf_counter() - t0:.1f} s")
+        _build.build_all()
+        log(f"phase0: kernels built in {time.perf_counter() - t0:.1f} s "
+            f"(one nvcc per source, in parallel)")
         for name, report in _build.build_logs.items():
             log(f"phase0: nvcc -Xptxas -v for {name}:\n{report}")
         entry = phase1()
         serving = phase2(entry)
         log(f"phase2 summary: {json.dumps(serving)}")
-        if not all(math.isfinite(x) for x in (entry["ms"], entry["plain_ms"],
-                                              entry["library_ms"])):
-            raise AssertionError("non-finite timing")
+        flash = phase3()
+        training = phase4(flash)
+        log(f"phase4 summary: {json.dumps(training)}")
+        kernels = [entry] + [flash[w] for w in FLASH_KERNELS]
+        for k in kernels:
+            if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms",
+                                                     "library_ms",
+                                                     "bound_ms")):
+                raise AssertionError(f"non-finite timing in {k['name']}")
         log(f"nvidia-smi: {nvidia_smi_line()}")
-        print(json.dumps({"kernels": [entry]}), flush=True)
+        print(json.dumps({"kernels": kernels}), flush=True)
     except Exception:  # noqa: BLE001 - any failed phase fails the run
         traceback.print_exc()
         return 1

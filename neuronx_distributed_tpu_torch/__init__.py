@@ -5,14 +5,27 @@ Slice 1 is paged continuous-batching serving of Llama: the model
 (:mod:`.models.llama`), the inference engine (:mod:`.trace.engine`), the
 paged KV cache (:mod:`.kvcache`), the serving engine (:mod:`.serving`) and
 the hand-written CUDA paged-attention kernel (:mod:`.ops.paged_attention`).
-The port imports ``torch`` and nothing of JAX or of the JAX package.  Entry
-points run on the card unless the caller passes ``device="cpu"``.
+Slice 2 is the Llama training step at every parallel degree 1: the config
+(:mod:`.config`), the losses and remat (:mod:`.models.common`), AdamW and
+its schedules (:mod:`.optimizer`), gradient clipping
+(:mod:`.parallel.grads`), the trainer (:mod:`.trainer`) and the
+hand-written CUDA flash-attention forward, dq and dk/dv kernels
+(:mod:`.ops.flash_attention`).  The port imports ``torch`` and nothing of
+JAX or of the JAX package.  Entry points run on the card unless the caller
+passes ``device="cpu"``.
 """
 
+from neuronx_distributed_tpu_torch.config import TrainingConfig, training_config
 from neuronx_distributed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+from neuronx_distributed_tpu_torch.ops.flash_attention import flash_attention
 from neuronx_distributed_tpu_torch.ops.paged_attention import paged_attention
 from neuronx_distributed_tpu_torch.serving import Request, SamplingParams, ServingEngine
 from neuronx_distributed_tpu_torch.trace import InferenceConfig, ParallelInferenceModel
+from neuronx_distributed_tpu_torch.trainer import (
+    initialize_parallel_model,
+    initialize_parallel_optimizer,
+    make_train_step,
+)
 from neuronx_distributed_tpu_torch.utils.device import resolve_device
 from neuronx_distributed_tpu_torch.version import __version__
 
@@ -24,7 +37,13 @@ __all__ = [
     "Request",
     "SamplingParams",
     "ServingEngine",
+    "TrainingConfig",
     "__version__",
+    "flash_attention",
+    "initialize_parallel_model",
+    "initialize_parallel_optimizer",
+    "make_train_step",
     "paged_attention",
     "resolve_device",
+    "training_config",
 ]

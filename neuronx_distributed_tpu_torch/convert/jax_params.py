@@ -7,7 +7,10 @@ layout: ``model/embed/embedding [V, H]``, ``model/layer_i/attn/qkv/
 ``mlp/gate_up/kernel [H, 2, I]``, ``mlp/down/kernel [I, H]``, the norm
 ``weight``s, ``lm_head/kernel [H, V]``), so the conversion is a flatten of
 the tree's paths with a shape check against the config.  Arrays move as
-they are; ``load_state_dict`` casts them to the model's types.
+they are and ``load_state_dict`` casts them to the model's types, so a
+model built with ``param_dtype=torch.float32`` (training) keeps the JAX
+package's fp32 masters bit for bit, and a serving model (weights in the
+compute type) takes them rounded once.
 """
 
 from __future__ import annotations

@@ -1,0 +1,117 @@
+"""Shared model-building blocks (counterpart of
+``neuronx_distributed_tpu/models/common.py``): rematerialization and the
+causal-LM losses.
+
+A loss function here is ``loss_fn(model, batch)`` -- the port's modules
+hold their own parameters, so the JAX ``(module, params, batch, rng)``
+signature loses ``params`` and ``rng`` -- and returns either a scalar mean
+or ``(loss_sum, token_count)``; ``trainer.make_train_step`` accepts both.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Callable
+
+import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
+
+from neuronx_distributed_tpu_torch.parallel.loss import parallel_cross_entropy
+
+# the ops whose outputs ``remat="selective"`` saves: matmuls without batch
+# dimensions (the projections and the head), as JAX's
+# checkpoint_dots_with_no_batch_dims; attention and elementwise work is
+# recomputed
+_SAVED_UNDER_SELECTIVE = (torch.ops.aten.mm.default,
+                          torch.ops.aten.addmm.default)
+
+
+def _selective_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_UNDER_SELECTIVE
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def maybe_remat(fn: Callable, remat: str) -> Callable:
+    """``fn`` under the configured rematerialization: ``none`` returns it
+    as is; ``full`` recomputes everything in backward, ``selective``
+    everything but the matmul outputs (``torch.utils.checkpoint``,
+    non-reentrant)."""
+    if remat not in ("none", "selective", "full"):
+        raise ValueError(f"unknown remat mode {remat!r}")
+    if remat == "none":
+        return fn
+    kw = {}
+    if remat == "selective":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _selective_policy)
+
+    def wrapped(*args):
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return wrapped
+
+
+def _token_mask(batch) -> torch.Tensor:
+    labels = batch["labels"]
+    mask = (labels >= 0).float()
+    if batch.get("mask") is not None:
+        mask = batch["mask"].float() * mask
+    return mask
+
+
+def _packed_kwargs(batch):
+    return {key: batch[key] for key in ("positions", "segment_ids")
+            if batch.get(key) is not None}
+
+
+def causal_lm_loss_sum(model, batch):
+    """``(loss_sum, tok)``: the summed next-token loss over unmasked
+    positions (labels < 0 and ``mask == 0`` drop out) and their count, so
+    the caller can normalise by the global token count.  A packed batch's
+    ``positions``/``segment_ids`` are forwarded to the model."""
+    logits = model(batch["ids"], **_packed_kwargs(batch))
+    mask = _token_mask(batch)
+    per_tok = parallel_cross_entropy(logits, batch["labels"])
+    return (per_tok * mask).sum(), mask.sum()
+
+
+def causal_lm_loss(model, batch) -> torch.Tensor:
+    """Mean next-token loss over the unmasked positions of ``batch =
+    {ids, labels[, mask, positions, segment_ids]}``."""
+    loss_sum, tok = causal_lm_loss_sum(model, batch)
+    return loss_sum / tok.clamp(min=1.0)
+
+
+def make_causal_lm_loss_sum(chunk_size: int = 0):
+    """A ``(loss_sum, tok)`` loss whose head runs per sequence chunk: with
+    ``chunk_size > 0`` each chunk's head matmul and cross entropy are
+    checkpointed, so backward recomputes the chunk's logits and the full
+    ``[B, S, V]`` logits never exist at once.  The chunk is the largest
+    divisor of S that is ``<= chunk_size``.  Needs a model with
+    ``hidden(ids, ...)`` and ``head(h)``; ``chunk_size == 0`` is
+    :func:`causal_lm_loss_sum`."""
+    if chunk_size == 0:
+        return causal_lm_loss_sum
+
+    def chunk_loss(model, h_c, y_c, m_c):
+        per_tok = parallel_cross_entropy(model.head(h_c), y_c)
+        return torch.stack([(per_tok * m_c).sum(), m_c.sum()])
+
+    def loss_fn(model, batch):
+        h = model.hidden(batch["ids"], **_packed_kwargs(batch))
+        labels = batch["labels"]
+        mask = _token_mask(batch)
+        S = labels.shape[1]
+        c = next(d for d in range(min(chunk_size, S), 0, -1) if S % d == 0)
+        total = torch.zeros(2, dtype=torch.float32, device=h.device)
+        for i in range(0, S, c):
+            total = total + checkpoint(
+                chunk_loss, model, h[:, i:i + c], labels[:, i:i + c],
+                mask[:, i:i + c], use_reentrant=False)
+        return total[0], total[1]
+
+    return loss_fn

@@ -1,15 +1,18 @@
-"""Llama for serving, in PyTorch (counterpart of
+"""Llama for training and serving, in PyTorch (counterpart of
 ``neuronx_distributed_tpu/models/llama.py``).
 
 The module tree and parameter names follow the JAX package's param tree
 (``model.layer_0.attn.qkv.q_kernel`` ...), so a JAX checkpoint loads by
 path (:mod:`..convert.jax_params`).  Carried: RoPE with Llama-3.1
-frequency scaling, the dense GQA core (prefill and the gather decode path),
-and three KV-cache writes -- the contiguous write at a scalar offset, the
-per-slot masked write at per-slot offsets, and the paged scatter through a
-block table -- followed by either the gather path or the paged-attention
-kernel.  The port writes caches IN PLACE (JAX returns updated arrays); the
-returned cache tuples are the same tensors.
+frequency scaling; the dense GQA core (with packed-document segment ids)
+and, for training with ``attention_impl="flash"``, the flash kernels at
+context-parallel degree 1; rematerialization (``remat``) at block
+granularity; ``hidden``/``head`` for the chunked loss; and three KV-cache
+writes -- the contiguous write at a scalar offset, the per-slot masked
+write at per-slot offsets, and the paged scatter through a block table --
+followed by either the gather path or the paged-attention kernel.  The
+port writes caches IN PLACE (JAX returns updated arrays); the returned
+cache tuples are the same tensors.
 """
 
 from __future__ import annotations
@@ -22,7 +25,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from neuronx_distributed_tpu_torch.ops.flash_attention import band_mask
+from neuronx_distributed_tpu_torch.models.common import maybe_remat
+from neuronx_distributed_tpu_torch.ops.flash_attention import (
+    band_mask,
+    flash_attention,
+    flash_attention_segmented,
+)
 from neuronx_distributed_tpu_torch.ops.paged_attention import paged_attention
 from neuronx_distributed_tpu_torch.parallel.layers import (
     ColumnParallelLinear,
@@ -38,9 +46,14 @@ KVCache = Tuple[torch.Tensor, torch.Tensor]
 
 @dataclasses.dataclass(frozen=True)
 class LlamaConfig:
-    """The serving fields of the JAX ``LlamaConfig`` (training-only fields
-    -- sequence parallelism, remat, flash/cp layouts, MoE, LoRA -- belong to
-    later slices).  ``dtype`` is the compute and weight type."""
+    """The JAX ``LlamaConfig`` fields the port carries (sequence
+    parallelism, cp layouts, scanned layers, MoE and LoRA belong to later
+    slices).  ``dtype`` is the compute type; ``param_dtype`` the weights'
+    (None: the compute type, with fp32 norm weights -- the serving layout;
+    training keeps fp32 masters).  ``remat``: ``none`` | ``selective``
+    (save the matmul outputs, recompute the rest) | ``full``, applied per
+    block when gradients are on.  ``attention_impl``: ``dense`` | ``flash``
+    (the CUDA flash kernels for the training forward)."""
 
     vocab_size: int = 32000
     hidden_size: int = 4096
@@ -62,7 +75,27 @@ class LlamaConfig:
     attn_softcap: Optional[float] = None
     attn_scale: Optional[float] = None
     sliding_window: Optional[int] = None
+    remat: str = "selective"
+    attention_impl: str = "dense"
     dtype: torch.dtype = torch.bfloat16
+    param_dtype: Optional[torch.dtype] = None
+
+    def __post_init__(self):
+        if self.remat not in ("none", "selective", "full"):
+            raise ValueError(f"unknown remat mode {self.remat!r}")
+        if self.attention_impl not in ("dense", "flash"):
+            raise ValueError(
+                f"unknown attention_impl {self.attention_impl!r}")
+
+    @property
+    def weight_dtype(self) -> torch.dtype:
+        """Type of the projection and embedding weights."""
+        return self.param_dtype or self.dtype
+
+    @property
+    def norm_dtype(self) -> torch.dtype:
+        """Type of the RMSNorm weights."""
+        return self.param_dtype or torch.float32
 
     @property
     def head_dim_(self) -> int:
@@ -141,10 +174,13 @@ def _score_scale(cfg: LlamaConfig, D: int) -> float:
     return float(np.float32(1.0) / np.sqrt(np.float32(D)))
 
 
-def core_attention(cfg: LlamaConfig, q, k, v, q_offset=0, kv_valid=None):
+def core_attention(cfg: LlamaConfig, q, k, v, q_offset=0, kv_valid=None,
+                   segment_ids=None):
     """Dense grouped (GQA) causal attention with an fp32 softmax: ``q [B, S,
     NQ, D]`` over ``k/v [B, T, NKV, D]``.  ``q_offset`` is a scalar or a
-    per-slot ``[B]`` tensor; ``kv_valid [B, T]`` masks invalid keys."""
+    per-slot ``[B]`` tensor; ``kv_valid [B, T]`` masks invalid keys;
+    ``segment_ids [B, S]`` (packed documents, ``S == T``) keeps attention
+    inside each nonzero id (0 is padding, blocked both ways)."""
     B, S, NQ, D = q.shape
     T, NKV = k.shape[1], k.shape[2]
     G = NQ // NKV
@@ -157,11 +193,31 @@ def core_attention(cfg: LlamaConfig, q, k, v, q_offset=0, kv_valid=None):
     mask = mask[:, None, None] if mask.ndim == 3 else mask[None, None, None]
     if kv_valid is not None:
         mask = mask & (kv_valid[:, None, None, None, :] > 0)
+    if segment_ids is not None:
+        same = segment_ids[:, None, :] == segment_ids[:, :, None]   # [B,S,T]
+        live = (segment_ids > 0)[:, :, None]
+        mask = mask & (same & live)[:, None, None]
     scores = torch.where(mask, scores,
                          torch.full_like(scores, torch.finfo(torch.float32).min))
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", probs, v.to(q.dtype))
     return out.reshape(B, S, NQ, D)
+
+
+def flash_core(cfg: LlamaConfig, q, k, v, segment_ids=None):
+    """The flash path at context-parallel degree 1 (the JAX
+    ``ring_attention`` at cp = 1): ``[B, S, N, D]`` activations go to the
+    kernels as ``[B, N, S, D]`` views without a copy, and the output comes
+    back as a ``[B, S, NQ, D]`` view of memory in that order."""
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if segment_ids is None:
+        o = flash_attention(qt, kt, vt, True, cfg.attn_scale,
+                            cfg.sliding_window, cfg.attn_softcap)
+    else:
+        o = flash_attention_segmented(qt, kt, vt, segment_ids, segment_ids,
+                                      True, cfg.attn_scale,
+                                      cfg.sliding_window, cfg.attn_softcap)
+    return o.transpose(1, 2)
 
 
 def paged_gather_views(kv_cache: KVCache, block_table: torch.Tensor):
@@ -236,14 +292,16 @@ class LlamaAttention(nn.Module):
         D = cfg.head_dim_
         self.qkv = GQAQKVColumnParallelLinear(
             cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, D,
-            use_bias=cfg.qkv_bias, dtype=cfg.dtype, device=device)
+            use_bias=cfg.qkv_bias, dtype=cfg.dtype, device=device,
+            param_dtype=cfg.weight_dtype)
         self.o_proj = RowParallelLinear(cfg.num_heads * D, cfg.hidden_size,
                                         use_bias=False, dtype=cfg.dtype,
-                                        device=device)
+                                        device=device,
+                                        param_dtype=cfg.weight_dtype)
 
     def forward(self, x, positions, kv_cache: Optional[KVCache] = None,
                 cache_offset=0, kv_valid=None,
-                paged: Optional[PagedStep] = None):
+                paged: Optional[PagedStep] = None, segment_ids=None):
         cfg = self.config
         q, k, v = self.qkv(x)
         sin, cos = rope_sin_cos(positions, cfg.head_dim_, cfg.rope_theta,
@@ -278,6 +336,14 @@ class LlamaAttention(nn.Module):
                 q, kv_cache, paged.block_table, paged.offsets,
                 paged.kv_start, sm_scale=cfg.attn_scale,
                 window=cfg.sliding_window, softcap=cfg.attn_softcap)
+        elif kv_cache is None and cfg.attention_impl == "flash":
+            # the flash kernels have no query offset or key-padding mask
+            # (the JAX core asserts the same)
+            if not (isinstance(cache_offset, int) and cache_offset == 0):
+                raise ValueError("the flash path requires q_offset == 0")
+            if kv_valid is not None:
+                raise ValueError("the flash path has no padding-mask support")
+            out = flash_core(cfg, q, k, v, segment_ids)
         else:
             if kv_cache is None:
                 keys, values = k, v
@@ -287,7 +353,7 @@ class LlamaAttention(nn.Module):
                 keys, values = kv_cache
             out = core_attention(cfg, q, keys, values,
                                  cache_offset if kv_cache is not None else 0,
-                                 kv_valid)
+                                 kv_valid, segment_ids)
         B, S = x.shape[0], q.shape[1]
         return self.o_proj(out.reshape(B, S, -1)), kv_cache
 
@@ -301,10 +367,12 @@ class LlamaMLP(nn.Module):
         super().__init__()
         self.gate_up = ColumnParallelLinear(
             cfg.hidden_size, 2 * cfg.intermediate_size, use_bias=False,
-            n_fused=2, dtype=cfg.dtype, device=device)
+            n_fused=2, dtype=cfg.dtype, device=device,
+            param_dtype=cfg.weight_dtype)
         self.down = RowParallelLinear(cfg.intermediate_size, cfg.hidden_size,
                                       use_bias=False, dtype=cfg.dtype,
-                                      device=device)
+                                      device=device,
+                                      param_dtype=cfg.weight_dtype)
 
     def forward(self, x):
         gate_up = self.gate_up(x)
@@ -320,15 +388,16 @@ class LlamaBlock(nn.Module):
         super().__init__()
         self.attn = LlamaAttention(cfg, device)
         self.input_norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype,
-                                  device)
+                                  device, cfg.norm_dtype)
         self.post_attn_norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype,
-                                      device)
+                                      device, cfg.norm_dtype)
         self.mlp = LlamaMLP(cfg, device)
 
     def forward(self, x, positions, kv_cache=None, cache_offset=0,
-                kv_valid=None, paged: Optional[PagedStep] = None):
+                kv_valid=None, paged: Optional[PagedStep] = None,
+                segment_ids=None):
         h, cache = self.attn(self.input_norm(x), positions, kv_cache,
-                             cache_offset, kv_valid, paged)
+                             cache_offset, kv_valid, paged, segment_ids)
         x = x + h
         return x + self.mlp(self.post_attn_norm(x)), cache
 
@@ -341,33 +410,44 @@ class LlamaModel(nn.Module):
         super().__init__()
         self.config = cfg
         self.embed = ParallelEmbedding(cfg.vocab_size, cfg.hidden_size,
-                                       cfg.dtype, device)
+                                       cfg.dtype, device, cfg.weight_dtype)
         for i in range(cfg.num_layers):
             self.add_module(f"layer_{i}", LlamaBlock(cfg, device))
         self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype,
-                                  device)
+                                  device, cfg.norm_dtype)
 
     def layers(self) -> List[LlamaBlock]:
         return [getattr(self, f"layer_{i}")
                 for i in range(self.config.num_layers)]
 
     def forward(self, ids, positions=None, kv_caches=None, cache_offset=0,
-                kv_valid=None, block_table=None, paged_kernel=False):
+                kv_valid=None, block_table=None, paged_kernel=False,
+                segment_ids=None):
         if positions is None:
             positions = torch.arange(ids.shape[1], device=ids.device
                                      ).expand(ids.shape)
+        if block_table is not None and kv_caches is None:
+            raise ValueError("a block table needs the page pool caches")
+        h = self.embed(ids)
+        if kv_caches is None:
+            # training / teacher-forced forward: per-document positions and
+            # segment ids (packed batches); remat only when grads are on
+            remat = self.config.remat if torch.is_grad_enabled() else "none"
+            for block in self.layers():
+                step = maybe_remat(
+                    lambda x, p, blk=block: blk(
+                        x, p, None, 0, kv_valid, None, segment_ids)[0],
+                    remat)
+                h = step(h, positions)
+            return self.final_norm(h)
         paged = None
         if block_table is not None:
-            if kv_caches is None:
-                raise ValueError("a block table needs the page pool caches")
             paged = plan_paged_step(block_table, cache_offset, kv_valid,
                                     ids.shape[1], kv_caches[0][0].shape[1],
                                     paged_kernel)
-        h = self.embed(ids)
         for i, block in enumerate(self.layers()):
-            h, _ = block(h, positions,
-                         kv_caches[i] if kv_caches is not None else None,
-                         cache_offset, kv_valid, paged)
+            h, _ = block(h, positions, kv_caches[i], cache_offset, kv_valid,
+                         paged)
         return self.final_norm(h)
 
 
@@ -384,7 +464,8 @@ class LlamaForCausalLM(nn.Module):
         self.model = LlamaModel(cfg, device)
         self.lm_head = ColumnParallelLinear(cfg.hidden_size, cfg.vocab_size,
                                             use_bias=False, dtype=cfg.dtype,
-                                            device=device)
+                                            device=device,
+                                            param_dtype=cfg.weight_dtype)
 
     @torch.no_grad()
     def init_random(self, seed: int) -> "LlamaForCausalLM":
@@ -403,8 +484,20 @@ class LlamaForCausalLM(nn.Module):
         return self
 
     def forward(self, ids, positions=None, kv_caches=None, cache_offset=0,
-                kv_valid=None, block_table=None, paged_kernel=False):
+                kv_valid=None, block_table=None, paged_kernel=False,
+                segment_ids=None):
         h = self.model(ids, positions, kv_caches, cache_offset, kv_valid,
-                       block_table, paged_kernel)
+                       block_table, paged_kernel, segment_ids)
         logits = self.lm_head(h)
         return (logits, kv_caches) if kv_caches is not None else logits
+
+    def hidden(self, ids, positions=None, kv_valid=None, segment_ids=None):
+        """Backbone only: final-norm hidden states ``[B, S, H]``, the input
+        the chunked loss head (``models.common.make_causal_lm_loss_sum``)
+        consumes."""
+        return self.model(ids, positions, None, 0, kv_valid, None, False,
+                          segment_ids)
+
+    def head(self, h):
+        """Logits for a (chunk of) hidden states."""
+        return self.lm_head(h)

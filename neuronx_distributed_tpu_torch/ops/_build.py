@@ -4,7 +4,8 @@ Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, at first use, into ``_build/`` beside the
 package (listed in ``.gitignore``), and loaded with ``ctypes``.  The library
 name carries a hash of the source, so an edited kernel rebuilds and a stale
-library is never loaded.  Nothing here runs at import time.
+library is never loaded.  :func:`build_all` starts one ``nvcc`` per source
+at once.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -29,6 +30,23 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
+
+class FlashParams(ctypes.Structure):
+    """Mirror of ``struct FlashParams`` in ``csrc/flash_attention.cu``
+    (pointers, then ``(b, h, s)`` element strides, then sizes and
+    options); :func:`load` checks its size against the library's."""
+
+    _fields_ = (
+        [(n, _P) for n in ("q", "k", "v", "o", "dout", "lse", "delta", "qseg",
+                           "kseg", "dq", "dk", "dv")]
+        + [(n, ctypes.c_longlong * 3) for n in ("q_st", "k_st", "v_st", "o_st",
+                                                "do_st", "dq_st", "dk_st",
+                                                "dv_st")]
+        + [(n, _I) for n in ("B", "HQ", "HKV", "S", "T", "D")]
+        + [("scale", _F), ("softcap", _F)]
+        + [(n, _I) for n in ("causal", "window", "dtype")])
+
+
 # C signature of every exported kernel entry, by library name
 SIGNATURES = {
     "paged_attention": {
@@ -37,6 +55,12 @@ SIGNATURES = {
              _I, _I, _I, _I, _I, _I, _I, _I,               # B S NQ NKV D NP page PP
              _F, _I, _F, _I, _P],                          # scale window cap sk stream
             _I),
+    },
+    "flash_attention": {
+        "flash_attention_fwd": ([ctypes.POINTER(FlashParams), _P], _I),
+        "flash_attention_dq": ([ctypes.POINTER(FlashParams), _P], _I),
+        "flash_attention_dkv": ([ctypes.POINTER(FlashParams), _P], _I),
+        "flash_params_size": ([], _I),
     },
 }
 
@@ -63,31 +87,53 @@ def _source(name: str) -> Tuple[str, str]:
     return path, digest.hexdigest()[:16]
 
 
-def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless a library of the same source hash
-    exists; returns the library path.  The compiler's report is kept in
-    :data:`build_logs`."""
+def _start(name: str):
+    """``(library path, running nvcc or None when already built)``."""
     src, digest = _source(name)
     os.makedirs(BUILD_DIR, exist_ok=True)
     lib = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
     if os.path.exists(lib):
         build_logs.setdefault(name, "(cached build)")
-        return lib
+        return lib, None
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
+    proc = subprocess.Popen([find_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return lib, (proc, tmp, src)
+
+
+def _finish(name: str, lib: str, job) -> str:
+    if job is None:
+        return lib
+    proc, tmp, src = job
     try:
-        proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                              capture_output=True, text=True)
+        out, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed on {src} (rc {proc.returncode}):\n"
-                f"{proc.stdout}\n{proc.stderr}")
+                f"nvcc failed on {src} (rc {proc.returncode}):\n{out}")
         os.replace(tmp, lib)  # atomic: a reader never sees a partial file
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
-    build_logs[name] = (proc.stdout + proc.stderr).strip()
+    build_logs[name] = out.strip()
     return lib
+
+
+def build(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` unless a library of the same source hash
+    exists; returns the library path.  The compiler's report is kept in
+    :data:`build_logs`."""
+    return _finish(name, *_start(name))
+
+
+def build_all(names=None) -> Dict[str, str]:
+    """Build every library in ``names`` (default: all of
+    :data:`SIGNATURES`), one ``nvcc`` per source, all started together;
+    returns their paths."""
+    names = list(SIGNATURES) if names is None else list(names)
+    jobs = {name: _start(name) for name in names}
+    return {name: _finish(name, *jobs[name]) for name in names}
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -99,5 +145,10 @@ def load(name: str) -> ctypes.CDLL:
             for fn, (argtypes, restype) in SIGNATURES[name].items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = restype
+            if name == "flash_attention" and (
+                    lib.flash_params_size() != ctypes.sizeof(FlashParams)):
+                raise RuntimeError(
+                    f"FlashParams is {ctypes.sizeof(FlashParams)} bytes in "
+                    f"Python and {lib.flash_params_size()} in the library")
             _libs[name] = lib
         return _libs[name]

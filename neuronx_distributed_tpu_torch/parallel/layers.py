@@ -4,13 +4,15 @@
 Parameters keep the JAX package's names and layouts so a JAX param tree
 loads by path: ``kernel [in, out]`` (``[in, n_fused, out / n_fused]`` for a
 fused projection), ``bias``, ``embedding [V, H]``.  Weights are stored in
-the compute type (bf16 on the card); the JAX package stores fp32 and casts
-to the compute type at each matmul, which computes the same thing.
+``param_dtype`` (default: the compute ``dtype``, as serving holds them) and
+cast to ``dtype`` at each matmul and embedding lookup, as flax does with
+the JAX package's fp32 masters; training keeps fp32 masters.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
@@ -31,7 +33,7 @@ class ColumnParallelLinear(nn.Module):
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
                  n_fused: int = 1, dtype: torch.dtype = torch.bfloat16,
-                 device=None):
+                 device=None, param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         if features % n_fused:
             raise ValueError(f"{features} features do not split into "
@@ -40,8 +42,9 @@ class ColumnParallelLinear(nn.Module):
         self.dtype = dtype
         shape = ((in_features, features) if n_fused == 1
                  else (in_features, n_fused, features // n_fused))
-        self.kernel = _kernel(shape, dtype, device)
-        self.bias = (_kernel(shape[1:], dtype, device) if use_bias else None)
+        pdt = param_dtype or dtype
+        self.kernel = _kernel(shape, pdt, device)
+        self.bias = (_kernel(shape[1:], pdt, device) if use_bias else None)
 
     def reset_parameters(self, generator=None) -> None:
         init_normal_(self.kernel, 1.0 / math.sqrt(self.kernel.shape[0]),
@@ -51,10 +54,10 @@ class ColumnParallelLinear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
-        w = self.kernel.reshape(self.kernel.shape[0], -1)
+        w = self.kernel.reshape(self.kernel.shape[0], -1).to(self.dtype)
         y = torch.matmul(x, w).reshape(*x.shape[:-1], *self.kernel.shape[1:])
         if self.bias is not None:
-            y = y + self.bias
+            y = y + self.bias.to(self.dtype)
         return y
 
 
@@ -63,11 +66,13 @@ class RowParallelLinear(nn.Module):
     there is no partial sum to reduce."""
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
-                 dtype: torch.dtype = torch.bfloat16, device=None):
+                 dtype: torch.dtype = torch.bfloat16, device=None,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dtype = dtype
-        self.kernel = _kernel((in_features, features), dtype, device)
-        self.bias = _kernel((features,), dtype, device) if use_bias else None
+        pdt = param_dtype or dtype
+        self.kernel = _kernel((in_features, features), pdt, device)
+        self.bias = _kernel((features,), pdt, device) if use_bias else None
 
     def reset_parameters(self, generator=None) -> None:
         init_normal_(self.kernel, 1.0 / math.sqrt(self.kernel.shape[0]),
@@ -76,9 +81,9 @@ class RowParallelLinear(nn.Module):
             nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.matmul(x.to(self.dtype), self.kernel)
+        y = torch.matmul(x.to(self.dtype), self.kernel.to(self.dtype))
         if self.bias is not None:
-            y = y + self.bias
+            y = y + self.bias.to(self.dtype)
         return y
 
 
@@ -86,12 +91,17 @@ class ParallelEmbedding(nn.Module):
     """Embedding table ``[V, H]`` (vocab-sharded in the JAX package)."""
 
     def __init__(self, num_embeddings: int, features: int,
-                 dtype: torch.dtype = torch.bfloat16, device=None):
+                 dtype: torch.dtype = torch.bfloat16, device=None,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.embedding = _kernel((num_embeddings, features), dtype, device)
+        self.dtype = dtype
+        self.embedding = _kernel((num_embeddings, features),
+                                 param_dtype or dtype, device)
 
     def reset_parameters(self, generator=None) -> None:
         init_normal_(self.embedding, 0.02, generator)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return self.embedding[ids]
+        # gather, then cast: the same values as flax's cast-then-take, with
+        # the table's gradient scattered in param_dtype
+        return self.embedding[ids].to(self.dtype)

@@ -1,7 +1,8 @@
 """RMSNorm (counterpart of ``neuronx_distributed_tpu/parallel/norm.py``).
 
 Computes in fp32 whatever the input type and returns the model's compute
-type; the weight stays fp32, as the JAX package keeps its fp32 params.
+type; the weight is held in ``param_dtype`` (fp32 by default, as the JAX
+package keeps its fp32 params).
 """
 
 from __future__ import annotations
@@ -12,12 +13,13 @@ from torch import nn
 
 class RMSNorm(nn.Module):
     def __init__(self, features: int, eps: float = 1e-6,
-                 dtype: torch.dtype = torch.bfloat16, device=None):
+                 dtype: torch.dtype = torch.bfloat16, device=None,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.eps = eps
         self.dtype = dtype
         self.weight = nn.Parameter(
-            torch.ones(features, dtype=torch.float32, device=device))
+            torch.ones(features, dtype=param_dtype, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()

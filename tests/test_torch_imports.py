@@ -8,21 +8,27 @@ and raise when it is absent.
 """
 
 import ast
+import importlib
 import os
 import pkgutil
 import shutil
 import subprocess
 import sys
+import types
 
 import pytest
 import torch
 
 import neuronx_distributed_tpu_torch as port
+from neuronx_distributed_tpu_torch.config import training_config
 from neuronx_distributed_tpu_torch.kvcache.pool import PagePool
 from neuronx_distributed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from neuronx_distributed_tpu_torch.serving import ServingEngine
 from neuronx_distributed_tpu_torch.trace import InferenceConfig, ParallelInferenceModel
+from neuronx_distributed_tpu_torch.trainer import initialize_parallel_model
 from neuronx_distributed_tpu_torch.utils.device import resolve_device
+
+fa = importlib.import_module("neuronx_distributed_tpu_torch.ops.flash_attention")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(port.__file__)
@@ -135,5 +141,45 @@ def test_walk_covers_the_slice():
                 "kvcache.prefix", "kvcache.pool", "trace.engine",
                 "serving.request", "serving.scheduler", "serving.driver",
                 "serving.paged", "serving.engine", "utils.logger",
-                "utils.device", "version"):
+                "utils.device", "version", "config", "models.common",
+                "parallel.loss", "parallel.grads", "optimizer.adamw_fp32",
+                "trainer.trainer", "trainer.metrics"):
         assert f"neuronx_distributed_tpu_torch.{mod}" in names
+
+
+def test_training_entry_points_default_to_cuda(monkeypatch):
+    """``initialize_parallel_model`` runs on CUDA unless ``device="cpu"``;
+    the flash entries run where their tensors lie: the kernels for CUDA
+    tensors, the plain versions for CPU tensors, and nothing else."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = LlamaConfig.tiny(dtype=torch.float32, param_dtype=torch.float32)
+    config = training_config(compute_dtype="float32")
+    build = lambda d: LlamaForCausalLM(cfg, device=d)  # noqa: E731
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        initialize_parallel_model(config, build)
+    model = initialize_parallel_model(config, build, device="cpu")
+    assert model.device.type == "cpu"
+    assert all(p.device.type == "cpu" for p in model.module.parameters())
+    cuda_like = types.SimpleNamespace(device=torch.device("cuda"))
+    assert fa._route(cuda_like) is True
+    q = torch.zeros(1, 2, 4, 64)
+    assert fa._route(q) is False
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fa._route(q.to("meta"))
+
+    def no_build(name):
+        raise AssertionError("a CPU tensor must not reach the kernel")
+
+    monkeypatch.setattr("neuronx_distributed_tpu_torch.ops._build.load",
+                        no_build)
+    assert fa.flash_attention(q, q, q).shape == q.shape
+
+
+@pytest.mark.parametrize("module", ["flash_attention", "paged_attention"])
+def test_kernel_wrappers_have_no_fallback(module):
+    """No ``try`` in a kernel module: on CUDA a wrapper launches its
+    kernel or raises, and never falls back to its plain version."""
+    path = os.path.join(PKG, "ops", f"{module}.py")
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
