@@ -8,12 +8,19 @@ Phase 0 prints the card and builds every CUDA kernel from the sources in
 the checkout, one ``nvcc`` per source started together (``-Xptxas -v``
 report included).  Phase 1 holds the paged-attention kernel against its
 plain PyTorch version at the serving path's shapes (Llama-3-8B attention
-geometry) and times the kernel, the plain version and one PyTorch library
+geometry), over fp pools and over int8 pools (the kernel's dequant
+branch), and times the kernel, the plain version and one PyTorch library
 call doing the same work.  Phase 2 serves 16 requests through
 ``ServingEngine`` on a full-width, full-depth Llama-3-8B with random bf16
 weights from a seed, counts the kernel's launches on that run, checks page
 accounting, and compares the kernel path's logits with the gather path's.
-Phase 3 holds the flash-attention forward, dq and dk/dv kernels against
+Phase 2b serves the same requests on the same model with int8 KV pages and
+128-token prefill chunks (``kv_quant="int8"``, ``prefill_chunk_tokens``),
+counts the kernel's launches (every decode step and every chunk of every
+layer), checks page accounting and the int8 pool's size, compares the
+kernel's logits with the gather path's on the int8 pool and the int8
+pool's logits with the bf16 pool's after the same prefill, and serves the
+requests once more with chunked prefill over a bf16 pool.  Phase 3 holds the flash-attention forward, dq and dk/dv kernels against
 their plain versions row by row (the training path's own shape, causal
 and not, GQA 4 and 1, a sliding window, a softcap, packed segments with
 padding, T > S, an lse cotangent, D 64 and 128, bf16 and fp32) and times
@@ -71,6 +78,17 @@ N_REQUESTS, NEW_TOKENS = 16, 64
 # Phase 2 kernel-vs-gather logits: relative L2 error of the last decode
 # step's logits (bf16 weights and pool, 32 layers of rounding apart)
 LOGITS_REL_TOL = 5e-2
+# Phase 1 int8 cases: head dims and query widths (decode, verify, chunk)
+INT8_DIMS, INT8_WIDTHS = (64, 128, 256), (1, 4, 128)
+# Phase 2b: the chunk width, and the bound on the int8 pool's decode logits
+# against the bf16 pool's after the same prefill, relative L2 over the
+# live slots (PERF.md: int8 page codes err by up to half a step, ~0.2 % of
+# a page's range; 0.5 is far above that drift and far below what a broken
+# quantizer gives)
+CHUNK_TOKENS = 128
+INT8_DRIFT_REL_MAX = 0.5
+# the int8 pool's device bytes against the bf16 pool's at one page count
+INT8_POOL_RATIO_MAX = 0.51
 
 
 def log(msg: str) -> None:
@@ -210,51 +228,67 @@ def check_bound(name: str, times: dict, bound: float) -> None:
 # -- phase 1 ------------------------------------------------------------------
 
 
-def paged_inputs(S: int, dtype, device):
+def paged_inputs(S: int, dtype, device, d: int = D, int8: bool = False):
     """Seeded inputs at the served geometry: ragged offsets, one parked
-    slot, non-zero kv_start, a shuffled physical block table."""
+    slot, non-zero kv_start, a shuffled physical block table.  ``int8``:
+    the pool is the int8 six-tuple that ``quantize_page`` makes of the fp
+    pool, with the first page slot 0 attends made constant first (scale
+    0)."""
     import numpy as np
     import torch
 
-    rs = np.random.RandomState(SEED + S)
+    from neuronx_distributed_tpu_torch.kvcache.quant import quantize_page
+
+    rs = np.random.RandomState(SEED + S + (0 if d == D else d))
     T = PP * PAGE
     NP = B * PP + 1
-    q = torch.from_numpy(rs.standard_normal((B, S, NQ, D)).astype(np.float32))
-    k = torch.from_numpy(rs.standard_normal((NP, PAGE, NKV, D)).astype(np.float32))
-    v = torch.from_numpy(rs.standard_normal((NP, PAGE, NKV, D)).astype(np.float32))
+    q = torch.from_numpy(rs.standard_normal((B, S, NQ, d)).astype(np.float32))
+    k = torch.from_numpy(rs.standard_normal((NP, PAGE, NKV, d)).astype(np.float32))
+    v = torch.from_numpy(rs.standard_normal((NP, PAGE, NKV, d)).astype(np.float32))
     bt = (rs.permutation(NP - 1) + 1).reshape(B, PP).astype(np.int32)
     off = rs.randint(40, T - S, size=B).astype(np.int32)
     off[PARKED] = T
     start = np.minimum(rs.randint(0, 40, size=B), off).astype(np.int32)
     start[0] = 0
     to = dict(device=device)
-    return (q.to(dtype=dtype, **to), (k.to(dtype=dtype, **to),
-                                       v.to(dtype=dtype, **to)),
+    if int8:
+        k[bt[0, 0]], v[bt[0, 0]] = 0.75, -0.5
+        (qk, ks, kz), (qv, vs, vz) = quantize_page(k), quantize_page(v)
+        pool = tuple(t.to(**to) for t in (qk, qv, ks, kz, vs, vz))
+    else:
+        pool = (k.to(dtype=dtype, **to), v.to(dtype=dtype, **to))
+    return (q.to(dtype=dtype, **to), pool,
             torch.from_numpy(bt).to(**to), torch.from_numpy(off).to(**to),
             torch.from_numpy(start).to(**to))
 
 
-def bound_ms(S: int, dtype_name: str, off, start, window=None) -> tuple:
+def bound_ms(S: int, dtype_name: str, off, start, window=None, d: int = D,
+             int8: bool = False) -> tuple:
     """Least time for the work these inputs need.  Bytes, each moved once
     over the memory rate: K and V at the positions [lo, hi] each live slot
-    attends (the range the kernel walks), q read, out written, the block
-    table, offsets and starts read.  Operations over the peak rate of the
-    type: the q.K and p.V of every key each query row sees."""
+    attends (the range the kernel walks; 1 byte an element in an int8
+    pool, plus 16 bytes of page params for every page that range touches),
+    q read, out written, the block table, offsets and starts read.
+    Operations over the peak rate of q's type: the q.K and p.V of every
+    key each query row sees."""
     T = PP * PAGE
     item = 2 if dtype_name == "bfloat16" else 4
+    kv_item = 1 if int8 else item
     G = NQ // NKV
-    nbytes = 2 * B * S * NQ * D * item + B * PP * 4 + 2 * B * 4
+    nbytes = 2 * B * S * NQ * d * item + B * PP * 4 + 2 * B * 4
     flops = 0
     for o, s0 in zip(off.tolist(), start.tolist()):
         if o >= T:
             continue
         hi = min(o + S - 1, T - 1)
         lo = max(s0, 0 if window is None else o - window + 1)
-        nbytes += 2 * max(hi - lo + 1, 0) * NKV * D * item
+        nbytes += 2 * max(hi - lo + 1, 0) * NKV * d * kv_item
+        if int8 and hi >= lo:
+            nbytes += 16 * (hi // PAGE - lo // PAGE + 1)
         for s in range(S):
             qp = min(o + s, T - 1)
             lo_s = max(s0, 0 if window is None else o + s - window + 1)
-            flops += 4 * D * NKV * G * max(qp - lo_s + 1, 0)
+            flops += 4 * d * NKV * G * max(qp - lo_s + 1, 0)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype_name]
     return (max(t_bytes, t_ops) * 1e3,
@@ -263,16 +297,23 @@ def bound_ms(S: int, dtype_name: str, off, start, window=None) -> tuple:
 
 def library_call(q, pool, bt, off, start):
     """Yardstick only (never used by the port): gather the chains into
-    [B, T, NKV, D] and run scaled_dot_product_attention with the band
-    mask."""
+    [B, T, NKV, D] (an int8 pool's pages dequantized to q's type by
+    ``dequantize_page``) and run scaled_dot_product_attention with the
+    band mask."""
     import torch
     import torch.nn.functional as F
 
-    k, v = pool
-    T = bt.shape[1] * k.shape[1]
-    S = q.shape[1]
-    kg = k[bt.long()].reshape(B, T, NKV, D).transpose(1, 2)
-    vg = v[bt.long()].reshape(B, T, NKV, D).transpose(1, 2)
+    from neuronx_distributed_tpu_torch.kvcache.quant import dequantize_page
+
+    b = bt.long()
+    k, v = pool[0][b], pool[1][b]
+    if len(pool) == 6:
+        k = dequantize_page(k, pool[2][b], pool[3][b], q.dtype)
+        v = dequantize_page(v, pool[4][b], pool[5][b], q.dtype)
+    T = bt.shape[1] * k.shape[2]
+    S, d = q.shape[1], q.shape[3]
+    kg = k.reshape(B, T, NKV, d).transpose(1, 2)
+    vg = v.reshape(B, T, NKV, d).transpose(1, 2)
     qpos = off.long()[:, None] + torch.arange(S, device=q.device)[None]
     kpos = torch.arange(T, device=q.device)
     mask = (kpos[None, None] <= qpos[..., None]) & (
@@ -401,6 +442,116 @@ def phase1():
     }
 
 
+def phase1_int8():
+    """The kernel's int8 branch against its plain version (which
+    dequantizes the gathered pages to q's type, as the kernel does): q in
+    bf16 and fp32, D 64/128/256, S 1/4/128, split-K 1 and the default, a
+    parked slot and a constant page in every case, plus a window and a
+    softcap case.  Timed at the decode shape and at S = 128."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.ops.paged_attention import (
+        paged_attention,
+        paged_attention_reference,
+    )
+
+    dev = torch.device("cuda")
+    bf16, fp32 = torch.bfloat16, torch.float32
+    cases = [dict(S=S, d=d, split_k=sk, dtype=dt)
+             for dt in (bf16, fp32) for d in INT8_DIMS for S in INT8_WIDTHS
+             for sk in (1, None)]
+    cases += [dict(S=1, d=D, split_k=None, dtype=dt, window=256)
+              for dt in (bf16, fp32)]
+    cases += [dict(S=1, d=D, split_k=None, dtype=dt, softcap=50.0,
+                   sm_scale=SOFTCAP_SCALE) for dt in (bf16, fp32)]
+    live = [b for b in range(B) if b != PARKED]
+    worst = {"bfloat16": 0.0, "float32": 0.0}
+    for case in cases:
+        S, d, dtype = case["S"], case["d"], case["dtype"]
+        kw = {k: case[k] for k in ("window", "softcap", "sm_scale")
+              if k in case}
+        q, pool, bt, off, start = paged_inputs(S, dtype, dev, d, int8=True)
+        out = paged_attention(q, pool, bt, off, start,
+                              split_k=case["split_k"], **kw)
+        torch.cuda.synchronize()
+        ref = paged_attention_reference(q, pool, bt, off, start, **kw)
+        err = (out.float() - ref.float()).abs().max().item()
+        name = str(dtype).replace("torch.", "")
+        parked_zero = bool((out[PARKED] == 0).all().item())
+        bites = {}
+        for opt in ("window", "softcap"):
+            if opt in kw:
+                without = {k: v for k, v in kw.items() if k != opt}
+                bites[opt] = (paged_attention_reference(
+                    q, pool, bt, off, start, **without).float()
+                    - ref.float())[live].abs().max().item()
+        log(f"phase1 int8: S={S} D={d} split_k={case['split_k']} {name} "
+            f"{kw or ''} max_abs_err={err:.3e} (tol {TOL[name]}) "
+            f"parked_zero={parked_zero}" + "".join(
+                f"; without {o} the plain output moves {v:.3e}"
+                for o, v in bites.items()))
+        if not err <= TOL[name]:
+            raise AssertionError(f"int8 paged_attention disagrees with its "
+                                 f"plain version: {err} > {TOL[name]} in "
+                                 f"{case}")
+        if not parked_zero:
+            raise AssertionError(f"parked slot not exact zeros in {case}")
+        for opt, v in bites.items():
+            if not v > BITE * TOL[name]:
+                raise AssertionError(
+                    f"{opt} moves the plain output by only {v} in {case}: "
+                    f"the case cannot catch a kernel that ignores it")
+        worst[name] = max(worst[name], err)
+        del q, pool, out, ref
+
+    times = {}
+    for S in (1, 128):
+        q, pool, bt, off, start = paged_inputs(S, bf16, dev, int8=True)
+        copies = [(q.clone(), tuple(p.clone() for p in pool))
+                  for _ in range(ROTATE)]
+
+        def over_copies(fn, **kw):
+            return [lambda qc=qc, pc=pc: fn(qc, pc, bt, off, start, **kw)
+                    for qc, pc in copies]
+
+        k_ms = device_ms(over_copies(paged_attention), 200 if S == 1 else 50,
+                         expect="paged_attention_kernel")
+        p_ms = device_ms(over_copies(paged_attention_reference), 10)
+        l_ms = device_ms(over_copies(library_call), 50)
+        b_ms, b_by = bound_ms(S, "bfloat16", off.cpu(), start.cpu(),
+                              int8=True)
+        lib_err = (library_call(q, pool, bt, off, start).float()
+                   - paged_attention_reference(q, pool, bt, off, start
+                                               ).float())[live].abs().max().item()
+        check_bound("paged_attention int8", {"kernel": k_ms, "plain": p_ms,
+                                             "library": l_ms}, b_ms)
+        log(f"phase1 int8 timing (S={S} bf16 q, int8 pool, B={B} NQ={NQ} "
+            f"NKV={NKV} D={D} page={PAGE} PP={PP}), device ms per call from "
+            f"torch.profiler: kernel {k_ms:.5f}, plain {p_ms:.5f}, library "
+            f"{l_ms:.5f} (gather + dequantize_page + SDPA; agrees to "
+            f"{lib_err:.2e}); bound {b_ms:.5f} ({b_by}), kernel / bound "
+            f"{k_ms / b_ms:.2f}")
+        times[S] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                    "bound_ms": b_ms, "bound_by": b_by}
+        del copies, q, pool
+    return {
+        "name": "paged_attention_int8",
+        "route": "cuda",
+        "source": "neuronx_distributed_tpu_torch/ops/csrc/paged_attention.cu",
+        "replaces": "neuronx_distributed_tpu/ops/paged_attention.py:211",
+        "launches": None,
+        "max_abs_err": worst["bfloat16"],
+        "max_abs_err_fp32": worst["float32"],
+        **times[1],
+        "library_call": ("gather + kvcache.quant.dequantize_page + "
+                         "F.scaled_dot_product_attention"),
+        "chunk_s128": times[128],
+        "shapes": {"q": [B, 1, NQ, D], "pool": [B * PP + 1, PAGE, NKV, D],
+                   "pool_dtype": "int8", "block_table": [B, PP],
+                   "dtype": "bfloat16"},
+    }
+
+
 # -- phase 2 ------------------------------------------------------------------
 
 
@@ -433,16 +584,18 @@ def serve(engine, requests):
     return outs
 
 
-def steady_decode_profile(model_pim, vocab: int, steps: int = 10) -> dict:
+def steady_decode_profile(model_pim, vocab: int, steps: int = 10,
+                          label: str = "phase2", **engine_kw) -> dict:
     """Where a steady decode step's time goes: the host clock over
     ``steps`` engine steps with all slots decoding (no admissions), then
     the same steps under ``torch.profiler``: the device's busy share and
-    the share spent in the paged-attention kernels."""
+    the share spent in the paged-attention kernels.  ``engine_kw`` goes to
+    the engine (``kv_quant="int8"``: the int8 pool)."""
     import torch
 
     from neuronx_distributed_tpu_torch import ServingEngine
 
-    eng = ServingEngine(model_pim, page_size=PAGE_SIZE)
+    eng = ServingEngine(model_pim, page_size=PAGE_SIZE, **engine_kw)
     for r in make_requests(vocab, SLOTS, 3 * steps + 4, SEED + 3):
         eng.submit(r)
     for _ in range(2):
@@ -471,15 +624,15 @@ def steady_decode_profile(model_pim, vocab: int, steps: int = 10) -> dict:
                   if "paged_attention" in e.key or "merge_splits" in e.key
                   ) / 1e3 / steps
     top = sorted(events, key=dev_us, reverse=True)[:6]
-    log(f"phase2 steady decode (B={SLOTS}, all slots decoding): "
+    log(f"{label} steady decode (B={SLOTS}, all slots decoding): "
         f"{step_ms:.2f} ms/step host clock = {SLOTS * 1e3 / step_ms:.1f} "
         f"decode tokens/s; under the profiler "
         f"{prof_ms:.2f} ms/step with device busy {busy_ms:.3f} ms/step "
         f"({busy_ms / prof_ms:.1%}), paged attention {attn_ms:.3f} ms/step")
-    log("phase2 top device time per step: " + "; ".join(
+    log(f"{label} top device time per step: " + "; ".join(
         f"{e.key[:60]} {dev_us(e) / 1e3 / steps:.3f} ms" for e in top))
     if busy_ms <= 0:
-        log("phase2: the profiler saw no device time (busy share not "
+        log(f"{label}: the profiler saw no device time (busy share not "
             "measured)")
     return {"steady_step_ms": step_ms,
             "decode_tok_s": SLOTS * 1e3 / step_ms, "profiled_step_ms": prof_ms,
@@ -584,10 +737,192 @@ def phase2(kernel_entry):
     log(f"phase2: greedy token agreement kernel vs gather over {SLOTS} "
         f"requests x 16 tokens: {same}/{total} = {same / total:.3f}")
     busy = steady_decode_profile(model_pim, cfg.vocab_size)
+    summary = {**busy, "wall_s": wall, "tokens": tokens,
+               "tok_s": tokens / wall, "decode_steps": steps,
+               "ms_per_step": wall / steps * 1e3, "launches": launches,
+               "peak_gib": peak / 2**30, "logits_rel_l2": rel,
+               "token_agreement": same / total}
+    return summary, model_pim, {rid: o.token_ids for rid, o in outs.items()}
+
+
+# -- phase 2b -----------------------------------------------------------------
+
+
+def pool_bytes(model_pim, num_pages: int, quant) -> int:
+    """Device bytes a page pool takes, from the allocator."""
+    import torch
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    pool = model_pim.make_page_pool(num_pages, PAGE_SIZE, quant=quant)
+    torch.cuda.synchronize()
+    n = torch.cuda.memory_allocated() - before
+    del pool
+    return n
+
+
+def admitted_engine(model_pim, vocab: int, **kw):
+    """An engine whose 8 slots hold freshly prefilled requests and has not
+    decoded yet (the engine's admission, without ``step()``'s decode)."""
+    from neuronx_distributed_tpu_torch import ServingEngine
+
+    eng = ServingEngine(model_pim, page_size=PAGE_SIZE, prefix_cache=False,
+                        **kw)
+    for r in make_requests(vocab, SLOTS, 8, SEED + 1):
+        eng.submit(r)
+    for slot, req in eng.scheduler.admit(eng._clock()):
+        eng._prefill_into_slot(slot, req, [])
+    return eng
+
+
+def decode_logits(model_pim, eng, paged_kernel: bool):
+    """The engine's next decode step's logits over a copy of its pool."""
+    caches = [tuple(t.clone() for t in entry) for entry in eng.caches]
+    lg, _, _ = model_pim.decode_pages(
+        eng._next_tok[:, None], eng._offsets, eng._kv.tables, caches,
+        eng.valid.clone(), paged_kernel=paged_kernel)
+    return lg.float()
+
+
+def compare_logits(a, b) -> tuple:
+    """Relative L2 of ``a - b`` and the share of rows whose argmax
+    agrees."""
+    rel = ((a - b).norm() / b.norm()).item()
+    agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+    return rel, agree
+
+
+def phase2b(model_pim, int8_entry, whole_tokens):
+    """Serving with int8 KV pages and chunked prefill on phase 2's model:
+    the slice-3 main path, then its checks."""
+    import torch
+
+    from neuronx_distributed_tpu_torch import ServingEngine
+    from neuronx_distributed_tpu_torch.ops import flash_attention as fa
+    from neuronx_distributed_tpu_torch.ops.paged_attention import paged_attention
+
+    cfg = model_pim.module.config
+    L = cfg.num_layers
+    num_pages = SLOTS * (MAX_TOTAL // PAGE_SIZE) + 1
+    fp_bytes = pool_bytes(model_pim, num_pages, None)
+    q_bytes = pool_bytes(model_pim, num_pages, "int8")
+    ratio = q_bytes / fp_bytes
+    log(f"phase2b: pool of {num_pages} pages x {PAGE_SIZE} tokens x {L} "
+        f"layers from torch.cuda allocation: bf16 {fp_bytes / 2**20:.2f} "
+        f"MiB, int8 {q_bytes / 2**20:.2f} MiB, ratio {ratio:.5f} (limit "
+        f"{INT8_POOL_RATIO_MAX})")
+    if not ratio <= INT8_POOL_RATIO_MAX:
+        raise AssertionError(f"int8 pool takes {ratio} of the bf16 pool")
+
+    # the main path: every launch count from 0 over the served run
+    engine = ServingEngine(model_pim, page_size=PAGE_SIZE, kv_quant="int8",
+                           prefill_chunk_tokens=CHUNK_TOKENS)
+    for fn in (paged_attention, fa.flash_attention_fwd,
+               fa.flash_attention_dq, fa.flash_attention_dkv):
+        fn.launches = 0
+    paged_attention.int8_launches = 0
+    t0 = time.perf_counter()
+    outs = serve(engine, make_requests(cfg.vocab_size, N_REQUESTS,
+                                       NEW_TOKENS, SEED))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, int8_launches = (paged_attention.launches,
+                               paged_attention.int8_launches)
+    steps, chunks = engine.decode_steps, engine.prefill_chunks
+    tokens = sum(len(o.token_ids) for o in outs.values())
+    bad = [(o.request_id, o.state, len(o.token_ids)) for o in outs.values()
+           if o.state != "finished" or len(o.token_ids) != NEW_TOKENS]
+    if len(outs) != N_REQUESTS or bad:
+        raise AssertionError(f"int8 requests not served in full: {bad}, "
+                             f"{len(outs)}/{N_REQUESTS} outputs")
+    if not launches == int8_launches == (steps + chunks) * L:
+        raise AssertionError(
+            f"paged_attention launches {launches} (int8 {int8_launches}) != "
+            f"(decode steps {steps} + chunks {chunks}) x {L} layers")
+    if chunks != sum(o.prefill_chunks for o in outs.values()):
+        raise AssertionError("chunk dispatches disagree with the requests'")
+    if not engine.quant_pages > 0:
+        raise AssertionError("no page went through a quantize-on-write")
+    engine._kv.assert_invariants()
+    leaks = engine._kv.leaked_pages()
+    if leaks:
+        raise AssertionError(f"{leaks} KV pages leaked")
+    same = sum(a == b for rid, o in outs.items()
+               for a, b in zip(o.token_ids, whole_tokens[rid]))
+    log(f"phase2b: int8 pages, {CHUNK_TOKENS}-token chunks: served "
+        f"{N_REQUESTS} requests, {tokens} tokens in {wall:.3f} s "
+        f"({tokens / wall:.1f} tok/s overall, {steps} decode steps + "
+        f"{chunks} chunk dispatches, {wall / (steps + chunks) * 1e3:.2f} ms "
+        f"per forward); kernel launches {launches} = ({steps} + {chunks}) "
+        f"x {L}, all int8; {engine.quant_pages} pages quantized on write; "
+        f"page leaks 0; greedy tokens equal to phase 2's bf16 whole-prefill "
+        f"run {same}/{tokens}")
+    int8_entry["launches"] = int8_launches
+    quant_pages = engine.quant_pages
+    del engine
+
+    # one full-width decode step on the int8 pool, kernel vs gather; and
+    # the int8 pool against the bf16 pool after the same prefill
+    eng8 = admitted_engine(model_pim, cfg.vocab_size, kv_quant="int8")
+    lg_k = decode_logits(model_pim, eng8, True)
+    lg_g = decode_logits(model_pim, eng8, False)
+    del eng8
+    rel, agree = compare_logits(lg_k, lg_g)
+    log(f"phase2b: int8 pool, kernel vs gather logits, one decode step at "
+        f"full width: rel L2 {rel:.3e} (tol {LOGITS_REL_TOL}), argmax "
+        f"agreement {agree:.3f}")
+    if not rel <= LOGITS_REL_TOL or not torch.isfinite(lg_k).all():
+        raise AssertionError(f"int8 kernel and gather logits disagree: {rel}")
+    eng16 = admitted_engine(model_pim, cfg.vocab_size)
+    lg_b = decode_logits(model_pim, eng16, True)
+    del eng16
+    drift, drift_agree = compare_logits(lg_k, lg_b)
+    log(f"phase2b: int8 vs bf16 pool logits after the same prefill, one "
+        f"decode step: rel L2 {drift:.3e} (must be > 0 and <= "
+        f"{INT8_DRIFT_REL_MAX}), max abs "
+        f"{(lg_k - lg_b).abs().max().item():.3e} of max |logit| "
+        f"{lg_b.abs().max().item():.3e}, argmax agreement "
+        f"{drift_agree:.3f}")
+    if not 0.0 < drift <= INT8_DRIFT_REL_MAX:
+        raise AssertionError(f"int8 logit drift {drift} outside "
+                             f"(0, {INT8_DRIFT_REL_MAX}]")
+
+    # chunked prefill over the bf16 pool against phase 2's whole prefill
+    paged_attention.launches = 0
+    eng = ServingEngine(model_pim, page_size=PAGE_SIZE,
+                        prefill_chunk_tokens=CHUNK_TOKENS)
+    t0 = time.perf_counter()
+    chunked = serve(eng, make_requests(cfg.vocab_size, N_REQUESTS,
+                                       NEW_TOKENS, SEED))
+    torch.cuda.synchronize()
+    fp_wall = time.perf_counter() - t0
+    if paged_attention.launches != (eng.decode_steps
+                                    + eng.prefill_chunks) * L:
+        raise AssertionError("bf16 chunked run: launches != (steps + "
+                             "chunks) x layers")
+    if any(o.state != "finished" for o in chunked.values()):
+        raise AssertionError("bf16 chunked run did not finish")
+    fp_same = sum(a == b for rid, o in chunked.items()
+                  for a, b in zip(o.token_ids, whole_tokens[rid]))
+    first_same = sum(o.token_ids[0] == whole_tokens[rid][0]
+                     for rid, o in chunked.items())
+    log(f"phase2b: bf16 pool with {CHUNK_TOKENS}-token chunks vs phase 2's "
+        f"whole prefill: greedy tokens equal {fp_same}/{tokens}, first "
+        f"tokens {first_same}/{N_REQUESTS} ({eng.prefill_chunks} chunk "
+        f"dispatches, {eng.decode_steps} decode steps, served in "
+        f"{fp_wall:.3f} s)")
+    del eng
+    busy = steady_decode_profile(model_pim, cfg.vocab_size, label="phase2b",
+                                 kv_quant="int8")
     return {**busy, "wall_s": wall, "tokens": tokens, "tok_s": tokens / wall,
-            "decode_steps": steps, "ms_per_step": wall / steps * 1e3,
-            "launches": launches, "peak_gib": peak / 2**30,
-            "logits_rel_l2": rel, "token_agreement": same / total}
+            "decode_steps": steps, "chunk_dispatches": chunks,
+            "launches": launches, "quant_pages": quant_pages,
+            "pool_ratio": ratio, "int8_kernel_vs_gather_rel_l2": rel,
+            "int8_kernel_vs_gather_argmax": agree,
+            "int8_vs_bf16_rel_l2": drift, "int8_vs_bf16_argmax": drift_agree,
+            "int8_tokens_equal_bf16_whole": same,
+            "bf16_chunked_tokens_equal_whole": fp_same,
+            "bf16_chunked_wall_s": fp_wall}
 
 
 # -- phase 3 ------------------------------------------------------------------
@@ -1132,12 +1467,16 @@ def main() -> int:
         for name, report in _build.build_logs.items():
             log(f"phase0: nvcc -Xptxas -v for {name}:\n{report}")
         entry = phase1()
-        serving = phase2(entry)
+        entry8 = phase1_int8()
+        serving, model_pim, whole_tokens = phase2(entry)
         log(f"phase2 summary: {json.dumps(serving)}")
+        quantized = phase2b(model_pim, entry8, whole_tokens)
+        log(f"phase2b summary: {json.dumps(quantized)}")
+        del model_pim
         flash = phase3()
         training = phase4(flash)
         log(f"phase4 summary: {json.dumps(training)}")
-        kernels = [entry] + [flash[w] for w in FLASH_KERNELS]
+        kernels = [entry, entry8] + [flash[w] for w in FLASH_KERNELS]
         for k in kernels:
             if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms",
                                                      "library_ms",

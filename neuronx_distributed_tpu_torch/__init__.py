@@ -10,12 +10,16 @@ Slice 2 is the Llama training step at every parallel degree 1: the config
 its schedules (:mod:`.optimizer`), gradient clipping
 (:mod:`.parallel.grads`), the trainer (:mod:`.trainer`) and the
 hand-written CUDA flash-attention forward, dq and dk/dv kernels
-(:mod:`.ops.flash_attention`).  The port imports ``torch`` and nothing of
-JAX or of the JAX package.  Entry points run on the card unless the caller
+(:mod:`.ops.flash_attention`).  Slice 3 adds int8 KV pages
+(:mod:`.kvcache.quant`, ``ServingEngine(kv_quant="int8")``, the kernel's
+int8 dequant branch) and chunked prefill
+(``ServingEngine(prefill_chunk_tokens=...)``).  The port imports ``torch``
+and nothing of JAX or of the JAX package.  Entry points run on the card unless the caller
 passes ``device="cpu"``.
 """
 
 from neuronx_distributed_tpu_torch.config import TrainingConfig, training_config
+from neuronx_distributed_tpu_torch.kvcache import PagePool
 from neuronx_distributed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from neuronx_distributed_tpu_torch.ops.flash_attention import flash_attention
 from neuronx_distributed_tpu_torch.ops.paged_attention import paged_attention
@@ -33,6 +37,7 @@ __all__ = [
     "InferenceConfig",
     "LlamaConfig",
     "LlamaForCausalLM",
+    "PagePool",
     "ParallelInferenceModel",
     "Request",
     "SamplingParams",

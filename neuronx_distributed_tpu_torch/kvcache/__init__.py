@@ -1,6 +1,6 @@
 """Paged KV-cache subsystem of the PyTorch port: host-side page accounting
-(:mod:`.allocator`), the prefix trie (:mod:`.prefix`) and the device pool
-(:mod:`.pool`)."""
+(:mod:`.allocator`), the prefix trie (:mod:`.prefix`), the device pool
+(:mod:`.pool`) and int8 page quantization (:mod:`.quant`)."""
 
 from neuronx_distributed_tpu_torch.kvcache.allocator import (
     NULL_PAGE,
@@ -16,6 +16,12 @@ from neuronx_distributed_tpu_torch.kvcache.prefix import (
     page_keys,
     prefix_fingerprints,
 )
+from neuronx_distributed_tpu_torch.kvcache.quant import (
+    dequantize_page,
+    page_layer_bytes,
+    quant_error_bound,
+    quantize_page,
+)
 
 __all__ = [
     "BlockAllocator",
@@ -25,8 +31,12 @@ __all__ = [
     "PoolExhausted",
     "PrefixIndex",
     "chain_fingerprint",
+    "dequantize_page",
     "init_page_pool_caches",
     "is_padding_key",
     "page_keys",
+    "page_layer_bytes",
     "prefix_fingerprints",
+    "quant_error_bound",
+    "quantize_page",
 ]

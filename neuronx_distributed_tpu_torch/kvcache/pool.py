@@ -6,8 +6,13 @@ layer; requests hold integer block tables mapping their logical cache pages
 to physical ones.  Page 0 is the NULL page: left-padding pages and unused
 tail pages point at it, and its content is never attended.  Page accounting
 lives in the host-side :class:`~.allocator.BlockAllocator`; the device
-writes (``write_page``, ``copy_page``, the decode scatter) are on the
+writes (``write_page``, ``copy_page``, the block-table scatter) are on the
 serving wrapper and update the pool in place.
+
+``quant="int8"`` makes each layer's entry the six-tuple ``(k int8, v int8,
+k_scale, k_zero, v_scale, v_zero)`` with one fp32 scale/zero per physical
+page (:mod:`.quant`): the marker the model's scatter and gather, and the
+paged-attention kernel, key their dequantizing path on.
 """
 
 from __future__ import annotations
@@ -16,30 +21,30 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from neuronx_distributed_tpu_torch.kvcache.quant import check_quant, page_layer_bytes
 from neuronx_distributed_tpu_torch.utils.device import resolve_device
-
-INT8_DEFERRED = ("int8 page pools (kv_quant='int8') are not ported yet; they "
-                 "land with the kv_quant slice")
 
 
 def init_page_pool_caches(num_layers: int, num_pages: int, page_size: int,
                           num_kv_heads: int, head_dim: int,
                           dtype: torch.dtype = torch.bfloat16,
-                          device=None) -> List[Tuple[torch.Tensor, torch.Tensor]]:
-    """Zero fp page-pool caches ``(k, v)``, each ``[NP, page, NKV, D]``,
-    per layer."""
+                          device=None, quant: Optional[str] = None
+                          ) -> List[Tuple[torch.Tensor, ...]]:
+    """Zero page-pool caches per layer: the fp pair ``(k, v)``, each ``[NP,
+    page, NKV, D]``, or with ``quant="int8"`` the int8 six-tuple with zero
+    ``[NP]`` fp32 page params."""
+    check_quant(quant)
     device = resolve_device(device)
     shape = (num_pages, page_size, num_kv_heads, head_dim)
-    return [(torch.zeros(shape, dtype=dtype, device=device),
-             torch.zeros(shape, dtype=dtype, device=device))
+    if quant is None:
+        return [(torch.zeros(shape, dtype=dtype, device=device),
+                 torch.zeros(shape, dtype=dtype, device=device))
+                for _ in range(num_layers)]
+    return [tuple(torch.zeros(shape, dtype=torch.int8, device=device)
+                  for _ in range(2))
+            + tuple(torch.zeros((num_pages,), dtype=torch.float32,
+                                device=device) for _ in range(4))
             for _ in range(num_layers)]
-
-
-def page_layer_bytes(page_size: int, num_kv_heads: int, head_dim: int,
-                     dtype: torch.dtype) -> int:
-    """Device bytes of one page of one layer (k + v)."""
-    return 2 * page_size * num_kv_heads * head_dim * (
-        torch.finfo(dtype).bits // 8)
 
 
 class PagePool:
@@ -49,8 +54,6 @@ class PagePool:
                  num_kv_heads: int, head_dim: int,
                  dtype: torch.dtype = torch.bfloat16,
                  quant: Optional[str] = None, device=None):
-        if quant is not None:
-            raise NotImplementedError(INT8_DEFERRED)
         if num_pages < 2:
             raise ValueError(
                 f"num_pages must be >= 2 (page 0 is the NULL page), "
@@ -63,15 +66,18 @@ class PagePool:
         self.num_kv_heads = num_kv_heads
         self.head_dim = head_dim
         self.dtype = dtype
+        self.quant = quant
         self.caches = init_page_pool_caches(
             num_layers, num_pages, page_size, num_kv_heads, head_dim, dtype,
-            device)
+            device, quant)
 
     @property
     def page_bytes(self) -> int:
-        """Device bytes one page costs across all layers."""
+        """Device bytes one page costs across all layers (k + v, plus the
+        per-page scale/zero params of an int8 pool)."""
         return self.num_layers * page_layer_bytes(
-            self.page_size, self.num_kv_heads, self.head_dim, self.dtype)
+            self.page_size, self.num_kv_heads, self.head_dim, self.quant,
+            self.dtype)
 
     @property
     def total_bytes(self) -> int:
@@ -80,8 +86,10 @@ class PagePool:
     @staticmethod
     def pages_for_budget(budget_bytes: int, num_layers: int, page_size: int,
                          num_kv_heads: int, head_dim: int,
-                         dtype: torch.dtype = torch.bfloat16) -> int:
-        """How many pool pages a device-memory budget buys."""
+                         dtype: torch.dtype = torch.bfloat16,
+                         quant: Optional[str] = None) -> int:
+        """How many pool pages a device-memory budget buys; ``quant="int8"``
+        about doubles the answer against bf16."""
         per_page = num_layers * page_layer_bytes(page_size, num_kv_heads,
-                                                 head_dim, dtype)
+                                                 head_dim, quant, dtype)
         return max(int(budget_bytes // per_page), 0)

@@ -10,9 +10,12 @@ context-parallel degree 1; rematerialization (``remat``) at block
 granularity; ``hidden``/``head`` for the chunked loss; and three KV-cache
 writes -- the contiguous write at a scalar offset, the per-slot masked
 write at per-slot offsets, and the paged scatter through a block table --
-followed by either the gather path or the paged-attention kernel.  The
-port writes caches IN PLACE (JAX returns updated arrays); the returned
-cache tuples are the same tensors.
+followed by either the gather path or the paged-attention kernel.  A page
+pool is the fp pair or the int8 six-tuple (``kvcache.quant``): int8 writes
+requantize every page they touch, the gather path dequantizes to the
+compute type and the kernel dequantizes inside.  The port writes caches IN
+PLACE (JAX returns updated arrays); the returned cache tuples are the same
+tensors.
 """
 
 from __future__ import annotations
@@ -25,13 +28,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from neuronx_distributed_tpu_torch.kvcache.quant import dequantize_page, quantize_page
 from neuronx_distributed_tpu_torch.models.common import maybe_remat
 from neuronx_distributed_tpu_torch.ops.flash_attention import (
     band_mask,
     flash_attention,
     flash_attention_segmented,
 )
-from neuronx_distributed_tpu_torch.ops.paged_attention import paged_attention
+from neuronx_distributed_tpu_torch.ops.paged_attention import gather_pages, paged_attention
 from neuronx_distributed_tpu_torch.parallel.layers import (
     ColumnParallelLinear,
     ParallelEmbedding,
@@ -41,7 +45,8 @@ from neuronx_distributed_tpu_torch.parallel.norm import RMSNorm
 from neuronx_distributed_tpu_torch.parallel.qkv import GQAQKVColumnParallelLinear
 from neuronx_distributed_tpu_torch.utils.device import resolve_device
 
-KVCache = Tuple[torch.Tensor, torch.Tensor]
+# a layer's cache: the fp pair (k, v), or an int8 page pool's six-tuple
+KVCache = Tuple[torch.Tensor, ...]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -220,20 +225,12 @@ def flash_core(cfg: LlamaConfig, q, k, v, segment_ids=None):
     return o.transpose(1, 2)
 
 
-def paged_gather_views(kv_cache: KVCache, block_table: torch.Tensor):
-    """The gather decode path's ``[B, T, NKV, D]`` K/V views of the pool."""
-    ck, cv = kv_cache
-    B, T = block_table.shape[0], block_table.shape[1] * ck.shape[1]
-    bt = block_table.long()
-    return (ck[bt].reshape(B, T, ck.shape[2], ck.shape[3]),
-            cv[bt].reshape(B, T, cv.shape[2], cv.shape[3]))
-
-
 class PagedStep(NamedTuple):
     """What every layer of one paged step shares, computed once per forward
     by :func:`plan_paged_step`: where each new token is written
-    (``phys``/``cell``, with ``keep`` false for dropped cells) and what the
-    kernel reads (int32 offsets and the first valid key per slot)."""
+    (``phys``/``cell``, with ``keep`` false for dropped cells; for an int8
+    pool the pages to requantize, ``rmw_*``) and what the kernel reads
+    (int32 offsets and the first valid key per slot)."""
 
     block_table: torch.Tensor          # [B, PP] int32
     offsets: torch.Tensor              # [B] int32
@@ -242,17 +239,22 @@ class PagedStep(NamedTuple):
     cell: torch.Tensor                 # [B, Sn] cell within that page
     keep: torch.Tensor                 # [B, Sn] bool
     kernel: bool                       # paged-attention kernel, else gather
+    rmw_pages: Optional[torch.Tensor] = None  # [n] int8 pages to requantize
+    rmw_hot: Optional[torch.Tensor] = None    # [n, page] cells to insert
+    rmw_src: Optional[torch.Tensor] = None    # [n, page] index into [B * Sn]
 
 
 def plan_paged_step(block_table, cache_offset, kv_valid, n_new: int,
-                    page: int, kernel: bool) -> PagedStep:
+                    page: int, kernel: bool,
+                    quantized: bool = False) -> PagedStep:
     """Token ``s`` of slot ``b`` goes to logical index ``offset[b] + s``
     through the block table.  Cells past the table (a parked slot at
     ``offset >= T``) and invalid cells are dropped: they rewrite the NULL
     page's first cell with its own value, so no host sync is needed and no
     real page is touched.  Serving key validity is a contiguous band (left
     pads, then the written prefix), so the kernel takes its first valid
-    index."""
+    index.  An int8 pool does not use the NULL-page trick: see
+    :func:`_plan_requant`."""
     if not (isinstance(cache_offset, torch.Tensor) and cache_offset.ndim == 1):
         raise ValueError("the block-table decode path needs per-slot offsets "
                          "[B] (continuous-batching decode)")
@@ -268,17 +270,67 @@ def plan_paged_step(block_table, cache_offset, kv_valid, n_new: int,
         if kernel:
             kv_start = (kv_valid > 0).to(torch.float32).argmax(dim=1).to(
                 torch.int32)
+    rmw = (_plan_requant(block_table, cache_offset, kv_valid, n_new, page)
+           if quantized else (None, None, None))
     return PagedStep(
         block_table=block_table.to(torch.int32),
         offsets=cache_offset.to(torch.int32), kv_start=kv_start,
         phys=torch.where(keep, phys, torch.zeros_like(phys)),
         cell=torch.where(keep, idx % page, torch.zeros_like(idx)),
-        keep=keep, kernel=bool(kernel))
+        keep=keep, kernel=bool(kernel), rmw_pages=rmw[0], rmw_hot=rmw[1],
+        rmw_src=rmw[2])
+
+
+def _plan_requant(block_table, cache_offset, kv_valid, n_new: int,
+                  page: int):
+    """The pages an int8 write requantizes: of the logical pages slot
+    ``b``'s ``n_new`` new cells straddle, those holding at least one HOT
+    cell (inside the table and valid: a chunk's left-pad rows are garbage
+    that must never enter a page's min/max).  Only those are written back:
+    requantizing an untouched page can move its scale by an ulp, and parked
+    rows would all land on one page.  Returns ``(pages [n], hot [n, page],
+    src [n, page])``, ``src`` indexing the flattened ``[B * n_new]`` new
+    tokens; finding the pages costs one host sync per forward."""
+    B, PP = block_table.shape
+    T = PP * page
+    dev = cache_offset.device
+    off = cache_offset.long()
+    n_pg = (n_new - 1 + page - 1) // page + 1
+    lp = (off // page)[:, None] + torch.arange(n_pg, device=dev)   # [B, n_pg]
+    pos = lp[..., None] * page + torch.arange(page, device=dev)     # [B, n_pg, page]
+    s_idx = pos - off[:, None, None]
+    hot = (s_idx >= 0) & (s_idx < n_new) & (pos < T)
+    if kv_valid is not None:
+        hot &= kv_valid.gather(1, pos.clamp(0, T - 1).reshape(B, -1)
+                               ).reshape(hot.shape) > 0
+    rows, js = hot.any(dim=2).nonzero(as_tuple=True)
+    pages = block_table.long()[rows, lp[rows, js].clamp(max=PP - 1)]
+    src = rows[:, None] * n_new + s_idx[rows, js].clamp(0, n_new - 1)
+    return pages, hot[rows, js], src
+
+
+def _requant_paged(kv_cache: KVCache, k, v, paged: PagedStep) -> None:
+    """Quantize-on-write for any number of new tokens: gather each page
+    :func:`_plan_requant` chose, dequantize it to fp32, insert its hot new
+    cells, requantize the whole page and write back codes, scale and zero.
+    Decode and chunk writes touch only pages their slot owns alone (shared
+    prefix pages are prompt pages, never written), so the pages are
+    distinct and the read-modify-write needs no atomics."""
+    ck, cv, ks, kz, vs, vz = kv_cache
+    pages, hot = paged.rmw_pages, paged.rmw_hot[..., None, None]
+    for cq, sc, zp, new in ((ck, ks, kz, k), (cv, vs, vz, v)):
+        flat = new.reshape(-1, *new.shape[2:])
+        pg = dequantize_page(cq[pages], sc[pages], zp[pages])
+        pg = torch.where(hot, flat[paged.rmw_src].float(), pg)
+        cq[pages], sc[pages], zp[pages] = quantize_page(pg)
 
 
 def _scatter_paged(kv_cache: KVCache, k, v, paged: PagedStep) -> None:
     """Write the new tokens into the pool in place, at the cells
-    :func:`plan_paged_step` chose."""
+    :func:`plan_paged_step` chose (an int8 pool requantizes its pages)."""
+    if len(kv_cache) == 6:
+        _requant_paged(kv_cache, k, v, paged)
+        return
     hot = paged.keep[..., None, None]
     for c, new in zip(kv_cache, (k, v)):
         c[paged.phys, paged.cell] = torch.where(
@@ -310,12 +362,16 @@ class LlamaAttention(nn.Module):
         k = apply_rope(k, sin, cos)
 
         if kv_cache is not None:
-            ck, cv = kv_cache
+            if len(kv_cache) == 6 and paged is None:
+                raise ValueError(
+                    "quantized KV caches are page pools: the contiguous "
+                    "decode paths take fp caches only")
             per_slot = isinstance(cache_offset, torch.Tensor) \
                 and cache_offset.ndim == 1
             if paged is not None:
                 _scatter_paged(kv_cache, k, v, paged)
             elif per_slot:
+                ck, cv = kv_cache
                 # per-slot write positions: a masked select over the time
                 # axis; an offset >= T (a parked slot) writes nothing
                 if k.shape[1] != 1:
@@ -327,6 +383,7 @@ class LlamaAttention(nn.Module):
                 ck.copy_(torch.where(hot, k.to(ck.dtype), ck))
                 cv.copy_(torch.where(hot, v.to(cv.dtype), cv))
             else:
+                ck, cv = kv_cache
                 off = int(cache_offset)
                 ck[:, off:off + k.shape[1]] = k.to(ck.dtype)
                 cv[:, off:off + v.shape[1]] = v.to(cv.dtype)
@@ -348,7 +405,8 @@ class LlamaAttention(nn.Module):
             if kv_cache is None:
                 keys, values = k, v
             elif paged is not None:
-                keys, values = paged_gather_views(kv_cache, paged.block_table)
+                keys, values = gather_pages(kv_cache, paged.block_table,
+                                            q.dtype)
             else:
                 keys, values = kv_cache
             out = core_attention(cfg, q, keys, values,
@@ -444,7 +502,7 @@ class LlamaModel(nn.Module):
         if block_table is not None:
             paged = plan_paged_step(block_table, cache_offset, kv_valid,
                                     ids.shape[1], kv_caches[0][0].shape[1],
-                                    paged_kernel)
+                                    paged_kernel, len(kv_caches[0]) == 6)
         for i, block in enumerate(self.layers()):
             h, _ = block(h, positions, kv_caches[i], cache_offset, kv_valid,
                          paged)

@@ -51,9 +51,9 @@ class FlashParams(ctypes.Structure):
 SIGNATURES = {
     "paged_attention": {
         "paged_attention_fwd": (
-            [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,   # dtype, pointers
-             _I, _I, _I, _I, _I, _I, _I, _I,               # B S NQ NKV D NP page PP
-             _F, _I, _F, _I, _P],                          # scale window cap sk stream
+            [_I, _I] + [_P] * 14                           # dtype, quant, pointers
+            + [_I, _I, _I, _I, _I, _I, _I, _I,             # B S NQ NKV D NP page PP
+               _F, _I, _F, _I, _P],                        # scale window cap sk stream
             _I),
     },
     "flash_attention": {

@@ -13,11 +13,14 @@ slot attends.
   PyTorch version of the same arithmetic: gather, band-mask, per-split
   online-softmax partials and the split-K logsumexp merge.
 
-Layout as in the JAX package: ``q [B, S, NQ, D]``; one layer's fp pool
-``(k, v)`` each ``[NP, page, NKV, D]``; ``block_table [B, PP]``;
-``cache_offset [B]`` (row ``s`` attends positions ``<= offset + s``; an
-offset ``>= PP * page`` parks the slot, whose rows come back exact zeros);
-``kv_start [B]`` (first valid key, the left-pad count).
+Layout as in the JAX package: ``q [B, S, NQ, D]``; one layer's pool, the
+fp pair ``(k, v)`` each ``[NP, page, NKV, D]`` or the int8 six-tuple ``(k,
+v, k_scale, k_zero, v_scale, v_zero)`` with int8 pages and ``[NP]`` fp32
+page params (``kvcache.quant``: ``x = (code + 128) * scale + zero``,
+dequantized inside the kernel); ``block_table [B, PP]``; ``cache_offset
+[B]`` (row ``s`` attends positions ``<= offset + s``; an offset ``>= PP *
+page`` parks the slot, whose rows come back exact zeros); ``kv_start [B]``
+(first valid key, the left-pad count).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from neuronx_distributed_tpu_torch.kvcache.quant import dequantize_page
 from neuronx_distributed_tpu_torch.ops.flash_attention import NEG_INF
 
 # keys per kernel tile and query rows per block (csrc/paged_attention.cu)
@@ -34,9 +38,7 @@ TILE_KEYS = 32
 MAX_ROWS = 16
 HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-INT8_DEFERRED = ("int8 page pools (kv_quant='int8') are not ported yet: the "
-                 "in-kernel dequant branch lands with the kv_quant slice")
+PARAM_NAMES = ("k_scale", "k_zero", "v_scale", "v_zero")
 
 
 def resolve_paged_kernel(flag, device) -> bool:
@@ -57,12 +59,29 @@ def _check_pool(q, kv_pages):
         raise ValueError(
             f"kv_pages must be a layer's fp pair or int8 six-tuple, got "
             f"{len(kv_pages)} arrays")
-    if len(kv_pages) == 6:
-        raise NotImplementedError(INT8_DEFERRED)
     if q.shape[2] % kv_pages[0].shape[2]:
         raise ValueError(
             f"q heads ({q.shape[2]}) must group over kv heads "
             f"({kv_pages[0].shape[2]})")
+
+
+def gather_pages(kv_pages, block_table: torch.Tensor,
+                 dtype: torch.dtype = torch.float32):
+    """The gather path's ``[B, T, NKV, D]`` K/V views of one layer's pool
+    through the block table.  An int8 pool's gathered pages are
+    dequantized to ``dtype``, the compute type (its page params gathered
+    alongside); an fp pool's come back in the pool's type."""
+    bt = block_table.long()
+    B, T = bt.shape[0], bt.shape[1] * kv_pages[0].shape[1]
+    ck, cv = kv_pages[:2]
+    if len(kv_pages) == 6:
+        ks, kz, vs, vz = kv_pages[2:]
+        k = dequantize_page(ck[bt], ks[bt], kz[bt], dtype)
+        v = dequantize_page(cv[bt], vs[bt], vz[bt], dtype)
+    else:
+        k, v = ck[bt], cv[bt]
+    return (k.reshape(B, T, ck.shape[2], ck.shape[3]),
+            v.reshape(B, T, cv.shape[2], cv.shape[3]))
 
 
 def merge_splits(acc, m, l, S: int, dtype) -> torch.Tensor:
@@ -87,20 +106,17 @@ def paged_attention_reference(q, kv_pages, block_table, cache_offset,
                               kv_start=None, *, sm_scale=None, window=None,
                               softcap=None, split_k: int = 1) -> torch.Tensor:
     """The plain version, in fp32 from the given inputs: gather the chain
-    into the contiguous ``[B, T]`` view (the gather path's math), band-mask,
+    into the contiguous ``[B, T]`` view (the gather path's math; int8 pages
+    dequantized to ``q.dtype`` first, as the kernel does), band-mask,
     compute unnormalized online-softmax partials over ``split_k`` equal
     pieces of the chain, and merge them with :func:`merge_splits`.  Parked
     slots and rows that see no key are exact zeros, as in the kernel."""
     _check_pool(q, kv_pages)
-    ck, cv = kv_pages
     B, S, NQ, D = q.shape
-    NKV = ck.shape[2]
+    NKV = kv_pages[0].shape[2]
     G = NQ // NKV
-    PP = block_table.shape[1]
-    T = PP * ck.shape[1]
-    bt = block_table.long()
-    k = ck[bt].reshape(B, T, NKV, D).float()
-    v = cv[bt].reshape(B, T, NKV, D).float()
+    T = block_table.shape[1] * kv_pages[0].shape[1]
+    k, v = (x.float() for x in gather_pages(kv_pages, block_table, q.dtype))
     scale = (D ** -0.5) if sm_scale is None else sm_scale
     qg = q.float().reshape(B, S, NKV, G, D)
     s = torch.einsum("bskgd,btkd->bksgt", qg, k).reshape(B, NKV, S * G, T)
@@ -149,12 +165,18 @@ def default_split_k(B: int, NKV: int, rows: int, T: int,
                       T // (4 * TILE_KEYS)))
 
 
-def _launch(q, ck, cv, bt, off, start, scale, window, softcap, split_k):
+def _launch(q, kv_pages, bt, off, start, scale, window, softcap, split_k):
     """Validate, allocate and launch on the current stream; raises on any
-    input the kernel does not take and on a refused launch."""
+    input the kernel does not take and on a refused launch.  An fp pool
+    shares q's type; an int8 pool takes bf16 or fp32 q and four contiguous
+    ``[NP]`` fp32 page-param arrays."""
     dev = q.device
+    quant = len(kv_pages) == 6
+    ck, cv = kv_pages[:2]
+    params = tuple(kv_pages[2:])
     named = (("q", q), ("k pool", ck), ("v pool", cv), ("block_table", bt),
-             ("cache_offset", off), ("kv_start", start))
+             ("cache_offset", off), ("kv_start", start)) + tuple(
+                 zip(PARAM_NAMES, params))
     for name, t in named:
         if t.device != dev:
             raise ValueError(f"{name} on {t.device}, q on {dev}")
@@ -166,10 +188,12 @@ def _launch(q, ck, cv, bt, off, start, scale, window, softcap, split_k):
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"paged_attention kernel takes float32 or bfloat16 "
                         f"q, got {q.dtype}")
-    if ck.dtype != q.dtype or cv.dtype != q.dtype:
-        raise TypeError(f"pool dtype ({ck.dtype}, {cv.dtype}) must match q "
-                        f"({q.dtype})")
-    for name, t in named[3:]:
+    pool_dtype = torch.int8 if quant else q.dtype
+    if ck.dtype != pool_dtype or cv.dtype != pool_dtype:
+        raise TypeError(f"pool dtype ({ck.dtype}, {cv.dtype}) must be "
+                        f"{pool_dtype} for {len(kv_pages)} pool arrays and "
+                        f"q {q.dtype}")
+    for name, t in named[3:6]:
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
     B, S, NQ, D = q.shape
@@ -177,6 +201,12 @@ def _launch(q, ck, cv, bt, off, start, scale, window, softcap, split_k):
     if cv.shape != ck.shape or Dk != D:
         raise ValueError(f"pool shapes {tuple(ck.shape)}/{tuple(cv.shape)} "
                          f"do not fit q {tuple(q.shape)}")
+    for name, t in named[6:]:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.shape != (NP,):
+            raise ValueError(f"{name} shape {tuple(t.shape)} != ({NP},): "
+                             "one param per physical page")
     if D not in HEAD_DIMS:
         raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
     PP = bt.shape[1]
@@ -203,10 +233,12 @@ def _launch(q, ck, cv, bt, off, start, scale, window, softcap, split_k):
                         device=dev)
         l = torch.empty_like(m)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    ks, kz, vs, vz = params if quant else (None,) * 4
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.paged_attention_fwd(
-            _DTYPE_CODE[q.dtype], ptr(q), ptr(ck), ptr(cv), ptr(bt), ptr(off),
+            _DTYPE_CODE[q.dtype], int(quant), ptr(q), ptr(ck), ptr(cv),
+            ptr(ks), ptr(kz), ptr(vs), ptr(vz), ptr(bt), ptr(off),
             ptr(start), ptr(out), ptr(acc), ptr(m), ptr(l),
             B, S, NQ, NKV, D, NP, page, PP, float(scale),
             int(window or 0), float(softcap or 0.0), split_k, stream)
@@ -214,6 +246,7 @@ def _launch(q, ck, cv, bt, off, start, scale, window, softcap, split_k):
         raise RuntimeError(f"paged_attention kernel launch failed "
                            f"(code {rc})")
     paged_attention.launches += 1
+    paged_attention.int8_launches += int(quant)
     return out
 
 
@@ -224,13 +257,14 @@ def paged_attention(q: torch.Tensor, kv_pages: Sequence[torch.Tensor],
                     window: Optional[int] = None,
                     softcap: Optional[float] = None,
                     split_k: Optional[int] = None) -> torch.Tensor:
-    """Decode attention straight over one layer's page pool; returns
-    ``[B, S, NQ, D]`` in ``q.dtype``.  ``window``/``softcap``/``sm_scale``
+    """Decode attention straight over one layer's page pool (the fp pair or
+    the int8 six-tuple); returns ``[B, S, NQ, D]`` in ``q.dtype``.  ``window``/``softcap``/``sm_scale``
     are the sliding window, logit softcap and score scale (default
     ``D ** -0.5``).  ``split_k`` splits each slot's key range over that
     many blocks (default: from the card's SM count) whose partials are
     merged by logsumexp weight.  CUDA tensors launch the kernel (and
-    count in ``paged_attention.launches``); CPU tensors run
+    count in ``paged_attention.launches``, int8 pools also in
+    ``paged_attention.int8_launches``); CPU tensors run
     :func:`paged_attention_reference`."""
     _check_pool(q, kv_pages)
     if window is not None and window < 1:
@@ -247,8 +281,9 @@ def paged_attention(q: torch.Tensor, kv_pages: Sequence[torch.Tensor],
     if kv_start is None:
         kv_start = torch.zeros(q.shape[0], dtype=torch.int32,
                                device=q.device)
-    return _launch(q, kv_pages[0], kv_pages[1], block_table, cache_offset,
-                   kv_start, scale, window, softcap, split_k)
+    return _launch(q, tuple(kv_pages), block_table, cache_offset, kv_start,
+                   scale, window, softcap, split_k)
 
 
 paged_attention.launches = 0
+paged_attention.int8_launches = 0

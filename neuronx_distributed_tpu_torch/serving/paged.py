@@ -132,11 +132,22 @@ class PagedKVManager:
 
     def finish_insert(self, slot: int, payload: Any) -> None:
         """Register the slot's prompt chain (with the prefill's last-position
-        logits as the full-hit payload) once its pages hold real KV."""
+        logits as the full-hit payload) once its pages hold real KV.
+
+        A chunked prefill registers only when its last chunk lands, so an
+        identical prompt prefix admitted meanwhile missed the cache and
+        prefilled pages of its own.  The chain registered first wins: a
+        slot whose chain diverges from the cached one registers nothing,
+        and its pages stay private until the slot is released.  (The JAX
+        engine raises the index's divergence assertion there.)"""
         if self.index is None or self._slot_keys[slot] is None:
             return
+        keys = self._slot_keys[slot]
         pages = [int(p) for p in self.tables[slot][:self.ctx_pages]]
-        self.index.insert(self._slot_keys[slot], pages, payload=payload)
+        cached, _ = self.index.peek(keys)
+        if cached != pages[:len(cached)]:
+            return
+        self.index.insert(keys, pages, payload=payload)
 
     def release_slot(self, slot: int) -> None:
         """Drop every page reference the slot holds and null its block

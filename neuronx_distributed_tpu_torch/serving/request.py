@@ -91,6 +91,7 @@ class Request:
     finish_time: Optional[float] = None
     intertoken_ms: List[float] = dataclasses.field(default_factory=list)
     decode_steps: int = 0
+    prefill_chunks: int = 0  # chunked-prefill dispatches the request took
 
     def __post_init__(self):
         self.prompt_ids = [int(t) for t in self.prompt_ids]
@@ -152,6 +153,7 @@ class RequestOutput:
     priority: str = PRIORITY_INTERACTIVE
     deadline_s: Optional[float] = None
     decode_steps: int = 0
+    prefill_chunks: int = 0
 
     @staticmethod
     def from_request(req: Request, now: float) -> "RequestOutput":
@@ -174,4 +176,5 @@ class RequestOutput:
             priority=req.priority,
             deadline_s=req.deadline_s,
             decode_steps=req.decode_steps,
+            prefill_chunks=req.prefill_chunks,
         )

@@ -22,6 +22,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from neuronx_distributed_tpu_torch.kvcache.quant import quantize_page
 from neuronx_distributed_tpu_torch.ops.paged_attention import resolve_paged_kernel
 from neuronx_distributed_tpu_torch.utils.device import resolve_device
 
@@ -235,7 +236,8 @@ class ParallelInferenceModel:
     def make_page_pool(self, num_pages: int, page_size: int,
                        quant: Optional[str] = None):
         """A :class:`~..kvcache.pool.PagePool` for this model's layers and
-        cache type on the model's device."""
+        cache type on the model's device (``quant="int8"``: the int8
+        six-tuple pool)."""
         from neuronx_distributed_tpu_torch.kvcache.pool import PagePool
 
         return PagePool(self.num_layers, num_pages, page_size,
@@ -281,24 +283,62 @@ class ParallelInferenceModel:
             self._tensor(tok, torch.long), self._tensor(offsets),
             self._tensor(block_table), caches, valid, paged_kernel=pk)
 
+    def prefill_chunk_pages(self, ids, offset: int, block_table, caches,
+                            valid, paged_kernel=None):
+        """Paged chunk prefill: the ``S = Cc``, ``update_valid=False``
+        member of :meth:`_paged_step_fn`.  ``ids [1, Cc]`` is the chunk's
+        slice of the left-padded prompt, ``offset`` the cache index its
+        first token writes at, ``block_table [1, PP]`` the slot's page map
+        and ``valid [1, T]`` the slot's validity row with the FULL prompt's
+        validity written and zeros beyond it: positions are prefix counts
+        of that row, so RoPE phases equal a whole ``prefill_one``'s, and
+        keys past the chunk are causally masked.  Returns the chunk's
+        last-position logits ``[1, V]`` (the final chunk's are the prefill
+        logits) and the pool."""
+        pk = self.paged_kernel if paged_kernel is None else bool(paged_kernel)
+        logits, caches, _ = self._paged_step_fn(
+            self._tensor(ids, torch.long), self._tensor([offset]),
+            self._tensor(block_table), caches, self._tensor(valid),
+            paged_kernel=pk, update_valid=False, last_only=True)
+        return logits, caches
+
     @torch.no_grad()
     def write_page(self, caches, row_caches, logical_page: int,
-                   phys_page: int):
+                   phys_page: int, row_valid=None):
         """Copy page ``logical_page`` of the ``prefill_one`` row caches into
-        pool page ``phys_page``."""
-        for (ck, cv), (rk, rv) in zip(caches, row_caches):
-            page = ck.shape[1]
+        pool page ``phys_page``.  An int8 pool quantizes on write (scale and
+        zero from the page's content) with the invalid (left-pad) cells of
+        ``row_valid [C]`` zeroed first: their values are masked-attention
+        garbage that must not set the page's scale, and zeroing them is what
+        the chunk scatter's valid-masked write gives, so chunked and whole
+        int8 prefills quantize the same pages.  An fp pool ignores
+        ``row_valid``."""
+        for entry, (rk, rv) in zip(caches, row_caches):
+            page = entry[0].shape[1]
             lo = logical_page * page
-            ck[phys_page].copy_(rk[0, lo:lo + page])
-            cv[phys_page].copy_(rv[0, lo:lo + page])
+            if len(entry) == 2:
+                entry[0][phys_page].copy_(rk[0, lo:lo + page])
+                entry[1][phys_page].copy_(rv[0, lo:lo + page])
+                continue
+            keep = None
+            if row_valid is not None:
+                keep = self._tensor(row_valid).reshape(-1)[lo:lo + page] > 0
+            for cq, sc, zp, r in ((entry[0], entry[2], entry[3], rk),
+                                  (entry[1], entry[4], entry[5], rv)):
+                chunk = r[0, lo:lo + page]
+                if keep is not None:
+                    chunk = chunk * keep[:, None, None].to(chunk.dtype)
+                cq[phys_page], sc[phys_page], zp[phys_page] = \
+                    quantize_page(chunk)
         return caches
 
     @torch.no_grad()
     def copy_page(self, caches, src_page: int, dst_page: int):
-        """Pool-internal page copy: the device half of copy-on-write."""
-        for ck, cv in caches:
-            ck[dst_page].copy_(ck[src_page])
-            cv[dst_page].copy_(cv[src_page])
+        """Pool-internal page copy, the device half of copy-on-write: every
+        entry of a layer, the 1-D page params of an int8 pool included."""
+        for entry in caches:
+            for c in entry:
+                c[dst_page].copy_(c[src_page])
         return caches
 
     # -- solo reference ----------------------------------------------------

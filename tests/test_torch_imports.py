@@ -138,7 +138,8 @@ def test_walk_covers_the_slice():
     for mod in ("ops.paged_attention", "ops._build", "ops.flash_attention",
                 "parallel.norm", "parallel.layers", "parallel.qkv",
                 "models.llama", "convert.jax_params", "kvcache.allocator",
-                "kvcache.prefix", "kvcache.pool", "trace.engine",
+                "kvcache.prefix", "kvcache.pool", "kvcache.quant",
+                "trace.engine",
                 "serving.request", "serving.scheduler", "serving.driver",
                 "serving.paged", "serving.engine", "utils.logger",
                 "utils.device", "version", "config", "models.common",

@@ -162,7 +162,16 @@ def test_page_pool_sizing_matches_jax():
         2, 5, 4, 2, 8, dtype=jnp.float32).page_bytes
     assert PagePool.pages_for_budget(1 << 20, 32, 16, 8, 128) == \
         jax_pool.PagePool.pages_for_budget(1 << 20, 32, 16, 8, 128)
-    with pytest.raises(NotImplementedError, match="kv_quant"):
-        PagePool(2, 5, 4, 2, 8, quant="int8", device="cpu")
+    q8 = PagePool(2, 5, 4, 2, 8, quant="int8", device="cpu")
+    assert [tuple(t.shape) for t in q8.caches[0]] == \
+        [(5, 4, 2, 8)] * 2 + [(5,)] * 4
+    assert [t.dtype for t in q8.caches[0]] == \
+        [torch.int8] * 2 + [torch.float32] * 4
+    assert q8.page_bytes == jax_pool.PagePool(
+        2, 5, 4, 2, 8, quant="int8").page_bytes
+    assert PagePool.pages_for_budget(1 << 20, 32, 16, 8, 128,
+                                     quant="int8") == \
+        jax_pool.PagePool.pages_for_budget(1 << 20, 32, 16, 8, 128,
+                                           quant="int8")
     with pytest.raises(ValueError, match="NULL"):
         PagePool(2, 1, 4, 2, 8, device="cpu")

@@ -117,8 +117,12 @@ def test_pool_arity_and_device_errors():
     bt, off = torch.zeros((1, 2), dtype=torch.int32), torch.zeros(1, dtype=torch.int32)
     with pytest.raises(ValueError, match="six-tuple"):
         paged_attention(q, (torch.zeros((2, 4, 2, 8)),) * 3, bt, off)
-    with pytest.raises(NotImplementedError, match="kv_quant"):
-        paged_attention(q, (torch.zeros((2, 4, 2, 8)),) * 6, bt, off)
+    # an int8 six-tuple runs: all-zero codes with scale 1 and zero -128
+    # dequantize to 0, so the one visible key gives exact zeros
+    six = (torch.zeros((2, 4, 2, 8), dtype=torch.int8),) * 2 + (
+        torch.ones(2), torch.full((2,), -128.0)) * 2
+    out = paged_attention(q + 1.0, six, bt, off)
+    assert out.shape == q.shape and torch.equal(out, torch.zeros_like(q))
     with pytest.raises(ValueError, match="group"):
         paged_attention(torch.zeros((1, 1, 3, 8)), (torch.zeros((2, 4, 2, 8)),) * 2,
                         bt, off)
