@@ -20,18 +20,27 @@ counts the kernel's launches (every decode step and every chunk of every
 layer), checks page accounting and the int8 pool's size, compares the
 kernel's logits with the gather path's on the int8 pool and the int8
 pool's logits with the bf16 pool's after the same prefill, and serves the
-requests once more with chunked prefill over a bf16 pool.  Phase 3 holds the flash-attention forward, dq and dk/dv kernels against
-their plain versions row by row (the training path's own shape, causal
-and not, GQA 4 and 1, a sliding window, a softcap, packed segments with
-padding, T > S, an lse cotangent, D 64 and 128, bf16 and fp32) and times
-them at the training path's shape.  Phase 4 trains a Llama-3-8B-width
-model cut to 4 layers (fp32 masters, bf16 compute, flash attention) for
-12 steps through the trainer's entry points, counts the flash kernels'
-launches on that run, compares one step's loss, gradient norm and
-attention-projection gradients through the flash and the dense core, and
-reports tokens/s, MFU, peak memory and the device-busy share of a
-profiled step.  A device time below the least time its work needs fails
-the run.
+requests once more with chunked prefill over a bf16 pool.  Phase 1 then
+holds the fp-pool kernel at head_dim 256 and Gemma-2-2B's geometry (8 q
+on 4 kv heads, softcap 50) and times it there.  Phase 3 holds the
+flash-attention forward, dq and dk/dv kernels against their plain
+versions row by row (the training paths' own shapes, causal and not, GQA
+4 and 1, MQA, sliding windows, softcaps, packed segments with padding,
+T > S, an lse cotangent, D 64, 128 and 256, bf16 and fp32) and times them
+at Llama's training shape and at Gemma-2-2B's (global and sliding-window
+layers).  Phase 4 trains a Llama-3-8B-width model cut to 4 layers (fp32
+masters, bf16 compute, flash attention) for 12 steps through the
+trainer's entry points, counts the flash kernels' launches on that run,
+compares one step's loss, gradient norm and attention-projection
+gradients through the flash and the dense core, and reports tokens/s,
+MFU, peak memory and the device-busy share of a profiled step.  Phase 5
+does the same for Gemma-2-2B at full width and depth (26 layers, batch
+1 x 8192, selective remat: the flash kernels at D = 256), with flash vs
+dense held on a 2-layer cut.  Phase 5b serves 8 requests through
+``ServingEngine`` on Gemma-2-2B with random bf16 weights (the paged
+kernel at D = 256 with the softcap), counts launches, checks page
+accounting and compares kernel and gather logits.  A device time below
+the least time its work needs fails the run.
 
 Any failed check exits non-zero without the result line.  The line before
 the last is ``{"kernels": [...]}``; the last is ``{"ok": true, "device":
@@ -72,6 +81,11 @@ BITE = 10.0
 # input copies cycled by the timing loops: 8 x 34 MB of pool, so a call's
 # K/V reads come from device memory and not from the L2 of the last call
 ROTATE = 8
+# profiler traces taken of one timing before it fails (see device_ms)
+TRACE_TRIES = 3
+# cycles of torch.cuda._sleep per millisecond, about the H100's boost
+# clock; only sizes the spin of queued_time_ms, which times the spin
+SPIN_CYCLES_PER_MS = 2.0e6
 # Phase 2: the served engine
 SLOTS, CONTEXT, MAX_TOTAL, PAGE_SIZE = 8, 512, 1024, 16
 N_REQUESTS, NEW_TOKENS = 16, 64
@@ -124,6 +138,42 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def queued_time_ms(fn, iters: int, warmup: int = 3):
+    """Wall time per call between two CUDA events around ``iters`` calls
+    that the device runs back to back: a spin kernel
+    (``torch.cuda._sleep``) holds the device until the host has issued
+    every call, so a host that issues slowly or stalls (autograd's
+    backward spends about half a millisecond of Python per call, and the
+    host's cores are shared) leaves no idle gaps between the calls.  The
+    spin is timed, and sized afresh (doubled, up to TRACE_TRIES times)
+    when the host was not done issuing before it ended.  Returns ``(ms per
+    call, host ms per call to issue)``; the first is None when the host
+    never got ahead (a call that synchronises, or a full launch queue)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    hold_ms = 20.0
+    for _ in range(TRACE_TRIES):
+        held = torch.cuda.Event(enable_timing=True)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        held.record()
+        torch.cuda._sleep(int(hold_ms * SPIN_CYCLES_PER_MS))
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        issue_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if issue_ms < held.elapsed_time(start):
+            return start.elapsed_time(end) / iters, issue_ms / iters
+        hold_ms = 2 * max(hold_ms, issue_ms)
+    return None, issue_ms / iters
+
+
 def dev_us(event) -> float:
     return getattr(event, "self_device_time_total",
                    getattr(event, "self_cuda_time_total", 0.0))
@@ -162,7 +212,8 @@ def trace(run, warm):
     return device_events(prof)
 
 
-def device_ms(fns, iters: int, expect: str = "", show: str = "") -> float:
+def device_ms(fns, iters: int, expect: str = "", show: str = "",
+              names=None) -> float:
     """Device time per call of the kernels (and copies) that ``iters``
     calls put on the card, as ``torch.profiler`` reads them.  The calls
     cycle through ``fns``, one per copy of the inputs, so that a call
@@ -172,8 +223,11 @@ def device_ms(fns, iters: int, expect: str = "", show: str = "") -> float:
     recorded duration times ``n``, so a call whose kernels the profiler
     dropped (the count falls short of ``n * iters``, and is logged)
     does not read the time low.  ``expect`` names a kernel that must be
-    among those seen; ``show`` logs every device event per call under
-    that label."""
+    among those seen; a trace with no device time, or without that
+    kernel, is taken again, up to TRACE_TRIES times (the profiler has
+    returned an empty trace of 20 calls that launched a kernel each).
+    ``show`` logs every device event per call under that label; ``names``,
+    a list, receives the event names, longest first."""
     def run():
         for i in range(iters):
             fns[i % len(fns)]()
@@ -183,32 +237,53 @@ def device_ms(fns, iters: int, expect: str = "", show: str = "") -> float:
             fn()
 
     warm()
-    events = trace(run, warm)
-    per_call = [dev_us(e) / e.count * round(e.count / iters) for e in events]
-    total = sum(per_call)
-    if total <= 0:
-        raise RuntimeError("torch.profiler saw no device time")
+    for attempt in range(1, TRACE_TRIES + 1):
+        events = trace(run, warm)
+        per_call = [dev_us(e) / e.count * round(e.count / iters)
+                    for e in events]
+        total = sum(per_call)
+        seen = total > 0 and (not expect or any(expect in e.key
+                                                for e in events))
+        if seen:
+            break
+        log(f"torch.profiler trace {attempt}/{TRACE_TRIES} of {iters} calls "
+            f"shows {total:.1f} us of device time and "
+            f"{[e.key[:60] for e in events]}" + (f", no {expect}" if expect
+                                                  else ""))
+    else:
+        raise RuntimeError(f"torch.profiler saw no device time (or no "
+                           f"{expect or 'kernel'}) in {TRACE_TRIES} traces")
     lost = [f"{e.key[:60]} {e.count}/{round(e.count / iters) * iters}"
             for e in events if e.count != round(e.count / iters) * iters]
     if lost:
         log(f"torch.profiler dropped device events over {iters} calls "
             f"(recorded/expected): {lost}")
-    if expect and not any(expect in e.key for e in events):
-        raise RuntimeError(f"no {expect} among the device events: "
-                           f"{[e.key[:60] for e in events]}")
+    ranked = sorted(zip(per_call, events), key=lambda x: -x[0])
     if show:
         log(f"{show}, device events per call: " + "; ".join(
             f"{e.key[:90]} x{e.count / iters:g} {ms / 1e3:.5f} ms"
-            for ms, e in sorted(zip(per_call, events), key=lambda x: -x[0])))
+            for ms, e in ranked))
+    if names is not None:
+        names.extend(e.key for _, e in ranked)
     return total / 1e3
 
 
-def check_events(name: str, profiler_ms: float, event_ms: float) -> None:
+def check_events(name: str, profiler_ms: float, fn, iters: int) -> None:
     """For a call of a quarter millisecond and more, the wall time between
-    CUDA events over back-to-back calls is the device time plus small
-    launch gaps: a profiler sum below 90 % of it lost device work."""
+    CUDA events over ``iters`` calls of ``fn`` that the device runs back
+    to back (:func:`queued_time_ms`) is the device time plus launch gaps
+    of microseconds: a profiler sum below 90 % of it lost device work.
+    Where the host could not issue the calls ahead of the device, the
+    event time says nothing of the device: the check is logged and
+    skipped."""
+    event_ms, host_ms = queued_time_ms(fn, iters)
+    if event_ms is None:
+        log(f"{name}: the host could not issue {iters} calls ahead of the "
+            f"device ({host_ms:.5f} ms per call); no event check")
+        return
     log(f"{name}: device ms per call {profiler_ms:.5f} from torch.profiler, "
-        f"{event_ms:.5f} between CUDA events")
+        f"{event_ms:.5f} between CUDA events with the calls queued, host "
+        f"{host_ms:.5f} to issue")
     if not profiler_ms >= 0.9 * event_ms:
         raise AssertionError(
             f"{name}: torch.profiler reads {profiler_ms:.5f} ms per call, "
@@ -228,12 +303,13 @@ def check_bound(name: str, times: dict, bound: float) -> None:
 # -- phase 1 ------------------------------------------------------------------
 
 
-def paged_inputs(S: int, dtype, device, d: int = D, int8: bool = False):
-    """Seeded inputs at the served geometry: ragged offsets, one parked
-    slot, non-zero kv_start, a shuffled physical block table.  ``int8``:
-    the pool is the int8 six-tuple that ``quantize_page`` makes of the fp
-    pool, with the first page slot 0 attends made constant first (scale
-    0)."""
+def paged_inputs(S: int, dtype, device, d: int = D, int8: bool = False,
+                 nq: int = NQ, nkv: int = NKV):
+    """Seeded inputs at the served geometry (``nq`` q heads on ``nkv`` kv
+    heads): ragged offsets, one parked slot, non-zero kv_start, a shuffled
+    physical block table.  ``int8``: the pool is the int8 six-tuple that
+    ``quantize_page`` makes of the fp pool, with the first page slot 0
+    attends made constant first (scale 0)."""
     import numpy as np
     import torch
 
@@ -242,9 +318,9 @@ def paged_inputs(S: int, dtype, device, d: int = D, int8: bool = False):
     rs = np.random.RandomState(SEED + S + (0 if d == D else d))
     T = PP * PAGE
     NP = B * PP + 1
-    q = torch.from_numpy(rs.standard_normal((B, S, NQ, d)).astype(np.float32))
-    k = torch.from_numpy(rs.standard_normal((NP, PAGE, NKV, d)).astype(np.float32))
-    v = torch.from_numpy(rs.standard_normal((NP, PAGE, NKV, d)).astype(np.float32))
+    q = torch.from_numpy(rs.standard_normal((B, S, nq, d)).astype(np.float32))
+    k = torch.from_numpy(rs.standard_normal((NP, PAGE, nkv, d)).astype(np.float32))
+    v = torch.from_numpy(rs.standard_normal((NP, PAGE, nkv, d)).astype(np.float32))
     bt = (rs.permutation(NP - 1) + 1).reshape(B, PP).astype(np.int32)
     off = rs.randint(40, T - S, size=B).astype(np.int32)
     off[PARKED] = T
@@ -263,7 +339,7 @@ def paged_inputs(S: int, dtype, device, d: int = D, int8: bool = False):
 
 
 def bound_ms(S: int, dtype_name: str, off, start, window=None, d: int = D,
-             int8: bool = False) -> tuple:
+             int8: bool = False, nq: int = NQ, nkv: int = NKV) -> tuple:
     """Least time for the work these inputs need.  Bytes, each moved once
     over the memory rate: K and V at the positions [lo, hi] each live slot
     attends (the range the kernel walks; 1 byte an element in an int8
@@ -274,32 +350,32 @@ def bound_ms(S: int, dtype_name: str, off, start, window=None, d: int = D,
     T = PP * PAGE
     item = 2 if dtype_name == "bfloat16" else 4
     kv_item = 1 if int8 else item
-    G = NQ // NKV
-    nbytes = 2 * B * S * NQ * d * item + B * PP * 4 + 2 * B * 4
+    G = nq // nkv
+    nbytes = 2 * B * S * nq * d * item + B * PP * 4 + 2 * B * 4
     flops = 0
     for o, s0 in zip(off.tolist(), start.tolist()):
         if o >= T:
             continue
         hi = min(o + S - 1, T - 1)
         lo = max(s0, 0 if window is None else o - window + 1)
-        nbytes += 2 * max(hi - lo + 1, 0) * NKV * d * kv_item
+        nbytes += 2 * max(hi - lo + 1, 0) * nkv * d * kv_item
         if int8 and hi >= lo:
             nbytes += 16 * (hi // PAGE - lo // PAGE + 1)
         for s in range(S):
             qp = min(o + s, T - 1)
             lo_s = max(s0, 0 if window is None else o + s - window + 1)
-            flops += 4 * d * NKV * G * max(qp - lo_s + 1, 0)
+            flops += 4 * d * nkv * G * max(qp - lo_s + 1, 0)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype_name]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def library_call(q, pool, bt, off, start):
+def library_call(q, pool, bt, off, start, sm_scale=None):
     """Yardstick only (never used by the port): gather the chains into
     [B, T, NKV, D] (an int8 pool's pages dequantized to q's type by
     ``dequantize_page``) and run scaled_dot_product_attention with the
-    band mask."""
+    band mask (it has no softcap)."""
     import torch
     import torch.nn.functional as F
 
@@ -311,16 +387,71 @@ def library_call(q, pool, bt, off, start):
         k = dequantize_page(k, pool[2][b], pool[3][b], q.dtype)
         v = dequantize_page(v, pool[4][b], pool[5][b], q.dtype)
     T = bt.shape[1] * k.shape[2]
-    S, d = q.shape[1], q.shape[3]
-    kg = k.reshape(B, T, NKV, d).transpose(1, 2)
-    vg = v.reshape(B, T, NKV, d).transpose(1, 2)
+    S, d, nkv = q.shape[1], q.shape[3], k.shape[-2]
+    kg = k.reshape(B, T, nkv, d).transpose(1, 2)
+    vg = v.reshape(B, T, nkv, d).transpose(1, 2)
     qpos = off.long()[:, None] + torch.arange(S, device=q.device)[None]
     kpos = torch.arange(T, device=q.device)
     mask = (kpos[None, None] <= qpos[..., None]) & (
         kpos[None, None] >= start.long()[:, None, None])
     return F.scaled_dot_product_attention(
-        q.transpose(1, 2), kg, vg, attn_mask=mask[:, None],
+        q.transpose(1, 2), kg, vg, attn_mask=mask[:, None], scale=sm_scale,
         enable_gqa=True).transpose(1, 2)
+
+
+def hold_paged_cases(cases, label: str, d: int = D, nq: int = NQ,
+                     nkv: int = NKV) -> dict:
+    """Each fp-pool case: the kernel against its plain version (fp32 from
+    the same inputs) within TOL, the parked slot exact zeros, and each
+    option of the case (window, softcap) moving the plain output by more
+    than BITE tolerances.  Returns the worst error per dtype name."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.ops.paged_attention import (
+        paged_attention,
+        paged_attention_reference,
+    )
+
+    live = [b for b in range(B) if b != PARKED]
+    worst = {"bfloat16": 0.0, "float32": 0.0}
+    for case in cases:
+        S, dtype = case["S"], case["dtype"]
+        kw = {k: case[k] for k in ("window", "softcap", "sm_scale")
+              if k in case}
+        q, pool, bt, off, start = paged_inputs(S, dtype, "cuda", d, nq=nq,
+                                               nkv=nkv)
+        out = paged_attention(q, pool, bt, off, start,
+                              split_k=case["split_k"], **kw)
+        torch.cuda.synchronize()
+        args = (q.float(), tuple(p.float() for p in pool), bt, off, start)
+        ref = paged_attention_reference(*args, **kw)
+        err = (out.float() - ref).abs().max().item()
+        name = str(dtype).replace("torch.", "")
+        parked_zero = bool((out[PARKED] == 0).all().item())
+        bites = {}
+        for opt in ("window", "softcap"):
+            if opt in kw:  # the output without the option, to show it bites
+                without = {k: v for k, v in kw.items() if k != opt}
+                bites[opt] = (paged_attention_reference(*args, **without)
+                              - ref)[live].abs().max().item()
+        log(f"{label}: S={S} D={d} NQ={nq} NKV={nkv} split_k="
+            f"{case['split_k']} {name} {kw or ''} max_abs_err={err:.3e} "
+            f"(tol {TOL[name]}) parked_zero={parked_zero}" + "".join(
+                f"; without {o} the plain output moves {v:.3e}"
+                for o, v in bites.items()))
+        if not err <= TOL[name]:
+            raise AssertionError(f"paged_attention disagrees with its plain "
+                                 f"version: {err} > {TOL[name]} in {case}")
+        if not parked_zero:
+            raise AssertionError(f"parked slot not exact zeros in {case}")
+        for opt, v in bites.items():
+            if not v > BITE * TOL[name]:
+                raise AssertionError(
+                    f"{opt} moves the plain output by only {v} in {case}: "
+                    f"the case cannot catch a kernel that ignores it")
+        worst[name] = max(worst[name], err)
+        del q, pool, out, ref
+    return worst
 
 
 def phase1():
@@ -341,43 +472,7 @@ def phase1():
                    sm_scale=SOFTCAP_SCALE) for dt in (bf16, fp32)]
     cases += [dict(S=1, split_k=None, dtype=bf16)]
     live = [b for b in range(B) if b != PARKED]
-    worst = 0.0
-    for case in cases:
-        S, dtype = case["S"], case["dtype"]
-        kw = {k: case[k] for k in ("window", "softcap", "sm_scale")
-              if k in case}
-        q, pool, bt, off, start = paged_inputs(S, dtype, dev)
-        out = paged_attention(q, pool, bt, off, start,
-                              split_k=case["split_k"], **kw)
-        torch.cuda.synchronize()
-        args = (q.float(), tuple(p.float() for p in pool), bt, off, start)
-        ref = paged_attention_reference(*args, **kw)
-        err = (out.float() - ref).abs().max().item()
-        name = str(dtype).replace("torch.", "")
-        parked_zero = bool((out[PARKED] == 0).all().item())
-        bites = {}
-        for opt in ("window", "softcap"):
-            if opt in kw:  # the output without the option, to show it bites
-                without = {k: v for k, v in kw.items() if k != opt}
-                bites[opt] = (paged_attention_reference(*args, **without)
-                              - ref)[live].abs().max().item()
-        log(f"phase1: S={S} split_k={case['split_k']} {name} {kw or ''} "
-            f"max_abs_err={err:.3e} (tol {TOL[name]}) parked_zero="
-            f"{parked_zero}" + "".join(
-                f"; without {o} the plain output moves {d:.3e}"
-                for o, d in bites.items()))
-        if not err <= TOL[name]:
-            raise AssertionError(f"paged_attention disagrees with its plain "
-                                 f"version: {err} > {TOL[name]} in {case}")
-        if not parked_zero:
-            raise AssertionError(f"parked slot not exact zeros in {case}")
-        for opt, d in bites.items():
-            if not d > BITE * TOL[name]:
-                raise AssertionError(
-                    f"{opt} moves the plain output by only {d} in {case}: "
-                    f"the case cannot catch a kernel that ignores it")
-        if dtype == bf16:
-            worst = max(worst, err)
+    worst = hold_paged_cases(cases, "phase1")["bfloat16"]
 
     # timing at the decode shape the served path runs: S=1, bf16, default
     # split; ROTATE copies of the inputs so reads come from device memory
@@ -549,6 +644,74 @@ def phase1_int8():
         "shapes": {"q": [B, 1, NQ, D], "pool": [B * PP + 1, PAGE, NKV, D],
                    "pool_dtype": "int8", "block_table": [B, PP],
                    "dtype": "bfloat16"},
+    }
+
+
+# Gemma-2-2B decode attention: 8 q heads on 4 kv heads at head_dim 256,
+# score scale 256^-0.5, attention softcap 50
+G2_NQ, G2_NKV, G2_D, G2_SCALE, G2_CAP = 8, 4, 256, 256.0 ** -0.5, 50.0
+
+
+def phase1_gemma():
+    """The fp-pool kernel at head_dim 256 and the Gemma-2-2B geometry:
+    bf16 and fp32 q and pool, S 1 and 4, split-K 1 and the default, the
+    softcap 50 in every case (at SOFTCAP_SCALE, where it moves the output;
+    at Gemma-2's own 1/16 it hardly does).  Timed at the decode shape with
+    Gemma-2's scale and cap; the library call (gather + SDPA) has no
+    softcap."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.ops.paged_attention import (
+        paged_attention,
+        paged_attention_reference,
+    )
+
+    geom = dict(d=G2_D, nq=G2_NQ, nkv=G2_NKV)
+    cases = [dict(S=S, split_k=sk, dtype=dt, softcap=G2_CAP,
+                  sm_scale=SOFTCAP_SCALE)
+             for dt in (torch.bfloat16, torch.float32) for S in (1, 4)
+             for sk in (1, None)]
+    worst = hold_paged_cases(cases, "phase1 gemma2", **geom)
+    q, pool, bt, off, start = paged_inputs(1, torch.bfloat16, "cuda", **geom)
+    copies = [(q.clone(), tuple(p.clone() for p in pool))
+              for _ in range(ROTATE)]
+    kw = dict(sm_scale=G2_SCALE, softcap=G2_CAP)
+
+    def over_copies(fn, **extra):
+        return [lambda qc=qc, pc=pc: fn(qc, pc, bt, off, start, **extra)
+                for qc, pc in copies]
+
+    k_ms = device_ms(over_copies(paged_attention, **kw), 200,
+                     expect="paged_attention_kernel")
+    p_ms = device_ms(over_copies(paged_attention_reference, **kw), 20)
+    l_ms = device_ms(over_copies(library_call, sm_scale=G2_SCALE), 50)
+    b_ms, b_by = bound_ms(1, "bfloat16", off.cpu(), start.cpu(), **geom)
+    check_bound("paged_attention D=256", {"kernel": k_ms, "plain": p_ms,
+                                          "library": l_ms}, b_ms)
+    log(f"phase1 gemma2 timing (S=1 bf16 B={B} NQ={G2_NQ} NKV={G2_NKV} "
+        f"D={G2_D} page={PAGE} PP={PP}, scale 1/16, softcap 50), device ms "
+        f"per call from torch.profiler: kernel {k_ms:.5f}, plain "
+        f"{p_ms:.5f}, library {l_ms:.5f} (gather + SDPA, no softcap); "
+        f"bound {b_ms:.5f} ({b_by}), kernel / bound {k_ms / b_ms:.2f}")
+    del copies, q, pool
+    return {
+        "name": "paged_attention_d256",
+        "route": "cuda",
+        "source": "neuronx_distributed_tpu_torch/ops/csrc/paged_attention.cu",
+        "replaces": "neuronx_distributed_tpu/ops/paged_attention.py:164",
+        "launches": None,
+        "max_abs_err": worst["bfloat16"],
+        "max_abs_err_fp32": worst["float32"],
+        "ms": k_ms,
+        "plain_ms": p_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": l_ms,
+        "library_call": "gather + F.scaled_dot_product_attention (no softcap)",
+        "shapes": {"q": [B, 1, G2_NQ, G2_D],
+                   "pool": [B * PP + 1, PAGE, G2_NKV, G2_D],
+                   "block_table": [B, PP], "dtype": "bfloat16",
+                   "softcap": G2_CAP},
     }
 
 
@@ -951,6 +1114,25 @@ FLASH_CASES = [
     ("causal_d64", 2, 8, 2, 333, 333, 64, True, None, None, None, False,
      False),
 ]
+# Gemma-2-2B's training attention: batch 1 x 8192, 8 q heads on 4 kv
+# heads, head_dim 256, score scale 1/16; even layers slide over 4096 keys
+GB, GHQ, GHKV, GS, GD, G2_WINDOW = 1, 8, 4, 8192, 256, 4096
+FLASH_CASES_D256 = [
+    ("gemma2_path_global", GB, GHQ, GHKV, GS, GS, GD, True, None, None,
+     G2_SCALE, False, False),
+    ("gemma2_path_window", GB, GHQ, GHKV, GS, GS, GD, True, G2_WINDOW, None,
+     G2_SCALE, False, False),
+    ("softcap50_d256", 1, 8, 4, 1024, 1024, GD, True, None, G2_CAP,
+     SOFTCAP_SCALE, False, False),
+    ("gemma_mqa_g8_d256", 2, 8, 1, 1000, 1000, GD, True, None, None, None,
+     False, False),
+    ("segments_d256", 2, 8, 4, 777, 777, GD, True, None, None, None, True,
+     False),
+    ("t_gt_s_d256", 1, 8, 4, 300, 700, GD, True, None, None, None, False,
+     False),
+    ("lse_cotangent_d256", 2, 8, 4, 400, 400, GD, True, None, None, None,
+     True, True),
+]
 FLASH_KERNELS = {
     "fwd": ("flash_attention_fwd", "flash_fwd_kernel", 4, 154),
     "dq": ("flash_attention_dq", "flash_dq_kernel", 6, 311),
@@ -1014,14 +1196,26 @@ def flash_inputs(case, dtype, device, seed):
     return q, k, v, do, qs, ks, dlse
 
 
-def flash_bound_ms(B, HQ, HKV, S, T, D, item, which) -> tuple:
-    """Least time for one kernel call at a causal S = T shape.  Operations:
-    per visible (q, k) pair 4D (q.k and p.v), 6D for dq (q.k, dO.v, dS.k)
-    and 8D for dk/dv (q.k, dO.v, p^T.dO, dS^T.q), at the bf16 tensor-core
-    peak; ``which="bwd"`` is one call producing dq, dk and dv together
+def visible_pairs(S: int, T: int, causal: bool = True, window=None) -> int:
+    """(query, key) pairs one head sees: query i (at kv position i + T - S)
+    sees keys up to its own position and, with a window, no further back
+    than window - 1 positions."""
+    import numpy as np
+
+    if not causal:
+        return S * T
+    hi = np.arange(S, dtype=np.int64) + (T - S)
+    return int(np.minimum(hi + 1, window or T).sum())
+
+
+def flash_bound_ms(B, HQ, HKV, S, T, D, item, which, window=None) -> tuple:
+    """Least time for one kernel call at a causal shape.  Operations: per
+    visible (q, k) pair 4D (q.k and p.v), 6D for dq (q.k, dO.v, dS.k) and
+    8D for dk/dv (q.k, dO.v, p^T.dO, dS^T.q), at the peak of the inputs'
+    type; ``which="bwd"`` is one call producing dq, dk and dv together
     (SDPA's backward), 10D per pair (q.k, dO.v, p^T.dO, dS.k, dS^T.q).
     Bytes: each input read once, each output written once."""
-    pairs = B * HQ * (S * (S + 1) // 2 if S == T else S * T)
+    pairs = B * HQ * visible_pairs(S, T, True, window)
     per = {"bwd": 10}.get(which) or FLASH_KERNELS[which][2]
     flops = per * D * pairs
     qd, kd = B * HQ * S * D * item, B * HKV * T * D * item
@@ -1037,21 +1231,24 @@ def flash_bound_ms(B, HQ, HKV, S, T, D, item, which) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations", flops, nbytes)
 
 
-def phase3():
+def hold_flash_cases(cases, worst: dict, worst_lse: dict,
+                     seed0: int = 0) -> None:
+    """Each case in bf16 and fp32: the three kernels against their plain
+    versions row by row (TOL), the lse (LSE_TOL), finite outputs, empty
+    rows zero, and each option of the case biting (BITE).  ``worst``
+    (bf16, per kernel) and ``worst_lse`` (per dtype) collect the largest
+    errors.  Case ``i`` draws its inputs from seed ``SEED + seed0 + i``."""
     import torch
-    import torch.nn.functional as F
 
     from neuronx_distributed_tpu_torch.ops import flash_attention as fa
 
     dev = torch.device("cuda")
-    worst = {w: {"abs": 0.0, "row_rel": 0.0} for w in FLASH_KERNELS}
-    worst_lse = {"bfloat16": 0.0, "float32": 0.0}
-    for ci, case in enumerate(FLASH_CASES):
+    for ci, case in enumerate(cases):
         name, B, HQ, HKV, S, T, D, causal, window, softcap, scale = case[:11]
         for dtype in (torch.bfloat16, torch.float32):
             dn = str(dtype).replace("torch.", "")
             q, k, v, do, qs, ks, dlse = flash_inputs(case, dtype, dev,
-                                                     SEED + ci)
+                                                     SEED + seed0 + ci)
             opts = dict(causal=causal, sm_scale=scale, window=window,
                         softcap=softcap)
             o, lse = fa.flash_attention_fwd(q, k, v, qs, ks, **opts)
@@ -1130,94 +1327,156 @@ def phase3():
             del q, k, v, do, o, lse, dq, dk, dv, ro, rdq, rdk, rdv, f32
             torch.cuda.empty_cache()
 
-    # timing at the path's shape: bf16, causal, ROTATE input copies
-    case = FLASH_CASES[0]
-    copies = []
-    for i in range(ROTATE):
-        q, k, v, do, _, _, _ = flash_inputs(case, torch.bfloat16, dev,
-                                            SEED + 100 + i)
-        o, lse = fa.flash_attention_fwd(q, k, v)
-        delta = (do.float() * o.float()).sum(-1)
-        copies.append((q, k, v, do, lse, delta))
+
+def time_flash(shape, sm_scale=None, windows=(None,), worst=None,
+               source="neuronx_distributed_tpu_torch/ops/csrc/"
+                      "flash_attention.cu", suffix="") -> dict:
+    """B1-B3 at one causal bf16 ``shape = (B, HQ, HKV, S, D)``, ROTATE
+    input copies: device ms per call of each kernel for every window in
+    ``windows`` (the first is the entry's own), of its plain version and
+    of the library yardstick (SDPA forward for B1, its autograd backward,
+    dq, dk and dv together, for B2 and B3; causal, no window or softcap),
+    each held to its bound.  Returns one kernels-line entry per kernel
+    (``launches`` filled in by the training phase)."""
+    import torch
+    import torch.nn.functional as F
+
+    from neuronx_distributed_tpu_torch.ops import flash_attention as fa
+
+    Bt, HQ, HKV, S, Dt = shape
+    dev = torch.device("cuda")
+    copies = {}
+    for window in windows:
+        case = ("timing", Bt, HQ, HKV, S, S, Dt, True, window, None,
+                sm_scale, False, False)
+        opts = dict(sm_scale=sm_scale, window=window)
+        copies[window] = []
+        for i in range(ROTATE):
+            q, k, v, do, _, _, _ = flash_inputs(case, torch.bfloat16, dev,
+                                                SEED + 100 + i)
+            o, lse = fa.flash_attention_fwd(q, k, v, **opts)
+            delta = (do.float() * o.float()).sum(-1)
+            copies[window].append((q, k, v, do, lse, delta))
     torch.cuda.synchronize()
-    calls = {
-        "fwd": (lambda c: fa.flash_attention_fwd(c[0], c[1], c[2]),
-                lambda c: fa.flash_fwd_reference(c[0], c[1], c[2])),
-        "dq": (lambda c: fa.flash_attention_dq(*c),
-               lambda c: fa.flash_dq_reference(*c)),
-        "dkv": (lambda c: fa.flash_attention_dkv(*c),
-                lambda c: fa.flash_dkv_reference(*c)),
-    }
-    # library yardstick: SDPA forward for B1; its autograd backward (dq, dk
-    # and dv together) for B2 and B3
+    first = copies[windows[0]]
     lib_fwd = [lambda c=c: F.scaled_dot_product_attention(
-        c[0], c[1], c[2], is_causal=True, enable_gqa=True) for c in copies]
+        c[0], c[1], c[2], is_causal=True, scale=sm_scale, enable_gqa=True)
+        for c in first]
     lib_bwd = []
-    for c in copies[:2]:
+    for c in first[:2]:
         leaves = [x.detach().requires_grad_() for x in c[:3]]
         out = F.scaled_dot_product_attention(*leaves, is_causal=True,
-                                             enable_gqa=True)
+                                             scale=sm_scale, enable_gqa=True)
         lib_bwd.append(lambda out=out, leaves=leaves, do=c[3]:
                        torch.autograd.grad(out, leaves, do,
                                            retain_graph=True))
     lib_err = row_err(lib_fwd[0](), fa.flash_attention_fwd(
-        *copies[0][:3])[0])
-    lib_fwd_ms = device_ms(lib_fwd, 20, show="phase3 SDPA forward")
-    lib_bwd_ms = device_ms(lib_bwd, 10, show="phase3 SDPA backward")
+        *first[0][:3], sm_scale=sm_scale)[0])
+    label = f"B={Bt} HQ={HQ} HKV={HKV} S=T={S} D={Dt} bf16 causal"
+    fwd_names, bwd_names = [], []
+    lib_fwd_ms = device_ms(lib_fwd, 20, show=f"phase3 SDPA forward {label}",
+                           names=fwd_names)
+    lib_bwd_ms = device_ms(lib_bwd, 10, show=f"phase3 SDPA backward {label}",
+                           names=bwd_names)
     check_bound("SDPA forward", {"library": lib_fwd_ms},
-                flash_bound_ms(FB, FHQ, FHKV, FS, FS, FD, 2, "fwd")[0])
+                flash_bound_ms(Bt, HQ, HKV, S, S, Dt, 2, "fwd")[0])
     check_bound("SDPA backward", {"library": lib_bwd_ms},
-                flash_bound_ms(FB, FHQ, FHKV, FS, FS, FD, 2, "bwd")[0])
-    check_events("SDPA forward", lib_fwd_ms,
-                 cuda_time_ms(lib_fwd[0], iters=20))
-    check_events("SDPA backward", lib_bwd_ms,
-                 cuda_time_ms(lib_bwd[0], iters=10))
+                flash_bound_ms(Bt, HQ, HKV, S, S, Dt, 2, "bwd")[0])
+    check_events("SDPA forward", lib_fwd_ms, lib_fwd[0], 20)
+    check_events("SDPA backward", lib_bwd_ms, lib_bwd[0], 10)
+    log(f"phase3 ({label}): library forward agrees with the kernel to "
+        f"{lib_err:.2e} (largest row relative error, scale {sm_scale})")
     entries = {}
-    for w, (kernel, plain) in calls.items():
-        fn_name, kname, _, line = FLASH_KERNELS[w]
-        k_ms = device_ms([lambda c=c: kernel(c) for c in copies], 20,
-                         expect=kname)
-        p_ms = device_ms([lambda c=c: plain(c) for c in copies[:2]], 2)
-        b_ms, b_by, flops, nbytes = flash_bound_ms(FB, FHQ, FHKV, FS, FS, FD,
-                                                   2, w)
-        lib_ms = lib_fwd_ms if w == "fwd" else lib_bwd_ms
-        check_bound(fn_name, {"kernel": k_ms, "plain": p_ms}, b_ms)
-        check_events(fn_name, k_ms,
-                     cuda_time_ms(lambda: kernel(copies[0]), iters=20))
-        log(f"phase3 timing {fn_name} (B={FB} HQ={FHQ} HKV={FHKV} S=T={FS} "
-            f"D={FD} bf16 causal), device ms per call from torch.profiler: "
-            f"kernel {k_ms:.5f}, plain {p_ms:.5f}, library {lib_ms:.5f} "
-            f"({'SDPA forward' if w == 'fwd' else 'SDPA backward, dq+dk+dv'}"
-            f"); bound {b_ms:.5f} ({b_by}: {flops / 1e9:.1f} GFLOP, "
-            f"{nbytes / 1e6:.1f} MB), kernel / bound {k_ms / b_ms:.2f}, "
-            f"{flops / (k_ms * 1e-3) / 1e12:.1f} TFLOP/s")
+    for w, (fn_name, kname, _, line) in FLASH_KERNELS.items():
+        kernel = getattr(fa, fn_name)
+        plain = {"fwd": fa.flash_fwd_reference, "dq": fa.flash_dq_reference,
+                 "dkv": fa.flash_dkv_reference}[w]
+        nargs = 3 if w == "fwd" else 6
+        by_window = {}
+        for window in windows:
+            opts = dict(sm_scale=sm_scale, window=window)
+            cs = copies[window]
+            k_ms = device_ms([lambda c=c: kernel(*c[:nargs], **opts)
+                              for c in cs], 20, expect=kname)
+            b_ms, b_by, flops, nbytes = flash_bound_ms(
+                Bt, HQ, HKV, S, S, Dt, 2, w, window)
+            times = {"kernel": k_ms}
+            if window == windows[0]:
+                times["plain"] = device_ms(
+                    [lambda c=c: plain(*c[:nargs], **opts) for c in cs[:2]],
+                    2)
+            check_bound(f"{fn_name} {label} window {window}", times, b_ms)
+            check_events(fn_name, k_ms,
+                         lambda: kernel(*cs[0][:nargs], **opts), 20)
+            log(f"phase3 timing {fn_name} ({label}, window {window}), "
+                f"device ms per call from torch.profiler: kernel "
+                f"{k_ms:.5f}" + (f", plain {times['plain']:.5f}"
+                                 if "plain" in times else "")
+                + f", library {lib_fwd_ms if w == 'fwd' else lib_bwd_ms:.5f}"
+                f" ({'SDPA forward' if w == 'fwd' else 'SDPA backward, dq+dk+dv'}"
+                f", causal, no window); bound {b_ms:.5f} ({b_by}: "
+                f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), kernel / "
+                f"bound {k_ms / b_ms:.2f}, "
+                f"{flops / (k_ms * 1e-3) / 1e12:.1f} TFLOP/s")
+            by_window[window] = dict(times, bound_ms=b_ms, bound_by=b_by,
+                                     flops=flops)
+        own = by_window[windows[0]]
         entries[w] = {
-            "name": fn_name,
+            "name": fn_name + suffix,
             "route": "cuda",
-            "source": "neuronx_distributed_tpu_torch/ops/csrc/flash_attention.cu",
+            "source": source,
             "replaces": f"neuronx_distributed_tpu/ops/flash_attention.py:{line}",
             "launches": None,
             "max_abs_err": worst[w]["abs"],
             "max_err": worst[w]["row_rel"],
             "max_err_is": "largest relative L2 error of one row, bf16",
             "tolerance": TOL["bfloat16"],
-            "ms": k_ms,
-            "plain_ms": p_ms,
-            "bound_ms": b_ms,
-            "bound_by": b_by,
-            "library_ms": lib_ms,
+            "ms": own["kernel"],
+            "plain_ms": own["plain"],
+            "bound_ms": own["bound_ms"],
+            "bound_by": own["bound_by"],
+            "library_ms": lib_fwd_ms if w == "fwd" else lib_bwd_ms,
             "library_call": ("F.scaled_dot_product_attention forward"
                              if w == "fwd" else
                              "F.scaled_dot_product_attention backward "
                              "(dq, dk and dv together)"),
-            "shapes": {"q": [FB, FHQ, FS, FD], "kv": [FB, FHKV, FS, FD],
-                       "dtype": "bfloat16", "causal": True},
+            "library_kernel": (fwd_names if w == "fwd" else bwd_names)[0],
+            "shapes": {"q": [Bt, HQ, S, Dt], "kv": [Bt, HKV, S, Dt],
+                       "dtype": "bfloat16", "causal": True,
+                       "sm_scale": sm_scale},
         }
-    entries["fwd"]["lse_max_abs_err"] = worst_lse
-    log(f"phase3: library forward agrees with the kernel to {lib_err:.2e} "
-        f"(largest row relative error)")
+        for window in windows[1:]:
+            entries[w][f"window{window}"] = {
+                "ms": by_window[window]["kernel"],
+                "bound_ms": by_window[window]["bound_ms"],
+                "bound_by": by_window[window]["bound_by"]}
     del copies, lib_fwd, lib_bwd
+    torch.cuda.empty_cache()
     return entries
+
+
+def phase3():
+    """The flash kernels held against their plain versions (the D 64/128
+    cases and the D 256 cases of the Gemma slice), then timed at the Llama
+    training shape (D 128) and at Gemma-2-2B's (D 256, global and
+    sliding-window layers)."""
+    import torch
+
+    new_worst = lambda: {w: {"abs": 0.0, "row_rel": 0.0}  # noqa: E731
+                         for w in FLASH_KERNELS}
+    worst, worst256 = new_worst(), new_worst()
+    worst_lse = {"bfloat16": 0.0, "float32": 0.0}
+    hold_flash_cases(FLASH_CASES, worst, worst_lse)
+    hold_flash_cases(FLASH_CASES_D256, worst256, worst_lse,
+                     seed0=len(FLASH_CASES))
+    entries = time_flash((FB, FHQ, FHKV, FS, FD), worst=worst)
+    entries["fwd"]["lse_max_abs_err"] = worst_lse
+    gemma = time_flash(
+        (GB, GHQ, GHKV, GS, GD), G2_SCALE, (None, G2_WINDOW), worst256,
+        "neuronx_distributed_tpu_torch/ops/csrc/flash_attention_d256.cu",
+        "_d256")
+    torch.cuda.empty_cache()
+    return entries, gemma
 
 
 # -- phase 4 ------------------------------------------------------------------
@@ -1251,19 +1510,19 @@ def loss_and_grads(model, loss_fn, batch) -> tuple:
     return loss.item(), norm.item(), attn
 
 
-def flash_vs_dense(cfg, state, loss_fn, batch, dtype) -> list:
+def flash_vs_dense(label, model_cls, cfg, state, loss_fn, batch,
+                   dtype) -> list:
     """One step's loss, grad norm and attention-projection gradients
-    through the flash and the dense core, on copies of the same weights
-    computing in ``dtype``; fails beyond :data:`FLASH_DENSE_RTOL`."""
+    through the flash and the dense core, on ``model_cls`` models loaded
+    with the same weights ``state`` and computing in ``dtype``; fails
+    beyond :data:`FLASH_DENSE_RTOL`."""
     import dataclasses
 
     import torch
 
-    from neuronx_distributed_tpu_torch.models.llama import LlamaForCausalLM
-
     runs = {}
     for impl in ("flash", "dense"):
-        model = LlamaForCausalLM(dataclasses.replace(
+        model = model_cls(dataclasses.replace(
             cfg, attention_impl=impl, dtype=dtype),
             device=batch["ids"].device)
         model.load_state_dict(state)
@@ -1278,12 +1537,12 @@ def flash_vs_dense(cfg, state, loss_fn, batch, dtype) -> list:
     rel.append(attn_rel[worst_leaf])
     name = str(dtype).replace("torch.", "")
     tol = FLASH_DENSE_RTOL[name]
-    log(f"phase4: one step at batch 1 x {TRAIN_S} in {name} compute, flash "
-        f"vs dense core: loss {f[0]:.6f} vs {d[0]:.6f} (rel {rel[0]:.2e}, "
-        f"tol {tol[0]}), grad norm {f[1]:.6f} vs {d[1]:.6f} (rel "
-        f"{rel[1]:.2e}, tol {tol[1]}); attention projection gradients, "
-        f"relative L2 difference: " + ", ".join(
-            f"{n} {r:.2e}" for n, r in attn_rel.items())
+    log(f"{label}: one step at batch {tuple(batch['ids'].shape)} in {name} "
+        f"compute, {cfg.num_layers} layers, flash vs dense core: loss "
+        f"{f[0]:.6f} vs {d[0]:.6f} (rel {rel[0]:.2e}, tol {tol[0]}), grad "
+        f"norm {f[1]:.6f} vs {d[1]:.6f} (rel {rel[1]:.2e}, tol {tol[1]}); "
+        f"attention projection gradients, relative L2 difference: "
+        + ", ".join(f"{n} {r:.2e}" for n, r in attn_rel.items())
         + f" (largest {worst_leaf}, tol {tol[2]})")
     if not all(r <= t for r, t in zip(rel, tol)):
         raise AssertionError(f"flash and dense cores disagree in {name}: "
@@ -1291,62 +1550,28 @@ def flash_vs_dense(cfg, state, loss_fn, batch, dtype) -> list:
     return rel
 
 
-def phase4(flash_entries):
-    import gc
-
-    import numpy as np
+def train_steps(label, config, model, loss_fn, batch, fwd_per_layer,
+                flash_entries) -> dict:
+    """The training main path after ``initialize_parallel_model``: the
+    optimizer, ``make_train_step``, WARMUP_STEPS + TIMED_STEPS steps on
+    ``batch`` with every launch count set to 0 first.  Checks finite and
+    falling losses and the flash launches (``fwd_per_layer`` forwards, one
+    dq and one dk/dv per layer and step; written into ``flash_entries``),
+    then reports tokens/s, MFU, peak memory and where a profiled step's
+    device time goes."""
     import torch
 
-    from neuronx_distributed_tpu_torch.config import training_config
-    from neuronx_distributed_tpu_torch.models.common import (
-        make_causal_lm_loss_sum,
-    )
-    from neuronx_distributed_tpu_torch.models.llama import (
-        LlamaConfig,
-        LlamaForCausalLM,
-    )
     from neuronx_distributed_tpu_torch.ops import flash_attention as fa
     from neuronx_distributed_tpu_torch.ops.paged_attention import paged_attention
     from neuronx_distributed_tpu_torch.trainer import (
-        initialize_parallel_model,
         initialize_parallel_optimizer,
         make_train_step,
         mfu,
         transformer_flops_per_token,
     )
 
-    # what earlier phases left (reference cycles hold their models and
-    # page pools until a collection) is not this phase's memory
-    gc.collect()
-    torch.cuda.empty_cache()
-    base = torch.cuda.memory_allocated()
-    cfg = LlamaConfig.llama3_8b(num_layers=TRAIN_LAYERS,
-                                attention_impl="flash", remat="none",
-                                dtype=torch.bfloat16,
-                                param_dtype=torch.float32)
-    config = training_config(learning_rate=1e-4, max_grad_norm=1.0,
-                             seed=SEED)
-    t0 = time.perf_counter()
-    model = initialize_parallel_model(
-        config, lambda d: LlamaForCausalLM(cfg, device=d), seed=SEED)
-    torch.cuda.synchronize()
-    n_params = model.num_parameters()
-    log(f"phase4: Llama-3-8B width, {cfg.num_layers} layers (cut from 32), "
-        f"vocab {cfg.vocab_size}, {n_params / 1e9:.3f}B params fp32 masters, "
-        f"bf16 compute, flash attention, remat none; random init in "
-        f"{time.perf_counter() - t0:.1f} s")
-    loss_fn = make_causal_lm_loss_sum(TRAIN_CHUNK)
-    rs = np.random.RandomState(SEED)
-    ids = rs.randint(0, cfg.vocab_size, size=(TRAIN_B, TRAIN_S))
-    batch = {"ids": ids, "labels": np.roll(ids, -1, axis=1)}
-
-    # flash core vs dense core: one step at batch 1, on copies of the
-    # trainer's weights
-    one = {k: torch.as_tensor(v[:1]).cuda() for k, v in batch.items()}
-    rel = {str(dt).replace("torch.", ""): flash_vs_dense(
-        cfg, model.module.state_dict(), loss_fn, one, dt)
-        for dt in (torch.bfloat16, torch.float32)}
-
+    cfg = model.module.config
+    Bt, St = batch["ids"].shape
     opt = initialize_parallel_optimizer(config, model)
     step = make_train_step(config, model, opt, loss_fn)
     torch.cuda.reset_peak_memory_stats()
@@ -1373,31 +1598,32 @@ def phase4(flash_entries):
     losses = [x.item() for x in losses]
     norms = [x.item() for x in norms]
     peak = torch.cuda.max_memory_allocated()
-    tok_s = TRAIN_B * TRAIN_S * TIMED_STEPS / wall
+    tok_s = Bt * St * TIMED_STEPS / wall
     fpt = transformer_flops_per_token(
         cfg.num_layers, cfg.hidden_size, cfg.intermediate_size,
-        cfg.vocab_size, TRAIN_S, cfg.num_heads, cfg.num_kv_heads,
-        cfg.head_dim_)
+        cfg.vocab_size, St, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_)
     util = mfu(tok_s, fpt, PEAK_FLOPS["bfloat16"])
-    log(f"phase4: {steps} steps at batch {TRAIN_B} x {TRAIN_S}, "
-        f"make_causal_lm_loss_sum({TRAIN_CHUNK}), lr 1e-4, clip 1.0: losses "
+    L = cfg.num_layers
+    want = {"fwd": steps * L * fwd_per_layer, "dq": steps * L,
+            "dkv": steps * L}
+    log(f"{label}: {steps} steps at batch {Bt} x {St}, remat {cfg.remat}, "
+        f"lr {config.optimizer.learning_rate}, clip "
+        f"{config.optimizer.max_grad_norm}: losses "
         + ", ".join(f"{x:.4f}" for x in losses) + "; grad norms "
         + ", ".join(f"{x:.3f}" for x in norms))
-    log(f"phase4: {TIMED_STEPS} timed steps in {wall:.3f} s = "
+    log(f"{label}: {TIMED_STEPS} timed steps in {wall:.3f} s = "
         f"{wall / TIMED_STEPS * 1e3:.1f} ms/step, {tok_s:.1f} tokens/s, "
         f"MFU {util:.4f} ({fpt / 1e9:.3f} GFLOP/token, 6N + attention, "
-        f"against 989 TFLOP/s bf16); peak memory {peak / 2**30:.2f} GiB "
-        f"({base / 2**30:.2f} GiB held before the phase); "
-        f"launches {launches} = {steps} steps x {cfg.num_layers} layers "
-        f"expected (remat none: no recompute)")
+        f"against 989 TFLOP/s bf16); peak memory {peak / 2**30:.2f} GiB; "
+        f"launches {launches}, expected {want} ({steps} steps x {L} layers, "
+        f"{fwd_per_layer} forward(s) per layer under remat {cfg.remat})")
     if not all(math.isfinite(x) for x in losses + norms):
         raise AssertionError(f"non-finite loss or grad norm: {losses}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"loss did not fall: {losses}")
+    if launches != want:
+        raise AssertionError(f"flash launches {launches}, expected {want}")
     for w, n in launches.items():
-        if n != steps * cfg.num_layers:
-            raise AssertionError(f"{FLASH_KERNELS[w][0]} launched {n} times, "
-                                 f"expected {steps} x {cfg.num_layers}")
         flash_entries[w]["launches"] = n
 
     # where a step's device time goes
@@ -1410,28 +1636,244 @@ def phase4(flash_entries):
         torch.cuda.synchronize()
         prof_wall.append(time.perf_counter() - t0)
 
-    events = trace(run, lambda: step(batch))
-    prof_ms = prof_wall[0] / 2 * 1e3
-    busy_ms = sum(dev_us(e) for e in events) / 1e3 / 2
+    for attempt in range(1, TRACE_TRIES + 1):  # see device_ms
+        events = trace(run, lambda: step(batch))
+        busy_ms = sum(dev_us(e) for e in events) / 1e3 / 2
+        if busy_ms > 0:
+            break
+        log(f"{label}: torch.profiler trace {attempt}/{TRACE_TRIES} of two "
+            f"steps shows no device time")
+    else:
+        raise AssertionError("the profiler saw no device time")
+    prof_ms = prof_wall[-1] / 2 * 1e3
     flash_ms = sum(dev_us(e) for e in events if "flash_" in e.key) / 1e3 / 2
     top = sorted(events, key=dev_us, reverse=True)[:8]
-    log(f"phase4 profiled step: {prof_ms:.1f} ms wall, device busy "
+    log(f"{label} profiled step: {prof_ms:.1f} ms wall, device busy "
         f"{busy_ms:.1f} ms ({busy_ms / prof_ms:.1%}), flash kernels "
         f"{flash_ms:.2f} ms ({flash_ms / busy_ms:.1%} of device time)")
-    log("phase4 top device time per step: " + "; ".join(
+    log(f"{label} top device time per step: " + "; ".join(
         f"{e.key[:60]} {dev_us(e) / 1e3 / 2:.2f} ms" for e in top))
-    if busy_ms <= 0:
-        raise AssertionError("the profiler saw no device time")
-    del opt, step, model
+    del opt, step
+    return {"layers": L, "params": model.num_parameters(), "steps": steps,
+            "batch": [Bt, St], "remat": cfg.remat, "losses": losses,
+            "grad_norms": norms, "step_ms": wall / TIMED_STEPS * 1e3,
+            "tok_s": tok_s, "mfu": util, "flops_per_token": fpt,
+            "peak_gib": peak / 2**30, "profiled_step_ms": prof_ms,
+            "device_busy_ms": busy_ms, "device_busy_share": busy_ms / prof_ms,
+            "flash_ms": flash_ms, "launches": launches}
+
+
+def train_batch(vocab: int, B_: int, S_: int):
+    import numpy as np
+
+    ids = np.random.RandomState(SEED).randint(0, vocab, size=(B_, S_))
+    return {"ids": ids, "labels": np.roll(ids, -1, axis=1)}
+
+
+def phase4(flash_entries):
+    import gc
+
+    import torch
+
+    from neuronx_distributed_tpu_torch.config import training_config
+    from neuronx_distributed_tpu_torch.models.common import (
+        make_causal_lm_loss_sum,
+    )
+    from neuronx_distributed_tpu_torch.models.llama import (
+        LlamaConfig,
+        LlamaForCausalLM,
+    )
+    from neuronx_distributed_tpu_torch.trainer import initialize_parallel_model
+
+    # what earlier phases left (reference cycles hold their models and
+    # page pools until a collection) is not this phase's memory
+    gc.collect()
     torch.cuda.empty_cache()
-    return {"layers": cfg.num_layers, "params": n_params, "steps": steps,
-            "losses": losses, "grad_norms": norms, "step_ms":
-            wall / TIMED_STEPS * 1e3, "tok_s": tok_s, "mfu": util,
-            "flops_per_token": fpt, "peak_gib": peak / 2**30,
-            "base_gib": base / 2**30,
-            "profiled_step_ms": prof_ms, "device_busy_ms": busy_ms,
-            "device_busy_share": busy_ms / prof_ms, "flash_ms": flash_ms,
-            "launches": launches, "flash_vs_dense_rel": rel}
+    base = torch.cuda.memory_allocated()
+    cfg = LlamaConfig.llama3_8b(num_layers=TRAIN_LAYERS,
+                                attention_impl="flash", remat="none",
+                                dtype=torch.bfloat16,
+                                param_dtype=torch.float32)
+    config = training_config(learning_rate=1e-4, max_grad_norm=1.0,
+                             seed=SEED)
+    t0 = time.perf_counter()
+    model = initialize_parallel_model(
+        config, lambda d: LlamaForCausalLM(cfg, device=d), seed=SEED)
+    torch.cuda.synchronize()
+    log(f"phase4: Llama-3-8B width, {cfg.num_layers} layers (cut from 32), "
+        f"vocab {cfg.vocab_size}, {model.num_parameters() / 1e9:.3f}B params "
+        f"fp32 masters, bf16 compute, flash attention, remat none; random "
+        f"init in {time.perf_counter() - t0:.1f} s")
+    loss_fn = make_causal_lm_loss_sum(TRAIN_CHUNK)
+    batch = train_batch(cfg.vocab_size, TRAIN_B, TRAIN_S)
+
+    # flash core vs dense core: one step at batch 1, on copies of the
+    # trainer's weights
+    one = {k: torch.as_tensor(v[:1]).cuda() for k, v in batch.items()}
+    rel = {str(dt).replace("torch.", ""): flash_vs_dense(
+        "phase4", LlamaForCausalLM, cfg, model.module.state_dict(), loss_fn,
+        one, dt) for dt in (torch.bfloat16, torch.float32)}
+    summary = train_steps("phase4", config, model, loss_fn, batch, 1,
+                          flash_entries)
+    del model
+    torch.cuda.empty_cache()
+    return dict(summary, base_gib=base / 2**30, flash_vs_dense_rel=rel)
+
+
+# -- phase 5 ------------------------------------------------------------------
+
+# Gemma-2-2B training: full width and depth, batch 1 x 8192 (the window of
+# the even layers masks keys), the JAX default remat, the chunked loss head
+G2_TRAIN_B, G2_TRAIN_S, G2_REMAT = 1, 8192, "selective"
+
+
+def phase5(flash_entries):
+    """Gemma-2-2B (26 layers, tied 256000 x 2304 table, head_dim 256) trains
+    WARMUP_STEPS + TIMED_STEPS steps through the trainer's entry points at
+    1 x 8192 with fp32 masters, bf16 compute and the flash kernels at
+    D = 256.  Flash vs dense is held on the same width cut to 2 layers (one
+    sliding, one global): a 26-layer dense core at 8192 does not fit."""
+    import gc
+
+    import torch
+
+    from neuronx_distributed_tpu_torch.config import training_config
+    from neuronx_distributed_tpu_torch.models.common import (
+        make_causal_lm_loss_sum,
+    )
+    from neuronx_distributed_tpu_torch.models.gemma import (
+        Gemma2Config,
+        Gemma2ForCausalLM,
+    )
+    from neuronx_distributed_tpu_torch.trainer import initialize_parallel_model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = Gemma2Config.gemma2_2b(attention_impl="flash", remat=G2_REMAT,
+                                 dtype=torch.bfloat16,
+                                 param_dtype=torch.float32)
+    config = training_config(learning_rate=1e-4, max_grad_norm=1.0,
+                             seed=SEED)
+    loss_fn = make_causal_lm_loss_sum(TRAIN_CHUNK)
+    batch = train_batch(cfg.vocab_size, G2_TRAIN_B, G2_TRAIN_S)
+
+    two = Gemma2Config.gemma2_2b(num_layers=2, attention_impl="flash",
+                                 remat=G2_REMAT, dtype=torch.bfloat16,
+                                 param_dtype=torch.float32)
+    state = Gemma2ForCausalLM(two, device="cuda").init_random(SEED
+                                                               ).state_dict()
+    dev_batch = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
+    rel = {str(dt).replace("torch.", ""): flash_vs_dense(
+        "phase5", Gemma2ForCausalLM, two, state, loss_fn, dev_batch, dt)
+        for dt in (torch.bfloat16, torch.float32)}
+    del state, dev_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    model = initialize_parallel_model(
+        config, lambda d: Gemma2ForCausalLM(cfg, device=d), seed=SEED)
+    torch.cuda.synchronize()
+    log(f"phase5: Gemma-2-2B, {cfg.num_layers} layers (full depth), vocab "
+        f"{cfg.vocab_size} (tied head), {model.num_parameters() / 1e9:.3f}B "
+        f"params fp32 masters, bf16 compute, flash attention at head_dim "
+        f"{cfg.head_dim}, window {cfg.sliding_window} on even layers, "
+        f"softcaps {cfg.attn_softcap}/{cfg.final_softcap}, remat "
+        f"{cfg.remat}; random init in {time.perf_counter() - t0:.1f} s")
+    summary = train_steps("phase5", config, model, loss_fn, batch,
+                          1 if cfg.remat == "none" else 2, flash_entries)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(summary, flash_vs_dense_rel=rel)
+
+
+# -- phase 5b -----------------------------------------------------------------
+
+G2_REQUESTS, G2_NEW_TOKENS = 8, 32
+
+
+def phase5b(kernel_entry):
+    """Gemma-2-2B serving: full width and depth with random bf16 weights,
+    ``ServingEngine`` in paged mode over a bf16 pool; the paged kernel at
+    head_dim 256 with the softcap on every decode step of every layer."""
+    import gc
+
+    import torch
+
+    from neuronx_distributed_tpu_torch import (
+        InferenceConfig,
+        ParallelInferenceModel,
+        ServingEngine,
+    )
+    from neuronx_distributed_tpu_torch.models.gemma import (
+        Gemma2Config,
+        Gemma2ForCausalLM,
+    )
+    from neuronx_distributed_tpu_torch.ops.paged_attention import paged_attention
+
+    cfg = Gemma2Config.gemma2_2b()
+    t0 = time.perf_counter()
+    model = Gemma2ForCausalLM(cfg, device="cuda").init_random(SEED)
+    pim = ParallelInferenceModel(
+        model, InferenceConfig(SLOTS, CONTEXT, MAX_TOTAL, torch.bfloat16))
+    if not pim.paged_kernel:
+        raise AssertionError("paged_kernel did not resolve to the kernel")
+    torch.cuda.synchronize()
+    log(f"phase5b: Gemma-2-2B {cfg.num_layers} layers, "
+        f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f}B params "
+        f"bf16, random init in {time.perf_counter() - t0:.1f} s")
+    engine = ServingEngine(pim, page_size=PAGE_SIZE)
+    requests = make_requests(cfg.vocab_size, G2_REQUESTS, G2_NEW_TOKENS,
+                             SEED)
+    torch.cuda.reset_peak_memory_stats()
+    paged_attention.launches = 0
+    t0 = time.perf_counter()
+    outs = serve(engine, requests)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, steps = paged_attention.launches, engine.decode_steps
+    peak = torch.cuda.max_memory_allocated()
+    tokens = sum(len(o.token_ids) for o in outs.values())
+    bad = [(o.request_id, o.state, len(o.token_ids)) for o in outs.values()
+           if o.state != "finished" or len(o.token_ids) != G2_NEW_TOKENS]
+    if len(outs) != G2_REQUESTS or bad:
+        raise AssertionError(f"requests not served in full: {bad}, "
+                             f"{len(outs)}/{G2_REQUESTS} outputs")
+    if launches != steps * cfg.num_layers:
+        raise AssertionError(f"paged_attention launches {launches} != decode "
+                             f"steps {steps} x {cfg.num_layers} layers")
+    engine._kv.assert_invariants()
+    leaks = engine._kv.leaked_pages()
+    if leaks:
+        raise AssertionError(f"{leaks} KV pages leaked")
+    log(f"phase5b: served {G2_REQUESTS} requests, {tokens} tokens in "
+        f"{wall:.3f} s ({tokens / wall:.1f} tok/s overall, {steps} batched "
+        f"decode steps, {wall / steps * 1e3:.2f} ms/step incl. admissions); "
+        f"kernel launches {launches} = {steps} x {cfg.num_layers}; page "
+        f"leaks 0; peak memory {peak / 2**30:.2f} GiB")
+    kernel_entry["launches"] = launches
+    del engine
+
+    eng = admitted_engine(pim, cfg.vocab_size)
+    lg_k = decode_logits(pim, eng, True)
+    lg_g = decode_logits(pim, eng, False)
+    del eng
+    rel, agree = compare_logits(lg_k, lg_g)
+    log(f"phase5b: kernel vs gather logits, one decode step at full width: "
+        f"rel L2 {rel:.3e} (tol {LOGITS_REL_TOL}), argmax agreement "
+        f"{agree:.3f}, max |logit| {lg_g.abs().max().item():.3e} (final "
+        f"softcap {cfg.final_softcap})")
+    if not rel <= LOGITS_REL_TOL or not torch.isfinite(lg_k).all():
+        raise AssertionError(f"kernel and gather logits disagree: rel {rel}")
+    busy = steady_decode_profile(pim, cfg.vocab_size, label="phase5b")
+    del pim, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**busy, "wall_s": wall, "tokens": tokens, "tok_s": tokens / wall,
+            "decode_steps": steps, "launches": launches,
+            "peak_gib": peak / 2**30, "logits_rel_l2": rel,
+            "argmax_agreement": agree}
 
 
 def main() -> int:
@@ -1473,10 +1915,17 @@ def main() -> int:
         quantized = phase2b(model_pim, entry8, whole_tokens)
         log(f"phase2b summary: {json.dumps(quantized)}")
         del model_pim
-        flash = phase3()
+        entry256 = phase1_gemma()
+        flash, flash256 = phase3()
         training = phase4(flash)
         log(f"phase4 summary: {json.dumps(training)}")
-        kernels = [entry, entry8] + [flash[w] for w in FLASH_KERNELS]
+        gemma_training = phase5(flash256)
+        log(f"phase5 summary: {json.dumps(gemma_training)}")
+        gemma_serving = phase5b(entry256)
+        log(f"phase5b summary: {json.dumps(gemma_serving)}")
+        kernels = ([entry, entry8, entry256]
+                   + [flash[w] for w in FLASH_KERNELS]
+                   + [flash256[w] for w in FLASH_KERNELS])
         for k in kernels:
             if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms",
                                                      "library_ms",

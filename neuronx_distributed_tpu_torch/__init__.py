@@ -13,9 +13,11 @@ hand-written CUDA flash-attention forward, dq and dk/dv kernels
 (:mod:`.ops.flash_attention`).  Slice 3 adds int8 KV pages
 (:mod:`.kvcache.quant`, ``ServingEngine(kv_quant="int8")``, the kernel's
 int8 dequant branch) and chunked prefill
-(``ServingEngine(prefill_chunk_tokens=...)``).  The port imports ``torch``
-and nothing of JAX or of the JAX package.  Entry points run on the card unless the caller
-passes ``device="cpu"``.
+(``ServingEngine(prefill_chunk_tokens=...)``).  Slice 4 adds Gemma and
+Gemma-2 (:mod:`.models.gemma`: Gemma-2-2B trains and serves through the
+same entry points) and the flash kernels at head_dim 256.  The port
+imports ``torch`` and nothing of JAX or of the JAX package.  Entry points
+run on the card unless the caller passes ``device="cpu"``.
 """
 
 from neuronx_distributed_tpu_torch.config import TrainingConfig, training_config

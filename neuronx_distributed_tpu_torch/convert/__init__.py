@@ -1,5 +1,10 @@
 """Weight conversion into the PyTorch port."""
 
-from neuronx_distributed_tpu_torch.convert.jax_params import llama_params_from_jax
+from neuronx_distributed_tpu_torch.convert.jax_params import (
+    gemma2_params_from_jax,
+    gemma_params_from_jax,
+    llama_params_from_jax,
+)
 
-__all__ = ["llama_params_from_jax"]
+__all__ = ["gemma2_params_from_jax", "gemma_params_from_jax",
+           "llama_params_from_jax"]

@@ -6,7 +6,10 @@ layout: ``model/embed/embedding [V, H]``, ``model/layer_i/attn/qkv/
 {q,k,v}_kernel [H, heads, D]``, ``attn/o_proj/kernel [NQ*D, H]``,
 ``mlp/gate_up/kernel [H, 2, I]``, ``mlp/down/kernel [I, H]``, the norm
 ``weight``s, ``lm_head/kernel [H, V]``), so the conversion is a flatten of
-the tree's paths with a shape check against the config.  Arrays move as
+the tree's paths with a shape check against the config.  Gemma and Gemma-2
+trees (``neuronx_distributed_tpu/models/gemma.py``) have no ``model/`` level
+and no ``lm_head`` (the head is the tied embedding); Gemma-2 layers carry
+four norm weights.  Arrays move as
 they are and ``load_state_dict`` casts them to the model's types, so a
 model built with ``param_dtype=torch.float32`` (training) keeps the JAX
 package's fp32 masters bit for bit, and a serving model (weights in the
@@ -32,14 +35,17 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
     return out
 
 
-def _expected_shapes(cfg) -> Dict[str, tuple]:
+def _expected_shapes(cfg, prefix: str = "model.", lm_head: bool = True,
+                     norms=("input_norm", "post_attn_norm")
+                     ) -> Dict[str, tuple]:
     H, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     NQ, NKV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
-    shapes = {"model.embed.embedding": (V, H),
-              "model.final_norm.weight": (H,),
-              "lm_head.kernel": (H, V)}
+    shapes = {prefix + "embed.embedding": (V, H),
+              prefix + "final_norm.weight": (H,)}
+    if lm_head:
+        shapes["lm_head.kernel"] = (H, V)
     for i in range(cfg.num_layers):
-        p = f"model.layer_{i}."
+        p = f"{prefix}layer_{i}."
         shapes.update({
             p + "attn.qkv.q_kernel": (H, NQ, D),
             p + "attn.qkv.k_kernel": (H, NKV, D),
@@ -47,10 +53,9 @@ def _expected_shapes(cfg) -> Dict[str, tuple]:
             p + "attn.o_proj.kernel": (NQ * D, H),
             p + "mlp.gate_up.kernel": (H, 2, I),
             p + "mlp.down.kernel": (I, H),
-            p + "input_norm.weight": (H,),
-            p + "post_attn_norm.weight": (H,),
+            **{f"{p}{n}.weight": (H,) for n in norms},
         })
-        if cfg.qkv_bias:
+        if getattr(cfg, "qkv_bias", False):
             shapes.update({p + "attn.qkv.q_bias": (NQ, D),
                            p + "attn.qkv.k_bias": (NKV, D),
                            p + "attn.qkv.v_bias": (NKV, D)})
@@ -62,8 +67,29 @@ def llama_params_from_jax(tree: Mapping[str, Any], cfg) -> Dict[str, torch.Tenso
     without the leading ``params`` level) -> a ``state_dict`` for the
     port's ``LlamaForCausalLM`` with config ``cfg``.  Raises on a missing,
     extra or wrongly shaped parameter."""
+    return _convert(tree, _expected_shapes(cfg))
+
+
+def gemma_params_from_jax(tree: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """A JAX ``GemmaForCausalLM`` param tree -> a ``state_dict`` for the
+    port's ``GemmaForCausalLM`` with config ``cfg`` (a ``GemmaConfig``).
+    The tree has no ``lm_head``: the head is the tied embedding."""
+    return _convert(tree, _expected_shapes(cfg, prefix="", lm_head=False))
+
+
+def gemma2_params_from_jax(tree: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """A JAX ``Gemma2ForCausalLM`` param tree -> a ``state_dict`` for the
+    port's ``Gemma2ForCausalLM``; each layer carries the four sandwich-norm
+    weights."""
+    return _convert(tree, _expected_shapes(
+        cfg, prefix="", lm_head=False,
+        norms=("input_norm", "post_attn_norm", "pre_ffw_norm",
+               "post_ffw_norm")))
+
+
+def _convert(tree: Mapping[str, Any], want: Dict[str, tuple]
+             ) -> Dict[str, torch.Tensor]:
     flat = _flatten(tree.get("params", tree))
-    want = _expected_shapes(cfg)
     if set(flat) != set(want):
         missing = sorted(set(want) - set(flat))
         extra = sorted(set(flat) - set(want))

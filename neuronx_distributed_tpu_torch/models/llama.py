@@ -21,6 +21,7 @@ tensors.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -47,6 +48,11 @@ from neuronx_distributed_tpu_torch.utils.device import resolve_device
 
 # a layer's cache: the fp pair (k, v), or an int8 page pool's six-tuple
 KVCache = Tuple[torch.Tensor, ...]
+
+# the gated MLP's activation: SiLU (Llama/Mistral SwiGLU) or tanh-approximate
+# GELU (Gemma GeGLU, JAX ``gelu(approximate=True)``, HF ``gelu_pytorch_tanh``)
+MLP_ACTIVATIONS = {"silu": F.silu,
+                   "gelu_tanh": functools.partial(F.gelu, approximate="tanh")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,6 +88,7 @@ class LlamaConfig:
     sliding_window: Optional[int] = None
     remat: str = "selective"
     attention_impl: str = "dense"
+    mlp_activation: str = "silu"    # a key of MLP_ACTIVATIONS
     dtype: torch.dtype = torch.bfloat16
     param_dtype: Optional[torch.dtype] = None
 
@@ -91,6 +98,10 @@ class LlamaConfig:
         if self.attention_impl not in ("dense", "flash"):
             raise ValueError(
                 f"unknown attention_impl {self.attention_impl!r}")
+        if self.mlp_activation not in MLP_ACTIVATIONS:
+            raise ValueError(
+                f"unknown mlp_activation {self.mlp_activation!r} (one of "
+                f"{sorted(MLP_ACTIVATIONS)})")
 
     @property
     def weight_dtype(self) -> torch.dtype:
@@ -431,10 +442,11 @@ class LlamaMLP(nn.Module):
                                       use_bias=False, dtype=cfg.dtype,
                                       device=device,
                                       param_dtype=cfg.weight_dtype)
+        self.act = MLP_ACTIVATIONS[cfg.mlp_activation]
 
     def forward(self, x):
         gate_up = self.gate_up(x)
-        return self.down(F.silu(gate_up[..., 0, :]) * gate_up[..., 1, :])
+        return self.down(self.act(gate_up[..., 0, :]) * gate_up[..., 1, :])
 
     def reset_parameters(self, generator=None) -> None:
         self.gate_up.reset_parameters(generator)
@@ -481,32 +493,44 @@ class LlamaModel(nn.Module):
     def forward(self, ids, positions=None, kv_caches=None, cache_offset=0,
                 kv_valid=None, block_table=None, paged_kernel=False,
                 segment_ids=None):
-        if positions is None:
-            positions = torch.arange(ids.shape[1], device=ids.device
-                                     ).expand(ids.shape)
-        if block_table is not None and kv_caches is None:
-            raise ValueError("a block table needs the page pool caches")
-        h = self.embed(ids)
-        if kv_caches is None:
-            # training / teacher-forced forward: per-document positions and
-            # segment ids (packed batches); remat only when grads are on
-            remat = self.config.remat if torch.is_grad_enabled() else "none"
-            for block in self.layers():
-                step = maybe_remat(
-                    lambda x, p, blk=block: blk(
-                        x, p, None, 0, kv_valid, None, segment_ids)[0],
-                    remat)
-                h = step(h, positions)
-            return self.final_norm(h)
-        paged = None
-        if block_table is not None:
-            paged = plan_paged_step(block_table, cache_offset, kv_valid,
-                                    ids.shape[1], kv_caches[0][0].shape[1],
-                                    paged_kernel, len(kv_caches[0]) == 6)
-        for i, block in enumerate(self.layers()):
-            h, _ = block(h, positions, kv_caches[i], cache_offset, kv_valid,
-                         paged)
-        return self.final_norm(h)
+        return self.final_norm(run_layers(
+            self.layers(), self.embed(ids), positions, kv_caches,
+            cache_offset, kv_valid, block_table, paged_kernel, segment_ids,
+            self.config.remat))
+
+
+def run_layers(layers, h, positions=None, kv_caches=None, cache_offset=0,
+               kv_valid=None, block_table=None, paged_kernel=False,
+               segment_ids=None, remat: str = "none") -> torch.Tensor:
+    """The decoder stack over the embedded ``h [B, S, H]``.  Without
+    caches: the training / teacher-forced forward,
+    with per-document positions and segment ids (packed batches) and
+    ``remat`` per block when gradients are on.  With caches: the serving
+    forward, the paged step planned once for every layer when there is a
+    block table."""
+    if positions is None:
+        positions = torch.arange(h.shape[1], device=h.device
+                                 ).expand(h.shape[:2])
+    if block_table is not None and kv_caches is None:
+        raise ValueError("a block table needs the page pool caches")
+    if kv_caches is None:
+        remat = remat if torch.is_grad_enabled() else "none"
+        for block in layers:
+            step = maybe_remat(
+                lambda x, p, blk=block: blk(
+                    x, p, None, 0, kv_valid, None, segment_ids)[0],
+                remat)
+            h = step(h, positions)
+        return h
+    paged = None
+    if block_table is not None:
+        paged = plan_paged_step(block_table, cache_offset, kv_valid,
+                                h.shape[1], kv_caches[0][0].shape[1],
+                                paged_kernel, len(kv_caches[0]) == 6)
+    for i, block in enumerate(layers):
+        h, _ = block(h, positions, kv_caches[i], cache_offset, kv_valid,
+                     paged)
+    return h
 
 
 class LlamaForCausalLM(nn.Module):

@@ -3,9 +3,10 @@
 Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, at first use, into ``_build/`` beside the
 package (listed in ``.gitignore``), and loaded with ``ctypes``.  The library
-name carries a hash of the source, so an edited kernel rebuilds and a stale
-library is never loaded.  :func:`build_all` starts one ``nvcc`` per source
-at once.  Nothing here runs at import time.
+name carries a hash of the source and of the ``csrc`` headers it includes,
+so an edited kernel rebuilds and a stale library is never loaded.
+:func:`build_all` starts one ``nvcc`` per source at once.  Nothing here
+runs at import time.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -47,6 +49,14 @@ class FlashParams(ctypes.Structure):
         + [(n, _I) for n in ("causal", "window", "dtype")])
 
 
+# the flash libraries (one per group of head dims) export the same entries
+_FLASH_ENTRIES = {
+    "flash_attention_fwd": ([ctypes.POINTER(FlashParams), _P], _I),
+    "flash_attention_dq": ([ctypes.POINTER(FlashParams), _P], _I),
+    "flash_attention_dkv": ([ctypes.POINTER(FlashParams), _P], _I),
+    "flash_params_size": ([], _I),
+}
+
 # C signature of every exported kernel entry, by library name
 SIGNATURES = {
     "paged_attention": {
@@ -56,12 +66,8 @@ SIGNATURES = {
                _F, _I, _F, _I, _P],                        # scale window cap sk stream
             _I),
     },
-    "flash_attention": {
-        "flash_attention_fwd": ([ctypes.POINTER(FlashParams), _P], _I),
-        "flash_attention_dq": ([ctypes.POINTER(FlashParams), _P], _I),
-        "flash_attention_dkv": ([ctypes.POINTER(FlashParams), _P], _I),
-        "flash_params_size": ([], _I),
-    },
+    "flash_attention": _FLASH_ENTRIES,          # head_dim 64 and 128
+    "flash_attention_d256": _FLASH_ENTRIES,     # head_dim 256
 }
 
 _lock = threading.Lock()
@@ -81,9 +87,15 @@ def find_nvcc() -> str:
 
 
 def _source(name: str) -> Tuple[str, str]:
+    """The source's path and a hash of it, of the ``csrc`` files it
+    includes (``#include "..."``, one level) and of the flags."""
     path = os.path.join(CSRC, f"{name}.cu")
     with open(path, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+        text = f.read()
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode())
+    for inc in re.findall(rb'#include "([^"]+)"', text):
+        with open(os.path.join(CSRC, inc.decode()), "rb") as f:
+            digest.update(f.read())
     return path, digest.hexdigest()[:16]
 
 
@@ -145,7 +157,7 @@ def load(name: str) -> ctypes.CDLL:
             for fn, (argtypes, restype) in SIGNATURES[name].items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = restype
-            if name == "flash_attention" and (
+            if "flash_params_size" in SIGNATURES[name] and (
                     lib.flash_params_size() != ctypes.sizeof(FlashParams)):
                 raise RuntimeError(
                     f"FlashParams is {ctypes.sizeof(FlashParams)} bytes in "

@@ -17,9 +17,10 @@ three kernels, each with a plain PyTorch version beside it:
   each kv head's G q heads inside the kernel; plain version
   :func:`flash_dkv_reference`.
 
-On a CUDA tensor a wrapper launches its kernel in ``csrc/flash_attention.cu``
-(built by ``nvcc`` at first use, bound with ``ctypes``) or raises, and counts
-the launch in its ``launches``; on a CPU tensor it runs its plain version.
+On a CUDA tensor a wrapper launches its kernel (``csrc/flash_attention.cuh``,
+built by ``nvcc`` at first use into one library for head_dim 64 and 128 and
+one for 256, bound with ``ctypes``) or raises, and counts the launch in its
+``launches``; on a CPU tensor it runs its plain version.
 A masked key has probability exactly 0, so a row with no visible key
 (segment id 0, or a segment absent from the keys) gets o = 0 and lse =
 ``NEG_INF``; the JAX kernels leave such rows' o undefined, and they are
@@ -35,10 +36,11 @@ from typing import Optional, Tuple, Union
 import torch
 
 NEG_INF = float(-1e30)  # large-negative instead of -inf: keeps exp/where NaN-free
-HEAD_DIMS = (64, 128)
+# the kernel library built for each head dim (csrc/<name>.cu)
+_LIBRARY = {64: "flash_attention", 128: "flash_attention",
+            256: "flash_attention_d256"}
+HEAD_DIMS = tuple(_LIBRARY)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-D256_DEFERRED = ("head_dim 256 is not ported to the CUDA flash kernels yet "
-                 "(ROADMAP queue B, B1-B3)")
 
 
 def band_mask(q_len: int, kv_len: int,
@@ -256,8 +258,6 @@ def _launch(which: str, q, k, v, *, o=None, lse=None, do=None, delta=None,
         raise TypeError(f"the flash kernels take float32 or bfloat16, got "
                         f"{q.dtype}")
     D = q.shape[-1]
-    if D == 256:
-        raise NotImplementedError(D256_DEFERRED)
     if D not in HEAD_DIMS:
         raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
     rows ={"q": q, "k": k, "v": v, "o": o, "do": do, "dq": dq, "dk": dk,
@@ -298,7 +298,7 @@ def _launch(which: str, q, k, v, *, o=None, lse=None, do=None, delta=None,
         B=B, HQ=HQ, HKV=HKV, S=S, T=T, D=D, scale=float(scale),
         softcap=float(softcap or 0.0), causal=int(bool(causal)),
         window=int(window or 0), dtype=_DTYPE_CODE[q.dtype])
-    lib = _build.load("flash_attention")
+    lib = _build.load(_LIBRARY[D])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(lib, f"flash_attention_{which}")(ctypes.byref(params),

@@ -105,3 +105,9 @@ class ParallelEmbedding(nn.Module):
         # gather, then cast: the same values as flax's cast-then-take, with
         # the table's gradient scattered in param_dtype
         return self.embedding[ids].to(self.dtype)
+
+    def attend(self, x: torch.Tensor) -> torch.Tensor:
+        """The tied LM head: ``[..., H] -> [..., V]`` against the same
+        table, in the compute type; its gradient adds to the lookup's in
+        the one ``embedding`` parameter."""
+        return torch.matmul(x.to(self.dtype), self.embedding.to(self.dtype).t())

@@ -127,7 +127,8 @@ def init_kv_caches(num_layers: int, batch_size: int, max_total_len: int,
 
 
 class ParallelInferenceModel:
-    """Serving wrapper around a causal LM (``LlamaForCausalLM``): the
+    """Serving wrapper around a causal LM with ``LlamaForCausalLM``'s
+    forward (Llama, ``GemmaForCausalLM``, ``Gemma2ForCausalLM``): the
     per-phase functions the continuous-batching engine threads its state
     through, and a solo ``generate``.
 

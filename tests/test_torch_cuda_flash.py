@@ -76,10 +76,13 @@ CASES = [
     ("window", 1, 4, 1, 400, 400, True, 100, None, None, False),
     ("softcap", 1, 4, 2, 150, 150, True, None, 50.0, 2.0, False),
     ("segments", 2, 4, 2, 260, 260, True, None, None, None, True),
+    # Gemma-2B's MQA (8 q heads on one kv head) with Gemma-2's window and
+    # softcap together
+    ("mqa_g8_window_softcap", 1, 8, 1, 230, 230, True, 70, 50.0, 2.0, False),
 ]
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
@@ -156,9 +159,12 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
         fa.flash_attention_fwd(q[..., :48].contiguous(),
                                k[..., :48].contiguous(),
                                v[..., :48].contiguous())
-    with pytest.raises(NotImplementedError, match="256"):
-        z = torch.zeros(1, 4, 8, 256, device=dev)
-        fa.flash_attention_fwd(z, z[:, :2], z[:, :2])
+    z = torch.zeros(1, 4, 8, 256, device=dev)
+    n = fa.flash_attention_fwd.launches
+    o, _ = fa.flash_attention_fwd(z, z[:, :2], z[:, :2])  # D = 256 launches
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches == n + 1
+    assert torch.all(o == 0)
     with pytest.raises(ValueError, match="unit stride"):
         fa.flash_attention_fwd(q.transpose(2, 3), k, v)
     with pytest.raises(ValueError, match="on cpu"):
@@ -212,6 +218,48 @@ def test_llama_step_through_the_kernels_under_remat(dev, remat, fwd_per_layer):
                     fa.flash_attention_dq.launches - n[1],
                     fa.flash_attention_dkv.launches - n[2]] == [
                         fwd_per_layer * L, L, L]
+    assert abs(runs["flash"][0] - runs["dense"][0]) <= 1e-4 * abs(
+        runs["dense"][0])
+    for g_flash, g_dense in zip(runs["flash"][1], runs["dense"][1]):
+        assert rel_l2(g_flash, g_dense) <= 1e-4
+
+
+def test_gemma2_step_through_the_kernels_at_head_dim_256(dev):
+    """A tiny Gemma-2 at head_dim 256 on the card (layer 0 slides over a
+    40-token window at S = 96, layer 1 is global; attention softcap 50 and
+    the final softcap): the flash core's loss and every parameter's
+    gradient equal the dense core's (1e-4 relative L2, fp32), and one
+    forward + backward under ``selective`` remat launches the forward
+    kernel twice per layer and dq and dk/dv once."""
+    import dataclasses
+
+    from neuronx_distributed_tpu_torch.models.common import causal_lm_loss
+    from neuronx_distributed_tpu_torch.models.gemma import (
+        Gemma2Config,
+        Gemma2ForCausalLM,
+    )
+
+    cfg = Gemma2Config.tiny(head_dim=256, query_pre_attn_scalar=256.0,
+                            sliding_window=40, dtype=torch.float32,
+                            param_dtype=torch.float32, remat="selective")
+    rs = np.random.RandomState(1)
+    ids = torch.from_numpy(rs.randint(0, cfg.vocab_size, (2, 96))).to(dev)
+    batch = {"ids": ids, "labels": torch.roll(ids, -1, 1)}
+    runs = {}
+    for impl in ("flash", "dense"):
+        model = Gemma2ForCausalLM(dataclasses.replace(
+            cfg, attention_impl=impl), device=dev).init_random(0)
+        n = [fa.flash_attention_fwd.launches, fa.flash_attention_dq.launches,
+             fa.flash_attention_dkv.launches]
+        loss = causal_lm_loss(model, batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        runs[impl] = (loss.item(), [p.grad.clone() for p in model.parameters()])
+        if impl == "flash":
+            L = cfg.num_layers
+            assert [fa.flash_attention_fwd.launches - n[0],
+                    fa.flash_attention_dq.launches - n[1],
+                    fa.flash_attention_dkv.launches - n[2]] == [2 * L, L, L]
     assert abs(runs["flash"][0] - runs["dense"][0]) <= 1e-4 * abs(
         runs["dense"][0])
     for g_flash, g_dense in zip(runs["flash"][1], runs["dense"][1]):

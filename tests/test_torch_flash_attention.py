@@ -5,8 +5,9 @@ The same seeded numpy inputs go through the JAX ``flash_attention*`` entries
 them on the CPU) and the port's entries, whose CPU path is the kernels'
 plain versions (``flash_fwd_reference``, ``flash_dq_reference``,
 ``flash_dkv_reference``) under the same ``torch.autograd.Function`` the
-card uses.  Forward output, lse and dq/dk/dv are compared in fp32 to 2e-5
-absolute: both sides compute in fp32 and differ only in summation order.
+card uses, at head_dim 32 and at 256 (the Gemma width).  Forward output,
+lse and dq/dk/dv are compared in fp32 to 2e-5 absolute: both sides compute
+in fp32 and differ only in summation order.
 
 Rows with no visible key (packing id 0) are compared only where they are
 defined: the JAX kernels leave their output undefined (uniform weights over
@@ -41,16 +42,22 @@ CASES = [
     ("softcap", 1, 4, 2, 32, 32, True, None, 5.0, 2.0, False, False),
     ("segments", 2, 4, 2, 32, 32, True, None, None, None, True, False),
     ("segments_window_lse", 1, 4, 2, 32, 32, True, 6, None, None, True, True),
+    ("window_softcap_lse", 1, 4, 2, 32, 32, True, 8, 5.0, 2.0, False, True),
 ]
 
 
 def make_inputs(case, D=32, seed=0):
+    """Seeded inputs; q, k, v and dO shrink by ``(32 / D) ** 0.25`` so that
+    q.k and dO.v have the same spread at every D (a case's sm_scale and
+    softcap bite as at D = 32, and the gradients keep the size ATOL was
+    set for)."""
     _, B, HQ, HKV, S, T, *_ = case
     segments, lse_cot = case[10], case[11]
     rs = np.random.RandomState(seed)
     f = lambda *shape: rs.standard_normal(shape).astype(np.float32)  # noqa
     q, k, v, do = f(B, HQ, S, D), f(B, HKV, T, D), f(B, HKV, T, D), \
         f(B, HQ, S, D)
+    q, k, v, do = (x * np.float32((32 / D) ** 0.25) for x in (q, k, v, do))
     dlse = f(B, HQ, S) if lse_cot else np.zeros((B, HQ, S), np.float32)
     seg = None
     if segments:  # two documents, then a padding run; batches differ
@@ -95,9 +102,11 @@ def port_run(case, q, k, v, do, dlse, seg):
     return [x.detach().numpy() for x in (o, lse, *(l.grad for l in leaves))]
 
 
-@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
-def test_entries_match_jax_kernels_forward_and_backward(case):
-    inputs = make_inputs(case)
+@pytest.mark.parametrize(
+    "case,D", [pytest.param(c, 32, id=c[0]) for c in CASES]
+    + [pytest.param(c, 256, id=f"{c[0]}-d256") for c in CASES])
+def test_entries_match_jax_kernels_forward_and_backward(case, D):
+    inputs = make_inputs(case, D)
     seg = inputs[-1]
     (jo, jlse, jdq, jdk, jdv) = jax_run(case, *inputs)
     (po, plse, pdq, pdk, pdv) = port_run(case, *inputs)

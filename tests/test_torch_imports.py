@@ -137,7 +137,7 @@ def test_walk_covers_the_slice():
                                                    "neuronx_distributed_tpu_torch.")}
     for mod in ("ops.paged_attention", "ops._build", "ops.flash_attention",
                 "parallel.norm", "parallel.layers", "parallel.qkv",
-                "models.llama", "convert.jax_params", "kvcache.allocator",
+                "models.llama", "models.gemma", "convert.jax_params", "kvcache.allocator",
                 "kvcache.prefix", "kvcache.pool", "kvcache.quant",
                 "trace.engine",
                 "serving.request", "serving.scheduler", "serving.driver",
