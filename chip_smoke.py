@@ -6,41 +6,44 @@ GPU and check it end to end.
 
 Phase 0 prints the card and builds every CUDA kernel from the sources in
 the checkout, one ``nvcc`` per source started together (``-Xptxas -v``
-report included).  Phase 1 holds the paged-attention kernel against its
-plain PyTorch version at the serving path's shapes (Llama-3-8B attention
-geometry), over fp pools and over int8 pools (the kernel's dequant
-branch), and times the kernel, the plain version and one PyTorch library
-call doing the same work.  Phase 2 serves 16 requests through
-``ServingEngine`` on a full-width, full-depth Llama-3-8B with random bf16
-weights from a seed, counts the kernel's launches on that run, checks page
-accounting, and compares the kernel path's logits with the gather path's.
-Phase 2b serves the same requests on the same model with int8 KV pages and
-128-token prefill chunks (``kv_quant="int8"``, ``prefill_chunk_tokens``),
-counts the kernel's launches (every decode step and every chunk of every
-layer), checks page accounting and the int8 pool's size, compares the
-kernel's logits with the gather path's on the int8 pool and the int8
-pool's logits with the bf16 pool's after the same prefill, and serves the
-requests once more with chunked prefill over a bf16 pool.  Phase 1 then
-holds the fp-pool kernel at head_dim 256 and Gemma-2-2B's geometry (8 q
-on 4 kv heads, softcap 50) and times it there.  Phase 3 holds the
-flash-attention forward, dq and dk/dv kernels against their plain
-versions row by row (the training paths' own shapes, causal and not, GQA
-4 and 1, MQA, sliding windows, softcaps, packed segments with padding,
-T > S, an lse cotangent, D 64, 128 and 256, bf16 and fp32) and times them
+report included), and holds the bf16 flash forward as built to its design:
+no spill, no wgmma serialisation, no ignored ``setmaxnreg``, and HGMMA and
+UTMALDG instructions in its SASS at every head dim.  Phase 1 holds the
+paged-attention kernel against its plain PyTorch version at the serving
+path's shapes (Llama-3-8B attention geometry), over fp pools and over int8
+pools (the kernel's dequant branch), and times the kernel, the plain
+version and one PyTorch library call doing the same work.  Phase 2 serves
+16 requests through ``ServingEngine`` on a full-width, full-depth
+Llama-3-8B with random bf16 weights from a seed, counts the kernel's
+launches on that run, checks page accounting, and compares the kernel
+path's logits with the gather path's.  Phase 2b serves the same requests on
+the same model with int8 KV pages and 128-token prefill chunks
+(``kv_quant="int8"``, ``prefill_chunk_tokens``), counts the kernel's
+launches (every decode step and every chunk of every layer), checks page
+accounting and the int8 pool's size, compares the kernel's logits with the
+gather path's on the int8 pool and the int8 pool's logits with the bf16
+pool's after the same prefill, and serves the requests once more with
+chunked prefill over a bf16 pool.  Phase 1 then holds the fp-pool kernel at
+head_dim 256 and Gemma-2-2B's geometry (8 q on 4 kv heads, softcap 50) and
+times it there.  Phase 3 holds the flash-attention forward, dq and dk/dv
+kernels against their plain versions row by row (the training paths' own
+shapes, causal and not, GQA 4 and 1, MQA, sliding windows, softcaps, packed
+segments with padding, T > S, queries that see no key, the model's strided
+layout, an lse cotangent, D 64, 128 and 256, bf16 and fp32) and times them
 at Llama's training shape and at Gemma-2-2B's (global and sliding-window
-layers).  Phase 4 trains a Llama-3-8B-width model cut to 4 layers (fp32
-masters, bf16 compute, flash attention) for 12 steps through the
-trainer's entry points, counts the flash kernels' launches on that run,
-compares one step's loss, gradient norm and attention-projection
-gradients through the flash and the dense core, and reports tokens/s,
-MFU, peak memory and the device-busy share of a profiled step.  Phase 5
-does the same for Gemma-2-2B at full width and depth (26 layers, batch
-1 x 8192, selective remat: the flash kernels at D = 256), with flash vs
-dense held on a 2-layer cut.  Phase 5b serves 8 requests through
-``ServingEngine`` on Gemma-2-2B with random bf16 weights (the paged
-kernel at D = 256 with the softcap), counts launches, checks page
-accounting and compares kernel and gather logits.  A device time below
-the least time its work needs fails the run.
+layers, each with and without the softcap).  Phase 4 trains a
+Llama-3-8B-width model cut to 4 layers (fp32 masters, bf16 compute, flash
+attention) for 12 steps through the trainer's entry points, counts the
+flash kernels' launches on that run, compares one step's loss, gradient
+norm and attention-projection gradients through the flash and the dense
+core, and reports tokens/s, MFU, peak memory, the device-busy share of a
+profiled step and its flash time by kernel.  Phase 5 does the same for
+Gemma-2-2B at full width and depth (26 layers, batch 1 x 8192, selective
+remat: the flash kernels at D = 256), with flash vs dense held on a 2-layer
+cut.  Phase 5b serves 8 requests through ``ServingEngine`` on Gemma-2-2B
+with random bf16 weights (the paged kernel at D = 256 with the softcap),
+counts launches, checks page accounting and compares kernel and gather
+logits.  A device time below the least time its work needs fails the run.
 
 Any failed check exits non-zero without the result line.  The line before
 the last is ``{"kernels": [...]}``; the last is ``{"ok": true, "device":
@@ -298,6 +301,98 @@ def check_bound(name: str, times: dict, bound: float) -> None:
             raise AssertionError(
                 f"{name}: {what} reads {ms:.5f} ms, below its bound "
                 f"{bound:.5f} ms; the profiler missed device work")
+
+
+# -- phase 0: build guards ---------------------------------------------------
+
+# the bf16 forward (B1) and the libraries that instantiate it
+WGMMA_FWD = "flash_fwd_wgmma_kernel"
+WGMMA_LIBS = {"flash_attention": (64, 128), "flash_attention_d256": (256,)}
+
+
+def ptxas_functions(report: str) -> dict:
+    """``{mangled name: {"registers", "spill_stores", "spill_loads"}}``
+    from an ``nvcc -Xptxas -v`` report."""
+    import re
+
+    funcs, cur = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur is not None:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return funcs
+
+
+def sass_functions(lib_path: str) -> dict:
+    """``{mangled name: SASS text}`` of a built library, from the
+    toolkit's ``cuobjdump -sass``."""
+    from neuronx_distributed_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    proc = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=300)
+    if proc.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed on {lib_path}: {proc.stderr}")
+    funcs = {}
+    for part in proc.stdout.split("Function : ")[1:]:
+        name, _, body = part.partition("\n")
+        funcs[name.strip()] = body
+    return funcs
+
+
+def check_build_guards(paths: dict) -> dict:
+    """The bf16 forward as built, in each library that instantiates it:
+    ptxas reports no spill for it and no wgmma serialisation or ignored
+    setmaxnreg anywhere, and its SASS holds HGMMA (wgmma) and UTMALDG
+    (TMA load) instructions.  Fails the run otherwise; returns the
+    per-head-dim registers, shared memory and instruction counts."""
+    from neuronx_distributed_tpu_torch.ops import _build
+
+    found = {}
+    for name, dims in WGMMA_LIBS.items():
+        report = _build.build_logs.get(name, "")
+        if "ptxas" not in report:
+            raise AssertionError(f"no ptxas report for {name}: {report!r}")
+        for bad in ("instructions are serialized", "setmaxnreg ignored"):
+            if bad in report:
+                lines = [ln for ln in report.splitlines() if bad in ln]
+                raise AssertionError(f"{name}: ptxas says {bad!r}: {lines}")
+        ptx = {n: f for n, f in ptxas_functions(report).items()
+               if WGMMA_FWD in n}
+        sass = {n: s for n, s in sass_functions(paths[name]).items()
+                if WGMMA_FWD in n}
+        lib = _build.load(name)
+        if len(ptx) != len(dims) or len(sass) != len(dims):
+            raise AssertionError(f"{name}: {WGMMA_FWD} for {dims} expected, "
+                                 f"ptxas reports {list(ptx)}, SASS has "
+                                 f"{list(sass)}")
+        for d in dims:
+            tag = f"ILi{d}E"  # the template argument in the mangled name
+            (pn, pf), = [(n, f) for n, f in ptx.items() if tag in n]
+            (sn, text), = [(n, s) for n, s in sass.items() if tag in n]
+            counts = {op: text.count(op) for op in ("HGMMA", "UTMALDG")}
+            spill = pf.get("spill_stores", -1) + pf.get("spill_loads", -1)
+            info = dict(pf, smem_bytes=lib.flash_fwd_smem_bytes(d),
+                        sass=counts)
+            log(f"phase0 guard: {WGMMA_FWD}<{d}> in {name}: {info}")
+            if spill != 0:
+                raise AssertionError(f"{WGMMA_FWD}<{d}> spills: {pf}")
+            if not all(counts.values()):
+                raise AssertionError(f"{WGMMA_FWD}<{d}> SASS lacks wgmma or "
+                                     f"TMA instructions: {counts}")
+            found[d] = info
+    log("phase0 guard: the bf16 forward uses HGMMA and UTMALDG at every "
+        "head dim, spills nothing; no wgmma serialisation, no ignored "
+        "setmaxnreg")
+    return found
 
 
 # -- phase 1 ------------------------------------------------------------------
@@ -1093,9 +1188,20 @@ def phase2b(model_pim, int8_entry, whole_tokens):
 # the training path's attention shape: Llama-3-8B heads at batch 4 x 2048
 FB, FHQ, FHKV, FS, FD = 4, 32, 8, 2048, 128
 # the flash cases: (name, B, HQ, HKV, S, T, D, causal, window, softcap,
-# sm_scale, segments, lse cotangent); the first is the path's own shape
+# sm_scale, segments, lse cotangent[, model layout]); the first is the
+# path's own shape.  Model layout: q, k, v and dO are [B, H, S, D] views of
+# [B, S, H, D] memory, as the model passes them (o inherits the strides)
 FLASH_CASES = [
     ("path_shape", FB, FHQ, FHKV, FS, FS, FD, True, None, None, None, False,
+     False),
+    ("path_shape_model_layout", FB, FHQ, FHKV, FS, FS, FD, True, None, None,
+     None, False, False, True),
+    # Gemma-2B's MQA (8 q heads on one kv head) with a window and a softcap
+    # together: interior and edge tiles under both options at once
+    ("mqa_g8_window_softcap", 1, 8, 1, 1000, 1000, 128, True, 256, 50.0,
+     SOFTCAP_SCALE, False, False),
+    # T < S: the first S - T queries come before every key and see none
+    ("no_key_rows", 2, 8, 2, 700, 300, 128, True, None, None, None, False,
      False),
     ("causal_gqa4", 2, 32, 8, 1000, 1000, 128, True, None, None, None, False,
      False),
@@ -1132,9 +1238,11 @@ FLASH_CASES_D256 = [
      False),
     ("lse_cotangent_d256", 2, 8, 4, 400, 400, GD, True, None, None, None,
      True, True),
+    ("no_key_rows_d256", 1, 8, 4, 500, 200, GD, True, None, None, None, False,
+     False, True),
 ]
 FLASH_KERNELS = {
-    "fwd": ("flash_attention_fwd", "flash_fwd_kernel", 4, 154),
+    "fwd": ("flash_attention_fwd", WGMMA_FWD, 4, 154),
     "dq": ("flash_attention_dq", "flash_dq_kernel", 6, 311),
     "dkv": ("flash_attention_dkv", "flash_dkv_kernel", 8, 368),
 }
@@ -1178,9 +1286,15 @@ def flash_inputs(case, dtype, device, seed):
 
     _, B, HQ, HKV, S, T, D = case[:7]
     segs, lse_cot = case[11], case[12]
+    model_layout = len(case) > 13 and case[13]
     rs = np.random.RandomState(seed)
-    f = lambda *shape: torch.from_numpy(  # noqa: E731
-        rs.standard_normal(shape).astype(np.float32)).to(device, dtype)
+
+    def f(*shape):
+        x = torch.from_numpy(rs.standard_normal(shape).astype(
+            np.float32)).to(device, dtype)
+        return (x.transpose(1, 2).contiguous().transpose(1, 2)
+                if model_layout else x)
+
     q, k, v, do = f(B, HQ, S, D), f(B, HKV, T, D), f(B, HKV, T, D), \
         f(B, HQ, S, D)
     qs = ks = None
@@ -1279,9 +1393,10 @@ def hold_flash_cases(cases, worst: dict, worst_lse: dict,
                            (dv.float() - rdv.float()).abs().max().item())}
             finite = all(bool(torch.isfinite(x.float()).all())
                          for x in (o, lse, dq, dk, dv))
+            # rows with no visible key (padding, a segment absent from the
+            # keys, queries before every key): o = 0 exactly, lse NEG_INF
             empty_ok = bool((lse[~live] <= -1e29).all()) and bool(
-                (o.float().permute(0, 2, 1, 3)[qs == 0] == 0).all()
-                if qs is not None else True)
+                (o.float()[~live] == 0).all())
             bites = {}
             for opt in ("window", "softcap"):
                 if opts[opt] is not None:
@@ -1328,16 +1443,25 @@ def hold_flash_cases(cases, worst: dict, worst_lse: dict,
             torch.cuda.empty_cache()
 
 
-def time_flash(shape, sm_scale=None, windows=(None,), worst=None,
+def variant_key(window, softcap) -> str:
+    """The kernels-line key of a timing variant: ``window4096``,
+    ``softcap50``, ``window4096_softcap50``."""
+    return "_".join(f"{n}{v:g}" for n, v in (("window", window),
+                                              ("softcap", softcap))
+                    if v is not None)
+
+
+def time_flash(shape, sm_scale=None, variants=((None, None),), worst=None,
                source="neuronx_distributed_tpu_torch/ops/csrc/"
                       "flash_attention.cu", suffix="") -> dict:
     """B1-B3 at one causal bf16 ``shape = (B, HQ, HKV, S, D)``, ROTATE
-    input copies: device ms per call of each kernel for every window in
-    ``windows`` (the first is the entry's own), of its plain version and
-    of the library yardstick (SDPA forward for B1, its autograd backward,
-    dq, dk and dv together, for B2 and B3; causal, no window or softcap),
-    each held to its bound.  Returns one kernels-line entry per kernel
-    (``launches`` filled in by the training phase)."""
+    input copies: device ms per call of each kernel for every ``(window,
+    softcap)`` in ``variants`` (the first is the entry's own, and has
+    neither, like the yardstick), of its plain version and of the library
+    yardstick (SDPA forward for B1, its autograd backward, dq, dk and dv
+    together, for B2 and B3; causal, no window or softcap), each held to
+    its bound.  Returns one kernels-line entry per kernel (``launches``
+    filled in by the training phase)."""
     import torch
     import torch.nn.functional as F
 
@@ -1346,19 +1470,19 @@ def time_flash(shape, sm_scale=None, windows=(None,), worst=None,
     Bt, HQ, HKV, S, Dt = shape
     dev = torch.device("cuda")
     copies = {}
-    for window in windows:
-        case = ("timing", Bt, HQ, HKV, S, S, Dt, True, window, None,
+    for window, softcap in variants:
+        case = ("timing", Bt, HQ, HKV, S, S, Dt, True, window, softcap,
                 sm_scale, False, False)
-        opts = dict(sm_scale=sm_scale, window=window)
-        copies[window] = []
+        opts = dict(sm_scale=sm_scale, window=window, softcap=softcap)
+        copies[window, softcap] = []
         for i in range(ROTATE):
             q, k, v, do, _, _, _ = flash_inputs(case, torch.bfloat16, dev,
                                                 SEED + 100 + i)
             o, lse = fa.flash_attention_fwd(q, k, v, **opts)
             delta = (do.float() * o.float()).sum(-1)
-            copies[window].append((q, k, v, do, lse, delta))
+            copies[window, softcap].append((q, k, v, do, lse, delta))
     torch.cuda.synchronize()
-    first = copies[windows[0]]
+    first = copies[variants[0]]
     lib_fwd = [lambda c=c: F.scaled_dot_product_attention(
         c[0], c[1], c[2], is_causal=True, scale=sm_scale, enable_gqa=True)
         for c in first]
@@ -1392,23 +1516,25 @@ def time_flash(shape, sm_scale=None, windows=(None,), worst=None,
         plain = {"fwd": fa.flash_fwd_reference, "dq": fa.flash_dq_reference,
                  "dkv": fa.flash_dkv_reference}[w]
         nargs = 3 if w == "fwd" else 6
-        by_window = {}
-        for window in windows:
-            opts = dict(sm_scale=sm_scale, window=window)
-            cs = copies[window]
+        by_variant = {}
+        for window, softcap in variants:
+            opts = dict(sm_scale=sm_scale, window=window, softcap=softcap)
+            cs = copies[window, softcap]
             k_ms = device_ms([lambda c=c: kernel(*c[:nargs], **opts)
                               for c in cs], 20, expect=kname)
             b_ms, b_by, flops, nbytes = flash_bound_ms(
                 Bt, HQ, HKV, S, S, Dt, 2, w, window)
             times = {"kernel": k_ms}
-            if window == windows[0]:
+            if (window, softcap) == variants[0]:
                 times["plain"] = device_ms(
                     [lambda c=c: plain(*c[:nargs], **opts) for c in cs[:2]],
                     2)
-            check_bound(f"{fn_name} {label} window {window}", times, b_ms)
+            check_bound(f"{fn_name} {label} window {window} softcap "
+                        f"{softcap}", times, b_ms)
             check_events(fn_name, k_ms,
                          lambda: kernel(*cs[0][:nargs], **opts), 20)
-            log(f"phase3 timing {fn_name} ({label}, window {window}), "
+            log(f"phase3 timing {fn_name} ({label}, window {window}, "
+                f"softcap {softcap}), "
                 f"device ms per call from torch.profiler: kernel "
                 f"{k_ms:.5f}" + (f", plain {times['plain']:.5f}"
                                  if "plain" in times else "")
@@ -1418,9 +1544,9 @@ def time_flash(shape, sm_scale=None, windows=(None,), worst=None,
                 f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), kernel / "
                 f"bound {k_ms / b_ms:.2f}, "
                 f"{flops / (k_ms * 1e-3) / 1e12:.1f} TFLOP/s")
-            by_window[window] = dict(times, bound_ms=b_ms, bound_by=b_by,
-                                     flops=flops)
-        own = by_window[windows[0]]
+            by_variant[window, softcap] = dict(times, bound_ms=b_ms,
+                                               bound_by=b_by, flops=flops)
+        own = by_variant[variants[0]]
         entries[w] = {
             "name": fn_name + suffix,
             "route": "cuda",
@@ -1445,11 +1571,11 @@ def time_flash(shape, sm_scale=None, windows=(None,), worst=None,
                        "dtype": "bfloat16", "causal": True,
                        "sm_scale": sm_scale},
         }
-        for window in windows[1:]:
-            entries[w][f"window{window}"] = {
-                "ms": by_window[window]["kernel"],
-                "bound_ms": by_window[window]["bound_ms"],
-                "bound_by": by_window[window]["bound_by"]}
+        for var in variants[1:]:
+            entries[w][variant_key(*var)] = {
+                "ms": by_variant[var]["kernel"],
+                "bound_ms": by_variant[var]["bound_ms"],
+                "bound_by": by_variant[var]["bound_by"]}
     del copies, lib_fwd, lib_bwd
     torch.cuda.empty_cache()
     return entries
@@ -1471,8 +1597,12 @@ def phase3():
                      seed0=len(FLASH_CASES))
     entries = time_flash((FB, FHQ, FHKV, FS, FD), worst=worst)
     entries["fwd"]["lse_max_abs_err"] = worst_lse
+    # both layer kinds, and each with Gemma-2's softcap, which the training
+    # path runs (the no-softcap global layer is the one held to SDPA)
     gemma = time_flash(
-        (GB, GHQ, GHKV, GS, GD), G2_SCALE, (None, G2_WINDOW), worst256,
+        (GB, GHQ, GHKV, GS, GD), G2_SCALE,
+        ((None, None), (G2_WINDOW, None), (None, G2_CAP), (G2_WINDOW, G2_CAP)),
+        worst256,
         "neuronx_distributed_tpu_torch/ops/csrc/flash_attention_d256.cu",
         "_d256")
     torch.cuda.empty_cache()
@@ -1647,10 +1777,15 @@ def train_steps(label, config, model, loss_fn, batch, fwd_per_layer,
         raise AssertionError("the profiler saw no device time")
     prof_ms = prof_wall[-1] / 2 * 1e3
     flash_ms = sum(dev_us(e) for e in events if "flash_" in e.key) / 1e3 / 2
+    flash_by = {w: sum(dev_us(e) for e in events
+                       if FLASH_KERNELS[w][1] in e.key) / 1e3 / 2
+                for w in FLASH_KERNELS}
     top = sorted(events, key=dev_us, reverse=True)[:8]
     log(f"{label} profiled step: {prof_ms:.1f} ms wall, device busy "
         f"{busy_ms:.1f} ms ({busy_ms / prof_ms:.1%}), flash kernels "
-        f"{flash_ms:.2f} ms ({flash_ms / busy_ms:.1%} of device time)")
+        f"{flash_ms:.2f} ms ({flash_ms / busy_ms:.1%} of device time): "
+        + ", ".join(f"{w} ({FLASH_KERNELS[w][1]}) {ms:.2f} ms"
+                    for w, ms in flash_by.items()) + " per step")
     log(f"{label} top device time per step: " + "; ".join(
         f"{e.key[:60]} {dev_us(e) / 1e3 / 2:.2f} ms" for e in top))
     del opt, step
@@ -1660,7 +1795,8 @@ def train_steps(label, config, model, loss_fn, batch, fwd_per_layer,
             "tok_s": tok_s, "mfu": util, "flops_per_token": fpt,
             "peak_gib": peak / 2**30, "profiled_step_ms": prof_ms,
             "device_busy_ms": busy_ms, "device_busy_share": busy_ms / prof_ms,
-            "flash_ms": flash_ms, "launches": launches}
+            "flash_ms": flash_ms, "flash_ms_by_kernel": flash_by,
+            "launches": launches}
 
 
 def train_batch(vocab: int, B_: int, S_: int):
@@ -1903,11 +2039,12 @@ def main() -> int:
         from neuronx_distributed_tpu_torch.ops import _build
 
         t0 = time.perf_counter()
-        _build.build_all()
+        paths = _build.build_all()
         log(f"phase0: kernels built in {time.perf_counter() - t0:.1f} s "
             f"(one nvcc per source, in parallel)")
         for name, report in _build.build_logs.items():
             log(f"phase0: nvcc -Xptxas -v for {name}:\n{report}")
+        guards = check_build_guards(paths)
         entry = phase1()
         entry8 = phase1_int8()
         serving, model_pim, whole_tokens = phase2(entry)
@@ -1923,6 +2060,8 @@ def main() -> int:
         log(f"phase5 summary: {json.dumps(gemma_training)}")
         gemma_serving = phase5b(entry256)
         log(f"phase5b summary: {json.dumps(gemma_serving)}")
+        flash["fwd"]["build"] = {d: guards[d] for d in (64, 128)}
+        flash256["fwd"]["build"] = {256: guards[256]}
         kernels = ([entry, entry8, entry256]
                    + [flash[w] for w in FLASH_KERNELS]
                    + [flash256[w] for w in FLASH_KERNELS])

@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, at first use, into ``_build/`` beside the
 package (listed in ``.gitignore``), and loaded with ``ctypes``.  The library
-name carries a hash of the source and of the ``csrc`` headers it includes,
-so an edited kernel rebuilds and a stale library is never loaded.
+name carries a hash of the source and of the ``csrc`` headers it includes
+(followed through headers that include others), so an edited kernel
+rebuilds and a stale library is never loaded.
 :func:`build_all` starts one ``nvcc`` per source at once.  Nothing here
 runs at import time.
 """
@@ -55,6 +56,7 @@ _FLASH_ENTRIES = {
     "flash_attention_dq": ([ctypes.POINTER(FlashParams), _P], _I),
     "flash_attention_dkv": ([ctypes.POINTER(FlashParams), _P], _I),
     "flash_params_size": ([], _I),
+    "flash_fwd_smem_bytes": ([_I], _I),
 }
 
 # C signature of every exported kernel entry, by library name
@@ -72,7 +74,8 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-# nvcc's -Xptxas -v report per library (registers, shared memory, spills)
+# nvcc's -Xptxas -v report per library (registers, shared memory, spills),
+# kept beside the library so that a cached build still has it
 build_logs: Dict[str, str] = {}
 
 
@@ -86,17 +89,31 @@ def find_nvcc() -> str:
         "kernels are built from source at first use")
 
 
-def _source(name: str) -> Tuple[str, str]:
-    """The source's path and a hash of it, of the ``csrc`` files it
-    includes (``#include "..."``, one level) and of the flags."""
-    path = os.path.join(CSRC, f"{name}.cu")
+def _includes(path: str, seen: set) -> bytes:
+    """The text of ``path`` and of every ``csrc`` file it includes
+    (``#include "..."``), followed transitively, each file once (``seen``
+    holds the paths read, so an include cycle ends)."""
+    seen.add(path)
     with open(path, "rb") as f:
         text = f.read()
-    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode())
     for inc in re.findall(rb'#include "([^"]+)"', text):
-        with open(os.path.join(CSRC, inc.decode()), "rb") as f:
-            digest.update(f.read())
+        dep = os.path.join(os.path.dirname(path), inc.decode())
+        if dep not in seen:
+            text += _includes(dep, seen)
+    return text
+
+
+def _source(name: str, csrc: str = CSRC) -> Tuple[str, str]:
+    """The source's path and a hash of it, of the ``csrc`` headers it
+    includes (transitively) and of the flags."""
+    path = os.path.join(csrc, f"{name}.cu")
+    digest = hashlib.sha256(_includes(path, set())
+                            + " ".join(NVCC_FLAGS).encode())
     return path, digest.hexdigest()[:16]
+
+
+def _log_path(lib: str) -> str:
+    return lib[:-len(".so")] + ".log"
 
 
 def _start(name: str):
@@ -105,6 +122,9 @@ def _start(name: str):
     os.makedirs(BUILD_DIR, exist_ok=True)
     lib = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
     if os.path.exists(lib):
+        if name not in build_logs and os.path.exists(_log_path(lib)):
+            with open(_log_path(lib)) as f:
+                build_logs[name] = f.read()
         build_logs.setdefault(name, "(cached build)")
         return lib, None
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -124,6 +144,8 @@ def _finish(name: str, lib: str, job) -> str:
         if proc.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed on {src} (rc {proc.returncode}):\n{out}")
+        with open(_log_path(lib), "w") as f:  # the report of a cached build
+            f.write(out.strip())
         os.replace(tmp, lib)  # atomic: a reader never sees a partial file
     finally:
         if os.path.exists(tmp):

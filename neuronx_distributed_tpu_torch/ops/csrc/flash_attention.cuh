@@ -14,30 +14,57 @@
 // views without a copy.  lse and delta are fp32 [B, HQ, S]; segment ids
 // int32 [B, S] / [B, T].
 //
-// What bounds them on the H100: operations.  At the training shape (S = T
-// = 2048, D = 128, causal) each visible (q, k) pair costs 4*D (forward),
-// 6*D (dq) and 8*D (dk/dv) flops against a few bytes per pair of q/k/v
-// traffic, far above the ~295 flop/byte at which the bf16 tensor cores
-// become the limit.  What the design does about it: the products run on
-// the tensor cores (mma.sync m16n8k16, bf16 in, fp32 accumulate) with
-// their fragments loaded by ldmatrix; tiles of 64 rows are staged once in
-// shared memory (rows padded by 16 bytes so fragment loads are
-// bank-conflict free) and reused by every warp; each
-// block walks only the tiles its causal, window and segment bounds leave
-// (the TPU kernels' pl.when skips become loop bounds); the heaviest causal
-// q tiles are scheduled first; a tile's global loads are cp.async copies
-// all in flight at once.  Not yet done (later work): double buffering
-// (prefetching the next tile during this one's products), TMA, wgmma and
-// warp specialisation.
+// What bounds them on the H100: operations.  At the training shapes each
+// visible (q, k) pair costs 4*D (forward), 6*D (dq) and 8*D (dk/dv) flops
+// against a few bytes per pair of q/k/v traffic, far above the ~295
+// flop/byte at which the bf16 tensor cores become the limit.
 //
-// fp32 inputs take the same code with the m16n8k16 product done in plain
-// fp32 FMAs by the thread that owns each accumulator element (the same
-// fragment ownership), so the softmax and masking code is shared.
+// B1 in bf16, flash_fwd_wgmma_kernel (built from the pieces of hopper.cuh):
+// one block of three warpgroups per 128 q rows of one head.  The producer
+// warpgroup gives up registers (setmaxnreg) and one of its threads issues
+// TMA loads: the block's Q tile once, then every K and V tile of its key
+// range into a ring of shared-memory stages, each stage with a "full"
+// barrier per operand (TMA bytes) and an "empty" barrier (consumer
+// arrivals; K and V apart, so a K stage refills as soon as S is in).  The
+// two consumer warpgroups own 64 q rows each: S = Q K^T is one wgmma chain
+// from shared memory (both operands K-major, 128-byte swizzled, the layout
+// TMA writes); the online softmax runs on the fp32 accumulator in
+// registers, in base 2 with log2(e) folded into the scale; P is packed to
+// bf16 in place as the register A operand of O += P V (V MN-major by the
+// transpose flag), so nothing of P touches shared memory.  The consumer is
+// software-pipelined: tile i's Q K^T and tile i - 1's P V are issued
+// together, and tile i's softmax runs while that P V is on the tensor
+// cores; the two consumers take turns to issue (ping-pong, by named
+// barriers), so one's softmax also runs under the other's products.  A
+// key tile is interior (no mask code), edge (causal diagonal, the
+// window's left edge, keys past T; a tile a consumer's rows cannot see at
+// all is fully masked) or segmented (per-element id test).  The
+// softcap's tanh is 1 - 2 / (2^(2x log2 e) + 1) from ex2.approx and
+// rcp.approx (a few 1e-7 absolute; tanh.approx.f32 errs by ~5e-4).  TMA
+// fills rows past S and T with zeros, so no stale value meets a zero
+// probability.  Key tile 128 (64 at D = 256, where the 64 x 256 fp32 O
+// accumulator alone is 128 registers a consumer thread), two stages: 160 KB
+// of shared memory at D = 128, 192 KB at D = 256.  Not yet done (later
+// work): a persistent schedule over the q tiles, so that one tile's Q
+// load and epilogue overlap another's products (at D = 128 a block walks
+// only ~9 key tiles, and its start and end are not hidden).
+//
+// B1 in fp32 (flash_fwd_kernel), B2 and B3: mma.sync m16n8k16 (bf16 in,
+// fp32 accumulate; fp32 inputs take the same code with the product done in
+// fp32 FMAs by the thread that owns each accumulator element) with
+// fragments loaded by ldmatrix; tiles of 64 rows staged by cp.async in
+// shared memory (rows padded by 16 bytes so fragment loads are
+// bank-conflict free); each block walks only the tiles its causal, window
+// and segment bounds leave (the TPU kernels' pl.when skips become loop
+// bounds); the heaviest causal q tiles are scheduled first.  wgmma has no
+// fp32 mode, and TF32 would not hold fp32's tolerance, so the fp32
+// forward stays on this kernel.
 //
 // Work layout:
-//   forward, dq: grid (ceil(S / 64), HQ, B), 4 warps; warp w owns q rows
-//     [16w, 16w + 16) of the block's tile and loops over key tiles of 64
-//     (32 at D = 256: a warp's 16 x 256 fp32 accumulator alone is 128
+//   bf16 forward: grid (ceil(S / 128), HQ, B), 384 threads, as above;
+//   fp32 forward, dq: grid (ceil(S / 64), HQ, B), 4 warps; warp w owns q
+//     rows [16w, 16w + 16) of the block's tile and loops over key tiles of
+//     64 (32 at D = 256: a warp's 16 x 256 fp32 accumulator alone is 128
 //     registers a thread, so the score tile is halved);
 //   dk/dv: grid (ceil(T / 64), HKV * D / DC, B), 4 warps; warp w owns 16
 //     keys and loops over the G q heads of its group and the q tiles that
@@ -62,6 +89,9 @@
 #include <math.h>
 #include <stdint.h>
 #include <limits.h>
+#include <type_traits>
+
+#include "hopper.cuh"
 
 // Field order and types match ops/_build.py:FlashParams.
 struct FlashParams {
@@ -252,6 +282,8 @@ __device__ __forceinline__ float score(const FlashParams& p, float raw,
 // (exact for the monotone ids packing produces, a superset otherwise).
 // own_seg: this tile's ids (count n_own) in shared memory; other: the
 // other side's ids in global memory.  scratch: 4 ints of shared memory.
+// Every one of the block's NTHR threads calls it.
+template <int NTHR = THREADS>
 __device__ void narrow_by_segments(const int* own_seg, int n_own,
                                    const int* other, int& lo, int& hi,
                                    int* scratch) {
@@ -335,7 +367,327 @@ __device__ __forceinline__ void key_range(const FlashParams& p, int q0, int nq,
 }
 
 // ---------------------------------------------------------------------------
-// B1: forward
+// B1, bf16: TMA ring, wgmma, warp-specialised (see the note at the top)
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct WgFwd {
+  static constexpr int BQ = 128;                  // q rows: 2 consumers x 64
+  static constexpr int BKT = D >= 256 ? 64 : 128;  // keys per tile
+  static constexpr int STAGES = 2;                // K/V tiles in flight
+  static constexpr int THREADS = 384;             // producer + 2 consumers
+  static constexpr int PANELS = D / hopper::PANEL_COLS;
+  static constexpr uint32_t Q_PANEL = BQ * hopper::PANEL_ROW_BYTES;
+  static constexpr uint32_t KV_PANEL = BKT * hopper::PANEL_ROW_BYTES;
+  static constexpr uint32_t Q_BYTES = Q_PANEL * PANELS;
+  static constexpr uint32_t KV_BYTES = KV_PANEL * PANELS;  // one K or V tile
+  // q full; per stage k full, v full, k empty, v empty
+  static constexpr int NBAR = 1 + 4 * STAGES;
+  static constexpr size_t bytes =
+      1024 /* alignment of the first panel */ + Q_BYTES +
+      2 * STAGES * (size_t)KV_BYTES + 8 * NBAR + sizeof(int) * (BQ + 4);
+  // registers: producer 40, consumers 232 (128 x 40 + 256 x 232 <= 64 K)
+  static constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+  static_assert(D % hopper::PANEL_COLS == 0, "D must be whole panels");
+  static_assert(bytes <= SMEM_MAX, "wgmma forward tiles exceed shared memory");
+  static_assert(128 * PRODUCER_REGS + 256 * CONSUMER_REGS <= 65536,
+                "register split exceeds the SM's file");
+  // a consumer thread's arrays: O (D / 2 fp32), S (BKT / 2), P (BKT / 4)
+  static_assert(D / 2 + BKT / 2 + BKT / 4 <= CONSUMER_REGS - 48,
+                "consumer accumulators leave too few registers");
+};
+
+// One key tile's online-softmax step on the S accumulator, in place: the
+// scaled (and capped) scores in base 2, the mask of an edge or segmented
+// tile (masked: -inf, so p = 0 exactly), the running max and sum of the
+// thread's two rows, and p = 2^(x - m) left in s (fp32).  alpha: the
+// factor by which the rows' earlier O and l shrink.
+template <bool CAP, bool EDGE, int BKT>
+__device__ __forceinline__ void wg_softmax(float (&s)[BKT / 2],
+                                           float (&m_run)[2],
+                                           float (&l_run)[2],
+                                           float (&alpha)[2],
+                                           const FlashParams& p, float mul,
+                                           float cap_out, int k0,
+                                           const int (&qi)[2],
+                                           const int (&qs)[2],
+                                           const int* kseg, int t) {
+  float mt[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int e = 0; e < BKT / 2; ++e) {
+    const int r = (e >> 1) & 1;
+    float x = s[e] * mul;
+    if (CAP)  // cap * tanh(y / cap) in base 2; mul = 2 scale log2(e) / cap
+      x = fmaf(-2.f * cap_out, hopper::rcp(hopper::ex2(x) + 1.f), cap_out);
+    if (EDGE) {
+      const int kj = k0 + 8 * (e >> 2) + 2 * t + (e & 1);
+      bool ok = kj < p.T && visible(p, qi[r], kj);
+      if (kseg != nullptr) ok = ok && qs[r] > 0 && qs[r] == kseg[kj];
+      x = ok ? x : -INFINITY;
+    }
+    s[e] = x;
+    mt[r] = fmaxf(mt[r], x);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = fmaxf(m_run[r], group_max(mt[r]));
+    alpha[r] = hopper::ex2(m_run[r] - m_new);
+    m_run[r] = m_new;
+    l_run[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int e = 0; e < BKT / 2; ++e) {
+    const int r = (e >> 1) & 1;
+    s[e] = hopper::ex2(s[e] - m_run[r]);
+    l_run[r] += s[e];
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(WgFwd<D>::THREADS, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const FlashParams p) {
+  using C = WgFwd<D>;
+  using namespace hopper;
+  constexpr int BQ = C::BQ, BKT = C::BKT, ST = C::STAGES;
+  extern __shared__ __align__(16) unsigned char wg_smem[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(wg_smem) + 1023) & ~(uintptr_t)1023);
+  unsigned char* Qs = base;                   // [PANELS][BQ][64], swizzled
+  unsigned char* Ks = Qs + C::Q_BYTES;        // [ST][PANELS][BKT][64]
+  unsigned char* Vs = Ks + ST * C::KV_BYTES;  // [ST][PANELS][BKT][64]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + ST * C::KV_BYTES);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + ST;
+  uint64_t* k_empty = v_full + ST;
+  uint64_t* v_empty = k_empty + ST;
+  int* qseg_s = reinterpret_cast<int*>(v_empty + ST);
+  int* scratch = qseg_s + BQ;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (p.HQ / p.HKV);
+  const int q0 = qt * BQ, nq = min(BQ, p.S - q0);
+  const int* kseg = p.kseg == nullptr ? nullptr : p.kseg + (long long)b * p.T;
+  int lo, hi;
+  key_range(p, q0, nq, lo, hi);
+  if (kseg != nullptr) {
+    for (int i = threadIdx.x; i < BQ; i += C::THREADS)
+      qseg_s[i] = i < nq ? p.qseg[(long long)b * p.S + q0 + i] : 0;
+    narrow_by_segments<C::THREADS>(qseg_s, BQ, kseg, lo, hi, scratch);
+  }
+  // key tiles [kt_lo, kt_lo + n_tiles) of BKT keys, aligned to BKT
+  const int kt_lo = lo / BKT;
+  const int n_tiles = hi >= lo ? hi / BKT - kt_lo + 1 : 0;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&k_empty[s], 2 * 128);  // every consumer thread arrives
+      mbar_init(&v_empty[s], 2 * 128);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer: one thread keeps the ring full ----
+    setmaxnreg_dec<C::PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(q_full, C::Q_BYTES);
+      for (int pn = 0; pn < C::PANELS; ++pn)
+        tma_load_4d(Qs + pn * C::Q_PANEL, &tm_q, q_full, pn * PANEL_COLS, q0,
+                    h, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % ST, k0 = (kt_lo + i) * BKT;
+        const uint32_t free_phase = ((i / ST) & 1) ^ 1;  // round 0 passes
+        unsigned char* kd = Ks + st * C::KV_BYTES;
+        unsigned char* vd = Vs + st * C::KV_BYTES;
+        mbar_wait(&k_empty[st], free_phase);
+        mbar_arrive_expect_tx(&k_full[st], C::KV_BYTES);
+        for (int pn = 0; pn < C::PANELS; ++pn)
+          tma_load_4d(kd + pn * C::KV_PANEL, &tm_k, &k_full[st],
+                      pn * PANEL_COLS, k0, hk, b);
+        mbar_wait(&v_empty[st], free_phase);
+        mbar_arrive_expect_tx(&v_full[st], C::KV_BYTES);
+        for (int pn = 0; pn < C::PANELS; ++pn)
+          tma_load_4d(vd + pn * C::KV_PANEL, &tm_v, &v_full[st],
+                      pn * PANEL_COLS, k0, hk, b);
+      }
+    }
+  } else {
+    // ---- consumers: 64 q rows each ----
+    setmaxnreg_inc<C::CONSUMER_REGS>();
+    const int c = (threadIdx.x >> 7) - 1;
+    const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int off = p.T - p.S;
+    const int r0 = q0 + 64 * c;                // the warpgroup's first q row
+    const int r_last = min(r0 + 63, p.S - 1);  // its last valid row
+    const int qi[2] = {r0 + 16 * warp + g, r0 + 16 * warp + g + 8};
+    int qs[2] = {0, 0};
+    if (kseg != nullptr)
+      for (int r = 0; r < 2; ++r) qs[r] = qseg_s[qi[r] - q0];
+    constexpr float LOG2E = 1.4426950408889634f;
+    const bool cap = p.softcap > 0.f;
+    // no cap: x2 = raw * scale log2(e); cap: raw * 2 scale log2(e) / cap
+    // feeds the tanh, whose result is scaled by cap log2(e)
+    const float mul = cap ? 2.f * p.scale * LOG2E / p.softcap
+                          : p.scale * LOG2E;
+    const float cap_out = p.softcap * LOG2E;
+    const uint32_t q_addr = smem_u32(Qs) + 64 * c * PANEL_ROW_BYTES;
+
+    // the softmax step for tile i, by its mask class
+    auto softmax = [&](float (&s)[BKT / 2], float (&m_run)[2],
+                       float (&l_run)[2], float (&alpha)[2], int i) {
+      const int k0 = (kt_lo + i) * BKT;
+      const bool edge =
+          kseg != nullptr || k0 + BKT > p.T ||
+          (p.causal && (k0 + BKT - 1 > r0 + off ||
+                        (p.window > 0 && k0 <= r_last + off - p.window)));
+      if (edge) {
+        if (cap)
+          wg_softmax<true, true, BKT>(s, m_run, l_run, alpha, p, mul, cap_out,
+                                      k0, qi, qs, kseg, t);
+        else
+          wg_softmax<false, true, BKT>(s, m_run, l_run, alpha, p, mul,
+                                       cap_out, k0, qi, qs, kseg, t);
+      } else {
+        if (cap)
+          wg_softmax<true, false, BKT>(s, m_run, l_run, alpha, p, mul,
+                                       cap_out, k0, qi, qs, kseg, t);
+        else
+          wg_softmax<false, false, BKT>(s, m_run, l_run, alpha, p, mul,
+                                        cap_out, k0, qi, qs, kseg, t);
+      }
+    };
+    // S = Q K^T of tile i over D, 16 columns a step (issued, not waited)
+    auto issue_qk = [&](float (&s)[BKT / 2], int i) {
+      const uint32_t k_addr = smem_u32(Ks + (i % ST) * C::KV_BYTES);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<BKT>(
+            s, desc_k_major(q_addr + (kk / 4) * C::Q_PANEL + (kk % 4) * 32),
+            desc_k_major(k_addr + (kk / 4) * C::KV_PANEL + (kk % 4) * 32),
+            kk > 0);
+      wgmma_commit();
+    };
+    // O += P V of tile i (issued, not waited)
+    auto issue_pv = [&](float (&o)[D / 2], const uint32_t (&pa)[BKT / 16][4],
+                        int i) {
+      const uint32_t v_addr = smem_u32(Vs + (i % ST) * C::KV_BYTES);
+#pragma unroll
+      for (int kk = 0; kk < BKT / 16; ++kk)
+        wgmma_rs<D>(o, pa[kk],
+                    desc_mn_major(v_addr + kk * 16 * PANEL_ROW_BYTES,
+                                  C::KV_PANEL),
+                    1);
+      wgmma_commit();
+    };
+
+    // P of a tile (in s after its softmax) as the A fragments of P V, 16
+    // keys each: the accumulator layout packs in place
+    auto pack_p = [](const float (&s)[BKT / 2],
+                     uint32_t (&pa)[BKT / 16][4]) {
+#pragma unroll
+      for (int kk = 0; kk < BKT / 16; ++kk)
+#pragma unroll
+        for (int f = 0; f < 4; ++f)
+          pa[kk][f] = pack_bf16(s[8 * kk + 2 * f], s[8 * kk + 2 * f + 1]);
+    };
+
+    // Ping-pong: the two consumers take turns to issue their products
+    // (named barrier 1 + c is "consumer c's turn"), so that one's softmax
+    // runs while the other's products hold the tensor cores.  Both walk
+    // every tile of the block (a tile none of a consumer's rows can see is
+    // fully masked), so their turns pair up; consumer 0 goes first.
+    auto my_turn = [&] { named_barrier_sync(1 + c, 256); };
+    auto your_turn = [&] { named_barrier_arrive(2 - c, 256); };
+
+    float o[D / 2];
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) o[e] = 0.f;
+    float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};
+    if (c == 1) your_turn();
+    mbar_wait(q_full, 0);
+
+    if (n_tiles > 0) {
+      // Software pipeline: while tile i's softmax runs on the CUDA cores,
+      // tile i - 1's P V runs on the tensor cores.
+      float s[BKT / 2];
+      uint32_t pa[BKT / 16][4];  // P of the tile whose P V is next
+      float alpha[2];
+      mbar_wait(&k_full[0], 0);
+      fence_regs(s);
+      my_turn();
+      wgmma_fence();
+      issue_qk(s, 0);
+      your_turn();
+      wgmma_wait<0>();
+      fence_regs(s);
+      mbar_arrive(&k_empty[0]);
+      softmax(s, m_run, l_run, alpha, 0);
+      pack_p(s, pa);
+
+      for (int i = 1; i < n_tiles; ++i) {
+        const int st = i % ST, sp = (i - 1) % ST;
+        mbar_wait(&k_full[st], (i / ST) & 1);
+        mbar_wait(&v_full[sp], ((i - 1) / ST) & 1);
+        fence_regs(s);
+        fence_regs(o);
+        my_turn();
+        wgmma_fence();
+        issue_qk(s, i);
+        issue_pv(o, pa, i - 1);
+        your_turn();
+        wgmma_wait<1>();  // S of tile i is in; P V of tile i - 1 runs on
+        fence_regs(s);
+        mbar_arrive(&k_empty[st]);
+        softmax(s, m_run, l_run, alpha, i);
+        wgmma_wait<0>();
+        fence_regs(o);
+        mbar_arrive(&v_empty[sp]);
+#pragma unroll
+        for (int e = 0; e < D / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
+        pack_p(s, pa);
+      }
+      const int il = n_tiles - 1;
+      mbar_wait(&v_full[il % ST], (il / ST) & 1);
+      fence_regs(o);
+      my_turn();
+      wgmma_fence();
+      issue_pv(o, pa, il);
+      if (c == 0) your_turn();  // consumer 1 had the first extra turn
+      wgmma_wait<0>();
+      fence_regs(o);
+      mbar_arrive(&v_empty[il % ST]);
+    } else if (c == 0) {
+      my_turn();  // take consumer 1's opening turn
+    }
+
+    __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.o_st[0] +
+                        h * p.o_st[1];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float l = group_sum(l_run[r]);
+      if (qi[r] >= p.S) continue;
+      const float inv = l > 0.f ? 1.f / l : 0.f;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        store2(og + qi[r] * p.o_st[2] + 8 * j + 2 * t, o[4 * j + 2 * r] * inv,
+               o[4 * j + 2 * r + 1] * inv);
+      if (t == 0)  // natural-log lse from the base-2 statistics
+        p.lse[((long long)b * p.HQ + h) * p.S + qi[r]] =
+            l > 0.f ? (m_run[r] + log2f(l)) * 0.6931471805599453f : NEG_INF;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B1, fp32: the mma.sync forward with fp32 FMAs
 // ---------------------------------------------------------------------------
 
 template <typename E, int D>
@@ -761,16 +1113,40 @@ int allow_smem(Kernel* kernel, size_t smem, bool& done) {
   return 0;
 }
 
+// the bf16 forward: tensor maps over q, k and v (encoded per call: they
+// hold the pointers and strides), then the warp-specialised kernel
+template <int D>
+int launch_fwd_wgmma(const FlashParams& p, cudaStream_t stream) {
+  using C = WgFwd<D>;
+  static bool attr_set = false;
+  CUtensorMap tq, tk, tv;
+  int e;
+  if ((e = hopper::encode_rows(&tq, p.q, D, p.S, p.HQ, p.B, p.q_st, C::BQ)) ||
+      (e = hopper::encode_rows(&tk, p.k, D, p.T, p.HKV, p.B, p.k_st,
+                               C::BKT)) ||
+      (e = hopper::encode_rows(&tv, p.v, D, p.T, p.HKV, p.B, p.v_st,
+                               C::BKT)))
+    return e;
+  if ((e = allow_smem(flash_fwd_wgmma_kernel<D>, C::bytes, attr_set)))
+    return e;
+  const dim3 grid((p.S + C::BQ - 1) / C::BQ, p.HQ, p.B);
+  flash_fwd_wgmma_kernel<D><<<grid, C::THREADS, C::bytes, stream>>>(tq, tk,
+                                                                    tv, p);
+  return (int)cudaGetLastError();
+}
+
 template <typename E, int D, int W>
 int launch(const FlashParams& p, cudaStream_t stream) {
   static bool attr_set = false;
   int e = 0;
-  if (W == FWD) {
+  if constexpr (W == FWD && std::is_same<E, __nv_bfloat16>::value) {
+    return launch_fwd_wgmma<D>(p, stream);
+  } else if constexpr (W == FWD) {
     constexpr size_t smem = FwdSmem<E, D>::bytes;
     if ((e = allow_smem(flash_fwd_kernel<E, D>, smem, attr_set))) return e;
     const dim3 grid((p.S + BQ - 1) / BQ, p.HQ, p.B);
     flash_fwd_kernel<E, D><<<grid, THREADS, smem, stream>>>(p);
-  } else if (W == DQ) {
+  } else if constexpr (W == DQ) {
     constexpr size_t smem = DqSmem<E, D>::bytes;
     if ((e = allow_smem(flash_dq_kernel<E, D>, smem, attr_set))) return e;
     const dim3 grid((p.S + BQ - 1) / BQ, p.HQ, p.B);
@@ -805,8 +1181,10 @@ int dispatch(const FlashParams* p, void* stream) {
 }  // namespace
 
 // Each entry launches one kernel on `stream` and returns cudaGetLastError()
-// after the launch (0 = launched), or -1 for an argument the kernel does
-// not take (a head dim outside FLASH_HEAD_DIMS among them).  Pointers and
+// after the launch (0 = launched), -1 for an argument the kernel does not
+// take (a head dim outside FLASH_HEAD_DIMS among them), or, for the bf16
+// forward, 999 when the driver has no tensor-map encoder and 1000 + the
+// CUresult when it refuses a map.  Pointers and
 // every (b, h, s) stride must be 16-byte aligned.
 extern "C" int flash_attention_fwd(const FlashParams* p, void* stream) {
   return dispatch<FWD, FLASH_HEAD_DIMS>(p, stream);
@@ -820,3 +1198,14 @@ extern "C" int flash_attention_dkv(const FlashParams* p, void* stream) {
 // sizeof(FlashParams), checked by the Python binding against its ctypes
 // mirror before the first launch
 extern "C" int flash_params_size() { return (int)sizeof(FlashParams); }
+// dynamic shared memory of the bf16 forward at head dim D (-1 for a D this
+// library was not built with)
+template <int... Ds>
+int fwd_smem_bytes(int D) {
+  int bytes = -1;
+  ((D == Ds ? (bytes = (int)WgFwd<Ds>::bytes) : 0), ...);
+  return bytes;
+}
+extern "C" int flash_fwd_smem_bytes(int D) {
+  return fwd_smem_bytes<FLASH_HEAD_DIMS>(D);
+}

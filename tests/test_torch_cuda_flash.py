@@ -79,6 +79,8 @@ CASES = [
     # Gemma-2B's MQA (8 q heads on one kv head) with Gemma-2's window and
     # softcap together
     ("mqa_g8_window_softcap", 1, 8, 1, 230, 230, True, 70, 50.0, 2.0, False),
+    # T < S: the first 170 queries come before every key and see none
+    ("no_key_rows", 2, 4, 2, 300, 130, True, None, None, None, False),
 ]
 
 
@@ -116,6 +118,9 @@ def test_kernels_match_plain(dev, case, dtype, D):
     live = rlse > fa.NEG_INF / 2
     assert (lse[live] - rlse[live]).abs().max().item() <= LSE_TOL
     assert torch.all(lse[~live] <= -1e29)
+    assert torch.all(o.float()[~live] == 0)  # rows that see no key
+    if case[0] == "no_key_rows":
+        assert (~live).sum().item() == B * HQ * (S - T)
     if segs:  # padding rows: zeros in o and dq
         pad = qs == 0
         assert torch.all(o.float().permute(0, 2, 1, 3)[pad] == 0)
@@ -264,3 +269,62 @@ def test_gemma2_step_through_the_kernels_at_head_dim_256(dev):
         runs["dense"][0])
     for g_flash, g_dense in zip(runs["flash"][1], runs["dense"][1]):
         assert rel_l2(g_flash, g_dense) <= 1e-4
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_kernels_take_model_layout_views(dev, dtype, D):
+    """q, k, v and dO as the model passes them: [B, H, S, D] views of
+    [B, S, H, D] memory (TMA maps in the bf16 forward, plain strides in
+    the others); o inherits q's strides.  Held to the plain version as in
+    test_kernels_match_plain, with a window and a softcap."""
+    q, k, v, do, _ = inputs(D + 5, 2, 8, 2, 333, 333, D, dtype, dev)
+    q, k, v, do = (x.transpose(1, 2).contiguous().transpose(1, 2)
+                   for x in (q, k, v, do))
+    assert not q.is_contiguous()
+    opts = dict(causal=True, sm_scale=2.0, window=90, softcap=50.0)
+    o, lse = fa.flash_attention_fwd(q, k, v, **opts)
+    assert o.stride() == q.stride()
+    delta = (do.float() * o.float()).sum(-1)
+    dq = fa.flash_attention_dq(q, k, v, do, lse, delta, **opts)
+    dk, dv = fa.flash_attention_dkv(q, k, v, do, lse, delta, **opts)
+    torch.cuda.synchronize()
+    f32 = [x.float() for x in (q, k, v)]
+    ro, rlse = fa.flash_fwd_reference(*f32, **opts)
+    rdq = fa.flash_dq_reference(*f32, do.float(), lse, delta, **opts)
+    rdk, rdv = fa.flash_dkv_reference(*f32, do.float(), lse, delta, **opts)
+    for name, out, ref in (("o", o, ro), ("dq", dq, rdq), ("dk", dk, rdk),
+                           ("dv", dv, rdv)):
+        assert row_err(out, ref) <= TOL[dtype], (name, row_err(out, ref))
+    assert (lse - rlse).abs().max().item() <= LSE_TOL
+
+
+@pytest.mark.parametrize("dtype,kernel,other", [
+    (torch.bfloat16, "flash_fwd_wgmma_kernel", "flash_fwd_kernel<"),
+    (torch.float32, "flash_fwd_kernel", "flash_fwd_wgmma_kernel")],
+    ids=["bf16", "fp32"])
+def test_profiler_names_the_forward_kernel(dev, dtype, kernel, other):
+    """A bf16 forward runs the warp-specialised wgmma kernel, an fp32
+    forward the mma.sync one, at every head dim: the device kernels that
+    torch.profiler records name them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = []
+    for D in (64, 128, 256):
+        q, k, v, _, _ = inputs(D, 1, 4, 2, 256, 256, D, dtype, dev)
+        fa.flash_attention_fwd(q, k, v)  # built and warm
+        torch.cuda.synchronize()
+        for _ in range(3):  # the profiler has returned an empty trace
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fa.flash_attention_fwd(q, k, v)
+                torch.cuda.synchronize()
+            keys = [e.key for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA]
+            if keys:
+                break
+        assert any(kernel in n for n in keys), (D, keys)
+        assert not any(other in n for n in keys), (D, keys)
+        names += keys
+    assert names
