@@ -6,9 +6,10 @@ GPU and check it end to end.
 
 Phase 0 prints the card and builds every CUDA kernel from the sources in
 the checkout, one ``nvcc`` per source started together (``-Xptxas -v``
-report included), and holds the bf16 flash forward as built to its design:
-no spill, no wgmma serialisation, no ignored ``setmaxnreg``, and HGMMA and
-UTMALDG instructions in its SASS at every head dim.  Phase 1 holds the
+report included), and holds the bf16 flash forward, dq and dk/dv kernels
+as built to their design: no spill, no wgmma serialisation, no ignored
+``setmaxnreg``, and HGMMA and UTMALDG instructions in their SASS at every
+head dim.  Phase 1 holds the
 paged-attention kernel against its plain PyTorch version at the serving
 path's shapes (Llama-3-8B attention geometry), over fp pools and over int8
 pools (the kernel's dequant branch), and times the kernel, the plain
@@ -28,8 +29,9 @@ head_dim 256 and Gemma-2-2B's geometry (8 q on 4 kv heads, softcap 50) and
 times it there.  Phase 3 holds the flash-attention forward, dq and dk/dv
 kernels against their plain versions row by row (the training paths' own
 shapes, causal and not, GQA 4 and 1, MQA, sliding windows, softcaps, packed
-segments with padding, T > S, queries that see no key, the model's strided
-layout, an lse cotangent, D 64, 128 and 256, bf16 and fp32) and times them
+segments with padding, T > S, queries that see no key (o = 0, dq = 0), the
+model's strided layout, an lse cotangent, D 64, 128 and 256, bf16 and
+fp32) and times them
 at Llama's training shape and at Gemma-2-2B's (global and sliding-window
 layers, each with and without the softcap).  Phase 4 trains a
 Llama-3-8B-width model cut to 4 layers (fp32 masters, bf16 compute, flash
@@ -305,8 +307,11 @@ def check_bound(name: str, times: dict, bound: float) -> None:
 
 # -- phase 0: build guards ---------------------------------------------------
 
-# the bf16 forward (B1) and the libraries that instantiate it
-WGMMA_FWD = "flash_fwd_wgmma_kernel"
+# the bf16 kernels (B1-B3: TMA, wgmma, warp-specialised), by the index
+# flash_wgmma_smem_bytes takes, and the libraries that instantiate them
+WGMMA_KERNELS = {"fwd": (0, "flash_fwd_wgmma_kernel"),
+                 "dq": (1, "flash_dq_wgmma_kernel"),
+                 "dkv": (2, "flash_dkv_wgmma_kernel")}
 WGMMA_LIBS = {"flash_attention": (64, 128), "flash_attention_d256": (256,)}
 
 
@@ -349,14 +354,15 @@ def sass_functions(lib_path: str) -> dict:
 
 
 def check_build_guards(paths: dict) -> dict:
-    """The bf16 forward as built, in each library that instantiates it:
-    ptxas reports no spill for it and no wgmma serialisation or ignored
-    setmaxnreg anywhere, and its SASS holds HGMMA (wgmma) and UTMALDG
-    (TMA load) instructions.  Fails the run otherwise; returns the
-    per-head-dim registers, shared memory and instruction counts."""
+    """The bf16 forward, dq and dk/dv kernels as built, in each library
+    that instantiates them: ptxas reports no spill for them and no wgmma
+    serialisation or ignored setmaxnreg anywhere, and their SASS holds
+    HGMMA (wgmma) and UTMALDG (TMA load) instructions.  Fails the run
+    otherwise; returns ``{kernel: {head dim: registers, shared memory and
+    instruction counts}}``."""
     from neuronx_distributed_tpu_torch.ops import _build
 
-    found = {}
+    found = {w: {} for w in WGMMA_KERNELS}
     for name, dims in WGMMA_LIBS.items():
         report = _build.build_logs.get(name, "")
         if "ptxas" not in report:
@@ -365,33 +371,35 @@ def check_build_guards(paths: dict) -> dict:
             if bad in report:
                 lines = [ln for ln in report.splitlines() if bad in ln]
                 raise AssertionError(f"{name}: ptxas says {bad!r}: {lines}")
-        ptx = {n: f for n, f in ptxas_functions(report).items()
-               if WGMMA_FWD in n}
-        sass = {n: s for n, s in sass_functions(paths[name]).items()
-                if WGMMA_FWD in n}
+        all_ptx = ptxas_functions(report)
+        all_sass = sass_functions(paths[name])
         lib = _build.load(name)
-        if len(ptx) != len(dims) or len(sass) != len(dims):
-            raise AssertionError(f"{name}: {WGMMA_FWD} for {dims} expected, "
-                                 f"ptxas reports {list(ptx)}, SASS has "
-                                 f"{list(sass)}")
-        for d in dims:
-            tag = f"ILi{d}E"  # the template argument in the mangled name
-            (pn, pf), = [(n, f) for n, f in ptx.items() if tag in n]
-            (sn, text), = [(n, s) for n, s in sass.items() if tag in n]
-            counts = {op: text.count(op) for op in ("HGMMA", "UTMALDG")}
-            spill = pf.get("spill_stores", -1) + pf.get("spill_loads", -1)
-            info = dict(pf, smem_bytes=lib.flash_fwd_smem_bytes(d),
-                        sass=counts)
-            log(f"phase0 guard: {WGMMA_FWD}<{d}> in {name}: {info}")
-            if spill != 0:
-                raise AssertionError(f"{WGMMA_FWD}<{d}> spills: {pf}")
-            if not all(counts.values()):
-                raise AssertionError(f"{WGMMA_FWD}<{d}> SASS lacks wgmma or "
-                                     f"TMA instructions: {counts}")
-            found[d] = info
-    log("phase0 guard: the bf16 forward uses HGMMA and UTMALDG at every "
-        "head dim, spills nothing; no wgmma serialisation, no ignored "
-        "setmaxnreg")
+        for w, (which, kname) in WGMMA_KERNELS.items():
+            ptx = {n: f for n, f in all_ptx.items() if kname in n}
+            sass = {n: s for n, s in all_sass.items() if kname in n}
+            if len(ptx) != len(dims) or len(sass) != len(dims):
+                raise AssertionError(f"{name}: {kname} for {dims} expected, "
+                                     f"ptxas reports {list(ptx)}, SASS has "
+                                     f"{list(sass)}")
+            for d in dims:
+                tag = f"ILi{d}E"  # the template argument in the mangled name
+                (pn, pf), = [(n, f) for n, f in ptx.items() if tag in n]
+                (sn, text), = [(n, s) for n, s in sass.items() if tag in n]
+                counts = {op: text.count(op) for op in ("HGMMA", "UTMALDG")}
+                spill = pf.get("spill_stores", -1) + pf.get("spill_loads", -1)
+                info = dict(pf, smem_bytes=lib.flash_wgmma_smem_bytes(which,
+                                                                      d),
+                            sass=counts)
+                log(f"phase0 guard: {kname}<{d}> in {name}: {info}")
+                if spill != 0:
+                    raise AssertionError(f"{kname}<{d}> spills: {pf}")
+                if not all(counts.values()):
+                    raise AssertionError(f"{kname}<{d}> SASS lacks wgmma or "
+                                         f"TMA instructions: {counts}")
+                found[w][d] = info
+    log("phase0 guard: the bf16 forward, dq and dk/dv use HGMMA and UTMALDG "
+        "at every head dim and spill nothing; no wgmma serialisation, no "
+        "ignored setmaxnreg")
     return found
 
 
@@ -1219,6 +1227,10 @@ FLASH_CASES = [
      True),
     ("causal_d64", 2, 8, 2, 333, 333, 64, True, None, None, None, False,
      False),
+    # packed documents under a window at D = 64: segmented tiles and window
+    # edges of the 128-key dk/dv blocks together
+    ("segments_window_d64", 2, 8, 2, 777, 777, 64, True, 128, None, None,
+     True, False),
 ]
 # Gemma-2-2B's training attention: batch 1 x 8192, 8 q heads on 4 kv
 # heads, head_dim 256, score scale 1/16; even layers slide over 4096 keys
@@ -1240,11 +1252,15 @@ FLASH_CASES_D256 = [
      True, True),
     ("no_key_rows_d256", 1, 8, 4, 500, 200, GD, True, None, None, None, False,
      False, True),
+    # MQA at D = 256 with window and softcap: the in-kernel sum over G = 8 q
+    # heads, the dk/dv hand-over between the consumers, ragged key tiles
+    ("mqa_g8_window_softcap_d256", 1, 8, 1, 1000, 1000, GD, True, 256,
+     G2_CAP, SOFTCAP_SCALE, False, False),
 ]
 FLASH_KERNELS = {
-    "fwd": ("flash_attention_fwd", WGMMA_FWD, 4, 154),
-    "dq": ("flash_attention_dq", "flash_dq_kernel", 6, 311),
-    "dkv": ("flash_attention_dkv", "flash_dkv_kernel", 8, 368),
+    "fwd": ("flash_attention_fwd", WGMMA_KERNELS["fwd"][1], 4, 154),
+    "dq": ("flash_attention_dq", WGMMA_KERNELS["dq"][1], 6, 311),
+    "dkv": ("flash_attention_dkv", WGMMA_KERNELS["dkv"][1], 8, 368),
 }
 
 
@@ -1394,9 +1410,11 @@ def hold_flash_cases(cases, worst: dict, worst_lse: dict,
             finite = all(bool(torch.isfinite(x.float()).all())
                          for x in (o, lse, dq, dk, dv))
             # rows with no visible key (padding, a segment absent from the
-            # keys, queries before every key): o = 0 exactly, lse NEG_INF
+            # keys, queries before every key): o = 0 and dq = 0 exactly,
+            # lse NEG_INF
             empty_ok = bool((lse[~live] <= -1e29).all()) and bool(
-                (o.float()[~live] == 0).all())
+                (o.float()[~live] == 0).all()) and bool(
+                (dq.float()[~live] == 0).all())
             bites = {}
             for opt in ("window", "softcap"):
                 if opts[opt] is not None:
@@ -1431,8 +1449,9 @@ def hold_flash_cases(cases, worst: dict, worst_lse: dict,
                                      f"{name} {dn}")
             worst_lse[dn] = max(worst_lse[dn], lse_err)
             if not finite or not empty_ok:
-                raise AssertionError(f"non-finite output or non-empty empty "
-                                     f"rows in {name} {dn}")
+                raise AssertionError(f"non-finite output or nonzero o or dq "
+                                     f"in rows that see no key in {name} "
+                                     f"{dn}")
             for opt, d in bites.items():
                 if not d > BITE * TOL[dn]:
                     raise AssertionError(
@@ -1576,6 +1595,9 @@ def time_flash(shape, sm_scale=None, variants=((None, None),), worst=None,
                 "ms": by_variant[var]["kernel"],
                 "bound_ms": by_variant[var]["bound_ms"],
                 "bound_by": by_variant[var]["bound_by"]}
+    log(f"phase3 ({label}): dq + dk/dv {entries['dq']['ms'] + entries['dkv']['ms']:.5f}"
+        f" ms against SDPA's backward {lib_bwd_ms:.5f} ms: "
+        f"{(entries['dq']['ms'] + entries['dkv']['ms']) / lib_bwd_ms:.2f}x")
     del copies, lib_fwd, lib_bwd
     torch.cuda.empty_cache()
     return entries
@@ -2060,8 +2082,9 @@ def main() -> int:
         log(f"phase5 summary: {json.dumps(gemma_training)}")
         gemma_serving = phase5b(entry256)
         log(f"phase5b summary: {json.dumps(gemma_serving)}")
-        flash["fwd"]["build"] = {d: guards[d] for d in (64, 128)}
-        flash256["fwd"]["build"] = {256: guards[256]}
+        for w in FLASH_KERNELS:
+            flash[w]["build"] = {d: guards[w][d] for d in (64, 128)}
+            flash256[w]["build"] = {256: guards[w][256]}
         kernels = ([entry, entry8, entry256]
                    + [flash[w] for w in FLASH_KERNELS]
                    + [flash256[w] for w in FLASH_KERNELS])

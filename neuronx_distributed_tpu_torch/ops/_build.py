@@ -56,7 +56,7 @@ _FLASH_ENTRIES = {
     "flash_attention_dq": ([ctypes.POINTER(FlashParams), _P], _I),
     "flash_attention_dkv": ([ctypes.POINTER(FlashParams), _P], _I),
     "flash_params_size": ([], _I),
-    "flash_fwd_smem_bytes": ([_I], _I),
+    "flash_wgmma_smem_bytes": ([_I, _I], _I),
 }
 
 # C signature of every exported kernel entry, by library name

@@ -95,6 +95,21 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// one box of a flat map (encode_flat_f32: a row of fp32 statistics) into
+// shared memory at `dst` (128-byte aligned), from element c0 (a multiple of
+// 4: a box starts 16-byte aligned), completing on `bar`; elements past the
+// end are filled with zeros (and count toward the barrier's bytes)
+__device__ __forceinline__ void tma_load_flat(void* dst,
+                                              const CUtensorMap* map,
+                                              uint64_t* bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(0)
+      : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // wgmma
 // ---------------------------------------------------------------------------
@@ -121,6 +136,14 @@ __device__ __forceinline__ uint64_t desc_k_major(uint32_t addr) {
 __device__ __forceinline__ uint64_t desc_mn_major(uint32_t addr,
                                                   uint32_t panel_bytes) {
   return smem_desc(addr, panel_bytes);
+}
+
+// x, opaque to the compiler: what is computed from it (a descriptor of a
+// loop-invariant tile) is computed again after each call instead of being
+// hoisted out of the loop into registers the accumulators need
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
 }
 
 // orders this thread's register and shared-memory writes before the next
@@ -162,8 +185,27 @@ __device__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
 template <int N>
 __device__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                          uint64_t db, int accumulate);
+// D[64 x N] (+)= A[64 x 16] B[16 x N], A K-major and B MN-major, both in
+// shared memory (a product whose A was handed over through a panel)
+template <int N>
+__device__ void wgmma_ss_mn(float (&d)[N / 2], uint64_t da, uint64_t db,
+                            int accumulate);
 
 // one specialisation per shape the kernels use
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
 
 template <>
 __device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da,
@@ -193,6 +235,29 @@ __device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da,
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
       "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_mn<128>(float (&d)[64], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -312,6 +377,34 @@ __device__ __forceinline__ void named_barrier_arrive(int id, int count) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
+// makes this thread's ordinary shared-memory stores visible to the async
+// proxy (a later wgmma of any warpgroup reads them); a barrier between
+// writer and reader must follow
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// register tiles in a swizzled panel
+// ---------------------------------------------------------------------------
+
+// Byte offset of the bf16 pair at (row r, even column c) of a 64-column
+// panel in the 128-byte-swizzled layout TMA writes (chunk c / 8 of row r
+// at chunk (c / 8) ^ (r % 8)).  An accumulator thread's pairs (rows 16w + g
+// and + 8, columns 8j + 2t) land on 32 distinct banks a warp.
+__device__ __forceinline__ uint32_t panel_offset(int r, int c) {
+  return r * PANEL_ROW_BYTES + ((((c >> 3) ^ r) & 7) << 4) + (c & 7) * 2;
+}
+__device__ __forceinline__ void st_panel(unsigned char* panel, int r, int c,
+                                         uint32_t pair) {
+  *reinterpret_cast<uint32_t*>(panel + panel_offset(r, c)) = pair;
+}
+__device__ __forceinline__ float2 ld_panel(const unsigned char* panel, int r,
+                                           int c) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+      panel + panel_offset(r, c)));
+}
+
 // ---------------------------------------------------------------------------
 // fast math
 // ---------------------------------------------------------------------------
@@ -396,6 +489,26 @@ inline int encode_rows(CUtensorMap* map, const void* base, int D, int N,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : TENSOR_MAP_ERROR + (int)r;
+}
+
+// A map over n contiguous fp32 values (a [B, H, S] statistic read as one
+// flat row), in boxes of `box` values (box * 4 a multiple of 16).  The
+// driver refuses a rank-1 map, so it is n x 1, the second dimension never
+// stepped.  Returns 0 or an error code.
+inline int encode_flat_f32(CUtensorMap* map, const void* base, long long n,
+                           int box) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return ENCODER_MISSING;
+  cuuint64_t dims[2] = {(cuuint64_t)n, 1};
+  cuuint64_t strides[1] = {((cuuint64_t)n * 4 + 15) / 16 * 16};
+  cuuint32_t boxd[2] = {(cuuint32_t)box, 1}, unit[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                        const_cast<void*>(base), dims, strides, boxd, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_NONE,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : TENSOR_MAP_ERROR + (int)r;
 }

@@ -20,7 +20,10 @@ three kernels, each with a plain PyTorch version beside it:
 On a CUDA tensor a wrapper launches its kernel (``csrc/flash_attention.cuh``,
 built by ``nvcc`` at first use into one library for head_dim 64 and 128 and
 one for 256, bound with ``ctypes``) or raises, and counts the launch in its
-``launches``; on a CPU tensor it runs its plain version.
+``launches``; on a CPU tensor it runs its plain version.  bf16 runs the
+Hopper kernels (TMA, ``wgmma``, warp-specialised: ``flash_fwd_wgmma_kernel``,
+``flash_dq_wgmma_kernel``, ``flash_dkv_wgmma_kernel``), fp32 the
+``mma.sync``-shaped ones (``wgmma`` has no fp32 mode).
 A masked key has probability exactly 0, so a row with no visible key
 (segment id 0, or a segment absent from the keys) gets o = 0 and lse =
 ``NEG_INF``; the JAX kernels leave such rows' o undefined, and they are

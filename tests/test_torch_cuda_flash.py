@@ -300,31 +300,65 @@ def test_kernels_take_model_layout_views(dev, dtype, D):
     assert (lse - rlse).abs().max().item() <= LSE_TOL
 
 
-@pytest.mark.parametrize("dtype,kernel,other", [
-    (torch.bfloat16, "flash_fwd_wgmma_kernel", "flash_fwd_kernel<"),
-    (torch.float32, "flash_fwd_kernel", "flash_fwd_wgmma_kernel")],
+@pytest.mark.parametrize("dtype,kernels,others", [
+    (torch.bfloat16,
+     ("flash_fwd_wgmma_kernel", "flash_dq_wgmma_kernel",
+      "flash_dkv_wgmma_kernel"),
+     ("flash_fwd_kernel<", "flash_dq_kernel<", "flash_dkv_kernel<")),
+    (torch.float32,
+     ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel"),
+     ("flash_fwd_wgmma_kernel", "flash_dq_wgmma_kernel",
+      "flash_dkv_wgmma_kernel"))],
     ids=["bf16", "fp32"])
-def test_profiler_names_the_forward_kernel(dev, dtype, kernel, other):
-    """A bf16 forward runs the warp-specialised wgmma kernel, an fp32
-    forward the mma.sync one, at every head dim: the device kernels that
-    torch.profiler records name them."""
+def test_profiler_names_the_forward_kernel(dev, dtype, kernels, others):
+    """A bf16 forward, dq and dk/dv run the warp-specialised wgmma
+    kernels, fp32 the mma.sync ones, at every head dim: the device
+    kernels that torch.profiler records name them."""
     from torch.profiler import ProfilerActivity, profile
 
     names = []
     for D in (64, 128, 256):
-        q, k, v, _, _ = inputs(D, 1, 4, 2, 256, 256, D, dtype, dev)
-        fa.flash_attention_fwd(q, k, v)  # built and warm
+        q, k, v, do, _ = inputs(D, 1, 4, 2, 256, 256, D, dtype, dev)
+
+        def run():
+            o, lse = fa.flash_attention_fwd(q, k, v)
+            delta = (do.float() * o.float()).sum(-1)
+            fa.flash_attention_dq(q, k, v, do, lse, delta)
+            fa.flash_attention_dkv(q, k, v, do, lse, delta)
+
+        run()  # built and warm
         torch.cuda.synchronize()
         for _ in range(3):  # the profiler has returned an empty trace
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
-                fa.flash_attention_fwd(q, k, v)
+                run()
                 torch.cuda.synchronize()
             keys = [e.key for e in prof.key_averages()
                     if e.device_type == torch.autograd.DeviceType.CUDA]
-            if keys:
+            if all(any(kn in n for n in keys) for kn in kernels):
                 break
-        assert any(kernel in n for n in keys), (D, keys)
-        assert not any(other in n for n in keys), (D, keys)
+        for kn in kernels:
+            assert any(kn in n for n in keys), (D, kn, keys)
+        for kn in others:
+            assert not any(kn in n for n in keys), (D, kn, keys)
         names += keys
     assert names
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_bf16_dkv_is_deterministic(dev, D):
+    """Two bf16 dk/dv calls on the same inputs give bit-identical dk and
+    dv: the sums over q rows and over the group's q heads run in
+    registers in a fixed order, with no atomics (MQA, G = 8, over several
+    q tiles, with a window)."""
+    q, k, v, do, _ = inputs(D + 11, 2, 8, 1, 300, 300, D, torch.bfloat16,
+                            dev)
+    opts = dict(causal=True, window=200)
+    _, lse = fa.flash_attention_fwd(q, k, v, **opts)
+    delta = torch.randn(lse.shape, generator=torch.Generator().manual_seed(
+        D), dtype=torch.float32).to(dev)
+    dk1, dv1 = fa.flash_attention_dkv(q, k, v, do, lse, delta, **opts)
+    dk2, dv2 = fa.flash_attention_dkv(q, k, v, do, lse, delta, **opts)
+    torch.cuda.synchronize()
+    assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
+    assert dk1.abs().max().item() > 0 and dv1.abs().max().item() > 0

@@ -5,7 +5,8 @@ The same seeded numpy inputs go through the JAX ``flash_attention*`` entries
 them on the CPU) and the port's entries, whose CPU path is the kernels'
 plain versions (``flash_fwd_reference``, ``flash_dq_reference``,
 ``flash_dkv_reference``) under the same ``torch.autograd.Function`` the
-card uses, at head_dim 32 and at 256 (the Gemma width).  Forward output,
+card uses, at head_dim 32 and at 256 (the Gemma width), and at 64 for the
+segment, window and lse cases.  Forward output,
 lse and dq/dk/dv are compared in fp32 to 2e-5 absolute: both sides compute
 in fp32 and differ only in summation order.
 
@@ -43,7 +44,14 @@ CASES = [
     ("segments", 2, 4, 2, 32, 32, True, None, None, None, True, False),
     ("segments_window_lse", 1, 4, 2, 32, 32, True, 6, None, None, True, True),
     ("window_softcap_lse", 1, 4, 2, 32, 32, True, 8, 5.0, 2.0, False, True),
+    # MQA: 8 q heads summed into one kv head's dk/dv, under window and cap
+    ("mqa_g8_window_softcap", 1, 8, 1, 32, 32, True, 8, 5.0, 2.0, False,
+     False),
 ]
+# the cases also held at D = 64 (the card's D = 64 dk/dv blocks take 128
+# keys, and its masked tiles are segments and window edges): segments,
+# windows and lse cotangents
+D64_CASES = [c for c in CASES if c[7] is not None or c[10] or c[11]]
 
 
 def make_inputs(case, D=32, seed=0):
@@ -104,7 +112,8 @@ def port_run(case, q, k, v, do, dlse, seg):
 
 @pytest.mark.parametrize(
     "case,D", [pytest.param(c, 32, id=c[0]) for c in CASES]
-    + [pytest.param(c, 256, id=f"{c[0]}-d256") for c in CASES])
+    + [pytest.param(c, 256, id=f"{c[0]}-d256") for c in CASES]
+    + [pytest.param(c, 64, id=f"{c[0]}-d64") for c in D64_CASES])
 def test_entries_match_jax_kernels_forward_and_backward(case, D):
     inputs = make_inputs(case, D)
     seg = inputs[-1]
