@@ -9,18 +9,26 @@ the checkout, one ``nvcc`` per source started together (``-Xptxas -v``
 report included), and holds the bf16 flash forward, dq and dk/dv kernels
 as built to their design: no spill, no wgmma serialisation, no ignored
 ``setmaxnreg``, and HGMMA and UTMALDG instructions in their SASS at every
-head dim.  Phase 1 holds the
-paged-attention kernel against its plain PyTorch version at the serving
-path's shapes (Llama-3-8B attention geometry), over fp pools and over int8
-pools (the kernel's dequant branch), and times the kernel, the plain
-version and one PyTorch library call doing the same work.  Phase 2 serves
+head dim; the multi-row paged kernel likewise, with HGMMA and LDGSTS
+(cp.async) at every head dim over bf16 and int8 pools.  Phase 1 holds the
+paged-attention kernels (the simt kernel for decode and fp32 q, the wgmma
+kernel for bf16 q at S > 1; the simt kernel's bf16 multi-row code forced)
+against their plain PyTorch version at the serving path's shapes
+(Llama-3-8B attention geometry), over fp pools and over int8 pools (the
+kernels' dequant branches), and times each route, the plain version and
+one PyTorch library call doing the same work: at decode, at the main
+path's chunk call (one slot, 128 tokens at offset 384; each route's
+output there held too) and at B = 8, S = 128; then both routes over
+query widths 2 to 128 at 4 q heads a kv head and 2 to 16 at 1 (the
+routing rule).  Phase 2 serves
 16 requests through ``ServingEngine`` on a full-width, full-depth
 Llama-3-8B with random bf16 weights from a seed, counts the kernel's
 launches on that run, checks page accounting, and compares the kernel
 path's logits with the gather path's.  Phase 2b serves the same requests on
 the same model with int8 KV pages and 128-token prefill chunks
-(``kv_quant="int8"``, ``prefill_chunk_tokens``), counts the kernel's
-launches (every decode step and every chunk of every layer), checks page
+(``kv_quant="int8"``, ``prefill_chunk_tokens``), counts the kernels'
+launches (every decode step and every chunk of every layer, every chunk on
+the wgmma kernel), checks page
 accounting and the int8 pool's size, compares the kernel's logits with the
 gather path's on the int8 pool and the int8 pool's logits with the bf16
 pool's after the same prefill, and serves the requests once more with
@@ -313,6 +321,8 @@ WGMMA_KERNELS = {"fwd": (0, "flash_fwd_wgmma_kernel"),
                  "dq": (1, "flash_dq_wgmma_kernel"),
                  "dkv": (2, "flash_dkv_wgmma_kernel")}
 WGMMA_LIBS = {"flash_attention": (64, 128), "flash_attention_d256": (256,)}
+# the multi-row paged kernel (wgmma, cp.async, warp-specialised)
+PAGED_WGMMA_KERNEL = "paged_attention_wgmma_kernel"
 
 
 def ptxas_functions(report: str) -> dict:
@@ -353,53 +363,77 @@ def sass_functions(lib_path: str) -> dict:
     return funcs
 
 
+def guard_kernels(paths: dict, lib_name: str, kname: str, tags: dict,
+                  ops, smem_of) -> dict:
+    """One kernel template as built in library ``lib_name``: ptxas reports
+    no wgmma serialisation and no ignored setmaxnreg in the library, no
+    spill for any instantiation, and the SASS of each holds every
+    instruction in ``ops``.  ``tags``: ``{key: the template arguments as
+    mangled}``, one instantiation each; ``smem_of(key)``: its dynamic
+    shared memory.  Fails the run otherwise; returns ``{key: registers,
+    shared memory and instruction counts}``."""
+    from neuronx_distributed_tpu_torch.ops import _build
+
+    report = _build.build_logs.get(lib_name, "")
+    if "ptxas" not in report:
+        raise AssertionError(f"no ptxas report for {lib_name}: {report!r}")
+    for bad in ("instructions are serialized", "setmaxnreg ignored"):
+        if bad in report:
+            lines = [ln for ln in report.splitlines() if bad in ln]
+            raise AssertionError(f"{lib_name}: ptxas says {bad!r}: {lines}")
+    ptx = {n: f for n, f in ptxas_functions(report).items() if kname in n}
+    sass = {n: t for n, t in sass_functions(paths[lib_name]).items()
+            if kname in n}
+    if len(ptx) != len(tags) or len(sass) != len(tags):
+        raise AssertionError(f"{lib_name}: {kname} for {list(tags)} "
+                             f"expected, ptxas reports {list(ptx)}, SASS has "
+                             f"{list(sass)}")
+    found = {}
+    for key, tag in tags.items():
+        (pn, pf), = [(n, f) for n, f in ptx.items() if tag in n]
+        (sn, text), = [(n, t) for n, t in sass.items() if tag in n]
+        counts = {op: text.count(op) for op in ops}
+        spill = pf.get("spill_stores", -1) + pf.get("spill_loads", -1)
+        info = dict(pf, smem_bytes=smem_of(key), sass=counts)
+        log(f"phase0 guard: {kname}<{key}> in {lib_name}: {info}")
+        if spill != 0:
+            raise AssertionError(f"{kname}<{key}> spills: {pf}")
+        if not all(counts.values()):
+            raise AssertionError(f"{kname}<{key}> SASS lacks one of {ops}: "
+                                 f"{counts}")
+        found[key] = info
+    return found
+
+
 def check_build_guards(paths: dict) -> dict:
-    """The bf16 forward, dq and dk/dv kernels as built, in each library
-    that instantiates them: ptxas reports no spill for them and no wgmma
-    serialisation or ignored setmaxnreg anywhere, and their SASS holds
-    HGMMA (wgmma) and UTMALDG (TMA load) instructions.  Fails the run
-    otherwise; returns ``{kernel: {head dim: registers, shared memory and
-    instruction counts}}``."""
+    """The bf16 flash forward, dq and dk/dv kernels in each library that
+    instantiates them (HGMMA and UTMALDG at every head dim), and the
+    multi-row paged kernel (HGMMA and LDGSTS, cp.async, at every head dim
+    over bf16 and int8 pools): no spill, no wgmma serialisation, no
+    ignored setmaxnreg.  Returns ``{kernel: {instantiation: registers,
+    shared memory and instruction counts}}``."""
     from neuronx_distributed_tpu_torch.ops import _build
 
     found = {w: {} for w in WGMMA_KERNELS}
     for name, dims in WGMMA_LIBS.items():
-        report = _build.build_logs.get(name, "")
-        if "ptxas" not in report:
-            raise AssertionError(f"no ptxas report for {name}: {report!r}")
-        for bad in ("instructions are serialized", "setmaxnreg ignored"):
-            if bad in report:
-                lines = [ln for ln in report.splitlines() if bad in ln]
-                raise AssertionError(f"{name}: ptxas says {bad!r}: {lines}")
-        all_ptx = ptxas_functions(report)
-        all_sass = sass_functions(paths[name])
         lib = _build.load(name)
         for w, (which, kname) in WGMMA_KERNELS.items():
-            ptx = {n: f for n, f in all_ptx.items() if kname in n}
-            sass = {n: s for n, s in all_sass.items() if kname in n}
-            if len(ptx) != len(dims) or len(sass) != len(dims):
-                raise AssertionError(f"{name}: {kname} for {dims} expected, "
-                                     f"ptxas reports {list(ptx)}, SASS has "
-                                     f"{list(sass)}")
-            for d in dims:
-                tag = f"ILi{d}E"  # the template argument in the mangled name
-                (pn, pf), = [(n, f) for n, f in ptx.items() if tag in n]
-                (sn, text), = [(n, s) for n, s in sass.items() if tag in n]
-                counts = {op: text.count(op) for op in ("HGMMA", "UTMALDG")}
-                spill = pf.get("spill_stores", -1) + pf.get("spill_loads", -1)
-                info = dict(pf, smem_bytes=lib.flash_wgmma_smem_bytes(which,
-                                                                      d),
-                            sass=counts)
-                log(f"phase0 guard: {kname}<{d}> in {name}: {info}")
-                if spill != 0:
-                    raise AssertionError(f"{kname}<{d}> spills: {pf}")
-                if not all(counts.values()):
-                    raise AssertionError(f"{kname}<{d}> SASS lacks wgmma or "
-                                         f"TMA instructions: {counts}")
-                found[w][d] = info
+            found[w].update(guard_kernels(
+                paths, name, kname, {d: f"ILi{d}E" for d in dims},
+                ("HGMMA", "UTMALDG"),
+                lambda d, which=which: lib.flash_wgmma_smem_bytes(which, d)))
+    paged = _build.load("paged_attention")
+    found["paged_wgmma"] = guard_kernels(
+        paths, "paged_attention", PAGED_WGMMA_KERNEL,
+        {f"{d} {pool}": f"ILi{d}ELb{int(pool == 'int8')}E"
+         for d in (64, 128, 256) for pool in ("bf16", "int8")},
+        ("HGMMA", "LDGSTS"),
+        lambda key: paged.paged_wgmma_smem_bytes(int(key.split()[0]),
+                                                 int(key.endswith("int8"))))
     log("phase0 guard: the bf16 forward, dq and dk/dv use HGMMA and UTMALDG "
-        "at every head dim and spill nothing; no wgmma serialisation, no "
-        "ignored setmaxnreg")
+        "at every head dim, the multi-row paged kernel HGMMA and LDGSTS at "
+        "every head dim and pool type; none spills; no wgmma serialisation, "
+        "no ignored setmaxnreg")
     return found
 
 
@@ -407,12 +441,14 @@ def check_build_guards(paths: dict) -> dict:
 
 
 def paged_inputs(S: int, dtype, device, d: int = D, int8: bool = False,
-                 nq: int = NQ, nkv: int = NKV):
+                 nq: int = NQ, nkv: int = NKV, chunk_offset=None):
     """Seeded inputs at the served geometry (``nq`` q heads on ``nkv`` kv
     heads): ragged offsets, one parked slot, non-zero kv_start, a shuffled
     physical block table.  ``int8``: the pool is the int8 six-tuple that
     ``quantize_page`` makes of the fp pool, with the first page slot 0
-    attends made constant first (scale 0)."""
+    attends made constant first (scale 0).  ``chunk_offset``: the main
+    path's chunk call instead, one slot (B = 1) whose chunk starts at that
+    offset, kv_start 0."""
     import numpy as np
     import torch
 
@@ -420,14 +456,19 @@ def paged_inputs(S: int, dtype, device, d: int = D, int8: bool = False,
 
     rs = np.random.RandomState(SEED + S + (0 if d == D else d))
     T = PP * PAGE
-    NP = B * PP + 1
-    q = torch.from_numpy(rs.standard_normal((B, S, nq, d)).astype(np.float32))
+    nb = B if chunk_offset is None else 1
+    NP = nb * PP + 1
+    q = torch.from_numpy(rs.standard_normal((nb, S, nq, d)).astype(np.float32))
     k = torch.from_numpy(rs.standard_normal((NP, PAGE, nkv, d)).astype(np.float32))
     v = torch.from_numpy(rs.standard_normal((NP, PAGE, nkv, d)).astype(np.float32))
-    bt = (rs.permutation(NP - 1) + 1).reshape(B, PP).astype(np.int32)
-    off = rs.randint(40, T - S, size=B).astype(np.int32)
-    off[PARKED] = T
-    start = np.minimum(rs.randint(0, 40, size=B), off).astype(np.int32)
+    bt = (rs.permutation(NP - 1) + 1).reshape(nb, PP).astype(np.int32)
+    if chunk_offset is None:
+        off = rs.randint(40, T - S, size=B).astype(np.int32)
+        off[PARKED] = T
+        start = np.minimum(rs.randint(0, 40, size=B), off).astype(np.int32)
+    else:
+        off = np.array([chunk_offset], np.int32)
+        start = np.zeros(1, np.int32)
     start[0] = 0
     to = dict(device=device)
     if int8:
@@ -454,7 +495,8 @@ def bound_ms(S: int, dtype_name: str, off, start, window=None, d: int = D,
     item = 2 if dtype_name == "bfloat16" else 4
     kv_item = 1 if int8 else item
     G = nq // nkv
-    nbytes = 2 * B * S * nq * d * item + B * PP * 4 + 2 * B * 4
+    nb = len(off)
+    nbytes = 2 * nb * S * nq * d * item + nb * PP * 4 + 2 * nb * 4
     flops = 0
     for o, s0 in zip(off.tolist(), start.tolist()):
         if o >= T:
@@ -490,9 +532,9 @@ def library_call(q, pool, bt, off, start, sm_scale=None):
         k = dequantize_page(k, pool[2][b], pool[3][b], q.dtype)
         v = dequantize_page(v, pool[4][b], pool[5][b], q.dtype)
     T = bt.shape[1] * k.shape[2]
-    S, d, nkv = q.shape[1], q.shape[3], k.shape[-2]
-    kg = k.reshape(B, T, nkv, d).transpose(1, 2)
-    vg = v.reshape(B, T, nkv, d).transpose(1, 2)
+    nb, S, d, nkv = q.shape[0], q.shape[1], q.shape[3], k.shape[-2]
+    kg = k.reshape(nb, T, nkv, d).transpose(1, 2)
+    vg = v.reshape(nb, T, nkv, d).transpose(1, 2)
     qpos = off.long()[:, None] + torch.arange(S, device=q.device)[None]
     kpos = torch.arange(T, device=q.device)
     mask = (kpos[None, None] <= qpos[..., None]) & (
@@ -504,30 +546,47 @@ def library_call(q, pool, bt, off, start, sm_scale=None):
 
 def hold_paged_cases(cases, label: str, d: int = D, nq: int = NQ,
                      nkv: int = NKV) -> dict:
-    """Each fp-pool case: the kernel against its plain version (fp32 from
-    the same inputs) within TOL, the parked slot exact zeros, and each
-    option of the case (window, softcap) moving the plain output by more
-    than BITE tolerances.  Returns the worst error per dtype name."""
+    """Each case: the kernel against its plain version within TOL, the
+    parked slot exact zeros, and each option of the case (window, softcap)
+    moving the plain output by more than BITE tolerances.  A case may name
+    its head dim (``d``), an int8 pool (``int8``: the plain version then
+    dequantizes the gathered pages to q's type, as the kernels do; an fp
+    pool's plain version runs in fp32 from the same inputs) and a route
+    (``route``; default the wrapper's rule); the route the call took must
+    be the one asked for.  Returns the worst error per dtype name."""
     import torch
 
     from neuronx_distributed_tpu_torch.ops.paged_attention import (
+        _paged_attention_on,
         paged_attention,
         paged_attention_reference,
+        paged_route,
     )
 
     live = [b for b in range(B) if b != PARKED]
     worst = {"bfloat16": 0.0, "float32": 0.0}
     for case in cases:
         S, dtype = case["S"], case["dtype"]
+        dd, int8 = case.get("d", d), case.get("int8", False)
         kw = {k: case[k] for k in ("window", "softcap", "sm_scale")
               if k in case}
-        q, pool, bt, off, start = paged_inputs(S, dtype, "cuda", d, nq=nq,
-                                               nkv=nkv)
-        out = paged_attention(q, pool, bt, off, start,
-                              split_k=case["split_k"], **kw)
+        q, pool, bt, off, start = paged_inputs(S, dtype, "cuda", dd,
+                                               int8=int8, nq=nq, nkv=nkv)
+        want = case.get("route") or paged_route(dtype, S)
+        before = paged_attention.wgmma_launches
+        if "route" in case:
+            out = _paged_attention_on(case["route"], q, pool, bt, off, start,
+                                      split_k=case["split_k"], **kw)
+        else:
+            out = paged_attention(q, pool, bt, off, start,
+                                  split_k=case["split_k"], **kw)
         torch.cuda.synchronize()
-        args = (q.float(), tuple(p.float() for p in pool), bt, off, start)
-        ref = paged_attention_reference(*args, **kw)
+        went = "wgmma" if paged_attention.wgmma_launches > before else "simt"
+        if went != want:
+            raise AssertionError(f"{case} ran the {went} kernel, not {want}")
+        args = ((q, pool, bt, off, start) if int8 else
+                (q.float(), tuple(p.float() for p in pool), bt, off, start))
+        ref = paged_attention_reference(*args, **kw).float()
         err = (out.float() - ref).abs().max().item()
         name = str(dtype).replace("torch.", "")
         parked_zero = bool((out[PARKED] == 0).all().item())
@@ -536,8 +595,9 @@ def hold_paged_cases(cases, label: str, d: int = D, nq: int = NQ,
             if opt in kw:  # the output without the option, to show it bites
                 without = {k: v for k, v in kw.items() if k != opt}
                 bites[opt] = (paged_attention_reference(*args, **without)
-                              - ref)[live].abs().max().item()
-        log(f"{label}: S={S} D={d} NQ={nq} NKV={nkv} split_k="
+                              .float() - ref)[live].abs().max().item()
+        log(f"{label}: S={S} D={dd} NQ={nq} NKV={nkv} "
+            f"{'int8' if int8 else name} pool, route {went}, split_k="
             f"{case['split_k']} {name} {kw or ''} max_abs_err={err:.3e} "
             f"(tol {TOL[name]}) parked_zero={parked_zero}" + "".join(
                 f"; without {o} the plain output moves {v:.3e}"
@@ -557,6 +617,87 @@ def hold_paged_cases(cases, label: str, d: int = D, nq: int = NQ,
     return worst
 
 
+# the kernel each route of paged_attention launches, as the profiler names it
+PAGED_KERNELS = {"simt": "paged_attention_kernel",
+                 "wgmma": "paged_attention_wgmma_kernel"}
+
+
+def time_paged(S: int, int8: bool, routes, iters: int, label: str,
+               chunk_offset=None, **geom) -> dict:
+    """Device ms per call of each route's kernel (``{route}_ms``), of the
+    plain version and of the library call (gather (+ dequantize_page) +
+    SDPA) on the same bf16-q inputs over ROTATE copies, each held to the
+    bound of its work; the first route's time is ``ms``.  Each route's
+    output at its default split is held against the plain version within
+    TOL first (``errs``)."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.ops.paged_attention import (
+        _paged_attention_on,
+        _sm_count,
+        default_split_k,
+        paged_attention_reference,
+        wgmma_split_k,
+    )
+
+    q, pool, bt, off, start = paged_inputs(S, torch.bfloat16, "cuda",
+                                           int8=int8,
+                                           chunk_offset=chunk_offset, **geom)
+    nb, nq, nkv, d = q.shape[0], q.shape[2], pool[0].shape[2], q.shape[3]
+    rows, sms = nq // nkv * S, _sm_count(torch.cuda.current_device())
+    splits = {"simt": default_split_k(nb, nkv, rows, PP * PAGE, sms),
+              "wgmma": wgmma_split_k(nb, nkv, rows, PP * PAGE, d, sms)}
+    args = ((q, pool, bt, off, start) if int8 else
+            (q.float(), tuple(p.float() for p in pool), bt, off, start))
+    ref = paged_attention_reference(*args).float()
+    errs = {}
+    for r in routes:
+        out = _paged_attention_on(r, q, pool, bt, off, start)
+        torch.cuda.synchronize()
+        errs[r] = (out.float() - ref).abs().max().item()
+        log(f"{label}: {r} route at its default split_k {splits[r]} against "
+            f"the plain version: max_abs_err={errs[r]:.3e} (tol "
+            f"{TOL['bfloat16']})")
+        if not errs[r] <= TOL["bfloat16"]:
+            raise AssertionError(f"{label}: the {r} kernel disagrees with its "
+                                 f"plain version: {errs[r]}")
+    del out, ref, args
+    copies = [(q.clone(), tuple(p.clone() for p in pool))
+              for _ in range(ROTATE)]
+
+    def over_copies(fn, *pre):
+        return [lambda qc=qc, pc=pc: fn(*pre, qc, pc, bt, off, start)
+                for qc, pc in copies]
+
+    times = {f"{r}_ms": device_ms(over_copies(_paged_attention_on, r),
+                                  iters, expect=PAGED_KERNELS[r])
+             for r in routes}
+    times["plain_ms"] = device_ms(over_copies(paged_attention_reference), 10)
+    times["library_ms"] = device_ms(over_copies(library_call), 50)
+    b_ms, b_by = bound_ms(S, "bfloat16", off.cpu(), start.cpu(), int8=int8,
+                          **geom)
+    check_bound(label, times, b_ms)
+    live = [b for b in range(q.shape[0]) if off[b] < PP * PAGE]
+    lib_err = (library_call(q, pool, bt, off, start).float()
+               - paged_attention_reference(q, pool, bt, off, start).float()
+               )[live].abs().max().item()
+    log(f"{label} timing (S={S} bf16 q, {'int8' if int8 else 'bf16'} pool, "
+        f"B={q.shape[0]} NQ={q.shape[2]} NKV={pool[0].shape[2]} "
+        f"D={q.shape[3]} page={PAGE} PP={PP}, offsets "
+        f"{off.tolist() if q.shape[0] == 1 else 'ragged'}), device ms per "
+        f"call from torch.profiler: " + ", ".join(
+            f"{k[:-3]} {v:.5f}" for k, v in times.items())
+        + f" (library: gather + {'dequantize_page + ' if int8 else ''}SDPA; "
+        f"agrees to {lib_err:.2e}); bound {b_ms:.5f} ({b_by}), "
+        f"{routes[0]} / bound {times[routes[0] + '_ms'] / b_ms:.2f}, "
+        f"{routes[0]} / library "
+        f"{times[routes[0] + '_ms'] / times['library_ms']:.3f}")
+    del copies, q, pool
+    return {"ms": times[f"{routes[0]}_ms"], **times, "bound_ms": b_ms,
+            "bound_by": b_by, "errs": errs, "split_k": {
+                r: splits[r] for r in routes}}
+
+
 def phase1():
     import torch
 
@@ -574,6 +715,8 @@ def phase1():
     cases += [dict(S=1, split_k=None, dtype=dt, softcap=50.0,
                    sm_scale=SOFTCAP_SCALE) for dt in (bf16, fp32)]
     cases += [dict(S=1, split_k=None, dtype=bf16)]
+    # the simt kernel's bf16 multi-row code, which the rule no longer picks
+    cases += [dict(S=4, split_k=sk, dtype=bf16, route="simt") for sk in (1, 4)]
     live = [b for b in range(B) if b != PARKED]
     worst = hold_paged_cases(cases, "phase1")["bfloat16"]
 
@@ -641,112 +784,139 @@ def phase1():
 
 
 def phase1_int8():
-    """The kernel's int8 branch against its plain version (which
-    dequantizes the gathered pages to q's type, as the kernel does): q in
-    bf16 and fp32, D 64/128/256, S 1/4/128, split-K 1 and the default, a
-    parked slot and a constant page in every case, plus a window and a
-    softcap case.  Timed at the decode shape and at S = 128."""
+    """The int8 pools against the plain version (which dequantizes the
+    gathered pages to q's type, as the kernels do): q in bf16 and fp32, D
+    64/128/256, S 1/4/128 (bf16 q at S > 1 takes the wgmma route by the
+    rule, and is held on the simt route as well), split-K 1 and the
+    default, a parked slot and a constant page in every case, plus a
+    window and a softcap case.  Timed at the decode shape."""
     import torch
 
-    from neuronx_distributed_tpu_torch.ops.paged_attention import (
-        paged_attention,
-        paged_attention_reference,
-    )
-
-    dev = torch.device("cuda")
     bf16, fp32 = torch.bfloat16, torch.float32
-    cases = [dict(S=S, d=d, split_k=sk, dtype=dt)
+    cases = [dict(S=S, d=d, split_k=sk, dtype=dt, int8=True)
              for dt in (bf16, fp32) for d in INT8_DIMS for S in INT8_WIDTHS
              for sk in (1, None)]
-    cases += [dict(S=1, d=D, split_k=None, dtype=dt, window=256)
+    cases += [dict(S=1, d=D, split_k=None, dtype=dt, int8=True, window=256)
               for dt in (bf16, fp32)]
-    cases += [dict(S=1, d=D, split_k=None, dtype=dt, softcap=50.0,
+    cases += [dict(S=1, d=D, split_k=None, dtype=dt, int8=True, softcap=50.0,
                    sm_scale=SOFTCAP_SCALE) for dt in (bf16, fp32)]
-    live = [b for b in range(B) if b != PARKED]
-    worst = {"bfloat16": 0.0, "float32": 0.0}
-    for case in cases:
-        S, d, dtype = case["S"], case["d"], case["dtype"]
-        kw = {k: case[k] for k in ("window", "softcap", "sm_scale")
-              if k in case}
-        q, pool, bt, off, start = paged_inputs(S, dtype, dev, d, int8=True)
-        out = paged_attention(q, pool, bt, off, start,
-                              split_k=case["split_k"], **kw)
-        torch.cuda.synchronize()
-        ref = paged_attention_reference(q, pool, bt, off, start, **kw)
-        err = (out.float() - ref.float()).abs().max().item()
-        name = str(dtype).replace("torch.", "")
-        parked_zero = bool((out[PARKED] == 0).all().item())
-        bites = {}
-        for opt in ("window", "softcap"):
-            if opt in kw:
-                without = {k: v for k, v in kw.items() if k != opt}
-                bites[opt] = (paged_attention_reference(
-                    q, pool, bt, off, start, **without).float()
-                    - ref.float())[live].abs().max().item()
-        log(f"phase1 int8: S={S} D={d} split_k={case['split_k']} {name} "
-            f"{kw or ''} max_abs_err={err:.3e} (tol {TOL[name]}) "
-            f"parked_zero={parked_zero}" + "".join(
-                f"; without {o} the plain output moves {v:.3e}"
-                for o, v in bites.items()))
-        if not err <= TOL[name]:
-            raise AssertionError(f"int8 paged_attention disagrees with its "
-                                 f"plain version: {err} > {TOL[name]} in "
-                                 f"{case}")
-        if not parked_zero:
-            raise AssertionError(f"parked slot not exact zeros in {case}")
-        for opt, v in bites.items():
-            if not v > BITE * TOL[name]:
-                raise AssertionError(
-                    f"{opt} moves the plain output by only {v} in {case}: "
-                    f"the case cannot catch a kernel that ignores it")
-        worst[name] = max(worst[name], err)
-        del q, pool, out, ref
-
-    times = {}
-    for S in (1, 128):
-        q, pool, bt, off, start = paged_inputs(S, bf16, dev, int8=True)
-        copies = [(q.clone(), tuple(p.clone() for p in pool))
-                  for _ in range(ROTATE)]
-
-        def over_copies(fn, **kw):
-            return [lambda qc=qc, pc=pc: fn(qc, pc, bt, off, start, **kw)
-                    for qc, pc in copies]
-
-        k_ms = device_ms(over_copies(paged_attention), 200 if S == 1 else 50,
-                         expect="paged_attention_kernel")
-        p_ms = device_ms(over_copies(paged_attention_reference), 10)
-        l_ms = device_ms(over_copies(library_call), 50)
-        b_ms, b_by = bound_ms(S, "bfloat16", off.cpu(), start.cpu(),
-                              int8=True)
-        lib_err = (library_call(q, pool, bt, off, start).float()
-                   - paged_attention_reference(q, pool, bt, off, start
-                                               ).float())[live].abs().max().item()
-        check_bound("paged_attention int8", {"kernel": k_ms, "plain": p_ms,
-                                             "library": l_ms}, b_ms)
-        log(f"phase1 int8 timing (S={S} bf16 q, int8 pool, B={B} NQ={NQ} "
-            f"NKV={NKV} D={D} page={PAGE} PP={PP}), device ms per call from "
-            f"torch.profiler: kernel {k_ms:.5f}, plain {p_ms:.5f}, library "
-            f"{l_ms:.5f} (gather + dequantize_page + SDPA; agrees to "
-            f"{lib_err:.2e}); bound {b_ms:.5f} ({b_by}), kernel / bound "
-            f"{k_ms / b_ms:.2f}")
-        times[S] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-                    "bound_ms": b_ms, "bound_by": b_by}
-        del copies, q, pool
+    cases += [dict(S=S, d=d, split_k=sk, dtype=bf16, int8=True, route="simt")
+              for d in INT8_DIMS for S in INT8_WIDTHS[1:] for sk in (1, None)]
+    worst = hold_paged_cases(cases, "phase1 int8")
+    times = time_paged(1, True, ("simt",), 200, "phase1 int8")
     return {
         "name": "paged_attention_int8",
         "route": "cuda",
         "source": "neuronx_distributed_tpu_torch/ops/csrc/paged_attention.cu",
         "replaces": "neuronx_distributed_tpu/ops/paged_attention.py:211",
         "launches": None,
-        "max_abs_err": worst["bfloat16"],
+        **times,
+        "max_abs_err": max(worst["bfloat16"], times["errs"]["simt"]),
         "max_abs_err_fp32": worst["float32"],
-        **times[1],
         "library_call": ("gather + kvcache.quant.dequantize_page + "
                          "F.scaled_dot_product_attention"),
-        "chunk_s128": times[128],
         "shapes": {"q": [B, 1, NQ, D], "pool": [B * PP + 1, PAGE, NKV, D],
                    "pool_dtype": "int8", "block_table": [B, PP],
                    "dtype": "bfloat16"},
+    }
+
+
+# the main path's chunk call: one slot, a 128-token chunk at offset 384 (the
+# last chunk of a 512-token prompt), kv_start 0
+CHUNK_OFFSET = 384
+# the route sweep, at the chunk call's offset: query widths at Llama-3-8B's
+# 32 q on 8 kv heads (G = 4), and at 8 q on 8 kv heads (G = 1), where the
+# fewest query rows share a kv head
+SWEEP_WIDTHS = {NQ: (2, 3, 4, 16, 32, 64, 128), NKV: (2, 3, 4, 16)}
+
+
+def phase1_chunks():
+    """The multi-row route (paged_attention_wgmma_kernel, bf16 q): held
+    against the plain version over bf16 and int8 pools at D 64/128/256, S
+    16/32/128, split-K 1 and the default, a parked slot, a constant int8
+    page, a window and a softcap; timed against the simt kernel on the
+    same inputs at the main path's chunk call (B = 1, S = 128, offset
+    384) and at phase 1's B = 8, S = 128 shape, each route's output at
+    its default split held against the plain version there; then both
+    routes swept over SWEEP_WIDTHS at the chunk call's offset (the
+    routing rule), the narrowest widths held first."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.ops.paged_attention import (
+        _paged_attention_on,
+        paged_route,
+    )
+
+    bf16 = torch.bfloat16
+    w = dict(dtype=bf16, route="wgmma")
+    cases = [dict(S=S, d=d, split_k=sk, int8=i8, **w) for i8 in (False, True)
+             for d in INT8_DIMS for S in (16, 128) for sk in (1, None)]
+    cases += [dict(S=32, split_k=None, int8=i8, **w) for i8 in (False, True)]
+    cases += [dict(S=128, split_k=None, int8=i8, window=256, **w)
+              for i8 in (False, True)]
+    cases += [dict(S=128, split_k=None, int8=i8, softcap=50.0,
+                   sm_scale=SOFTCAP_SCALE, **w) for i8 in (False, True)]
+    worst = hold_paged_cases(cases, "phase1 wgmma")["bfloat16"]
+    narrow = [dict(S=S, d=d, split_k=None, int8=i8, **w)
+              for i8 in (False, True) for d in INT8_DIMS for S in (2, 3)]
+    worst = max(worst, hold_paged_cases(narrow, "phase1 wgmma")["bfloat16"],
+                hold_paged_cases(narrow, "phase1 wgmma G=1", nq=NKV,
+                                 nkv=NKV)["bfloat16"])
+
+    rows = {}
+    for key, i8, off in (("chunk_int8", True, CHUNK_OFFSET),
+                         ("chunk_bf16", False, CHUNK_OFFSET),
+                         ("s128_int8", True, None),
+                         ("s128_bf16", False, None)):
+        rows[key] = time_paged(128, i8, ("wgmma", "simt"), 50,
+                               f"phase1 {key}", chunk_offset=off)
+    sweep = {}
+    for nq, widths in SWEEP_WIDTHS.items():
+        for i8 in (True, False):
+            for S in widths:
+                q, pool, bt, off, start = paged_inputs(
+                    S, bf16, "cuda", int8=i8, nq=nq,
+                    chunk_offset=CHUNK_OFFSET)
+                copies = [(q.clone(), tuple(p.clone() for p in pool))
+                          for _ in range(ROTATE)]
+                G = nq // NKV
+                sweep[f"{'int8' if i8 else 'bf16'} G={G} S={S}"] = {
+                    "rows": G * S, "rule": paged_route(bf16, S), **{
+                        r: device_ms([
+                            lambda qc=qc, pc=pc, r=r: _paged_attention_on(
+                                r, qc, pc, bt, off, start)
+                            for qc, pc in copies], 100,
+                            expect=PAGED_KERNELS[r])
+                        for r in PAGED_KERNELS}}
+                del copies, q, pool
+    log(f"phase1 route sweep (B=1, offset {CHUNK_OFFSET}, NKV={NKV}, D={D}),"
+        f" device ms per call simt / wgmma, and the route paged_route picks: "
+        + "; ".join(f"{k} (G*S={v['rows']}): {v['simt']:.5f} / "
+                    f"{v['wgmma']:.5f} -> {v['rule']}"
+                    for k, v in sweep.items()))
+    slower = {k: v for k, v in sweep.items()
+              if v[v["rule"]] > min(v["simt"], v["wgmma"])}
+    if slower:
+        log(f"phase1 route sweep: the rule picks the slower kernel at "
+            f"{list(slower)}")
+    main = rows["chunk_int8"]
+    errs = [r["errs"]["wgmma"] for r in rows.values()]
+    return {
+        "name": "paged_attention_wgmma",
+        "route": "cuda",
+        "source": ("neuronx_distributed_tpu_torch/ops/csrc/"
+                   "paged_attention_wgmma.cuh"),
+        "replaces": "neuronx_distributed_tpu/ops/paged_attention.py:164",
+        "launches": None,
+        **main,
+        "max_abs_err": max(worst, *errs),
+        "library_call": ("gather + kvcache.quant.dequantize_page + "
+                         "F.scaled_dot_product_attention"),
+        **{k: v for k, v in rows.items() if k != "chunk_int8"},
+        "route_sweep_ms": sweep,
+        "shapes": {"q": [1, 128, NQ, D], "pool": [PP + 1, PAGE, NKV, D],
+                   "pool_dtype": "int8", "block_table": [1, PP],
+                   "cache_offset": CHUNK_OFFSET, "dtype": "bfloat16"},
     }
 
 
@@ -756,7 +926,8 @@ G2_NQ, G2_NKV, G2_D, G2_SCALE, G2_CAP = 8, 4, 256, 256.0 ** -0.5, 50.0
 
 
 def phase1_gemma():
-    """The fp-pool kernel at head_dim 256 and the Gemma-2-2B geometry:
+    """The fp-pool kernels at head_dim 256 and the Gemma-2-2B geometry
+    (bf16 q at S = 4 on the wgmma kernel, the rest on the simt kernel):
     bf16 and fp32 q and pool, S 1 and 4, split-K 1 and the default, the
     softcap 50 in every case (at SOFTCAP_SCALE, where it moves the output;
     at Gemma-2's own 1/16 it hardly does).  Timed at the decode shape with
@@ -1058,9 +1229,10 @@ def compare_logits(a, b) -> tuple:
     return rel, agree
 
 
-def phase2b(model_pim, int8_entry, whole_tokens):
+def phase2b(model_pim, int8_entry, wgmma_entry, whole_tokens):
     """Serving with int8 KV pages and chunked prefill on phase 2's model:
-    the slice-3 main path, then its checks."""
+    the slice-3 main path (decode steps on the simt kernel, every chunk of
+    every layer on the wgmma kernel), then its checks."""
     import torch
 
     from neuronx_distributed_tpu_torch import ServingEngine
@@ -1087,13 +1259,15 @@ def phase2b(model_pim, int8_entry, whole_tokens):
                fa.flash_attention_dq, fa.flash_attention_dkv):
         fn.launches = 0
     paged_attention.int8_launches = 0
+    paged_attention.wgmma_launches = 0
     t0 = time.perf_counter()
     outs = serve(engine, make_requests(cfg.vocab_size, N_REQUESTS,
                                        NEW_TOKENS, SEED))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, int8_launches = (paged_attention.launches,
-                               paged_attention.int8_launches)
+    launches, int8_launches, wgmma_launches = (
+        paged_attention.launches, paged_attention.int8_launches,
+        paged_attention.wgmma_launches)
     steps, chunks = engine.decode_steps, engine.prefill_chunks
     tokens = sum(len(o.token_ids) for o in outs.values())
     bad = [(o.request_id, o.state, len(o.token_ids)) for o in outs.values()
@@ -1105,6 +1279,10 @@ def phase2b(model_pim, int8_entry, whole_tokens):
         raise AssertionError(
             f"paged_attention launches {launches} (int8 {int8_launches}) != "
             f"(decode steps {steps} + chunks {chunks}) x {L} layers")
+    if wgmma_launches != chunks * L:
+        raise AssertionError(
+            f"wgmma launches {wgmma_launches} != chunks {chunks} x {L} "
+            f"layers: a chunk call took the simt kernel")
     if chunks != sum(o.prefill_chunks for o in outs.values()):
         raise AssertionError("chunk dispatches disagree with the requests'")
     if not engine.quant_pages > 0:
@@ -1120,10 +1298,13 @@ def phase2b(model_pim, int8_entry, whole_tokens):
         f"({tokens / wall:.1f} tok/s overall, {steps} decode steps + "
         f"{chunks} chunk dispatches, {wall / (steps + chunks) * 1e3:.2f} ms "
         f"per forward); kernel launches {launches} = ({steps} + {chunks}) "
-        f"x {L}, all int8; {engine.quant_pages} pages quantized on write; "
+        f"x {L}, all int8, {wgmma_launches} = {chunks} x {L} of them (every "
+        f"chunk) on the wgmma kernel; {engine.quant_pages} pages quantized "
+        f"on write; "
         f"page leaks 0; greedy tokens equal to phase 2's bf16 whole-prefill "
         f"run {same}/{tokens}")
-    int8_entry["launches"] = int8_launches
+    int8_entry["launches"] = int8_launches - wgmma_launches
+    wgmma_entry["launches"] = wgmma_launches
     quant_pages = engine.quant_pages
     del engine
 
@@ -1154,7 +1335,7 @@ def phase2b(model_pim, int8_entry, whole_tokens):
                              f"(0, {INT8_DRIFT_REL_MAX}]")
 
     # chunked prefill over the bf16 pool against phase 2's whole prefill
-    paged_attention.launches = 0
+    paged_attention.launches = paged_attention.wgmma_launches = 0
     eng = ServingEngine(model_pim, page_size=PAGE_SIZE,
                         prefill_chunk_tokens=CHUNK_TOKENS)
     t0 = time.perf_counter()
@@ -1166,6 +1347,9 @@ def phase2b(model_pim, int8_entry, whole_tokens):
                                     + eng.prefill_chunks) * L:
         raise AssertionError("bf16 chunked run: launches != (steps + "
                              "chunks) x layers")
+    if paged_attention.wgmma_launches != eng.prefill_chunks * L:
+        raise AssertionError("bf16 chunked run: wgmma launches != chunks x "
+                             "layers")
     if any(o.state != "finished" for o in chunked.values()):
         raise AssertionError("bf16 chunked run did not finish")
     fp_same = sum(a == b for rid, o in chunked.items()
@@ -1182,7 +1366,8 @@ def phase2b(model_pim, int8_entry, whole_tokens):
                                  kv_quant="int8")
     return {**busy, "wall_s": wall, "tokens": tokens, "tok_s": tokens / wall,
             "decode_steps": steps, "chunk_dispatches": chunks,
-            "launches": launches, "quant_pages": quant_pages,
+            "launches": launches, "wgmma_launches": wgmma_launches,
+            "quant_pages": quant_pages,
             "pool_ratio": ratio, "int8_kernel_vs_gather_rel_l2": rel,
             "int8_kernel_vs_gather_argmax": agree,
             "int8_vs_bf16_rel_l2": drift, "int8_vs_bf16_argmax": drift_agree,
@@ -2069,9 +2254,11 @@ def main() -> int:
         guards = check_build_guards(paths)
         entry = phase1()
         entry8 = phase1_int8()
+        entry_w = phase1_chunks()
+        entry_w["build"] = guards["paged_wgmma"]
         serving, model_pim, whole_tokens = phase2(entry)
         log(f"phase2 summary: {json.dumps(serving)}")
-        quantized = phase2b(model_pim, entry8, whole_tokens)
+        quantized = phase2b(model_pim, entry8, entry_w, whole_tokens)
         log(f"phase2b summary: {json.dumps(quantized)}")
         del model_pim
         entry256 = phase1_gemma()
@@ -2085,7 +2272,7 @@ def main() -> int:
         for w in FLASH_KERNELS:
             flash[w]["build"] = {d: guards[w][d] for d in (64, 128)}
             flash256[w]["build"] = {256: guards[w][256]}
-        kernels = ([entry, entry8, entry256]
+        kernels = ([entry, entry8, entry_w, entry256]
                    + [flash[w] for w in FLASH_KERNELS]
                    + [flash256[w] for w in FLASH_KERNELS])
         for k in kernels:

@@ -1,4 +1,8 @@
-// Paged-attention decode kernel for Hopper (sm_90a), plain C interface.
+// Paged-attention kernels for Hopper (sm_90a), plain C interface:
+// paged_attention_kernel (below; every query width, fp32 or bf16 q) and
+// paged_attention_wgmma_kernel (paged_attention_wgmma.cuh; bf16 q, the
+// multi-row route the wrapper takes for S > 1 chunks), which share the
+// split-K epilogue merge_splits_kernel.
 //
 // Replaces the TPU kernel neuronx_distributed_tpu/ops/paged_attention.py:
 // _paged_kernel (pallas_call in _paged_attention_impl): attention of
@@ -54,6 +58,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "paged_attention_wgmma.cuh"
 
 namespace {
 
@@ -419,6 +425,37 @@ int launch_d(int D, const void* q, const void* k, const void* v,
   return -1;
 }
 
+// the multi-row route: bf16 q, fp (bf16) or int8 pages
+template <int D, bool QUANT>
+int launch_wgmma(const void* q, const void* k, const void* v, PageParams pp,
+                 const int* bt, const int* off, const int* start, void* out,
+                 float* acc, float* m, float* l, int B, int S, int NQ,
+                 int NKV, int NP, int page, int PP, float sm_scale,
+                 int window, float softcap, int split_k,
+                 cudaStream_t stream) {
+  using C = paged_wgmma::Cfg<D, QUANT>;
+  static bool attr_set = false;  // one attribute call per instantiation
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        paged_wgmma::paged_attention_wgmma_kernel<D, QUANT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::bytes);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  const int rows = NQ / NKV * S;
+  dim3 grid((rows + C::BQ - 1) / C::BQ, split_k, B * NKV);
+  paged_wgmma::paged_attention_wgmma_kernel<D, QUANT>
+      <<<grid, C::THREADS, C::bytes, stream>>>(
+          static_cast<const __nv_bfloat16*>(q), k, v, pp.ks, pp.kz, pp.vs,
+          pp.vz, bt, off, start, static_cast<__nv_bfloat16*>(out), acc, m, l,
+          S, NQ, NKV, NP, page, PP, sm_scale, window, softcap, split_k);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || split_k == 1) return (int)e;
+  merge_splits_kernel<__nv_bfloat16><<<dim3(B * NKV, rows), D, 0, stream>>>(
+      acc, m, l, static_cast<__nv_bfloat16*>(out), S, NQ, NKV, D, split_k);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q and out).  quant: 0 = k and v pages
@@ -465,5 +502,57 @@ extern "C" int paged_attention_fwd(
     return launch_d<__nv_bfloat16, int8_t>(
         D, q, k, v, pp, bt, off, st, out, a, mm, ll, B, S, NQ, NKV, NP, page,
         PP, sm_scale, window, softcap, split_k, s);
+  return -1;
+}
+
+// The multi-row route (paged_attention_wgmma_kernel): q and out bf16, the
+// pool bf16 (quant 0) or int8 with page params (quant 1); every other
+// argument as paged_attention_fwd's.  Returns cudaGetLastError() after the
+// launches, or -1 for an argument the kernel does not take.
+extern "C" int paged_attention_wgmma_fwd(
+    int quant, const void* q, const void* k, const void* v,
+    const void* k_scale, const void* k_zero, const void* v_scale,
+    const void* v_zero, const void* block_table, const void* cache_offset,
+    const void* kv_start, void* out, void* acc, void* m, void* l, int B,
+    int S, int NQ, int NKV, int D, int NP, int page, int PP, float sm_scale,
+    int window, float softcap, int split_k, void* stream) {
+  if (NKV <= 0 || NQ % NKV != 0 || split_k < 1 || B < 1 || S < 1) return -1;
+  const PageParams pp{static_cast<const float*>(k_scale),
+                      static_cast<const float*>(k_zero),
+                      static_cast<const float*>(v_scale),
+                      static_cast<const float*>(v_zero)};
+  if (quant && !(pp.ks && pp.kz && pp.vs && pp.vz)) return -1;
+  const int* bt = static_cast<const int*>(block_table);
+  const int* off = static_cast<const int*>(cache_offset);
+  const int* st = static_cast<const int*>(kv_start);
+  float* a = static_cast<float*>(acc);
+  float* mm = static_cast<float*>(m);
+  float* ll = static_cast<float*>(l);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PAGED_WGMMA(DIM, QT)                                                \
+  return launch_wgmma<DIM, QT>(q, k, v, pp, bt, off, st, out, a, mm, ll, B,  \
+                               S, NQ, NKV, NP, page, PP, sm_scale, window,  \
+                               softcap, split_k, s)
+  switch (D * 2 + (quant ? 1 : 0)) {
+    case 128: PAGED_WGMMA(64, false);
+    case 129: PAGED_WGMMA(64, true);
+    case 256: PAGED_WGMMA(128, false);
+    case 257: PAGED_WGMMA(128, true);
+    case 512: PAGED_WGMMA(256, false);
+    case 513: PAGED_WGMMA(256, true);
+  }
+#undef PAGED_WGMMA
+  return -1;
+}
+
+// dynamic shared memory of paged_attention_wgmma_kernel at head dim D over
+// a bf16 (quant 0) or int8 (quant 1) pool; -1 for a D it is not built for
+extern "C" int paged_wgmma_smem_bytes(int D, int quant) {
+  if (D == 64) return quant ? (int)paged_wgmma::Cfg<64, true>::bytes
+                            : (int)paged_wgmma::Cfg<64, false>::bytes;
+  if (D == 128) return quant ? (int)paged_wgmma::Cfg<128, true>::bytes
+                             : (int)paged_wgmma::Cfg<128, false>::bytes;
+  if (D == 256) return quant ? (int)paged_wgmma::Cfg<256, true>::bytes
+                             : (int)paged_wgmma::Cfg<256, false>::bytes;
   return -1;
 }

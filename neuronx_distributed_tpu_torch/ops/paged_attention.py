@@ -6,9 +6,13 @@ gather decode path rematerializes every slot's page chain into a contiguous
 table in device memory instead, so a decode step reads only the pages each
 slot attends.
 
-- On a CUDA tensor :func:`paged_attention` launches the kernel in
+- On a CUDA tensor :func:`paged_attention` launches a kernel of
   ``csrc/paged_attention.cu`` (built by ``nvcc`` at first use, bound with
-  ``ctypes``) or raises; it never falls back.
+  ``ctypes``) or raises; it never falls back.  :func:`paged_route` picks
+  the kernel from the shape alone: ``"wgmma"``, the tensor-core kernel of
+  ``csrc/paged_attention_wgmma.cuh``, for bf16 q with S > 1 (prefill
+  chunks, verify rows); ``"simt"``, the scalar kernel
+  ``paged_attention_kernel``, for decode (S = 1) and fp32 q.
 - On a CPU tensor it runs :func:`paged_attention_reference`, the plain
   PyTorch version of the same arithmetic: gather, band-mask, per-split
   online-softmax partials and the split-K logsumexp merge.
@@ -36,6 +40,9 @@ from neuronx_distributed_tpu_torch.ops.flash_attention import NEG_INF
 # keys per kernel tile and query rows per block (csrc/paged_attention.cu)
 TILE_KEYS = 32
 MAX_ROWS = 16
+# query rows per block of the wgmma kernel (csrc/paged_attention_wgmma.cuh)
+WGMMA_ROWS = 128
+ROUTES = ("simt", "wgmma")
 HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 PARAM_NAMES = ("k_scale", "k_zero", "v_scale", "v_zero")
@@ -155,17 +162,41 @@ def _sm_count(index: int) -> int:
 
 
 def default_split_k(B: int, NKV: int, rows: int, T: int,
-                    device: torch.device) -> int:
-    """Enough splits for about two blocks per SM, and never so many that a
-    split walks fewer than four key tiles of the chain."""
+                    sm_count: int) -> int:
+    """The simt kernel's default split: enough splits for about two blocks
+    per SM, and never so many that a split walks fewer than four key tiles
+    of the chain."""
     blocks = B * NKV * -(-rows // MAX_ROWS)
-    index = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    return max(1, min(2 * _sm_count(index) // max(blocks, 1),
-                      T // (4 * TILE_KEYS)))
+    return max(1, min(2 * sm_count // max(blocks, 1), T // (4 * TILE_KEYS)))
 
 
-def _launch(q, kv_pages, bt, off, start, scale, window, softcap, split_k):
+def paged_route(dtype: torch.dtype, S: int) -> str:
+    """The kernel a CUDA call runs, from its shape alone: ``"wgmma"`` (the
+    tensor-core kernel) for bf16 q with S > 1, else ``"simt"`` (decode,
+    and fp32 q, which wgmma has no mode for).  chip_smoke.py's route sweep
+    (PERF.md) times both kernels down to two query rows a kv head."""
+    if dtype == torch.bfloat16 and S > 1:
+        return "wgmma"
+    return "simt"
+
+
+def wgmma_tile_keys(D: int) -> int:
+    """Keys per tile of the wgmma kernel at head dim ``D``."""
+    return 32 if D >= 256 else 64
+
+
+def wgmma_split_k(B: int, NKV: int, rows: int, T: int, D: int,
+                  sm_count: int) -> int:
+    """The wgmma kernel's default split: about one block per SM (a block
+    of 384 threads and ~170 KB of shared memory fills one), and never so
+    many that a split walks fewer than two key tiles of the chain."""
+    blocks = B * NKV * -(-rows // WGMMA_ROWS)
+    return max(1, min(sm_count // max(blocks, 1),
+                      T // (2 * wgmma_tile_keys(D))))
+
+
+def _launch(q, kv_pages, bt, off, start, scale, window, softcap, split_k,
+            route):
     """Validate, allocate and launch on the current stream; raises on any
     input the kernel does not take and on a refused launch.  An fp pool
     shares q's type; an int8 pool takes bf16 or fp32 q and four contiguous
@@ -216,8 +247,16 @@ def _launch(q, kv_pages, bt, off, start, scale, window, softcap, split_k):
             f"{tuple(off.shape)}, kv_start {tuple(start.shape)} do not fit "
             f"batch {B}")
     rows = NQ // NKV * S
+    route = paged_route(q.dtype, S) if route is None else route
+    if route == "wgmma" and q.dtype != torch.bfloat16:
+        raise TypeError(f"the wgmma paged kernel takes bfloat16 q, got "
+                        f"{q.dtype}")
     if split_k is None:
-        split_k = default_split_k(B, NKV, rows, PP * page, dev)
+        sms = _sm_count(dev.index if dev.index is not None
+                        else torch.cuda.current_device())
+        split_k = (wgmma_split_k(B, NKV, rows, PP * page, D, sms)
+                   if route == "wgmma" else
+                   default_split_k(B, NKV, rows, PP * page, sms))
     split_k = int(split_k)
     if split_k < 1:
         raise ValueError(f"split_k must be >= 1, got {split_k}")
@@ -236,17 +275,22 @@ def _launch(q, kv_pages, bt, off, start, scale, window, softcap, split_k):
     ks, kz, vs, vz = params if quant else (None,) * 4
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.paged_attention_fwd(
-            _DTYPE_CODE[q.dtype], int(quant), ptr(q), ptr(ck), ptr(cv),
-            ptr(ks), ptr(kz), ptr(vs), ptr(vz), ptr(bt), ptr(off),
-            ptr(start), ptr(out), ptr(acc), ptr(m), ptr(l),
-            B, S, NQ, NKV, D, NP, page, PP, float(scale),
-            int(window or 0), float(softcap or 0.0), split_k, stream)
+        pointers = (ptr(q), ptr(ck), ptr(cv), ptr(ks), ptr(kz), ptr(vs),
+                    ptr(vz), ptr(bt), ptr(off), ptr(start), ptr(out),
+                    ptr(acc), ptr(m), ptr(l))
+        sizes = (B, S, NQ, NKV, D, NP, page, PP, float(scale),
+                 int(window or 0), float(softcap or 0.0), split_k, stream)
+        if route == "wgmma":
+            rc = lib.paged_attention_wgmma_fwd(int(quant), *pointers, *sizes)
+        else:
+            rc = lib.paged_attention_fwd(_DTYPE_CODE[q.dtype], int(quant),
+                                         *pointers, *sizes)
     if rc != 0:
-        raise RuntimeError(f"paged_attention kernel launch failed "
+        raise RuntimeError(f"paged_attention {route} kernel launch failed "
                            f"(code {rc})")
     paged_attention.launches += 1
     paged_attention.int8_launches += int(quant)
+    paged_attention.wgmma_launches += int(route == "wgmma")
     return out
 
 
@@ -257,15 +301,39 @@ def paged_attention(q: torch.Tensor, kv_pages: Sequence[torch.Tensor],
                     window: Optional[int] = None,
                     softcap: Optional[float] = None,
                     split_k: Optional[int] = None) -> torch.Tensor:
-    """Decode attention straight over one layer's page pool (the fp pair or
-    the int8 six-tuple); returns ``[B, S, NQ, D]`` in ``q.dtype``.  ``window``/``softcap``/``sm_scale``
-    are the sliding window, logit softcap and score scale (default
-    ``D ** -0.5``).  ``split_k`` splits each slot's key range over that
-    many blocks (default: from the card's SM count) whose partials are
-    merged by logsumexp weight.  CUDA tensors launch the kernel (and
-    count in ``paged_attention.launches``, int8 pools also in
-    ``paged_attention.int8_launches``); CPU tensors run
+    """Attention straight over one layer's page pool (the fp pair or the
+    int8 six-tuple); returns ``[B, S, NQ, D]`` in ``q.dtype``.
+    ``window``/``softcap``/``sm_scale`` are the sliding window, logit
+    softcap and score scale (default ``D ** -0.5``).  ``split_k`` splits
+    each slot's key range over that many blocks (default: from the card's
+    SM count, by the route's own policy) whose partials are merged by
+    logsumexp weight.  CUDA tensors launch the kernel :func:`paged_route`
+    picks (and count in ``paged_attention.launches``, int8 pools also in
+    ``paged_attention.int8_launches``, the wgmma route also in
+    ``paged_attention.wgmma_launches``); CPU tensors run
     :func:`paged_attention_reference`."""
+    return _paged_attention(q, kv_pages, block_table, cache_offset, kv_start,
+                            sm_scale, window, softcap, split_k, None)
+
+
+def _paged_attention_on(route: str, q, kv_pages, block_table, cache_offset,
+                        kv_start=None, *, sm_scale=None, window=None,
+                        softcap=None, split_k=None) -> torch.Tensor:
+    """:func:`paged_attention` on CUDA tensors through the named kernel
+    (``"simt"`` or ``"wgmma"``) instead of :func:`paged_route`'s pick, so
+    that one shape can be held and timed on both; a route that does not
+    take the inputs raises."""
+    if route not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+    if q.device.type != "cuda":
+        raise ValueError(f"the {route} route is a CUDA kernel; q is on "
+                         f"{q.device}")
+    return _paged_attention(q, kv_pages, block_table, cache_offset, kv_start,
+                            sm_scale, window, softcap, split_k, route)
+
+
+def _paged_attention(q, kv_pages, block_table, cache_offset, kv_start,
+                     sm_scale, window, softcap, split_k, route):
     _check_pool(q, kv_pages)
     if window is not None and window < 1:
         raise ValueError(f"sliding window must be >= 1, got {window}")
@@ -282,8 +350,9 @@ def paged_attention(q: torch.Tensor, kv_pages: Sequence[torch.Tensor],
         kv_start = torch.zeros(q.shape[0], dtype=torch.int32,
                                device=q.device)
     return _launch(q, tuple(kv_pages), block_table, cache_offset, kv_start,
-                   scale, window, softcap, split_k)
+                   scale, window, softcap, split_k, route)
 
 
 paged_attention.launches = 0
 paged_attention.int8_launches = 0
+paged_attention.wgmma_launches = 0

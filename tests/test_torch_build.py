@@ -31,18 +31,20 @@ def test_copy_hashes_like_the_package(csrc):
         assert _build._source(name, csrc)[1] == _build._source(name)[1]
 
 
-@pytest.mark.parametrize("name", ["flash_attention", "flash_attention_d256"])
+@pytest.mark.parametrize("name", ["flash_attention", "flash_attention_d256",
+                                  "paged_attention"])
 def test_nested_header_edit_changes_the_digest(csrc, name):
-    """hopper.cuh is included by flash_attention.cuh, which the library
-    source includes: an edit two levels down must rebuild."""
+    """hopper.cuh is included by flash_attention.cuh (and by
+    paged_attention_wgmma.cuh), which the library source includes: an
+    edit two levels down must rebuild."""
     before = _build._source(name, csrc)[1]
     _append(os.path.join(csrc, "hopper.cuh"), "\n// edited\n")
     assert _build._source(name, csrc)[1] != before
 
 
 def test_unrelated_edit_keeps_the_digest(csrc):
+    """paged_attention.cu does not include the flash kernels' header."""
     before = _build._source("paged_attention", csrc)[1]
-    _append(os.path.join(csrc, "hopper.cuh"), "\n// edited\n")
     _append(os.path.join(csrc, "flash_attention.cuh"), "\n// edited\n")
     assert _build._source("paged_attention", csrc)[1] == before
 

@@ -10,7 +10,11 @@ Tolerances: the kernel against its plain version in fp32 computed from the
 same (possibly bf16) inputs -- 1e-4 for fp32 inputs, 2e-2 for bf16 (one
 bf16 rounding of outputs of magnitude ~1).  Over int8 pools the kernel and
 the plain version dequantize the same codes to the same K/V values in q's
-type, and are held to the same tolerances.
+type, and are held to the same tolerances.  Both routes are held: the simt
+kernel (``paged_attention_kernel``: decode and fp32 q by the routing rule,
+so the bf16 cases at S > 1 of the first two tests run the wgmma kernel; its
+bf16 multi-row code is forced by ``test_simt_route_bf16_multirow``) and the
+wgmma kernel (``paged_attention_wgmma_kernel``, bf16 q at S > 1).
 """
 
 import numpy as np
@@ -19,8 +23,10 @@ import torch
 
 from neuronx_distributed_tpu_torch.kvcache.quant import quantize_page
 from neuronx_distributed_tpu_torch.ops.paged_attention import (
+    _paged_attention_on,
     paged_attention,
     paged_attention_reference,
+    paged_route,
 )
 
 pytestmark = pytest.mark.cuda
@@ -108,6 +114,108 @@ def test_any_page_size_and_softcap(dev, page):
     assert (out - ref).abs().max().item() <= 1e-4
 
 
+@pytest.mark.parametrize("split_k", [1, None])
+@pytest.mark.parametrize("pool_kind", ["bf16", "int8"])
+@pytest.mark.parametrize("S,G", [(16, 4), (32, 4), (128, 4), (2, 4), (3, 4),
+                                 (2, 1), (3, 2)])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_wgmma_kernel_matches_plain(dev, D, S, G, pool_kind, split_k):
+    """The wgmma route, as the rule picks it, at chunk widths down to two
+    query rows a kv head: D in {64, 128, 256}, bf16 and int8 pools (a
+    constant page), split-K 1 and the default, a sliding window,
+    kv_start, a parked slot."""
+    q, pool, bt, off, start = _inputs(3 * D + S + G, 3, S, 2 * G, 2, D, 16,
+                                      16, 50, torch.bfloat16, dev)
+    if pool_kind == "int8":
+        bt[0, 0] = 2
+        start[0] = 0
+        pool = _int8(pool)
+    before = (paged_attention.launches, paged_attention.wgmma_launches)
+    out = paged_attention(q, pool, bt, off, start, split_k=split_k,
+                          window=100)
+    torch.cuda.synchronize()
+    assert (paged_attention.launches, paged_attention.wgmma_launches) == (
+        before[0] + 1, before[1] + 1)
+    args = ((q, pool) if pool_kind == "int8" else
+            (q.float(), tuple(p.float() for p in pool)))
+    ref = paged_attention_reference(*args, bt, off, start, window=100)
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    assert torch.all(out[1] == 0)
+
+
+@pytest.mark.parametrize("pool_kind", ["bf16", "int8"])
+@pytest.mark.parametrize("page", [1, 5, 16, 64])
+def test_wgmma_any_page_size_and_softcap(dev, page, pool_kind):
+    """A key tile spans many pages (page 1, 5) or lies inside one (64)."""
+    q, pool, bt, off, start = _inputs(page + 7, 4, 32, 8, 2, 128, page,
+                                      192 // page, 40, torch.bfloat16, dev)
+    if pool_kind == "int8":
+        pool = _int8(pool)
+    out = paged_attention(q, pool, bt, off, start, softcap=30.0,
+                          sm_scale=0.2)
+    args = ((q, pool) if pool_kind == "int8" else
+            (q.float(), tuple(p.float() for p in pool)))
+    ref = paged_attention_reference(*args, bt, off, start, softcap=30.0,
+                                    sm_scale=0.2)
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("dtype,S,kernel", [
+    (torch.bfloat16, 1, "paged_attention_kernel"),
+    (torch.bfloat16, 128, "paged_attention_wgmma_kernel"),
+    (torch.bfloat16, 2, "paged_attention_wgmma_kernel"),
+    (torch.float32, 128, "paged_attention_kernel"),
+])
+def test_profiler_names_the_routed_kernel(dev, dtype, S, kernel):
+    """The rule's route is the kernel the card runs, by the name
+    torch.profiler records: decode and fp32 q on the simt kernel, bf16
+    chunks on the wgmma kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, pool, bt, off, start = _inputs(S, 2, S, 32, 8, 128, 16, 16, 40,
+                                      dtype, dev)
+    assert (paged_route(dtype, S) == "wgmma") == ("wgmma" in kernel)
+    paged_attention(q, pool, bt, off, start)
+    torch.cuda.synchronize()
+    for _ in range(3):  # the profiler has returned an empty trace
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            paged_attention(q, pool, bt, off, start)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()]
+        if names:
+            break
+    assert any(kernel in n for n in names), names
+    other = ({"paged_attention_kernel", "paged_attention_wgmma_kernel"}
+             - {kernel}).pop()
+    assert not any(other in n for n in names), names
+
+
+@pytest.mark.parametrize("pool_kind", ["bf16", "int8"])
+@pytest.mark.parametrize("S,split_k", [(2, 1), (3, 2), (4, 2), (20, 1)])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_simt_route_bf16_multirow(dev, D, S, split_k, pool_kind):
+    """The simt kernel's bf16 multi-row code, forced (the rule sends bf16
+    q at S > 1 to the wgmma kernel): bf16 and int8 pools, split-K, a
+    sliding window, a parked slot."""
+    q, pool, bt, off, start = _inputs(D + S + 2, 3, S, 8, 2, D, 16, 8, 25,
+                                      torch.bfloat16, dev)
+    if pool_kind == "int8":
+        bt[0, 0] = 2
+        start[0] = 0
+        pool = _int8(pool)
+    before = (paged_attention.launches, paged_attention.wgmma_launches)
+    out = _paged_attention_on("simt", q, pool, bt, off, start,
+                              split_k=split_k, window=40)
+    torch.cuda.synchronize()
+    assert (paged_attention.launches, paged_attention.wgmma_launches) == (
+        before[0] + 1, before[1])
+    args = ((q, pool) if pool_kind == "int8" else
+            (q.float(), tuple(p.float() for p in pool)))
+    ref = paged_attention_reference(*args, bt, off, start, window=40)
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    assert torch.all(out[1] == 0)
+
+
 def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
     q, pool, bt, off, start = _inputs(0, 2, 2, 4, 2, 64, 4, 4, 9,
                                       torch.float32, dev)
@@ -125,6 +233,8 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
         paged_attention(q, pool, bt.cpu(), off, start)
     with pytest.raises(ValueError, match="six-tuple"):
         paged_attention(q, pool * 2, bt, off, start)
+    with pytest.raises(TypeError, match="bfloat16"):
+        _paged_attention_on("wgmma", q, pool, bt, off, start)
     six = _int8(pool)
     out = paged_attention(q, six, bt, off, start)  # the int8 pool launches
     torch.cuda.synchronize()

@@ -8,7 +8,9 @@
 - ``paged_attention`` over an int8 six-tuple pool: the port's plain
   version against the JAX Pallas kernel (interpret mode) and the JAX
   reference, atol 1e-5 in fp32 (three fp32 implementations of one
-  softmax over identical dequantized K/V, summed in different orders).
+  softmax over identical dequantized K/V, summed in different orders);
+  at chunk widths with bf16 q, which both sides dequantize to, atol 2e-2
+  (each side rounds outputs of magnitude up to ~4 once to bf16).
 - The pool after the model's writes (prefill pages, two prefill chunks,
   the second straddling a page it requantizes, two decode steps), on the
   tiny pair's shared weights: codes equal, with at most
@@ -31,10 +33,14 @@ from neuronx_distributed_tpu.ops.paged_attention import (
 )
 from neuronx_distributed_tpu_torch.kvcache import quant
 from neuronx_distributed_tpu_torch.kvcache.pool import PagePool
-from neuronx_distributed_tpu_torch.ops.paged_attention import paged_attention
+from neuronx_distributed_tpu_torch.ops.paged_attention import (
+    paged_attention,
+    paged_route,
+)
 from torch_port_pair import C, T, build_pair
 
 ATOL = 1e-5
+ATOL_BF16 = 2e-2
 MAX_CODE_FLIPS = 4
 
 
@@ -144,6 +150,39 @@ def test_int8_pool_matches_jax_kernel_and_reference(S, split_k, nq, nkv, kw):
     np.testing.assert_allclose(out, ker, atol=ATOL)
     assert np.all(out[1] == 0.0), "parked slot must be exact zeros"
     assert np.any(out[0] != 0.0)
+
+
+@pytest.mark.parametrize("kw", [dict(window=40),
+                                dict(softcap=30.0, sm_scale=0.2)])
+@pytest.mark.parametrize("S", [2, 32])
+@pytest.mark.parametrize("B", [1, 2])
+def test_int8_chunk_widths_match_jax_kernel(B, S, kw):
+    """int8 pools at chunk widths (G = 4: G * S = 8 and 128), bf16 q,
+    page 16, D 64, a constant page,
+    kv_start, window and softcap: the plain version both CUDA routes are
+    held to against the JAX kernel and reference."""
+    q, six, bt, off, start = _int8_inputs(90 + 10 * B + S, B=2, S=S, nq=8,
+                                          nkv=2, D=64, page=16, PP=8, NP=20)
+    off[:] = [8 * 16 - S, 40]  # slot 0's chunk ends at the last page
+    start[:] = [3, 0]
+    q, bt, off, start = q[:B], bt[:B], off[:B], start[:B]
+    assert paged_route(torch.bfloat16, S) == "wgmma"
+    tq = torch.from_numpy(q).bfloat16()
+    out = paged_attention(
+        tq, tuple(torch.from_numpy(a) for a in six), torch.from_numpy(bt),
+        torch.from_numpy(off), torch.from_numpy(start), split_k=2, **kw)
+    assert out.dtype == torch.bfloat16
+    jargs = (jnp.asarray(q, jnp.bfloat16), tuple(jnp.asarray(a) for a in six),
+             jnp.asarray(bt), jnp.asarray(off), jnp.asarray(start))
+    ker = jax_paged_attention(*jargs, block_pages=2, split_k=2,
+                              interpret=True, **kw)
+    ref = jax_paged_reference(*jargs, **kw)
+    got = out.float().numpy()
+    np.testing.assert_allclose(got, np.asarray(ker, np.float32),
+                               atol=ATOL_BF16)
+    np.testing.assert_allclose(got, np.asarray(ref, np.float32),
+                               atol=ATOL_BF16)
+    assert np.any(got[0] != 0.0)
 
 
 def _assert_pools_equal(tcaches, jcaches):

@@ -3,10 +3,13 @@
 The same seeded numpy inputs go through the JAX Pallas kernel (interpret
 mode on the CPU), the JAX dense reference, and the port's
 ``paged_attention`` -- on CPU tensors the port runs its plain version,
-split-K partials and logsumexp merge included.  Tolerance: atol 1e-5 in
-fp32 (three fp32 implementations of one softmax, summed in different
-orders).  The CUDA kernel itself is checked on the card by
-``tests/test_torch_cuda_kernels.py``.
+split-K partials and logsumexp merge included.
+Tolerance: atol 1e-5 in fp32 (three fp32 implementations of one softmax,
+summed in different orders); 2e-2 in bf16 (both sides round outputs of
+magnitude up to ~4 once to bf16, a step of up to 1.6e-2).  The CUDA
+kernels themselves are checked on the card by
+``tests/test_torch_cuda_kernels.py``; the routing rule and the wgmma
+route's split policy are pure functions, held here.
 """
 
 import jax.numpy as jnp
@@ -19,13 +22,17 @@ from neuronx_distributed_tpu.ops.paged_attention import (
     paged_attention_reference as jax_paged_reference,
 )
 from neuronx_distributed_tpu_torch.ops.paged_attention import (
+    _paged_attention_on,
     merge_splits,
     paged_attention,
     paged_attention_reference,
+    paged_route,
     resolve_paged_kernel,
+    wgmma_split_k,
 )
 
 ATOL = 1e-5
+ATOL_BF16 = 2e-2
 
 
 def _inputs(seed, B, S, nq, nkv, D, page, PP, NP):
@@ -139,3 +146,94 @@ def test_resolve_paged_kernel():
     assert resolve_paged_kernel(False, "cuda") is False
     with pytest.raises(ValueError, match="paged_kernel"):
         resolve_paged_kernel("yes", "cpu")
+
+
+@pytest.mark.parametrize("dtype,S,G,route", [
+    (torch.bfloat16, 1, 4, "simt"),     # decode
+    (torch.bfloat16, 1, 128, "simt"),   # decode, however many q heads
+    (torch.bfloat16, 2, 4, "wgmma"),    # a 2-token last chunk, G * S = 8
+    (torch.bfloat16, 3, 4, "wgmma"),    # G * S = 12
+    (torch.bfloat16, 4, 4, "wgmma"),    # verify width, G * S = 16
+    (torch.bfloat16, 8, 1, "wgmma"),    # MHA, G * S = 8
+    (torch.bfloat16, 2, 1, "wgmma"),    # the fewest rows: G * S = 2
+    (torch.bfloat16, 16, 4, "wgmma"),   # the smallest 16-token chunk
+    (torch.bfloat16, 32, 2, "wgmma"),
+    (torch.bfloat16, 128, 4, "wgmma"),  # the served 128-token chunk
+    (torch.bfloat16, 64, 1, "wgmma"),
+    (torch.float32, 128, 4, "simt"),    # wgmma has no fp32 mode
+])
+def test_route_rule(dtype, S, G, route):
+    """The kernel a CUDA call takes follows from dtype and S alone, for
+    any number G of q heads a kv head serves."""
+    assert paged_route(dtype, S) == route
+    assert (route == "wgmma") == (dtype == torch.bfloat16 and S > 1)
+
+
+@pytest.mark.parametrize("B,NKV,rows,T,D,sms,split", [
+    (1, 8, 512, 1024, 128, 132, 4),   # the served chunk call: 32 blocks
+    (8, 8, 512, 1024, 128, 132, 1),   # 256 blocks fill the card already
+    (1, 8, 512, 128, 128, 132, 1),    # a short pool: two tiles a split
+    (1, 4, 64, 1024, 256, 132, 16),   # D = 256 tiles hold 32 keys
+    (1, 1, 16, 4096, 64, 132, 32),
+    (2, 2, 1024, 64, 64, 8, 1),
+])
+def test_wgmma_split_policy(B, NKV, rows, T, D, sms, split):
+    """About one 128-row block per SM, at least two key tiles a split."""
+    assert wgmma_split_k(B, NKV, rows, T, D, sms) == split
+
+
+def _chunk_inputs(seed, B, S, page=16, PP=8, NP=20, nq=8, nkv=2, D=64):
+    """bf16 q and pool at chunk widths: slot 0 with kv_start 3 and its
+    chunk ending at the last page, slot 1 (B = 2) at offset 40."""
+    rs = np.random.RandomState(seed)
+    T = PP * page
+    q = rs.standard_normal((B, S, nq, D)).astype(np.float32)
+    k = rs.standard_normal((NP, page, nkv, D)).astype(np.float32)
+    v = rs.standard_normal((NP, page, nkv, D)).astype(np.float32)
+    bt = rs.randint(1, NP, size=(B, PP)).astype(np.int32)
+    off = np.array([T - S, 40][:B], np.int32)
+    start = np.array([3, 0][:B], np.int32)
+    return q, (k, v), bt, off, start
+
+
+@pytest.mark.parametrize("kw", [{}, dict(window=40),
+                                dict(softcap=30.0, sm_scale=0.2)])
+@pytest.mark.parametrize("S", [2, 32])
+@pytest.mark.parametrize("B", [1, 2])
+def test_chunk_widths_bf16_match_jax_kernel(B, S, kw):
+    """Chunk widths (G = 4: G * S = 8 and 128), bf16 q and pool,
+    kv_start, window and softcap: the plain version both CUDA routes are
+    held to against the JAX kernel and reference on the same bf16
+    inputs."""
+    q, pool, bt, off, start = _chunk_inputs(70 + 10 * B + S, B, S)
+    tq = torch.from_numpy(q).bfloat16()
+    tpool = tuple(torch.from_numpy(p).bfloat16() for p in pool)
+    targs = (torch.from_numpy(bt), torch.from_numpy(off),
+             torch.from_numpy(start))
+    out = paged_attention(tq, tpool, *targs, split_k=2, **kw)
+    assert out.dtype == torch.bfloat16
+    jq = jnp.asarray(q, jnp.bfloat16)
+    jpool = tuple(jnp.asarray(p, jnp.bfloat16) for p in pool)
+    jargs = (jnp.asarray(bt), jnp.asarray(off), jnp.asarray(start))
+    ker = jax_paged_attention(jq, jpool, *jargs, block_pages=2, split_k=2,
+                              interpret=True, **kw)
+    ref = jax_paged_reference(jq, jpool, *jargs, **kw)
+    got = out.float().numpy()
+    np.testing.assert_allclose(got, np.asarray(ker, np.float32),
+                               atol=ATOL_BF16)
+    np.testing.assert_allclose(got, np.asarray(ref, np.float32),
+                               atol=ATOL_BF16)
+    assert np.any(got[0] != 0.0)
+
+
+def test_route_argument_is_checked():
+    """Forcing a route names a CUDA kernel: an unknown name, or CPU
+    tensors (whose plain version has no routes), raise."""
+    q = torch.zeros((1, 1, 2, 8))
+    pool = (torch.zeros((2, 4, 2, 8)),) * 2
+    bt = torch.zeros((1, 2), dtype=torch.int32)
+    off = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="route must be"):
+        _paged_attention_on("tensor", q, pool, bt, off)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        _paged_attention_on("wgmma", q, pool, bt, off)
