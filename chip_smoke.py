@@ -10,31 +10,35 @@ report included), and holds the bf16 flash forward, dq and dk/dv kernels
 as built to their design: no spill, no wgmma serialisation, no ignored
 ``setmaxnreg``, and HGMMA and UTMALDG instructions in their SASS at every
 head dim; the multi-row paged kernel likewise, with HGMMA and LDGSTS
-(cp.async) at every head dim over bf16 and int8 pools.  Phase 1 holds the
-paged-attention kernels (the simt kernel for decode and fp32 q, the wgmma
-kernel for bf16 q at S > 1; the simt kernel's bf16 multi-row code forced)
-against their plain PyTorch version at the serving path's shapes
-(Llama-3-8B attention geometry), over fp pools and over int8 pools (the
-kernels' dequant branches), and times each route, the plain version and
-one PyTorch library call doing the same work: at decode, at the main
-path's chunk call (one slot, 128 tokens at offset 384; each route's
-output there held too) and at B = 8, S = 128; then both routes over
-query widths 2 to 128 at 4 q heads a kv head and 2 to 16 at 1 (the
-routing rule).  Phase 2 serves
+(cp.async) at every head dim over bf16 and int8 pools, and the decode
+kernel with HMMA (mma.sync) and LDGSTS.  Phase 1 holds the
+paged-attention kernels (the decode kernel for bf16 q at S = 1, the wgmma
+kernel for bf16 q at S > 1, the simt kernel for fp32 q; the simt kernel's
+bf16 code forced at S = 1 and S > 1) against their plain PyTorch version
+at the serving path's shapes (Llama-3-8B attention geometry), over fp
+pools and over int8 pools (the kernels' dequant branches), and times
+each route, the plain version and one PyTorch library call doing the
+same work: all three routes on the same decode inputs (with the decode
+kernel's split sweep), at phase 1's chains of 64 pages and at long
+chains of 512, and the two multi-row routes at the main path's chunk
+call (one slot, 128 tokens at offset 384; each route's output there held
+too) and at B = 8, S = 128; then both over query widths 2 to 128 at 4 q
+heads a kv head and 2 to 16 at 1 (the routing rule).  Phase 2 serves
 16 requests through ``ServingEngine`` on a full-width, full-depth
-Llama-3-8B with random bf16 weights from a seed, counts the kernel's
-launches on that run, checks page accounting, and compares the kernel
-path's logits with the gather path's.  Phase 2b serves the same requests on
-the same model with int8 KV pages and 128-token prefill chunks
-(``kv_quant="int8"``, ``prefill_chunk_tokens``), counts the kernels'
-launches (every decode step and every chunk of every layer, every chunk on
-the wgmma kernel), checks page
-accounting and the int8 pool's size, compares the kernel's logits with the
-gather path's on the int8 pool and the int8 pool's logits with the bf16
-pool's after the same prefill, and serves the requests once more with
-chunked prefill over a bf16 pool.  Phase 1 then holds the fp-pool kernel at
-head_dim 256 and Gemma-2-2B's geometry (8 q on 4 kv heads, softcap 50) and
-times it there.  Phase 3 holds the flash-attention forward, dq and dk/dv
+Llama-3-8B with random bf16 weights from a seed, counts the kernels'
+launches on that run by route (every decode call on the decode kernel),
+checks page accounting, and compares the kernel path's logits with the
+gather path's.  Phase 2b serves the same requests on the same model with
+int8 KV pages and 128-token prefill chunks (``kv_quant="int8"``,
+``prefill_chunk_tokens``), counts the kernels' launches by route (every
+decode step of every layer on the decode kernel, every chunk on the
+wgmma kernel, none on the simt kernel), checks page accounting and the
+int8 pool's size, compares the kernel's logits with the gather path's on
+the int8 pool and the int8 pool's logits with the bf16 pool's after the
+same prefill, and serves the requests once more with chunked prefill
+over a bf16 pool.  Phase 1 then holds the fp-pool kernels at head_dim 256
+and Gemma-2-2B's geometry (8 q on 4 kv heads, softcap 50) and times the
+three routes there.  Phase 3 holds the flash-attention forward, dq and dk/dv
 kernels against their plain versions row by row (the training paths' own
 shapes, causal and not, GQA 4 and 1, MQA, sliding windows, softcaps, packed
 segments with padding, T > S, queries that see no key (o = 0, dq = 0), the
@@ -51,8 +55,8 @@ profiled step and its flash time by kernel.  Phase 5 does the same for
 Gemma-2-2B at full width and depth (26 layers, batch 1 x 8192, selective
 remat: the flash kernels at D = 256), with flash vs dense held on a 2-layer
 cut.  Phase 5b serves 8 requests through ``ServingEngine`` on Gemma-2-2B
-with random bf16 weights (the paged kernel at D = 256 with the softcap),
-counts launches, checks page accounting and compares kernel and gather
+with random bf16 weights (the decode kernel at D = 256 with the softcap),
+counts launches by route, checks page accounting and compares kernel and gather
 logits.  A device time below the least time its work needs fails the run.
 
 Any failed check exits non-zero without the result line.  The line before
@@ -321,8 +325,10 @@ WGMMA_KERNELS = {"fwd": (0, "flash_fwd_wgmma_kernel"),
                  "dq": (1, "flash_dq_wgmma_kernel"),
                  "dkv": (2, "flash_dkv_wgmma_kernel")}
 WGMMA_LIBS = {"flash_attention": (64, 128), "flash_attention_d256": (256,)}
-# the multi-row paged kernel (wgmma, cp.async, warp-specialised)
+# the multi-row paged kernel (wgmma, cp.async, warp-specialised) and the
+# decode kernel (mma.sync, a cp.async ring per warp, cluster merge)
 PAGED_WGMMA_KERNEL = "paged_attention_wgmma_kernel"
+PAGED_DECODE_KERNEL = "paged_attention_decode_kernel"
 
 
 def ptxas_functions(report: str) -> dict:
@@ -407,11 +413,12 @@ def guard_kernels(paths: dict, lib_name: str, kname: str, tags: dict,
 
 def check_build_guards(paths: dict) -> dict:
     """The bf16 flash forward, dq and dk/dv kernels in each library that
-    instantiates them (HGMMA and UTMALDG at every head dim), and the
+    instantiates them (HGMMA and UTMALDG at every head dim), the
     multi-row paged kernel (HGMMA and LDGSTS, cp.async, at every head dim
-    over bf16 and int8 pools): no spill, no wgmma serialisation, no
-    ignored setmaxnreg.  Returns ``{kernel: {instantiation: registers,
-    shared memory and instruction counts}}``."""
+    over bf16 and int8 pools) and the decode kernel (HMMA, mma.sync, and
+    LDGSTS at the same six): no spill, no wgmma serialisation, no ignored
+    setmaxnreg.  Returns ``{kernel: {instantiation: registers, shared
+    memory and instruction counts}}``."""
     from neuronx_distributed_tpu_torch.ops import _build
 
     found = {w: {} for w in WGMMA_KERNELS}
@@ -430,38 +437,73 @@ def check_build_guards(paths: dict) -> dict:
         ("HGMMA", "LDGSTS"),
         lambda key: paged.paged_wgmma_smem_bytes(int(key.split()[0]),
                                                  int(key.endswith("int8"))))
+    found["paged_decode"] = guard_kernels(
+        paths, "paged_attention", PAGED_DECODE_KERNEL,
+        {f"{d} {pool}": f"ILi{d}ELb{int(pool == 'int8')}E"
+         for d in (64, 128, 256) for pool in ("bf16", "int8")},
+        ("HMMA", "LDGSTS"),
+        lambda key: paged.paged_decode_smem_bytes(int(key.split()[0]),
+                                                  int(key.endswith("int8"))))
+    found["paged_decode_clusters"] = decode_clusters(paged)
     log("phase0 guard: the bf16 forward, dq and dk/dv use HGMMA and UTMALDG "
-        "at every head dim, the multi-row paged kernel HGMMA and LDGSTS at "
-        "every head dim and pool type; none spills; no wgmma serialisation, "
-        "no ignored setmaxnreg")
+        "at every head dim, the multi-row paged kernel HGMMA and LDGSTS and "
+        "the decode kernel HMMA and LDGSTS at every head dim and pool type; "
+        "none spills; no wgmma serialisation, no ignored setmaxnreg")
     return found
+
+
+def decode_clusters(paged) -> dict:
+    """How many of the decode kernel's clusters the card holds at once
+    (``cudaOccupancyMaxActiveClusters``) at phase 1's decode shapes, beside
+    the clusters a call launches (one per slot and kv head): fewer held
+    than launched runs the call's short blocks in two waves."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.ops.paged_attention import (
+        _sm_count,
+        decode_split_k,
+    )
+
+    sms = _sm_count(torch.cuda.current_device())
+    fits = {}
+    for label, d, quant, nq, nkv in (("bf16 D128", D, 0, NQ, NKV),
+                                     ("int8 D128", D, 1, NQ, NKV),
+                                     ("bf16 D256", G2_D, 0, G2_NQ, G2_NKV)):
+        sk = decode_split_k(B, nkv, PP * PAGE, sms)
+        fits[label] = {"split_k": sk, "clusters": B * nkv,
+                       "held_at_once": paged.paged_decode_max_clusters(
+                           d, quant, nq // nkv, sk)}
+    log(f"phase0: decode kernel clusters at phase 1's decode shapes "
+        f"(launched / held at once by the card): {fits}")
+    return fits
 
 
 # -- phase 1 ------------------------------------------------------------------
 
 
 def paged_inputs(S: int, dtype, device, d: int = D, int8: bool = False,
-                 nq: int = NQ, nkv: int = NKV, chunk_offset=None):
+                 nq: int = NQ, nkv: int = NKV, chunk_offset=None,
+                 pp: int = PP):
     """Seeded inputs at the served geometry (``nq`` q heads on ``nkv`` kv
-    heads): ragged offsets, one parked slot, non-zero kv_start, a shuffled
-    physical block table.  ``int8``: the pool is the int8 six-tuple that
-    ``quantize_page`` makes of the fp pool, with the first page slot 0
-    attends made constant first (scale 0).  ``chunk_offset``: the main
-    path's chunk call instead, one slot (B = 1) whose chunk starts at that
-    offset, kv_start 0."""
+    heads, chains of ``pp`` pages): ragged offsets, one parked slot,
+    non-zero kv_start, a shuffled physical block table.  ``int8``: the
+    pool is the int8 six-tuple that ``quantize_page`` makes of the fp pool,
+    with the first page slot 0 attends made constant first (scale 0).
+    ``chunk_offset``: the main path's chunk call instead, one slot (B = 1)
+    whose chunk starts at that offset, kv_start 0."""
     import numpy as np
     import torch
 
     from neuronx_distributed_tpu_torch.kvcache.quant import quantize_page
 
     rs = np.random.RandomState(SEED + S + (0 if d == D else d))
-    T = PP * PAGE
+    T = pp * PAGE
     nb = B if chunk_offset is None else 1
-    NP = nb * PP + 1
+    NP = nb * pp + 1
     q = torch.from_numpy(rs.standard_normal((nb, S, nq, d)).astype(np.float32))
     k = torch.from_numpy(rs.standard_normal((NP, PAGE, nkv, d)).astype(np.float32))
     v = torch.from_numpy(rs.standard_normal((NP, PAGE, nkv, d)).astype(np.float32))
-    bt = (rs.permutation(NP - 1) + 1).reshape(nb, PP).astype(np.int32)
+    bt = (rs.permutation(NP - 1) + 1).reshape(nb, pp).astype(np.int32)
     if chunk_offset is None:
         off = rs.randint(40, T - S, size=B).astype(np.int32)
         off[PARKED] = T
@@ -483,7 +525,8 @@ def paged_inputs(S: int, dtype, device, d: int = D, int8: bool = False,
 
 
 def bound_ms(S: int, dtype_name: str, off, start, window=None, d: int = D,
-             int8: bool = False, nq: int = NQ, nkv: int = NKV) -> tuple:
+             int8: bool = False, nq: int = NQ, nkv: int = NKV,
+             pp: int = PP) -> tuple:
     """Least time for the work these inputs need.  Bytes, each moved once
     over the memory rate: K and V at the positions [lo, hi] each live slot
     attends (the range the kernel walks; 1 byte an element in an int8
@@ -491,12 +534,12 @@ def bound_ms(S: int, dtype_name: str, off, start, window=None, d: int = D,
     q read, out written, the block table, offsets and starts read.
     Operations over the peak rate of q's type: the q.K and p.V of every
     key each query row sees."""
-    T = PP * PAGE
+    T = pp * PAGE
     item = 2 if dtype_name == "bfloat16" else 4
     kv_item = 1 if int8 else item
     G = nq // nkv
     nb = len(off)
-    nbytes = 2 * nb * S * nq * d * item + nb * PP * 4 + 2 * nb * 4
+    nbytes = 2 * nb * S * nq * d * item + nb * pp * 4 + 2 * nb * 4
     flops = 0
     for o, s0 in zip(off.tolist(), start.tolist()):
         if o >= T:
@@ -553,7 +596,8 @@ def hold_paged_cases(cases, label: str, d: int = D, nq: int = NQ,
     dequantizes the gathered pages to q's type, as the kernels do; an fp
     pool's plain version runs in fp32 from the same inputs) and a route
     (``route``; default the wrapper's rule); the route the call took must
-    be the one asked for.  Returns the worst error per dtype name."""
+    be the one asked for.  Returns the worst error per (route, dtype
+    name)."""
     import torch
 
     from neuronx_distributed_tpu_torch.ops.paged_attention import (
@@ -564,7 +608,7 @@ def hold_paged_cases(cases, label: str, d: int = D, nq: int = NQ,
     )
 
     live = [b for b in range(B) if b != PARKED]
-    worst = {"bfloat16": 0.0, "float32": 0.0}
+    worst = {}
     for case in cases:
         S, dtype = case["S"], case["dtype"]
         dd, int8 = case.get("d", d), case.get("int8", False)
@@ -572,8 +616,9 @@ def hold_paged_cases(cases, label: str, d: int = D, nq: int = NQ,
               if k in case}
         q, pool, bt, off, start = paged_inputs(S, dtype, "cuda", dd,
                                                int8=int8, nq=nq, nkv=nkv)
-        want = case.get("route") or paged_route(dtype, S)
-        before = paged_attention.wgmma_launches
+        want = case.get("route") or paged_route(dtype, S, nq // nkv)
+        before = (paged_attention.wgmma_launches,
+                  paged_attention.decode_launches)
         if "route" in case:
             out = _paged_attention_on(case["route"], q, pool, bt, off, start,
                                       split_k=case["split_k"], **kw)
@@ -581,7 +626,9 @@ def hold_paged_cases(cases, label: str, d: int = D, nq: int = NQ,
             out = paged_attention(q, pool, bt, off, start,
                                   split_k=case["split_k"], **kw)
         torch.cuda.synchronize()
-        went = "wgmma" if paged_attention.wgmma_launches > before else "simt"
+        went = ("wgmma" if paged_attention.wgmma_launches > before[0] else
+                "decode" if paged_attention.decode_launches > before[1] else
+                "simt")
         if went != want:
             raise AssertionError(f"{case} ran the {went} kernel, not {want}")
         args = ((q, pool, bt, off, start) if int8 else
@@ -612,47 +659,66 @@ def hold_paged_cases(cases, label: str, d: int = D, nq: int = NQ,
                 raise AssertionError(
                     f"{opt} moves the plain output by only {v} in {case}: "
                     f"the case cannot catch a kernel that ignores it")
-        worst[name] = max(worst[name], err)
+        worst[went, name] = max(worst.get((went, name), 0.0), err)
         del q, pool, out, ref
     return worst
 
 
 # the kernel each route of paged_attention launches, as the profiler names it
 PAGED_KERNELS = {"simt": "paged_attention_kernel",
-                 "wgmma": "paged_attention_wgmma_kernel"}
+                 "wgmma": "paged_attention_wgmma_kernel",
+                 "decode": "paged_attention_decode_kernel"}
+# every route on the same decode inputs, the routed one first
+DECODE_ROUTES = ("decode", "simt", "wgmma")
+# the decode kernel's split sweep; its largest cluster (DECODE_MAX_CLUSTER)
+SPLIT_SWEEP = (1, 2, 4, 8)
+CLUSTER_MAX = 8
+# the long-chain decode: Llama-3-8B geometry at B = 8 with 512-page
+# (8192-key) chains, the same ragged offsets (~4,100 keys a live slot)
+LONG_PP = 512
 
 
 def time_paged(S: int, int8: bool, routes, iters: int, label: str,
-               chunk_offset=None, **geom) -> dict:
+               chunk_offset=None, pp: int = PP, opts=None, sweep=(),
+               parked: bool = False, **geom) -> dict:
     """Device ms per call of each route's kernel (``{route}_ms``), of the
     plain version and of the library call (gather (+ dequantize_page) +
-    SDPA) on the same bf16-q inputs over ROTATE copies, each held to the
-    bound of its work; the first route's time is ``ms``.  Each route's
-    output at its default split is held against the plain version within
-    TOL first (``errs``)."""
+    SDPA; ``opts``' sm_scale, and no softcap) on the same bf16-q inputs
+    over ROTATE copies, each held to the bound of its work; the first
+    route's time is ``ms``.  ``opts`` (sm_scale, softcap) go to the routes
+    and the plain version.  Each route's output at its default split is
+    held against the plain version within TOL first (``errs``).
+    ``sweep``: the first route's time at each of these splits
+    (``split_k_ms``).  ``parked``: the first route's time with every slot
+    parked (``parked_ms``: the call's fixed cost, no key read)."""
     import torch
 
     from neuronx_distributed_tpu_torch.ops.paged_attention import (
         _paged_attention_on,
         _sm_count,
+        decode_split_k,
         default_split_k,
         paged_attention_reference,
         wgmma_split_k,
     )
 
+    opts = opts or {}
     q, pool, bt, off, start = paged_inputs(S, torch.bfloat16, "cuda",
                                            int8=int8,
-                                           chunk_offset=chunk_offset, **geom)
+                                           chunk_offset=chunk_offset, pp=pp,
+                                           **geom)
     nb, nq, nkv, d = q.shape[0], q.shape[2], pool[0].shape[2], q.shape[3]
-    rows, sms = nq // nkv * S, _sm_count(torch.cuda.current_device())
-    splits = {"simt": default_split_k(nb, nkv, rows, PP * PAGE, sms),
-              "wgmma": wgmma_split_k(nb, nkv, rows, PP * PAGE, d, sms)}
+    T, rows = pp * PAGE, nq // nkv * S
+    sms = _sm_count(torch.cuda.current_device())
+    splits = {"simt": default_split_k(nb, nkv, rows, T, sms),
+              "wgmma": wgmma_split_k(nb, nkv, rows, T, d, sms),
+              "decode": decode_split_k(nb, nkv, T, sms)}
     args = ((q, pool, bt, off, start) if int8 else
             (q.float(), tuple(p.float() for p in pool), bt, off, start))
-    ref = paged_attention_reference(*args).float()
+    ref = paged_attention_reference(*args, **opts).float()
     errs = {}
     for r in routes:
-        out = _paged_attention_on(r, q, pool, bt, off, start)
+        out = _paged_attention_on(r, q, pool, bt, off, start, **opts)
         torch.cuda.synchronize()
         errs[r] = (out.float() - ref).abs().max().item()
         log(f"{label}: {r} route at its default split_k {splits[r]} against "
@@ -665,48 +731,102 @@ def time_paged(S: int, int8: bool, routes, iters: int, label: str,
     copies = [(q.clone(), tuple(p.clone() for p in pool))
               for _ in range(ROTATE)]
 
-    def over_copies(fn, *pre):
-        return [lambda qc=qc, pc=pc: fn(*pre, qc, pc, bt, off, start)
+    def over_copies(fn, *pre, **kw):
+        return [lambda qc=qc, pc=pc: fn(*pre, qc, pc, bt, off, start, **kw)
                 for qc, pc in copies]
 
-    times = {f"{r}_ms": device_ms(over_copies(_paged_attention_on, r),
+    times = {f"{r}_ms": device_ms(over_copies(_paged_attention_on, r, **opts),
                                   iters, expect=PAGED_KERNELS[r])
              for r in routes}
-    times["plain_ms"] = device_ms(over_copies(paged_attention_reference), 10)
-    times["library_ms"] = device_ms(over_copies(library_call), 50)
+    times["plain_ms"] = device_ms(over_copies(paged_attention_reference,
+                                              **opts), 10)
+    lib_scale = {"sm_scale": opts["sm_scale"]} if "sm_scale" in opts else {}
+    times["library_ms"] = device_ms(over_copies(library_call, **lib_scale), 50)
+    split_ms = {sk: device_ms(over_copies(_paged_attention_on, routes[0],
+                                          split_k=sk, **opts), iters,
+                              expect=PAGED_KERNELS[routes[0]])
+                for sk in sweep}
     b_ms, b_by = bound_ms(S, "bfloat16", off.cpu(), start.cpu(), int8=int8,
-                          **geom)
-    check_bound(label, times, b_ms)
-    live = [b for b in range(q.shape[0]) if off[b] < PP * PAGE]
-    lib_err = (library_call(q, pool, bt, off, start).float()
-               - paged_attention_reference(q, pool, bt, off, start).float()
+                          pp=pp, **geom)
+    check_bound(label, {**times, **{f"split_k {sk}": ms
+                                    for sk, ms in split_ms.items()}}, b_ms)
+    if parked:
+        off_p = torch.full_like(off, T)
+        times["parked_ms"] = device_ms(
+            [lambda qc=qc, pc=pc: _paged_attention_on(
+                routes[0], qc, pc, bt, off_p, start, **opts)
+             for qc, pc in copies], iters, expect=PAGED_KERNELS[routes[0]])
+        check_bound(label + " parked", {"parked": times["parked_ms"]},
+                    bound_ms(S, "bfloat16", off_p.cpu(), start.cpu(),
+                             int8=int8, pp=pp, **geom)[0])
+    live = [b for b in range(q.shape[0]) if off[b] < T]
+    lib_err = (library_call(q, pool, bt, off, start, **lib_scale).float()
+               - paged_attention_reference(q, pool, bt, off, start,
+                                           **lib_scale).float()
                )[live].abs().max().item()
+    first = times[routes[0] + "_ms"]
     log(f"{label} timing (S={S} bf16 q, {'int8' if int8 else 'bf16'} pool, "
         f"B={q.shape[0]} NQ={q.shape[2]} NKV={pool[0].shape[2]} "
-        f"D={q.shape[3]} page={PAGE} PP={PP}, offsets "
-        f"{off.tolist() if q.shape[0] == 1 else 'ragged'}), device ms per "
-        f"call from torch.profiler: " + ", ".join(
+        f"D={q.shape[3]} page={PAGE} PP={pp}{' ' + str(opts) if opts else ''}"
+        f", offsets {off.tolist() if q.shape[0] == 1 else 'ragged'}), device "
+        f"ms per call from torch.profiler: " + ", ".join(
             f"{k[:-3]} {v:.5f}" for k, v in times.items())
-        + f" (library: gather + {'dequantize_page + ' if int8 else ''}SDPA; "
-        f"agrees to {lib_err:.2e}); bound {b_ms:.5f} ({b_by}), "
-        f"{routes[0]} / bound {times[routes[0] + '_ms'] / b_ms:.2f}, "
-        f"{routes[0]} / library "
-        f"{times[routes[0] + '_ms'] / times['library_ms']:.3f}")
+        + f" (library: gather + {'dequantize_page + ' if int8 else ''}SDPA"
+        f"{', no softcap' if 'softcap' in opts else ''}; agrees to "
+        f"{lib_err:.2e} without it); bound {b_ms:.5f} ({b_by}), {routes[0]} "
+        f"/ bound {first / b_ms:.2f}, {routes[0]} / library "
+        f"{first / times['library_ms']:.3f}" + "".join(
+            f", {routes[0]} / {r} {first / times[r + '_ms']:.3f}"
+            for r in routes[1:]))
+    if sweep:
+        log(f"{label} {routes[0]} split_k sweep, device ms per call: "
+            + ", ".join(f"{sk}: {ms:.5f}" for sk, ms in split_ms.items()))
     del copies, q, pool
-    return {"ms": times[f"{routes[0]}_ms"], **times, "bound_ms": b_ms,
-            "bound_by": b_by, "errs": errs, "split_k": {
-                r: splits[r] for r in routes}}
+    return {"ms": first, **times, "bound_ms": b_ms, "bound_by": b_by,
+            "errs": errs, "split_k": {r: splits[r] for r in routes},
+            **({"split_k_ms": split_ms} if sweep else {})}
+
+
+def decode_entries(times: dict, suffix: str, worst: dict, shapes: dict,
+                   library: str, replaces: str) -> list:
+    """The kernels-line entries of one decode shape, from one
+    ``time_paged`` run over DECODE_ROUTES: the decode kernel's (the routed
+    one) and the simt kernel's (forced, on the same inputs), each with the
+    other routes' times beside its own."""
+    common = {k: times[k] for k in ("plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "split_k")}
+    other = {f"{r}_ms": times[f"{r}_ms"] for r in DECODE_ROUTES}
+    csrc = "neuronx_distributed_tpu_torch/ops/csrc/"
+    return [
+        {"name": f"paged_attention_decode{suffix}", "route": "cuda",
+         "source": csrc + "paged_attention_decode.cuh",
+         "replaces": replaces, "launches": None,
+         "max_abs_err": max(worst.get(("decode", "bfloat16"), 0.0),
+                            times["errs"]["decode"]),
+         "ms": times["decode_ms"], **other, **common,
+         "split_k_ms": times.get("split_k_ms"),
+         "parked_ms": times.get("parked_ms"), "library_call": library,
+         "shapes": shapes},
+        {"name": f"paged_attention{suffix}", "route": "cuda",
+         "source": csrc + "paged_attention.cu",
+         "replaces": replaces, "launches": None,
+         "path": "fp32 q and G > 8 only since the decode route: the served "
+                 "bf16 runs launch it 0 times",
+         "max_abs_err": max(worst.get(("simt", "bfloat16"), 0.0),
+                            times["errs"]["simt"]),
+         "max_abs_err_fp32": worst.get(("simt", "float32"), 0.0),
+         "ms": times["simt_ms"], **other, **common, "library_call": library,
+         "shapes": shapes}]
 
 
 def phase1():
+    """The fp-pool decode holds at Llama-3-8B's geometry (bf16 q on the
+    decode kernel at split 1, 4, the default and the largest cluster, and
+    past a cluster; fp32 q on the simt kernel; the simt kernel's bf16 code
+    forced at S = 1 and 4), then all three routes timed on the same decode
+    inputs with the decode kernel's split sweep."""
     import torch
 
-    from neuronx_distributed_tpu_torch.ops.paged_attention import (
-        paged_attention,
-        paged_attention_reference,
-    )
-
-    dev = torch.device("cuda")
     bf16, fp32 = torch.bfloat16, torch.float32
     cases = [dict(S=S, split_k=sk, dtype=dt)
              for dt in (bf16, fp32) for S in (1, 4) for sk in (1, 4)]
@@ -714,111 +834,76 @@ def phase1():
               for dt in (bf16, fp32)]
     cases += [dict(S=1, split_k=None, dtype=dt, softcap=50.0,
                    sm_scale=SOFTCAP_SCALE) for dt in (bf16, fp32)]
-    cases += [dict(S=1, split_k=None, dtype=bf16)]
-    # the simt kernel's bf16 multi-row code, which the rule no longer picks
-    cases += [dict(S=4, split_k=sk, dtype=bf16, route="simt") for sk in (1, 4)]
-    live = [b for b in range(B) if b != PARKED]
-    worst = hold_paged_cases(cases, "phase1")["bfloat16"]
-
-    # timing at the decode shape the served path runs: S=1, bf16, default
-    # split; ROTATE copies of the inputs so reads come from device memory
-    q, pool, bt, off, start = paged_inputs(1, bf16, dev)
-    copies = [(q.clone(), tuple(p.clone() for p in pool))
-              for _ in range(ROTATE)]
-
-    def over_copies(fn, **kw):
-        return [lambda qc=qc, pc=pc: fn(qc, pc, bt, off, start, **kw)
-                for qc, pc in copies]
-
-    kernel_ms = device_ms(over_copies(paged_attention), 200,
-                          expect="paged_attention_kernel")
-    plain_ms = device_ms(over_copies(paged_attention_reference), 20)
-    lib_ms = device_ms(over_copies(library_call), 50)
-    event_ms = {
-        "kernel": cuda_time_ms(
-            lambda: paged_attention(q, pool, bt, off, start), iters=200),
-        "plain": cuda_time_ms(
-            lambda: paged_attention_reference(q, pool, bt, off, start),
-            iters=20),
-        "library": cuda_time_ms(lambda: library_call(q, pool, bt, off, start),
-                                iters=50)}
-    lib_err = (library_call(q, pool, bt, off, start).float()
-               - paged_attention_reference(q, pool, bt, off, start).float()
-               )[live].abs().max().item()
-    sweep = {sk: device_ms(over_copies(paged_attention, split_k=sk), 200,
-                           expect="paged_attention_kernel")
-             for sk in (1, 2, 4, 8)}
-    log("phase1 split_k sweep, device ms per call: " + ", ".join(
-        f"{sk}: {ms:.5f}" for sk, ms in sweep.items()))
-    b_ms, b_by = bound_ms(1, "bfloat16", off.cpu(), start.cpu())
-    check_bound("paged_attention", {"kernel": kernel_ms, "plain": plain_ms,
-                                    "library": lib_ms, **{
-                                        f"split_k {sk}": ms
-                                        for sk, ms in sweep.items()}}, b_ms)
-    log(f"phase1 timing (S=1 bf16 B={B} NQ={NQ} NKV={NKV} D={D} page={PAGE} "
-        f"PP={PP}), device ms per call from torch.profiler: kernel "
-        f"{kernel_ms:.5f}, plain {plain_ms:.5f}, library {lib_ms:.5f} "
-        f"(agrees to {lib_err:.2e}); bound {b_ms:.5f} ({b_by}), kernel / "
-        f"bound {kernel_ms / b_ms:.2f}; wall ms per call between CUDA events "
-        f"over back-to-back calls (host launch rate): " + ", ".join(
-            f"{k} {v:.5f}" for k, v in event_ms.items()))
-    return {
-        "name": "paged_attention",
-        "route": "cuda",
-        "source": "neuronx_distributed_tpu_torch/ops/csrc/paged_attention.cu",
-        "replaces": "neuronx_distributed_tpu/ops/paged_attention.py:164",
-        "launches": None,
-        "max_abs_err": worst,
-        "max_err": worst,
-        "ms": kernel_ms,
-        "kernel_ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": b_ms,
-        "bound_by": b_by,
-        "library_ms": lib_ms,
-        "event_ms": event_ms,
-        "split_k_ms": sweep,
-        "shapes": {"q": [B, 1, NQ, D], "pool": [B * PP + 1, PAGE, NKV, D],
-                   "block_table": [B, PP], "dtype": "bfloat16"},
-    }
+    cases += [dict(S=1, split_k=sk, dtype=bf16)
+              for sk in (None, CLUSTER_MAX, CLUSTER_MAX + 3)]
+    # the simt kernel's bf16 code, which the rule no longer picks
+    cases += [dict(S=S, split_k=sk, dtype=bf16, route="simt")
+              for S in (1, 4) for sk in (1, 4)]
+    worst = hold_paged_cases(cases, "phase1")
+    times = time_paged(1, False, DECODE_ROUTES, 200, "phase1 decode",
+                       sweep=SPLIT_SWEEP, parked=True)
+    return decode_entries(
+        times, "", worst,
+        {"q": [B, 1, NQ, D], "pool": [B * PP + 1, PAGE, NKV, D],
+         "block_table": [B, PP], "dtype": "bfloat16"},
+        "gather + F.scaled_dot_product_attention",
+        "neuronx_distributed_tpu/ops/paged_attention.py:164")
 
 
 def phase1_int8():
     """The int8 pools against the plain version (which dequantizes the
     gathered pages to q's type, as the kernels do): q in bf16 and fp32, D
-    64/128/256, S 1/4/128 (bf16 q at S > 1 takes the wgmma route by the
-    rule, and is held on the simt route as well), split-K 1 and the
-    default, a parked slot and a constant page in every case, plus a
-    window and a softcap case.  Timed at the decode shape."""
+    64/128/256, S 1/4/128 (bf16 q takes the decode route at S = 1 and the
+    wgmma route at S > 1 by the rule, and is held on the simt route as
+    well), split-K 1 and the default (and at S = 1 the largest cluster), a
+    parked slot and a constant page in every case, plus a window and a
+    softcap case.  All three routes timed at the decode shape."""
     import torch
 
     bf16, fp32 = torch.bfloat16, torch.float32
     cases = [dict(S=S, d=d, split_k=sk, dtype=dt, int8=True)
              for dt in (bf16, fp32) for d in INT8_DIMS for S in INT8_WIDTHS
              for sk in (1, None)]
+    cases += [dict(S=1, d=d, split_k=CLUSTER_MAX, dtype=bf16, int8=True)
+              for d in INT8_DIMS]
     cases += [dict(S=1, d=D, split_k=None, dtype=dt, int8=True, window=256)
               for dt in (bf16, fp32)]
     cases += [dict(S=1, d=D, split_k=None, dtype=dt, int8=True, softcap=50.0,
                    sm_scale=SOFTCAP_SCALE) for dt in (bf16, fp32)]
     cases += [dict(S=S, d=d, split_k=sk, dtype=bf16, int8=True, route="simt")
-              for d in INT8_DIMS for S in INT8_WIDTHS[1:] for sk in (1, None)]
+              for d in INT8_DIMS for S in INT8_WIDTHS for sk in (1, None)]
     worst = hold_paged_cases(cases, "phase1 int8")
-    times = time_paged(1, True, ("simt",), 200, "phase1 int8")
-    return {
-        "name": "paged_attention_int8",
-        "route": "cuda",
-        "source": "neuronx_distributed_tpu_torch/ops/csrc/paged_attention.cu",
-        "replaces": "neuronx_distributed_tpu/ops/paged_attention.py:211",
-        "launches": None,
-        **times,
-        "max_abs_err": max(worst["bfloat16"], times["errs"]["simt"]),
-        "max_abs_err_fp32": worst["float32"],
-        "library_call": ("gather + kvcache.quant.dequantize_page + "
-                         "F.scaled_dot_product_attention"),
-        "shapes": {"q": [B, 1, NQ, D], "pool": [B * PP + 1, PAGE, NKV, D],
-                   "pool_dtype": "int8", "block_table": [B, PP],
-                   "dtype": "bfloat16"},
-    }
+    times = time_paged(1, True, DECODE_ROUTES, 200, "phase1 int8 decode",
+                       sweep=SPLIT_SWEEP, parked=True)
+    return decode_entries(
+        times, "_int8", worst,
+        {"q": [B, 1, NQ, D], "pool": [B * PP + 1, PAGE, NKV, D],
+         "pool_dtype": "int8", "block_table": [B, PP], "dtype": "bfloat16"},
+        "gather + kvcache.quant.dequantize_page + "
+        "F.scaled_dot_product_attention",
+        "neuronx_distributed_tpu/ops/paged_attention.py:211")
+
+
+def phase1_long():
+    """The long-chain decode (LONG_PP pages of PAGE keys, B = 8, Llama-3-8B
+    geometry, ragged offsets), bf16 and int8 pools: all three routes held
+    and timed on the same inputs, the decode kernel's split sweep."""
+    entries = {}
+    for int8 in (False, True):
+        kind = "int8" if int8 else "bf16"
+        times = time_paged(1, int8, DECODE_ROUTES, 100,
+                           f"phase1 long {kind} decode", pp=LONG_PP,
+                           sweep=SPLIT_SWEEP)
+        entries[kind] = decode_entries(
+            times, f"_long_{kind}", {},
+            {"q": [B, 1, NQ, D], "pool": [B * LONG_PP + 1, PAGE, NKV, D],
+             "pool_dtype": "int8" if int8 else "bfloat16",
+             "block_table": [B, LONG_PP], "dtype": "bfloat16"},
+            "gather + " + ("kvcache.quant.dequantize_page + " if int8 else "")
+            + "F.scaled_dot_product_attention",
+            "neuronx_distributed_tpu/ops/paged_attention.py:"
+            + ("211" if int8 else "164"))[0]
+    return entries
 
 
 # the main path's chunk call: one slot, a 128-token chunk at offset 384 (the
@@ -856,12 +941,12 @@ def phase1_chunks():
               for i8 in (False, True)]
     cases += [dict(S=128, split_k=None, int8=i8, softcap=50.0,
                    sm_scale=SOFTCAP_SCALE, **w) for i8 in (False, True)]
-    worst = hold_paged_cases(cases, "phase1 wgmma")["bfloat16"]
     narrow = [dict(S=S, d=d, split_k=None, int8=i8, **w)
               for i8 in (False, True) for d in INT8_DIMS for S in (2, 3)]
-    worst = max(worst, hold_paged_cases(narrow, "phase1 wgmma")["bfloat16"],
-                hold_paged_cases(narrow, "phase1 wgmma G=1", nq=NKV,
-                                 nkv=NKV)["bfloat16"])
+    worst = max(held[("wgmma", "bfloat16")] for held in (
+        hold_paged_cases(cases, "phase1 wgmma"),
+        hold_paged_cases(narrow, "phase1 wgmma"),
+        hold_paged_cases(narrow, "phase1 wgmma G=1", nq=NKV, nkv=NKV)))
 
     rows = {}
     for key, i8, off in (("chunk_int8", True, CHUNK_OFFSET),
@@ -881,13 +966,13 @@ def phase1_chunks():
                           for _ in range(ROTATE)]
                 G = nq // NKV
                 sweep[f"{'int8' if i8 else 'bf16'} G={G} S={S}"] = {
-                    "rows": G * S, "rule": paged_route(bf16, S), **{
+                    "rows": G * S, "rule": paged_route(bf16, S, G), **{
                         r: device_ms([
                             lambda qc=qc, pc=pc, r=r: _paged_attention_on(
                                 r, qc, pc, bt, off, start)
                             for qc, pc in copies], 100,
                             expect=PAGED_KERNELS[r])
-                        for r in PAGED_KERNELS}}
+                        for r in ("simt", "wgmma")}}
                 del copies, q, pool
     log(f"phase1 route sweep (B=1, offset {CHUNK_OFFSET}, NKV={NKV}, D={D}),"
         f" device ms per call simt / wgmma, and the route paged_route picks: "
@@ -927,66 +1012,33 @@ G2_NQ, G2_NKV, G2_D, G2_SCALE, G2_CAP = 8, 4, 256, 256.0 ** -0.5, 50.0
 
 def phase1_gemma():
     """The fp-pool kernels at head_dim 256 and the Gemma-2-2B geometry
-    (bf16 q at S = 4 on the wgmma kernel, the rest on the simt kernel):
-    bf16 and fp32 q and pool, S 1 and 4, split-K 1 and the default, the
+    (bf16 q on the decode kernel at S = 1 and the wgmma kernel at S = 4,
+    fp32 q on the simt kernel): bf16 and fp32 q and pool, S 1 and 4,
+    split-K 1 and the default (and the largest cluster at S = 1), the
     softcap 50 in every case (at SOFTCAP_SCALE, where it moves the output;
-    at Gemma-2's own 1/16 it hardly does).  Timed at the decode shape with
-    Gemma-2's scale and cap; the library call (gather + SDPA) has no
-    softcap."""
+    at Gemma-2's own 1/16 it hardly does).  All three routes timed at the
+    decode shape with Gemma-2's scale and cap; the library call (gather +
+    SDPA) has no softcap."""
     import torch
 
-    from neuronx_distributed_tpu_torch.ops.paged_attention import (
-        paged_attention,
-        paged_attention_reference,
-    )
-
     geom = dict(d=G2_D, nq=G2_NQ, nkv=G2_NKV)
-    cases = [dict(S=S, split_k=sk, dtype=dt, softcap=G2_CAP,
-                  sm_scale=SOFTCAP_SCALE)
+    cap = dict(softcap=G2_CAP, sm_scale=SOFTCAP_SCALE)
+    cases = [dict(S=S, split_k=sk, dtype=dt, **cap)
              for dt in (torch.bfloat16, torch.float32) for S in (1, 4)
              for sk in (1, None)]
+    cases += [dict(S=1, split_k=CLUSTER_MAX, dtype=torch.bfloat16, **cap),
+              dict(S=1, split_k=None, dtype=torch.bfloat16, route="simt",
+                   **cap)]
     worst = hold_paged_cases(cases, "phase1 gemma2", **geom)
-    q, pool, bt, off, start = paged_inputs(1, torch.bfloat16, "cuda", **geom)
-    copies = [(q.clone(), tuple(p.clone() for p in pool))
-              for _ in range(ROTATE)]
-    kw = dict(sm_scale=G2_SCALE, softcap=G2_CAP)
-
-    def over_copies(fn, **extra):
-        return [lambda qc=qc, pc=pc: fn(qc, pc, bt, off, start, **extra)
-                for qc, pc in copies]
-
-    k_ms = device_ms(over_copies(paged_attention, **kw), 200,
-                     expect="paged_attention_kernel")
-    p_ms = device_ms(over_copies(paged_attention_reference, **kw), 20)
-    l_ms = device_ms(over_copies(library_call, sm_scale=G2_SCALE), 50)
-    b_ms, b_by = bound_ms(1, "bfloat16", off.cpu(), start.cpu(), **geom)
-    check_bound("paged_attention D=256", {"kernel": k_ms, "plain": p_ms,
-                                          "library": l_ms}, b_ms)
-    log(f"phase1 gemma2 timing (S=1 bf16 B={B} NQ={G2_NQ} NKV={G2_NKV} "
-        f"D={G2_D} page={PAGE} PP={PP}, scale 1/16, softcap 50), device ms "
-        f"per call from torch.profiler: kernel {k_ms:.5f}, plain "
-        f"{p_ms:.5f}, library {l_ms:.5f} (gather + SDPA, no softcap); "
-        f"bound {b_ms:.5f} ({b_by}), kernel / bound {k_ms / b_ms:.2f}")
-    del copies, q, pool
-    return {
-        "name": "paged_attention_d256",
-        "route": "cuda",
-        "source": "neuronx_distributed_tpu_torch/ops/csrc/paged_attention.cu",
-        "replaces": "neuronx_distributed_tpu/ops/paged_attention.py:164",
-        "launches": None,
-        "max_abs_err": worst["bfloat16"],
-        "max_abs_err_fp32": worst["float32"],
-        "ms": k_ms,
-        "plain_ms": p_ms,
-        "bound_ms": b_ms,
-        "bound_by": b_by,
-        "library_ms": l_ms,
-        "library_call": "gather + F.scaled_dot_product_attention (no softcap)",
-        "shapes": {"q": [B, 1, G2_NQ, G2_D],
-                   "pool": [B * PP + 1, PAGE, G2_NKV, G2_D],
-                   "block_table": [B, PP], "dtype": "bfloat16",
-                   "softcap": G2_CAP},
-    }
+    times = time_paged(1, False, DECODE_ROUTES, 200, "phase1 gemma2 decode",
+                       opts=dict(sm_scale=G2_SCALE, softcap=G2_CAP),
+                       sweep=SPLIT_SWEEP, parked=True, **geom)
+    return decode_entries(
+        times, "_d256", worst,
+        {"q": [B, 1, G2_NQ, G2_D], "pool": [B * PP + 1, PAGE, G2_NKV, G2_D],
+         "block_table": [B, PP], "dtype": "bfloat16", "softcap": G2_CAP},
+        "gather + F.scaled_dot_product_attention (no softcap)",
+        "neuronx_distributed_tpu/ops/paged_attention.py:164")
 
 
 # -- phase 2 ------------------------------------------------------------------
@@ -1076,7 +1128,44 @@ def steady_decode_profile(model_pim, vocab: int, steps: int = 10,
             "device_busy_ms": busy_ms, "paged_attention_ms": attn_ms}
 
 
-def phase2(kernel_entry):
+def zero_paged_counts() -> None:
+    """Every launch count of the paged-attention wrapper set to 0."""
+    from neuronx_distributed_tpu_torch.ops.paged_attention import paged_attention
+
+    for count in ("launches", "int8_launches", "wgmma_launches",
+                  "decode_launches"):
+        setattr(paged_attention, count, 0)
+
+
+def check_routes(label: str, decode: int, chunk: int) -> dict:
+    """The launches since :func:`zero_paged_counts` by route: every decode
+    call (``decode`` of them) on the decode kernel, every chunk call
+    (``chunk``) on the wgmma kernel, none on the simt kernel.  Returns
+    ``{route: launches}``."""
+    from neuronx_distributed_tpu_torch.ops.paged_attention import paged_attention
+
+    pa = paged_attention
+    routes = {"decode": pa.decode_launches, "wgmma": pa.wgmma_launches,
+              "simt": pa.launches - pa.decode_launches - pa.wgmma_launches}
+    if routes != {"decode": decode, "wgmma": chunk, "simt": 0}:
+        raise AssertionError(
+            f"{label}: paged_attention launches by route {routes}, expected "
+            f"decode {decode} (decode steps x layers), wgmma {chunk} (chunks "
+            f"x layers), simt 0")
+    return routes
+
+
+def set_launches(entries, routes: dict) -> None:
+    """The main path's launch counts into kernels-line entries: each
+    decode-route entry gets the decode kernel's, each simt entry the simt
+    kernel's, each wgmma entry the wgmma kernel's."""
+    for e in entries:
+        route = ("decode" if "decode" in e["name"] else
+                 "wgmma" if "wgmma" in e["name"] else "simt")
+        e["launches"] = routes[route]
+
+
+def phase2(entries):
     import torch
 
     from neuronx_distributed_tpu_torch import (
@@ -1106,7 +1195,7 @@ def phase2(kernel_entry):
         f"tokens")
     requests = make_requests(cfg.vocab_size, N_REQUESTS, NEW_TOKENS, SEED)
     torch.cuda.reset_peak_memory_stats()
-    paged_attention.launches = 0
+    zero_paged_counts()
     t0 = time.perf_counter()
     outs = serve(engine, requests)
     torch.cuda.synchronize()
@@ -1120,9 +1209,7 @@ def phase2(kernel_entry):
     if len(outs) != N_REQUESTS or bad:
         raise AssertionError(f"requests not served in full: {bad}, "
                              f"{len(outs)}/{N_REQUESTS} outputs")
-    if launches != steps * cfg.num_layers:
-        raise AssertionError(f"paged_attention launches {launches} != decode "
-                             f"steps {steps} x {cfg.num_layers} layers")
+    routes = check_routes("phase2", steps * cfg.num_layers, 0)
     engine._kv.assert_invariants()
     leaks = engine._kv.leaked_pages()
     if leaks:
@@ -1132,9 +1219,9 @@ def phase2(kernel_entry):
         f"{wall:.3f} s ({tokens / wall:.1f} tok/s overall, {decode_tokens} "
         f"decode tokens over {steps} batched decode steps, "
         f"{wall / steps * 1e3:.2f} ms/step incl. admissions); kernel "
-        f"launches {launches} = {steps} x {cfg.num_layers}; page leaks 0; "
-        f"peak memory {peak / 2**30:.2f} GiB")
-    kernel_entry["launches"] = launches
+        f"launches {launches} = {steps} x {cfg.num_layers}, by route "
+        f"{routes}; page leaks 0; peak memory {peak / 2**30:.2f} GiB")
+    set_launches(entries, routes)
 
     # one decode step at full width: the kernel path vs the gather path
     eng = ServingEngine(model_pim, page_size=PAGE_SIZE)
@@ -1177,6 +1264,7 @@ def phase2(kernel_entry):
     summary = {**busy, "wall_s": wall, "tokens": tokens,
                "tok_s": tokens / wall, "decode_steps": steps,
                "ms_per_step": wall / steps * 1e3, "launches": launches,
+               "launches_by_route": routes,
                "peak_gib": peak / 2**30, "logits_rel_l2": rel,
                "token_agreement": same / total}
     return summary, model_pim, {rid: o.token_ids for rid, o in outs.items()}
@@ -1229,10 +1317,11 @@ def compare_logits(a, b) -> tuple:
     return rel, agree
 
 
-def phase2b(model_pim, int8_entry, wgmma_entry, whole_tokens):
+def phase2b(model_pim, entries, whole_tokens):
     """Serving with int8 KV pages and chunked prefill on phase 2's model:
-    the slice-3 main path (decode steps on the simt kernel, every chunk of
-    every layer on the wgmma kernel), then its checks."""
+    the slice-3 main path (every decode step of every layer on the decode
+    kernel, every chunk on the wgmma kernel, none on the simt kernel), then
+    its checks."""
     import torch
 
     from neuronx_distributed_tpu_torch import ServingEngine
@@ -1255,11 +1344,10 @@ def phase2b(model_pim, int8_entry, wgmma_entry, whole_tokens):
     # the main path: every launch count from 0 over the served run
     engine = ServingEngine(model_pim, page_size=PAGE_SIZE, kv_quant="int8",
                            prefill_chunk_tokens=CHUNK_TOKENS)
-    for fn in (paged_attention, fa.flash_attention_fwd,
-               fa.flash_attention_dq, fa.flash_attention_dkv):
+    for fn in (fa.flash_attention_fwd, fa.flash_attention_dq,
+               fa.flash_attention_dkv):
         fn.launches = 0
-    paged_attention.int8_launches = 0
-    paged_attention.wgmma_launches = 0
+    zero_paged_counts()
     t0 = time.perf_counter()
     outs = serve(engine, make_requests(cfg.vocab_size, N_REQUESTS,
                                        NEW_TOKENS, SEED))
@@ -1279,10 +1367,7 @@ def phase2b(model_pim, int8_entry, wgmma_entry, whole_tokens):
         raise AssertionError(
             f"paged_attention launches {launches} (int8 {int8_launches}) != "
             f"(decode steps {steps} + chunks {chunks}) x {L} layers")
-    if wgmma_launches != chunks * L:
-        raise AssertionError(
-            f"wgmma launches {wgmma_launches} != chunks {chunks} x {L} "
-            f"layers: a chunk call took the simt kernel")
+    routes = check_routes("phase2b", steps * L, chunks * L)
     if chunks != sum(o.prefill_chunks for o in outs.values()):
         raise AssertionError("chunk dispatches disagree with the requests'")
     if not engine.quant_pages > 0:
@@ -1299,12 +1384,12 @@ def phase2b(model_pim, int8_entry, wgmma_entry, whole_tokens):
         f"{chunks} chunk dispatches, {wall / (steps + chunks) * 1e3:.2f} ms "
         f"per forward); kernel launches {launches} = ({steps} + {chunks}) "
         f"x {L}, all int8, {wgmma_launches} = {chunks} x {L} of them (every "
-        f"chunk) on the wgmma kernel; {engine.quant_pages} pages quantized "
+        f"chunk) on the wgmma kernel, by route {routes}; "
+        f"{engine.quant_pages} pages quantized "
         f"on write; "
         f"page leaks 0; greedy tokens equal to phase 2's bf16 whole-prefill "
         f"run {same}/{tokens}")
-    int8_entry["launches"] = int8_launches - wgmma_launches
-    wgmma_entry["launches"] = wgmma_launches
+    set_launches(entries, routes)
     quant_pages = engine.quant_pages
     del engine
 
@@ -1335,7 +1420,7 @@ def phase2b(model_pim, int8_entry, wgmma_entry, whole_tokens):
                              f"(0, {INT8_DRIFT_REL_MAX}]")
 
     # chunked prefill over the bf16 pool against phase 2's whole prefill
-    paged_attention.launches = paged_attention.wgmma_launches = 0
+    zero_paged_counts()
     eng = ServingEngine(model_pim, page_size=PAGE_SIZE,
                         prefill_chunk_tokens=CHUNK_TOKENS)
     t0 = time.perf_counter()
@@ -1343,13 +1428,8 @@ def phase2b(model_pim, int8_entry, wgmma_entry, whole_tokens):
                                        NEW_TOKENS, SEED))
     torch.cuda.synchronize()
     fp_wall = time.perf_counter() - t0
-    if paged_attention.launches != (eng.decode_steps
-                                    + eng.prefill_chunks) * L:
-        raise AssertionError("bf16 chunked run: launches != (steps + "
-                             "chunks) x layers")
-    if paged_attention.wgmma_launches != eng.prefill_chunks * L:
-        raise AssertionError("bf16 chunked run: wgmma launches != chunks x "
-                             "layers")
+    fp_routes = check_routes("phase2b bf16 chunked", eng.decode_steps * L,
+                             eng.prefill_chunks * L)
     if any(o.state != "finished" for o in chunked.values()):
         raise AssertionError("bf16 chunked run did not finish")
     fp_same = sum(a == b for rid, o in chunked.items()
@@ -1359,14 +1439,15 @@ def phase2b(model_pim, int8_entry, wgmma_entry, whole_tokens):
     log(f"phase2b: bf16 pool with {CHUNK_TOKENS}-token chunks vs phase 2's "
         f"whole prefill: greedy tokens equal {fp_same}/{tokens}, first "
         f"tokens {first_same}/{N_REQUESTS} ({eng.prefill_chunks} chunk "
-        f"dispatches, {eng.decode_steps} decode steps, served in "
-        f"{fp_wall:.3f} s)")
+        f"dispatches, {eng.decode_steps} decode steps, launches by route "
+        f"{fp_routes}, served in {fp_wall:.3f} s)")
     del eng
     busy = steady_decode_profile(model_pim, cfg.vocab_size, label="phase2b",
                                  kv_quant="int8")
     return {**busy, "wall_s": wall, "tokens": tokens, "tok_s": tokens / wall,
             "decode_steps": steps, "chunk_dispatches": chunks,
             "launches": launches, "wgmma_launches": wgmma_launches,
+            "launches_by_route": routes,
             "quant_pages": quant_pages,
             "pool_ratio": ratio, "int8_kernel_vs_gather_rel_l2": rel,
             "int8_kernel_vs_gather_argmax": agree,
@@ -2136,9 +2217,9 @@ def phase5(flash_entries):
 G2_REQUESTS, G2_NEW_TOKENS = 8, 32
 
 
-def phase5b(kernel_entry):
+def phase5b(entries):
     """Gemma-2-2B serving: full width and depth with random bf16 weights,
-    ``ServingEngine`` in paged mode over a bf16 pool; the paged kernel at
+    ``ServingEngine`` in paged mode over a bf16 pool; the decode kernel at
     head_dim 256 with the softcap on every decode step of every layer."""
     import gc
 
@@ -2170,7 +2251,7 @@ def phase5b(kernel_entry):
     requests = make_requests(cfg.vocab_size, G2_REQUESTS, G2_NEW_TOKENS,
                              SEED)
     torch.cuda.reset_peak_memory_stats()
-    paged_attention.launches = 0
+    zero_paged_counts()
     t0 = time.perf_counter()
     outs = serve(engine, requests)
     torch.cuda.synchronize()
@@ -2183,9 +2264,7 @@ def phase5b(kernel_entry):
     if len(outs) != G2_REQUESTS or bad:
         raise AssertionError(f"requests not served in full: {bad}, "
                              f"{len(outs)}/{G2_REQUESTS} outputs")
-    if launches != steps * cfg.num_layers:
-        raise AssertionError(f"paged_attention launches {launches} != decode "
-                             f"steps {steps} x {cfg.num_layers} layers")
+    routes = check_routes("phase5b", steps * cfg.num_layers, 0)
     engine._kv.assert_invariants()
     leaks = engine._kv.leaked_pages()
     if leaks:
@@ -2193,9 +2272,9 @@ def phase5b(kernel_entry):
     log(f"phase5b: served {G2_REQUESTS} requests, {tokens} tokens in "
         f"{wall:.3f} s ({tokens / wall:.1f} tok/s overall, {steps} batched "
         f"decode steps, {wall / steps * 1e3:.2f} ms/step incl. admissions); "
-        f"kernel launches {launches} = {steps} x {cfg.num_layers}; page "
-        f"leaks 0; peak memory {peak / 2**30:.2f} GiB")
-    kernel_entry["launches"] = launches
+        f"kernel launches {launches} = {steps} x {cfg.num_layers}, by route "
+        f"{routes}; page leaks 0; peak memory {peak / 2**30:.2f} GiB")
+    set_launches(entries, routes)
     del engine
 
     eng = admitted_engine(pim, cfg.vocab_size)
@@ -2215,6 +2294,7 @@ def phase5b(kernel_entry):
     torch.cuda.empty_cache()
     return {**busy, "wall_s": wall, "tokens": tokens, "tok_s": tokens / wall,
             "decode_steps": steps, "launches": launches,
+            "launches_by_route": routes,
             "peak_gib": peak / 2**30, "logits_rel_l2": rel,
             "argmax_agreement": agree}
 
@@ -2252,27 +2332,31 @@ def main() -> int:
         for name, report in _build.build_logs.items():
             log(f"phase0: nvcc -Xptxas -v for {name}:\n{report}")
         guards = check_build_guards(paths)
-        entry = phase1()
-        entry8 = phase1_int8()
+        dec, simt = phase1()
+        dec["build"] = guards["paged_decode"]
+        dec8, simt8 = phase1_int8()
+        long = phase1_long()
         entry_w = phase1_chunks()
         entry_w["build"] = guards["paged_wgmma"]
-        serving, model_pim, whole_tokens = phase2(entry)
+        serving, model_pim, whole_tokens = phase2([dec, simt, long["bf16"]])
         log(f"phase2 summary: {json.dumps(serving)}")
-        quantized = phase2b(model_pim, entry8, entry_w, whole_tokens)
+        quantized = phase2b(model_pim, [dec8, simt8, long["int8"], entry_w],
+                            whole_tokens)
         log(f"phase2b summary: {json.dumps(quantized)}")
         del model_pim
-        entry256 = phase1_gemma()
+        dec256, simt256 = phase1_gemma()
         flash, flash256 = phase3()
         training = phase4(flash)
         log(f"phase4 summary: {json.dumps(training)}")
         gemma_training = phase5(flash256)
         log(f"phase5 summary: {json.dumps(gemma_training)}")
-        gemma_serving = phase5b(entry256)
+        gemma_serving = phase5b([dec256, simt256])
         log(f"phase5b summary: {json.dumps(gemma_serving)}")
         for w in FLASH_KERNELS:
             flash[w]["build"] = {d: guards[w][d] for d in (64, 128)}
             flash256[w]["build"] = {256: guards[w][256]}
-        kernels = ([entry, entry8, entry_w, entry256]
+        kernels = ([dec, dec8, dec256, long["bf16"], long["int8"], simt,
+                    simt8, simt256, entry_w]
                    + [flash[w] for w in FLASH_KERNELS]
                    + [flash256[w] for w in FLASH_KERNELS])
         for k in kernels:
@@ -2280,6 +2364,9 @@ def main() -> int:
                                                      "library_ms",
                                                      "bound_ms")):
                 raise AssertionError(f"non-finite timing in {k['name']}")
+            if not isinstance(k["launches"], int):
+                raise AssertionError(f"no main-path launch count for "
+                                     f"{k['name']}")
         log(f"nvidia-smi: {nvidia_smi_line()}")
         print(json.dumps({"kernels": kernels}), flush=True)
     except Exception:  # noqa: BLE001 - any failed phase fails the run

@@ -72,7 +72,14 @@ SIGNATURES = {
             + [_I, _I, _I, _I, _I, _I, _I, _I,             # B S NQ NKV D NP page PP
                _F, _I, _F, _I, _P],                        # scale window cap sk stream
             _I),
+        "paged_attention_decode_fwd": (
+            [_I] + [_P] * 14                               # quant, pointers
+            + [_I, _I, _I, _I, _I, _I, _I, _I,             # B S NQ NKV D NP page PP
+               _F, _I, _F, _I, _P],                        # scale window cap sk stream
+            _I),
         "paged_wgmma_smem_bytes": ([_I, _I], _I),          # D, quant
+        "paged_decode_smem_bytes": ([_I, _I], _I),         # D, quant
+        "paged_decode_max_clusters": ([_I, _I, _I, _I], _I),  # D quant G sk
     },
     "flash_attention": _FLASH_ENTRIES,          # head_dim 64 and 128
     "flash_attention_d256": _FLASH_ENTRIES,     # head_dim 256

@@ -29,6 +29,27 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 }
 
 // ---------------------------------------------------------------------------
+// cp.async (16-byte copies from device memory into shared memory, by thread)
+// ---------------------------------------------------------------------------
+
+// `bytes` of the 16 are read (0 or 16); the rest of dst is zero-filled
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// waits until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------------------
 // mbarriers (shared-memory barriers that count arrivals and TMA bytes)
 // ---------------------------------------------------------------------------
 

@@ -1,8 +1,11 @@
 // Paged-attention kernels for Hopper (sm_90a), plain C interface:
-// paged_attention_kernel (below; every query width, fp32 or bf16 q) and
+// paged_attention_kernel (below; every query width, fp32 or bf16 q),
 // paged_attention_wgmma_kernel (paged_attention_wgmma.cuh; bf16 q, the
-// multi-row route the wrapper takes for S > 1 chunks), which share the
-// split-K epilogue merge_splits_kernel.
+// multi-row route the wrapper takes for S > 1 chunks) and
+// paged_attention_decode_kernel (paged_attention_decode.cuh; bf16 q at
+// S = 1, the decode route, which merges its splits inside a thread-block
+// cluster).  The split-K epilogue merge_splits_kernel serves the first two,
+// and the decode kernel beyond a cluster's 8 splits.
 //
 // Replaces the TPU kernel neuronx_distributed_tpu/ops/paged_attention.py:
 // _paged_kernel (pallas_call in _paged_attention_impl): attention of
@@ -59,6 +62,7 @@
 
 #include <type_traits>
 
+#include "paged_attention_decode.cuh"
 #include "paged_attention_wgmma.cuh"
 
 namespace {
@@ -456,6 +460,79 @@ int launch_wgmma(const void* q, const void* k, const void* v, PageParams pp,
   return (int)cudaGetLastError();
 }
 
+// the decode route: bf16 q at S = 1, G <= paged_decode::MAX_G; split_k <=
+// MAX_CLUSTER blocks of a (slot, kv head) run as one cluster and merge
+// there, more write the workspace for merge_splits_kernel
+template <int D, bool QUANT>
+int launch_decode(const void* q, const void* k, const void* v, PageParams pp,
+                  const int* bt, const int* off, const int* start, void* out,
+                  float* acc, float* m, float* l, int B, int NQ, int NKV,
+                  int NP, int page, int PP, float sm_scale, int window,
+                  float softcap, int split_k, cudaStream_t stream) {
+  using C = paged_decode::Cfg<D, QUANT>;
+  auto* kernel = &paged_decode::paged_attention_decode_kernel<D, QUANT>;
+  static bool attr_set = false;  // one attribute call per instantiation
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        C::bytes_for(paged_decode::MAX_CLUSTER, paged_decode::MAX_G, true));
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  const int merge = split_k == 1 ? paged_decode::DIRECT
+                    : split_k <= paged_decode::MAX_CLUSTER
+                        ? paged_decode::CLUSTER
+                        : paged_decode::WORKSPACE;
+  const int G = NQ / NKV;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = merge == paged_decode::CLUSTER ? split_k : 1;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(split_k, NKV, B);
+  cfg.blockDim = dim3(C::THREADS);
+  cfg.dynamicSmemBytes =
+      C::bytes_for(split_k, G, merge == paged_decode::CLUSTER);
+  cfg.stream = stream;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const __nv_bfloat16*>(q), k, v, pp.ks, pp.kz,
+      pp.vs, pp.vz, bt, off, start, static_cast<__nv_bfloat16*>(out), acc, m,
+      l, NQ, NKV, NP, page, PP, sm_scale, window, softcap, split_k, merge);
+  if (e == cudaSuccess) e = cudaGetLastError();
+  if (e != cudaSuccess || merge != paged_decode::WORKSPACE) return (int)e;
+  merge_splits_kernel<__nv_bfloat16><<<dim3(B * NKV, G), D, 0, stream>>>(
+      acc, m, l, static_cast<__nv_bfloat16*>(out), 1, NQ, NKV, D, split_k);
+  return (int)cudaGetLastError();
+}
+
+// thread-block clusters of split_k decode blocks (G q heads a kv head)
+// that the card holds at once
+template <int D, bool QUANT>
+int decode_max_clusters(int G, int split_k) {
+  using C = paged_decode::Cfg<D, QUANT>;
+  auto* kernel = &paged_decode::paged_attention_decode_kernel<D, QUANT>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::bytes_for(paged_decode::MAX_CLUSTER, paged_decode::MAX_G, true));
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = split_k;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(split_k, 1, 1);
+  cfg.blockDim = dim3(C::THREADS);
+  cfg.dynamicSmemBytes = C::bytes_for(split_k, G, true);
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  int n = 0;
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  return e == cudaSuccess ? n : -(int)e;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q and out).  quant: 0 = k and v pages
@@ -554,5 +631,79 @@ extern "C" int paged_wgmma_smem_bytes(int D, int quant) {
                              : (int)paged_wgmma::Cfg<128, false>::bytes;
   if (D == 256) return quant ? (int)paged_wgmma::Cfg<256, true>::bytes
                              : (int)paged_wgmma::Cfg<256, false>::bytes;
+  return -1;
+}
+
+// The decode route (paged_attention_decode_kernel): q and out bf16 at S = 1
+// with at most paged_decode::MAX_G q heads a kv head, the pool bf16 (quant
+// 0) or int8 with page params (quant 1); acc, m and l are the workspace,
+// used only when split_k exceeds a cluster (8); every other argument as
+// paged_attention_fwd's.  Returns cudaGetLastError() after the launches, or
+// -1 for an argument the kernel does not take.
+extern "C" int paged_attention_decode_fwd(
+    int quant, const void* q, const void* k, const void* v,
+    const void* k_scale, const void* k_zero, const void* v_scale,
+    const void* v_zero, const void* block_table, const void* cache_offset,
+    const void* kv_start, void* out, void* acc, void* m, void* l, int B,
+    int S, int NQ, int NKV, int D, int NP, int page, int PP, float sm_scale,
+    int window, float softcap, int split_k, void* stream) {
+  if (S != 1 || NKV <= 0 || NQ % NKV != 0 || NQ / NKV > paged_decode::MAX_G ||
+      split_k < 1 || B < 1)
+    return -1;
+  if (split_k > paged_decode::MAX_CLUSTER && !(acc && m && l)) return -1;
+  const PageParams pp{static_cast<const float*>(k_scale),
+                      static_cast<const float*>(k_zero),
+                      static_cast<const float*>(v_scale),
+                      static_cast<const float*>(v_zero)};
+  if (quant && !(pp.ks && pp.kz && pp.vs && pp.vz)) return -1;
+  const int* bt = static_cast<const int*>(block_table);
+  const int* off = static_cast<const int*>(cache_offset);
+  const int* st = static_cast<const int*>(kv_start);
+  float* a = static_cast<float*>(acc);
+  float* mm = static_cast<float*>(m);
+  float* ll = static_cast<float*>(l);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PAGED_DECODE(DIM, QT)                                                \
+  return launch_decode<DIM, QT>(q, k, v, pp, bt, off, st, out, a, mm, ll, B, \
+                                NQ, NKV, NP, page, PP, sm_scale, window,     \
+                                softcap, split_k, s)
+  switch (D * 2 + (quant ? 1 : 0)) {
+    case 128: PAGED_DECODE(64, false);
+    case 129: PAGED_DECODE(64, true);
+    case 256: PAGED_DECODE(128, false);
+    case 257: PAGED_DECODE(128, true);
+    case 512: PAGED_DECODE(256, false);
+    case 513: PAGED_DECODE(256, true);
+  }
+#undef PAGED_DECODE
+  return -1;
+}
+
+// dynamic shared memory of paged_attention_decode_kernel at head dim D over
+// a bf16 (quant 0) or int8 (quant 1) pool; -1 for a D it is not built for
+extern "C" int paged_decode_smem_bytes(int D, int quant) {
+  if (D == 64) return quant ? paged_decode::Cfg<64, true>::bytes
+                            : paged_decode::Cfg<64, false>::bytes;
+  if (D == 128) return quant ? paged_decode::Cfg<128, true>::bytes
+                             : paged_decode::Cfg<128, false>::bytes;
+  if (D == 256) return quant ? paged_decode::Cfg<256, true>::bytes
+                             : paged_decode::Cfg<256, false>::bytes;
+  return -1;
+}
+
+// clusters of split_k (2..8) decode blocks at head dim D over a bf16
+// (quant 0) or int8 (quant 1) pool with G q heads a kv head that the card
+// holds at once; -1 for arguments it does not take, -(CUDA error) else
+extern "C" int paged_decode_max_clusters(int D, int quant, int G,
+                                         int split_k) {
+  if (G < 1 || G > paged_decode::MAX_G || split_k < 2 ||
+      split_k > paged_decode::MAX_CLUSTER)
+    return -1;
+  if (D == 64) return quant ? decode_max_clusters<64, true>(G, split_k)
+                            : decode_max_clusters<64, false>(G, split_k);
+  if (D == 128) return quant ? decode_max_clusters<128, true>(G, split_k)
+                             : decode_max_clusters<128, false>(G, split_k);
+  if (D == 256) return quant ? decode_max_clusters<256, true>(G, split_k)
+                             : decode_max_clusters<256, false>(G, split_k);
   return -1;
 }

@@ -9,10 +9,12 @@ slot attends.
 - On a CUDA tensor :func:`paged_attention` launches a kernel of
   ``csrc/paged_attention.cu`` (built by ``nvcc`` at first use, bound with
   ``ctypes``) or raises; it never falls back.  :func:`paged_route` picks
-  the kernel from the shape alone: ``"wgmma"``, the tensor-core kernel of
-  ``csrc/paged_attention_wgmma.cuh``, for bf16 q with S > 1 (prefill
-  chunks, verify rows); ``"simt"``, the scalar kernel
-  ``paged_attention_kernel``, for decode (S = 1) and fp32 q.
+  the kernel from the shape alone: ``"decode"``, the tensor-core decode
+  kernel of ``csrc/paged_attention_decode.cuh``, for bf16 q at S = 1 with
+  at most :data:`DECODE_MAX_G` q heads a kv head; ``"wgmma"``, the
+  tensor-core kernel of ``csrc/paged_attention_wgmma.cuh``, for bf16 q
+  with S > 1 (prefill chunks, verify rows); ``"simt"``, the scalar kernel
+  ``paged_attention_kernel``, for fp32 q and wider kv-head groups.
 - On a CPU tensor it runs :func:`paged_attention_reference`, the plain
   PyTorch version of the same arithmetic: gather, band-mask, per-split
   online-softmax partials and the split-K logsumexp merge.
@@ -42,7 +44,15 @@ TILE_KEYS = 32
 MAX_ROWS = 16
 # query rows per block of the wgmma kernel (csrc/paged_attention_wgmma.cuh)
 WGMMA_ROWS = 128
-ROUTES = ("simt", "wgmma")
+# the decode kernel (csrc/paged_attention_decode.cuh): q heads a kv head
+# (one N tile of its m16n8k16 products), splits merged inside one
+# thread-block cluster, and the keys a split walks at the least and, where
+# the cluster allows, at the most
+DECODE_MAX_G = 8
+DECODE_MAX_CLUSTER = 8
+DECODE_MIN_KEYS = 128
+DECODE_MAX_KEYS = 1024
+ROUTES = ("simt", "wgmma", "decode")
 HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 PARAM_NAMES = ("k_scale", "k_zero", "v_scale", "v_zero")
@@ -170,14 +180,32 @@ def default_split_k(B: int, NKV: int, rows: int, T: int,
     return max(1, min(2 * sm_count // max(blocks, 1), T // (4 * TILE_KEYS)))
 
 
-def paged_route(dtype: torch.dtype, S: int) -> str:
-    """The kernel a CUDA call runs, from its shape alone: ``"wgmma"`` (the
-    tensor-core kernel) for bf16 q with S > 1, else ``"simt"`` (decode,
-    and fp32 q, which wgmma has no mode for).  chip_smoke.py's route sweep
-    (PERF.md) times both kernels down to two query rows a kv head."""
+def paged_route(dtype: torch.dtype, S: int, G: int) -> str:
+    """The kernel a CUDA call runs, from its shape alone (``G`` q heads a
+    kv head): for bf16 q, ``"decode"`` at S = 1 with G <= DECODE_MAX_G and
+    ``"wgmma"`` at S > 1 (chip_smoke.py's route sweep, PERF.md, times it
+    against the scalar kernel down to two query rows a kv head); else
+    ``"simt"`` (fp32 q, which neither tensor-core kernel has a mode for,
+    and decode of wider groups)."""
     if dtype == torch.bfloat16 and S > 1:
         return "wgmma"
+    if dtype == torch.bfloat16 and G <= DECODE_MAX_G:
+        return "decode"
     return "simt"
+
+
+def _check_route(route: str, dtype: torch.dtype, S: int, G: int) -> None:
+    """Raise unless the named kernel takes q of this dtype, width ``S``
+    and ``G`` q heads a kv head."""
+    if route != "simt" and dtype != torch.bfloat16:
+        raise TypeError(f"the {route} paged kernel takes bfloat16 q, got "
+                        f"{dtype}")
+    if route == "decode" and S != 1:
+        raise ValueError(f"the decode paged kernel takes one query position "
+                         f"a slot, got S = {S}")
+    if route == "decode" and G > DECODE_MAX_G:
+        raise ValueError(f"the decode paged kernel takes at most "
+                         f"{DECODE_MAX_G} q heads a kv head, got {G}")
 
 
 def wgmma_tile_keys(D: int) -> int:
@@ -193,6 +221,20 @@ def wgmma_split_k(B: int, NKV: int, rows: int, T: int, D: int,
     blocks = B * NKV * -(-rows // WGMMA_ROWS)
     return max(1, min(sm_count // max(blocks, 1),
                       T // (2 * wgmma_tile_keys(D))))
+
+
+def decode_split_k(B: int, NKV: int, T: int, sm_count: int) -> int:
+    """The decode kernel's default split, from shapes alone (never the
+    offsets, which live on the device): enough splits for about two
+    blocks per SM and for no split of a T-key chain to walk more than
+    DECODE_MAX_KEYS; at most one cluster (DECODE_MAX_CLUSTER), and never
+    so many that a split walks fewer than DECODE_MIN_KEYS keys.  Neither
+    D nor G enters: every G <= DECODE_MAX_G is one N tile, and the ring
+    is sized to <= 64 KB at every head dim and pool type (three blocks
+    fit an SM, so all of a call's clusters fit at once)."""
+    fill = 2 * sm_count // max(B * NKV, 1)
+    return max(1, min(max(fill, -(-T // DECODE_MAX_KEYS)),
+                      DECODE_MAX_CLUSTER, T // DECODE_MIN_KEYS))
 
 
 def _launch(q, kv_pages, bt, off, start, scale, window, softcap, split_k,
@@ -246,17 +288,21 @@ def _launch(q, kv_pages, bt, off, start, scale, window, softcap, split_k,
             f"block_table {tuple(bt.shape)}, cache_offset "
             f"{tuple(off.shape)}, kv_start {tuple(start.shape)} do not fit "
             f"batch {B}")
-    rows = NQ // NKV * S
-    route = paged_route(q.dtype, S) if route is None else route
-    if route == "wgmma" and q.dtype != torch.bfloat16:
-        raise TypeError(f"the wgmma paged kernel takes bfloat16 q, got "
-                        f"{q.dtype}")
+    G = NQ // NKV
+    rows = G * S
+    route = paged_route(q.dtype, S, G) if route is None else route
+    _check_route(route, q.dtype, S, G)
+    if route == "decode" and q.data_ptr() % 16:  # q rows as 16-byte vectors
+        raise ValueError("q must be 16-byte aligned")
     if split_k is None:
         sms = _sm_count(dev.index if dev.index is not None
                         else torch.cuda.current_device())
-        split_k = (wgmma_split_k(B, NKV, rows, PP * page, D, sms)
-                   if route == "wgmma" else
-                   default_split_k(B, NKV, rows, PP * page, sms))
+        if route == "wgmma":
+            split_k = wgmma_split_k(B, NKV, rows, PP * page, D, sms)
+        elif route == "decode":
+            split_k = decode_split_k(B, NKV, PP * page, sms)
+        else:
+            split_k = default_split_k(B, NKV, rows, PP * page, sms)
     split_k = int(split_k)
     if split_k < 1:
         raise ValueError(f"split_k must be >= 1, got {split_k}")
@@ -265,7 +311,9 @@ def _launch(q, kv_pages, bt, off, start, scale, window, softcap, split_k,
     lib = load("paged_attention")
     out = torch.empty_like(q)
     acc = m = l = None
-    if split_k > 1:  # the split-K workspace the kernel's epilogue merges
+    # the split-K workspace the epilogue merges (the decode kernel merges
+    # up to a cluster's splits in shared memory)
+    if split_k > (DECODE_MAX_CLUSTER if route == "decode" else 1):
         acc = torch.empty((B, NKV, split_k, rows, D), dtype=torch.float32,
                           device=dev)
         m = torch.empty((B, NKV, split_k, rows), dtype=torch.float32,
@@ -282,6 +330,8 @@ def _launch(q, kv_pages, bt, off, start, scale, window, softcap, split_k,
                  int(window or 0), float(softcap or 0.0), split_k, stream)
         if route == "wgmma":
             rc = lib.paged_attention_wgmma_fwd(int(quant), *pointers, *sizes)
+        elif route == "decode":
+            rc = lib.paged_attention_decode_fwd(int(quant), *pointers, *sizes)
         else:
             rc = lib.paged_attention_fwd(_DTYPE_CODE[q.dtype], int(quant),
                                          *pointers, *sizes)
@@ -291,6 +341,7 @@ def _launch(q, kv_pages, bt, off, start, scale, window, softcap, split_k,
     paged_attention.launches += 1
     paged_attention.int8_launches += int(quant)
     paged_attention.wgmma_launches += int(route == "wgmma")
+    paged_attention.decode_launches += int(route == "decode")
     return out
 
 
@@ -309,9 +360,9 @@ def paged_attention(q: torch.Tensor, kv_pages: Sequence[torch.Tensor],
     SM count, by the route's own policy) whose partials are merged by
     logsumexp weight.  CUDA tensors launch the kernel :func:`paged_route`
     picks (and count in ``paged_attention.launches``, int8 pools also in
-    ``paged_attention.int8_launches``, the wgmma route also in
-    ``paged_attention.wgmma_launches``); CPU tensors run
-    :func:`paged_attention_reference`."""
+    ``paged_attention.int8_launches``, the wgmma and decode routes also in
+    ``paged_attention.wgmma_launches`` and ``.decode_launches``); CPU
+    tensors run :func:`paged_attention_reference`."""
     return _paged_attention(q, kv_pages, block_table, cache_offset, kv_start,
                             sm_scale, window, softcap, split_k, None)
 
@@ -320,9 +371,9 @@ def _paged_attention_on(route: str, q, kv_pages, block_table, cache_offset,
                         kv_start=None, *, sm_scale=None, window=None,
                         softcap=None, split_k=None) -> torch.Tensor:
     """:func:`paged_attention` on CUDA tensors through the named kernel
-    (``"simt"`` or ``"wgmma"``) instead of :func:`paged_route`'s pick, so
-    that one shape can be held and timed on both; a route that does not
-    take the inputs raises."""
+    (one of :data:`ROUTES`) instead of :func:`paged_route`'s pick, so that
+    one shape can be held and timed on each; a route that does not take
+    the inputs raises."""
     if route not in ROUTES:
         raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
     if q.device.type != "cuda":
@@ -356,3 +407,4 @@ def _paged_attention(q, kv_pages, block_table, cache_offset, kv_start,
 paged_attention.launches = 0
 paged_attention.int8_launches = 0
 paged_attention.wgmma_launches = 0
+paged_attention.decode_launches = 0

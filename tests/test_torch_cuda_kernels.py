@@ -10,11 +10,15 @@ Tolerances: the kernel against its plain version in fp32 computed from the
 same (possibly bf16) inputs -- 1e-4 for fp32 inputs, 2e-2 for bf16 (one
 bf16 rounding of outputs of magnitude ~1).  Over int8 pools the kernel and
 the plain version dequantize the same codes to the same K/V values in q's
-type, and are held to the same tolerances.  Both routes are held: the simt
-kernel (``paged_attention_kernel``: decode and fp32 q by the routing rule,
-so the bf16 cases at S > 1 of the first two tests run the wgmma kernel; its
-bf16 multi-row code is forced by ``test_simt_route_bf16_multirow``) and the
-wgmma kernel (``paged_attention_wgmma_kernel``, bf16 q at S > 1).
+type, and are held to the same tolerances.  All three routes are held:
+the simt kernel (``paged_attention_kernel``: fp32 q by the routing rule,
+so the bf16 cases of the first two tests run the decode kernel at S = 1
+and the wgmma kernel at S > 1; its bf16 multi-row code is forced by
+``test_simt_route_bf16_multirow``), the wgmma kernel
+(``paged_attention_wgmma_kernel``, bf16 q at S > 1) and the decode kernel
+(``paged_attention_decode_kernel``, bf16 q at S = 1, at most 8 q heads a
+kv head).  The decode kernel multiplies bf16 P (the TPU kernel's
+``p.astype(v.dtype)``), so it is held at 2e-2 like every bf16 case.
 """
 
 import numpy as np
@@ -23,6 +27,7 @@ import torch
 
 from neuronx_distributed_tpu_torch.kvcache.quant import quantize_page
 from neuronx_distributed_tpu_torch.ops.paged_attention import (
+    DECODE_MAX_CLUSTER,
     _paged_attention_on,
     paged_attention,
     paged_attention_reference,
@@ -160,21 +165,119 @@ def test_wgmma_any_page_size_and_softcap(dev, page, pool_kind):
     assert (out.float() - ref.float()).abs().max().item() <= 2e-2
 
 
+def _decode_inputs(seed, D, G, page, pool_kind, dev):
+    """bf16 q at S = 1 over 2 kv heads (2G q heads), a 320-key chain in
+    pages of ``page``: slots 0, 2, 4 live, slot 1 parked, slot 3 with
+    kv_start past its offset (no visible key); an int8 pool has page 2
+    constant (scale 0) and slot 0's first page is it."""
+    T = 320
+    q, pool, bt, off, start = _inputs(seed, 5, 1, 2 * G, 2, D, page,
+                                      T // page, 40, torch.bfloat16, dev)
+    start[3] = off[3] + 1
+    if pool_kind == "int8":
+        bt[0, 0] = 2
+        start[0] = 0
+        pool = _int8(pool)
+    return q, pool, bt, off, start
+
+
+@pytest.mark.parametrize("split_k", [1, None, DECODE_MAX_CLUSTER,
+                                     DECODE_MAX_CLUSTER + 3])
+@pytest.mark.parametrize("pool_kind", ["bf16", "int8"])
+@pytest.mark.parametrize("page", [1, 5, 16, 64])
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_decode_kernel_matches_plain(dev, D, G, page, pool_kind, split_k):
+    """The decode route, as the rule picks it: D in {64, 128, 256}, G up
+    to one full N tile, pages of 1 to 64 keys, bf16 and int8 pools (a
+    constant page), a sliding window with a softcap, split-K 1, the
+    default, a full cluster and past a cluster (the workspace merge);
+    parked slots and rows that see no key are exact zeros."""
+    q, pool, bt, off, start = _decode_inputs(D + G + page, D, G, page,
+                                             pool_kind, dev)
+    kw = dict(window=100, softcap=30.0, sm_scale=0.2)
+    before = (paged_attention.launches, paged_attention.decode_launches)
+    out = paged_attention(q, pool, bt, off, start, split_k=split_k, **kw)
+    torch.cuda.synchronize()
+    assert (paged_attention.launches, paged_attention.decode_launches) == (
+        before[0] + 1, before[1] + 1)
+    args = ((q, pool) if pool_kind == "int8" else
+            (q.float(), tuple(p.float() for p in pool)))
+    ref = paged_attention_reference(*args, bt, off, start, **kw)
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    assert torch.all(out[1] == 0) and torch.all(out[3] == 0)
+    assert torch.all(ref[1] == 0) and torch.all(ref[3] == 0)
+
+
+@pytest.mark.parametrize("split_k", [1, DECODE_MAX_CLUSTER])
+@pytest.mark.parametrize("pool_kind", ["bf16", "int8"])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_decode_kernel_passes_one_key_through_exactly(dev, D, pool_kind,
+                                                      split_k):
+    """Every live slot sees one key (kv_start = offset), so the output is
+    that key's V row as the plain version dequantizes it, bit for bit:
+    slot 0's key on a constant page (scale 0), slot 2's on a page with a
+    large zero point (values near 500, where bf16's step is 2)."""
+    q, pool, bt, off, start = _decode_inputs(D, D, 4, 16, "bf16", dev)
+    if pool_kind == "int8":
+        k, v = (p.float().clone() for p in pool)
+        k[2], v[2] = 0.5, -0.25
+        k[3] += 500.0
+        v[3] += 500.0
+        (qk, ks, kz), (qv, vs, vz) = quantize_page(k), quantize_page(v)
+        pool = (qk, qv, ks, kz, vs, vz)
+        bt[0, off[0] // 16] = 2
+        bt[2, off[2] // 16] = 3
+    start[:] = torch.minimum(off, torch.full_like(off, 319))
+    out = paged_attention(q, pool, bt, off, start, split_k=split_k)
+    torch.cuda.synchronize()
+    ref = paged_attention_reference(q, pool, bt, off, start)
+    assert torch.equal(out, ref)
+    assert torch.any(out[0] != 0) and torch.all(out[1] == 0)
+
+
+def test_decode_call_adds_no_host_sync(dev):
+    """A default-split decode call (a cluster of splits) under
+    torch.cuda.set_sync_debug_mode("error"): the route and split come from
+    shapes alone, so nothing waits on the device."""
+    q, pool, bt, off, start = _inputs(11, 8, 1, 32, 8, 128, 16, 64, 600,
+                                      torch.bfloat16, dev)
+    paged_attention(q, pool, bt, off, start)  # builds and loads the kernel
+    torch.cuda.synchronize()
+    before = paged_attention.decode_launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = paged_attention(q, pool, bt, off, start)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert paged_attention.decode_launches == before + 1
+    ref = paged_attention_reference(q.float(), tuple(p.float() for p in pool),
+                                    bt, off, start)
+    assert (out.float() - ref).abs().max().item() <= 2e-2
+
+
+ROUTE_KERNELS = {"simt": "paged_attention_kernel",
+                 "wgmma": "paged_attention_wgmma_kernel",
+                 "decode": "paged_attention_decode_kernel"}
+
+
 @pytest.mark.parametrize("dtype,S,kernel", [
-    (torch.bfloat16, 1, "paged_attention_kernel"),
+    (torch.bfloat16, 1, "paged_attention_decode_kernel"),
     (torch.bfloat16, 128, "paged_attention_wgmma_kernel"),
     (torch.bfloat16, 2, "paged_attention_wgmma_kernel"),
     (torch.float32, 128, "paged_attention_kernel"),
+    (torch.float32, 1, "paged_attention_kernel"),
 ])
 def test_profiler_names_the_routed_kernel(dev, dtype, S, kernel):
     """The rule's route is the kernel the card runs, by the name
-    torch.profiler records: decode and fp32 q on the simt kernel, bf16
-    chunks on the wgmma kernel."""
+    torch.profiler records: bf16 decode on the decode kernel, bf16 chunks
+    on the wgmma kernel, fp32 q on the simt kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     q, pool, bt, off, start = _inputs(S, 2, S, 32, 8, 128, 16, 16, 40,
                                       dtype, dev)
-    assert (paged_route(dtype, S) == "wgmma") == ("wgmma" in kernel)
+    assert ROUTE_KERNELS[paged_route(dtype, S, 4)] == kernel
     paged_attention(q, pool, bt, off, start)
     torch.cuda.synchronize()
     for _ in range(3):  # the profiler has returned an empty trace
@@ -185,9 +288,8 @@ def test_profiler_names_the_routed_kernel(dev, dtype, S, kernel):
         if names:
             break
     assert any(kernel in n for n in names), names
-    other = ({"paged_attention_kernel", "paged_attention_wgmma_kernel"}
-             - {kernel}).pop()
-    assert not any(other in n for n in names), names
+    for other in set(ROUTE_KERNELS.values()) - {kernel}:
+        assert not any(other in n for n in names), names
 
 
 @pytest.mark.parametrize("pool_kind", ["bf16", "int8"])
@@ -235,6 +337,14 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
         paged_attention(q, pool * 2, bt, off, start)
     with pytest.raises(TypeError, match="bfloat16"):
         _paged_attention_on("wgmma", q, pool, bt, off, start)
+    with pytest.raises(TypeError, match="bfloat16"):
+        _paged_attention_on("decode", q, pool, bt, off, start)
+    bq, bpool = q.bfloat16(), tuple(p.bfloat16() for p in pool)
+    with pytest.raises(ValueError, match="one query position"):
+        _paged_attention_on("decode", bq, bpool, bt, off, start)
+    wide = torch.zeros((2, 1, 18, 64), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="at most 8"):  # G = 9
+        _paged_attention_on("decode", wide, bpool, bt, off, start)
     six = _int8(pool)
     out = paged_attention(q, six, bt, off, start)  # the int8 pool launches
     torch.cuda.synchronize()

@@ -126,6 +126,7 @@ CASES = [  # (S, split_k, nq, nkv, options)
     (1, 1, 8, 8, {}), (1, 2, 8, 2, {}), (3, 1, 8, 1, {}),
     (3, 2, 8, 2, dict(window=6)), (8, 1, 8, 2, dict(softcap=30.0)),
     (8, 2, 8, 1, dict(window=5, softcap=20.0, sm_scale=0.3)),
+    (1, 2, 8, 1, {}),  # decode at G = 8, the decode kernel's widest N tile
 ]
 
 
@@ -166,7 +167,7 @@ def test_int8_chunk_widths_match_jax_kernel(B, S, kw):
     off[:] = [8 * 16 - S, 40]  # slot 0's chunk ends at the last page
     start[:] = [3, 0]
     q, bt, off, start = q[:B], bt[:B], off[:B], start[:B]
-    assert paged_route(torch.bfloat16, S) == "wgmma"
+    assert paged_route(torch.bfloat16, S, 4) == "wgmma"
     tq = torch.from_numpy(q).bfloat16()
     out = paged_attention(
         tq, tuple(torch.from_numpy(a) for a in six), torch.from_numpy(bt),

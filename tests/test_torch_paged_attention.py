@@ -8,8 +8,9 @@ Tolerance: atol 1e-5 in fp32 (three fp32 implementations of one softmax,
 summed in different orders); 2e-2 in bf16 (both sides round outputs of
 magnitude up to ~4 once to bf16, a step of up to 1.6e-2).  The CUDA
 kernels themselves are checked on the card by
-``tests/test_torch_cuda_kernels.py``; the routing rule and the wgmma
-route's split policy are pure functions, held here.
+``tests/test_torch_cuda_kernels.py``; the routing rule, what each forced
+route takes, and the wgmma and decode routes' split policies are pure
+functions, held here.
 """
 
 import jax.numpy as jnp
@@ -22,7 +23,10 @@ from neuronx_distributed_tpu.ops.paged_attention import (
     paged_attention_reference as jax_paged_reference,
 )
 from neuronx_distributed_tpu_torch.ops.paged_attention import (
+    DECODE_MAX_G,
+    _check_route,
     _paged_attention_on,
+    decode_split_k,
     merge_splits,
     paged_attention,
     paged_attention_reference,
@@ -63,10 +67,11 @@ def _torch(q, pool, bt, off, start, **kw):
 
 @pytest.mark.parametrize("split_k", [1, 2])
 @pytest.mark.parametrize("S", [1, 3])
-@pytest.mark.parametrize("nq,nkv", [(8, 8), (8, 2), (4, 1)])
+@pytest.mark.parametrize("nq,nkv", [(8, 8), (8, 2), (4, 1), (8, 1)])
 def test_matches_jax_kernel_and_reference(nq, nkv, S, split_k):
     """MHA/GQA/MQA, decode and verify-width rows, ragged offsets, a parked
-    slot, non-zero kv_start, with and without split-K."""
+    slot, non-zero kv_start, with and without split-K; (8, 1) is G = 8,
+    the decode kernel's widest N tile."""
     q, pool, bt, off, start = _inputs(nq * 10 + nkv + S, B=4, S=S, nq=nq,
                                       nkv=nkv, D=16, page=4, PP=6, NP=20)
     out = _torch(q, pool, bt, off, start, split_k=split_k)
@@ -149,8 +154,13 @@ def test_resolve_paged_kernel():
 
 
 @pytest.mark.parametrize("dtype,S,G,route", [
-    (torch.bfloat16, 1, 4, "simt"),     # decode
-    (torch.bfloat16, 1, 128, "simt"),   # decode, however many q heads
+    (torch.bfloat16, 1, 4, "decode"),   # Llama-3-8B decode
+    (torch.bfloat16, 1, 1, "decode"),   # MHA decode
+    (torch.bfloat16, 1, 2, "decode"),   # Gemma-2 decode
+    (torch.bfloat16, 1, 8, "decode"),   # one full N tile of the products
+    (torch.bfloat16, 1, 9, "simt"),     # past the decode kernel's maximum
+    (torch.bfloat16, 1, 128, "simt"),
+    (torch.float32, 1, 4, "simt"),      # neither tensor-core kernel: fp32
     (torch.bfloat16, 2, 4, "wgmma"),    # a 2-token last chunk, G * S = 8
     (torch.bfloat16, 3, 4, "wgmma"),    # G * S = 12
     (torch.bfloat16, 4, 4, "wgmma"),    # verify width, G * S = 16
@@ -163,10 +173,14 @@ def test_resolve_paged_kernel():
     (torch.float32, 128, 4, "simt"),    # wgmma has no fp32 mode
 ])
 def test_route_rule(dtype, S, G, route):
-    """The kernel a CUDA call takes follows from dtype and S alone, for
-    any number G of q heads a kv head serves."""
-    assert paged_route(dtype, S) == route
+    """The kernel a CUDA call takes follows from dtype, S and the number G
+    of q heads a kv head serves: wgmma for every bf16 S > 1, decode for
+    bf16 S = 1 up to DECODE_MAX_G, the scalar kernel for the rest."""
+    assert paged_route(dtype, S, G) == route
     assert (route == "wgmma") == (dtype == torch.bfloat16 and S > 1)
+    assert (route == "decode") == (dtype == torch.bfloat16 and S == 1
+                                   and G <= DECODE_MAX_G)
+    _check_route(route, dtype, S, G)  # the rule's pick takes its inputs
 
 
 @pytest.mark.parametrize("B,NKV,rows,T,D,sms,split", [
@@ -180,6 +194,38 @@ def test_route_rule(dtype, S, G, route):
 def test_wgmma_split_policy(B, NKV, rows, T, D, sms, split):
     """About one 128-row block per SM, at least two key tiles a split."""
     assert wgmma_split_k(B, NKV, rows, T, D, sms) == split
+
+
+@pytest.mark.parametrize("B,NKV,T,sms,split", [
+    (8, 8, 1024, 132, 4),    # the served Llama-3-8B decode: 256 blocks
+    (8, 8, 8192, 132, 8),    # an 8192-key chain: 1024 keys a split
+    (8, 8, 2048, 132, 4),
+    (8, 4, 1024, 132, 8),    # Gemma-2-2B decode: one full cluster
+    (1, 8, 1024, 132, 8),    # one slot: capped at a cluster
+    (1, 8, 65536, 132, 8),   # a cluster, however long the chain
+    (8, 8, 256, 132, 2),     # a short chain: 128 keys a split at least
+    (8, 8, 64, 132, 1),
+    (32, 8, 1024, 132, 1),   # 256 pairs fill the card without splitting
+    (32, 8, 4096, 132, 4),   # but a long chain is still cut
+])
+def test_decode_split_policy(B, NKV, T, sms, split):
+    """About two blocks per SM, no split past DECODE_MAX_KEYS keys where a
+    cluster allows, at most one cluster of splits, at least
+    DECODE_MIN_KEYS keys a split; the offsets never enter."""
+    assert decode_split_k(B, NKV, T, sms) == split
+
+
+@pytest.mark.parametrize("route,dtype,S,G,err", [
+    ("decode", torch.float32, 1, 4, TypeError),    # bf16 q only
+    ("decode", torch.bfloat16, 2, 4, ValueError),  # one position a slot
+    ("decode", torch.bfloat16, 1, DECODE_MAX_G + 1, ValueError),
+    ("wgmma", torch.float32, 4, 4, TypeError),     # bf16 q only
+])
+def test_forced_route_refuses_what_its_kernel_does_not_take(route, dtype, S,
+                                                            G, err):
+    """A forced route checks its inputs before any launch."""
+    with pytest.raises(err):
+        _check_route(route, dtype, S, G)
 
 
 def _chunk_inputs(seed, B, S, page=16, PP=8, NP=20, nq=8, nkv=2, D=64):
@@ -237,3 +283,7 @@ def test_route_argument_is_checked():
         _paged_attention_on("tensor", q, pool, bt, off)
     with pytest.raises(ValueError, match="CUDA kernel"):
         _paged_attention_on("wgmma", q, pool, bt, off)
+    for dtype in (torch.bfloat16, torch.float32):  # the decode route, too
+        with pytest.raises(ValueError, match="CUDA kernel"):
+            _paged_attention_on("decode", q.to(dtype),
+                                tuple(p.to(dtype) for p in pool), bt, off)
