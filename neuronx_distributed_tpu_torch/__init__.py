@@ -15,7 +15,11 @@ hand-written CUDA flash-attention forward, dq and dk/dv kernels
 int8 dequant branch) and chunked prefill
 (``ServingEngine(prefill_chunk_tokens=...)``).  Slice 4 adds Gemma and
 Gemma-2 (:mod:`.models.gemma`: Gemma-2-2B trains and serves through the
-same entry points) and the flash kernels at head_dim 256.  The port
+same entry points) and the flash kernels at head_dim 256.  Serving decodes
+asynchronously, replays its per-step phase functions from CUDA graphs on
+the card (``ParallelInferenceModel(cuda_graphs=...)``) and serves
+draft-k-verify speculative decoding (``ServingEngine(draft=, spec_k=)``,
+:func:`.trace.speculative_generate`).  The port
 imports ``torch`` and nothing of JAX or of the JAX package.  Entry points
 run on the card unless the caller passes ``device="cpu"``.
 """

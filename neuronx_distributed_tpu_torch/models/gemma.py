@@ -250,8 +250,11 @@ class _TiedDecoder(nn.Module):
                   kv_valid=None, block_table=None, paged_kernel=False,
                   segment_ids=None):
         h = self.embed(ids)
-        h = h * torch.tensor(self.config.hidden_size ** 0.5, dtype=h.dtype,
-                             device=h.device)
+        # the scale rounded to the activation type first (as JAX), made on
+        # the device: a host tensor here would be a copy, which a CUDA
+        # graph cannot capture
+        h = h * torch.full((), self.config.hidden_size ** 0.5,
+                           dtype=h.dtype, device=h.device)
         return self.final_norm(run_layers(
             self.layers(), h, positions, kv_caches, cache_offset, kv_valid,
             block_table, paged_kernel, segment_ids, self.config.remat))

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from neuronx_distributed_tpu_torch.kvcache.allocator import NULL_PAGE
 from neuronx_distributed_tpu_torch.kvcache.quant import dequantize_page, quantize_page
 from neuronx_distributed_tpu_torch.models.common import maybe_remat
 from neuronx_distributed_tpu_torch.ops.flash_attention import (
@@ -240,7 +241,7 @@ class PagedStep(NamedTuple):
     """What every layer of one paged step shares, computed once per forward
     by :func:`plan_paged_step`: where each new token is written
     (``phys``/``cell``, with ``keep`` false for dropped cells; for an int8
-    pool the pages to requantize, ``rmw_*``) and what the kernel reads
+    pool the page slots to requantize, ``rmw_*``) and what the kernel reads
     (int32 offsets and the first valid key per slot)."""
 
     block_table: torch.Tensor          # [B, PP] int32
@@ -250,9 +251,9 @@ class PagedStep(NamedTuple):
     cell: torch.Tensor                 # [B, Sn] cell within that page
     keep: torch.Tensor                 # [B, Sn] bool
     kernel: bool                       # paged-attention kernel, else gather
-    rmw_pages: Optional[torch.Tensor] = None  # [n] int8 pages to requantize
-    rmw_hot: Optional[torch.Tensor] = None    # [n, page] cells to insert
-    rmw_src: Optional[torch.Tensor] = None    # [n, page] index into [B * Sn]
+    rmw_pages: Optional[torch.Tensor] = None  # [B * n_pg] int8 page slots
+    rmw_hot: Optional[torch.Tensor] = None    # [B * n_pg, page] cells to insert
+    rmw_src: Optional[torch.Tensor] = None    # [B * n_pg, page] into [B * Sn]
 
 
 def plan_paged_step(block_table, cache_offset, kv_valid, n_new: int,
@@ -264,8 +265,9 @@ def plan_paged_step(block_table, cache_offset, kv_valid, n_new: int,
     page's first cell with its own value, so no host sync is needed and no
     real page is touched.  Serving key validity is a contiguous band (left
     pads, then the written prefix), so the kernel takes its first valid
-    index.  An int8 pool does not use the NULL-page trick: see
-    :func:`_plan_requant`."""
+    index.  An int8 pool writes whole pages: see :func:`_plan_requant`.
+    Every shape here follows from the input shapes alone, so a step plans
+    without a host sync (and can be captured in a CUDA graph)."""
     if not (isinstance(cache_offset, torch.Tensor) and cache_offset.ndim == 1):
         raise ValueError("the block-table decode path needs per-slot offsets "
                          "[B] (continuous-batching decode)")
@@ -294,14 +296,18 @@ def plan_paged_step(block_table, cache_offset, kv_valid, n_new: int,
 
 def _plan_requant(block_table, cache_offset, kv_valid, n_new: int,
                   page: int):
-    """The pages an int8 write requantizes: of the logical pages slot
-    ``b``'s ``n_new`` new cells straddle, those holding at least one HOT
-    cell (inside the table and valid: a chunk's left-pad rows are garbage
-    that must never enter a page's min/max).  Only those are written back:
-    requantizing an untouched page can move its scale by an ulp, and parked
-    rows would all land on one page.  Returns ``(pages [n], hot [n, page],
-    src [n, page])``, ``src`` indexing the flattened ``[B * n_new]`` new
-    tokens; finding the pages costs one host sync per forward."""
+    """The page slots an int8 write covers, a fixed ``B * n_pg`` of them
+    (``n_pg`` logical pages from slot ``b``'s first new cell on, as the
+    JAX ``requant_pages``).  A slot is LIVE when its page holds at least
+    one HOT cell (inside the table and valid: a chunk's left-pad rows are
+    garbage that must never enter a page's min/max); a slot that is not
+    live targets the NULL page and writes back the NULL page's own codes,
+    scale and zero, so every duplicate write carries identical bytes and
+    no page the step does not touch is requantized (that could move its
+    scale by an ulp).  Returns ``(pages [B * n_pg], hot [B * n_pg, page],
+    src [B * n_pg, page])``, ``src`` indexing the flattened ``[B *
+    n_new]`` new tokens; a slot is live iff a cell of its ``hot`` row is
+    set."""
     B, PP = block_table.shape
     T = PP * page
     dev = cache_offset.device
@@ -314,26 +320,35 @@ def _plan_requant(block_table, cache_offset, kv_valid, n_new: int,
     if kv_valid is not None:
         hot &= kv_valid.gather(1, pos.clamp(0, T - 1).reshape(B, -1)
                                ).reshape(hot.shape) > 0
-    rows, js = hot.any(dim=2).nonzero(as_tuple=True)
-    pages = block_table.long()[rows, lp[rows, js].clamp(max=PP - 1)]
-    src = rows[:, None] * n_new + s_idx[rows, js].clamp(0, n_new - 1)
-    return pages, hot[rows, js], src
+    pages = block_table.long().gather(1, lp.clamp(max=PP - 1))      # [B, n_pg]
+    pages = torch.where(hot.any(dim=2), pages, torch.full_like(pages, NULL_PAGE))
+    src = (torch.arange(B, device=dev)[:, None, None] * n_new
+           + s_idx.clamp(0, n_new - 1))
+    return (pages.reshape(-1), hot.reshape(-1, page),
+            src.reshape(-1, page))
 
 
 def _requant_paged(kv_cache: KVCache, k, v, paged: PagedStep) -> None:
     """Quantize-on-write for any number of new tokens: gather each page
-    :func:`_plan_requant` chose, dequantize it to fp32, insert its hot new
-    cells, requantize the whole page and write back codes, scale and zero.
-    Decode and chunk writes touch only pages their slot owns alone (shared
-    prefix pages are prompt pages, never written), so the pages are
+    slot :func:`_plan_requant` planned, dequantize it to fp32, insert its
+    hot new cells, requantize the whole page and write back codes, scale
+    and zero; a slot that is not live writes back what it read.  Decode,
+    verify and chunk writes touch only pages their slot owns alone (shared
+    prefix pages are prompt pages, never written), so the live pages are
     distinct and the read-modify-write needs no atomics."""
     ck, cv, ks, kz, vs, vz = kv_cache
-    pages, hot = paged.rmw_pages, paged.rmw_hot[..., None, None]
+    pages, hot = paged.rmw_pages, paged.rmw_hot
+    live = hot.any(dim=1)
     for cq, sc, zp, new in ((ck, ks, kz, k), (cv, vs, vz, v)):
         flat = new.reshape(-1, *new.shape[2:])
-        pg = dequantize_page(cq[pages], sc[pages], zp[pages])
-        pg = torch.where(hot, flat[paged.rmw_src].float(), pg)
-        cq[pages], sc[pages], zp[pages] = quantize_page(pg)
+        old = cq[pages], sc[pages], zp[pages]
+        pg = dequantize_page(*old)
+        pg = torch.where(hot[..., None, None], flat[paged.rmw_src].float(),
+                         pg)
+        q2, s2, z2 = quantize_page(pg)
+        cq[pages] = torch.where(live[:, None, None, None], q2, old[0])
+        sc[pages] = torch.where(live, s2, old[1])
+        zp[pages] = torch.where(live, z2, old[2])
 
 
 def _scatter_paged(kv_cache: KVCache, k, v, paged: PagedStep) -> None:

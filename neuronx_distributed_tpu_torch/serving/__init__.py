@@ -1,4 +1,5 @@
-"""Continuous-batching serving of the PyTorch port (paged mode)."""
+"""Continuous-batching serving of the PyTorch port (paged mode): async
+decode by default, speculative decoding with ``draft=``/``spec_k=``."""
 
 from neuronx_distributed_tpu_torch.serving.driver import (
     percentiles,
@@ -6,7 +7,7 @@ from neuronx_distributed_tpu_torch.serving.driver import (
     replay,
     summarize_outputs,
 )
-from neuronx_distributed_tpu_torch.serving.engine import ServingEngine
+from neuronx_distributed_tpu_torch.serving.engine import FAIL_NON_FINITE, ServingEngine
 from neuronx_distributed_tpu_torch.serving.paged import PagedKVManager
 from neuronx_distributed_tpu_torch.serving.request import (
     Request,
@@ -23,6 +24,7 @@ from neuronx_distributed_tpu_torch.serving.scheduler import (
 __all__ = [
     "AdmissionError",
     "BackpressureError",
+    "FAIL_NON_FINITE",
     "PagedKVManager",
     "Request",
     "RequestOutput",

@@ -1,6 +1,6 @@
 """Paged-KV state manager for the serving engine (counterpart of
-``neuronx_distributed_tpu/serving/paged.py``; speculative overshoot and
-preemption resume pins land with their slices).
+``neuronx_distributed_tpu/serving/paged.py``; preemption resume pins land
+with their slice).
 
 Glues the host-side :class:`BlockAllocator` and :class:`PrefixIndex` onto
 the engine's slot table: per-slot block tables, worst-case page budgeting
@@ -8,8 +8,10 @@ for the scheduler's admission gate, prefix-cache lookup/insert around
 prefill, and page release on every terminal state.
 
 - A request's ENTIRE worst-case page need -- non-padding prompt pages it
-  cannot reuse plus every decode page up to ``max_new_tokens`` -- is taken
-  at admission, so decode never runs out of pages mid-request.
+  cannot reuse plus every decode page up to ``max_new_tokens`` (and, under
+  speculative decoding, the ``spec_overshoot`` cells a verify writes past
+  the budget) -- is taken at admission, so decode never runs out of pages
+  mid-request.
 - Admission is transactional: any failure mid-allocation releases every
   page and reference taken so far before re-raising.
 - Prompt pages live page-aligned in ``[0, context_len)`` and decode writes
@@ -39,7 +41,8 @@ class PagedKVManager:
     :meth:`release_slot` on any terminal state)."""
 
     def __init__(self, *, num_slots: int, context_len: int, max_total_len: int,
-                 page_size: int, num_pages: int, prefix_cache: bool = True):
+                 page_size: int, num_pages: int, prefix_cache: bool = True,
+                 spec_overshoot: int = 0):
         if context_len % page_size != 0 or max_total_len % page_size != 0:
             raise ValueError(
                 f"page_size {page_size} must divide context_len "
@@ -52,11 +55,16 @@ class PagedKVManager:
         self.page_size = page_size
         self.pages_per_slot = max_total_len // page_size
         self.ctx_pages = context_len // page_size
+        # a speculative verify writes up to spec_overshoot cells past a
+        # request's budget (a rejected tail is rolled back by offset
+        # rewind, never un-written): the reservation backs them too
+        self.spec_overshoot = spec_overshoot
         self.alloc = BlockAllocator(num_pages)
         self.index = PrefixIndex(self.alloc) if prefix_cache else None
         # per-slot logical -> physical page map; NULL_PAGE backs every hole
         self.tables = np.full((num_slots, self.pages_per_slot), NULL_PAGE,
                               np.int32)
+        self.tables_dirty = True  # the engine's device mirror is stale
         self._slot_pages: List[List[int]] = [[] for _ in range(num_slots)]
         self._slot_fresh: List[List[tuple]] = [[] for _ in range(num_slots)]
         self._slot_keys: List[Optional[list]] = [None] * num_slots
@@ -66,10 +74,15 @@ class PagedKVManager:
 
     def pages_needed(self, req: Request) -> int:
         """Worst-case pages the request can hold at once: its non-padding
-        prompt pages plus every decode page through ``max_new_tokens``."""
+        prompt pages plus every decode page through ``max_new_tokens`` (and
+        the speculative overshoot)."""
         L = min(req.prompt_len, self.C)
         n_ctx = self.ctx_pages - (self.C - L) // self.page_size
-        return n_ctx + math.ceil(req.max_new_tokens / self.page_size)
+        return n_ctx + self._decode_pages_needed(req)
+
+    def _decode_pages_needed(self, req: Request) -> int:
+        return math.ceil(
+            (req.max_new_tokens + self.spec_overshoot) / self.page_size)
 
     def pages_free(self) -> int:
         """The free list plus what LRU eviction of unpinned cached chains
@@ -103,7 +116,7 @@ class PagedKVManager:
             # the NULL page for free
             todo = [lp for lp in range(len(matched), self.ctx_pages)
                     if not is_padding_key(keys[lp])]
-            n_dec = math.ceil(req.max_new_tokens / self.page_size)
+            n_dec = self._decode_pages_needed(req)
             self._ensure_free(len(todo) + n_dec)
             ctx_fresh = self.alloc.alloc(len(todo))
             taken += ctx_fresh
@@ -121,6 +134,7 @@ class PagedKVManager:
         self._slot_fresh[slot] = fresh
         self._slot_keys[slot] = keys
         self.tables[slot] = table
+        self.tables_dirty = True
         full_hit = payload is not None and len(matched) == self.ctx_pages
         self.prefill_skipped += int(full_hit)
         return payload if full_hit else None
@@ -159,6 +173,7 @@ class PagedKVManager:
         self._slot_fresh[slot] = []
         self._slot_keys[slot] = None
         self.tables[slot] = NULL_PAGE
+        self.tables_dirty = True
 
     def _ensure_free(self, n: int) -> None:
         """Evict LRU unpinned cached chains until ``n`` pages are free (the

@@ -1,7 +1,7 @@
 """Request lifecycle for the continuous-batching serving engine (a copy of
 ``neuronx_distributed_tpu/serving/request.py`` without the fields of the
-slices not yet ported: speculative, tenancy, preemption, tracing and
-live-weights accounting).
+slices not yet ported: tenancy, preemption, tracing and live-weights
+accounting).
 
 A :class:`Request` enters QUEUED, moves to PREFILL when a slot is granted,
 DECODE after its prompt's KV is in the pool, and ends in exactly one of
@@ -92,6 +92,11 @@ class Request:
     intertoken_ms: List[float] = dataclasses.field(default_factory=list)
     decode_steps: int = 0
     prefill_chunks: int = 0  # chunked-prefill dispatches the request took
+    # speculative decoding (engine-owned; zero on non-spec engines): draft
+    # tokens proposed / accepted for THIS request -- verdict-level, so a
+    # token accepted but clipped by the output budget still counts
+    spec_proposed: int = 0
+    spec_accepted: int = 0
 
     def __post_init__(self):
         self.prompt_ids = [int(t) for t in self.prompt_ids]
@@ -154,6 +159,16 @@ class RequestOutput:
     deadline_s: Optional[float] = None
     decode_steps: int = 0
     prefill_chunks: int = 0
+    spec_proposed: int = 0
+    spec_accepted: int = 0
+
+    @property
+    def acceptance_rate(self) -> Optional[float]:
+        """Accepted / proposed draft tokens; None when the engine never
+        speculated for this request."""
+        if not self.spec_proposed:
+            return None
+        return self.spec_accepted / self.spec_proposed
 
     @staticmethod
     def from_request(req: Request, now: float) -> "RequestOutput":
@@ -177,4 +192,6 @@ class RequestOutput:
             deadline_s=req.deadline_s,
             decode_steps=req.decode_steps,
             prefill_chunks=req.prefill_chunks,
+            spec_proposed=req.spec_proposed,
+            spec_accepted=req.spec_accepted,
         )

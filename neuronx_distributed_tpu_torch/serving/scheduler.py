@@ -43,8 +43,10 @@ class SlotScheduler:
     """Fixed-``B`` slot table + per-priority-class EDF queues.
 
     Admission gates, checked at ``submit``: ``prompt_len <= context_len``;
-    ``context_len + max_new_tokens <= max_total_len`` (decode starts at the
-    prefill boundary); with a ``page_gate`` (``pages_needed(request)``,
+    ``context_len + max_new_tokens + reserve_extra <= max_total_len``
+    (decode starts at the prefill boundary; ``reserve_extra`` is the
+    speculative verify's overshoot, ``spec_k`` cells written past the
+    budget); with a ``page_gate`` (``pages_needed(request)``,
     ``pages_free()``, ``pages_capacity()``) a request whose worst-case page
     need exceeds the pool is refused, and a granted head waits until its
     pages are free (nobody jumps it); with ``max_queue`` the backlog beyond
@@ -53,11 +55,14 @@ class SlotScheduler:
 
     def __init__(self, num_slots: int, context_len: int, max_total_len: int,
                  max_queue: Optional[int] = None, page_gate=None,
-                 max_batch_wait_s: Optional[float] = DEFAULT_MAX_BATCH_WAIT_S):
+                 max_batch_wait_s: Optional[float] = DEFAULT_MAX_BATCH_WAIT_S,
+                 reserve_extra: int = 0):
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         if max_queue is not None and max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
+        if reserve_extra < 0:
+            raise ValueError(f"reserve_extra must be >= 0, got {reserve_extra}")
         if max_batch_wait_s is not None and max_batch_wait_s <= 0:
             raise ValueError(
                 f"max_batch_wait_s must be > 0 (or None to disable the "
@@ -65,6 +70,7 @@ class SlotScheduler:
         self.num_slots = num_slots
         self.context_len = context_len
         self.max_total_len = max_total_len
+        self.reserve_extra = reserve_extra
         self.max_queue = max_queue
         self.page_gate = page_gate
         self.max_batch_wait_s = max_batch_wait_s
@@ -160,12 +166,17 @@ class SlotScheduler:
             raise AdmissionError(
                 f"request {request.request_id}: prompt_len "
                 f"{request.prompt_len} > context_len {self.context_len}")
-        if self.context_len + request.max_new_tokens > self.max_total_len:
+        if (self.context_len + request.max_new_tokens + self.reserve_extra
+                > self.max_total_len):
+            extra = (f" + {self.reserve_extra} spec reserve"
+                     if self.reserve_extra else "")
             raise AdmissionError(
                 f"request {request.request_id}: context_len + max_new_tokens"
-                f" ({self.context_len} + {request.max_new_tokens}) > "
+                f" ({self.context_len} + {request.max_new_tokens}{extra}) > "
                 f"max_total_len {self.max_total_len} (decode slots start at "
-                "the prefill boundary)")
+                "the prefill boundary"
+                + ("; speculative verification writes up to spec_k tokens "
+                   "past the budget" if self.reserve_extra else "") + ")")
         if self.page_gate is not None:
             need = self.page_gate.pages_needed(request)
             cap = self.page_gate.pages_capacity()

@@ -2,11 +2,13 @@
 the solo ``generate`` reference (counterpart of
 ``neuronx_distributed_tpu/trace/engine.py``).
 
-The JAX package compiles each phase function ahead of time; PyTorch runs
-them eagerly, so the phase functions here are plain methods.  Where JAX
-donates a cache and returns the updated array, the port updates the cache
-tensors (and the validity mask) IN PLACE and returns them, so a caller that
-threads the return values works unchanged.
+The JAX package compiles each phase function ahead of time; here the
+per-step phase functions (``decode_pages``, ``verify_pages``,
+``decode_slots``) are captured once per shape and state into a CUDA graph
+on the card (``cuda_graphs``) and replayed, and run eagerly on the CPU.
+Where JAX donates a cache and returns the updated array, the port updates
+the cache tensors (and the validity mask) IN PLACE and returns them, so a
+caller that threads the return values works unchanged.
 
 Ragged prompts are LEFT-padded to ``context_len``; a per-row key-validity
 mask ``valid [B, T]`` rides through every phase, and a token's RoPE
@@ -15,18 +17,35 @@ position is the count of valid keys before it.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import hashlib
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from neuronx_distributed_tpu_torch.kvcache.quant import quantize_page
-from neuronx_distributed_tpu_torch.ops.paged_attention import resolve_paged_kernel
+from neuronx_distributed_tpu_torch.ops.paged_attention import (
+    paged_attention,
+    resolve_paged_kernel,
+)
 from neuronx_distributed_tpu_torch.utils.device import resolve_device
 
 _MASK64 = (1 << 64) - 1
+
+# salted per-request sub-streams for speculative decoding: accept coins and
+# residual resampling must not collide with the token-index sampling stream
+# (shared by the solo speculative_generate and the serving engine's batched
+# draft-k-verify)
+SPEC_ACCEPT_SALT = 7919
+SPEC_RESIDUAL_SALT = 104729
+
+# the launch counts a captured phase replays (paged_attention's counters)
+LAUNCH_COUNTERS = ("launches", "int8_launches", "wgmma_launches",
+                   "decode_launches")
+# captured phase graphs a model keeps (least recently used dropped first)
+MAX_GRAPHS = 16
 
 
 def _fold(key: int, data: int) -> int:
@@ -84,6 +103,13 @@ def _filtered_logits(logits, temperature, top_k=0, top_p=1.0):
     return logits
 
 
+def gumbel_draw(log_weights, generator: torch.Generator) -> torch.Tensor:
+    """One Gumbel-max draw from unnormalized log-weights ``[V]``."""
+    u = torch.rand(log_weights.shape, generator=generator,
+                   device=log_weights.device).clamp_min(1e-20)
+    return torch.argmax(log_weights - torch.log(-torch.log(u)))
+
+
 def sample_row(logits, temperature: float, top_k: int, top_p: float,
                generator: Optional[torch.Generator]) -> torch.Tensor:
     """One token from one row of logits ``[V]``: argmax when ``temperature
@@ -93,10 +119,8 @@ def sample_row(logits, temperature: float, top_k: int, top_p: float,
         return torch.argmax(logits)
     if generator is None:
         raise ValueError("temperature sampling requires a generator")
-    filtered = _filtered_logits(logits, temperature, top_k, top_p)
-    u = torch.rand(filtered.shape, generator=generator,
-                   device=filtered.device).clamp_min(1e-20)
-    return torch.argmax(filtered - torch.log(-torch.log(u)))
+    return gumbel_draw(_filtered_logits(logits, temperature, top_k, top_p),
+                       generator)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,6 +150,93 @@ def init_kv_caches(num_layers: int, batch_size: int, max_total_len: int,
             for _ in range(num_layers)]
 
 
+def resolve_cuda_graphs(flag, device) -> bool:
+    """Resolve the ``cuda_graphs`` knob (``"auto"`` | ``True`` |
+    ``False``): auto captures on a CUDA device and runs eagerly on the
+    CPU; ``True`` on the CPU raises (a graph is a CUDA object)."""
+    if flag in ("auto", None):
+        return torch.device(device).type == "cuda"
+    if flag is True or flag is False:
+        if flag and torch.device(device).type != "cuda":
+            raise ValueError(f"cuda_graphs=True needs a CUDA device, got "
+                             f"{device}")
+        return flag
+    raise ValueError(f"cuda_graphs must be 'auto', True or False, got "
+                     f"{flag!r}")
+
+
+def _launch_counts() -> List[int]:
+    return [getattr(paged_attention, c) for c in LAUNCH_COUNTERS]
+
+
+def _add_launch_counts(delta: Sequence[int]) -> None:
+    for c, d in zip(LAUNCH_COUNTERS, delta):
+        setattr(paged_attention, c, getattr(paged_attention, c) + d)
+
+
+class _PhaseGraph(NamedTuple):
+    graph: "torch.cuda.CUDAGraph"
+    inputs: Tuple[torch.Tensor, ...]   # static input buffers
+    output: torch.Tensor               # static output buffer
+    launches: Tuple[int, ...]          # counter moves of one replay
+
+
+class PhaseGraphs:
+    """One captured CUDA graph per (phase, shapes, state tensors): the
+    port's counterpart of the JAX package's compiled phase executables.
+
+    The first call of a key runs the phase eagerly (its real result, and
+    the warm-up the kernels' launchers need before capture: their
+    once-per-process ``cudaFuncSetAttribute``), then captures it over
+    static copies of the inputs; every later call copies its inputs into
+    those buffers and replays.  The state (caches, validity mask) is
+    captured by address, so the key holds the state tensors' addresses and
+    shapes: an engine that keeps its pool and mask keeps its graph.  A
+    kernel's launch counters move in Python only while capturing, so the
+    capture's moves are taken back and added once per replay.  Capture
+    errors propagate: there is no eager fallback."""
+
+    def __init__(self):
+        self._graphs: "collections.OrderedDict" = collections.OrderedDict()
+        self.captures = 0
+        self.replays = 0
+
+    @staticmethod
+    def state_key(caches, valid) -> tuple:
+        first = caches[0]
+        return (len(caches), tuple((t.shape, t.dtype) for t in first),
+                tuple(t.data_ptr() for entry in caches for t in entry),
+                valid.shape, valid.data_ptr())
+
+    def run(self, key, fn: Callable, inputs: Sequence[torch.Tensor]
+            ) -> torch.Tensor:
+        """``fn(*inputs)`` through the graph of ``key`` (which must name
+        everything ``fn`` closes over); returns a fresh output tensor."""
+        key = (key, tuple((t.shape, t.dtype) for t in inputs))
+        g = self._graphs.get(key)
+        if g is not None:
+            self._graphs.move_to_end(key)
+            for buf, x in zip(g.inputs, inputs):
+                buf.copy_(x)
+            g.graph.replay()
+            _add_launch_counts(g.launches)
+            self.replays += 1
+            return g.output.clone()
+        out = fn(*inputs)  # eager: this call's result, and the warm-up
+        static = tuple(x.clone() for x in inputs)
+        graph = torch.cuda.CUDAGraph()
+        before = _launch_counts()
+        with torch.cuda.graph(graph):
+            static_out = fn(*static)
+        moved = tuple(a - b for a, b in zip(_launch_counts(), before))
+        _add_launch_counts([-m for m in moved])  # capture launched nothing
+        self._graphs[key] = _PhaseGraph(graph, static, static_out, moved)
+        self.captures += 1
+        while len(self._graphs) > MAX_GRAPHS:
+            self._graphs.popitem(last=False)
+        return out
+
+
 class ParallelInferenceModel:
     """Serving wrapper around a causal LM with ``LlamaForCausalLM``'s
     forward (Llama, ``GemmaForCausalLM``, ``Gemma2ForCausalLM``): the
@@ -134,11 +245,17 @@ class ParallelInferenceModel:
 
     ``device`` defaults to CUDA (raises without it); the module is moved
     there.  ``paged_kernel`` (``"auto"`` = the kernel on CUDA, the gather
-    path on the CPU) is the default of :meth:`decode_pages`."""
+    path on the CPU) is the default of :meth:`decode_pages`.
+    ``cuda_graphs`` (``"auto"`` = on CUDA; ``True`` on the CPU raises)
+    replays :meth:`decode_pages`, :meth:`verify_pages` and
+    :meth:`decode_slots` from CUDA graphs (:class:`PhaseGraphs`) once a
+    shape and state has run once."""
 
     def __init__(self, module, config: InferenceConfig, paged_kernel="auto",
-                 device=None):
+                 device=None, cuda_graphs="auto"):
         self.device = resolve_device(device)
+        self.cuda_graphs = resolve_cuda_graphs(cuda_graphs, self.device)
+        self.graphs = PhaseGraphs()
         self.module = module.to(self.device).eval()
         self.module.requires_grad_(False)
         self.config = config
@@ -199,22 +316,47 @@ class ParallelInferenceModel:
                                      kv_valid=valid)
         return logits[:, -1, :], caches, valid
 
-    @torch.no_grad()
     def decode_slots(self, tok, offsets, caches, valid):
         """One token step with per-slot cache offsets ``[B]`` over
         contiguous caches: every slot writes its new key at its own
         position and takes its RoPE phase from its own validity prefix; an
-        offset of ``T`` parks an idle slot."""
-        tok = self._tensor(tok, torch.long)
-        offsets = self._tensor(offsets)
+        offset of ``T`` parks an idle slot.  Returns ``(logits [B, V],
+        caches, valid)``."""
+        tok, offsets = self._tensor(tok, torch.long), self._tensor(offsets)
+        if not self.cuda_graphs:
+            return self._decode_slots_fn(tok, offsets, caches, valid), \
+                caches, valid
+        logits = self.graphs.run(
+            ("decode_slots", PhaseGraphs.state_key(caches, valid)),
+            lambda t, o: self._decode_slots_fn(t, o, caches, valid),
+            (tok, offsets))
+        return logits, caches, valid
+
+    @torch.no_grad()
+    def _decode_slots_fn(self, tok, offsets, caches, valid):
         T = valid.shape[1]
         ar = torch.arange(T, device=self.device)[None, :]
         valid.masked_fill_(ar == offsets[:, None], 1)
         before = torch.where(ar < offsets[:, None], valid, 0)
         positions = before.sum(dim=1, keepdim=True)
-        logits, caches = self.module(tok, positions, caches, offsets,
+        logits, _ = self.module(tok, positions, caches, offsets,
+                                kv_valid=valid)
+        return logits[:, -1, :]
+
+    @torch.no_grad()
+    def _score_chunk(self, toks, offset: int, caches, valid):
+        """Score a chunk ``toks [B, S]`` written at the scalar cache index
+        ``offset`` over contiguous caches (the solo speculative verify):
+        the chunk's cells are marked valid, positions are prefix counts,
+        and EVERY position's logits ``[B, S, V]`` come back."""
+        toks = self._tensor(toks, torch.long)
+        S = toks.shape[1]
+        valid[:, offset:offset + S] = 1
+        counts = torch.cumsum(valid, dim=1) - valid
+        positions = counts[:, offset:offset + S]
+        logits, caches = self.module(toks, positions, caches, offset,
                                      kv_valid=valid)
-        return logits[:, -1, :], caches, valid
+        return logits, caches, valid
 
     @torch.no_grad()
     def insert_slot(self, caches, row_caches, valid, row_valid, slot: int):
@@ -272,6 +414,25 @@ class ParallelInferenceModel:
             logits = logits[:, -1, :]
         return logits, caches, valid
 
+    def _paged_phase(self, name: str, toks, offsets, block_table, caches,
+                     valid, paged_kernel, last_only: bool):
+        """:meth:`_paged_step_fn` with ``valid`` updated, through the
+        phase's CUDA graph when graphs are on."""
+        pk = self.paged_kernel if paged_kernel is None else bool(paged_kernel)
+        inputs = (self._tensor(toks, torch.long), self._tensor(offsets),
+                  self._tensor(block_table))
+
+        def fn(t, o, bt):
+            return self._paged_step_fn(t, o, bt, caches, valid,
+                                       paged_kernel=pk,
+                                       last_only=last_only)[0]
+
+        if not self.cuda_graphs:
+            return fn(*inputs), caches, valid
+        logits = self.graphs.run(
+            (name, pk, PhaseGraphs.state_key(caches, valid)), fn, inputs)
+        return logits, caches, valid
+
     def decode_pages(self, tok, offsets, block_table, caches, valid,
                      paged_kernel=None):
         """Paged per-slot decode step (``S = 1``): ``block_table [B, T //
@@ -279,10 +440,20 @@ class ParallelInferenceModel:
         pool.  ``paged_kernel`` (default: the model's) selects the
         paged-attention kernel over the gather path.  Returns ``(logits
         [B, V], caches, valid)``."""
-        pk = self.paged_kernel if paged_kernel is None else bool(paged_kernel)
-        return self._paged_step_fn(
-            self._tensor(tok, torch.long), self._tensor(offsets),
-            self._tensor(block_table), caches, valid, paged_kernel=pk)
+        return self._paged_phase("decode_pages", tok, offsets, block_table,
+                                 caches, valid, paged_kernel, True)
+
+    def verify_pages(self, toks, offsets, block_table, caches, valid,
+                     paged_kernel=None):
+        """Batched speculative verification (``S = k + 1``): the
+        ``last_only=False`` member of :meth:`_paged_step_fn`.  Token ``s``
+        of slot ``b`` is written at cache index ``offsets[b] + s`` (int8
+        pools requantize the pages the chunk covers) and position ``i``'s
+        logits judge the draft's proposal ``i + 1``.  An offset of ``T``
+        parks an idle slot.  Returns ``(logits [B, S, V], caches,
+        valid)``."""
+        return self._paged_phase("verify_pages", toks, offsets, block_table,
+                                 caches, valid, paged_kernel, False)
 
     def prefill_chunk_pages(self, ids, offset: int, block_table, caches,
                             valid, paged_kernel=None):
@@ -402,14 +573,17 @@ class ParallelInferenceModel:
         return torch.cat(toks, dim=1)
 
 
-def sampled_tokens(logits, keys: Sequence[Optional[int]],
-                   tok_idx: Sequence[int], temps: Sequence[float],
-                   top_ks: Sequence[int], top_ps: Sequence[float]
-                   ) -> Tuple[np.ndarray, np.ndarray]:
-    """Row-wise sampler for the serving engine: row ``b`` draws token
-    ``tok_idx[b]`` of its request's stream ``keys[b]`` with its own
-    sampler settings.  Returns ``(tokens [B], finite [B])`` on the host;
-    ``finite[b]`` is False when row ``b``'s logits hold NaN/Inf."""
+def sample_rows(logits, keys: Sequence[Optional[int]],
+                tok_idx: Sequence[int], temps: Sequence[float],
+                top_ks: Sequence[int], top_ps: Sequence[float]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row-wise sampler on the device (the JAX engine's ``_sample_rows``):
+    row ``b`` draws token ``tok_idx[b]`` of its request's stream
+    ``keys[b]`` with its own sampler settings (host values, written once
+    at admission); greedy rows take the argmax and ignore their key.
+    Returns ``(tokens [B] int64, finite [B] bool)`` as device tensors,
+    ``finite[b]`` False when row ``b``'s logits hold NaN/Inf.  Nothing
+    here waits for the device."""
     finite = torch.isfinite(logits.float()).all(dim=-1)
     toks = torch.argmax(logits, dim=-1)
     for b in range(logits.shape[0]):
@@ -417,4 +591,209 @@ def sampled_tokens(logits, keys: Sequence[Optional[int]],
             toks[b] = sample_row(
                 logits[b], temps[b], top_ks[b], top_ps[b],
                 token_generator(keys[b], tok_idx[b], logits.device))
-    return toks.cpu().numpy(), finite.cpu().numpy()
+    return toks, finite
+
+
+def propose_rows(logits, keys: Sequence[Optional[int]],
+                 tok_idx: Sequence[int], temps: Sequence[float],
+                 top_ks: Sequence[int], top_ps: Sequence[float]
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A draft's proposals: exactly :func:`sample_rows`' draws (the same
+    per-request token-index streams, so with draft == target the proposals
+    ARE the plain sampler's tokens), plus the filtered fp32 logits ``[B,
+    V]`` each sampled row was drawn from (the q distribution the accept
+    test needs; greedy rows carry their raw logits, which it ignores).
+    Returns ``(tokens [B], q_filtered [B, V], finite [B])``."""
+    finite = torch.isfinite(logits.float()).all(dim=-1)
+    toks = torch.argmax(logits, dim=-1)
+    q = logits.to(torch.float32, copy=True)
+    for b in range(logits.shape[0]):
+        if temps[b] > 0.0:
+            q[b] = _filtered_logits(logits[b], temps[b], top_ks[b],
+                                    top_ps[b])
+            toks[b] = gumbel_draw(q[b], token_generator(
+                keys[b], tok_idx[b], logits.device))
+    return toks, q, finite
+
+
+def pack_tokens(toks, finite) -> torch.Tensor:
+    """A decode step's whole device-to-host payload as one ``[2, B]`` int32
+    tensor (tokens, finite flags): one fetch per step."""
+    return torch.stack([toks.to(torch.int32), finite.to(torch.int32)])
+
+
+def sampled_tokens(logits, keys: Sequence[Optional[int]],
+                   tok_idx: Sequence[int], temps: Sequence[float],
+                   top_ks: Sequence[int], top_ps: Sequence[float]
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """:func:`sample_rows` fetched to the host in one copy: ``(tokens
+    [B], finite [B] bool)`` as numpy arrays."""
+    packed = pack_tokens(*sample_rows(logits, keys, tok_idx, temps, top_ks,
+                                      top_ps)).cpu().numpy()
+    return packed[0].astype(np.int64), packed[1].astype(bool)
+
+
+def spec_keys(key: int) -> Tuple[int, int]:
+    """The accept-coin and residual-draw stream keys of a request stream
+    ``key`` (salted, so neither collides with its token-index stream)."""
+    return _fold(key, SPEC_ACCEPT_SALT), _fold(key, SPEC_RESIDUAL_SALT)
+
+
+def speculative_generate(target: ParallelInferenceModel,
+                         draft: ParallelInferenceModel, prompt_ids,
+                         max_new_tokens: int, k: int = 4, prompt_lens=None,
+                         return_stats: bool = False,
+                         temperature: float = 0.0, top_k: int = 0,
+                         top_p: float = 1.0, seed: Optional[int] = None,
+                         request_ids: Optional[Sequence[int]] = None):
+    """Speculative decoding over a fixed batch (the JAX
+    ``speculative_generate``): the draft proposes ``k`` tokens per round
+    with single-token decodes on its own contiguous caches, and the target
+    scores the round's ``k + 1`` tokens in ONE chunk forward.  The batch
+    advances in lockstep by its smallest acceptance (one host sync per
+    round).
+
+    Greedy (``temperature == 0``): accept while the target's argmax
+    agrees; the first disagreement takes the target's token, and a fully
+    accepted round the target's bonus token, so the output is the target's
+    own greedy decode.  Sampled: Leviathan et al. accept/reject, coins
+    from each row's ``SPEC_ACCEPT_SALT`` stream, the first rejection
+    resampled from ``norm(max(p - q, 0))`` on its ``SPEC_RESIDUAL_SALT``
+    stream, and every proposal and bonus token on the plain token-index
+    stream of ``(seed, request_ids[b])`` (as :meth:`generate`), so with
+    ``draft == target`` the sampled output is :meth:`generate`'s.  Rejected
+    cache cells are never rewound: they lie at or past the next write
+    offset, hidden by the causal mask and overwritten by the next round.
+    Returns ``[B, C + max_new_tokens]`` (and ``{"rounds", "proposed",
+    "accepted", "acceptance_rate"}`` with ``return_stats``)."""
+    tcfg, dcfg = target.config, draft.config
+    for f in ("batch_size", "context_len", "max_total_len"):
+        if getattr(tcfg, f) != getattr(dcfg, f):
+            raise ValueError(
+                f"target/draft serving shapes differ on {f}: "
+                f"{getattr(tcfg, f)} vs {getattr(dcfg, f)}")
+    tv, dv = target.module.config.vocab_size, draft.module.config.vocab_size
+    if tv != dv:
+        raise ValueError(f"target/draft vocab_size differ ({tv} vs {dv}): "
+                         "speculative decoding needs one shared tokenizer")
+    ids = target._tensor(prompt_ids, torch.long)
+    B, C = ids.shape
+    T = tcfg.max_total_len
+    if (B, C) != (tcfg.batch_size, tcfg.context_len):
+        raise ValueError(f"prompt shape {(B, C)} does not match the serving "
+                         f"shape {(tcfg.batch_size, tcfg.context_len)}")
+    if C + max_new_tokens > T:
+        raise ValueError(f"context {C} + new {max_new_tokens} exceeds "
+                         f"max_total_len {T}")
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    if max_new_tokens < 1:
+        raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
+    sampling = temperature > 0.0
+    if sampling and seed is None:
+        raise ValueError("temperature sampling requires a seed")
+    rids = list(range(B)) if request_ids is None else list(request_ids)
+    if len(rids) != B:
+        raise ValueError(f"{len(rids)} request_ids for batch {B}")
+    keys = [request_key(seed, r) for r in rids] if sampling else [None] * B
+    dev = target.device
+
+    def gen(key, i):
+        return token_generator(key, i, dev)
+
+    valid_ctx = target._valid_ctx(prompt_lens, B, C)
+    logits_t, caches_t = target._context_fn(ids, valid_ctx)
+    _, caches_d = draft._context_fn(ids, valid_ctx)
+    valid_t = torch.cat([valid_ctx, torch.zeros((B, T - C), dtype=torch.int32,
+                                                device=dev)], dim=1)
+    first = torch.stack([sample_row(logits_t[b], temperature, top_k, top_p,
+                                    gen(keys[b], 0) if sampling else None)
+                         for b in range(B)])
+    committed = [first[:, None]]
+    n_done, offset = 1, C
+    rounds = proposed = accepted = 0
+    while n_done < max_new_tokens:
+        kk = min(k, max_new_tokens - n_done)
+        vd = valid_t.clone()
+        tok, props, q_filt = committed[-1], [], []
+        for j in range(kk):
+            dlogits, caches_d, vd = draft._decode_fn(tok, offset + j,
+                                                      caches_d, vd)
+            if sampling:
+                qf = torch.stack([_filtered_logits(dlogits[b], temperature,
+                                                   top_k, top_p)
+                                  for b in range(B)])
+                q_filt.append(qf)
+                nxt = torch.stack([gumbel_draw(qf[b], gen(keys[b], n_done + j))
+                                   for b in range(B)])
+            else:
+                nxt = torch.argmax(dlogits, dim=-1)
+            tok = nxt[:, None]
+            props.append(tok)
+        props = torch.cat(props, dim=1)                          # [B, kk]
+        chunk = torch.cat([committed[-1], props], dim=1)
+        logits_full, caches_t, valid_t = target._score_chunk(
+            chunk, offset, caches_t, valid_t)
+        if sampling:
+            pf = torch.stack([_filtered_logits(logits_full[b], temperature,
+                                               top_k, top_p)
+                              for b in range(B)])                # [B, kk+1, V]
+            p_probs = torch.softmax(pf[:, :kk], dim=-1)
+            q_probs = torch.softmax(torch.stack(q_filt, dim=1), dim=-1)
+            px = p_probs.gather(-1, props[..., None])[..., 0]
+            qx = q_probs.gather(-1, props[..., None])[..., 0]
+            u = torch.stack([torch.stack([
+                torch.rand((), generator=gen(spec_keys(keys[b])[0],
+                                             n_done + j), device=dev)
+                for j in range(kk)]) for b in range(B)])
+            accept = (u < torch.clamp(px / qx.clamp_min(1e-20), max=1.0)
+                      ).cpu().numpy()
+            lead = np.minimum.accumulate(accept, axis=1)
+            j = int(lead.all(axis=0).sum())
+            take = min(j + 1, max_new_tokens - n_done)
+            for i in range(min(take, j)):
+                committed.append(props[:, i:i + 1])
+            if take == j + 1:
+                if j == kk:  # full accept: the bonus straight from p_kk
+                    nxt = torch.stack([gumbel_draw(pf[b, kk],
+                                                   gen(keys[b], n_done + kk))
+                                       for b in range(B)])
+                else:
+                    res = (p_probs[:, j] - q_probs[:, j]).clamp_min(0.0)
+                    res_sum = res.sum(dim=-1, keepdim=True)
+                    # rows whose own coins still accepted at j draw from p
+                    # directly, as do degenerate all-zero residuals
+                    rejected = torch.from_numpy(~lead[:, j]).to(dev)[:, None]
+                    dist = torch.where(rejected & (res_sum > 0),
+                                       res / res_sum.clamp_min(1e-20),
+                                       p_probs[:, j])
+                    nxt = torch.stack([gumbel_draw(
+                        torch.log(dist[b].clamp_min(1e-20)),
+                        gen(spec_keys(keys[b])[1], n_done + j))
+                        for b in range(B)])
+                committed.append(nxt[:, None])
+        else:
+            tgt = torch.argmax(logits_full, dim=-1)              # [B, kk+1]
+            agree = (tgt[:, :kk] == props).cpu().numpy()
+            lead = np.minimum.accumulate(agree, axis=1)
+            j = int(lead.all(axis=0).sum())
+            take = min(j + 1, max_new_tokens - n_done)
+            for i in range(take - 1):
+                committed.append(props[:, i:i + 1])
+            committed.append(tgt[:, take - 1:take])
+        if take == kk + 1:
+            # full accept: the draft proposed its last token but never
+            # wrote it; it now lies in the committed region, so ingest it
+            _, caches_d, vd = draft._decode_fn(props[:, kk - 1:kk],
+                                               offset + kk, caches_d, vd)
+        n_done += take
+        offset += take
+        rounds += 1
+        proposed += kk
+        accepted += j
+    out = torch.cat([ids] + committed, dim=1)
+    if return_stats:
+        return out, {"rounds": rounds, "proposed": proposed,
+                     "accepted": accepted,
+                     "acceptance_rate": accepted / max(proposed, 1)}
+    return out

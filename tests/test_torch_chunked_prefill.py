@@ -144,9 +144,11 @@ def test_chunked_equals_whole_prefill_and_int8_kernel_on_off():
 
 
 def test_requantized_pages_are_owned_by_one_slot(monkeypatch):
-    """Every page a decode or chunk write requantizes has refcount 1 and
-    sits in exactly one slot's block table, and no page is requantized
-    twice in one step."""
+    """Every page a decode or chunk write requantizes (a live entry of the
+    fixed-shape plan: one with a hot cell) has refcount 1, sits in exactly
+    one slot's block table and is never the NULL page, and no page is
+    requantized twice in one step; every other entry targets the NULL
+    page."""
     seen = {"calls": 0}
     record = {}
     plan = llama._plan_requant
@@ -154,12 +156,14 @@ def test_requantized_pages_are_owned_by_one_slot(monkeypatch):
     def checked(block_table, *args):
         pages, hot, src = plan(block_table, *args)
         kv = record["engine"]._kv
-        got = pages.tolist()
+        live = hot.any(dim=1)
+        got = pages[live].tolist()
         assert len(got) == len(set(got)), f"page requantized twice: {got}"
         for p in got:
             assert p != 0, "the NULL page must never be written"
             assert kv.alloc.refcount(p) == 1, f"page {p} is shared"
             assert int((kv.tables == p).sum()) == 1, f"page {p} in 2 tables"
+        assert (pages[~live] == 0).all(), "an idle entry left the NULL page"
         seen["calls"] += 1
         return pages, hot, src
 
