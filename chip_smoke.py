@@ -47,7 +47,17 @@ k = 4 with a self draft (greedy, sampled, and on the int8 chunked engine)
 and a weak draft (the model cut to 2 layers from seed 1): every verify
 on the wgmma kernel, acceptance, and the two drafts' greedy tokens
 identical; and, inside phase 5b, (e) the Gemma-2-2B requests again on the
-async graph engine.  Phase 1 also holds and times the verify call (B =
+async graph engine.  Phase 2d serves many LoRA adapters on the async
+graph engine (``adapter_store=``, 4 adapters of rank 16 from seeded
+factors): (a) every request on adapter 0, tokens identical to 2c(a)'s;
+(b) requests round-robin over adapters 0-4, tokens identical to the
+eager synchronous engine's and adapter-0 ones to 2c(a)'s, every decode
+launch on the decode kernel; (c) the same on int8 pages with 128-token
+chunks; (d) a self draft at k = 4 sharing the adapters; the steady step
+of (a) and (b) beside the storeless engine's and the device time of the
+adapter work; (e, inside phase 5b) Gemma-2-2B over 2 adapters; (f)
+``prefill_one_lora`` against the ``peft.merge_lora`` dense model on a
+2-layer cut.  Phase 1 also holds and times the verify call (B =
 8, S = 5) over both pool types, and the simt kernel at fp32 q.  Phase 1
 then holds the fp-pool kernels at head_dim 256
 and Gemma-2-2B's geometry (8 q on 4 kv heads, softcap 50) and times the
@@ -242,6 +252,12 @@ def trace(run, warm):
     return device_events(prof)
 
 
+def launches_per_call(count: int, iters: int) -> int:
+    """Launches of one kernel per call when the profiler recorded
+    ``count`` of them over ``iters`` calls that each launch it."""
+    return max(1, round(count / iters))
+
+
 def device_ms(fns, iters: int, expect: str = "", show: str = "",
               names=None) -> float:
     """Device time per call of the kernels (and copies) that ``iters``
@@ -249,10 +265,12 @@ def device_ms(fns, iters: int, expect: str = "", show: str = "",
     cycle through ``fns``, one per copy of the inputs, so that a call
     finds its inputs in device memory and not in the 50 MB L2 the
     previous call filled.  Every call launches the same kernels, ``n =
-    round(count / iters)`` of each; a kernel's time per call is its mean
-    recorded duration times ``n``, so a call whose kernels the profiler
-    dropped (the count falls short of ``n * iters``, and is logged)
-    does not read the time low.  ``expect`` names a kernel that must be
+    round(count / iters)`` of each, and at least one of each kernel the
+    trace shows (the profiler has recorded fewer than half of 20 calls'
+    SDPA kernels); a kernel's time per call is its mean recorded duration
+    times ``n``, so a call whose kernels the profiler dropped (the count
+    falls short of ``n * iters``, and is logged) does not read the time
+    low.  ``expect`` names a kernel that must be
     among those seen; a trace with no device time, or without that
     kernel, is taken again, up to TRACE_TRIES times (the profiler has
     returned an empty trace of 20 calls that launched a kernel each).
@@ -269,7 +287,7 @@ def device_ms(fns, iters: int, expect: str = "", show: str = "",
     warm()
     for attempt in range(1, TRACE_TRIES + 1):
         events = trace(run, warm)
-        per_call = [dev_us(e) / e.count * round(e.count / iters)
+        per_call = [dev_us(e) / e.count * launches_per_call(e.count, iters)
                     for e in events]
         total = sum(per_call)
         seen = total > 0 and (not expect or any(expect in e.key
@@ -283,8 +301,9 @@ def device_ms(fns, iters: int, expect: str = "", show: str = "",
     else:
         raise RuntimeError(f"torch.profiler saw no device time (or no "
                            f"{expect or 'kernel'}) in {TRACE_TRIES} traces")
-    lost = [f"{e.key[:60]} {e.count}/{round(e.count / iters) * iters}"
-            for e in events if e.count != round(e.count / iters) * iters]
+    lost = [f"{e.key[:60]} {e.count}/"
+            f"{launches_per_call(e.count, iters) * iters}" for e in events
+            if e.count != launches_per_call(e.count, iters) * iters]
     if lost:
         log(f"torch.profiler dropped device events over {iters} calls "
             f"(recorded/expected): {lost}")
@@ -1119,7 +1138,11 @@ def phase1_gemma():
 # -- phase 2 ------------------------------------------------------------------
 
 
-def make_requests(vocab: int, n: int, new_tokens: int, seed: int):
+def make_requests(vocab: int, n: int, new_tokens: int, seed: int,
+                  adapters: int = 0):
+    """``n`` greedy requests of 32 to CONTEXT prompt tokens from ``seed``;
+    request ``i`` names adapter ``i % (adapters + 1)`` (0, the base model,
+    when ``adapters`` is 0)."""
     import numpy as np
 
     from neuronx_distributed_tpu_torch.serving import Request
@@ -1129,7 +1152,8 @@ def make_requests(vocab: int, n: int, new_tokens: int, seed: int):
                     prompt_ids=rs.randint(1, vocab,
                                           size=rs.randint(32, CONTEXT + 1)
                                           ).tolist(),
-                    max_new_tokens=new_tokens) for i in range(n)]
+                    max_new_tokens=new_tokens,
+                    adapter_id=i % (adapters + 1)) for i in range(n)]
 
 
 def serve(engine, requests):
@@ -1149,18 +1173,20 @@ def serve(engine, requests):
 
 
 def steady_decode_profile(model_pim, vocab: int, steps: int = 10,
-                          label: str = "phase2", **engine_kw) -> dict:
+                          label: str = "phase2", adapters: int = 0,
+                          **engine_kw) -> dict:
     """Where a steady decode step's time goes: the host clock over
     ``steps`` engine steps with all slots decoding (no admissions), then
     the same steps under ``torch.profiler``: the device's busy share and
     the share spent in the paged-attention kernels.  ``engine_kw`` goes to
-    the engine (``kv_quant="int8"``: the int8 pool)."""
+    the engine (``kv_quant="int8"``: the int8 pool; ``adapter_store``),
+    ``adapters`` to :func:`make_requests`."""
     import torch
 
     from neuronx_distributed_tpu_torch import ServingEngine
 
     eng = ServingEngine(model_pim, page_size=PAGE_SIZE, **engine_kw)
-    for r in make_requests(vocab, SLOTS, 3 * steps + 4, SEED + 3):
+    for r in make_requests(vocab, SLOTS, 3 * steps + 4, SEED + 3, adapters):
         eng.submit(r)
     for _ in range(2):
         eng.step()  # admissions and a warm decode
@@ -1230,14 +1256,17 @@ def check_routes(label: str, decode: int, chunk: int) -> dict:
     return routes
 
 
-def set_launches(entries, routes: dict) -> None:
-    """The main path's launch counts into kernels-line entries: each
+def set_launches(entries, routes: dict, phase: str) -> None:
+    """One main-path run's launch counts into kernels-line entries: each
     decode-route entry gets the decode kernel's, each simt entry the simt
-    kernel's, each wgmma entry the wgmma kernel's."""
+    kernel's, each wgmma entry the wgmma kernel's, under ``phase`` in
+    ``launches_by_phase``; ``launches`` keeps the first path's count."""
     for e in entries:
         route = ("decode" if "decode" in e["name"] else
                  "wgmma" if "wgmma" in e["name"] else "simt")
-        e["launches"] = routes[route]
+        e.setdefault("launches_by_phase", {})[phase] = routes[route]
+        if e["launches"] is None:
+            e["launches"] = routes[route]
 
 
 def phase2(entries):
@@ -1298,7 +1327,7 @@ def phase2(entries):
         f"{wall / steps * 1e3:.2f} ms/step incl. admissions); kernel "
         f"launches {launches} = {steps} x {cfg.num_layers}, by route "
         f"{routes}; page leaks 0; peak memory {peak / 2**30:.2f} GiB")
-    set_launches(entries, routes)
+    set_launches(entries, routes, "2")
 
     # one decode step at full width: the kernel path vs the gather path
     eng = ServingEngine(model_pim, page_size=PAGE_SIZE)
@@ -1468,7 +1497,7 @@ def phase2b(model_pim, entries, whole_tokens):
         f"on write; "
         f"page leaks 0; greedy tokens equal to phase 2's bf16 whole-prefill "
         f"run {same}/{tokens}")
-    set_launches(entries, routes)
+    set_launches(entries, routes, "2b")
     quant_pages = engine.quant_pages
     int8_tokens = {rid: o.token_ids for rid, o in outs.items()}
     del engine
@@ -1739,7 +1768,8 @@ def phase2c(model_pim, sync_tokens, sync_int8_tokens, verify_entry):
                                      NEW_TOKENS, SEED)
     self_tokens, out["d_self"] = spec_run("phase2c(d) self draft", pim, pim,
                                           requests())
-    verify_entry["launches"] = out["d_self"]["launches_by_route"]["wgmma"]
+    set_launches([verify_entry], out["d_self"]["launches_by_route"],
+                 "2c(d)")
     weak = ParallelInferenceModel(
         LlamaForCausalLM(LlamaConfig.llama3_8b(num_layers=WEAK_LAYERS),
                          device="cuda").init_random(WEAK_SEED),
@@ -1794,6 +1824,355 @@ def phase2c(model_pim, sync_tokens, sync_int8_tokens, verify_entry):
     torch.cuda.empty_cache()
     if failed:
         raise AssertionError(f"phase2c(d): {'; '.join(failed)}")
+    return out
+
+
+# -- phase 2d -----------------------------------------------------------------
+
+# multi-adapter serving: registered adapters, their rank (alpha = rank, so
+# the folded scale is 1), and the target of ||delta|| / ||projection||
+N_ADAPTERS, LORA_RANK, LORA_RATIO = 4, 16, 0.1
+# (e): Gemma-2-2B's adapters
+G2_ADAPTERS = 2
+# (f): the merged-dense check's depth, its bound (relative L2 of the
+# prefill logits, bf16) and how many times that error the adapter must
+# move the logits, so that a dropped delta fails
+MERGED_LAYERS, MERGED_REL_TOL, MERGED_GAP_MIN = 2, 2e-2, 5.0
+# steps of each steady-step reading of phase 2d
+STEADY_STEPS = 20
+
+
+def adapter_factors(cfg, aid: int, layers=None) -> list:
+    """Adapter ``aid``'s per-layer factors from ``RandomState(SEED +
+    aid)``: A ~ N(0, 1/H) and B ~ N(0, LORA_RATIO^2 / r), so that on the
+    random init (kernels ~ N(0, 1/H)) ||x A B|| is LORA_RATIO ||x W|| for
+    q and for v (:func:`delta_ratios` measures it)."""
+    import numpy as np
+
+    rs = np.random.RandomState(SEED + aid)
+    H, r = cfg.hidden_size, LORA_RANK
+    out = []
+    for _ in range(layers or cfg.num_layers):
+        f = {}
+        for p, width in (("q", cfg.num_heads * cfg.head_dim_),
+                         ("v", cfg.num_kv_heads * cfg.head_dim_)):
+            f[f"a_{p}"] = (rs.randn(H, r) / H ** 0.5).astype(np.float32)
+            f[f"b_{p}"] = (rs.randn(r, width) * LORA_RATIO / r ** 0.5
+                           ).astype(np.float32)
+        out.append(f)
+    return out
+
+
+def make_store(pim, factors: dict):
+    """A store laid out for ``pim`` holding every adapter of ``factors``
+    (``{aid: per-layer factors}``) and the NULL page."""
+    from neuronx_distributed_tpu_torch.tenancy import (
+        AdapterLayout,
+        make_adapter_store,
+    )
+
+    pp = AdapterLayout.for_model(pim, LORA_RANK).pages_per_adapter
+    store = make_adapter_store(pim, LORA_RANK, len(factors) * pp + 1)
+    for aid, f in factors.items():
+        store.register(aid, f, alpha=float(LORA_RANK))
+    return store
+
+
+def delta_ratios(pim, factors, prompt) -> tuple:
+    """||x A B|| / ||x W|| of q and of v at layer 0 of a Llama on
+    ``prompt``."""
+    import torch
+
+    block = pim.module.model.layer_0
+    with torch.no_grad():
+        ids = torch.tensor([prompt], device="cuda")
+        x = block.input_norm(pim.module.model.embed(ids))
+        q, _, v = block.attn.qkv(x)
+        f = {k: torch.from_numpy(a).to("cuda", x.dtype)
+             for k, a in factors[0].items()}
+        dq = x @ f["a_q"] @ f["b_q"]
+        dv = x @ f["a_v"] @ f["b_v"]
+        return ((dq.float().norm() / q.float().norm()).item(),
+                (dv.float().norm() / v.float().norm()).item())
+
+
+def serve_pair(label, graphed, eager, requests, factors, **engine_kw):
+    """``requests()`` on the async graph engine and on the eager
+    synchronous engine, each with its own store of ``factors``, every
+    launch count from 0 before the graph run and read after it: tokens
+    identical, every decode launch on the decode kernel and every chunk
+    on the wgmma kernel.  Returns ``(tokens, routes, graph engine, its
+    store, wall s)``."""
+    from neuronx_distributed_tpu_torch import ServingEngine
+
+    L = graphed.module.config.num_layers
+    store = make_store(eager, factors)
+    eng = ServingEngine(eager, page_size=PAGE_SIZE, async_decode=False,
+                        adapter_store=store, **engine_kw)
+    ref, _ = serve_checked(f"{label} eager sync", eng, requests())
+    store.assert_invariants()
+    del eng
+    store = make_store(graphed, factors)
+    eng = ServingEngine(graphed, page_size=PAGE_SIZE, adapter_store=store,
+                        **engine_kw)
+    zero_paged_counts()
+    outs, wall = serve_checked(label, eng, requests(),
+                               {rid: o.token_ids for rid, o in ref.items()})
+    routes = check_routes(label, eng.decode_steps * L,
+                          eng.prefill_chunks * L)
+    store.assert_invariants()
+    if any(store.pins(a) for a in store.resident_ids()):
+        raise AssertionError(f"{label}: adapter pins left after the drain")
+    return ({rid: o.token_ids for rid, o in outs.items()}, routes, eng,
+            store, wall)
+
+
+def lora_device_ms(pim, eng) -> float:
+    """Device ms of one decode step's adapter work at the served shapes:
+    the one gather of every slot's adapter pages and, for each layer, the
+    factor casts and the q and v product pairs and adds
+    (``models.llama.apply_adapter``), under ``torch.profiler``."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.models.llama import apply_adapter
+
+    cfg = pim.module.config
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn((SLOTS, 1, cfg.hidden_size), generator=g,
+                    device="cuda").to(cfg.dtype)
+    q = torch.randn((SLOTS, 1, cfg.num_heads, cfg.head_dim_), generator=g,
+                    device="cuda").to(cfg.dtype)
+    v = torch.randn((SLOTS, 1, cfg.num_kv_heads, cfg.head_dim_),
+                    generator=g, device="cuda").to(cfg.dtype)
+    atables = torch.from_numpy(eng._adapter_tables).to("cuda")
+
+    def step():
+        for adapter in pim._gather_adapters(eng._apool, atables):
+            apply_adapter(cfg, x, q, v, adapter)
+
+    return device_ms([step], 10, show="phase2d LoRA step ops")
+
+
+def merged_dense_check(factors) -> dict:
+    """(f): ``prefill_one_lora`` of adapter 1 on Llama-3-8B's width cut to
+    MERGED_LAYERS layers (bf16, seed 0) against ``prefill_one`` of the same
+    model with the adapter folded into its q/v kernels by
+    ``peft.merge_lora``, and against the base model."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from neuronx_distributed_tpu_torch import (
+        InferenceConfig,
+        LlamaConfig,
+        LlamaForCausalLM,
+        ParallelInferenceModel,
+    )
+    from neuronx_distributed_tpu_torch.peft import merge_lora
+
+    cfg = LlamaConfig.llama3_8b(num_layers=MERGED_LAYERS)
+    icfg = InferenceConfig(1, CONTEXT, MAX_TOTAL, torch.bfloat16)
+    model = LlamaForCausalLM(cfg, device="cuda").init_random(SEED)
+    pim = ParallelInferenceModel(model, icfg, cuda_graphs=False)
+    f = {1: factors[:MERGED_LAYERS]}
+    store = make_store(pim, f)
+    apool = pim.make_adapter_pool(store.layout, store.num_pages)
+    phys, blocks = zip(*store.acquire(1))
+    pim.write_adapter_page(apool, np.stack(blocks), phys)
+    prompt = make_requests(cfg.vocab_size, 1, 1, SEED)[0].prompt_ids
+    ids = np.zeros((1, CONTEXT), np.int64)
+    ids[0, CONTEXT - len(prompt):] = prompt
+    valid = (ids > 0).astype(np.int32)
+    lora, _ = pim.prefill_one_lora(ids, valid, apool, store.table(1)[None])
+    base, _ = pim.prefill_one(ids, valid)
+
+    tree: dict = {}
+    for name, t in model.state_dict().items():
+        *parents, leaf = name.split(".")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = t
+    for i, lay in enumerate(f[1]):
+        qkv = tree["model"][f"layer_{i}"]["attn"]["qkv"]
+        for k, a in lay.items():
+            qkv[f"lora_{k}"] = torch.from_numpy(a).to("cuda")
+    merged = merge_lora(tree, alpha=float(LORA_RANK))
+    flat: dict = {}
+
+    def walk(node, prefix):
+        for k, val in node.items():
+            if isinstance(val, dict):
+                walk(val, f"{prefix}{k}.")
+            else:
+                flat[prefix + k] = val
+
+    walk(merged, "")
+    dense = LlamaForCausalLM(cfg, device="cuda")
+    dense.load_state_dict(flat)
+    want, _ = ParallelInferenceModel(dense, icfg, cuda_graphs=False
+                                     ).prefill_one(ids, valid)
+    err = ((lora.float() - want.float()).norm() / want.float().norm()).item()
+    gap = ((lora.float() - base.float()).norm() / base.float().norm()).item()
+    finite = bool(torch.isfinite(lora).all())
+    log(f"phase2d(f): Llama-3-8B width cut to {MERGED_LAYERS} layers, bf16: "
+        f"prefill_one_lora vs the peft.merge_lora dense model, logits rel "
+        f"L2 {err:.3e} (tol {MERGED_REL_TOL}); adapter vs base {gap:.3e} = "
+        f"{gap / max(err, 1e-30):.1f}x the error (at least "
+        f"{MERGED_GAP_MIN}x); argmax agreement with the merged model "
+        f"{(lora.argmax(-1) == want.argmax(-1)).float().mean().item():.3f}")
+    del model, dense, pim, apool
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (finite and err <= MERGED_REL_TOL
+            and gap >= MERGED_GAP_MIN * err):
+        raise AssertionError(
+            f"phase2d(f): merged-dense rel {err}, adapter gap {gap}")
+    return {"rel_l2_vs_merged": err, "rel_l2_vs_base": gap}
+
+
+def phase2d(model_pim, sync_tokens, entries: dict):
+    """Multi-adapter (LoRA) serving on phase 2's Llama-3-8B, the async
+    graph engine with an adapter store of N_ADAPTERS rank-LORA_RANK
+    adapters: (a) every request on adapter 0, tokens identical to phase
+    2c(a)'s (= phase 2's); (b) requests round-robin over adapters 0..4,
+    tokens identical to the eager synchronous engine's, adapter-0 requests
+    identical to 2c(a)'s, every decode launch on the decode kernel; (c) (b)
+    on int8 pages with 128-token chunks; (d) a self draft at k = 4 sharing
+    the adapters; the steady step of (a) and (b) beside the storeless
+    engine's, in turns, and the device time of the adapter work; (f) the
+    merged-dense check.  ``entries``: the kernels-line entries whose
+    launches these runs count ("decode", "decode_int8", "chunk",
+    "verify")."""
+    import gc
+
+    import torch
+
+    from neuronx_distributed_tpu_torch import ServingEngine
+
+    cfg = model_pim.module.config
+    L = cfg.num_layers
+    pim = graphed_pim(model_pim)
+    out = {}
+    t0 = time.perf_counter()
+    factors = {aid: adapter_factors(cfg, aid)
+               for aid in range(1, N_ADAPTERS + 1)}
+
+    def requests(adapters):
+        return lambda: make_requests(cfg.vocab_size, N_REQUESTS,
+                                     NEW_TOKENS, SEED, adapters)
+
+    store = make_store(pim, factors)
+    layout = store.layout
+    pool_bytes = store.num_pages * layout.page_elems * 4
+    ratios = delta_ratios(model_pim, factors[1],
+                          requests(0)()[0].prompt_ids)
+    log(f"phase2d: {N_ADAPTERS} adapters of rank {LORA_RANK}, "
+        f"{layout.layer_elems} fp32 factor elements a layer, "
+        f"{layout.pages_per_adapter} pages of {layout.page_elems} an "
+        f"adapter; pool {store.num_pages} pages = {pool_bytes} bytes; "
+        f"registered in {time.perf_counter() - t0:.1f} s; adapter 1 on the "
+        f"first prompt at layer 0: ||dq||/||q|| {ratios[0]:.4f}, "
+        f"||dv||/||v|| {ratios[1]:.4f} (target {LORA_RATIO})")
+    out.update(pool_bytes=pool_bytes, pool_pages=store.num_pages,
+               pages_per_adapter=layout.pages_per_adapter,
+               delta_ratio_q=ratios[0], delta_ratio_v=ratios[1])
+
+    # (a) the store attached, every request on adapter 0
+    eng = ServingEngine(pim, page_size=PAGE_SIZE, adapter_store=store)
+    zero_paged_counts()
+    _, wall = serve_checked("phase2d(a)", eng, requests(0)(), sync_tokens)
+    routes = check_routes("phase2d(a)", eng.decode_steps * L, 0)
+    if store.resident_ids() or store.loads:
+        raise AssertionError("phase2d(a): adapter-0 requests loaded pages")
+    log(f"phase2d(a): store attached, all {N_REQUESTS} requests on adapter "
+        f"0: greedy tokens identical to phase 2c(a)'s in {wall:.3f} s; "
+        f"launches by route {routes}; no adapter page loaded")
+    out["a"] = {"wall_s": wall, "launches_by_route": routes,
+                "decode_steps": eng.decode_steps}
+    del eng, store
+
+    # (b) round-robin over adapters 0..N_ADAPTERS
+    tokens, routes, eng, store, wall = serve_pair(
+        "phase2d(b)", pim, model_pim, requests(N_ADAPTERS), factors)
+    leaked = [rid for rid, t in tokens.items()
+              if rid % (N_ADAPTERS + 1) == 0
+              and tuple(t) != tuple(sync_tokens[rid])]
+    if leaked:
+        raise AssertionError(f"phase2d(b): adapter-0 requests {leaked} "
+                             "differ from phase 2c(a)'s tokens")
+    moved = sum(tuple(t) != tuple(sync_tokens[rid])
+                for rid, t in tokens.items())
+    set_launches([entries["decode"]], routes, "2d(b)")
+    log(f"phase2d(b): {N_REQUESTS} requests over adapters 0..{N_ADAPTERS}: "
+        f"tokens identical to the eager synchronous engine's in {wall:.3f} "
+        f"s; adapter-0 requests identical to 2c(a)'s, {moved} adapter "
+        f"requests differ from the base model's; {eng.decode_steps} decode "
+        f"steps, launches by route {routes} = steps x {L}; store loads "
+        f"{store.loads}, hits {store.hits}, evictions {store.evictions}; "
+        f"puts {eng.puts}, fetches {eng.fetches}")
+    out["b"] = {"wall_s": wall, "launches_by_route": routes,
+                "decode_steps": eng.decode_steps, "loads": store.loads,
+                "hits": store.hits, "evictions": store.evictions,
+                "adapter_requests_differing_from_base": moved,
+                "puts": eng.puts, "fetches": eng.fetches}
+    lora_ms = lora_device_ms(pim, eng)
+    del eng, store
+
+    # (c) int8 pages, 128-token chunks
+    _, routes, eng, store, wall = serve_pair(
+        "phase2d(c)", pim, model_pim, requests(N_ADAPTERS), factors,
+        kv_quant="int8", prefill_chunk_tokens=CHUNK_TOKENS)
+    set_launches([entries["decode_int8"], entries["chunk"]], routes, "2d(c)")
+    log(f"phase2d(c): int8 pages, {CHUNK_TOKENS}-token chunks, adapters "
+        f"0..{N_ADAPTERS}: tokens identical to the eager synchronous "
+        f"engine's in {wall:.3f} s; {eng.decode_steps} decode steps + "
+        f"{eng.prefill_chunks} chunks, launches by route {routes}")
+    out["c"] = {"wall_s": wall, "launches_by_route": routes,
+                "decode_steps": eng.decode_steps,
+                "chunks": eng.prefill_chunks}
+    del eng, store
+
+    # (d) a self draft sharing the adapters
+    _, out["d"] = spec_run("phase2d(d) self draft, adapters", pim, pim,
+                           requests(N_ADAPTERS)(),
+                           adapter_store=make_store(pim, factors))
+    set_launches([entries["verify"]], out["d"]["launches_by_route"], "2d(d)")
+    if not out["d"]["acceptance"] >= SELF_ACCEPT_MIN:
+        raise AssertionError(f"phase2d(d): self-draft acceptance "
+                             f"{out['d']['acceptance']} < {SELF_ACCEPT_MIN}")
+
+    # the steady step in turns: storeless (2c(a)'s engine), (a), (b),
+    # then (b), (a), storeless again
+    runs = {"storeless": [], "a": [], "b": []}
+    for key in ("storeless", "a", "b", "b", "a", "storeless"):
+        kw = {} if key == "storeless" else dict(
+            adapter_store=make_store(pim, factors),
+            adapters=N_ADAPTERS if key == "b" else 0)
+        runs[key].append(steady_decode_profile(
+            pim, cfg.vocab_size, steps=STEADY_STEPS,
+            label=f"phase2d steady {key} {len(runs[key]) + 1}", **kw))
+    steady = {key: {f: sum(r[f] for r in rs) / len(rs)
+                    for f in ("steady_step_ms", "device_busy_ms")}
+              for key, rs in runs.items()}
+    base = steady["storeless"]
+    log(f"phase2d: steady step (B={SLOTS}), host clock, each a mean of 2 "
+        f"runs in turns: storeless (2c(a)'s engine) "
+        f"{base['steady_step_ms']:.2f} ms, (a) "
+        f"{steady['a']['steady_step_ms']:.2f} ms, (b) "
+        f"{steady['b']['steady_step_ms']:.2f} ms ("
+        f"{steady['b']['steady_step_ms'] - base['steady_step_ms']:+.2f} "
+        f"ms); device busy {base['device_busy_ms']:.3f} / "
+        f"{steady['a']['device_busy_ms']:.3f} / "
+        f"{steady['b']['device_busy_ms']:.3f} ms a step; the adapter work "
+        f"(one gather, {L} x (casts, 2 product pairs, 2 adds)) "
+        f"{lora_ms:.3f} ms of device time a step")
+    out.update(steady=steady, steady_runs=runs, lora_device_ms=lora_ms)
+    del pim
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["f"] = merged_dense_check(factors[1])
     return out
 
 
@@ -2618,7 +2997,7 @@ def phase5b(entries):
         f"decode steps, {wall / steps * 1e3:.2f} ms/step incl. admissions); "
         f"kernel launches {launches} = {steps} x {cfg.num_layers}, by route "
         f"{routes}; page leaks 0; peak memory {peak / 2**30:.2f} GiB")
-    set_launches(entries, routes)
+    set_launches(entries, routes, "5b")
     del engine
 
     eng = admitted_engine(pim, cfg.vocab_size)
@@ -2651,6 +3030,34 @@ def phase5b(entries):
     del eng
     g_busy = steady_decode_profile(gpim, cfg.vocab_size,
                                    label="phase2c(e) Gemma-2-2B")
+
+    # phase 2d(e): the same requests over adapters 0..G2_ADAPTERS
+    store = make_store(gpim, {aid: adapter_factors(cfg, aid)
+                                 for aid in range(1, G2_ADAPTERS + 1)})
+    eng = ServingEngine(gpim, page_size=PAGE_SIZE, adapter_store=store)
+    zero_paged_counts()
+    d_outs, d_wall = serve_checked(
+        "phase2d(e) Gemma-2-2B", eng,
+        make_requests(cfg.vocab_size, G2_REQUESTS, G2_NEW_TOKENS, SEED,
+                      G2_ADAPTERS))
+    d_routes = check_routes("phase2d(e)", eng.decode_steps * cfg.num_layers,
+                            0)
+    leaked = [rid for rid, o in d_outs.items()
+              if rid % (G2_ADAPTERS + 1) == 0
+              and tuple(o.token_ids) != tuple(outs[rid].token_ids)]
+    if leaked:
+        raise AssertionError(f"phase2d(e): adapter-0 requests {leaked} "
+                             "differ from phase 2c(e)'s tokens")
+    store.assert_invariants()
+    set_launches([e for e in entries if "decode" in e["name"]], d_routes,
+                 "2d(e)")
+    log(f"phase2d(e): Gemma-2-2B over adapters 0..{G2_ADAPTERS} (rank "
+        f"{LORA_RANK}, {store.layout.pages_per_adapter} pages an adapter) "
+        f"on the async graph engine: {G2_REQUESTS} requests in "
+        f"{d_wall:.3f} s, adapter-0 requests identical to 2c(e)'s; "
+        f"launches by route {d_routes}; loads {store.loads}, hits "
+        f"{store.hits}")
+    del eng, store
     del pim, gpim, model
     gc.collect()
     torch.cuda.empty_cache()
@@ -2660,7 +3067,8 @@ def phase5b(entries):
             "peak_gib": peak / 2**30, "logits_rel_l2": rel,
             "argmax_agreement": agree,
             "graphs_async": {**g_busy, "wall_s": g_wall,
-                             "launches_by_route": g_routes}}
+                             "launches_by_route": g_routes},
+            "adapters": {"wall_s": d_wall, "launches_by_route": d_routes}}
 
 
 def main() -> int:
@@ -2710,6 +3118,10 @@ def main() -> int:
         log(f"phase2b summary: {json.dumps(quantized)}")
         graphed = phase2c(model_pim, whole_tokens, int8_tokens, verify)
         log(f"phase2c summary: {json.dumps(graphed)}")
+        tenancy = phase2d(model_pim, whole_tokens, {
+            "decode": dec, "decode_int8": dec8, "chunk": entry_w,
+            "verify": verify})
+        log(f"phase2d summary: {json.dumps(tenancy)}")
         del model_pim
         dec256, simt256 = phase1_gemma()
         flash, flash256 = phase3()

@@ -19,7 +19,9 @@ same entry points) and the flash kernels at head_dim 256.  Serving decodes
 asynchronously, replays its per-step phase functions from CUDA graphs on
 the card (``ParallelInferenceModel(cuda_graphs=...)``) and serves
 draft-k-verify speculative decoding (``ServingEngine(draft=, spec_k=)``,
-:func:`.trace.speculative_generate`).  The port
+:func:`.trace.speculative_generate`), and serves many LoRA adapters
+through the same phase functions (:mod:`.tenancy`,
+``ServingEngine(adapter_store=)``; :mod:`.peft`).  The port
 imports ``torch`` and nothing of JAX or of the JAX package.  Entry points
 run on the card unless the caller passes ``device="cpu"``.
 """

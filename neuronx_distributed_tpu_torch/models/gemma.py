@@ -200,9 +200,10 @@ class Gemma2Block(nn.Module):
         self.mlp = LlamaMLP(cfg, device)
 
     def forward(self, x, positions, kv_cache=None, cache_offset=0,
-                kv_valid=None, paged=None, segment_ids=None):
+                kv_valid=None, paged=None, segment_ids=None, adapter=None):
         h, cache = self.attn(self.input_norm(x), positions, kv_cache,
-                             cache_offset, kv_valid, paged, segment_ids)
+                             cache_offset, kv_valid, paged, segment_ids,
+                             adapter)
         x = x + self.post_attn_norm(h)
         return x + self.post_ffw_norm(self.mlp(self.pre_ffw_norm(x))), cache
 
@@ -248,7 +249,7 @@ class _TiedDecoder(nn.Module):
 
     def _backbone(self, ids, positions=None, kv_caches=None, cache_offset=0,
                   kv_valid=None, block_table=None, paged_kernel=False,
-                  segment_ids=None):
+                  segment_ids=None, adapters=None):
         h = self.embed(ids)
         # the scale rounded to the activation type first (as JAX), made on
         # the device: a host tensor here would be a copy, which a CUDA
@@ -257,13 +258,14 @@ class _TiedDecoder(nn.Module):
                            dtype=h.dtype, device=h.device)
         return self.final_norm(run_layers(
             self.layers(), h, positions, kv_caches, cache_offset, kv_valid,
-            block_table, paged_kernel, segment_ids, self.config.remat))
+            block_table, paged_kernel, segment_ids, self.config.remat,
+            adapters))
 
     def forward(self, ids, positions=None, kv_caches=None, cache_offset=0,
                 kv_valid=None, block_table=None, paged_kernel=False,
-                segment_ids=None):
+                segment_ids=None, adapters=None):
         h = self._backbone(ids, positions, kv_caches, cache_offset, kv_valid,
-                           block_table, paged_kernel, segment_ids)
+                           block_table, paged_kernel, segment_ids, adapters)
         logits = self.head(h)
         return (logits, kv_caches) if kv_caches is not None else logits
 

@@ -363,6 +363,24 @@ def _scatter_paged(kv_cache: KVCache, k, v, paged: PagedStep) -> None:
             hot, new.to(c.dtype), c[paged.phys, paged.cell])
 
 
+def apply_adapter(cfg: LlamaConfig, x, q, v, adapter):
+    """Per-slot LoRA deltas on the q/v pair (multi-adapter serving):
+    ``adapter`` holds one layer's gathered factors ``(a_q [B, H, r], b_q
+    [B, r, NQ*D], a_v, b_v)`` with the ``alpha/r`` scale already in b;
+    ``q += (x a_q) b_q`` and ``v += (x a_v) b_v``, one batched product pair
+    per projection in the compute type.  A slot on adapter 0 gathers the
+    NULL page's zeros and adds an exact zero."""
+    a_q, b_q, a_v, b_v = (f.to(cfg.dtype) for f in adapter)
+    B, S = x.shape[0], x.shape[1]
+    xc = x.to(cfg.dtype)
+    dq = torch.einsum("bsr,bro->bso",
+                      torch.einsum("bsh,bhr->bsr", xc, a_q), b_q)
+    dv = torch.einsum("bsr,bro->bso",
+                      torch.einsum("bsh,bhr->bsr", xc, a_v), b_v)
+    return (q + dq.reshape(B, S, *q.shape[2:]),
+            v + dv.reshape(B, S, *v.shape[2:]))
+
+
 class LlamaAttention(nn.Module):
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
@@ -379,9 +397,14 @@ class LlamaAttention(nn.Module):
 
     def forward(self, x, positions, kv_cache: Optional[KVCache] = None,
                 cache_offset=0, kv_valid=None,
-                paged: Optional[PagedStep] = None, segment_ids=None):
+                paged: Optional[PagedStep] = None, segment_ids=None,
+                adapter=None):
         cfg = self.config
         q, k, v = self.qkv(x)
+        if adapter is not None:
+            # part of the projection: before RoPE and before the page
+            # write, so the pool holds the adapted v
+            q, v = apply_adapter(cfg, x, q, v, adapter)
         sin, cos = rope_sin_cos(positions, cfg.head_dim_, cfg.rope_theta,
                                 cfg.rope_scaling_)
         q = apply_rope(q, sin, cos)
@@ -480,9 +503,10 @@ class LlamaBlock(nn.Module):
 
     def forward(self, x, positions, kv_cache=None, cache_offset=0,
                 kv_valid=None, paged: Optional[PagedStep] = None,
-                segment_ids=None):
+                segment_ids=None, adapter=None):
         h, cache = self.attn(self.input_norm(x), positions, kv_cache,
-                             cache_offset, kv_valid, paged, segment_ids)
+                             cache_offset, kv_valid, paged, segment_ids,
+                             adapter)
         x = x + h
         return x + self.mlp(self.post_attn_norm(x)), cache
 
@@ -507,22 +531,26 @@ class LlamaModel(nn.Module):
 
     def forward(self, ids, positions=None, kv_caches=None, cache_offset=0,
                 kv_valid=None, block_table=None, paged_kernel=False,
-                segment_ids=None):
+                segment_ids=None, adapters=None):
         return self.final_norm(run_layers(
             self.layers(), self.embed(ids), positions, kv_caches,
             cache_offset, kv_valid, block_table, paged_kernel, segment_ids,
-            self.config.remat))
+            self.config.remat, adapters))
 
 
 def run_layers(layers, h, positions=None, kv_caches=None, cache_offset=0,
                kv_valid=None, block_table=None, paged_kernel=False,
-               segment_ids=None, remat: str = "none") -> torch.Tensor:
+               segment_ids=None, remat: str = "none",
+               adapters=None) -> torch.Tensor:
     """The decoder stack over the embedded ``h [B, S, H]``.  Without
     caches: the training / teacher-forced forward,
     with per-document positions and segment ids (packed batches) and
     ``remat`` per block when gradients are on.  With caches: the serving
     forward, the paged step planned once for every layer when there is a
-    block table."""
+    block table.  ``adapters``: one :func:`apply_adapter` factor tuple per
+    layer (multi-adapter serving), or None."""
+    if adapters is None:
+        adapters = [None] * len(layers)
     if positions is None:
         positions = torch.arange(h.shape[1], device=h.device
                                  ).expand(h.shape[:2])
@@ -530,10 +558,10 @@ def run_layers(layers, h, positions=None, kv_caches=None, cache_offset=0,
         raise ValueError("a block table needs the page pool caches")
     if kv_caches is None:
         remat = remat if torch.is_grad_enabled() else "none"
-        for block in layers:
+        for block, adapter in zip(layers, adapters):
             step = maybe_remat(
-                lambda x, p, blk=block: blk(
-                    x, p, None, 0, kv_valid, None, segment_ids)[0],
+                lambda x, p, blk=block, ad=adapter: blk(
+                    x, p, None, 0, kv_valid, None, segment_ids, ad)[0],
                 remat)
             h = step(h, positions)
         return h
@@ -544,7 +572,7 @@ def run_layers(layers, h, positions=None, kv_caches=None, cache_offset=0,
                                 paged_kernel, len(kv_caches[0]) == 6)
     for i, block in enumerate(layers):
         h, _ = block(h, positions, kv_caches[i], cache_offset, kv_valid,
-                     paged)
+                     paged, None, adapters[i])
     return h
 
 
@@ -582,9 +610,9 @@ class LlamaForCausalLM(nn.Module):
 
     def forward(self, ids, positions=None, kv_caches=None, cache_offset=0,
                 kv_valid=None, block_table=None, paged_kernel=False,
-                segment_ids=None):
+                segment_ids=None, adapters=None):
         h = self.model(ids, positions, kv_caches, cache_offset, kv_valid,
-                       block_table, paged_kernel, segment_ids)
+                       block_table, paged_kernel, segment_ids, adapters)
         logits = self.lm_head(h)
         return (logits, kv_caches) if kv_caches is not None else logits
 

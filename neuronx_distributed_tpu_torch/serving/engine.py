@@ -37,6 +37,15 @@ ignored.
   rejected tail (its pages were reserved at admission).  Greedy output is
   token-identical to the plain engine up to the arithmetic of the two
   attention paths; sampled rows use Leviathan accept/reject.
+- ``adapter_store=`` (a :class:`~..tenancy.AdapterStore`) serves many LoRA
+  adapters through the same phase functions (S-LoRA): ``Request.adapter_id``
+  names the adapter, admission pins it (a cold adapter's pages are written
+  into the device adapter pool) before any KV page is taken, and every
+  prefill, chunk, decode and verify adds each slot's low-rank q/v deltas,
+  gathered from the pool by the slot's adapter page table.  Adapter 0 is
+  the base model (the pool's zero NULL page).  The adapter tables go up
+  inside the step's one packed put when they changed.  Prefix keys are
+  salted per adapter, so prompt pages are never shared across adapters.
 
 Greedy outputs are token-identical to a solo ``generate`` of the same
 prompt up to the arithmetic order of the attention path taken.  Chunked
@@ -54,6 +63,7 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from neuronx_distributed_tpu_torch.kvcache.allocator import PoolExhausted
 from neuronx_distributed_tpu_torch.ops.paged_attention import resolve_paged_kernel
 from neuronx_distributed_tpu_torch.serving.paged import PagedKVManager
 from neuronx_distributed_tpu_torch.serving.request import (
@@ -62,7 +72,11 @@ from neuronx_distributed_tpu_torch.serving.request import (
     RequestOutput,
     RequestState,
 )
-from neuronx_distributed_tpu_torch.serving.scheduler import SlotScheduler
+from neuronx_distributed_tpu_torch.serving.scheduler import (
+    AdmissionError,
+    SlotScheduler,
+)
+from neuronx_distributed_tpu_torch.tenancy.store import AdapterLayout
 from neuronx_distributed_tpu_torch.trace.engine import (
     _filtered_logits,
     gumbel_draw,
@@ -255,7 +269,11 @@ class ServingEngine:
       the synchronous reference).
     - ``draft``/``spec_k``: speculative decoding with a second
       ``ParallelInferenceModel`` of the same serving shapes and vocab
-      (both or neither).
+      (both or neither).  A draft of the target's adapter geometry (a
+      self draft) proposes under each slot's adapter; another proposes
+      from its base weights, and the adapter-aware verify corrects it.
+    - ``adapter_store``: an :class:`~..tenancy.AdapterStore` laid out for
+      ``model`` (multi-adapter serving); None serves adapter 0 only.
     - ``device`` must be the model's device; ``None`` means CUDA (raises
       without it).
 
@@ -273,7 +291,7 @@ class ServingEngine:
                  paged_kernel="auto", kv_quant: Optional[str] = None,
                  prefill_chunk_tokens: Optional[int] = None,
                  async_decode: bool = True, draft=None, spec_k: int = 0,
-                 device=None):
+                 adapter_store=None, device=None):
         device = resolve_device(device)
         if device != model.device:
             raise ValueError(f"engine device {device} != model device "
@@ -365,7 +383,10 @@ class ServingEngine:
         self._pending: Optional[tuple] = None
         self._tables_dev = None  # device mirror of the block tables
         PP = self.T // page_size
-        self._io = _Staging(device, (3 + self._spec_k) * self.B + self.B * PP,
+        AP = (0 if adapter_store is None
+              else adapter_store.layout.pages_per_adapter)
+        self._io = _Staging(device,
+                            (3 + self._spec_k) * self.B + self.B * (PP + AP),
                             (self._spec_k + 3) * self.B)
         self.decode_steps = 0  # batched decode steps run (plain mode)
         self.spec_rounds = 0   # speculative rounds run (spec mode)
@@ -374,6 +395,27 @@ class ServingEngine:
         self.spec_committed = 0
         self.prefill_chunks = 0  # chunk dispatches run
         self.quant_pages = 0  # pages written through a quantize-on-write
+        # multi-adapter state: the device adapter pool, per-slot adapter
+        # page tables (an all-NULL row is adapter 0) and their device
+        # mirror, and the slot -> pinned adapter map
+        self._adapters = adapter_store
+        self._atables_dev = None
+        self._draft_lora = False
+        if adapter_store is not None:
+            lay = adapter_store.layout
+            if AdapterLayout.for_model(model, lay.rank, lay.page_elems) != lay:
+                raise ValueError(
+                    f"adapter_store layout {lay} does not fit the model")
+            self._apool = model.make_adapter_pool(lay, adapter_store.num_pages)
+            self._adapter_tables = np.zeros((self.B, lay.pages_per_adapter),
+                                            np.int32)
+            self._slot_adapter = [0] * self.B
+            self._adapter_dirty = True
+            if draft is not None and AdapterLayout.for_model(
+                    draft, lay.rank, lay.page_elems) == lay:
+                # the draft slices the target's pool with the same layout
+                self._draft_lora = True
+                draft._adapter_layout = lay
 
     # -- request surface ---------------------------------------------------
 
@@ -387,12 +429,22 @@ class ServingEngine:
 
     def submit(self, request: Request) -> None:
         """Queue a request.  Raises ``AdmissionError`` when it can never
-        fit, ``BackpressureError`` when the bounded queue is full,
-        ``ValueError`` for a sampled request on a seedless engine."""
+        fit or names an adapter the engine cannot serve,
+        ``BackpressureError`` when the bounded queue is full, ``ValueError``
+        for a sampled request on a seedless engine."""
         if request.sampling.temperature > 0.0 and self._seed is None:
             raise ValueError(
                 f"request {request.request_id} samples (temperature "
                 f"{request.sampling.temperature}) but the engine has no seed")
+        aid = request.adapter_id
+        if aid and self._adapters is None:
+            raise AdmissionError(
+                f"request {request.request_id} names adapter {aid} but the "
+                "engine has no adapter_store")
+        if aid and not self._adapters.registered(aid):
+            raise AdmissionError(
+                f"request {request.request_id} names unregistered adapter "
+                f"{aid}")
         self.scheduler.submit(request, now=self._clock())
 
     def cancel(self, request_id: int) -> bool:
@@ -461,14 +513,20 @@ class ServingEngine:
                 if req.state is RequestState.DECODE]
 
     def _prefill_into_slot(self, slot: int, req: Request, outputs: list) -> None:
-        """Block-table assembly (prefix lookup, atomic page allocation),
-        then either the first token from a whole prefill (single-request
-        prefill unless the whole prompt is cached, page writes of only the
-        uncached prompt pages) or, in chunked mode, the reserved fresh
-        pages handed to the chunk loop.  The draft, in spec mode, prefills
-        its contiguous row whole either way.  A failure mid-admission
-        releases every page, fails the one request and re-raises."""
+        """The adapter pin (a cold adapter's pages written into the adapter
+        pool), block-table assembly (prefix lookup, atomic page
+        allocation), then either the first token from a whole prefill
+        (single-request prefill unless the whole prompt is cached, page
+        writes of only the uncached prompt pages) or, in chunked mode, the
+        reserved fresh pages handed to the chunk loop.  The draft, in spec
+        mode, prefills its contiguous row whole either way.  A failure
+        mid-admission releases the pin and every page, fails the one
+        request and re-raises; an adapter pool with every page pinned
+        fails only the request, and serving goes on."""
         self._slot_gen[slot] += 1  # a fresh occupancy generation begins
+        aid = req.adapter_id
+        if aid and not self._acquire_adapter(slot, req, outputs):
+            return
         L = req.prompt_len
         ids = np.zeros((1, self.C), np.int64)
         ids[0, self.C - L:] = req.prompt_ids  # LEFT-padded
@@ -482,8 +540,15 @@ class ServingEngine:
             self._fail_slot(slot, req, outputs, now,
                             reason=f"page_alloc:{type(e).__name__}")
             raise
+        # an adapter request prefills under its adapter (adapter 0, the
+        # base model, takes the plain prefill)
+        adapter = ((self._apool, self._adapter_tables[slot][None, :])
+                   if aid else None)
         if self._spec_k:
-            _, drow = self._draft_model.prefill_one(ids, valid_np[None, :])
+            _, drow = (self._draft_model.prefill_one_lora(
+                ids, valid_np[None, :], *adapter)
+                if adapter is not None and self._draft_lora
+                else self._draft_model.prefill_one(ids, valid_np[None, :]))
             self._draft_caches, self._draft_valid = \
                 self._draft_model.insert_slot(self._draft_caches, drow,
                                               self._draft_valid, row_valid,
@@ -504,7 +569,10 @@ class ServingEngine:
         if cached is not None:
             logits = cached  # exact full-prompt hit: no prefill compute
         else:
-            logits, row_caches = self.model.prefill_one(ids, valid_np[None, :])
+            logits, row_caches = (
+                self.model.prefill_one_lora(ids, valid_np[None, :], *adapter)
+                if adapter is not None
+                else self.model.prefill_one(ids, valid_np[None, :]))
             for lp, phys in fresh:
                 self.caches = self.model.write_page(
                     self.caches, row_caches, lp, phys, row_valid=valid_np)
@@ -514,6 +582,32 @@ class ServingEngine:
         self._set_sampling_state(slot, req)
         self._finish_prefill(slot, req, logits, outputs,
                              prefilled_fresh=cached is None)
+
+    def _acquire_adapter(self, slot: int, req: Request, outputs: list
+                         ) -> bool:
+        """Pin the request's adapter at admission, before any KV page is
+        taken, and write a cold adapter's pages into the pool; from here
+        the slot holds the pin and every terminal path releases it
+        (:meth:`_release_adapter`).  Returns False when the adapter pool
+        has no page to spare (every resident adapter pinned): the request
+        fails and serving goes on.  Any other failure fails the request
+        and re-raises."""
+        aid = req.adapter_id
+        try:
+            loads = self._adapters.acquire(aid)
+        except BaseException as e:
+            self._fail_slot(slot, req, outputs, self._clock(),
+                            reason=f"adapter:{type(e).__name__}")
+            if isinstance(e, PoolExhausted):
+                return False
+            raise
+        self._slot_adapter[slot] = aid
+        self._adapter_tables[slot] = self._adapters.table(aid)
+        self._adapter_dirty = True
+        if loads:
+            phys, blocks = zip(*loads)
+            self.model.write_adapter_page(self._apool, np.stack(blocks), phys)
+        return True
 
     def _set_sampling_state(self, slot: int, req: Request) -> None:
         """The slot's per-request sampler state, written once at
@@ -591,10 +685,13 @@ class ServingEngine:
         page = self._kv.page_size
         off = st.fresh[st.next_i][0] * page
         width = n_pages * page
+        adapter = ((self._apool, self._adapter_tables[slot][None, :])
+                   if self._adapters is not None else (None, None))
         st.logits, self.caches = self.model.prefill_chunk_pages(
             st.ids_row[None, off:off + width], off,
             self._kv.tables[slot][None, :], self.caches,
-            st.valid_row[None, :], paged_kernel=self._paged_kernel)
+            st.valid_row[None, :], paged_kernel=self._paged_kernel,
+            apool=adapter[0], atables=adapter[1])
         st.next_i += n_pages
         st.req.prefill_chunks += 1
         self.prefill_chunks += 1
@@ -609,13 +706,20 @@ class ServingEngine:
 
     def _stage(self, *extra) -> list:
         """The step's one packed put: next tokens, offsets, ``extra``
-        arrays, and the block tables when admission or release changed
-        them (the device mirror is reused otherwise)."""
+        arrays, and the block tables and adapter tables when admission or
+        release changed them (the device mirrors are reused otherwise)."""
         dirty = self._kv.tables_dirty or self._tables_dev is None
+        adirty = self._adapters is not None and (
+            self._adapter_dirty or self._atables_dev is None)
         arrays = [self._next_tok, self._offsets, *extra]
         if dirty:
             arrays.append(self._kv.tables)
+        if adirty:
+            arrays.append(self._adapter_tables)
         put = self._io.put(*arrays)
+        if adirty:
+            self._atables_dev = put.pop()
+            self._adapter_dirty = False
         if dirty:
             self._tables_dev = put.pop()
             self._kv.tables_dirty = False
@@ -627,9 +731,15 @@ class ServingEngine:
         in flight: one put, no wait for the card."""
         tok_idx = self._tok_idx(active)
         tok, offs = self._stage()
-        logits, self.caches, self.valid = self.model.decode_pages(
-            tok[:, None], offs, self._tables_dev, self.caches, self.valid,
-            paged_kernel=self._paged_kernel)
+        if self._adapters is not None:
+            logits, self.caches, self.valid = self.model.decode_pages_lora(
+                tok[:, None], offs, self._tables_dev, self.caches,
+                self.valid, self._apool, self._atables_dev,
+                paged_kernel=self._paged_kernel)
+        else:
+            logits, self.caches, self.valid = self.model.decode_pages(
+                tok[:, None], offs, self._tables_dev, self.caches,
+                self.valid, paged_kernel=self._paged_kernel)
         self.decode_steps += 1
         if self._kv_quant is not None:
             # every active slot's decode write requantized its page
@@ -697,10 +807,11 @@ class ServingEngine:
         draft = self._draft_model
         dtok = tok.long()[:, None]
         props, q_filts, dfin = [], [], None
+        dad = self._draft_adapter()
         for j in range(k):
             dlogits, self._draft_caches, self._draft_valid = \
                 draft.decode_slots(dtok, doffs[j], self._draft_caches,
-                                   self._draft_valid)
+                                   self._draft_valid, *dad)
             ptoks, qf, fin = propose_rows(dlogits, self._keys, tok_idx + j,
                                           self._temps, self._topks,
                                           self._topps)
@@ -710,9 +821,11 @@ class ServingEngine:
             dtok = ptoks[:, None]
         chunk = torch.cat([tok.long()[:, None]] + [p[:, None] for p in props],
                           dim=1)
+        ad = ((self._apool, self._atables_dev) if self._adapters is not None
+              else (None, None))
         vlogits, self.caches, self.valid = self.model.verify_pages(
             chunk, offs, self._tables_dev, self.caches, self.valid,
-            paged_kernel=self._paged_kernel)
+            paged_kernel=self._paged_kernel, apool=ad[0], atables=ad[1])
         self.spec_rounds += 1
         if self._kv_quant is not None:
             # the page(s) each active slot's k+1-token chunk straddles
@@ -787,8 +900,16 @@ class ServingEngine:
             _, self._draft_caches, self._draft_valid = \
                 self._draft_model.decode_slots(
                     last_prop[:, None], offs, self._draft_caches,
-                    self._draft_valid)
+                    self._draft_valid, *self._draft_adapter())
         return post
+
+    def _draft_adapter(self) -> tuple:
+        """``(apool, atables)`` for the draft's steps: each slot's adapter
+        when the draft shares the target's adapter geometry, else the
+        draft's base weights."""
+        if self._draft_lora:
+            return self._apool, self._atables_dev
+        return None, None
 
     def _finish_decode(self, post: list, outputs: list) -> None:
         """The collected step's deferred host work -- inter-token times,
@@ -861,6 +982,19 @@ class ServingEngine:
         self._temps[slot] = 0.0  # a parked row is argmaxed and ignored
         self._last_tok_time[slot] = None
         self._kv.release_slot(slot)
+        self._release_adapter(slot)
+
+    def _release_adapter(self, slot: int) -> None:
+        """Drop the slot's adapter pin and null its adapter table row.
+        Idempotent: every terminal path parks its slot, and the sweep
+        parks every free slot, a swept slot whose step is in flight
+        included (the collect then drops that step by its generation)."""
+        if self._adapters is None or not self._slot_adapter[slot]:
+            return
+        self._adapters.release(self._slot_adapter[slot])
+        self._slot_adapter[slot] = 0
+        self._adapter_tables[slot] = 0
+        self._adapter_dirty = True
 
     def _park_free_slots(self) -> None:
         """Reset every slot without a live occupant (after a sweep)."""

@@ -103,7 +103,12 @@ class PagedKVManager:
         (evicting LRU cached chains when the free list is short).  Returns
         the cached prefill logits on an exact full-prompt hit, else None.
         Transactional: on any failure every page taken is released."""
-        keys = page_keys(ids_row, valid_row, self.page_size)[:self.ctx_pages]
+        # a prompt page's KV depends on the adapter that prefilled it (v
+        # carries the adapter's delta), so keys are salted with the
+        # request's adapter: prefixes are shared within an adapter, never
+        # across; adapter-0 keys keep their unsalted bytes
+        keys = page_keys(ids_row, valid_row, self.page_size,
+                         salt=req.adapter_id)[:self.ctx_pages]
         matched: List[int] = []
         payload = None
         if self.index is not None:

@@ -1,7 +1,6 @@
 """Request lifecycle for the continuous-batching serving engine (a copy of
 ``neuronx_distributed_tpu/serving/request.py`` without the fields of the
-slices not yet ported: tenancy, preemption, tracing and live-weights
-accounting).
+slices not yet ported: preemption, tracing and live-weights accounting).
 
 A :class:`Request` enters QUEUED, moves to PREFILL when a slot is granted,
 DECODE after its prompt's KV is in the pool, and ends in exactly one of
@@ -80,6 +79,9 @@ class Request:
     deadline_s: Optional[float] = None
     stream_cb: Optional[Callable[["Request", int], None]] = None
     priority: str = PRIORITY_INTERACTIVE
+    # the LoRA adapter the request decodes under (tenancy): 0 is the base
+    # model, served by the adapter pool's zero NULL page
+    adapter_id: int = 0
 
     # lifecycle (engine-owned)
     state: RequestState = RequestState.QUEUED
@@ -106,6 +108,10 @@ class Request:
             raise ValueError(
                 f"request {self.request_id}: max_new_tokens must be >= 1, "
                 f"got {self.max_new_tokens}")
+        if self.adapter_id < 0:
+            raise ValueError(
+                f"request {self.request_id}: adapter_id must be >= 0, "
+                f"got {self.adapter_id}")
         if self.priority not in PRIORITIES:
             raise ValueError(
                 f"request {self.request_id}: priority must be one of "
@@ -161,6 +167,7 @@ class RequestOutput:
     prefill_chunks: int = 0
     spec_proposed: int = 0
     spec_accepted: int = 0
+    adapter_id: int = 0  # the LoRA adapter the request decoded under
 
     @property
     def acceptance_rate(self) -> Optional[float]:
@@ -194,4 +201,5 @@ class RequestOutput:
             prefill_chunks=req.prefill_chunks,
             spec_proposed=req.spec_proposed,
             spec_accepted=req.spec_accepted,
+            adapter_id=req.adapter_id,
         )

@@ -202,11 +202,17 @@ class PhaseGraphs:
         self.replays = 0
 
     @staticmethod
-    def state_key(caches, valid) -> tuple:
+    def state_key(caches, valid, apool=None) -> tuple:
+        """The state a phase captures by address: the caches, the validity
+        mask and, for an adapter phase, the adapter pool (its page writes
+        are in place, so a graph keeps reading the current pages)."""
         first = caches[0]
-        return (len(caches), tuple((t.shape, t.dtype) for t in first),
-                tuple(t.data_ptr() for entry in caches for t in entry),
-                valid.shape, valid.data_ptr())
+        key = (len(caches), tuple((t.shape, t.dtype) for t in first),
+               tuple(t.data_ptr() for entry in caches for t in entry),
+               valid.shape, valid.data_ptr())
+        if apool is not None:
+            key += (apool.shape, apool.data_ptr())
+        return key
 
     def run(self, key, fn: Callable, inputs: Sequence[torch.Tensor]
             ) -> torch.Tensor:
@@ -278,10 +284,11 @@ class ParallelInferenceModel:
     # -- phase functions ---------------------------------------------------
 
     @torch.no_grad()
-    def _context_fn(self, ids, valid):
+    def _context_fn(self, ids, valid, adapters=None):
         """Prefill ``ids [B, C]`` with validity ``valid [B, C]`` (real,
         non-left-pad tokens) into fresh ``[B, T]`` caches; returns the
-        last-position logits ``[B, V]`` and the caches."""
+        last-position logits ``[B, V]`` and the caches.  ``adapters``: the
+        per-layer LoRA factors of :meth:`_gather_adapters`, or None."""
         ids, valid = self._tensor(ids, torch.long), self._tensor(valid)
         B, C = ids.shape
         T = self.config.max_total_len
@@ -292,7 +299,7 @@ class ParallelInferenceModel:
                                device=self.device)], dim=1)
         caches = self.empty_caches(B)
         logits, caches = self.module(ids, positions, caches, 0,
-                                     kv_valid=kv_valid)
+                                     kv_valid=kv_valid, adapters=adapters)
         return logits[:, -1, :], caches
 
     def prefill_one(self, ids, valid):
@@ -316,31 +323,40 @@ class ParallelInferenceModel:
                                      kv_valid=valid)
         return logits[:, -1, :], caches, valid
 
-    def decode_slots(self, tok, offsets, caches, valid):
+    def decode_slots(self, tok, offsets, caches, valid, apool=None,
+                     atables=None):
         """One token step with per-slot cache offsets ``[B]`` over
         contiguous caches: every slot writes its new key at its own
         position and takes its RoPE phase from its own validity prefix; an
-        offset of ``T`` parks an idle slot.  Returns ``(logits [B, V],
-        caches, valid)``."""
-        tok, offsets = self._tensor(tok, torch.long), self._tensor(offsets)
+        offset of ``T`` parks an idle slot.  ``apool``/``atables`` run the
+        step under each slot's LoRA adapter (a speculative draft that
+        shares the target's adapters).  Returns ``(logits [B, V], caches,
+        valid)``."""
+        inputs = (self._tensor(tok, torch.long), self._tensor(offsets))
+        if apool is not None:
+            inputs += (self._tensor(atables),)
+
+        def fn(t, o, at=None):
+            return self._decode_slots_fn(t, o, caches, valid, apool, at)
+
         if not self.cuda_graphs:
-            return self._decode_slots_fn(tok, offsets, caches, valid), \
-                caches, valid
+            return fn(*inputs), caches, valid
         logits = self.graphs.run(
-            ("decode_slots", PhaseGraphs.state_key(caches, valid)),
-            lambda t, o: self._decode_slots_fn(t, o, caches, valid),
-            (tok, offsets))
+            ("decode_slots", apool is not None,
+             PhaseGraphs.state_key(caches, valid, apool)), fn, inputs)
         return logits, caches, valid
 
     @torch.no_grad()
-    def _decode_slots_fn(self, tok, offsets, caches, valid):
+    def _decode_slots_fn(self, tok, offsets, caches, valid, apool=None,
+                         atables=None):
         T = valid.shape[1]
         ar = torch.arange(T, device=self.device)[None, :]
         valid.masked_fill_(ar == offsets[:, None], 1)
         before = torch.where(ar < offsets[:, None], valid, 0)
         positions = before.sum(dim=1, keepdim=True)
         logits, _ = self.module(tok, positions, caches, offsets,
-                                kv_valid=valid)
+                                kv_valid=valid,
+                                adapters=self._gather_adapters(apool, atables))
         return logits[:, -1, :]
 
     @torch.no_grad()
@@ -391,13 +407,15 @@ class ParallelInferenceModel:
     @torch.no_grad()
     def _paged_step_fn(self, toks, offsets, block_table, caches, valid,
                        paged_kernel: bool, update_valid: bool = True,
-                       last_only: bool = True):
+                       last_only: bool = True, apool=None, atables=None):
         """THE paged phase function: token ``s`` of slot ``b`` is written
         at cache index ``offsets[b] + s`` through the block table;
         positions are prefix counts of the validity row.  ``S = 1`` is
         decode; verify (``S = k+1``, ``last_only=False``) and chunked
         prefill (``update_valid=False``) are the same function with more
-        query rows.  An offset of ``T`` parks an idle slot."""
+        query rows.  ``apool``/``atables`` add each slot's LoRA deltas
+        (multi-adapter serving; any ``S``).  An offset of ``T`` parks an
+        idle slot."""
         S = toks.shape[1]
         T = valid.shape[1]
         idx = offsets[:, None] + torch.arange(S, device=self.device)[None, :]
@@ -409,28 +427,34 @@ class ParallelInferenceModel:
         positions = counts.gather(1, idx.clamp(0, T - 1).long())
         logits, caches = self.module(
             toks, positions, caches, offsets, kv_valid=valid,
-            block_table=block_table, paged_kernel=paged_kernel)
+            block_table=block_table, paged_kernel=paged_kernel,
+            adapters=self._gather_adapters(apool, atables))
         if last_only:
             logits = logits[:, -1, :]
         return logits, caches, valid
 
     def _paged_phase(self, name: str, toks, offsets, block_table, caches,
-                     valid, paged_kernel, last_only: bool):
+                     valid, paged_kernel, last_only: bool, apool=None,
+                     atables=None):
         """:meth:`_paged_step_fn` with ``valid`` updated, through the
-        phase's CUDA graph when graphs are on."""
+        phase's CUDA graph when graphs are on.  The adapter tables ride as
+        a graph input; the adapter pool is state, like the caches."""
         pk = self.paged_kernel if paged_kernel is None else bool(paged_kernel)
         inputs = (self._tensor(toks, torch.long), self._tensor(offsets),
                   self._tensor(block_table))
+        if apool is not None:
+            inputs += (self._tensor(atables),)
 
-        def fn(t, o, bt):
+        def fn(t, o, bt, at=None):
             return self._paged_step_fn(t, o, bt, caches, valid,
-                                       paged_kernel=pk,
-                                       last_only=last_only)[0]
+                                       paged_kernel=pk, last_only=last_only,
+                                       apool=apool, atables=at)[0]
 
         if not self.cuda_graphs:
             return fn(*inputs), caches, valid
         logits = self.graphs.run(
-            (name, pk, PhaseGraphs.state_key(caches, valid)), fn, inputs)
+            (name, pk, apool is not None,
+             PhaseGraphs.state_key(caches, valid, apool)), fn, inputs)
         return logits, caches, valid
 
     def decode_pages(self, tok, offsets, block_table, caches, valid,
@@ -443,20 +467,35 @@ class ParallelInferenceModel:
         return self._paged_phase("decode_pages", tok, offsets, block_table,
                                  caches, valid, paged_kernel, True)
 
+    def decode_pages_lora(self, tok, offsets, block_table, caches, valid,
+                          apool, atables, paged_kernel=None):
+        """:meth:`decode_pages` under per-slot LoRA adapters: ``apool`` is
+        the adapter pool (:meth:`make_adapter_pool`), ``atables [B,
+        pages_per_adapter]`` int32 each slot's adapter page map (an
+        all-NULL row is adapter 0, an exact no-op).  The deltas land on q
+        and v before RoPE and the page write, so the kernel and the gather
+        path attend the same adapted projections."""
+        return self._paged_phase("decode_pages_lora", tok, offsets,
+                                 block_table, caches, valid, paged_kernel,
+                                 True, apool, atables)
+
     def verify_pages(self, toks, offsets, block_table, caches, valid,
-                     paged_kernel=None):
+                     paged_kernel=None, apool=None, atables=None):
         """Batched speculative verification (``S = k + 1``): the
         ``last_only=False`` member of :meth:`_paged_step_fn`.  Token ``s``
         of slot ``b`` is written at cache index ``offsets[b] + s`` (int8
         pools requantize the pages the chunk covers) and position ``i``'s
         logits judge the draft's proposal ``i + 1``.  An offset of ``T``
-        parks an idle slot.  Returns ``(logits [B, S, V], caches,
-        valid)``."""
+        parks an idle slot.  ``apool``/``atables`` score each slot under
+        its own adapter, as its plain decode would.  Returns ``(logits [B,
+        S, V], caches, valid)``."""
         return self._paged_phase("verify_pages", toks, offsets, block_table,
-                                 caches, valid, paged_kernel, False)
+                                 caches, valid, paged_kernel, False, apool,
+                                 atables)
 
     def prefill_chunk_pages(self, ids, offset: int, block_table, caches,
-                            valid, paged_kernel=None):
+                            valid, paged_kernel=None, apool=None,
+                            atables=None):
         """Paged chunk prefill: the ``S = Cc``, ``update_valid=False``
         member of :meth:`_paged_step_fn`.  ``ids [1, Cc]`` is the chunk's
         slice of the left-padded prompt, ``offset`` the cache index its
@@ -464,15 +503,69 @@ class ParallelInferenceModel:
         and ``valid [1, T]`` the slot's validity row with the FULL prompt's
         validity written and zeros beyond it: positions are prefix counts
         of that row, so RoPE phases equal a whole ``prefill_one``'s, and
-        keys past the chunk are causally masked.  Returns the chunk's
-        last-position logits ``[1, V]`` (the final chunk's are the prefill
-        logits) and the pool."""
+        keys past the chunk are causally masked.  ``apool``/``atables [1,
+        pages_per_adapter]`` prefill under the request's adapter.  Returns
+        the chunk's last-position logits ``[1, V]`` (the final chunk's are
+        the prefill logits) and the pool."""
         pk = self.paged_kernel if paged_kernel is None else bool(paged_kernel)
         logits, caches, _ = self._paged_step_fn(
             self._tensor(ids, torch.long), self._tensor([offset]),
             self._tensor(block_table), caches, self._tensor(valid),
-            paged_kernel=pk, update_valid=False, last_only=True)
+            paged_kernel=pk, update_valid=False, last_only=True,
+            apool=apool,
+            atables=None if apool is None else self._tensor(atables))
         return logits, caches
+
+    # -- multi-adapter pool (tenancy) -----------------------------------------
+
+    def make_adapter_pool(self, layout, num_pages: int) -> torch.Tensor:
+        """The device adapter pool ``[num_pages, page_elems]`` fp32, all
+        zeros; page 0 is the NULL page, whose zeros ARE adapter 0.
+        ``layout`` (a :class:`~..tenancy.AdapterLayout`) is what
+        :meth:`_gather_adapters` slices the gathered pages by."""
+        self._adapter_layout = layout
+        return torch.zeros((num_pages, layout.page_elems),
+                           dtype=torch.float32, device=self.device)
+
+    @torch.no_grad()
+    def write_adapter_page(self, pool, block, phys):
+        """Write host pages into the adapter pool IN PLACE: ``block
+        [page_elems]`` into page ``phys``, or ``block [n, page_elems]``
+        into pages ``phys [n]`` (a cold load in one copy).  The pool keeps
+        its address, so every graph captured over it reads the new pages.
+        The host block is copied from pageable memory, which the copy
+        reads before it returns."""
+        idx = torch.as_tensor(np.atleast_1d(np.asarray(phys, np.int64)),
+                              device=self.device)
+        src = torch.as_tensor(np.asarray(block, np.float32)).reshape(
+            idx.numel(), -1)
+        pool.index_copy_(0, idx, src.to(self.device))
+        return pool
+
+    def _gather_adapters(self, apool, atables):
+        """Per-slot, per-layer LoRA factors from the adapter pool: ONE
+        gather of every slot's pages (``apool[atables]``), then the static
+        slices of the layout, ``[(a_q [B, H, r], b_q [B, r, NQ*D], a_v,
+        b_v), ...]`` per layer (views, no copy).  Slots on adapter 0 hold
+        all-NULL tables and gather zeros.  No pool: None (the base
+        model)."""
+        if apool is None:
+            return None
+        layout = self._adapter_layout
+        B = atables.shape[0]
+        flat = apool[atables.long()].reshape(B, -1)  # [B, AP * page_elems]
+        return [tuple(flat[:, off:off + shape[0] * shape[1]].view(B, *shape)
+                      for _, off, shape in entries)
+                for entries in layout.layer_entries()]
+
+    def prefill_one_lora(self, ids, valid, apool, atable):
+        """:meth:`prefill_one` under the request's adapter (``atable [1,
+        pages_per_adapter]``): the adapter's deltas shape the prompt's KV
+        as a merged dense model would.  Returns ``(logits [1, V], caches
+        B=1)``."""
+        return self._context_fn(
+            ids, valid, adapters=self._gather_adapters(
+                apool, self._tensor(atable)))
 
     @torch.no_grad()
     def write_page(self, caches, row_caches, logical_page: int,

@@ -141,7 +141,7 @@ def initialize_parallel_optimizer(config: TrainingConfig,
     ``trainable=`` (PEFT) is not ported yet."""
     if trainable is not None:
         raise NotImplementedError(
-            "trainable= (PEFT) is not ported yet (ROADMAP queue A, adapters)")
+            "trainable= (PEFT) is not ported yet (ROADMAP A13, PEFT training)")
     oc = config.optimizer
     lr = learning_rate if learning_rate is not None else build_lr_schedule(
         oc.learning_rate, oc.lr_schedule, oc.warmup_steps, oc.total_steps,

@@ -17,6 +17,10 @@ The file imports nothing of JAX:
   and fetch) makes no host sync (``torch.cuda.set_sync_debug_mode``).
 - The async graph engine's greedy tokens equal the synchronous eager
   engine's, plain and speculative.
+- A captured adapter decode (``decode_pages_lora``) reads the adapter
+  pool by address: after a cold load writes another adapter into the
+  evicted pages between two replays, the replay equals the eager call on
+  the new pages.
 """
 
 import numpy as np
@@ -199,3 +203,63 @@ def test_async_graph_engine_tokens_equal_sync_eager(dev, kv_quant):
                      spec.spec_rounds * cfg.num_layers]
     assert spec.spec_accepted > 0
     assert all(len(t) == 24 for t in got_spec.values())
+
+
+def test_adapter_graph_replay_reads_pages_loaded_after_capture(dev):
+    from neuronx_distributed_tpu_torch.tenancy import (
+        AdapterLayout,
+        make_adapter_store,
+    )
+
+    cfg, eager, graphed = _model("llama", dev)
+    eng = _admitted(eager, cfg.vocab_size, None)
+    tables = torch.from_numpy(eng._kv.tables).to(dev)
+    offsets = torch.from_numpy(eng._offsets.copy()).to(dev)
+    H, Q, V, r = (cfg.hidden_size, cfg.num_heads * cfg.head_dim_,
+                  cfg.num_kv_heads * cfg.head_dim_, 4)
+    rs = np.random.RandomState(0)
+    factors = {aid: [{"a_q": rs.randn(H, r) / H ** 0.5,
+                      "b_q": rs.randn(r, Q) * 0.05,
+                      "a_v": rs.randn(H, r) / H ** 0.5,
+                      "b_v": rs.randn(r, V) * 0.05}
+                     for _ in range(cfg.num_layers)] for aid in (1, 2)}
+    pims = {"eager": eager, "graph": graphed}
+    stores, pools = {}, {}
+    for mode, pim in pims.items():
+        pp = AdapterLayout.for_model(pim, r).pages_per_adapter
+        stores[mode] = make_adapter_store(pim, r, pp + 1)  # one adapter
+        for aid, f in factors.items():
+            stores[mode].register(aid, f, alpha=r)
+        pools[mode] = pim.make_adapter_pool(stores[mode].layout, pp + 1)
+
+    def load(aid):
+        for mode, pim in pims.items():
+            phys, blocks = zip(*stores[mode].acquire(aid))
+            pim.write_adapter_page(pools[mode], np.stack(blocks), phys)
+        return stores["graph"].table(aid)
+
+    first = load(1)
+    atables = np.zeros((SLOTS, len(first)), np.int32)
+    atables[0] = atables[2] = first
+    state = {m: _copy_state(eng) for m in pims}
+    address = pools["graph"].data_ptr()
+    for call in range(3):  # eager + capture, a replay, a replay after a load
+        if call == 2:
+            for store in stores.values():
+                store.release(1)
+            second = load(2)  # the evicted pages, rewritten in place
+            assert sorted(second) == sorted(first)
+            atables[0] = atables[2] = second
+            assert pools["graph"].data_ptr() == address
+        toks = torch.from_numpy(rs.randint(1, cfg.vocab_size,
+                                           size=(SLOTS, 1))).to(dev)
+        out = {}
+        for mode, pim in pims.items():
+            caches, valid = state[mode]
+            out[mode], _, _ = pim.decode_pages_lora(
+                toks, offsets, tables, caches, valid, pools[mode], atables)
+        torch.cuda.synchronize()
+        assert torch.equal(out["eager"], out["graph"]), call
+        offsets = torch.where(offsets >= TOTAL, offsets, offsets + 1)
+    assert graphed.graphs.captures == 1 and graphed.graphs.replays == 2
+    assert stores["graph"].evictions == 1

@@ -144,7 +144,8 @@ def test_walk_covers_the_slice():
                 "serving.paged", "serving.engine", "utils.logger",
                 "utils.device", "version", "config", "models.common",
                 "parallel.loss", "parallel.grads", "optimizer.adamw_fp32",
-                "trainer.trainer", "trainer.metrics"):
+                "trainer.trainer", "trainer.metrics", "tenancy",
+                "tenancy.store", "peft"):
         assert f"neuronx_distributed_tpu_torch.{mod}" in names
 
 
