@@ -57,7 +57,23 @@ chunks; (d) a self draft at k = 4 sharing the adapters; the steady step
 of (a) and (b) beside the storeless engine's and the device time of the
 adapter work; (e, inside phase 5b) Gemma-2-2B over 2 adapters; (f)
 ``prefill_one_lora`` against the ``peft.merge_lora`` dense model on a
-2-layer cut.  Phase 1 also holds and times the verify call (B =
+2-layer cut.  Phase 2e serves with SLO scheduling on the async graph
+engine: (a) 8 batch requests (256-512 prompt, 128 new tokens) fill the
+slots and 4 interactive ones (32-128 prompt, 32 new) arrive after 4
+steps and preempt batch victims, whose committed prompt chains stay
+pinned: tokens identical to the unpreempted eager synchronous run, no page
+or pin left, no graph captured again, every decode launch on the decode
+kernel; the interactive TTFT beside the same traffic all batch, in turns,
+and the tokens the victims prefilled again; (b) int8 pages with 128-token
+chunks, a victim parked mid-chunk prefills only its uncommitted pages,
+tokens identical to the eager synchronous int8 chunked run; (c)
+``shed_infeasible`` refuses deadlines under (a)'s time-to-first-token
+estimate; (d) a tenant limit on adapter 1 (burst 2) refuses the third
+submit at one instant; (e) fault plans on the graph engine: a NaN on one
+slot's decode logits fails only that request, an exception mid-chunk
+leaks nothing and a resubmission finishes identical, and the steady step
+with no plan beside one with an inert plan, in turns.  Phase 1 also holds
+and times the verify call (B =
 8, S = 5) over both pool types, and the simt kernel at fp32 q.  Phase 1
 then holds the fp-pool kernels at head_dim 256
 and Gemma-2-2B's geometry (8 q on 4 kv heads, softcap 50) and times the
@@ -259,7 +275,7 @@ def launches_per_call(count: int, iters: int) -> int:
 
 
 def device_ms(fns, iters: int, expect: str = "", show: str = "",
-              names=None) -> float:
+              names=None, launched=None) -> float:
     """Device time per call of the kernels (and copies) that ``iters``
     calls put on the card, as ``torch.profiler`` reads them.  The calls
     cycle through ``fns``, one per copy of the inputs, so that a call
@@ -273,9 +289,13 @@ def device_ms(fns, iters: int, expect: str = "", show: str = "",
     low.  ``expect`` names a kernel that must be
     among those seen; a trace with no device time, or without that
     kernel, is taken again, up to TRACE_TRIES times (the profiler has
-    returned an empty trace of 20 calls that launched a kernel each).
-    ``show`` logs every device event per call under that label; ``names``,
-    a list, receives the event names, longest first."""
+    returned an empty trace of 20 calls that launched a kernel each, and
+    on one H100 run three empty traces of the same 20 flash calls).  When
+    all of them come back so, the calls are timed between CUDA events
+    instead (:func:`events_ms`); with an ``expect``, that needs
+    ``launched``, the kernel wrapper's launch count, to show the kernel
+    ran.  ``show`` logs every device event per call under that label;
+    ``names``, a list, receives the event names, longest first."""
     def run():
         for i in range(iters):
             fns[i % len(fns)]()
@@ -299,8 +319,9 @@ def device_ms(fns, iters: int, expect: str = "", show: str = "",
             f"{[e.key[:60] for e in events]}" + (f", no {expect}" if expect
                                                   else ""))
     else:
-        raise RuntimeError(f"torch.profiler saw no device time (or no "
-                           f"{expect or 'kernel'}) in {TRACE_TRIES} traces")
+        if names is not None:
+            names.append("not seen by torch.profiler")
+        return events_ms(fns, iters, expect, launched)
     lost = [f"{e.key[:60]} {e.count}/"
             f"{launches_per_call(e.count, iters) * iters}" for e in events
             if e.count != launches_per_call(e.count, iters) * iters]
@@ -315,6 +336,36 @@ def device_ms(fns, iters: int, expect: str = "", show: str = "",
     if names is not None:
         names.extend(e.key for _, e in ranked)
     return total / 1e3
+
+
+def events_ms(fns, iters: int, expect: str = "", launched=None) -> float:
+    """Device ms per call of ``iters`` calls cycling through ``fns``,
+    between CUDA events with the calls queued (:func:`queued_time_ms`):
+    the time :func:`device_ms` reports when ``torch.profiler`` recorded
+    none of its calls.  With an ``expect``, ``launched()`` (the wrapper's
+    launch count) must rise by at least ``iters`` over the timing, or the
+    run fails: the events alone cannot tell which kernel ran."""
+    if expect and launched is None:
+        raise RuntimeError(f"torch.profiler saw no {expect} in "
+                           f"{TRACE_TRIES} traces, and no launch count was "
+                           "given to time it between CUDA events")
+    turn = iter(range(10 ** 9))
+    before = launched() if launched is not None else 0
+    ms, host_ms = queued_time_ms(lambda: fns[next(turn) % len(fns)](), iters)
+    if launched is not None and launched() - before < iters:
+        raise AssertionError(f"{expect}: {launched() - before} launches over "
+                             f"{iters} timed calls")
+    if ms is None:
+        raise RuntimeError(f"torch.profiler saw no device time (or no "
+                           f"{expect or 'kernel'}) in {TRACE_TRIES} traces, "
+                           f"and the host could not issue {iters} calls "
+                           f"ahead of the device ({host_ms:.5f} ms per call)")
+    log(f"torch.profiler saw no device time (or no {expect or 'kernel'}) in "
+        f"{TRACE_TRIES} traces: timed between CUDA events instead, "
+        f"{ms:.5f} ms per call over {iters} queued calls"
+        + (f", the wrapper's launch count rose by {launched() - before}"
+           if launched is not None else ""))
+    return ms
 
 
 def check_events(name: str, profiler_ms: float, fn, iters: int,
@@ -781,7 +832,8 @@ def time_paged(S: int, int8: bool, routes, iters: int, label: str,
                 for qc, pc in copies]
 
     times = {f"{r}_ms": device_ms(over_copies(_paged_attention_on, r, **opts),
-                                  iters, expect=PAGED_KERNELS[r])
+                                  iters, expect=PAGED_KERNELS[r],
+                                  launched=route_count(r))
              for r in routes}
     times["plain_ms"] = device_ms(over_copies(paged_attention_reference,
                                               **opts), 10)
@@ -789,7 +841,8 @@ def time_paged(S: int, int8: bool, routes, iters: int, label: str,
     times["library_ms"] = device_ms(over_copies(library_call, **lib_scale), 50)
     split_ms = {sk: device_ms(over_copies(_paged_attention_on, routes[0],
                                           split_k=sk, **opts), iters,
-                              expect=PAGED_KERNELS[routes[0]])
+                              expect=PAGED_KERNELS[routes[0]],
+                              launched=route_count(routes[0]))
                 for sk in sweep}
     b_ms, b_by = bound_ms(S, name, off.cpu(), start.cpu(), int8=int8,
                           pp=pp, **geom)
@@ -800,7 +853,8 @@ def time_paged(S: int, int8: bool, routes, iters: int, label: str,
         times["parked_ms"] = device_ms(
             [lambda qc=qc, pc=pc: _paged_attention_on(
                 routes[0], qc, pc, bt, off_p, start, **opts)
-             for qc, pc in copies], iters, expect=PAGED_KERNELS[routes[0]])
+             for qc, pc in copies], iters, expect=PAGED_KERNELS[routes[0]],
+            launched=route_count(routes[0]))
         check_bound(label + " parked", {"parked": times["parked_ms"]},
                     bound_ms(S, name, off_p.cpu(), start.cpu(),
                              int8=int8, pp=pp, **geom)[0])
@@ -1023,7 +1077,7 @@ def phase1_chunks():
                             lambda qc=qc, pc=pc, r=r: _paged_attention_on(
                                 r, qc, pc, bt, off, start)
                             for qc, pc in copies], 100,
-                            expect=PAGED_KERNELS[r])
+                            expect=PAGED_KERNELS[r], launched=route_count(r))
                         for r in ("simt", "wgmma")}}
                 del copies, q, pool
     log(f"phase1 route sweep (B=1, offset {CHUNK_OFFSET}, NKV={NKV}, D={D}),"
@@ -1236,6 +1290,19 @@ def zero_paged_counts() -> None:
     for count in ("launches", "int8_launches", "wgmma_launches",
                   "decode_launches"):
         setattr(paged_attention, count, 0)
+
+
+def route_count(route: str):
+    """A callable reading the paged-attention wrapper's launch count of one
+    route (the ``launched`` of :func:`device_ms`)."""
+    from neuronx_distributed_tpu_torch.ops.paged_attention import paged_attention
+
+    def count() -> int:
+        pa = paged_attention
+        return {"wgmma": pa.wgmma_launches, "decode": pa.decode_launches,
+                "simt": pa.launches - pa.wgmma_launches
+                - pa.decode_launches}[route]
+    return count
 
 
 def check_routes(label: str, decode: int, chunk: int) -> dict:
@@ -2176,6 +2243,470 @@ def phase2d(model_pim, sync_tokens, entries: dict):
     return out
 
 
+# -- phase 2e -----------------------------------------------------------------
+
+# SLO serving: SLOTS batch requests of 256..CONTEXT prompt tokens and
+# E_BATCH_NEW new tokens fill the slots; after E_ARRIVE steps E_INTERACTIVE
+# interactive requests of 32..128 prompt tokens and E_INT_NEW new tokens
+# arrive.  (b): the int8 chunked engine, its batch requests E_B_NEW tokens,
+# one interactive arrival after one step (the victim is mid-chunk).
+E_BATCH_NEW, E_INTERACTIVE, E_INT_NEW, E_ARRIVE, E_B_NEW = 128, 4, 32, 4, 64
+
+
+def slo_traffic(vocab: int, all_batch: bool = False, n_int: int = E_INTERACTIVE,
+                batch_new: int = E_BATCH_NEW, seed: int = SEED + 20):
+    """``(batch requests, interactive requests)`` from ``seed``; with
+    ``all_batch`` the second list is submitted as batch too."""
+    import numpy as np
+
+    from neuronx_distributed_tpu_torch.serving import Request
+
+    rs = np.random.RandomState(seed)
+    batch = [Request(request_id=i, prompt_ids=rs.randint(
+        1, vocab, size=rs.randint(256, CONTEXT + 1)).tolist(),
+        max_new_tokens=batch_new, priority="batch") for i in range(SLOTS)]
+    inter = [Request(request_id=SLOTS + i, prompt_ids=rs.randint(
+        1, vocab, size=rs.randint(32, 129)).tolist(),
+        max_new_tokens=E_INT_NEW,
+        priority="batch" if all_batch else "interactive")
+        for i in range(n_int)]
+    return batch, inter
+
+
+def slo_serve(label, eng, traffic, arrive=E_ARRIVE, want_tokens=None):
+    """The batch requests, ``arrive`` steps, the interactive arrivals, then
+    the drain.  Checks every request finished in full, the pages came
+    back, the scheduler's and manager's invariants, and on a graph engine
+    that nothing was captured once its decode graph was in use (the graph
+    cache is keyed by the state tensors' addresses, which a new engine may
+    reuse, so its first steps may capture or not): a preemption, a park
+    or a resume never captures again.  ``want_tokens``: the tokens must
+    equal these.  Returns ``(outputs, graph captures once warm or None,
+    wall s)``."""
+    import torch
+
+    batch, inter = traffic
+    outs = {}
+    graphs = eng.model.graphs if eng.model.cuda_graphs else None
+    captures = None
+    t0 = time.perf_counter()
+    for r in batch:
+        eng.submit(r)
+    steps = 0
+    while eng.has_work or steps <= arrive:
+        if steps == arrive:
+            for r in inter:
+                eng.submit(r)
+        outs.update((o.request_id, o) for o in eng.step())
+        steps += 1
+        if graphs is not None and captures is None and eng.decode_steps > 2:
+            captures = graphs.captures  # the eager call and the capture ran
+        if steps > 10_000:
+            raise AssertionError(f"{label}: not drained in 10,000 steps")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    reqs = {r.request_id: r for r in batch + inter}
+    bad = [(o.request_id, o.state, len(o.token_ids)) for o in outs.values()
+           if o.state != "finished"
+           or len(o.token_ids) != reqs[o.request_id].max_new_tokens]
+    if len(outs) != len(reqs) or bad:
+        raise AssertionError(f"{label}: requests not served in full: {bad}")
+    eng.scheduler.assert_invariants()
+    eng._kv.assert_invariants()
+    evictable = eng._kv.index.evictable_pages()
+    if eng._kv.alloc.in_use != evictable or eng._kv.leaked_pages():
+        raise AssertionError(f"{label}: {eng._kv.alloc.in_use} pages in use "
+                             f"after the drain, {evictable} evictable")
+    if eng._kv._resume:
+        raise AssertionError(f"{label}: resume pins left after the drain")
+    if graphs is not None:
+        if captures is None or graphs.captures != captures:
+            raise AssertionError(f"{label}: graphs captured after the decode "
+                                 f"graph was in use ({captures} -> "
+                                 f"{graphs.captures})")
+    if want_tokens is not None:
+        diff = [rid for rid, o in outs.items()
+                if tuple(o.token_ids) != tuple(want_tokens[rid])]
+        if diff:
+            raise AssertionError(f"{label}: tokens differ from the "
+                                 f"unpreempted eager synchronous run for "
+                                 f"requests {diff}")
+    return outs, captures, wall
+
+
+class PrefillTokens:
+    """Counts the prompt tokens a serving wrapper's ``prefill_one`` and
+    ``prefill_chunk_pages`` compute (an instance attribute over each,
+    removed by :meth:`close`)."""
+
+    def __init__(self, pim):
+        self.pim = pim
+        self.whole = self.chunk = 0
+        real_one, real_chunk = pim.prefill_one, pim.prefill_chunk_pages
+
+        def one(ids, valid, *a, **kw):
+            self.whole += int(valid.sum())
+            return real_one(ids, valid, *a, **kw)
+
+        def chunk(ids, *a, **kw):
+            self.chunk += int(ids.shape[1])
+            return real_chunk(ids, *a, **kw)
+
+        pim.prefill_one, pim.prefill_chunk_pages = one, chunk
+
+    def close(self):
+        del self.pim.prefill_one, self.pim.prefill_chunk_pages
+
+
+def phase2e(model_pim, steady_2c_ms, entries: dict):
+    """SLO serving on phase 2's Llama-3-8B, the async graph engine: (a)
+    batch requests fill the slots and interactive ones preempt them,
+    tokens equal to the unpreempted eager synchronous run, no page or pin
+    left, nothing captured again, every decode launch on the decode
+    kernel; interactive TTFT beside the same traffic all batch, in turns;
+    (b) the int8 chunked engine with a victim parked mid-chunk, which
+    prefills only its uncommitted pages again; (c) ``shed_infeasible``
+    with deadlines under (a)'s TTFT estimate; (d) a tenant limit on
+    adapter 1; (e) fault plans on the graph engine: a NaN on one slot's
+    decode logits, an exception mid-chunk, and the steady step with no
+    plan beside one with an inert plan, in turns.  ``entries``: the
+    kernels-line entries whose launches (a) and (b) count ("decode",
+    "decode_int8", "chunk")."""
+    import gc
+    import statistics
+
+    import torch
+
+    from neuronx_distributed_tpu_torch import ServingEngine
+    from neuronx_distributed_tpu_torch.resilience import (
+        InjectedFault,
+        clear_plan,
+        fired_events,
+        install_plan,
+    )
+    from neuronx_distributed_tpu_torch.serving import (
+        FAIL_NON_FINITE,
+        RateLimited,
+        Request,
+        SLOInfeasible,
+    )
+
+    cfg = model_pim.module.config
+    L, vocab = cfg.num_layers, cfg.vocab_size
+    pim = graphed_pim(model_pim)
+    out = {}
+    t_phase = time.perf_counter()
+
+    # (a) preemption, bf16 pages, whole prefill
+    ref, _, ref_wall = slo_serve(
+        "phase2e(a) eager sync, all batch",
+        ServingEngine(model_pim, page_size=PAGE_SIZE, async_decode=False),
+        slo_traffic(vocab, all_batch=True))
+    ref_tokens = {rid: o.token_ids for rid, o in ref.items()}
+    int_ids = range(SLOTS, SLOTS + E_INTERACTIVE)
+    ttft = {"interactive": [], "all_batch": []}
+    for turn, kind in enumerate(("interactive", "all_batch", "all_batch",
+                                 "interactive")):
+        eng = ServingEngine(pim, page_size=PAGE_SIZE)
+        count = PrefillTokens(pim)
+        zero_paged_counts()
+        try:
+            outs, captures, wall = slo_serve(
+                f"phase2e(a) {kind} {turn}", eng,
+                slo_traffic(vocab, all_batch=kind == "all_batch"),
+                want_tokens=ref_tokens)
+        finally:
+            count.close()
+        routes = check_routes(f"phase2e(a) {kind}", eng.decode_steps * L, 0)
+        ttft[kind].append([outs[i].ttft_ms for i in int_ids])
+        if turn == 0:
+            victims = [o for o in outs.values() if o.preemptions]
+            if not victims or any(o.priority != "batch" for o in victims):
+                raise AssertionError(
+                    f"phase2e(a): victims {[(o.request_id, o.priority) for o in victims]}")
+            a = {"wall_s": wall, "decode_steps": eng.decode_steps,
+                 "launches_by_route": routes, "preemptions": eng.preemptions,
+                 "victims": [o.request_id for o in victims],
+                 "graph_captures": captures,
+                 "ttft_ewma_s": eng.scheduler._ttft_ewma,
+                 "prefill_tokens": count.whole,
+                 "victim_prompt_tokens": sum(o.prompt_len for o in victims),
+                 "victim_preempted_ms": [o.preempted_ms for o in victims]}
+            set_launches([entries["decode"]], routes, "2e(a)")
+        elif turn == 1:
+            a["prefill_tokens_all_batch"] = count.whole
+        del eng
+    a["reprefilled_tokens"] = a["prefill_tokens"] - a["prefill_tokens_all_batch"]
+    flat = {k: [x for run in v for x in run] for k, v in ttft.items()}
+    a["ttft_ms"] = {k: {"median": statistics.median(v), "max": max(v),
+                        "runs": ttft[k]} for k, v in flat.items()}
+    log(f"phase2e(a): {SLOTS} batch requests ({E_BATCH_NEW} new tokens) "
+        f"then {E_INTERACTIVE} interactive ({E_INT_NEW}) after {E_ARRIVE} "
+        f"steps on the async graph engine: {a['preemptions']} preemptions, "
+        f"victims {a['victims']} (all batch), tokens identical to the "
+        f"unpreempted eager synchronous run ({ref_wall:.3f} s); "
+        f"{a['decode_steps']} decode steps, launches by route "
+        f"{a['launches_by_route']}; no page or pin left, no graph "
+        f"captured once the decode graph was in use ({a['graph_captures']} "
+        f"captures); victims "
+        f"re-prefilled {a['reprefilled_tokens']} of their "
+        f"{a['victim_prompt_tokens']} prompt tokens (their chains stayed "
+        f"pinned), parked {[round(x, 1) for x in a['victim_preempted_ms']]} "
+        f"ms; interactive TTFT median / max "
+        f"{a['ttft_ms']['interactive']['median']:.2f} / "
+        f"{a['ttft_ms']['interactive']['max']:.2f} ms, the same traffic all "
+        f"batch {a['ttft_ms']['all_batch']['median']:.2f} / "
+        f"{a['ttft_ms']['all_batch']['max']:.2f} ms (2 runs each, in turns); "
+        f"TTFT estimate {a['ttft_ewma_s']:.4f} s")
+    out["a"] = a
+
+    # (b) int8 pages, 128-token chunks, a victim parked mid-chunk
+    def b_traffic(all_batch=False):
+        return slo_traffic(vocab, all_batch=all_batch, n_int=1,
+                           batch_new=E_B_NEW, seed=SEED + 21)
+
+    # the chunk widths a request gets depend on what else is chunking, and
+    # on the card the wgmma route rounds differently at each width, so the
+    # reference is the same traffic (preemption included) on the eager
+    # synchronous engine; the unpreempted run is logged beside it
+    sync_eng = lambda: ServingEngine(  # noqa: E731
+        model_pim, page_size=PAGE_SIZE, kv_quant="int8",
+        prefill_chunk_tokens=CHUNK_TOKENS, async_decode=False)
+    ref, _, _ = slo_serve("phase2e(b) eager sync int8 chunks", sync_eng(),
+                          b_traffic(), arrive=1)
+    unpre, _, _ = slo_serve("phase2e(b) eager sync int8 chunks, all batch",
+                            sync_eng(), b_traffic(all_batch=True), arrive=1)
+    eng = ServingEngine(pim, page_size=PAGE_SIZE, kv_quant="int8",
+                        prefill_chunk_tokens=CHUNK_TOKENS)
+    parked = {}
+    real_park = eng._kv.park_resume
+
+    def park(slot, req, fresh_done=None):
+        real_park(slot, req, fresh_done)
+        parked[req.request_id] = (fresh_done, sum(
+            p != 0 for p in req.resume_pages), req.prefill_chunks)
+
+    eng._kv.park_resume = park
+    count = PrefillTokens(pim)
+    zero_paged_counts()
+    try:
+        outs, _, wall = slo_serve("phase2e(b)", eng, b_traffic(), arrive=1,
+                                  want_tokens={rid: o.token_ids
+                                               for rid, o in ref.items()})
+    finally:
+        count.close()
+    routes = check_routes("phase2e(b)", eng.decode_steps * L,
+                          eng.prefill_chunks * L)
+    mid = {rid: v for rid, v in parked.items() if v[0] is not None}
+    if not mid:
+        raise AssertionError(f"phase2e(b): no victim parked mid-chunk "
+                             f"({parked})")
+    prompt_pages = {rid: -(-outs[rid].prompt_len // PAGE_SIZE) for rid in mid}
+    committed = sum(v[1] for v in mid.values())
+    all_pages = sum(-(-o.prompt_len // PAGE_SIZE) for o in outs.values())
+    chunk_pages = count.chunk // PAGE_SIZE
+    scratch_pages = all_pages + committed
+    if not (committed > 0 and chunk_pages == all_pages
+            and chunk_pages < scratch_pages):
+        raise AssertionError(
+            f"phase2e(b): {chunk_pages} chunk pages dispatched, prompts "
+            f"{all_pages}, committed by victims {committed}")
+    set_launches([entries["decode_int8"], entries["chunk"]], routes, "2e(b)")
+    victim_same = {rid: outs[rid].token_ids == unpre[rid].token_ids
+                   for rid in mid}
+    others_same = token_agreement(
+        {rid: o.token_ids for rid, o in outs.items() if rid not in mid},
+        {rid: o.token_ids for rid, o in unpre.items() if rid not in mid})
+    out["b"] = {"wall_s": wall, "decode_steps": eng.decode_steps,
+                "chunks": eng.prefill_chunks, "launches_by_route": routes,
+                "mid_chunk_victims": {r: {"committed_pages": v[1],
+                                          "chunks_before_park": v[2],
+                                          "chunks_total":
+                                              outs[r].prefill_chunks,
+                                          "prompt_pages": prompt_pages[r]}
+                                      for r, v in mid.items()},
+                "chunk_pages": chunk_pages,
+                "chunk_pages_from_scratch": scratch_pages,
+                "victims_equal_unpreempted": victim_same,
+                "others_vs_unpreempted": others_same}
+    log(f"phase2e(b): int8 pages, {CHUNK_TOKENS}-token chunks, victims "
+        f"parked mid-chunk {out['b']['mid_chunk_victims']}: tokens identical "
+        f"to the eager synchronous int8 chunked run of the same traffic; "
+        f"against the unpreempted (all batch) run: victims identical "
+        f"{victim_same}, the others {others_same[0]}/{others_same[1]} "
+        f"positions, {others_same[2]} requests identical; "
+        f"{eng.prefill_chunks} "
+        f"chunk dispatches, launches by route {routes} = chunks x {L} on "
+        f"wgmma, decode steps {eng.decode_steps} x {L} on decode; prompt "
+        f"pages prefilled {chunk_pages} against {scratch_pages} had the "
+        f"victims started again from scratch")
+    del eng
+
+    # (c) shedding: deadlines under (a)'s time-to-first-token estimate
+    eng = ServingEngine(pim, page_size=PAGE_SIZE, shed_infeasible=True)
+    warm, _, _ = slo_serve("phase2e(c) warm-up", eng, slo_traffic(vocab))
+    est = (eng.scheduler.queue_wait_estimate("interactive") or 0.0) \
+        + eng.scheduler._ttft_ewma
+    shed, admitted = [], []
+    fracs = (0.05, 0.25, 0.5, 20.0, 50.0, 100.0)
+    base = make_requests(vocab, len(fracs), E_INT_NEW, SEED + 22)
+    for i, frac in enumerate(fracs):
+        r = base[i]
+        r.request_id = 100 + i
+        r.deadline_s = frac * a["ttft_ewma_s"]
+        try:
+            eng.submit(r)
+            admitted.append(r)
+        except SLOInfeasible:
+            shed.append((r.request_id, r.deadline_s))
+    done = {o.request_id: o for o in eng.run_until_complete(max_steps=10_000)}
+    bad = [(r.request_id, done.get(r.request_id)) for r in admitted
+           if done.get(r.request_id) is None
+           or done[r.request_id].state not in ("finished", "timed_out")]
+    eng._kv.assert_invariants()
+    if not shed or bad or eng._kv.leaked_pages() or eng.shed != len(shed):
+        raise AssertionError(f"phase2e(c): shed {shed}, bad {bad}, leaked "
+                             f"{eng._kv.leaked_pages()}")
+    out["c"] = {"estimate_s": est, "a_ttft_ewma_s": a["ttft_ewma_s"],
+                "shed": shed, "admitted": {r.request_id: done[r.request_id]
+                                           .state for r in admitted}}
+    log(f"phase2e(c): shed_infeasible, estimate (wait + TTFT EWMA) "
+        f"{est:.4f} s after a warm-up of (a)'s traffic; deadlines 0.05..100 "
+        f"x (a)'s TTFT EWMA {a['ttft_ewma_s']:.4f} s: shed {shed}, admitted "
+        f"{out['c']['admitted']}; no page left")
+    del eng
+
+    # (d) a tenant limit on adapter 1, burst 2
+    factors = {aid: adapter_factors(cfg, aid) for aid in (1, 2)}
+
+    def d_requests():
+        reqs = make_requests(vocab, 6, E_INT_NEW, SEED + 23)
+        for r, aid in zip(reqs, (1, 1, 1, 0, 2, 2)):
+            r.adapter_id = aid
+        return reqs
+
+    eng = ServingEngine(pim, page_size=PAGE_SIZE,
+                        adapter_store=make_store(pim, factors))
+    eng.scheduler.set_tenant_limit(1, rate=1e-3, burst=2.0)
+    limited = []
+    for r in d_requests():
+        try:
+            eng.submit(r)
+        except RateLimited:
+            limited.append(r.request_id)
+    got = {o.request_id: o.token_ids
+           for o in eng.run_until_complete(max_steps=10_000)}
+    store = eng._adapters
+    store.assert_invariants()
+    if limited != [2] or eng.rejected != 1 or any(
+            store.pins(a) for a in store.resident_ids()):
+        raise AssertionError(f"phase2e(d): rate limited {limited}")
+    del eng
+    ref_eng = ServingEngine(model_pim, page_size=PAGE_SIZE, async_decode=False,
+                            adapter_store=make_store(model_pim, factors))
+    for r in d_requests():
+        if r.request_id not in limited:
+            ref_eng.submit(r)
+    want = {o.request_id: o.token_ids
+            for o in ref_eng.run_until_complete(max_steps=10_000)}
+    del ref_eng
+    if got != want:
+        raise AssertionError("phase2e(d): tokens differ from the eager run")
+    out["d"] = {"rate_limited": limited, "served": sorted(got)}
+    log(f"phase2e(d): adapter 1 limited to a burst of 2: the third submit "
+        f"at one instant raised RateLimited ({limited}); the 5 admitted "
+        f"requests' tokens identical to the eager synchronous run's")
+
+    # (e) fault plans on the graph engine
+    eng = ServingEngine(pim, page_size=PAGE_SIZE)
+    batch, _ = slo_traffic(vocab)
+    for r in batch:
+        eng.submit(r)
+    outs = eng.step() + eng.step()
+    slot = eng.scheduler.slot_of(3)
+    install_plan({"faults": [{"point": "serving/decode_logits",
+                              "action": "nan", "slot": slot}]})
+    try:
+        outs += eng.run_until_complete(max_steps=10_000)
+        fired = len(fired_events())
+    finally:
+        clear_plan()
+    res = {o.request_id: o for o in outs}
+    wrong = [rid for rid, o in res.items() if rid != 3 and (
+        o.state != "finished" or o.token_ids != ref_tokens[rid])]
+    if (fired != 1 or res[3].state != "failed"
+            or res[3].finish_reason != FAIL_NON_FINITE or wrong
+            or eng._kv.leaked_pages()):
+        raise AssertionError(f"phase2e(e): NaN plan: request 3 "
+                             f"{res[3].state}/{res[3].finish_reason}, "
+                             f"differing {wrong}")
+    del eng
+    eng = ServingEngine(pim, page_size=PAGE_SIZE,
+                        prefill_chunk_tokens=CHUNK_TOKENS)
+    prompt = batch[0].prompt_ids
+    install_plan({"faults": [{"point": "serving/prefill_chunk",
+                              "action": "exception",
+                              "match": {"request_id": 0}}]})
+    raised = False
+    try:
+        eng.submit(Request(request_id=0, prompt_ids=prompt,
+                           max_new_tokens=E_INT_NEW))
+        eng.run_until_complete(max_steps=1_000)
+    except InjectedFault:
+        raised = True
+    finally:
+        clear_plan()
+    eng._kv.assert_invariants()
+    if not raised or eng._kv.alloc.in_use != 0:
+        raise AssertionError(f"phase2e(e): chunk fault raised {raised}, "
+                             f"{eng._kv.alloc.in_use} pages in use")
+    eng.submit(Request(request_id=1, prompt_ids=prompt,
+                       max_new_tokens=E_INT_NEW))
+    [again] = eng.run_until_complete(max_steps=1_000)
+    del eng
+    clean = ServingEngine(model_pim, page_size=PAGE_SIZE, async_decode=False,
+                          prefill_chunk_tokens=CHUNK_TOKENS)
+    clean.submit(Request(request_id=1, prompt_ids=prompt,
+                         max_new_tokens=E_INT_NEW))
+    [want1] = clean.run_until_complete(max_steps=1_000)
+    del clean
+    if again.state != "finished" or again.token_ids != want1.token_ids:
+        raise AssertionError("phase2e(e): the resubmission after the chunk "
+                             "fault differs from the clean run")
+    # the steady graph step with no plan and with an inert plan, in turns
+    inert = {"faults": [{"point": "serving/none", "action": "nan"}]}
+    steady = {"no_plan": [], "inert_plan": []}
+    for key in ("no_plan", "inert_plan", "inert_plan", "no_plan"):
+        if key == "inert_plan":
+            install_plan(inert)
+        try:
+            steady[key].append(steady_decode_profile(
+                pim, vocab, steps=STEADY_STEPS,
+                label=f"phase2e(e) steady, {key} {len(steady[key]) + 1}"))
+        finally:
+            clear_plan()
+    mean = {k: sum(r["steady_step_ms"] for r in v) / len(v)
+            for k, v in steady.items()}
+    out["e"] = {"nan_failed": 3, "chunk_fault_raised": raised,
+                "steady_ms": mean, "steady_2c_a_ms": steady_2c_ms,
+                "steady_runs": steady}
+    log(f"phase2e(e): a NaN on slot {slot}'s decode logits failed only "
+        f"request 3 ({FAIL_NON_FINITE}), the {SLOTS - 1} co-batched "
+        f"requests' tokens "
+        f"identical to (a)'s; an exception at serving/prefill_chunk raised "
+        f"InjectedFault with no page left, and the resubmission's tokens "
+        f"equal the clean run's; steady graph step (B={SLOTS}), host clock, "
+        f"means of 2 runs in turns: no plan {mean['no_plan']:.3f} ms, an "
+        f"inert plan {mean['inert_plan']:.3f} ms; 2c(a) {steady_2c_ms:.3f} "
+        f"ms")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase2e: {out['wall_s']:.1f} s")
+    del pim
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 # -- phase 3 ------------------------------------------------------------------
 
 # the training path's attention shape: Llama-3-8B heads at batch 4 x 2048
@@ -2527,12 +3058,14 @@ def time_flash(shape, sm_scale=None, variants=((None, None),), worst=None,
             opts = dict(sm_scale=sm_scale, window=window, softcap=softcap)
             cs = copies[window, softcap]
             calls = [lambda c=c: kernel(*c[:nargs], **opts) for c in cs]
-            k_ms = device_ms(calls, 20, expect=kname)
+            count = lambda: kernel.launches  # noqa: E731
+            k_ms = device_ms(calls, 20, expect=kname, launched=count)
             b_ms, b_by, flops, nbytes = flash_bound_ms(
                 Bt, HQ, HKV, S, S, Dt, 2, w, window)
             k_ms = check_events(
                 fn_name, k_ms, lambda: kernel(*cs[0][:nargs], **opts), 20,
-                retrace=lambda: device_ms(calls, 20, expect=kname))
+                retrace=lambda: device_ms(calls, 20, expect=kname,
+                                          launched=count))
             times = {"kernel": k_ms}
             if (window, softcap) == variants[0]:
                 times["plain"] = device_ms(
@@ -3122,6 +3655,9 @@ def main() -> int:
             "decode": dec, "decode_int8": dec8, "chunk": entry_w,
             "verify": verify})
         log(f"phase2d summary: {json.dumps(tenancy)}")
+        slo = phase2e(model_pim, graphed["a"]["steady_step_ms"], {
+            "decode": dec, "decode_int8": dec8, "chunk": entry_w})
+        log(f"phase2e summary: {json.dumps(slo)}")
         del model_pim
         dec256, simt256 = phase1_gemma()
         flash, flash256 = phase3()

@@ -21,7 +21,11 @@ the card (``ParallelInferenceModel(cuda_graphs=...)``) and serves
 draft-k-verify speculative decoding (``ServingEngine(draft=, spec_k=)``,
 :func:`.trace.speculative_generate`), and serves many LoRA adapters
 through the same phase functions (:mod:`.tenancy`,
-``ServingEngine(adapter_store=)``; :mod:`.peft`).  The port
+``ServingEngine(adapter_store=)``; :mod:`.peft`).  Its scheduler serves
+interactive ahead of batch requests, preempting batch requests with
+resumable page chains, shedding dead deadlines and rate-limiting tenants;
+:mod:`.resilience` holds the fault-injection plane threaded through
+serving and the restart-on-crash supervisor.  The port
 imports ``torch`` and nothing of JAX or of the JAX package.  Entry points
 run on the card unless the caller passes ``device="cpu"``.
 """

@@ -46,6 +46,27 @@ ignored.
   the base model (the pool's zero NULL page).  The adapter tables go up
   inside the step's one packed put when they changed.  Prefix keys are
   salted per adapter, so prompt pages are never shared across adapters.
+- SLO scheduling: ``Request.priority`` ("interactive" ahead of "batch")
+  and ``deadline_s`` order the queues (:mod:`.scheduler`).  When the
+  interactive head is blocked on slots or pages, each step first parks
+  batch victims: the victim's committed prompt chain stays pinned
+  (:meth:`~.paged.PagedKVManager.park_resume`), its slot, pages and adapter
+  pin are released, and it is requeued at its original deadline key; its
+  re-grant matches the pinned chain and prefills only the rest, and its
+  tokens are those of an unpreempted run.  ``shed_infeasible=True`` refuses
+  at submit a deadline the load estimate says is already dead
+  (``SLOInfeasible``), a granted request whose deadline died before its
+  prefill or its next chunk is timed out without running it, and tenant
+  rate limits (``scheduler.set_tenant_limit``) refuse a tenant over budget
+  (``RateLimited``).  A preemption changes only block tables, offsets and
+  adapter tables, all inputs of the step's one packed put, so no CUDA graph
+  is captured again for it.
+- Fault points (:mod:`..resilience.faults`): ``serving/prefill_chunk``
+  before each chunk dispatch, ``serving/page_alloc`` and
+  ``tenancy/adapter_load`` inside admission, and ``perturb`` on the
+  prefill, decode, draft and verify logits (host side, after a graph
+  replay and before the sampler).  Without a plan each costs one global
+  read.
 
 Greedy outputs are token-identical to a solo ``generate`` of the same
 prompt up to the arithmetic order of the attention path taken.  Chunked
@@ -65,6 +86,7 @@ import torch
 
 from neuronx_distributed_tpu_torch.kvcache.allocator import PoolExhausted
 from neuronx_distributed_tpu_torch.ops.paged_attention import resolve_paged_kernel
+from neuronx_distributed_tpu_torch.resilience.faults import fault_point, perturb
 from neuronx_distributed_tpu_torch.serving.paged import PagedKVManager
 from neuronx_distributed_tpu_torch.serving.request import (
     PRIORITY_INTERACTIVE,
@@ -74,6 +96,8 @@ from neuronx_distributed_tpu_torch.serving.request import (
 )
 from neuronx_distributed_tpu_torch.serving.scheduler import (
     AdmissionError,
+    BackpressureError,
+    SLOInfeasible,
     SlotScheduler,
 )
 from neuronx_distributed_tpu_torch.tenancy.store import AdapterLayout
@@ -94,6 +118,7 @@ from neuronx_distributed_tpu_torch.utils.logger import get_logger
 logger = get_logger(__name__)
 
 FAIL_NON_FINITE = "non_finite_logits"
+SHED_EXPIRED_BEFORE_PREFILL = "expired_before_prefill"
 
 
 def _spec_accept(vlogits, q_filt, props, keys, tok_idx, temps, top_ks,
@@ -274,13 +299,19 @@ class ServingEngine:
       from its base weights, and the adapter-aware verify corrects it.
     - ``adapter_store``: an :class:`~..tenancy.AdapterStore` laid out for
       ``model`` (multi-adapter serving); None serves adapter 0 only.
+    - ``shed_infeasible``: refuse at submit a deadline shorter than the
+      estimated queue wait plus time to first token.
+    - ``clock``: the engine's time source; deadlines, shedding and the
+      tenant buckets all read it.
     - ``device`` must be the model's device; ``None`` means CUDA (raises
       without it).
 
     ``puts`` and ``fetches`` count the packed transfers: one put and one
     fetch per steady decode step or speculative round (a round whose
     draft must catch up on a full accept adds one put), and one fetch per
-    admission's first token.
+    admission's first token.  ``preemptions``, ``shed`` (submits refused
+    as infeasible), ``rejected`` (other backpressure, rate limits
+    included) and ``expired_before_prefill`` count the SLO paths.
     """
 
     def __init__(self, model, *, page_size: int,
@@ -291,7 +322,8 @@ class ServingEngine:
                  paged_kernel="auto", kv_quant: Optional[str] = None,
                  prefill_chunk_tokens: Optional[int] = None,
                  async_decode: bool = True, draft=None, spec_k: int = 0,
-                 adapter_store=None, device=None):
+                 adapter_store=None, shed_infeasible: bool = False,
+                 device=None):
         device = resolve_device(device)
         if device != model.device:
             raise ValueError(f"engine device {device} != model device "
@@ -346,7 +378,7 @@ class ServingEngine:
                               else resolve_paged_kernel(paged_kernel, device))
         self.scheduler = SlotScheduler(
             self.B, self.C, self.T, max_queue=max_queue, page_gate=self._kv,
-            reserve_extra=self._spec_k)
+            reserve_extra=self._spec_k, shed_infeasible=shed_infeasible)
         self.eos_token_id = eos_token_id
         self._seed = seed
         self._clock = clock
@@ -395,6 +427,11 @@ class ServingEngine:
         self.spec_committed = 0
         self.prefill_chunks = 0  # chunk dispatches run
         self.quant_pages = 0  # pages written through a quantize-on-write
+        self._steps = 0  # engine steps begun (the fault points' context)
+        self.preemptions = 0
+        self.shed = 0
+        self.rejected = 0
+        self.expired_before_prefill = 0
         # multi-adapter state: the device adapter pool, per-slot adapter
         # page tables (an all-NULL row is adapter 0) and their device
         # mirror, and the slot -> pinned adapter map
@@ -429,7 +466,9 @@ class ServingEngine:
 
     def submit(self, request: Request) -> None:
         """Queue a request.  Raises ``AdmissionError`` when it can never
-        fit or names an adapter the engine cannot serve,
+        fit or names an adapter the engine cannot serve, ``RateLimited``
+        when its tenant is over its limit, ``SLOInfeasible`` when its
+        deadline is dead under the current load (``shed_infeasible``),
         ``BackpressureError`` when the bounded queue is full, ``ValueError``
         for a sampled request on a seedless engine."""
         if request.sampling.temperature > 0.0 and self._seed is None:
@@ -445,7 +484,14 @@ class ServingEngine:
             raise AdmissionError(
                 f"request {request.request_id} names unregistered adapter "
                 f"{aid}")
-        self.scheduler.submit(request, now=self._clock())
+        try:
+            self.scheduler.submit(request, now=self._clock())
+        except SLOInfeasible:
+            self.shed += 1
+            raise
+        except BackpressureError:
+            self.rejected += 1
+            raise
 
     def cancel(self, request_id: int) -> bool:
         return self.scheduler.cancel(request_id)
@@ -459,17 +505,20 @@ class ServingEngine:
                 or self._pending is not None)
 
     def step(self) -> List[RequestOutput]:
-        """One engine iteration: sweep -> admit/prefill -> prefill chunks ->
-        decode (or a speculative round) -> stop detection -> slot free.
-        Async: collect the in-flight step, dispatch the next, then run the
-        collected step's host work.  Returns the requests that reached a
-        terminal state during this step."""
+        """One engine iteration: sweep -> preempt for priority ->
+        admit/prefill -> prefill chunks -> decode (or a speculative round)
+        -> stop detection -> slot free.  Async: collect the in-flight step,
+        dispatch the next, then run the collected step's host work.
+        Returns the requests that reached a terminal state during this
+        step."""
         outputs: List[RequestOutput] = []
         now = self._clock()
+        self._steps += 1
         swept = self.scheduler.sweep(now)
         if swept:
             self._park_free_slots()
-            outputs.extend(RequestOutput.from_request(req, now) for req in swept)
+            outputs.extend(self._emit(req, now) for req in swept)
+        self._preempt_for_priority(now)
         for slot, req in self.scheduler.admit(now):
             self._prefill_into_slot(slot, req, outputs)
         if self._chunking:
@@ -522,7 +571,18 @@ class ServingEngine:
         mode, prefills its contiguous row whole either way.  A failure
         mid-admission releases the pin and every page, fails the one
         request and re-raises; an adapter pool with every page pinned
-        fails only the request, and serving goes on."""
+        fails only the request, and serving goes on.  A request whose
+        deadline died since the step's sweep is timed out without a
+        prefill; a preempted victim's park ends here, and its resume pin
+        gives way to the slot's own references."""
+        now = self._clock()
+        if req.parked_at is not None:
+            t_grant = req.prefill_time if req.prefill_time is not None else now
+            req.preempted_ms += max(t_grant - req.parked_at, 0.0) * 1e3
+            req.parked_at = None
+        if req.expired(now):
+            self._expire_before_prefill(slot, req, outputs, now)
+            return
         self._slot_gen[slot] += 1  # a fresh occupancy generation begins
         aid = req.adapter_id
         if aid and not self._acquire_adapter(slot, req, outputs):
@@ -534,12 +594,16 @@ class ServingEngine:
         row_valid = np.concatenate(
             [valid_np, np.zeros((self.T - self.C,), np.int32)])
         try:
-            cached = self._kv.admit_slot(slot, req, ids[0], valid_np)
+            cached = self._kv.admit_slot(slot, req, ids[0], valid_np,
+                                         engine_step=self._steps)
         except BaseException as e:
             now = self._clock()
             self._fail_slot(slot, req, outputs, now,
                             reason=f"page_alloc:{type(e).__name__}")
             raise
+        # the slot's lookup references now cover the chain a preemption
+        # pinned, if any
+        self._kv.release_resume(req)
         # an adapter request prefills under its adapter (adapter 0, the
         # base model, takes the plain prefill)
         adapter = ((self._apool, self._adapter_tables[slot][None, :])
@@ -573,6 +637,9 @@ class ServingEngine:
                 self.model.prefill_one_lora(ids, valid_np[None, :], *adapter)
                 if adapter is not None
                 else self.model.prefill_one(ids, valid_np[None, :]))
+            logits = perturb("serving/prefill_logits", logits,
+                             request_id=req.request_id,
+                             engine_step=self._steps)
             for lp, phys in fresh:
                 self.caches = self.model.write_page(
                     self.caches, row_caches, lp, phys, row_valid=valid_np)
@@ -594,7 +661,7 @@ class ServingEngine:
         and re-raises."""
         aid = req.adapter_id
         try:
-            loads = self._adapters.acquire(aid)
+            loads = self._adapters.acquire(aid, engine_step=self._steps)
         except BaseException as e:
             self._fail_slot(slot, req, outputs, self._clock(),
                             reason=f"adapter:{type(e).__name__}")
@@ -638,9 +705,12 @@ class ServingEngine:
         req.transition(RequestState.DECODE)
         if req.first_token_time is None:
             req.first_token_time = now
+            if req.submit_time is not None:
+                # the shedding estimate's time to first token
+                self.scheduler.note_first_token(now - req.submit_time)
         self._append_token(slot, req, int(toks[0]), now)
         if req.done:
-            outputs.append(RequestOutput.from_request(req, now))
+            outputs.append(self._emit(req, now))
         else:
             self._offsets[slot] = self.C
             self._next_tok[slot] = int(toks[0])
@@ -651,9 +721,10 @@ class ServingEngine:
         prompt KV into the slot's reserved pages through
         ``prefill_chunk_pages``, and the final chunk's logits feed the first
         token.  The start slot rotates step to step so one long prompt
-        cannot hog the budget; interactive prefills take it first.  A
-        failed chunk fails its one request, reclaims every page and
-        re-raises."""
+        cannot hog the budget; interactive prefills take it first.  Each
+        slot's deadline is checked again right before its chunk: a dead
+        request burns no chunk.  A failed chunk fails its one request,
+        reclaims every page and re-raises."""
         budget = self._chunk_tokens // self._kv.page_size
         slots = sorted(self._chunking)
         start = self._chunk_rr % len(slots)
@@ -664,7 +735,14 @@ class ServingEngine:
         for slot in rotated:
             if budget <= 0:
                 break
-            st = self._chunking[slot]
+            st = self._chunking.get(slot)
+            if st is None:
+                continue
+            now = self._clock()
+            if st.req.expired(now):
+                self._chunking.pop(slot)
+                self._expire_before_prefill(slot, st.req, outputs, now)
+                continue
             n = min(budget, st.pages_remaining)
             budget -= n
             try:
@@ -687,12 +765,21 @@ class ServingEngine:
         width = n_pages * page
         adapter = ((self._apool, self._adapter_tables[slot][None, :])
                    if self._adapters is not None else (None, None))
-        st.logits, self.caches = self.model.prefill_chunk_pages(
+        # a failure here fails the one request and reclaims its pages
+        fault_point("serving/prefill_chunk", request_id=st.req.request_id,
+                    engine_step=self._steps, chunk_offset=off)
+        logits, self.caches = self.model.prefill_chunk_pages(
             st.ids_row[None, off:off + width], off,
             self._kv.tables[slot][None, :], self.caches,
             st.valid_row[None, :], paged_kernel=self._paged_kernel,
             apool=adapter[0], atables=adapter[1])
         st.next_i += n_pages
+        if st.pages_remaining == 0:
+            # the logits the first token samples from
+            logits = perturb("serving/prefill_logits", logits,
+                             request_id=st.req.request_id,
+                             engine_step=self._steps)
+        st.logits = logits
         st.req.prefill_chunks += 1
         self.prefill_chunks += 1
         if self._kv_quant is not None:
@@ -744,6 +831,8 @@ class ServingEngine:
         if self._kv_quant is not None:
             # every active slot's decode write requantized its page
             self.quant_pages += len(active)
+        logits = perturb("serving/decode_logits", logits,
+                         engine_step=self._steps)
         toks, finite = sample_rows(logits, self._keys, tok_idx, self._temps,
                                    self._topks, self._topps)
         self._pending = (self._io.fetch(pack_tokens(toks, finite)),
@@ -751,11 +840,13 @@ class ServingEngine:
                           for slot, req in active])
 
     def _in_flight(self, slot: int, req: Request, gen: int) -> bool:
-        """Whether the in-flight step's row still belongs to ``req``: a
-        request swept while its step was in flight (and a slot re-granted
-        since, even to a request of the same id) is told apart by state
-        and occupancy generation."""
+        """Whether the in-flight step's row still belongs to ``req``.  A
+        request swept or preempted while its step was in flight is told
+        apart by its state and slot; one preempted AND granted again since
+        (back in DECODE, even in the same slot) by the slot's occupancy
+        generation, bumped at every grant."""
         return (req.state is RequestState.DECODE
+                and self.scheduler.slot_of(req.request_id) == slot
                 and self._slot_gen[slot] == gen)
 
     def _collect_decode(self) -> list:
@@ -812,6 +903,8 @@ class ServingEngine:
             dlogits, self._draft_caches, self._draft_valid = \
                 draft.decode_slots(dtok, doffs[j], self._draft_caches,
                                    self._draft_valid, *dad)
+            dlogits = perturb("serving/draft_logits", dlogits,
+                              engine_step=self._steps, round_pos=j)
             ptoks, qf, fin = propose_rows(dlogits, self._keys, tok_idx + j,
                                           self._temps, self._topks,
                                           self._topps)
@@ -826,6 +919,8 @@ class ServingEngine:
         vlogits, self.caches, self.valid = self.model.verify_pages(
             chunk, offs, self._tables_dev, self.caches, self.valid,
             paged_kernel=self._paged_kernel, apool=ad[0], atables=ad[1])
+        vlogits = perturb("serving/verify_logits", vlogits,
+                          engine_step=self._steps)
         self.spec_rounds += 1
         if self._kv_quant is not None:
             # the page(s) each active slot's k+1-token chunk straddles
@@ -927,7 +1022,7 @@ class ServingEngine:
                 if req.stream_cb is not None:
                     req.stream_cb(req, t)
             if req.done:
-                outputs.append(RequestOutput.from_request(req, now))
+                outputs.append(self._emit(req, now))
 
     def _stop_reason(self, req: Request, tok: int) -> Optional[str]:
         reason = req.check_stop(tok)
@@ -970,7 +1065,53 @@ class ServingEngine:
         logger.warning("serving: request %d failed (%s) after %d tokens; "
                        "slot %d freed", req.request_id, reason,
                        len(req.generated), slot)
-        outputs.append(RequestOutput.from_request(req, now))
+        outputs.append(self._emit(req, now))
+
+    def _emit(self, req: Request, now: float) -> RequestOutput:
+        """The terminal output; a request terminal while parked banks its
+        open park and drops its resume pin here, where every terminal path
+        passes."""
+        if req.parked_at is not None:
+            req.preempted_ms += max(now - req.parked_at, 0.0) * 1e3
+            req.parked_at = None
+        self._kv.release_resume(req)
+        return RequestOutput.from_request(req, now)
+
+    def _preempt_for_priority(self, now: float) -> None:
+        """Park batch victims while the scheduler says the interactive head
+        is blocked on slots or pages: the victim's committed prompt chain
+        is pinned (a mid-chunk victim's to its chunk progress), its slot,
+        pages and adapter pin are released, and it is requeued at its
+        original deadline key.  A step in flight on its slot is dropped at
+        collect (:meth:`_in_flight`)."""
+        for _ in range(self.B):
+            picked = self.scheduler.pick_preemption(now)
+            if picked is None:
+                return
+            slot, req = picked
+            st = self._chunking.get(slot)
+            self.scheduler.requeue(req)
+            req.parked_at = now
+            self._kv.park_resume(
+                slot, req, fresh_done=st.next_i if st is not None else None)
+            self._park(slot)
+            self.preemptions += 1
+            logger.info("serving: preempted batch request %d from slot %d "
+                        "for the interactive queue head (%d preemption(s) "
+                        "so far)", req.request_id, slot, req.preemptions)
+
+    def _expire_before_prefill(self, slot: int, req: Request, outputs: list,
+                               now: float) -> None:
+        """A granted request whose deadline died after the step's sweep,
+        before its prefill or its next chunk: TIMED_OUT without running
+        it, slot, pages and adapter pin released."""
+        req.transition(RequestState.TIMED_OUT)
+        req.finish_reason = RequestState.TIMED_OUT.value
+        req.finish_time = now
+        req.shed_reason = SHED_EXPIRED_BEFORE_PREFILL
+        self._release(slot, req)
+        self.expired_before_prefill += 1
+        outputs.append(self._emit(req, now))
 
     def _release(self, slot: int, req: Request) -> None:
         self.scheduler.release(req)

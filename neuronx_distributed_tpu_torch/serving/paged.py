@@ -1,6 +1,5 @@
 """Paged-KV state manager for the serving engine (counterpart of
-``neuronx_distributed_tpu/serving/paged.py``; preemption resume pins land
-with their slice).
+``neuronx_distributed_tpu/serving/paged.py``).
 
 Glues the host-side :class:`BlockAllocator` and :class:`PrefixIndex` onto
 the engine's slot table: per-slot block tables, worst-case page budgeting
@@ -12,8 +11,16 @@ prefill, and page release on every terminal state.
   speculative decoding, the ``spec_overshoot`` cells a verify writes past
   the budget) -- is taken at admission, so decode never runs out of pages
   mid-request.
-- Admission is transactional: any failure mid-allocation releases every
-  page and reference taken so far before re-raising.
+- Admission is transactional: any failure mid-allocation (the
+  ``serving/page_alloc`` fault point sits between the prompt-page and
+  decode-page allocations) releases every page and reference taken so far
+  before re-raising.
+- A preempted victim keeps its committed prompt chain pinned while it is
+  parked (:meth:`PagedKVManager.park_resume`), so its re-grant prefills only
+  the uncommitted tail; the pins count as reclaimable in
+  :meth:`PagedKVManager.pages_free` and are dropped, oldest park first, when
+  an admission needs their pages, so admission never deadlocks behind
+  them.
 - Prompt pages live page-aligned in ``[0, context_len)`` and decode writes
   start at ``context_len``, so shared prefix pages are never written.
 """
@@ -21,7 +28,7 @@ prefill, and page release on every terminal state.
 from __future__ import annotations
 
 import math
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
@@ -31,6 +38,7 @@ from neuronx_distributed_tpu_torch.kvcache.prefix import (
     is_padding_key,
     page_keys,
 )
+from neuronx_distributed_tpu_torch.resilience.faults import fault_point
 from neuronx_distributed_tpu_torch.serving.request import Request
 
 
@@ -68,6 +76,9 @@ class PagedKVManager:
         self._slot_pages: List[List[int]] = [[] for _ in range(num_slots)]
         self._slot_fresh: List[List[tuple]] = [[] for _ in range(num_slots)]
         self._slot_keys: List[Optional[list]] = [None] * num_slots
+        # parked victims holding resume pins, in park order (the last-resort
+        # reclaim drops the oldest park first)
+        self._resume: Dict[int, Request] = {}
         self.prefill_skipped = 0
 
     # -- scheduler page-gate protocol --------------------------------------
@@ -85,24 +96,42 @@ class PagedKVManager:
             (req.max_new_tokens + self.spec_overshoot) / self.page_size)
 
     def pages_free(self) -> int:
-        """The free list plus what LRU eviction of unpinned cached chains
-        would reclaim."""
+        """The free list, plus what LRU eviction of unpinned cached chains
+        would reclaim, plus what dropping parked victims' resume pins (and
+        evicting the chains they free) would."""
         free = self.alloc.free_count
         if self.index is not None:
             free += self.index.evictable_pages()
-        return free
+        return free + self._resume_reclaimable()
+
+    def _resume_reclaimable(self) -> int:
+        """Pages that releasing every resume pin would make evictable:
+        those whose only holders are the index and the pins (refcount == 1
+        + pins).  A page an active slot also holds is excluded, so the
+        count is a lower bound."""
+        if not self._resume:
+            return 0
+        pins: Dict[int, int] = {}
+        for req in self._resume.values():
+            for p in req.resume_pages:
+                if p != NULL_PAGE:
+                    pins[p] = pins.get(p, 0) + 1
+        return sum(1 for p, k in pins.items()
+                   if self.alloc.refcount(p) == 1 + k)
 
     def pages_capacity(self) -> int:
         return self.alloc.capacity
 
     # -- slot lifecycle ----------------------------------------------------
 
-    def admit_slot(self, slot: int, req: Request, ids_row, valid_row):
+    def admit_slot(self, slot: int, req: Request, ids_row, valid_row,
+                   engine_step: int = 0):
         """Build the slot's block table: prefix-cache lookup, then atomic
         allocation of the remaining prompt pages and all decode pages
         (evicting LRU cached chains when the free list is short).  Returns
         the cached prefill logits on an exact full-prompt hit, else None.
-        Transactional: on any failure every page taken is released."""
+        Transactional: on any failure every page taken is released.
+        ``engine_step`` is the fault point's context."""
         # a prompt page's KV depends on the adapter that prefilled it (v
         # carries the adapter's delta), so keys are salted with the
         # request's adapter: prefixes are shared within an adapter, never
@@ -128,6 +157,8 @@ class PagedKVManager:
             fresh = list(zip(todo, ctx_fresh))
             for lp, p in fresh:
                 table[lp] = p
+            fault_point("serving/page_alloc", request_id=req.request_id,
+                        engine_step=engine_step)
             dec = self.alloc.alloc(n_dec)
             taken += dec
             table[self.ctx_pages:self.ctx_pages + n_dec] = dec
@@ -180,12 +211,78 @@ class PagedKVManager:
         self.tables[slot] = NULL_PAGE
         self.tables_dirty = True
 
+    # -- preemption resume --------------------------------------------------
+
+    def park_resume(self, slot: int, req: Request,
+                    fresh_done: Optional[int] = None) -> None:
+        """Pin the slot's COMMITTED leading page chain on the victim about
+        to be requeued, so its re-grant's prefix lookup matches the chain
+        and only the uncommitted tail is prefilled again.
+
+        Call before :meth:`release_slot` (the slot's references keep the
+        pages alive while the pin is taken).  ``fresh_done``: how many of
+        the slot's fresh prompt pages hold real KV -- None for a DECODE
+        victim (its whole prompt chain), else the chunk loop's progress.
+
+        The chain is registered in the prefix index (a mid-chunk victim's
+        partial chain never was) and each non-NULL page takes one
+        request-held reference, which keeps it from eviction while parked.
+        Where the index already holds another chain under these keys (an
+        identical prompt registered first), that chain holds the same KV:
+        it is pinned instead, and nothing is registered.  (The JAX manager
+        raises the index's divergence assertion there.)
+        :meth:`release_resume` drops the pin exactly once."""
+        if self.index is None or req.resume_keys is not None:
+            return
+        keys = self._slot_keys[slot]
+        if keys is None:
+            return
+        fresh = self._slot_fresh[slot]
+        if fresh_done is None or not fresh:
+            depth = self.ctx_pages
+        else:
+            depth = fresh[0][0] + min(int(fresh_done), len(fresh))
+        if depth <= 0:
+            return
+        ckeys = list(keys[:depth])
+        pages = [int(p) for p in self.tables[slot][:depth]]
+        cached, _ = self.index.peek(ckeys)
+        if cached == pages[:len(cached)]:
+            self.index.insert(ckeys, pages)
+        else:
+            ckeys, pages = ckeys[:len(cached)], cached
+        for p in pages:
+            self.alloc.retain(p)  # no-op on NULL padding pages
+        req.resume_pages = pages
+        req.resume_keys = ckeys
+        self._resume[req.request_id] = req
+
+    def release_resume(self, req: Request) -> None:
+        """Drop a parked victim's resume pin.  Idempotent: the re-grant,
+        every terminal path and the pool-pressure reclaim may all call it.
+        The chain stays in the prefix index under its own references."""
+        if req.resume_keys is None and not req.resume_pages:
+            return
+        self.alloc.free_tail(req.resume_pages)
+        req.resume_pages = []
+        req.resume_keys = None
+        self._resume.pop(req.request_id, None)
+
     def _ensure_free(self, n: int) -> None:
-        """Evict LRU unpinned cached chains until ``n`` pages are free (the
-        admission gate already checked free + evictable covers it)."""
+        """Make room for ``n`` pages: evict LRU unpinned cached chains, then
+        as a last resort drop parked victims' resume pins (oldest park
+        first; those victims prefill again from scratch) and evict the
+        chains they freed.  The admission gate already checked that free +
+        evictable + pin-reclaimable covers it."""
         short = n - self.alloc.free_count
         if short > 0 and self.index is not None:
-            self.index.evict(short)
+            short -= self.index.evict(short)
+        if short > 0 and self._resume and self.index is not None:
+            for rid in list(self._resume):
+                self.release_resume(self._resume[rid])
+                short -= self.index.evict(short)
+                if short <= 0:
+                    break
 
     def leaked_pages(self) -> int:
         """Allocated pages beyond those the prefix index holds; 0 once every
@@ -208,3 +305,12 @@ class PagedKVManager:
             assert held <= set(self._slot_pages[slot]), (
                 f"slot {slot} table points at pages it holds no reference "
                 f"on: {sorted(held - set(self._slot_pages[slot]))}")
+        for rid, req in self._resume.items():
+            assert req.resume_keys is not None, (
+                f"parked request {rid} tracked without a resume chain")
+            for p in req.resume_pages:
+                if p != NULL_PAGE:
+                    # the pin's own reference plus the index's
+                    assert self.alloc.refcount(p) >= 2, (
+                        f"parked request {rid} pins page {p} with refcount "
+                        f"{self.alloc.refcount(p)}")

@@ -1,11 +1,14 @@
 """Request lifecycle for the continuous-batching serving engine (a copy of
-``neuronx_distributed_tpu/serving/request.py`` without the fields of the
-slices not yet ported: preemption, tracing and live-weights accounting).
+``neuronx_distributed_tpu/serving/request.py`` without the tracing and
+live-weights fields, which wait for their slices).
 
 A :class:`Request` enters QUEUED, moves to PREFILL when a slot is granted,
 DECODE after its prompt's KV is in the pool, and ends in exactly one of
 FINISHED (stop token / length), CANCELLED, TIMED_OUT or FAILED (its logits
-went non-finite; only that request fails).  Transitions are validated.
+went non-finite; only that request fails).  PREFILL and DECODE can also go
+back to QUEUED: a batch request preempted for an interactive one is parked
+by :meth:`Request.reset_for_requeue` and prefilled again later.
+Transitions are validated.
 """
 
 from __future__ import annotations
@@ -30,9 +33,10 @@ _TRANSITIONS = {
                           RequestState.TIMED_OUT},
     RequestState.PREFILL: {RequestState.DECODE, RequestState.FINISHED,
                            RequestState.CANCELLED, RequestState.TIMED_OUT,
-                           RequestState.FAILED},
+                           RequestState.FAILED, RequestState.QUEUED},
     RequestState.DECODE: {RequestState.FINISHED, RequestState.CANCELLED,
-                          RequestState.TIMED_OUT, RequestState.FAILED},
+                          RequestState.TIMED_OUT, RequestState.FAILED,
+                          RequestState.QUEUED},
     RequestState.FINISHED: set(),
     RequestState.CANCELLED: set(),
     RequestState.TIMED_OUT: set(),
@@ -99,6 +103,22 @@ class Request:
     # token accepted but clipped by the output budget still counts
     spec_proposed: int = 0
     spec_accepted: int = 0
+    # SLO scheduling (engine-owned): times a higher tier preempted the
+    # request's slot, why the engine shed it before its prefill ran (e.g.
+    # "expired_before_prefill"), and the wall milliseconds spent parked
+    # between preemptions and their re-grants (``parked_at``: the open
+    # park's start, engine clock)
+    preemptions: int = 0
+    shed_reason: Optional[str] = None
+    preempted_ms: float = 0.0
+    parked_at: Optional[float] = None
+    # the committed page chain a parked victim keeps pinned (one extra
+    # allocator reference a non-NULL page) and its page keys; the
+    # re-grant's prefix lookup matches it, so only the uncommitted tail is
+    # prefilled again.  The kv manager's ``release_resume`` drops the pin
+    # exactly once (re-grant, terminal state or pool pressure).
+    resume_pages: List[int] = dataclasses.field(default_factory=list)
+    resume_keys: Optional[list] = None
 
     def __post_init__(self):
         self.prompt_ids = [int(t) for t in self.prompt_ids]
@@ -138,6 +158,19 @@ class Request:
         return (self.deadline_s is not None and self.submit_time is not None
                 and now - self.submit_time > self.deadline_s)
 
+    def reset_for_requeue(self) -> None:
+        """Preemption: park this PREFILL/DECODE request back in QUEUED and
+        discard its partial generation.  A later grant prefills it again
+        and, the sampling stream being keyed on ``(seed, request_id, token
+        index)``, regenerates the same tokens.  ``submit_time`` (so the
+        absolute deadline) and the resume chain are kept."""
+        self.transition(RequestState.QUEUED)
+        self.generated.clear()
+        self.intertoken_ms.clear()
+        self.prefill_time = None
+        self.first_token_time = None
+        self.preemptions += 1
+
     def check_stop(self, token: int) -> Optional[str]:
         """Finish reason after appending ``token``, or None to keep going."""
         if token in self.stop_token_ids:
@@ -168,6 +201,9 @@ class RequestOutput:
     spec_proposed: int = 0
     spec_accepted: int = 0
     adapter_id: int = 0  # the LoRA adapter the request decoded under
+    preemptions: int = 0
+    preempted_ms: float = 0.0
+    shed_reason: Optional[str] = None
 
     @property
     def acceptance_rate(self) -> Optional[float]:
@@ -202,4 +238,7 @@ class RequestOutput:
             spec_proposed=req.spec_proposed,
             spec_accepted=req.spec_accepted,
             adapter_id=req.adapter_id,
+            preemptions=req.preemptions,
+            preempted_ms=req.preempted_ms,
+            shed_reason=req.shed_reason,
         )

@@ -20,10 +20,10 @@ weights through the same allocator as the KV cache.
   low-rank delta IS the identity: adapter 0 ("no adapter") needs no
   pages.
 
-``acquire`` is transactional: a failure after the pages are taken frees
-every one of them before re-raising.  The JAX store reports to the
-metrics registry; until the port has one (ROADMAP A8) the store keeps
-plain counters.
+``acquire`` is transactional: a failure after the pages are taken (the
+``tenancy/adapter_load`` fault point sits there) frees every one of them
+before re-raising.  The JAX store reports to the metrics registry; until
+the port has one (ROADMAP A8) the store keeps plain counters.
 """
 
 from __future__ import annotations
@@ -41,6 +41,7 @@ from neuronx_distributed_tpu_torch.kvcache.allocator import (
     PoolExhausted,
 )
 from neuronx_distributed_tpu_torch.peft import lora_params, map_with_path
+from neuronx_distributed_tpu_torch.resilience.faults import fault_point
 from neuronx_distributed_tpu_torch.utils.logger import get_logger
 
 logger = get_logger(__name__)
@@ -276,12 +277,14 @@ class AdapterStore:
 
     # -- residency (pin at admission / release on terminal) -----------------
 
-    def acquire(self, adapter_id: int) -> List[Tuple[int, np.ndarray]]:
+    def acquire(self, adapter_id: int,
+                engine_step: int = 0) -> List[Tuple[int, np.ndarray]]:
         """Pin ``adapter_id`` for one request.  Returns the device loads
         the caller must perform, ``[(phys_page, host_block), ...]``, on a
         cold start, or ``[]`` when the adapter is already resident (or is
         adapter 0).  Transactional: a failure after the allocation frees
-        every page taken before re-raising."""
+        every page taken before re-raising.  ``engine_step`` is the fault
+        point's context."""
         if adapter_id == 0:
             return []
         blocks = self._blocks.get(adapter_id)
@@ -299,6 +302,9 @@ class AdapterStore:
         self._ensure_free(need)
         pages = self.alloc.alloc(need)  # atomic: PoolExhausted takes nothing
         try:
+            # a crash between the allocation and the pin leaks nothing
+            fault_point("tenancy/adapter_load", adapter_id=adapter_id,
+                        engine_step=engine_step)
             for p in pages:
                 self.alloc.retain(p)  # the request's pin atop the store ref
         except BaseException:

@@ -21,6 +21,12 @@ The file imports nothing of JAX:
   pool by address: after a cold load writes another adapter into the
   evicted pages between two replays, the replay equals the eager call on
   the new pages.
+- A preemption between two replays of a captured decode changes only the
+  block tables and offsets the replay takes: the replay equals the eager
+  call, nothing is captured again, and a victim granted straight back
+  into its own slot while its step is in flight drops the stale token;
+  the async graph engine serves preemption traffic with the synchronous
+  eager engine's tokens.
 """
 
 import numpy as np
@@ -263,3 +269,82 @@ def test_adapter_graph_replay_reads_pages_loaded_after_capture(dev):
         offsets = torch.where(offsets >= TOTAL, offsets, offsets + 1)
     assert graphed.graphs.captures == 1 and graphed.graphs.replays == 2
     assert stores["graph"].evictions == 1
+
+
+def _preempt(eng, rid):
+    """Park request ``rid`` as the engine's next preemption would; the
+    freed slot."""
+    real = eng.scheduler.pick_preemption
+    slot = eng.scheduler.slot_of(rid)
+    victim = eng.scheduler._slots[slot]
+
+    def once(now=None):
+        eng.scheduler.pick_preemption = real
+        return slot, victim
+
+    eng.scheduler.pick_preemption = once
+    eng._preempt_for_priority(eng._clock())
+    return slot
+
+
+def test_preemption_between_replays(dev):
+    cfg, eager, graphed = _model("llama", dev)
+    eng = _admitted(eager, cfg.vocab_size, None)
+    rs = np.random.RandomState(6)
+    state = {m: _copy_state(eng) for m in ("eager", "graph")}
+    for call in range(4):  # eager + capture, a replay, then around a park
+        if call == 2:
+            slot = _preempt(eng, 1)
+            assert eng._offsets[slot] == TOTAL
+            assert (eng._kv.tables[slot] == 0).all()
+            captures = graphed.graphs.captures
+        tables = torch.from_numpy(eng._kv.tables.copy()).to(dev)
+        offsets = torch.from_numpy(eng._offsets.copy()).to(dev)
+        toks = torch.from_numpy(rs.randint(1, cfg.vocab_size,
+                                           size=(SLOTS, 1))).to(dev)
+        out = {}
+        for mode, pim in (("eager", eager), ("graph", graphed)):
+            caches, valid = state[mode]
+            out[mode], _, _ = pim.decode_pages(toks, offsets, tables, caches,
+                                               valid)
+        assert torch.equal(out["eager"], out["graph"]), call
+        for e_entry, g_entry in zip(state["eager"][0], state["graph"][0]):
+            for a, b in zip(e_entry, g_entry):
+                assert torch.equal(a, b)
+        eng._offsets = np.where(eng._offsets >= TOTAL, eng._offsets,
+                                eng._offsets + 1).astype(np.int32)
+    assert graphed.graphs.captures == captures == 1
+    assert graphed.graphs.replays == 3
+
+
+def test_graph_engine_preemption_tokens_equal_sync_eager(dev):
+    cfg, eager, graphed = _model("llama", dev)
+    prompts = _prompts(cfg.vocab_size, SLOTS + 1, 8)
+
+    def run(pim, force_regrant=False, **kw):
+        eng = ServingEngine(pim, page_size=PAGE, **kw)
+        for i in range(SLOTS):
+            eng.submit(Request(request_id=i, prompt_ids=prompts[i],
+                               max_new_tokens=24, priority="batch"))
+        outs = eng.step() + eng.step() + eng.step()
+        captures = pim.graphs.captures if pim.cuda_graphs else None
+        if force_regrant:
+            # the victim goes straight back into its own slot while its
+            # step is in flight: the stale token must be dropped
+            assert eng._pending is not None
+            slot = eng.scheduler.slot_of(2)
+            _preempt(eng, 2)
+            outs += eng.step()
+            assert eng.scheduler.slot_of(2) == slot
+        eng.submit(Request(request_id=SLOTS, prompt_ids=prompts[SLOTS],
+                           max_new_tokens=8))
+        outs += eng.run_until_complete(max_steps=500)
+        eng._kv.assert_invariants()
+        assert eng._kv.leaked_pages() == 0 and eng.preemptions >= 1
+        if captures is not None:
+            assert pim.graphs.captures == captures  # nothing captured again
+        return {o.request_id: o.token_ids for o in outs}
+
+    want = run(eager, async_decode=False)
+    assert run(graphed) == want
+    assert run(graphed, force_regrant=True) == want

@@ -145,7 +145,8 @@ def test_walk_covers_the_slice():
                 "utils.device", "version", "config", "models.common",
                 "parallel.loss", "parallel.grads", "optimizer.adamw_fp32",
                 "trainer.trainer", "trainer.metrics", "tenancy",
-                "tenancy.store", "peft"):
+                "tenancy.store", "peft", "resilience", "resilience.faults",
+                "resilience.supervisor"):
         assert f"neuronx_distributed_tpu_torch.{mod}" in names
 
 
