@@ -72,7 +72,16 @@ estimate; (d) a tenant limit on adapter 1 (burst 2) refuses the third
 submit at one instant; (e) fault plans on the graph engine: a NaN on one
 slot's decode logits fails only that request, an exception mid-chunk
 leaks nothing and a resubmission finishes identical, and the steady step
-with no plan beside one with an inert plan, in turns.  Phase 1 also holds
+with no plan beside one with an inert plan, in turns.  Phase 2f runs the
+observability core on the same engine: (a) 2e(a)'s traffic with full
+telemetry (``Observability``, ``Tracer``, ``stats_path``,
+``transfer_guard="forbid"``): tokens identical to the run without it,
+every artifact valid, the registry's counts equal to the engine's, phase
+spans tiling each latency; (b) the steady graph step with and without
+telemetry in turns, with device busy and launches a step unchanged and
+the step's host time split by part; (c) ``obs.tracing.device_trace``
+naming the decode kernel 32 times a step; (d) a fault through
+``replay_trace`` leaving a valid flight record.  Phase 1 also holds
 and times the verify call (B =
 8, S = 5) over both pool types, and the simt kernel at fp32 q.  Phase 1
 then holds the fp-pool kernels at head_dim 256
@@ -2707,6 +2716,426 @@ def phase2e(model_pim, steady_2c_ms, entries: dict):
     return out
 
 
+# -- phase 2f -----------------------------------------------------------------
+
+# steady graph steps a telemetry profile times (host clock, host split,
+# profiler), and the steady steps under obs.tracing.device_trace
+F_STEADY_STEPS, F_TRACE_STEPS = 10, 3
+
+
+def full_telemetry(out_dir: str) -> dict:
+    """Engine arguments with every telemetry hook of the observability core
+    attached, writing under ``out_dir``: an ``Observability`` hub, a
+    ``Tracer``, ``stats_path`` and the ``forbid`` sync guard."""
+    from neuronx_distributed_tpu_torch.obs import Observability, Tracer
+
+    os.makedirs(out_dir, exist_ok=True)
+    return {"obs": Observability(out_dir), "tracer": Tracer(),
+            "stats_path": os.path.join(out_dir, "serving_stats.jsonl"),
+            "transfer_guard": "forbid"}
+
+
+class HostSplit:
+    """Host-clock seconds one engine's steps spend in each part of a
+    steady async step: the fetch's wait for the card, the rest of the
+    collect (offset advance, stop checks, spans), the put (``_stage``), the
+    graph replay's launch (``decode_pages``), the sampler (``sample_rows``
+    and ``pack_tokens``), the fetch's start, the rest of the dispatch, the
+    collected step's host work (``_finish_decode``), the step's telemetry
+    (``_end_step``) and the remainder (sweep, preemption, admission).  The
+    parts are wrapped as instance attributes (and the engine module's
+    sampler functions), removed by :meth:`close`."""
+
+    def __init__(self, eng):
+        import neuronx_distributed_tpu_torch.serving.engine as se
+
+        self.eng, self.se = eng, se
+        self.acc = {}
+        self._undo = []
+        for obj, name, key in (
+                (eng, "step", "step"),
+                (eng, "_collect_decode", "collect"),
+                (eng._audit, "fetch", "fetch_wait"),
+                (eng, "_dispatch_decode", "dispatch"),
+                (eng, "_stage", "put"),
+                (eng.model, "decode_pages", "replay"),
+                (se, "sample_rows", "sampler"),
+                (se, "pack_tokens", "sampler"),
+                (eng._io, "fetch", "fetch_start"),
+                (eng, "_finish_decode", "finish"),
+                (eng, "_end_step", "telemetry")):
+            self._wrap(obj, name, key)
+
+    def _wrap(self, obj, name, key):
+        real = getattr(obj, name)
+        acc = self.acc
+        acc.setdefault(key, 0.0)
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real(*a, **kw)
+            finally:
+                acc[key] += time.perf_counter() - t0
+
+        had = name in vars(obj) if hasattr(obj, "__dict__") else False
+        setattr(obj, name, timed)
+        self._undo.append((obj, name, real, had))
+
+    def close(self) -> None:
+        for obj, name, real, had in reversed(self._undo):
+            if had or obj is self.se:
+                setattr(obj, name, real)
+            else:
+                delattr(obj, name)
+
+    def per_step_ms(self, steps: int) -> dict:
+        a = {k: v * 1e3 / steps for k, v in self.acc.items()}
+        parts = {
+            "fetch_wait": a["fetch_wait"],
+            "collect_rest": a["collect"] - a["fetch_wait"],
+            "put": a["put"], "replay_launch": a["replay"],
+            "sampler": a["sampler"], "fetch_start": a["fetch_start"],
+            "dispatch_rest": a["dispatch"] - a["put"] - a["replay"]
+            - a["sampler"] - a["fetch_start"],
+            "finish": a["finish"], "telemetry": a["telemetry"]}
+        parts["rest"] = a["step"] - a["collect"] - a["dispatch"] \
+            - a["finish"] - a["telemetry"]
+        parts["step"] = a["step"]
+        return parts
+
+
+def telemetry_profile(pim, vocab: int, label: str, **engine_kw) -> dict:
+    """A steady graph step (SLOTS slots decoding, bf16, whole prefill) on
+    one engine: the host clock over F_STEADY_STEPS steps, the registry's
+    ``serving/step_ms`` and ``serving/host_blocked_ms`` over the same
+    steps, the host split (:class:`HostSplit`) over as many more, and the
+    device time and device launches a step under ``torch.profiler``
+    (TRACE_TRIES traces, the fullest kept: a trace can drop a call's
+    events, never add one).  Fails if a graph is captured once warm."""
+    import torch
+
+    from neuronx_distributed_tpu_torch import ServingEngine
+
+    steps = F_STEADY_STEPS
+    eng = ServingEngine(pim, page_size=PAGE_SIZE, **engine_kw)
+    # 3 warm steps, 2 x steps timed, TRACE_TRIES traces of steps + 1
+    for r in make_requests(vocab, SLOTS, (TRACE_TRIES + 3) * (steps + 1) + 8,
+                           SEED + 3):
+        eng.submit(r)
+    for _ in range(3):
+        eng.step()  # admissions, the eager call and capture, a replay
+    if len(eng._decoding()) != SLOTS:
+        raise AssertionError(f"{label}: {len(eng._decoding())} slots decoding")
+    captures = pim.graphs.captures
+    reg = eng.registry
+
+    def hist(name):
+        h = reg.snapshot()[name]
+        return h["sum"], h["count"]
+
+    (s0, c0), (b0, n0) = hist("serving/step_ms"), hist("serving/host_blocked_ms")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    (s1, c1), (b1, n1) = hist("serving/step_ms"), hist("serving/host_blocked_ms")
+    if c1 - c0 != steps or n1 - n0 != steps:
+        raise AssertionError(f"{label}: the registry counted {c1 - c0} steps "
+                             f"and {n1 - n0} fetches over {steps} steps")
+    split = HostSplit(eng)
+    try:
+        for _ in range(steps):
+            eng.step()
+    finally:
+        split.close()
+    parts = split.per_step_ms(steps)
+    best = None
+    for _ in range(TRACE_TRIES):
+        events = trace(lambda: [eng.step() for _ in range(steps)], eng.step)
+        launches = sum(e.count for e in events)
+        if best is None or launches > best[1]:
+            best = (events, launches)
+    events, launches = best
+    busy_ms = sum(dev_us(e) for e in events) / 1e3 / steps
+    decode = sum(e.count for e in events if PAGED_DECODE_KERNEL in e.key)
+    if pim.graphs.captures != captures:
+        raise AssertionError(f"{label}: graphs captured once warm "
+                             f"({captures} -> {pim.graphs.captures})")
+    eng.run_until_complete(max_steps=1_000)
+    eng.close()
+    out = {"steady_step_ms": step_ms,
+           "registry_step_ms": (s1 - s0) / steps,
+           "registry_host_blocked_ms": (b1 - b0) / steps,
+           "device_busy_ms": busy_ms,
+           "device_launches_per_step": launches / steps,
+           "decode_launches_per_step": decode / steps,
+           "host_split_ms": parts}
+    log(f"{label}: steady step {step_ms:.3f} ms host clock (registry "
+        f"serving/step_ms {out['registry_step_ms']:.3f}, host blocked in "
+        f"the fetch {out['registry_host_blocked_ms']:.3f} ms); device busy "
+        f"{busy_ms:.3f} ms, {launches / steps:.1f} device launches a step "
+        f"({decode / steps:.1f} decode-kernel); host split a step: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()) + " ms")
+    return out
+
+
+def phase2f(model_pim, entries: dict):
+    """The observability core on phase 2's Llama-3-8B, the async graph
+    engine: (a) 2e(a)'s SLO traffic with full telemetry (an
+    ``Observability`` hub, a ``Tracer``, ``stats_path``,
+    ``transfer_guard="forbid"``): tokens identical to the same traffic on
+    the same engine without telemetry; ``scalars.jsonl``,
+    ``serving_stats.jsonl``, ``trace_events.jsonl``, ``flight_record.json``
+    and ``metrics.prom`` validate; the registry's counts equal the
+    engine's own; each request's phase spans tile its latency within 1 ms
+    and each victim's ``preempted`` phase is its ``preempted_ms``; every
+    decode launch on the decode kernel; (b) the steady graph step, default
+    engine (registry only) against full telemetry in turns: host clock,
+    the registry's step and host-blocked times, device busy and launches a
+    step (equal: telemetry adds no kernel) and the host split; (c)
+    ``obs.tracing.device_trace`` over F_TRACE_STEPS steady steps names the
+    decode kernel, one launch a layer a step; (d) an exception plan at
+    ``serving/prefill_chunk`` through ``replay_trace`` leaves a valid
+    ``flight_record.json`` holding the steps before the fault.
+    ``entries``: the kernels-line entry (a) counts ("decode")."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from neuronx_distributed_tpu_torch import ServingEngine
+    from neuronx_distributed_tpu_torch.obs import (
+        Observability,
+        device_trace,
+        read_trace_events,
+        schemas,
+        tracing,
+    )
+    from neuronx_distributed_tpu_torch.resilience import (
+        InjectedFault,
+        clear_plan,
+        install_plan,
+    )
+    from neuronx_distributed_tpu_torch.serving import replay_trace
+
+    cfg = model_pim.module.config
+    L, vocab = cfg.num_layers, cfg.vocab_size
+    pim = graphed_pim(model_pim)
+    out = {}
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    root = tmp.name
+
+    # (a) full telemetry under 2e(a)'s SLO traffic
+    plain, _, plain_wall = slo_serve(
+        "phase2f(a) no telemetry", ServingEngine(pim, page_size=PAGE_SIZE),
+        slo_traffic(vocab))
+    want = {rid: o.token_ids for rid, o in plain.items()}
+    a_dir = os.path.join(root, "a")
+    kw = full_telemetry(a_dir)
+    hub, tracer = kw["obs"], kw["tracer"]
+    eng = ServingEngine(pim, page_size=PAGE_SIZE, **kw)
+    traffic = slo_traffic(vocab)
+    emitted = [0]
+
+    def stream(req, tok):
+        emitted[0] += 1
+
+    for r in traffic[0] + traffic[1]:
+        r.stream_cb = stream
+    zero_paged_counts()
+    outs, captures, wall = slo_serve("phase2f(a) full telemetry", eng,
+                                     traffic, want_tokens=want)
+    routes = check_routes("phase2f(a)", eng.decode_steps * L, 0)
+    set_launches([entries["decode"]], routes, "2f(a)")
+    eng.close()
+    hub.close()
+    events_path = os.path.join(a_dir, tracing.TRACE_EVENTS_FILE)
+    tracer.export_jsonl(events_path)
+    counts = {
+        "scalars": schemas.validate_jsonl("scalars", hub.scalars_path),
+        "serving_stats": schemas.validate_jsonl("serving_stats",
+                                                kw["stats_path"]),
+        "trace_event": schemas.validate_jsonl("trace_event", events_path)}
+    with open(hub.flight_path) as f:
+        flight = json.load(f)
+    schemas.validate_flight_document(flight)
+    schemas.validate_registry_metrics(eng.registry)
+    with open(hub.prometheus_path) as f:
+        if f.read() != eng.registry.prometheus_text():
+            raise AssertionError("phase2f(a): metrics.prom differs from the "
+                                 "registry's text")
+    if counts["serving_stats"] != len(outs):
+        raise AssertionError(f"phase2f(a): {counts['serving_stats']} stats "
+                             f"records for {len(outs)} terminal requests")
+    if flight["steps_recorded"] != eng._steps:
+        raise AssertionError(f"phase2f(a): flight recorded "
+                             f"{flight['steps_recorded']} of {eng._steps} "
+                             f"steps")
+    snap = eng.registry.snapshot()
+    want_counts = {"serving/tokens_total": emitted[0],
+                   "serving/preemptions_total": eng.preemptions,
+                   "transfer/explicit_puts_total": eng.puts,
+                   "transfer/explicit_fetches_total": eng.fetches,
+                   "transfer/guarded_sections_total": eng._steps,
+                   "serving/finished_total": len(outs)}
+    got = {k: snap[k] for k in want_counts}
+    if got != {k: float(v) for k, v in want_counts.items()} \
+            or not eng.preemptions:
+        raise AssertionError(f"phase2f(a): registry {got} != engine "
+                             f"{want_counts}")
+    spans = read_trace_events(events_path)
+    worst_tile, worst_park = 0.0, 0.0
+    for rid, o in outs.items():
+        mine = [s for s in spans if s["request_id"] == rid]
+        phase = {p: sum((s["t_end"] - s["t_start"]) * 1e3 for s in mine
+                        if s["name"] == p)
+                 for p in ("queue", "prefill", "decode", "preempted")}
+        worst_tile = max(worst_tile, abs(sum(phase.values()) - o.total_ms))
+        worst_park = max(worst_park, abs(phase["preempted"] - o.preempted_ms))
+    if worst_tile > 1.0 or worst_park > 1.0:
+        raise AssertionError(f"phase2f(a): phase spans off the latency by "
+                             f"{worst_tile:.4f} ms, parks by "
+                             f"{worst_park:.4f} ms")
+    victims = [o.request_id for o in outs.values() if o.preemptions]
+    out["a"] = {"wall_s": wall, "wall_no_telemetry_s": plain_wall,
+                "decode_steps": eng.decode_steps, "launches_by_route": routes,
+                "preemptions": eng.preemptions, "victims": victims,
+                "graph_captures": captures, "artifact_records": counts,
+                "spans": len(spans), "registry": got,
+                "worst_tile_ms": worst_tile, "worst_park_ms": worst_park}
+    log(f"phase2f(a): 2e(a)'s traffic with full telemetry "
+        f"(transfer_guard='forbid'): tokens identical to the same engine "
+        f"without it ({plain_wall:.3f} s vs {wall:.3f} s); artifacts valid "
+        f"({counts}, flight {flight['steps_recorded']} steps, metrics.prom "
+        f"= the registry); registry = engine {got}; {len(spans)} spans, "
+        f"phases tile every latency within {worst_tile:.6f} ms, victims "
+        f"{victims}' preempted phases their preempted_ms within "
+        f"{worst_park:.6f} ms; {eng._steps} guarded sections, none raised; "
+        f"{eng.decode_steps} decode steps, launches by route {routes}; "
+        f"{captures} graphs captured, none once warm")
+    del eng
+
+    # (b) the steady step: default engine against full telemetry, in turns
+    runs = {"default": [], "full": []}
+    for turn, kind in enumerate(("default", "full", "full", "default")):
+        kw = (full_telemetry(os.path.join(root, f"b{turn}"))
+              if kind == "full" else {})
+        runs[kind].append(telemetry_profile(
+            pim, vocab, f"phase2f(b) {kind} {len(runs[kind]) + 1}", **kw))
+        if kind == "full":
+            kw["obs"].close()
+    mean = {k: {f: sum(r[f] for r in v) / len(v)
+                for f in ("steady_step_ms", "registry_step_ms",
+                          "registry_host_blocked_ms", "device_busy_ms",
+                          "device_launches_per_step",
+                          "decode_launches_per_step")}
+            for k, v in runs.items()}
+    split = {k: {p: sum(r["host_split_ms"][p] for r in v) / len(v)
+                 for p in v[0]["host_split_ms"]} for k, v in runs.items()}
+    launches = {k: [r["device_launches_per_step"] for r in v]
+                for k, v in runs.items()}
+    if len({x for v in launches.values() for x in v}) != 1:
+        raise AssertionError(f"phase2f(b): device launches a step differ "
+                             f"with telemetry: {launches}")
+    if mean["default"]["decode_launches_per_step"] != L:
+        raise AssertionError(f"phase2f(b): {mean['default']} decode "
+                             f"launches a step, not {L}")
+    busy = [r["device_busy_ms"] for v in runs.values() for r in v]
+    if max(busy) > 1.05 * min(busy):
+        raise AssertionError(f"phase2f(b): device busy a step moved with "
+                             f"telemetry: {busy}")
+    out["b"] = {"mean": mean, "host_split_ms": split, "runs": runs}
+    log(f"phase2f(b): steady graph step (B={SLOTS}), means of 2 runs in "
+        f"turns: default {mean['default']['steady_step_ms']:.3f} ms, full "
+        f"telemetry {mean['full']['steady_step_ms']:.3f} ms (host clock); "
+        f"device busy {mean['default']['device_busy_ms']:.3f} / "
+        f"{mean['full']['device_busy_ms']:.3f} ms and "
+        f"{mean['default']['device_launches_per_step']:.1f} device launches "
+        f"a step in every run; host split default "
+        f"{json.dumps({k: round(v, 4) for k, v in split['default'].items()})}"
+        f", full {json.dumps({k: round(v, 4) for k, v in split['full'].items()})}")
+
+    # (c) a device trace of steady steps
+    eng = ServingEngine(pim, page_size=PAGE_SIZE)
+    for r in make_requests(vocab, SLOTS, 8 * F_TRACE_STEPS + 8, SEED + 4):
+        eng.submit(r)
+    for _ in range(3):
+        eng.step()
+    seen = []
+    for i in range(TRACE_TRIES):
+        c_dir = os.path.join(root, f"c{i}")
+        with device_trace(c_dir):
+            for _ in range(F_TRACE_STEPS):
+                eng.step()
+        with open(os.path.join(c_dir, tracing.DEVICE_TRACE_FILE)) as f:
+            doc = json.load(f)
+        if doc.get("device_trace") != "cuda":
+            raise AssertionError(f"phase2f(c): trace metadata "
+                                 f"{doc.get('device_trace')!r}")
+        n = sum(1 for e in doc["traceEvents"]
+                if e.get("cat") == "kernel"
+                and PAGED_DECODE_KERNEL in e.get("name", ""))
+        seen.append(n)
+        if n == F_TRACE_STEPS * L:
+            break
+    else:
+        raise AssertionError(f"phase2f(c): the device traces named "
+                             f"{PAGED_DECODE_KERNEL} {seen} times, not "
+                             f"{F_TRACE_STEPS} x {L}")
+    eng.run_until_complete(max_steps=1_000)
+    del eng
+    out["c"] = {"decode_kernel_events": seen}
+    log(f"phase2f(c): obs.tracing.device_trace over {F_TRACE_STEPS} steady "
+        f"steps named {PAGED_DECODE_KERNEL} {seen[-1]} times = "
+        f"{F_TRACE_STEPS} x {L} (traces read: {seen})")
+
+    # (d) the crash ring: an exception mid-chunk through replay_trace
+    d_dir = os.path.join(root, "d")
+    hub = Observability(d_dir)
+    eng = ServingEngine(pim, page_size=PAGE_SIZE, obs=hub,
+                        prefill_chunk_tokens=CHUNK_TOKENS)
+    reqs = make_requests(vocab, 4, 16, SEED + 7)
+    # request 3 arrives once the others are being served: the ring holds
+    # their steps when its first chunk faults
+    arrivals = [0.0, 0.0, 0.0, 0.2]
+    install_plan({"faults": [{"point": "serving/prefill_chunk",
+                              "action": "exception",
+                              "match": {"request_id": 3}}]})
+    try:
+        replay_trace(eng, arrivals, reqs)
+        raise AssertionError("phase2f(d): the injected fault did not fire")
+    except InjectedFault:
+        pass
+    finally:
+        clear_plan()
+    with open(hub.flight_path) as f:
+        doc = json.load(f)
+    schemas.validate_flight_document(doc)
+    steps = [r["step"] for r in doc["records"]]
+    if doc["reason"] != "crash:InjectedFault" or not steps \
+            or steps != list(range(1, eng._steps)):
+        raise AssertionError(f"phase2f(d): flight {doc['reason']!r} holds "
+                             f"steps {steps} of {eng._steps}")
+    out["d"] = {"reason": doc["reason"], "steps": len(steps),
+                "fault_step": eng._steps}
+    log(f"phase2f(d): an exception at serving/prefill_chunk (request 3) "
+        f"through replay_trace left a valid flight_record.json "
+        f"({doc['reason']}) holding steps 1..{steps[-1]}, the fault in step "
+        f"{eng._steps}")
+    del eng
+    tmp.cleanup()
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase2f: {out['wall_s']:.1f} s")
+    del pim
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 # -- phase 3 ------------------------------------------------------------------
 
 # the training path's attention shape: Llama-3-8B heads at batch 4 x 2048
@@ -3658,6 +4087,8 @@ def main() -> int:
         slo = phase2e(model_pim, graphed["a"]["steady_step_ms"], {
             "decode": dec, "decode_int8": dec8, "chunk": entry_w})
         log(f"phase2e summary: {json.dumps(slo)}")
+        telemetry = phase2f(model_pim, {"decode": dec})
+        log(f"phase2f summary: {json.dumps(telemetry)}")
         del model_pim
         dec256, simt256 = phase1_gemma()
         flash, flash256 = phase3()

@@ -25,7 +25,10 @@ through the same phase functions (:mod:`.tenancy`,
 interactive ahead of batch requests, preempting batch requests with
 resumable page chains, shedding dead deadlines and rate-limiting tenants;
 :mod:`.resilience` holds the fault-injection plane threaded through
-serving and the restart-on-crash supervisor.  The port
+serving and the restart-on-crash supervisor.  :mod:`.obs` is the
+observability core (metrics registry, artifact schemas, flight ring,
+request tracer, transfer audit, metrics server) the serving engine
+reports through, in the JAX package's artifact formats.  The port
 imports ``torch`` and nothing of JAX or of the JAX package.  Entry points
 run on the card unless the caller passes ``device="cpu"``.
 """

@@ -7,7 +7,11 @@ from neuronx_distributed_tpu_torch.kvcache.allocator import (
     BlockAllocator,
     PoolExhausted,
 )
-from neuronx_distributed_tpu_torch.kvcache.pool import PagePool, init_page_pool_caches
+from neuronx_distributed_tpu_torch.kvcache.pool import (
+    GATHER_BYTES_TOTAL,
+    PagePool,
+    init_page_pool_caches,
+)
 from neuronx_distributed_tpu_torch.kvcache.prefix import (
     PAD,
     PrefixIndex,
@@ -25,6 +29,7 @@ from neuronx_distributed_tpu_torch.kvcache.quant import (
 
 __all__ = [
     "BlockAllocator",
+    "GATHER_BYTES_TOTAL",
     "NULL_PAGE",
     "PAD",
     "PagePool",

@@ -1,6 +1,7 @@
 """Host-side page accounting for the paged KV cache (a copy of
-``neuronx_distributed_tpu/kvcache/allocator.py``; counters are plain
-attributes instead of metrics-registry entries).
+``neuronx_distributed_tpu/kvcache/allocator.py``): copy-on-write copies
+count into ``kvcache/cow_copies_total`` when a metrics registry is given,
+and into the plain :attr:`BlockAllocator.cow_copies` attribute always.
 
 The :class:`BlockAllocator` owns the *bookkeeping* of the device page pool
 (:mod:`.pool`): a free list plus a refcount per allocated page.  It is pure
@@ -29,10 +30,12 @@ a fresh page (the caller device-copies the content and writes the copy).
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Tuple
+from typing import Any, Dict, Iterable, List, Tuple
 
 # reserved zero page: block-table entries with nothing behind them point here
 NULL_PAGE = 0
+
+COW_COPIES_TOTAL = "kvcache/cow_copies_total"
 
 
 class PoolExhausted(RuntimeError):
@@ -48,16 +51,21 @@ class BlockAllocator:
 
     ``num_pages`` is the device pool's total page count *including* the
     reserved NULL page, so :attr:`capacity` (= ``num_pages - 1``) is what is
-    actually allocatable.  :attr:`cow_copies` counts copy-on-write copies.
+    actually allocatable.  :attr:`cow_copies` counts copy-on-write copies;
+    ``registry`` (an ``obs.MetricRegistry``) receives them as
+    ``kvcache/cow_copies_total`` too.
     """
 
-    def __init__(self, num_pages: int):
+    def __init__(self, num_pages: int, registry: Any = None):
         if num_pages < 2:
             raise ValueError(
                 f"num_pages must be >= 2 (page 0 is the reserved NULL page), "
                 f"got {num_pages}")
         self.num_pages = num_pages
         self.cow_copies = 0
+        self.registry = registry
+        if registry is not None:
+            registry.counter(COW_COPIES_TOTAL)
         # pop() hands out low ids first — deterministic, test-friendly order
         self._free: List[int] = list(range(num_pages - 1, NULL_PAGE, -1))
         self._refs: Dict[int, int] = {}
@@ -167,6 +175,8 @@ class BlockAllocator:
         [new] = self.alloc(1)  # may raise PoolExhausted; nothing changed yet
         self._refs[page] = rc - 1
         self.cow_copies += 1
+        if self.registry is not None:
+            self.registry.counter(COW_COPIES_TOTAL).inc()
         return new, True
 
     # -- invariants --------------------------------------------------------

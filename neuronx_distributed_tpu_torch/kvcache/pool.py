@@ -24,6 +24,11 @@ import torch
 from neuronx_distributed_tpu_torch.kvcache.quant import check_quant, page_layer_bytes
 from neuronx_distributed_tpu_torch.utils.device import resolve_device
 
+# registry counter: bytes the paged GATHER path spends rematerializing
+# per-slot [B, T] contiguous K/V clones from the pool -- what the
+# block-table-native kernel saves.  Stays ZERO on the kernel path.
+GATHER_BYTES_TOTAL = "kvcache/gather_bytes_total"
+
 
 def init_page_pool_caches(num_layers: int, num_pages: int, page_size: int,
                           num_kv_heads: int, head_dim: int,

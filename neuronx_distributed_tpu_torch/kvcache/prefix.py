@@ -1,6 +1,7 @@
 """Prefix index (a copy of ``neuronx_distributed_tpu/kvcache/prefix.py``;
-counters are plain attributes): a token-hash trie mapping prompt prefixes to shared page
-chains (RadixAttention, Zheng et al. 2024, on the static-shape page pool).
+evictions count into ``kvcache/evictions_total`` when a registry is given,
+and into the plain ``evictions`` attribute always): a token-hash trie
+mapping prompt prefixes to shared page chains (RadixAttention, Zheng et al. 2024, on the static-shape page pool).
 
 A serving fleet's prompts repeat — system prompts, few-shot preambles,
 multi-turn histories.  The prefix index deduplicates their KV at PAGE
@@ -50,6 +51,8 @@ PAD = -1
 # leading marker of a salted (per-adapter) page key — distinct from PAD and
 # from any valid token id, so a salted key can never collide with a plain one
 SALT_MARK = -2
+
+EVICTIONS_TOTAL = "kvcache/evictions_total"
 
 PageKey = Tuple[int, ...]
 
@@ -154,9 +157,12 @@ class PrefixIndex:
       pages are free.
     """
 
-    def __init__(self, allocator: BlockAllocator):
+    def __init__(self, allocator: BlockAllocator, registry: Any = None):
         self.alloc = allocator
         self.evictions = 0
+        self.registry = registry
+        if registry is not None:
+            registry.counter(EVICTIONS_TOTAL)
         self._root = _Node(None, NULL_PAGE, None)
         self._clock = 0
         self._nodes = 0
@@ -362,6 +368,8 @@ class PrefixIndex:
                 self.alloc.free(leaf.page)
                 freed += 1
                 self.evictions += 1
+                if self.registry is not None:
+                    self.registry.counter(EVICTIONS_TOTAL).inc()
         return freed
 
     # -- invariants --------------------------------------------------------

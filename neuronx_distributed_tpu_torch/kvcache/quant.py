@@ -29,6 +29,9 @@ _LEVELS = 255.0
 _OFFSET = 128.0
 QUANTS = ("int8",)
 
+# registry counter: pages written through a quantize-on-write path
+QUANT_PAGES_TOTAL = "kvcache/quant_pages_total"
+
 
 def quantize_page(x: torch.Tensor):
     """Quantize pages over their trailing ``[page, NKV, D]`` axes.

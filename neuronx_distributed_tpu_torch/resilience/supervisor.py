@@ -14,9 +14,9 @@ crash budget, and record each attempt's resume point.
   complete checkpoint tag there (:func:`newest_complete_tag`), the
   contract between a crashed attempt and the next.
 
-The JAX package's CLI (``tools/train_supervisor.py``) and the schema check
-of the events (``obs.schemas``) wait for the port's trainer checkpoints and
-observability layer; the events keep the same keys.
+Every event is validated against the ``supervisor_event`` schema of
+:mod:`..obs.schemas` before it is written.  The JAX package's CLI
+(``tools/train_supervisor.py``) waits for the port's trainer checkpoints.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ import subprocess
 import time
 from typing import IO, List, Optional, Sequence
 
+from neuronx_distributed_tpu_torch.obs.schemas import validate_record
 from neuronx_distributed_tpu_torch.utils.logger import get_logger
 
 logger = get_logger(__name__)
@@ -162,6 +163,7 @@ class Supervisor:
     def _emit(self, event: str, attempt: int, **fields) -> dict:
         rec = {"schema": SUPERVISOR_EVENTS_SCHEMA, "time": time.time(),
                "event": event, "attempt": attempt, **fields}
+        validate_record("supervisor_event", rec)  # the emitter honors it
         self.events.append(rec)
         if self.events_path:
             if self._events_f is None:

@@ -1,8 +1,9 @@
 """Continuous-batching serving of the PyTorch port (paged mode): async
-decode by default, speculative decoding with ``draft=``/``spec_k=``, and
-SLO scheduling: interactive/batch priorities with preemption, deadlines,
-feasibility shedding (``SLOInfeasible``) and tenant rate limits
-(``RateLimited``)."""
+decode by default, speculative decoding with ``draft=``/``spec_k=``, SLO
+scheduling (interactive/batch priorities with preemption, deadlines,
+feasibility shedding ``SLOInfeasible``, tenant rate limits
+``RateLimited``), and the observability hooks (``registry=``,
+``stats_path=``, ``obs=``, ``tracer=``, ``transfer_guard=``)."""
 
 from neuronx_distributed_tpu_torch.serving.driver import (
     percentiles,
@@ -10,7 +11,12 @@ from neuronx_distributed_tpu_torch.serving.driver import (
     replay,
     summarize_outputs,
 )
-from neuronx_distributed_tpu_torch.serving.engine import FAIL_NON_FINITE, ServingEngine
+from neuronx_distributed_tpu_torch.serving.engine import (
+    FAIL_NON_FINITE,
+    SERVING_STATS_SCHEMA,
+    ServingEngine,
+    replay_trace,
+)
 from neuronx_distributed_tpu_torch.serving.paged import PagedKVManager
 from neuronx_distributed_tpu_torch.serving.request import (
     Request,
@@ -38,6 +44,7 @@ __all__ = [
     "Request",
     "RequestOutput",
     "RequestState",
+    "SERVING_STATS_SCHEMA",
     "SLOInfeasible",
     "SamplingParams",
     "ServingEngine",
@@ -46,5 +53,6 @@ __all__ = [
     "percentiles",
     "poisson_arrivals",
     "replay",
+    "replay_trace",
     "summarize_outputs",
 ]

@@ -1,5 +1,5 @@
 """Workload drive loop for the serving engine (a copy of
-``neuronx_distributed_tpu/serving/driver.py`` without its tracing span).
+``neuronx_distributed_tpu/serving/driver.py``).
 
 The target only needs the admission surface:
 
@@ -43,7 +43,8 @@ def poisson_arrivals(n: int, rate_hz: float,
 def replay(target: Any, arrivals: Sequence[float], requests: Sequence[Any],
            on_output: Optional[Callable[[Any], None]] = None,
            clock: Callable[[], float] = time.monotonic,
-           sleep: Callable[[float], None] = time.sleep) -> Dict[int, Any]:
+           sleep: Callable[[float], None] = time.sleep,
+           tracer: Any = None) -> Dict[int, Any]:
     """Replay an arrival trace through a live serving target: submit each
     request when its arrival time passes, stepping the target in between and
     sleeping only when idle ahead of the next arrival.  Returns
@@ -56,7 +57,11 @@ def replay(target: Any, arrivals: Sequence[float], requests: Sequence[Any],
     An unhandled exception out of the drive loop calls the target's
     ``dump_flight`` first (when it has one) — the serving twin of ``fit()``'s
     crash path: the last K steps become a persisted artifact instead of lost
-    scrollback."""
+    scrollback.
+
+    ``tracer`` (an ``obs.tracing.Tracer``) wraps the whole drive in one
+    ``drive/replay`` root span on the replay's clock; the per-request
+    spans come from the target's own tracer (usually the same object)."""
     if len(arrivals) != len(requests):
         raise ValueError(
             f"arrivals ({len(arrivals)}) and requests ({len(requests)}) "
@@ -64,6 +69,9 @@ def replay(target: Any, arrivals: Sequence[float], requests: Sequence[Any],
     outputs: Dict[int, Any] = {}
     t0 = clock()
     next_i = 0
+    drive_span = (tracer.begin("drive/replay", t=clock(),
+                               requests=len(requests))
+                  if tracer is not None else None)
     try:
         while next_i < len(requests) or target.has_work:
             now = clock() - t0
@@ -78,6 +86,8 @@ def replay(target: Any, arrivals: Sequence[float], requests: Sequence[Any],
             elif next_i < len(requests):
                 sleep(min(arrivals[next_i] - now, 0.05))
     except BaseException as e:
+        if drive_span is not None:
+            tracer.end(drive_span, t=clock(), crashed=type(e).__name__)
         # telemetry IO must never mask the real crash
         dump = getattr(target, "dump_flight", None)
         if dump is not None:
@@ -87,6 +97,8 @@ def replay(target: Any, arrivals: Sequence[float], requests: Sequence[Any],
                 logger.warning("serving: crash flight dump failed: %s",
                                dump_err)
         raise
+    if drive_span is not None:
+        tracer.end(drive_span, t=clock(), completed=len(outputs))
     return outputs
 
 

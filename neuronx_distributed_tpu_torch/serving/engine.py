@@ -67,6 +67,18 @@ ignored.
   prefill, decode, draft and verify logits (host side, after a graph
   replay and before the sampler).  Without a plan each costs one global
   read.
+- Telemetry (:mod:`..obs`, the JAX package's formats): a metrics registry
+  is always built (``registry=``, or an ``obs=`` hub's); ``stats_path=``
+  appends one ``serving_stats/6`` record per terminal request; ``obs=``
+  records one flight-recorder entry per step; ``tracer=`` records one span
+  tree per request (queue, prefill with its chunks, decode, preempted
+  phases under a root span) plus batch ``decode_step``/``spec_round``
+  spans; ``step_timeout_s=`` arms the slow-step watchdog;
+  ``transfer_guard="forbid"`` runs the async collect and dispatch under
+  the CUDA sync guard (:mod:`..obs.transfer_audit`).  Every metric is fed
+  from numbers already on the host (the packed fetch's tokens and flags,
+  the scheduler's state, shapes): telemetry adds no host sync, no kernel
+  and no CUDA-graph input.
 
 Greedy outputs are token-identical to a solo ``generate`` of the same
 prompt up to the arithmetic order of the attention path taken.  Chunked
@@ -78,17 +90,24 @@ bound.
 
 from __future__ import annotations
 
+import json
 import time
-from typing import Callable, List, Optional
+from typing import Any, Callable, List, Optional
 
 import numpy as np
 import torch
 
 from neuronx_distributed_tpu_torch.kvcache.allocator import PoolExhausted
+from neuronx_distributed_tpu_torch.kvcache.pool import GATHER_BYTES_TOTAL
+from neuronx_distributed_tpu_torch.kvcache.quant import QUANT_PAGES_TOTAL
+from neuronx_distributed_tpu_torch.obs import MS_BUCKETS, PART2, MetricRegistry
+from neuronx_distributed_tpu_torch.obs.transfer_audit import TransferAudit
 from neuronx_distributed_tpu_torch.ops.paged_attention import resolve_paged_kernel
 from neuronx_distributed_tpu_torch.resilience.faults import fault_point, perturb
+from neuronx_distributed_tpu_torch.serving.driver import replay as driver_replay
 from neuronx_distributed_tpu_torch.serving.paged import PagedKVManager
 from neuronx_distributed_tpu_torch.serving.request import (
+    PRIORITIES,
     PRIORITY_INTERACTIVE,
     Request,
     RequestOutput,
@@ -117,8 +136,19 @@ from neuronx_distributed_tpu_torch.utils.logger import get_logger
 
 logger = get_logger(__name__)
 
+SERVING_STATS_SCHEMA = "serving_stats/6"
+
 FAIL_NON_FINITE = "non_finite_logits"
 SHED_EXPIRED_BEFORE_PREFILL = "expired_before_prefill"
+
+
+def replay_trace(engine: "ServingEngine", arrivals, requests,
+                 on_output=None, clock=time.monotonic, sleep=time.sleep):
+    """Replay an arrival trace through a live engine: the engine-flavoured
+    name of :func:`~.driver.replay` (an unhandled exception dumps the
+    engine's flight ring before re-raising)."""
+    return driver_replay(engine, arrivals, requests, on_output=on_output,
+                         clock=clock, sleep=sleep)
 
 
 def _spec_accept(vlogits, q_filt, props, keys, tok_idx, temps, top_ks,
@@ -305,13 +335,34 @@ class ServingEngine:
       tenant buckets all read it.
     - ``device`` must be the model's device; ``None`` means CUDA (raises
       without it).
+    - ``registry``: the ``obs.MetricRegistry`` the engine, its page pool
+      and its adapter store report to (the ``serving/*``, ``kvcache/*``,
+      ``tenancy/*`` and ``transfer/*`` metrics of
+      ``obs.schemas.REGISTRY_METRICS``); built when omitted, or taken from
+      ``obs``.  ``stats_path`` appends one ``serving_stats`` record per
+      terminal request.  ``obs`` (an ``obs.Observability``) records one
+      flight entry per step (``dump_flight``; ``replay_trace`` dumps it on
+      a crash).  ``tracer`` (an ``obs.Tracer``, or ``tracer.scoped(r)``)
+      records the request span trees; ``None`` allocates no span.
+      ``step_timeout_s`` counts slower steps into
+      ``serving/slow_steps_total``.  ``transfer_guard="forbid"`` runs the
+      async collect and dispatch under ``set_sync_debug_mode("error")`` on
+      the card (the one packed fetch is let through).
+    - ``compile_ledger``, ``memory_ledger``, ``health`` and ``perf`` are
+      ROADMAP A8 part 2's and raise ``NotImplementedError`` when set.
 
     ``puts`` and ``fetches`` count the packed transfers: one put and one
     fetch per steady decode step or speculative round (a round whose
     draft must catch up on a full accept adds one put), and one fetch per
-    admission's first token.  ``preemptions``, ``shed`` (submits refused
-    as infeasible), ``rejected`` (other backpressure, rate limits
-    included) and ``expired_before_prefill`` count the SLO paths.
+    admission's first token; the registry's ``transfer/explicit_*_total``
+    count the same crossings.  The plain counters ``preemptions``,
+    ``shed`` (submits refused as infeasible), ``rejected`` (other
+    backpressure, rate limits included), ``expired_before_prefill``,
+    ``prefill_chunks``, ``quant_pages`` and ``spec_proposed`` /
+    ``_accepted`` / ``_committed`` read the same numbers as their
+    ``serving/*`` and ``kvcache/*`` metrics.  ``decode_steps`` and
+    ``spec_rounds`` count batched dispatches; ``serving/spec_rounds_total``
+    counts a round per decoding slot, as the JAX engine's does.
     """
 
     def __init__(self, model, *, page_size: int,
@@ -323,7 +374,20 @@ class ServingEngine:
                  prefill_chunk_tokens: Optional[int] = None,
                  async_decode: bool = True, draft=None, spec_k: int = 0,
                  adapter_store=None, shed_infeasible: bool = False,
-                 device=None):
+                 registry: Optional[MetricRegistry] = None,
+                 stats_path: Optional[str] = None, obs: Any = None,
+                 tracer: Any = None, step_timeout_s: Optional[float] = None,
+                 transfer_guard: str = "off", compile_ledger: Any = None,
+                 memory_ledger: Any = None, health: Any = None,
+                 perf: Any = None, device=None):
+        for name, value in (("compile_ledger", compile_ledger),
+                            ("memory_ledger", memory_ledger),
+                            ("health", health), ("perf", perf)):
+            if value is not None:
+                raise NotImplementedError(f"ServingEngine({name}=...): {PART2}")
+        if transfer_guard not in ("off", "forbid"):
+            raise ValueError(f"transfer_guard must be 'off' or 'forbid', "
+                             f"got {transfer_guard!r}")
         device = resolve_device(device)
         if device != model.device:
             raise ValueError(f"engine device {device} != model device "
@@ -364,6 +428,22 @@ class ServingEngine:
                                  f"device {device}")
         self.model = model
         self.device = device
+        self.obs = obs
+        if registry is None and obs is not None:
+            registry = obs.registry
+        self.registry = registry if registry is not None else MetricRegistry()
+        self.tracer = tracer
+        self._rt: dict = {}       # rid -> {"root": Span, "phase": Span?}
+        self._batch_span = None   # the open decode_step/spec_round span
+        self.step_timeout_s = step_timeout_s
+        self._stats_path = stats_path
+        self._stats_f = None
+        self._audit = TransferAudit(
+            self.registry,
+            mode="forbid" if transfer_guard == "forbid" else "observe",
+            device=device)
+        # the version of the serving weights (nothing swaps them yet)
+        self.weights_version = 0
         self.B, self.C, self.T = (cfg.batch_size, cfg.context_len,
                                   cfg.max_total_len)
         self._spec_k = int(spec_k)
@@ -372,13 +452,19 @@ class ServingEngine:
             num_pages = self.B * -(-(self.T + self._spec_k) // page_size) + 1
         self._kv = PagedKVManager(
             num_slots=self.B, context_len=self.C, max_total_len=self.T,
-            page_size=page_size, num_pages=num_pages,
+            page_size=page_size, num_pages=num_pages, registry=self.registry,
             prefix_cache=prefix_cache, spec_overshoot=self._spec_k)
         self._paged_kernel = (model.paged_kernel if paged_kernel in ("auto", None)
                               else resolve_paged_kernel(paged_kernel, device))
+        # bytes one gather-path step spends on the contiguous clone: k and
+        # v, every layer, the padded [B, T] view in the cache type
+        self._gather_bytes_step = (
+            model.num_layers * 2 * self.B * self.T * model.num_kv_heads
+            * model.head_dim * cfg.kv_cache_dtype.itemsize)
         self.scheduler = SlotScheduler(
             self.B, self.C, self.T, max_queue=max_queue, page_gate=self._kv,
-            reserve_extra=self._spec_k, shed_infeasible=shed_infeasible)
+            reserve_extra=self._spec_k, shed_infeasible=shed_infeasible,
+            tracer=tracer)
         self.eos_token_id = eos_token_id
         self._seed = seed
         self._clock = clock
@@ -439,6 +525,8 @@ class ServingEngine:
         self._atables_dev = None
         self._draft_lora = False
         if adapter_store is not None:
+            if adapter_store.registry is None:
+                adapter_store.attach_registry(self.registry)
             lay = adapter_store.layout
             if AdapterLayout.for_model(model, lay.rank, lay.page_elems) != lay:
                 raise ValueError(
@@ -453,6 +541,28 @@ class ServingEngine:
                 # the draft slices the target's pool with the same layout
                 self._draft_lora = True
                 draft._adapter_layout = lay
+        # pre-declared so a zero-request engine still exports the full set
+        reg = self.registry
+        if kv_quant is not None:
+            reg.counter(QUANT_PAGES_TOTAL)
+        reg.gauge("serving/queue_depth")
+        reg.gauge("serving/slots_active")
+        reg.histogram("serving/ttft_ms", MS_BUCKETS)
+        reg.histogram("serving/intertoken_ms", MS_BUCKETS)
+        reg.histogram("serving/step_ms", MS_BUCKETS)
+        reg.histogram("serving/host_blocked_ms", MS_BUCKETS)
+        reg.gauge("serving/last_step_ms")
+        for c in ("admitted", "finished", "cancelled", "timed_out", "tokens",
+                  "rejected", "failed", "slow_steps", "preemptions", "shed",
+                  "expired_before_prefill", "prefill_chunks"):
+            reg.counter(f"serving/{c}_total")
+        for cls in PRIORITIES:
+            reg.histogram(f"serving/ttft_ms_{cls}", MS_BUCKETS)
+            reg.histogram(f"serving/intertoken_ms_{cls}", MS_BUCKETS)
+        if self._spec_k:
+            for c in ("spec_proposed", "spec_accepted", "spec_committed",
+                      "spec_rounds"):
+                reg.counter(f"serving/{c}_total")
 
     # -- request surface ---------------------------------------------------
 
@@ -484,14 +594,41 @@ class ServingEngine:
             raise AdmissionError(
                 f"request {request.request_id} names unregistered adapter "
                 f"{aid}")
+        tr = self.tracer
+        root = None
+        if tr is not None:
+            # the request's root span, submit -> terminal; the scheduler
+            # parents its queue span under it, and trace_id links the
+            # terminal serving_stats record to it
+            request.trace_id = request.request_id
+            root = tr.begin(
+                "request", request_id=request.request_id, t=self._clock(),
+                priority=request.priority, prompt_len=request.prompt_len,
+                max_new_tokens=request.max_new_tokens, adapter_id=aid,
+                hop=getattr(request, "hop", 0))
+            request._trace_root = root
+            self._rt[request.request_id] = {"root": root}
         try:
             self.scheduler.submit(request, now=self._clock())
         except SLOInfeasible:
             self.shed += 1
+            self.registry.counter("serving/shed_total").inc()
+            self._trace_refused(request, root, shed="slo_infeasible")
             raise
         except BackpressureError:
             self.rejected += 1
+            self.registry.counter("serving/rejected_total").inc()
+            self._trace_refused(request, root, rejected="backpressure")
             raise
+        except BaseException:
+            self._trace_refused(request, root, rejected="error")
+            raise
+
+    def _trace_refused(self, request: Request, root, **attrs) -> None:
+        """A refused submit ends its root span at once."""
+        if root is not None:
+            self._rt.pop(request.request_id, None)
+            self.tracer.end(root, t=self._clock(), **attrs)
 
     def cancel(self, request_id: int) -> bool:
         return self.scheduler.cancel(request_id)
@@ -508,16 +645,25 @@ class ServingEngine:
         """One engine iteration: sweep -> preempt for priority ->
         admit/prefill -> prefill chunks -> decode (or a speculative round)
         -> stop detection -> slot free.  Async: collect the in-flight step,
-        dispatch the next, then run the collected step's host work.
-        Returns the requests that reached a terminal state during this
-        step."""
+        dispatch the next (the guarded section), then run the collected
+        step's host work.  Then the step's gauges, its time, the watchdog
+        and the flight record.  Returns the requests that reached a
+        terminal state during this step."""
         outputs: List[RequestOutput] = []
         now = self._clock()
+        t_step0 = now
         self._steps += 1
         swept = self.scheduler.sweep(now)
         if swept:
             self._park_free_slots()
-            outputs.extend(self._emit(req, now) for req in swept)
+            for req in swept:
+                # a swept active request still has its compute phase open
+                self._trace_end_phase(req, t=now, swept=req.state.value)
+                self.registry.counter(
+                    "serving/cancelled_total"
+                    if req.state is RequestState.CANCELLED
+                    else "serving/timed_out_total").inc()
+                outputs.append(self._emit(req, now))
         self._preempt_for_priority(now)
         for slot, req in self.scheduler.admit(now):
             self._prefill_into_slot(slot, req, outputs)
@@ -527,17 +673,52 @@ class ServingEngine:
                              if self._spec_k else
                              (self._collect_decode, self._dispatch_decode))
         if self.async_decode:
-            post = collect()
-            active = self._decoding()
-            if active:
-                dispatch(active)
+            with self._audit.section("serving/decode"):
+                post = collect()
+                active = self._decoding()
+                if active:
+                    dispatch(active)
             self._finish_decode(post, outputs)
         else:
             active = self._decoding()
             if active:
                 dispatch(active)
                 self._finish_decode(collect(), outputs)
+        self._end_step(t_step0, outputs)
         return outputs
+
+    def _end_step(self, t_step0: float, outputs: list) -> None:
+        """The step's gauges, its time (histogram, gauge, watchdog) and its
+        flight record: host numbers only."""
+        reg = self.registry
+        reg.gauge("serving/queue_depth").set(self.scheduler.queue_depth)
+        reg.gauge("serving/slots_active").set(self.scheduler.active_count)
+        self._kv.export_gauges()
+        if self._adapters is not None:
+            self._adapters.export_gauges()
+        step_s = self._clock() - t_step0
+        reg.gauge("serving/last_step_ms").set(step_s * 1e3)
+        reg.histogram("serving/step_ms", MS_BUCKETS).observe(step_s * 1e3)
+        if self.step_timeout_s is not None and step_s > self.step_timeout_s:
+            reg.counter("serving/slow_steps_total").inc()
+            logger.warning(
+                "serving: engine step %d took %.3fs (> watchdog %.3fs; "
+                "active=%d queued=%d)", self._steps, step_s,
+                self.step_timeout_s, self.scheduler.active_count,
+                self.scheduler.queue_depth)
+        if self.obs is not None:
+            self.obs.flight.record(
+                self._steps, step_time_s=step_s,
+                queue_depth=self.scheduler.queue_depth,
+                slots_active=self.scheduler.active_count,
+                terminal=len(outputs))
+
+    def dump_flight(self, reason: str) -> Optional[str]:
+        """Persist the per-step flight ring (with an ``obs`` hub); the
+        crash-evidence path ``replay_trace`` takes."""
+        if self.obs is not None:
+            return self.obs.dump_flight(reason)
+        return None
 
     def run_until_complete(self, max_steps: Optional[int] = None
                            ) -> List[RequestOutput]:
@@ -554,6 +735,67 @@ class ServingEngine:
                     f"(queue={self.scheduler.queue_depth}, "
                     f"active={self.scheduler.active_count})")
         return outputs
+
+    def close(self) -> None:
+        """Seal every open span (aborted) and close the stats file."""
+        tr = self.tracer
+        if tr is not None:
+            now = self._clock()
+            self.scheduler.trace_abort(now)
+            if self._batch_span is not None:
+                tr.end(self._batch_span, t=now, aborted=True)
+                self._batch_span = None
+            for rt in self._rt.values():
+                tr.end(rt.pop("phase", None), t=now, aborted=True)
+                tr.end(rt.get("root"), t=now, aborted=True)
+            self._rt.clear()
+        if self._stats_f is not None:
+            self._stats_f.close()
+            self._stats_f = None
+
+    def __enter__(self) -> "ServingEngine":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.close()
+
+    # -- tracing -----------------------------------------------------------
+
+    def _trace_begin_phase(self, req: Request, name: str,
+                           t: Optional[float] = None, **attrs) -> None:
+        """Open a compute phase span (prefill / decode) under the request's
+        root.  Phase boundaries reuse one timestamp (the grant, the first
+        token, the terminal instant), so a request's phases tile its
+        lifetime."""
+        tr = self.tracer
+        if tr is None:
+            return
+        rt = self._rt.get(req.request_id)
+        if rt is None:
+            return
+        rt["phase"] = tr.begin(name, request_id=req.request_id,
+                               parent=rt["root"], t=t, **attrs)
+
+    def _trace_end_phase(self, req: Request, t: Optional[float] = None,
+                         **attrs) -> None:
+        if self.tracer is None:
+            return
+        rt = self._rt.get(req.request_id)
+        if rt is None:
+            return
+        self.tracer.end(rt.pop("phase", None), t=t, **attrs)
+
+    def _trace_phase_attrs(self, req: Request, **attrs) -> None:
+        """Annotate the request's open phase span."""
+        if self.tracer is None:
+            return
+        rt = self._rt.get(req.request_id)
+        if rt is not None and rt.get("phase") is not None:
+            rt["phase"].attrs.update(attrs)
+
+    def _trace_phase_of(self, req: Request):
+        rt = self._rt.get(req.request_id) if self.tracer is not None else None
+        return rt.get("phase") if rt is not None else None
 
     # -- internals ---------------------------------------------------------
 
@@ -580,6 +822,12 @@ class ServingEngine:
             t_grant = req.prefill_time if req.prefill_time is not None else now
             req.preempted_ms += max(t_grant - req.parked_at, 0.0) * 1e3
             req.parked_at = None
+        # the prefill phase starts at the grant instant, where the queue
+        # or preempted span ended
+        self._trace_begin_phase(
+            req, "prefill",
+            t=req.prefill_time if req.prefill_time is not None else now,
+            slot=slot)
         if req.expired(now):
             self._expire_before_prefill(slot, req, outputs, now)
             return
@@ -628,10 +876,14 @@ class ServingEngine:
             self.valid = self.model.insert_valid(self.valid, row_valid, slot)
             self._chunking[slot] = _ChunkPrefill(req, ids[0], row_valid,
                                                  fresh)
+            # the prefill span stays open across the chunked steps; each
+            # chunk adds a child span under it
+            self._trace_phase_attrs(req, chunked=True, fresh_pages=len(fresh))
             self._set_sampling_state(slot, req)
             return
         if cached is not None:
             logits = cached  # exact full-prompt hit: no prefill compute
+            self._trace_phase_attrs(req, prefix_hit=True)
         else:
             logits, row_caches = (
                 self.model.prefill_one_lora(ids, valid_np[None, :], *adapter)
@@ -640,11 +892,11 @@ class ServingEngine:
             logits = perturb("serving/prefill_logits", logits,
                              request_id=req.request_id,
                              engine_step=self._steps)
+            self._trace_phase_attrs(req, fresh_pages=len(fresh))
             for lp, phys in fresh:
                 self.caches = self.model.write_page(
                     self.caches, row_caches, lp, phys, row_valid=valid_np)
-            if self._kv_quant is not None:
-                self.quant_pages += len(fresh)
+            self._count_quant(len(fresh))
         self.valid = self.model.insert_valid(self.valid, row_valid, slot)
         self._set_sampling_state(slot, req)
         self._finish_prefill(slot, req, logits, outputs,
@@ -660,10 +912,20 @@ class ServingEngine:
         fails and serving goes on.  Any other failure fails the request
         and re-raises."""
         aid = req.adapter_id
+        tr = self.tracer
+        aspan = (tr.begin("adapter_acquire", request_id=req.request_id,
+                          parent=self._trace_phase_of(req), t=self._clock(),
+                          adapter_id=aid)
+                 if tr is not None else None)
         try:
             loads = self._adapters.acquire(aid, engine_step=self._steps)
+            if aspan is not None:
+                tr.end(aspan, t=self._clock(), loads=len(loads))
         except BaseException as e:
-            self._fail_slot(slot, req, outputs, self._clock(),
+            now = self._clock()
+            if aspan is not None:
+                tr.end(aspan, t=now, failed=type(e).__name__)
+            self._fail_slot(slot, req, outputs, now,
                             reason=f"adapter:{type(e).__name__}")
             if isinstance(e, PoolExhausted):
                 return False
@@ -691,11 +953,15 @@ class ServingEngine:
         the chunk loop's final chunk: sample, finite gate, register the
         prefix chain, move to DECODE, stream and emit."""
         s = req.sampling
+        t0 = time.perf_counter()
         toks, finite = sampled_tokens(
             logits, [self._keys[slot]], [0], [s.temperature], [s.top_k],
             [s.top_p])
+        # the first token and its finite flag come up in one copy
         self._io.fetches += 1
+        self._audit.note_fetch(time.perf_counter() - t0, label="serving")
         now = self._clock()
+        self.registry.counter("serving/admitted_total").inc()
         if not finite[0]:
             # a poisoned prefill fails ITS request and is never cached
             self._fail_slot(slot, req, outputs, now)
@@ -703,11 +969,20 @@ class ServingEngine:
         if prefilled_fresh:
             self._kv.finish_insert(slot, logits)
         req.transition(RequestState.DECODE)
+        # prefill ends and decode begins at the same first-token instant
+        self._trace_end_phase(req, t=now)
+        self._trace_begin_phase(req, "decode", t=now)
         if req.first_token_time is None:
             req.first_token_time = now
             if req.submit_time is not None:
+                ttft_s = now - req.submit_time
+                self.registry.histogram(
+                    "serving/ttft_ms", MS_BUCKETS).observe(ttft_s * 1e3)
+                self.registry.histogram(
+                    f"serving/ttft_ms_{req.priority}", MS_BUCKETS).observe(
+                        ttft_s * 1e3)
                 # the shedding estimate's time to first token
-                self.scheduler.note_first_token(now - req.submit_time)
+                self.scheduler.note_first_token(ttft_s)
         self._append_token(slot, req, int(toks[0]), now)
         if req.done:
             outputs.append(self._emit(req, now))
@@ -765,14 +1040,32 @@ class ServingEngine:
         width = n_pages * page
         adapter = ((self._apool, self._adapter_tables[slot][None, :])
                    if self._adapters is not None else (None, None))
+        tr = self.tracer
+        cspan = (tr.begin("prefill_chunk", request_id=st.req.request_id,
+                          parent=self._trace_phase_of(st.req),
+                          t=self._clock(), tok_start=int(off),
+                          tok_end=int(off + width), pages=n_pages)
+                 if tr is not None else None)
         # a failure here fails the one request and reclaims its pages
-        fault_point("serving/prefill_chunk", request_id=st.req.request_id,
-                    engine_step=self._steps, chunk_offset=off)
-        logits, self.caches = self.model.prefill_chunk_pages(
-            st.ids_row[None, off:off + width], off,
-            self._kv.tables[slot][None, :], self.caches,
-            st.valid_row[None, :], paged_kernel=self._paged_kernel,
-            apool=adapter[0], atables=adapter[1])
+        try:
+            fault_point("serving/prefill_chunk",
+                        request_id=st.req.request_id,
+                        engine_step=self._steps, chunk_offset=off)
+            logits, self.caches = self.model.prefill_chunk_pages(
+                st.ids_row[None, off:off + width], off,
+                self._kv.tables[slot][None, :], self.caches,
+                st.valid_row[None, :], paged_kernel=self._paged_kernel,
+                apool=adapter[0], atables=adapter[1])
+        except BaseException as e:
+            if cspan is not None:
+                tr.end(cspan, t=self._clock(), failed=type(e).__name__)
+            raise
+        if cspan is not None:
+            tr.end(cspan, t=self._clock())
+        if not self._paged_kernel:
+            # the gather path attends a [1, T] clone of the pool
+            self.registry.counter(GATHER_BYTES_TOTAL).inc(
+                self._gather_bytes_step // self.B)
         st.next_i += n_pages
         if st.pages_remaining == 0:
             # the logits the first token samples from
@@ -782,8 +1075,22 @@ class ServingEngine:
         st.logits = logits
         st.req.prefill_chunks += 1
         self.prefill_chunks += 1
+        self.registry.counter("serving/prefill_chunks_total").inc()
+        self._count_quant(n_pages)
+
+    def _count_quant(self, pages: int) -> None:
+        """Pages written through the int8 quantize-on-write (a no-op on a
+        full-precision pool)."""
         if self._kv_quant is not None:
-            self.quant_pages += n_pages
+            self.quant_pages += pages
+            self.registry.counter(QUANT_PAGES_TOTAL).inc(pages)
+
+    def _count_gather_step(self) -> None:
+        """One gather-path step's [B, T] K/V clone; the kernel path never
+        counts (``kvcache/gather_bytes_total`` stays 0)."""
+        if not self._paged_kernel:
+            self.registry.counter(GATHER_BYTES_TOTAL).inc(
+                self._gather_bytes_step)
 
     def _tok_idx(self, active: list) -> np.ndarray:
         tok_idx = np.zeros((self.B,), np.int32)
@@ -803,7 +1110,7 @@ class ServingEngine:
             arrays.append(self._kv.tables)
         if adirty:
             arrays.append(self._adapter_tables)
-        put = self._io.put(*arrays)
+        put = self._audit.put(self._io, *arrays)
         if adirty:
             self._atables_dev = put.pop()
             self._adapter_dirty = False
@@ -815,8 +1122,11 @@ class ServingEngine:
     def _dispatch_decode(self, active: list) -> None:
         """Dispatch one per-slot-offset paged decode and the row-wise
         sampler for the active set and leave the packed ``[2, B]`` result
-        in flight: one put, no wait for the card."""
+        in flight: one put, no wait for the card.  With a tracer the batch
+        ``decode_step`` span opens here and closes at the collect, one step
+        later (the step's window in flight)."""
         tok_idx = self._tok_idx(active)
+        self._begin_batch_span("decode_step", active)
         tok, offs = self._stage()
         if self._adapters is not None:
             logits, self.caches, self.valid = self.model.decode_pages_lora(
@@ -827,10 +1137,10 @@ class ServingEngine:
             logits, self.caches, self.valid = self.model.decode_pages(
                 tok[:, None], offs, self._tables_dev, self.caches,
                 self.valid, paged_kernel=self._paged_kernel)
+        self._count_gather_step()
         self.decode_steps += 1
-        if self._kv_quant is not None:
-            # every active slot's decode write requantized its page
-            self.quant_pages += len(active)
+        # every active slot's decode write requantized its page
+        self._count_quant(len(active))
         logits = perturb("serving/decode_logits", logits,
                          engine_step=self._steps)
         toks, finite = sample_rows(logits, self._keys, tok_idx, self._temps,
@@ -838,6 +1148,12 @@ class ServingEngine:
         self._pending = (self._io.fetch(pack_tokens(toks, finite)),
                          [(slot, req, int(self._slot_gen[slot]))
                           for slot, req in active])
+
+    def _begin_batch_span(self, name: str, active: list, **attrs) -> None:
+        if self.tracer is not None:
+            self._batch_span = self.tracer.begin(
+                name, t=self._clock(), step=self._steps, active=len(active),
+                **attrs, weights_version=self.weights_version)
 
     def _in_flight(self, slot: int, req: Request, gen: int) -> bool:
         """Whether the in-flight step's row still belongs to ``req``.  A
@@ -858,12 +1174,14 @@ class ServingEngine:
             return []
         handle, active = self._pending
         self._pending = None
-        toks, finite = self._io.wait(handle)
+        toks, finite = self._audit.fetch(self._io, handle, label="serving")
         now = self._clock()
+        tr = self.tracer
+        bspan, self._batch_span = self._batch_span, None
         post: list = []
         for slot, req, gen in active:
             if not self._in_flight(slot, req, gen):
-                continue
+                continue  # a stale row records nothing
             self._offsets[slot] += 1  # the step wrote req's previous token
             if not finite[slot]:
                 self._fail_slot_state(slot, req, now)
@@ -873,14 +1191,22 @@ class ServingEngine:
             last = self._last_tok_time[slot]
             ms = (now - last) * 1e3 if last is not None else None
             req.generated.append(tok)
+            req.weights_version = self.weights_version
             req.decode_steps += 1
+            if bspan is not None:
+                tr.instant("decode_slot", request_id=req.request_id,
+                           parent=bspan, t=now, slot=slot,
+                           tok_idx=len(req.generated) - 1)
             self._last_tok_time[slot] = now
+            self.registry.counter("serving/tokens_total").inc()
             reason = self._stop_reason(req, tok)
             if reason is not None:
                 self._finish_request(slot, req, reason, now)
             else:
                 self._next_tok[slot] = tok
             post.append(("tokens", slot, req, (tok,), ms, now))
+        if bspan is not None:
+            tr.end(bspan, t=now)
         return post
 
     def _spec_dispatch(self, active: list) -> None:
@@ -893,6 +1219,7 @@ class ServingEngine:
         draft offsets ride it), no wait for the card."""
         k = self._spec_k
         tok_idx = self._tok_idx(active)
+        self._begin_batch_span("spec_round", active, k=k)
         offs_j = self._offsets[None, :] + np.arange(k, dtype=np.int32)[:, None]
         tok, offs, doffs = self._stage(offs_j)
         draft = self._draft_model
@@ -919,16 +1246,17 @@ class ServingEngine:
         vlogits, self.caches, self.valid = self.model.verify_pages(
             chunk, offs, self._tables_dev, self.caches, self.valid,
             paged_kernel=self._paged_kernel, apool=ad[0], atables=ad[1])
-        vlogits = perturb("serving/verify_logits", vlogits,
-                          engine_step=self._steps)
+        self._count_gather_step()
         self.spec_rounds += 1
         if self._kv_quant is not None:
             # the page(s) each active slot's k+1-token chunk straddles
             page = self._kv.page_size
-            self.quant_pages += sum(
+            self._count_quant(sum(
                 int((self._offsets[slot] + k) // page
                     - self._offsets[slot] // page + 1)
-                for slot, _ in active)
+                for slot, _ in active))
+        vlogits = perturb("serving/verify_logits", vlogits,
+                          engine_step=self._steps)
         packed = _spec_accept(vlogits, torch.stack(q_filts, dim=1),
                               torch.stack(props, dim=1), self._keys, tok_idx,
                               self._temps, self._topks, self._topps, dfin)
@@ -948,14 +1276,18 @@ class ServingEngine:
         handle, active, last_prop = self._pending
         self._pending = None
         k = self._spec_k
-        packed = self._io.wait(handle)                          # [k+3, B]
+        packed = self._audit.fetch(self._io, handle,
+                                   label="serving")             # [k+3, B]
         commit, acc, finite = packed[:k + 1], packed[k + 1], packed[k + 2]
         now = self._clock()
+        tr = self.tracer
+        bspan, self._batch_span = self._batch_span, None
+        reg = self.registry
         post: list = []
         ingest = np.full((self.B,), self.T, np.int32)
         for slot, req, gen in active:
             if not self._in_flight(slot, req, gen):
-                continue
+                continue  # a stale row records nothing
             if not finite[slot]:
                 self._fail_slot_state(slot, req, now)
                 post.append(("fail", slot, req, (), None, now))
@@ -965,6 +1297,9 @@ class ServingEngine:
             req.spec_accepted += a
             self.spec_proposed += k
             self.spec_accepted += a
+            reg.counter("serving/spec_proposed_total").inc(k)
+            reg.counter("serving/spec_accepted_total").inc(a)
+            reg.counter("serving/spec_rounds_total").inc()
             last = self._last_tok_time[slot]
             gap_ms = (now - last) * 1e3 if last is not None else None
             toks: list = []
@@ -973,12 +1308,20 @@ class ServingEngine:
                 t = int(commit[i, slot])
                 req.generated.append(t)
                 toks.append(t)
+                reg.counter("serving/tokens_total").inc()
                 reason = self._stop_reason(req, t)
                 if reason is not None:
                     break  # a stop inside the accepted run commits up to it
             m = len(toks)
             self.spec_committed += m
+            reg.counter("serving/spec_committed_total").inc(m)
+            if m:
+                req.weights_version = self.weights_version
             req.decode_steps += 1
+            if bspan is not None:
+                tr.instant("spec_slot", request_id=req.request_id,
+                           parent=bspan, t=now, slot=slot, accepted=a,
+                           committed=m)
             self._offsets[slot] += m
             self._last_tok_time[slot] = now
             if reason is not None:
@@ -990,8 +1333,10 @@ class ServingEngine:
             # the round's tokens share its gap evenly
             per_tok = gap_ms / m if (gap_ms is not None and m) else None
             post.append(("tokens", slot, req, tuple(toks), per_tok, now))
+        if bspan is not None:
+            tr.end(bspan, t=now)
         if (ingest < self.T).any():
-            (offs,) = self._io.put(ingest)
+            (offs,) = self._audit.put(self._io, ingest)
             _, self._draft_caches, self._draft_valid = \
                 self._draft_model.decode_slots(
                     last_prop[:, None], offs, self._draft_caches,
@@ -1018,11 +1363,20 @@ class ServingEngine:
                     len(req.generated), slot)
             for t in toks:
                 if ms is not None:
-                    req.intertoken_ms.append(ms)
+                    self._observe_intertoken(req, ms)
                 if req.stream_cb is not None:
                     req.stream_cb(req, t)
             if req.done:
                 outputs.append(self._emit(req, now))
+
+    def _observe_intertoken(self, req: Request, ms: float) -> None:
+        """One inter-token gap: on the request, the global histogram and the
+        request's priority-class histogram."""
+        req.intertoken_ms.append(ms)
+        self.registry.histogram(
+            "serving/intertoken_ms", MS_BUCKETS).observe(ms)
+        self.registry.histogram(
+            f"serving/intertoken_ms_{req.priority}", MS_BUCKETS).observe(ms)
 
     def _stop_reason(self, req: Request, tok: int) -> Optional[str]:
         reason = req.check_stop(tok)
@@ -1035,7 +1389,9 @@ class ServingEngine:
                       now: float) -> None:
         """Record and stream one token; finish the request on a stop."""
         req.generated.append(tok)
+        req.weights_version = self.weights_version
         self._last_tok_time[slot] = now
+        self.registry.counter("serving/tokens_total").inc()
         if req.stream_cb is not None:
             req.stream_cb(req, tok)
         reason = self._stop_reason(req, tok)
@@ -1047,7 +1403,9 @@ class ServingEngine:
         req.transition(RequestState.FINISHED)
         req.finish_reason = reason
         req.finish_time = now
+        self._trace_end_phase(req, t=now)
         self._release(slot, req)
+        self.registry.counter("serving/finished_total").inc()
 
     def _fail_slot_state(self, slot: int, req: Request, now: float,
                          reason: str = FAIL_NON_FINITE) -> None:
@@ -1056,7 +1414,9 @@ class ServingEngine:
         req.transition(RequestState.FAILED)
         req.finish_reason = reason
         req.finish_time = now
+        self._trace_end_phase(req, t=now, failed=reason)
         self._release(slot, req)
+        self.registry.counter("serving/failed_total").inc()
 
     def _fail_slot(self, slot: int, req: Request, outputs: list, now: float,
                    reason: str = FAIL_NON_FINITE) -> None:
@@ -1068,14 +1428,62 @@ class ServingEngine:
         outputs.append(self._emit(req, now))
 
     def _emit(self, req: Request, now: float) -> RequestOutput:
-        """The terminal output; a request terminal while parked banks its
-        open park and drops its resume pin here, where every terminal path
-        passes."""
+        """The terminal output, where every terminal path passes: a request
+        terminal while parked banks its open park and drops its resume pin;
+        the root span ends; the ``serving_stats`` record is written."""
         if req.parked_at is not None:
             req.preempted_ms += max(now - req.parked_at, 0.0) * 1e3
             req.parked_at = None
         self._kv.release_resume(req)
-        return RequestOutput.from_request(req, now)
+        tr = self.tracer
+        if tr is not None:
+            rt = self._rt.pop(req.request_id, None)
+            if rt is not None:
+                tr.end(rt.pop("phase", None), t=now)  # none open, normally
+                tr.end(rt.get("root"), t=now, state=req.state.value,
+                       finish_reason=req.finish_reason,
+                       new_tokens=len(req.generated),
+                       preemptions=req.preemptions)
+        out = RequestOutput.from_request(req, now)
+        if self._stats_path is not None:
+            self._write_stats(req, out)
+        return out
+
+    def _write_stats(self, req: Request, out: RequestOutput) -> None:
+        """One ``serving_stats/6`` record (the file opens at the first,
+        and every record is flushed)."""
+        if self._stats_f is None:
+            self._stats_f = open(self._stats_path, "a")
+        rec = {
+            "schema": SERVING_STATS_SCHEMA,
+            "time": time.time(),
+            "request_id": out.request_id,
+            "state": out.state,
+            "finish_reason": out.finish_reason,
+            "prompt_len": out.prompt_len,
+            "new_tokens": len(out.token_ids),
+            "queue_ms": out.queue_ms,
+            "ttft_ms": out.ttft_ms,
+            "total_ms": out.total_ms,
+            "spec_proposed": out.spec_proposed,
+            "spec_accepted": out.spec_accepted,
+            "acceptance_rate": out.acceptance_rate,
+            "adapter_id": out.adapter_id,
+            "priority": out.priority,
+            "deadline_s": out.deadline_s,
+            "queue_wait_ms": out.queue_ms,
+            "preemptions": out.preemptions,
+            "shed_reason": req.shed_reason,
+            # the engine clock's stamp: the spans' timescale
+            "mono": self._clock(),
+            "decode_steps": out.decode_steps,
+            "prefill_chunks": out.prefill_chunks,
+            "preempted_ms": out.preempted_ms,
+            "trace_id": out.trace_id,
+            "weights_version": out.weights_version,
+        }
+        self._stats_f.write(json.dumps(rec) + "\n")
+        self._stats_f.flush()
 
     def _preempt_for_priority(self, now: float) -> None:
         """Park batch victims while the scheduler says the interactive head
@@ -1090,12 +1498,16 @@ class ServingEngine:
                 return
             slot, req = picked
             st = self._chunking.get(slot)
-            self.scheduler.requeue(req)
+            # the compute phase ends at the park instant, where the
+            # scheduler's preempted span begins
+            self._trace_end_phase(req, t=now, preempted=True)
+            self.scheduler.requeue(req, now=now)
             req.parked_at = now
             self._kv.park_resume(
                 slot, req, fresh_done=st.next_i if st is not None else None)
             self._park(slot)
             self.preemptions += 1
+            self.registry.counter("serving/preemptions_total").inc()
             logger.info("serving: preempted batch request %d from slot %d "
                         "for the interactive queue head (%d preemption(s) "
                         "so far)", req.request_id, slot, req.preemptions)
@@ -1109,8 +1521,11 @@ class ServingEngine:
         req.finish_reason = RequestState.TIMED_OUT.value
         req.finish_time = now
         req.shed_reason = SHED_EXPIRED_BEFORE_PREFILL
+        self._trace_end_phase(req, t=now, expired=True)
         self._release(slot, req)
         self.expired_before_prefill += 1
+        self.registry.counter("serving/expired_before_prefill_total").inc()
+        self.registry.counter("serving/timed_out_total").inc()
         outputs.append(self._emit(req, now))
 
     def _release(self, slot: int, req: Request) -> None:

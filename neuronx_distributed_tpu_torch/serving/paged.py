@@ -23,6 +23,9 @@ prefill, and page release on every terminal state.
   them.
 - Prompt pages live page-aligned in ``[0, context_len)`` and decode writes
   start at ``context_len``, so shared prefix pages are never written.
+- With a metrics ``registry`` the pool exports ``kvcache/pages_*`` gauges
+  (:meth:`PagedKVManager.export_gauges`) and counts prefix hits, misses and
+  skipped prefills, copy-on-write copies and evictions into it.
 """
 
 from __future__ import annotations
@@ -41,6 +44,13 @@ from neuronx_distributed_tpu_torch.kvcache.prefix import (
 from neuronx_distributed_tpu_torch.resilience.faults import fault_point
 from neuronx_distributed_tpu_torch.serving.request import Request
 
+PAGES_TOTAL = "kvcache/pages_total"
+PAGES_IN_USE = "kvcache/pages_in_use"
+PAGES_CACHED = "kvcache/pages_cached"
+PREFIX_HITS_TOTAL = "kvcache/prefix_hits_total"
+PREFIX_MISSES_TOTAL = "kvcache/prefix_misses_total"
+PREFILL_SKIPPED_TOTAL = "kvcache/prefill_skipped_total"
+
 
 class PagedKVManager:
     """Host-side paged-KV bookkeeping for one engine.  Implements the
@@ -49,8 +59,8 @@ class PagedKVManager:
     :meth:`release_slot` on any terminal state)."""
 
     def __init__(self, *, num_slots: int, context_len: int, max_total_len: int,
-                 page_size: int, num_pages: int, prefix_cache: bool = True,
-                 spec_overshoot: int = 0):
+                 page_size: int, num_pages: int, registry: Any = None,
+                 prefix_cache: bool = True, spec_overshoot: int = 0):
         if context_len % page_size != 0 or max_total_len % page_size != 0:
             raise ValueError(
                 f"page_size {page_size} must divide context_len "
@@ -67,8 +77,10 @@ class PagedKVManager:
         # request's budget (a rejected tail is rolled back by offset
         # rewind, never un-written): the reservation backs them too
         self.spec_overshoot = spec_overshoot
-        self.alloc = BlockAllocator(num_pages)
-        self.index = PrefixIndex(self.alloc) if prefix_cache else None
+        self.registry = registry
+        self.alloc = BlockAllocator(num_pages, registry=registry)
+        self.index = (PrefixIndex(self.alloc, registry=registry)
+                      if prefix_cache else None)
         # per-slot logical -> physical page map; NULL_PAGE backs every hole
         self.tables = np.full((num_slots, self.pages_per_slot), NULL_PAGE,
                               np.int32)
@@ -80,6 +92,13 @@ class PagedKVManager:
         # reclaim drops the oldest park first)
         self._resume: Dict[int, Request] = {}
         self.prefill_skipped = 0
+        if registry is not None:
+            registry.gauge(PAGES_TOTAL).set(self.alloc.capacity)
+            registry.gauge(PAGES_IN_USE)
+            registry.gauge(PAGES_CACHED)
+            for c in (PREFIX_HITS_TOTAL, PREFIX_MISSES_TOTAL,
+                      PREFILL_SKIPPED_TOTAL):
+                registry.counter(c)
 
     # -- scheduler page-gate protocol --------------------------------------
 
@@ -173,6 +192,13 @@ class PagedKVManager:
         self.tables_dirty = True
         full_hit = payload is not None and len(matched) == self.ctx_pages
         self.prefill_skipped += int(full_hit)
+        if self.registry is not None:
+            n_hit = sum(1 for lp in range(len(matched))
+                        if not is_padding_key(keys[lp]))
+            self.registry.counter(PREFIX_HITS_TOTAL).inc(n_hit)
+            self.registry.counter(PREFIX_MISSES_TOTAL).inc(len(todo))
+            if full_hit:
+                self.registry.counter(PREFILL_SKIPPED_TOTAL).inc()
         return payload if full_hit else None
 
     def fresh_pages(self, slot: int) -> List[tuple]:
@@ -283,6 +309,15 @@ class PagedKVManager:
                 short -= self.index.evict(short)
                 if short <= 0:
                     break
+
+    def export_gauges(self) -> None:
+        """Refresh the pool gauges (the engine calls it once a step)."""
+        if self.registry is None:
+            return
+        self.registry.gauge(PAGES_TOTAL).set(self.alloc.capacity)
+        self.registry.gauge(PAGES_IN_USE).set(self.alloc.in_use)
+        self.registry.gauge(PAGES_CACHED).set(
+            self.index.evictable_pages() if self.index is not None else 0)
 
     def leaked_pages(self) -> int:
         """Allocated pages beyond those the prefix index holds; 0 once every

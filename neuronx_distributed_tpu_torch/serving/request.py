@@ -1,6 +1,5 @@
 """Request lifecycle for the continuous-batching serving engine (a copy of
-``neuronx_distributed_tpu/serving/request.py`` without the tracing and
-live-weights fields, which wait for their slices).
+``neuronx_distributed_tpu/serving/request.py``).
 
 A :class:`Request` enters QUEUED, moves to PREFILL when a slot is granted,
 DECODE after its prompt's KV is in the pool, and ends in exactly one of
@@ -112,6 +111,12 @@ class Request:
     shed_reason: Optional[str] = None
     preempted_ms: float = 0.0
     parked_at: Optional[float] = None
+    # tracing linkage (engine-owned): the id keying this request's spans in
+    # trace_events.jsonl, set at submit when a tracer is attached
+    trace_id: Optional[int] = None
+    # the version of the weights that decoded the request's last token (0
+    # = the process-start weights: nothing swaps them in the port yet)
+    weights_version: int = 0
     # the committed page chain a parked victim keeps pinned (one extra
     # allocator reference a non-NULL page) and its page keys; the
     # re-grant's prefix lookup matches it, so only the uncommitted tail is
@@ -204,6 +209,8 @@ class RequestOutput:
     preemptions: int = 0
     preempted_ms: float = 0.0
     shed_reason: Optional[str] = None
+    trace_id: Optional[int] = None
+    weights_version: int = 0
 
     @property
     def acceptance_rate(self) -> Optional[float]:
@@ -241,4 +248,6 @@ class RequestOutput:
             preemptions=req.preemptions,
             preempted_ms=req.preempted_ms,
             shed_reason=req.shed_reason,
+            trace_id=req.trace_id,
+            weights_version=req.weights_version,
         )

@@ -19,7 +19,11 @@ before admission.  On top of that:
   EWMA queue wait of its class plus the EWMA time to first token is refused
   at submit with :class:`SLOInfeasible`;
 - **tenant limits** -- token buckets keyed by ``adapter_id`` refuse a
-  tenant over its rate with :class:`RateLimited`.
+  tenant over its rate with :class:`RateLimited`;
+- **tracing** -- with a ``tracer`` the scheduler owns the WAIT phases of a
+  request's trace: a ``queue`` span from submit to grant (or sweep), a
+  ``preempted`` span from park to re-grant, and ``sched/blocked`` instants
+  when the head waits for pages.
 
 Pure host-side bookkeeping: every time is the caller's clock.
 """
@@ -117,7 +121,7 @@ class SlotScheduler:
                  max_queue: Optional[int] = None, page_gate=None,
                  reserve_extra: int = 0,
                  max_batch_wait_s: Optional[float] = DEFAULT_MAX_BATCH_WAIT_S,
-                 shed_infeasible: bool = False):
+                 shed_infeasible: bool = False, tracer=None):
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         if max_queue is not None and max_queue < 1:
@@ -154,6 +158,10 @@ class SlotScheduler:
         self._wait_ewma: Dict[str, Optional[float]] = {
             cls: None for cls in PRIORITIES}
         self._ttft_ewma: Optional[float] = None
+        # the wait-phase spans (None = tracing off: every call site is
+        # guarded, so the off path allocates nothing)
+        self.tracer = tracer
+        self._qspans: Dict[int, object] = {}  # rid -> open queue/park span
         self.load_shed_scale = 1.0
         # per-tenant token buckets keyed by adapter_id; a default template
         # mints a bucket for each tenant seen
@@ -381,12 +389,19 @@ class SlotScheduler:
         self._by_id[request.request_id] = request
         self._keys[request.request_id] = key
         bisect.insort(self._queues[request.priority], key + (request,))
+        if self.tracer is not None:
+            # the queue phase, submit -> grant, under the engine's root
+            self._qspans[request.request_id] = self.tracer.begin(
+                "queue", request_id=request.request_id,
+                parent=getattr(request, "_trace_root", None), t=now,
+                priority=request.priority, deadline_s=request.deadline_s)
 
-    def requeue(self, request: Request) -> int:
+    def requeue(self, request: Request, now: Optional[float] = None) -> int:
         """Preemption (the engine releases the slot's pages and state):
         take an active request out of its slot, park it back in QUEUED
         (:meth:`~.request.Request.reset_for_requeue`) at its ORIGINAL EDF
-        key.  Returns the freed slot."""
+        key.  Returns the freed slot.  ``now`` (the engine's clock) starts
+        the trace's ``preempted`` span where the compute phase ended."""
         slot = self._slot_of.pop(request.request_id, None)
         if slot is None:
             raise ValueError(
@@ -395,6 +410,11 @@ class SlotScheduler:
         request.reset_for_requeue()
         key = self._keys[request.request_id]
         bisect.insort(self._queues[request.priority], key + (request,))
+        if self.tracer is not None:
+            self._qspans[request.request_id] = self.tracer.begin(
+                "preempted", request_id=request.request_id,
+                parent=getattr(request, "_trace_root", None), t=now,
+                preemptions=request.preemptions)
         return slot
 
     def pick_preemption(self, now: Optional[float] = None
@@ -460,6 +480,10 @@ class SlotScheduler:
                     self._by_id.pop(req.request_id, None)
                     self._keys.pop(req.request_id, None)
                     self._terminate(req, reason, now)
+                    if self.tracer is not None:
+                        self.tracer.end(
+                            self._qspans.pop(req.request_id, None), t=now,
+                            swept=reason.value)
                     swept.append(req)
         for _, req in self.active():
             reason = self._sweep_reason(req, now)
@@ -503,7 +527,13 @@ class SlotScheduler:
             if budget is not None:
                 need = self.page_gate.pages_needed(req)
                 if need > budget:
-                    break
+                    if self.tracer is not None:
+                        self.tracer.instant(
+                            "sched/blocked", request_id=req.request_id,
+                            parent=self._qspans.get(req.request_id), t=now,
+                            reason="pages", pages_needed=need,
+                            pages_free=budget)
+                    break  # the chosen head waits for pages
                 budget -= need
             self._queues[cls].pop(idx)
             slot = next(i for i, r in enumerate(self._slots) if r is None)
@@ -513,6 +543,11 @@ class SlotScheduler:
             req.prefill_time = now
             if req.submit_time is not None:
                 self._note_wait(req.priority, max(now - req.submit_time, 0.0))
+            if self.tracer is not None:
+                # the wait phase ends at the grant instant, where the
+                # engine's prefill phase begins
+                self.tracer.end(self._qspans.pop(req.request_id, None),
+                                t=now, slot=slot)
             grants.append((slot, req))
         return grants
 
@@ -530,6 +565,14 @@ class SlotScheduler:
         self._keys.pop(request.request_id, None)
         self._cancel_requested.discard(request.request_id)
         return slot
+
+    def trace_abort(self, now: Optional[float] = None) -> None:
+        """Seal every open wait span (engine teardown)."""
+        if self.tracer is None:
+            return
+        now = time.monotonic() if now is None else now
+        for rid in list(self._qspans):
+            self.tracer.end(self._qspans.pop(rid), t=now, aborted=True)
 
     # -- load estimators ---------------------------------------------------
 

@@ -22,8 +22,9 @@ weights through the same allocator as the KV cache.
 
 ``acquire`` is transactional: a failure after the pages are taken (the
 ``tenancy/adapter_load`` fault point sits there) frees every one of them
-before re-raising.  The JAX store reports to the metrics registry; until
-the port has one (ROADMAP A8) the store keeps plain counters.
+before re-raising.  With a metrics registry attached the store counts
+hits, loads and evictions into the JAX package's ``tenancy/*`` metrics and
+exports its residency gauges; the plain counters stay beside them.
 """
 
 from __future__ import annotations
@@ -45,6 +46,13 @@ from neuronx_distributed_tpu_torch.resilience.faults import fault_point
 from neuronx_distributed_tpu_torch.utils.logger import get_logger
 
 logger = get_logger(__name__)
+
+# registry contract (obs.schemas.REGISTRY_METRICS)
+ADAPTERS_RESIDENT = "tenancy/adapters_resident"
+ADAPTER_POOL_PAGES_IN_USE = "tenancy/adapter_pool_pages_in_use"
+ADAPTER_HITS_TOTAL = "tenancy/adapter_hits_total"
+ADAPTER_LOADS_TOTAL = "tenancy/adapter_loads_total"
+ADAPTER_EVICTIONS_TOTAL = "tenancy/adapter_evictions_total"
 
 # factor names in canonical order: the layout's flattening order and the
 # tuple order of the model's ``adapter`` argument
@@ -223,14 +231,18 @@ class AdapterStore:
     """Refcounted paged residency for registered LoRA adapters.
 
     Adapter id 0 is RESERVED: it means "no adapter", is served by the
-    pool's zero NULL page, and can never be registered.  Counters (the
-    JAX registry metrics they become with ROADMAP A8): ``hits``
+    pool's zero NULL page, and can never be registered.  ``registry`` (an
+    ``obs.MetricRegistry``) may be given here or attached later with
+    :meth:`attach_registry` (the serving engine attaches its own).  Plain
+    counters and the metrics they feed: ``hits``
     (``tenancy/adapter_hits_total``), ``loads``
     (``tenancy/adapter_loads_total``), ``evictions``
-    (``tenancy/adapter_evictions_total``), and :attr:`pages_in_use`
-    (the ``tenancy/adapter_pool_pages_in_use`` gauge)."""
+    (``tenancy/adapter_evictions_total``); :meth:`export_gauges` sets
+    ``tenancy/adapters_resident`` and :attr:`pages_in_use`
+    (``tenancy/adapter_pool_pages_in_use``)."""
 
-    def __init__(self, layout: AdapterLayout, num_pages: int):
+    def __init__(self, layout: AdapterLayout, num_pages: int,
+                 registry: Any = None):
         if layout.pages_per_adapter > num_pages - 1:
             raise ValueError(
                 f"one adapter needs {layout.pages_per_adapter} pages but "
@@ -246,6 +258,27 @@ class AdapterStore:
         self.hits = 0
         self.loads = 0
         self.evictions = 0
+        self.registry = None
+        if registry is not None:
+            self.attach_registry(registry)
+
+    # -- wiring ------------------------------------------------------------
+
+    def attach_registry(self, registry: Any) -> None:
+        self.registry = registry
+        registry.gauge(ADAPTERS_RESIDENT)
+        registry.gauge(ADAPTER_POOL_PAGES_IN_USE)
+        for c in (ADAPTER_HITS_TOTAL, ADAPTER_LOADS_TOTAL,
+                  ADAPTER_EVICTIONS_TOTAL):
+            registry.counter(c)
+
+    def export_gauges(self) -> None:
+        """Refresh the residency gauges (the engine calls it once a
+        step)."""
+        if self.registry is None:
+            return
+        self.registry.gauge(ADAPTERS_RESIDENT).set(len(self._resident))
+        self.registry.gauge(ADAPTER_POOL_PAGES_IN_USE).set(self.alloc.in_use)
 
     # -- registration ------------------------------------------------------
 
@@ -297,6 +330,8 @@ class AdapterStore:
             for p in pages:
                 self.alloc.retain(p)
             self.hits += 1
+            if self.registry is not None:
+                self.registry.counter(ADAPTER_HITS_TOTAL).inc()
             return []
         need = self.layout.pages_per_adapter
         self._ensure_free(need)
@@ -314,6 +349,8 @@ class AdapterStore:
             raise
         self._resident[adapter_id] = pages
         self.loads += 1
+        if self.registry is not None:
+            self.registry.counter(ADAPTER_LOADS_TOTAL).inc()
         return [(phys, blocks[i]) for i, phys in enumerate(pages)]
 
     def release(self, adapter_id: int) -> None:
@@ -377,6 +414,8 @@ class AdapterStore:
             for p in self._resident.pop(victim):
                 self.alloc.free(p)
             self.evictions += 1
+            if self.registry is not None:
+                self.registry.counter(ADAPTER_EVICTIONS_TOTAL).inc()
             logger.info("tenancy: evicted cold adapter %d (%d pages)",
                         victim, self.layout.pages_per_adapter)
 
@@ -404,8 +443,9 @@ class AdapterStore:
 
 
 def make_adapter_store(model: Any, rank: int, num_pages: int,
-                       page_elems: int = 2048) -> AdapterStore:
+                       page_elems: int = 2048,
+                       registry: Any = None) -> AdapterStore:
     """An :class:`AdapterStore` laid out for a serving wrapper's module
     (what ``ServingEngine(adapter_store=)`` takes)."""
     return AdapterStore(AdapterLayout.for_model(model, rank, page_elems),
-                        num_pages)
+                        num_pages, registry=registry)

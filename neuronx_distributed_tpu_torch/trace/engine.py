@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from neuronx_distributed_tpu_torch.kvcache.quant import quantize_page
+from neuronx_distributed_tpu_torch.obs.transfer_audit import allow_sync
 from neuronx_distributed_tpu_torch.ops.paged_attention import (
     paged_attention,
     resolve_paged_kernel,
@@ -228,12 +229,16 @@ class PhaseGraphs:
             _add_launch_counts(g.launches)
             self.replays += 1
             return g.output.clone()
-        out = fn(*inputs)  # eager: this call's result, and the warm-up
-        static = tuple(x.clone() for x in inputs)
-        graph = torch.cuda.CUDAGraph()
-        before = _launch_counts()
-        with torch.cuda.graph(graph):
-            static_out = fn(*static)
+        # the first call of a key is the port's compile: its eager run and
+        # the capture (which synchronizes the device) are not the steady
+        # path, so a serving engine's ``forbid`` sync guard is lifted here
+        with allow_sync():
+            out = fn(*inputs)  # eager: this call's result, and the warm-up
+            static = tuple(x.clone() for x in inputs)
+            graph = torch.cuda.CUDAGraph()
+            before = _launch_counts()
+            with torch.cuda.graph(graph):
+                static_out = fn(*static)
         moved = tuple(a - b for a, b in zip(_launch_counts(), before))
         _add_launch_counts([-m for m in moved])  # capture launched nothing
         self._graphs[key] = _PhaseGraph(graph, static, static_out, moved)
@@ -373,6 +378,13 @@ class ParallelInferenceModel:
         logits, caches = self.module(toks, positions, caches, offset,
                                      kv_valid=valid)
         return logits, caches, valid
+
+    def score_chunk(self, ids, offset: int, caches, valid):
+        """Score ``ids [B, S]`` written at the scalar cache index ``offset``
+        over contiguous caches; returns ``(logits [B, S, V], caches,
+        valid)`` (the JAX ``score_chunk``: teacher-forced chunk scoring, the
+        solo speculative verify)."""
+        return self._score_chunk(ids, offset, caches, valid)
 
     @torch.no_grad()
     def insert_slot(self, caches, row_caches, valid, row_valid, slot: int):

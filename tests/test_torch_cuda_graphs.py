@@ -27,6 +27,10 @@ The file imports nothing of JAX:
   into its own slot while its step is in flight drops the stale token;
   the async graph engine serves preemption traffic with the synchronous
   eager engine's tokens.
+- With full telemetry (a hub, a tracer, stats, ``transfer_guard="forbid"``)
+  whole steady steps make no host sync besides the packed fetch and
+  capture nothing new; inside a ``forbid`` section an implicit sync
+  raises and the sanctioned put and fetch pass.
 """
 
 import numpy as np
@@ -348,3 +352,63 @@ def test_graph_engine_preemption_tokens_equal_sync_eager(dev):
     want = run(eager, async_decode=False)
     assert run(graphed) == want
     assert run(graphed, force_regrant=True) == want
+
+
+@pytest.mark.parametrize("spec", [False, True])
+def test_steady_steps_with_full_telemetry_make_no_host_sync(dev, spec,
+                                                           tmp_path):
+    """With a hub, a tracer, stats and the ``forbid`` guard attached, the
+    engine warms up (the guard is lifted around each capture), then whole
+    steady steps run under ``set_sync_debug_mode("error")``: only the
+    packed fetch waits, and nothing is captured again."""
+    from neuronx_distributed_tpu_torch.obs import Observability, Tracer
+
+    cfg, _, graphed = _model("llama", dev)
+    kw = dict(draft=graphed, spec_k=3) if spec else {}
+    hub = Observability(str(tmp_path))
+    eng = ServingEngine(graphed, page_size=PAGE, obs=hub, tracer=Tracer(),
+                        stats_path=str(tmp_path / "serving_stats.jsonl"),
+                        transfer_guard="forbid", step_timeout_s=30.0, **kw)
+    assert len(_steady(eng, cfg.vocab_size, SLOTS)) == SLOTS
+    captures, steps = graphed.graphs.captures, eng._steps
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(4):
+            eng.step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert graphed.graphs.captures == captures
+    snap = eng.registry.snapshot()
+    assert snap["transfer/guarded_sections_total"] == eng._steps
+    assert snap["transfer/explicit_fetches_total"] == eng.fetches
+    assert hub.flight.steps_recorded == eng._steps == steps + 4
+    eng.run_until_complete(max_steps=200)
+    eng.close()
+    hub.close()
+
+
+def test_forbid_section_raises_on_an_implicit_sync(dev):
+    """Inside a ``forbid`` section an implicit ``.item()`` raises, the
+    sanctioned put and fetch pass, and the mode is restored after an
+    exception."""
+    from neuronx_distributed_tpu_torch.obs import MetricRegistry, TransferAudit
+    from neuronx_distributed_tpu_torch.serving.engine import _Staging
+
+    audit = TransferAudit(MetricRegistry(), mode="forbid", device=dev)
+    staging = _Staging(dev, 8, 8)
+    x = torch.arange(4, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    with audit.section("serving/decode"):
+        (up,) = audit.put(staging, np.arange(4, dtype=np.int32))
+        got = audit.fetch(staging, staging.fetch(up * 2))
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            x.sum().item()
+        assert torch.cuda.get_sync_debug_mode() == 2
+    assert got.tolist() == [0, 2, 4, 6]
+    assert torch.cuda.get_sync_debug_mode() == 0
+    with pytest.raises(RuntimeError, match="synchroniz"):
+        with audit.section("serving/decode"):
+            x.cpu()
+    assert torch.cuda.get_sync_debug_mode() == 0
+    assert x.sum().item() == 6  # outside a section: allowed

@@ -146,7 +146,10 @@ def test_walk_covers_the_slice():
                 "parallel.loss", "parallel.grads", "optimizer.adamw_fp32",
                 "trainer.trainer", "trainer.metrics", "tenancy",
                 "tenancy.store", "peft", "resilience", "resilience.faults",
-                "resilience.supervisor"):
+                "resilience.supervisor", "obs", "obs.registry",
+                "obs.schemas", "obs.flight", "obs.tracing",
+                "obs.transfer_audit", "obs.metrics_server",
+                "utils.timeline"):
         assert f"neuronx_distributed_tpu_torch.{mod}" in names
 
 

@@ -11,7 +11,8 @@ JAX package.
   under the supervisor.
 - The supervisor restarts trivial children (no jax, no torch) until a
   clean exit, gives up on a spent budget, kills a wedged child, records
-  the resume tag; ``classify_exit``, ``newest_complete_tag`` and
+  the resume tag, and every event it writes validates as
+  ``supervisor_event``; ``classify_exit``, ``newest_complete_tag`` and
   ``RestartBackoff`` answer as JAX's do.
 - Chaos on the tiny serving pair, the JAX engine beside the port's under
   the same plan: a fault at ``serving/page_alloc`` (with and without an
@@ -55,6 +56,10 @@ from neuronx_distributed_tpu_torch.resilience import (
     newest_complete_tag,
     perturb,
 )
+from neuronx_distributed_tpu.obs.schemas import (
+    validate_record as jax_validate_record,
+)
+from neuronx_distributed_tpu_torch.obs.schemas import validate_record
 from neuronx_distributed_tpu_torch.resilience.supervisor import RestartBackoff
 from neuronx_distributed_tpu_torch.serving import Request, ServingEngine
 from torch_port_pair import build_pair
@@ -220,20 +225,12 @@ def _crashy_script(tmp_path, crashes: int) -> str:
     return str(script)
 
 
-EVENT_KEYS = {
-    "start": {"schema", "time", "event", "attempt", "pid", "resume_tag"},
-    "exit": {"schema", "time", "event", "attempt", "rc", "cause",
-             "runtime_s", "resume_tag"},
-    "restart": {"schema", "time", "event", "attempt", "backoff_s", "cause"},
-    "success": {"schema", "time", "event", "attempt", "restarts"},
-    "giveup": {"schema", "time", "event", "attempt", "rc", "restarts",
-               "cause"},
-}
-
-
 def _check_event_keys(events):
+    """Every event validates as ``supervisor_event`` under the port's
+    schemas and the JAX package's (the two lists are equal)."""
     for e in events:
-        assert set(e) == EVENT_KEYS[e["event"]], e
+        validate_record("supervisor_event", e)
+        jax_validate_record("supervisor_event", e)
         assert e["schema"] == "supervisor_events/1"
 
 

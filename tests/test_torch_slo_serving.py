@@ -1003,8 +1003,11 @@ def test_expiry_just_before_a_chunk_is_shed_not_swept():
 
     eng = ServingEngine(tpim, page_size=PAGE, num_pages=16,
                         prefill_chunk_tokens=4, clock=clock, device="cpu")
+    # clock reads: submit 0.1; step 1 at 0.2, grant 0.3, chunk 0.4, step
+    # end 0.5; step 2's sweep at 0.6 (0.5 after submit), its chunk check
+    # at 0.7 (0.6 after submit): the deadline dies between the two
     req = Request(request_id=0, prompt_ids=list(range(1, 9)),
-                  max_new_tokens=4, deadline_s=0.45)
+                  max_new_tokens=4, deadline_s=0.55)
     eng.submit(req)
     outs = eng.step() + eng.step()
     assert [o.state for o in outs] == ["timed_out"]
