@@ -170,8 +170,13 @@ INT8_DRIFT_REL_MAX = 0.5
 INT8_POOL_RATIO_MAX = 0.51
 
 
+# the run's start on the host clock: each log line carries the seconds
+# since, so a phase's share of the time limit reads off the log
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    print(f"[{time.perf_counter() - _T0:7.1f} s] {msg}", flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -3136,6 +3141,374 @@ def phase2f(model_pim, entries: dict):
     return out
 
 
+# -- phase 2g -----------------------------------------------------------------
+
+# pairs of steady telemetry profiles in 2g(f) (part 1 only, then parts 1
+# and 2, in turns: part1, full, full, part1, ...)
+G_PAIRS = 4
+# the export check's cut of Llama-3-8B: full width, this many layers, and
+# its serving shapes (32 new tokens: every decode position of the cache)
+G_EXPORT_LAYERS, G_EXPORT_B, G_EXPORT_C, G_EXPORT_NEW = 2, 2, 64, 32
+
+
+def part2_telemetry(out_dir: str) -> dict:
+    """:func:`full_telemetry` plus ROADMAP A8 part 2: the hub builds the
+    resource ledgers, the health monitor and the perf attribution, and the
+    engine takes the hub's ledgers (its monitor and attribution it takes
+    from the hub itself)."""
+    from neuronx_distributed_tpu_torch.obs import Observability, Tracer
+
+    os.makedirs(out_dir, exist_ok=True)
+    hub = Observability(out_dir, ledgers=True, health=True, perf=True)
+    return {"obs": hub, "tracer": Tracer(),
+            "stats_path": os.path.join(out_dir, "serving_stats.jsonl"),
+            "transfer_guard": "forbid",
+            "compile_ledger": hub.compile_ledger,
+            "memory_ledger": hub.memory_ledger}
+
+
+def phase2g(model_pim, whole_tokens, entries: dict):
+    """ROADMAP A8 part 2 on phase 2's Llama-3-8B, the async graph engine:
+    (a) a warm pass, ``declare_warmup_done``, then phase 2's 16 requests
+    with full telemetry (part 1 and ``Observability(ledgers=True,
+    health=True, perf=True)``): tokens identical to phase 2's, every
+    artifact valid, the compile rows the run's captures, no storm, every
+    decode launch on the decode kernel, no page alert; (b) ``params`` and
+    ``kv_pool`` in bytes, the logical sum under the allocator's, and a real
+    out-of-memory error inside ``step()`` writing a breakdown that names
+    ``params`` first; (c) ``decode_step`` memory-bound against the H100
+    row, its roofline share in (0, 1]; (d) one capture forced after
+    warm-up: one storm, one ``compile_storm`` firing edge, ``/healthz``
+    naming it; (e) the run report over (a)'s directory; (f) the steady
+    step with parts 1 and 2 against part 1 alone, G_PAIRS pairs in turns:
+    device launches equal, device busy within 1 %; (g) the export of a
+    G_EXPORT_LAYERS-layer cut at full width, reloaded: 32 greedy tokens
+    identical to the original's.  ``entries``: the kernels-line entry (a)
+    counts ("decode")."""
+    import gc
+    import tempfile
+    import urllib.request
+
+    import torch
+
+    from neuronx_distributed_tpu_torch import (
+        InferenceConfig,
+        LlamaConfig,
+        LlamaForCausalLM,
+        ParallelInferenceModel,
+        ServingEngine,
+    )
+    from neuronx_distributed_tpu_torch.obs import (
+        MemoryLedger,
+        schemas,
+        summarize_perf,
+        tracing,
+    )
+    from neuronx_distributed_tpu_torch.obs.metrics_server import MetricsServer
+    from neuronx_distributed_tpu_torch.obs.report import (
+        build_report,
+        render_markdown,
+    )
+    from neuronx_distributed_tpu_torch.trace.export import (
+        parallel_model_load,
+        parallel_model_save,
+    )
+
+    cfg = model_pim.module.config
+    L, vocab = cfg.num_layers, cfg.vocab_size
+    smi = nvidia_smi_line()
+    # earlier phases' engines (held by reference cycles) are not this
+    # run's memory: free them before the ledger's device reading
+    gc.collect()
+    torch.cuda.empty_cache()
+    pim = graphed_pim(model_pim)
+    out = {"card": smi}
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    root = tmp.name
+
+    # (a) warm pass, declare_warmup_done, then phase 2's requests
+    a_dir = os.path.join(root, "a")
+    kw = part2_telemetry(a_dir)
+    hub, tracer = kw["obs"], kw["tracer"]
+    led = hub.compile_ledger
+    eng = ServingEngine(pim, page_size=PAGE_SIZE, **kw)
+    warm = make_requests(vocab, SLOTS, 2, SEED + 11)
+    for r in warm:
+        r.request_id += 10_000
+        eng.submit(r)
+    eng.run_until_complete(max_steps=100)
+    eng.declare_warmup_done()
+    captures = pim.graphs.captures
+    mark = led.mark()
+    warm_steps = eng.decode_steps
+    zero_paged_counts()
+    outs, wall = serve_checked(
+        "phase2g(a)", eng, make_requests(vocab, N_REQUESTS, NEW_TOKENS, SEED),
+        whole_tokens)
+    steps = eng.decode_steps - warm_steps
+    routes = check_routes("phase2g(a)", steps * L, 0)
+    set_launches([entries["decode"]], routes, "2g(a)")
+    compiles = [r for r in led.rows if r["event"] == "compile"]
+    if led.compiles_since(mark) or led.storms or \
+            len(compiles) != pim.graphs.captures or captures != \
+            pim.graphs.captures:
+        raise AssertionError(
+            f"phase2g(a): {len(compiles)} compile rows for "
+            f"{pim.graphs.captures} captures, {led.compiles_since(mark)} "
+            f"after warm-up, storms {led.storms}")
+    if any(r["kind"] != "cuda_graph" or not r["flops"] > 0
+           or not r["bytes_accessed"] > 0 for r in compiles):
+        raise AssertionError(f"phase2g(a): compile rows {compiles}")
+    page_edges = hub.health_monitor.page_edges()
+    if page_edges:
+        raise AssertionError(f"phase2g(a): {page_edges} page alerts on a "
+                             f"steady run: {hub.health_monitor.edges}")
+    roll = summarize_perf(hub.perf.attribution())
+    out["a"] = {"wall_s": wall, "decode_steps": steps,
+                "launches_by_route": routes, "captures": captures,
+                "compile_rows": [{k: r[k] for k in (
+                    "family", "kind", "wall_ms", "flops", "bytes_accessed")}
+                    for r in compiles],
+                "alert_edges": len(hub.health_monitor.edges)}
+    log(f"phase2g(a) [{smi}]: warm pass of {SLOTS} requests, "
+        f"declare_warmup_done, then phase 2's {N_REQUESTS} requests with "
+        f"parts 1 and 2 of the telemetry in {wall:.3f} s: tokens identical "
+        f"to phase 2's; {len(compiles)} compile rows = {captures} captures "
+        f"({', '.join(f'{r['family']} {r['wall_ms']:.1f} ms' for r in compiles)}), "
+        f"none after warm-up; {steps} decode steps, launches by "
+        f"route {routes}; {len(hub.health_monitor.edges)} alert edges, "
+        f"none paging")
+
+    # (b) memory: the logical accounting against the allocator
+    subs = hub.memory_ledger.subsystems()
+    want = {"params": sum(p.numel() * p.element_size()
+                          for p in pim.module.parameters()),
+            "kv_pool": eng._kv.alloc.num_pages * eng._page_bytes}
+    got = {k: subs[k]["bytes"] for k in want}
+    allocated = torch.cuda.memory_allocated()
+    logical = hub.memory_ledger.total_bytes
+    if got != want or eng._kv.alloc.num_pages != SLOTS * (
+            MAX_TOTAL // PAGE_SIZE) + 1 or logical > allocated:
+        raise AssertionError(f"phase2g(b): subsystems {got} != {want}, "
+                             f"logical {logical} vs allocated {allocated}")
+    device = hub.memory_ledger.poll_device()
+    remainder = hub.memory_ledger.remainder_bytes
+    eng.close()
+    tracer.export_jsonl(os.path.join(a_dir, tracing.TRACE_EVENTS_FILE))
+    b_path = os.path.join(root, "b_memory_breakdown.json")
+    oom_eng = ServingEngine(pim, page_size=PAGE_SIZE,
+                            memory_ledger=MemoryLedger(path=b_path))
+    real_decode = pim.decode_pages
+
+    def decode_oom(*a, **k):
+        # more than the card holds: more than mem_get_info's free bytes
+        # and the allocator's cache together
+        _, total = torch.cuda.mem_get_info()
+        torch.empty(total + (1 << 30), dtype=torch.uint8, device="cuda")
+        return real_decode(*a, **k)
+
+    pim.decode_pages = decode_oom
+    try:
+        for r in make_requests(vocab, 2, 4, SEED + 12):
+            oom_eng.submit(r)
+        oom_eng.step()
+        raise AssertionError("phase2g(b): no out-of-memory error in step()")
+    except torch.cuda.OutOfMemoryError as e:
+        oom_msg = str(e).splitlines()[0]
+    finally:
+        del pim.decode_pages
+    with open(b_path) as f:
+        oom_doc = json.load(f)
+    schemas.validate_record("memory_breakdown", oom_doc)
+    if oom_doc["reason"] != "oom:OutOfMemoryError" or \
+            oom_doc["top"][0][0] != "params":
+        raise AssertionError(f"phase2g(b): breakdown {oom_doc['reason']} "
+                             f"top {oom_doc['top']}")
+    del oom_eng
+    gc.collect()
+    out["b"] = {"subsystems": got, "logical_bytes": logical,
+                "allocated_bytes": allocated, "device": device,
+                "remainder_bytes": remainder, "oom_top": oom_doc["top"],
+                "oom_message": oom_msg}
+    log(f"phase2g(b) [{smi}]: params {got['params']} B = the parameters' "
+        f"bytes, kv_pool {got['kv_pool']} B = {eng._kv.alloc.num_pages} x "
+        f"{eng._page_bytes}; logical sum {logical} B <= allocated "
+        f"{allocated} B, remainder (graph pools, activations, workspaces) "
+        f"{remainder} B; an out-of-memory error inside step() ({oom_msg!r}) "
+        f"wrote memory_breakdown.json, reason {oom_doc['reason']}, top "
+        f"holders {oom_doc['top'][:3]}, and propagated")
+
+    # (c) perf attribution against the H100 row
+    fam = roll["families"]["decode_step"]
+    rec = [r for r in hub.perf.attribution()
+           if r["family"] == "decode_step"][0]
+    if rec["device"] != "nvidia h100 80gb hbm3" or fam["bound"] != "memory" \
+            or not 0.0 < fam["pct_roofline"] <= 1.0:
+        raise AssertionError(f"phase2g(c): decode_step {fam} on "
+                             f"{rec['device']}")
+    out["c"] = {"families": roll["families"], "rollup": roll.get("rollup"),
+                "decode_step_bytes_per_call": rec["bytes"] / rec["calls"],
+                "decode_step_flops_per_call": rec["flops"] / rec["calls"],
+                "decode_step_ms_per_call": rec["device_ms"] / rec["calls"],
+                "decode_step_lower_bound_ms_per_call":
+                    rec["lower_bound_ms"] / rec["calls"]}
+    log(f"phase2g(c) [{smi}]: perf attribution against "
+        f"{rec['device']} (989 TFLOP/s, 3.35 TB/s): decode_step "
+        f"{rec['bytes'] / rec['calls'] / 1e9:.3f} GB and "
+        f"{rec['flops'] / rec['calls'] / 1e9:.3f} GFLOP a step, bound "
+        f"{rec['lower_bound_ms'] / rec['calls']:.3f} ms ({fam['bound']}) "
+        f"against {rec['device_ms'] / rec['calls']:.3f} ms a step: roofline "
+        f"share {fam['pct_roofline']:.4f}")
+    for name, f in roll["families"].items():
+        log(f"phase2g(c) family {name}: calls {f['calls']:.0f}, "
+            f"{f['device_ms']:.3f} ms, flops {f['flops']:.4g}, bytes "
+            f"{f['bytes']:.4g}, {f['bound']}-bound, roofline share "
+            f"{f['pct_roofline']:.4f}, mfu {f['mfu']:.4f}, mbu {f['mbu']:.4f}")
+
+    # (d) a capture forced after warm-up: one storm, one alert edge
+    B = SLOTS // 2
+    park = torch.full((B,), MAX_TOTAL, dtype=torch.int32, device="cuda")
+    pim.decode_pages(torch.ones((B, 1), dtype=torch.long, device="cuda"),
+                     park, eng._tables_dev[:B], eng.caches, eng.valid[:B])
+    eng.step()  # an idle step: the rules evaluate the storm
+    snap = hub.registry.snapshot()
+    storm_edges = [e for e in hub.health_monitor.edges
+                   if e["rule"] == "compile_storm"]
+    with MetricsServer(hub.registry, monitor=hub.health_monitor, port=0,
+                       host="127.0.0.1") as srv:
+        hz = json.loads(urllib.request.urlopen(
+            f"http://127.0.0.1:{srv.port}/healthz", timeout=30).read())
+    if snap["trace/compile_storms_total"] != 1.0 or led.storms != 1 or \
+            [e["state"] for e in storm_edges] != ["firing"] or \
+            "compile_storm" not in hz["firing"]:
+        raise AssertionError(f"phase2g(d): storms "
+                             f"{snap['trace/compile_storms_total']}, edges "
+                             f"{storm_edges}, /healthz {hz}")
+    out["d"] = {"storms": led.storms, "storm_row": led.rows[-1]["wall_ms"],
+                "healthz": hz}
+    log(f"phase2g(d) [{smi}]: a decode at batch {B} after warm-up was one "
+        f"capture ({led.rows[-1]['wall_ms']:.1f} ms): "
+        f"trace/compile_storms_total 1, one compile_storm firing edge, "
+        f"/healthz {hz}")
+    del eng
+    pim.compile_ledger = pim.perf = None
+    hub.close()
+
+    # (e) the run report over (a)'s directory
+    doc = build_report(run_dir=a_dir)
+    schemas.validate_record("obs_report", doc)
+    missing = [s for s in ("compile", "memory", "alerts", "perf", "trace")
+               if doc.get(s) is None]
+    md = render_markdown(doc)
+    counts = {kind: schemas.validate_jsonl(kind, os.path.join(a_dir, name))
+              for kind, name in (("compile_ledger", "compile_ledger.jsonl"),
+                                 ("alert", "alerts.jsonl"),
+                                 ("perf_attribution",
+                                  "perf_attribution.jsonl"),
+                                 ("scalars", "scalars.jsonl"),
+                                 ("serving_stats", "serving_stats.jsonl"))}
+    with open(os.path.join(a_dir, "memory_breakdown.json")) as f:
+        schemas.validate_record("memory_breakdown", json.load(f))
+    if missing or doc["schema"] != "obs_report_v7" or "## " not in md:
+        raise AssertionError(f"phase2g(e): sections {missing} null")
+    out["e"] = {"artifact_records": counts, "markdown_chars": len(md)}
+    log(f"phase2g(e): obs_report_v7 over (a)'s directory: compile, memory, "
+        f"alerts, perf and trace sections filled, markdown {len(md)} chars; "
+        f"artifacts valid {counts}")
+    del pim
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (f) telemetry's cost: part 1 against parts 1 and 2, in turns
+    pim = graphed_pim(model_pim)
+    runs = {"part1": [], "full": []}
+    order = ["part1", "full", "full", "part1"] * (G_PAIRS // 2)
+    for turn, kind in enumerate(order):
+        d = os.path.join(root, f"f{turn}")
+        kw = part2_telemetry(d) if kind == "full" else full_telemetry(d)
+        runs[kind].append(telemetry_profile(
+            pim, vocab, f"phase2g(f) {kind} {len(runs[kind]) + 1}", **kw))
+        pim.compile_ledger = pim.perf = None
+        kw["obs"].close()
+    launches = {k: [r["device_launches_per_step"] for r in v]
+                for k, v in runs.items()}
+    if len({x for v in launches.values() for x in v}) != 1:
+        raise AssertionError(f"phase2g(f): device launches a step differ: "
+                             f"{launches}")
+    busy = [r["device_busy_ms"] for v in runs.values() for r in v]
+    mean_busy = {k: sum(r["device_busy_ms"] for r in v) / len(v)
+                 for k, v in runs.items()}
+    if abs(mean_busy["full"] - mean_busy["part1"]) > 0.01 * mean_busy[
+            "part1"]:
+        raise AssertionError(f"phase2g(f): device busy a step moved with "
+                             f"part 2: means {mean_busy}, runs {busy}")
+    diffs = [f["steady_step_ms"] - p["steady_step_ms"]
+             for f, p in zip(runs["full"], runs["part1"])]
+    mean_diff = sum(diffs) / len(diffs)
+    sd = (sum((d - mean_diff) ** 2 for d in diffs)
+          / max(len(diffs) - 1, 1)) ** 0.5
+    out["f"] = {"steady_step_ms": {k: [r["steady_step_ms"] for r in v]
+                                   for k, v in runs.items()},
+                "registry_step_ms": {k: [r["registry_step_ms"] for r in v]
+                                     for k, v in runs.items()},
+                "device_busy_ms": busy, "mean_device_busy_ms": mean_busy,
+                "device_launches_per_step": launches,
+                "telemetry_ms": {k: [r["host_split_ms"]["telemetry"]
+                                     for r in v] for k, v in runs.items()},
+                "diff_ms": diffs, "mean_diff_ms": mean_diff, "sd_ms": sd}
+    log(f"phase2g(f) [{smi}]: steady graph step (B={SLOTS}), {G_PAIRS} pairs "
+        f"in turns: part 1 {[round(r['steady_step_ms'], 3) for r in runs['part1']]}"
+        f" ms, parts 1+2 {[round(r['steady_step_ms'], 3) for r in runs['full']]}"
+        f" ms (host clock); difference a pair {[round(d, 3) for d in diffs]}, "
+        f"mean {mean_diff:.3f} ms, sd {sd:.3f} ms; device launches a step "
+        f"{launches['full'][0]:.1f} in every run; device busy means part 1 "
+        f"{mean_busy['part1']:.3f}, parts 1+2 {mean_busy['full']:.3f} ms "
+        f"(runs {min(busy):.3f}-{max(busy):.3f}); the step's telemetry part "
+        f"of the host split {[round(r['host_split_ms']['telemetry'], 3) for r in runs['part1']]}"
+        f" against {[round(r['host_split_ms']['telemetry'], 3) for r in runs['full']]} ms")
+    del pim
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (g) export and reload of a cut at full width
+    ecfg = LlamaConfig.llama3_8b(num_layers=G_EXPORT_LAYERS)
+    module = LlamaForCausalLM(ecfg, device="cuda").init_random(SEED)
+    epim = ParallelInferenceModel(
+        module, InferenceConfig(G_EXPORT_B, G_EXPORT_C,
+                                G_EXPORT_C + G_EXPORT_NEW, torch.bfloat16))
+    import numpy as np
+
+    prompt = np.random.RandomState(SEED + 13).randint(
+        1, vocab, size=(G_EXPORT_B, G_EXPORT_C))
+    want_t = epim.generate(prompt, G_EXPORT_NEW).cpu()
+    t0 = time.perf_counter()
+    path = parallel_model_save(os.path.join(root, "export"), epim)
+    save_s = time.perf_counter() - t0
+    sizes = {n: os.path.getsize(os.path.join(path, n))
+             for n in sorted(os.listdir(path))}
+    t0 = time.perf_counter()
+    loaded = parallel_model_load(path)
+    got_t = loaded.generate(prompt, G_EXPORT_NEW).cpu()
+    load_s = time.perf_counter() - t0
+    if not torch.equal(got_t, want_t):
+        raise AssertionError(f"phase2g(g): the loaded model's tokens differ "
+                             f"at {(got_t != want_t).nonzero().tolist()[:8]}")
+    out["g"] = {"files": sizes, "save_s": save_s, "load_and_generate_s":
+                load_s}
+    log(f"phase2g(g): {G_EXPORT_LAYERS}-layer Llama-3-8B cut at full width "
+        f"saved in {save_s:.1f} s ({sizes}); the loaded programs' greedy "
+        f"tokens over {G_EXPORT_NEW} decode positions identical to the "
+        f"original's (load + generate {load_s:.1f} s)")
+    del module, epim, loaded
+    tmp.cleanup()
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase2g: {out['wall_s']:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 # -- phase 3 ------------------------------------------------------------------
 
 # the training path's attention shape: Llama-3-8B heads at batch 4 x 2048
@@ -3271,18 +3644,6 @@ def flash_inputs(case, dtype, device, seed):
     return q, k, v, do, qs, ks, dlse
 
 
-def visible_pairs(S: int, T: int, causal: bool = True, window=None) -> int:
-    """(query, key) pairs one head sees: query i (at kv position i + T - S)
-    sees keys up to its own position and, with a window, no further back
-    than window - 1 positions."""
-    import numpy as np
-
-    if not causal:
-        return S * T
-    hi = np.arange(S, dtype=np.int64) + (T - S)
-    return int(np.minimum(hi + 1, window or T).sum())
-
-
 def flash_bound_ms(B, HQ, HKV, S, T, D, item, which, window=None) -> tuple:
     """Least time for one kernel call at a causal shape.  Operations: per
     visible (q, k) pair 4D (q.k and p.v), 6D for dq (q.k, dO.v, dS.k) and
@@ -3290,6 +3651,10 @@ def flash_bound_ms(B, HQ, HKV, S, T, D, item, which, window=None) -> tuple:
     type; ``which="bwd"`` is one call producing dq, dk and dv together
     (SDPA's backward), 10D per pair (q.k, dO.v, p^T.dO, dS.k, dS^T.q).
     Bytes: each input read once, each output written once."""
+    from neuronx_distributed_tpu_torch.ops.flash_attention import (
+        visible_pairs,
+    )
+
     pairs = B * HQ * visible_pairs(S, T, True, window)
     per = {"bwd": 10}.get(which) or FLASH_KERNELS[which][2]
     flops = per * D * pairs
@@ -4049,6 +4414,7 @@ def main() -> int:
               "beside this script", file=sys.stderr)
         return 2
     sys.path.insert(0, repo)
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
@@ -4089,6 +4455,8 @@ def main() -> int:
         log(f"phase2e summary: {json.dumps(slo)}")
         telemetry = phase2f(model_pim, {"decode": dec})
         log(f"phase2f summary: {json.dumps(telemetry)}")
+        part2 = phase2g(model_pim, whole_tokens, {"decode": dec})
+        log(f"phase2g summary: {json.dumps(part2)}")
         del model_pim
         dec256, simt256 = phase1_gemma()
         flash, flash256 = phase3()
@@ -4113,6 +4481,8 @@ def main() -> int:
             if not isinstance(k["launches"], int):
                 raise AssertionError(f"no main-path launch count for "
                                      f"{k['name']}")
+        log(f"chip_smoke: every phase passed in "
+            f"{time.perf_counter() - t_start:.1f} s")
         log(f"nvidia-smi: {nvidia_smi_line()}")
         print(json.dumps({"kernels": kernels}), flush=True)
     except Exception:  # noqa: BLE001 - any failed phase fails the run

@@ -431,6 +431,14 @@ class LlamaAttention(nn.Module):
                        == cache_offset[:, None])[:, :, None, None]
                 ck.copy_(torch.where(hot, k.to(ck.dtype), ck))
                 cv.copy_(torch.where(hot, v.to(cv.dtype), cv))
+            elif isinstance(cache_offset, torch.Tensor):
+                # a 0-d offset (the exported decode program): written
+                # through an index op, so one program serves every position
+                ck, cv = kv_cache
+                idx = cache_offset.reshape(1).long() + torch.arange(
+                    k.shape[1], device=ck.device)
+                ck.index_copy_(1, idx, k.to(ck.dtype))
+                cv.index_copy_(1, idx, v.to(cv.dtype))
             else:
                 ck, cv = kv_cache
                 off = int(cache_offset)

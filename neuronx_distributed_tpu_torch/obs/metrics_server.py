@@ -9,8 +9,9 @@ A stdlib ``http.server`` thread exposing
   renderer arrives with the fleet);
 - ``GET /healthz``  — a JSON READINESS document: the caller-supplied
   liveness probe (e.g. engine steps / active slots) merged with the
-  attached health ``monitor``'s rule state (``monitor=``: any object with
-  ``healthz()``); a falsy ``"ok"`` — liveness gone OR a ``page``-severity
+  attached health ``monitor``'s rule state (``monitor=``: a
+  :class:`~.health.HealthMonitor` or :class:`~.aggregate.FleetHealth`, or
+  any object with ``healthz()``); a falsy ``"ok"`` — liveness gone OR a ``page``-severity
   alert firing — answers 503.
 
 The server thread only reads the registry (under its lock) and the probe:

@@ -17,6 +17,10 @@ three kernels, each with a plain PyTorch version beside it:
   each kv head's G q heads inside the kernel; plain version
   :func:`flash_dkv_reference`.
 
+Under an active cost counter (:mod:`~..utils.profiling`) each wrapper
+declares :func:`flash_cost` for its call, on either route, and its own ops
+are not counted.
+
 On a CUDA tensor a wrapper launches its kernel (``csrc/flash_attention.cuh``,
 built by ``nvcc`` at first use into one library for head_dim 64 and 128 and
 one for 256, bound with ``ctypes``) or raises, and counts the launch in its
@@ -36,7 +40,10 @@ from __future__ import annotations
 import ctypes
 from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
+
+from neuronx_distributed_tpu_torch.utils import profiling
 
 NEG_INF = float(-1e30)  # large-negative instead of -inf: keeps exp/where NaN-free
 # the kernel library built for each head dim (csrc/<name>.cu)
@@ -320,6 +327,44 @@ def _route(q) -> bool:
     raise ValueError(f"flash attention runs on cuda or cpu, got {q.device}")
 
 
+def visible_pairs(S: int, T: int, causal: bool = True,
+                  window: Optional[int] = None) -> int:
+    """(query, key) pairs one head sees: query i (at kv position i + T - S)
+    sees keys up to its own position and, with a window, no further back
+    than window - 1 positions."""
+    if not causal:
+        return S * T
+    hi = np.arange(S, dtype=np.int64) + (T - S)
+    return int(np.minimum(hi + 1, window or T).sum())
+
+
+# operations per visible (q, k) pair, in units of D: fwd q.k and p.v; dq
+# q.k, dO.v and dS.k; dk/dv q.k, dO.v, p^T.dO and dS^T.q
+_PAIR_OPS = {"fwd": 4, "dq": 6, "dkv": 8}
+
+
+def flash_cost(which: str, q, k, causal: bool = True,
+               window: Optional[int] = None, q_seg=None,
+               kv_seg=None) -> tuple:
+    """``(flops, bytes)`` of one ``which`` call (``"fwd"``, ``"dq"`` or
+    ``"dkv"``) at these shapes: the pairs the causal band and window leave
+    visible (segment masks not subtracted), and each input read once and
+    each output written once (q, k, v, o, dO, dq, dk, dv in q's type; lse
+    and delta fp32; segment ids int32)."""
+    B, HQ, S, D = q.shape
+    HKV, T = k.shape[1], k.shape[2]
+    item = q.element_size()
+    flops = _PAIR_OPS[which] * D * B * HQ * visible_pairs(S, T, causal,
+                                                          window)
+    qd, kd, rows = B * HQ * S * D * item, B * HKV * T * D * item, B * HQ * S * 4
+    nbytes = {"fwd": qd + 2 * kd + qd + rows,         # q k v -> o lse
+              "dq": 2 * qd + 2 * kd + 2 * rows + qd,  # q k v do lse delta -> dq
+              "dkv": 2 * qd + 2 * kd + 2 * rows + 2 * kd}[which]
+    if q_seg is not None:
+        nbytes += (q_seg.numel() + kv_seg.numel()) * 4
+    return float(flops), float(nbytes)
+
+
 def flash_attention_fwd(q, k, v, q_seg=None, kv_seg=None, *,
                         causal: bool = True, sm_scale: Optional[float] = None,
                         window: Optional[int] = None,
@@ -328,6 +373,15 @@ def flash_attention_fwd(q, k, v, q_seg=None, kv_seg=None, *,
     """Forward kernel B1: ``(o, lse)``; o has q's memory layout."""
     _check_operands(q, k, v, q_seg, kv_seg)
     _check_options(causal, window, softcap)
+    opts = (q, k, v, q_seg, kv_seg, causal, sm_scale, window, softcap)
+    if profiling.ACTIVE is not None:
+        with profiling.declared(*flash_cost("fwd", q, k, causal, window,
+                                            q_seg, kv_seg)):
+            return _fwd(*opts)
+    return _fwd(*opts)
+
+
+def _fwd(q, k, v, q_seg, kv_seg, causal, sm_scale, window, softcap):
     if not _route(q):
         return flash_fwd_reference(q, k, v, q_seg, kv_seg, causal=causal,
                                    sm_scale=sm_scale, window=window,
@@ -349,6 +403,17 @@ def flash_attention_dq(q, k, v, do, lse, delta, q_seg=None, kv_seg=None, *,
     lse cotangent), computed by the caller."""
     _check_operands(q, k, v, q_seg, kv_seg)
     _check_options(causal, window, softcap)
+    opts = (q, k, v, do, lse, delta, q_seg, kv_seg, causal, sm_scale, window,
+            softcap)
+    if profiling.ACTIVE is not None:
+        with profiling.declared(*flash_cost("dq", q, k, causal, window,
+                                            q_seg, kv_seg)):
+            return _dq(*opts)
+    return _dq(*opts)
+
+
+def _dq(q, k, v, do, lse, delta, q_seg, kv_seg, causal, sm_scale, window,
+        softcap):
     if not _route(q):
         return flash_dq_reference(q, k, v, do, lse, delta, q_seg, kv_seg,
                                   causal=causal, sm_scale=sm_scale,
@@ -370,6 +435,17 @@ def flash_attention_dkv(q, k, v, do, lse, delta, q_seg=None, kv_seg=None, *,
     each kv head's q heads."""
     _check_operands(q, k, v, q_seg, kv_seg)
     _check_options(causal, window, softcap)
+    opts = (q, k, v, do, lse, delta, q_seg, kv_seg, causal, sm_scale, window,
+            softcap)
+    if profiling.ACTIVE is not None:
+        with profiling.declared(*flash_cost("dkv", q, k, causal, window,
+                                            q_seg, kv_seg)):
+            return _dkv(*opts)
+    return _dkv(*opts)
+
+
+def _dkv(q, k, v, do, lse, delta, q_seg, kv_seg, causal, sm_scale, window,
+         softcap):
     if not _route(q):
         return flash_dkv_reference(q, k, v, do, lse, delta, q_seg, kv_seg,
                                    causal=causal, sm_scale=sm_scale,

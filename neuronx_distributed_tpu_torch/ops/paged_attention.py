@@ -18,6 +18,9 @@ slot attends.
 - On a CPU tensor it runs :func:`paged_attention_reference`, the plain
   PyTorch version of the same arithmetic: gather, band-mask, per-split
   online-softmax partials and the split-K logsumexp merge.
+- Under an active cost counter (:mod:`~..utils.profiling`) either route
+  declares :func:`paged_attention_cost` (the pages actually touched) and
+  its own ops are not counted; with none active it pays one module read.
 
 Layout as in the JAX package: ``q [B, S, NQ, D]``; one layer's pool, the
 fp pair ``(k, v)`` each ``[NP, page, NKV, D]`` or the int8 six-tuple ``(k,
@@ -38,6 +41,7 @@ import torch
 
 from neuronx_distributed_tpu_torch.kvcache.quant import dequantize_page
 from neuronx_distributed_tpu_torch.ops.flash_attention import NEG_INF
+from neuronx_distributed_tpu_torch.utils import profiling
 
 # keys per kernel tile and query rows per block (csrc/paged_attention.cu)
 TILE_KEYS = 32
@@ -383,11 +387,61 @@ def _paged_attention_on(route: str, q, kv_pages, block_table, cache_offset,
                             sm_scale, window, softcap, split_k, route)
 
 
+def paged_attention_cost(q, kv_pages, block_table, cache_offset,
+                         kv_start=None, window=None) -> tuple:
+    """``(flops, bytes)`` one call needs for these inputs (what a kernel
+    wrapper declares to an active :mod:`~..utils.profiling` counter, and
+    ``chip_smoke.py``'s bound arithmetic).  Bytes, each moved once: q read,
+    out written, the block table, offsets and starts read, and K and V at
+    the positions ``[lo, hi]`` each live slot attends (the pages actually
+    touched; 1 byte an element in an int8 pool, plus 16 bytes of page
+    params for every page that range touches).  Operations: the q.K and
+    p.V of every key each query row sees.  The offsets are read from the
+    device, so this synchronizes a CUDA call: wrappers compute it only
+    under a counter."""
+    B, S, NQ, D = q.shape
+    ck = kv_pages[0]
+    page, NKV = ck.shape[1], ck.shape[2]
+    T = block_table.shape[1] * page
+    G = NQ // NKV
+    kv_item = ck.element_size()
+    nbytes = (2 * B * S * NQ * D * q.element_size()
+              + block_table.numel() * 4 + 2 * B * 4)
+    flops = 0
+    starts = ([0] * B if kv_start is None
+              else [int(x) for x in kv_start.tolist()])
+    for o, s0 in zip([int(x) for x in cache_offset.tolist()], starts):
+        if o >= T:
+            continue
+        hi = min(o + S - 1, T - 1)
+        lo = max(s0, 0 if window is None else o - window + 1)
+        nbytes += 2 * max(hi - lo + 1, 0) * NKV * D * kv_item
+        if len(kv_pages) == 6 and hi >= lo:
+            nbytes += 16 * (hi // page - lo // page + 1)
+        for s in range(S):
+            qp = min(o + s, T - 1)
+            lo_s = max(s0, 0 if window is None else o + s - window + 1)
+            flops += 4 * D * NKV * G * max(qp - lo_s + 1, 0)
+    return float(flops), float(nbytes)
+
+
 def _paged_attention(q, kv_pages, block_table, cache_offset, kv_start,
                      sm_scale, window, softcap, split_k, route):
     _check_pool(q, kv_pages)
     if window is not None and window < 1:
         raise ValueError(f"sliding window must be >= 1, got {window}")
+    if profiling.ACTIVE is not None:
+        with profiling.declared(*paged_attention_cost(
+                q, kv_pages, block_table, cache_offset, kv_start, window)):
+            return _paged_run(q, kv_pages, block_table, cache_offset,
+                              kv_start, sm_scale, window, softcap, split_k,
+                              route)
+    return _paged_run(q, kv_pages, block_table, cache_offset, kv_start,
+                      sm_scale, window, softcap, split_k, route)
+
+
+def _paged_run(q, kv_pages, block_table, cache_offset, kv_start, sm_scale,
+               window, softcap, split_k, route):
     scale = (q.shape[-1] ** -0.5) if sm_scale is None else sm_scale
     if q.device.type == "cpu":
         return paged_attention_reference(

@@ -75,10 +75,17 @@ ignored.
   phases under a root span) plus batch ``decode_step``/``spec_round``
   spans; ``step_timeout_s=`` arms the slow-step watchdog;
   ``transfer_guard="forbid"`` runs the async collect and dispatch under
-  the CUDA sync guard (:mod:`..obs.transfer_audit`).  Every metric is fed
-  from numbers already on the host (the packed fetch's tokens and flags,
-  the scheduler's state, shapes): telemetry adds no host sync, no kernel
-  and no CUDA-graph input.
+  the CUDA sync guard (:mod:`..obs.transfer_audit`).  ``compile_ledger=``
+  accounts every phase-graph capture, replay and eviction (a capture
+  after :meth:`declare_warmup_done` is a compile storm); ``memory_ledger=``
+  accounts the parameters, the page pool, the draft and the adapter pool
+  at construction and dumps the breakdown on an out-of-memory error in
+  ``step`` and at close; ``perf=`` accounts each prefill, chunk, decode
+  step and speculative round with the clock deltas that stamp the spans;
+  ``health=`` evaluates its rules once a step.  Every metric is fed from
+  numbers already on the host (the packed fetch's tokens and flags, the
+  scheduler's state, shapes): telemetry adds no host sync, no kernel and
+  no CUDA-graph input on the steady path.
 
 Greedy outputs are token-identical to a solo ``generate`` of the same
 prompt up to the arithmetic order of the attention path taken.  Chunked
@@ -100,7 +107,8 @@ import torch
 from neuronx_distributed_tpu_torch.kvcache.allocator import PoolExhausted
 from neuronx_distributed_tpu_torch.kvcache.pool import GATHER_BYTES_TOTAL
 from neuronx_distributed_tpu_torch.kvcache.quant import QUANT_PAGES_TOTAL
-from neuronx_distributed_tpu_torch.obs import MS_BUCKETS, PART2, MetricRegistry
+from neuronx_distributed_tpu_torch.obs import MS_BUCKETS, MetricRegistry
+from neuronx_distributed_tpu_torch.obs.memory_ledger import tree_bytes
 from neuronx_distributed_tpu_torch.obs.transfer_audit import TransferAudit
 from neuronx_distributed_tpu_torch.ops.paged_attention import resolve_paged_kernel
 from neuronx_distributed_tpu_torch.resilience.faults import fault_point, perturb
@@ -348,8 +356,20 @@ class ServingEngine:
       ``serving/slow_steps_total``.  ``transfer_guard="forbid"`` runs the
       async collect and dispatch under ``set_sync_debug_mode("error")`` on
       the card (the one packed fetch is let through).
-    - ``compile_ledger``, ``memory_ledger``, ``health`` and ``perf`` are
-      ROADMAP A8 part 2's and raise ``NotImplementedError`` when set.
+    - ``compile_ledger`` (an ``obs.CompileLedger``) is attached to the
+      model (and the draft), so their phase graphs report captures,
+      replays and evictions to it; ``memory_ledger`` (an
+      ``obs.MemoryLedger``) accounts ``params``, ``kv_pool`` (``num_pages
+      x page_bytes``), the draft's parameters and caches and the adapter
+      pool; ``health`` (an ``obs.HealthMonitor``) evaluates once a step
+      and takes each terminal request's SLO outcome; ``perf`` (an
+      ``obs.PerfAttribution``) accounts the phases.  ``health`` and
+      ``perf`` default to the ``obs`` hub's (the ledgers are passed
+      explicitly, as in JAX); None is one ``is not None`` test at each
+      site (the
+      counters ``obs.compile_ledger.LEDGER_ROWS``,
+      ``obs.perf.PERF_RECORDS`` and ``obs.health.ALERTS_EVALUATED`` stay
+      put).
 
     ``puts`` and ``fetches`` count the packed transfers: one put and one
     fetch per steady decode step or speculative round (a round whose
@@ -380,11 +400,6 @@ class ServingEngine:
                  transfer_guard: str = "off", compile_ledger: Any = None,
                  memory_ledger: Any = None, health: Any = None,
                  perf: Any = None, device=None):
-        for name, value in (("compile_ledger", compile_ledger),
-                            ("memory_ledger", memory_ledger),
-                            ("health", health), ("perf", perf)):
-            if value is not None:
-                raise NotImplementedError(f"ServingEngine({name}=...): {PART2}")
         if transfer_guard not in ("off", "forbid"):
             raise ValueError(f"transfer_guard must be 'off' or 'forbid', "
                              f"got {transfer_guard!r}")
@@ -432,6 +447,45 @@ class ServingEngine:
         if registry is None and obs is not None:
             registry = obs.registry
         self.registry = registry if registry is not None else MetricRegistry()
+        # the health monitor and the perf attribution default to the hub's
+        # (the ledgers are passed explicitly, as in JAX); each site guards
+        # on `is not None`
+        if obs is not None:
+            if health is None:
+                health = getattr(obs, "health_monitor", None)
+            if perf is None:
+                perf = getattr(obs, "perf", None)
+        self.compile_ledger = compile_ledger
+        self.memory_ledger = memory_ledger
+        if compile_ledger is not None:
+            compile_ledger.attach(registry=self.registry, tracer=tracer,
+                                  flight=(obs.flight if obs is not None
+                                          else None),
+                                  memory_ledger=memory_ledger)
+            # explicit wins over what an earlier engine left on the model,
+            # and the attachment persists on the model: give each
+            # measurement's engines (warm passes included) that
+            # measurement's ledger, or a warm-declared earlier ledger books
+            # the new captures as storms
+            model.compile_ledger = compile_ledger
+            if draft is not None:
+                draft.compile_ledger = compile_ledger
+        if memory_ledger is not None:
+            if memory_ledger.registry is None:
+                memory_ledger.registry = self.registry
+            if memory_ledger.device is None:
+                memory_ledger.device = device
+        self._health = health
+        if health is not None:
+            health.attach_registry(self.registry)
+        self._perf = perf
+        self._perf_t0: dict = {}  # rid -> prefill-phase start (engine clock)
+        self._batch_t0 = None     # (family, t0) of the in-flight step
+        if perf is not None:
+            perf.attach(registry=self.registry, ledger=compile_ledger)
+            model.perf = perf
+            if draft is not None:
+                draft.perf = perf
         self.tracer = tracer
         self._rt: dict = {}       # rid -> {"root": Span, "phase": Span?}
         self._batch_span = None   # the open decode_step/spec_round span
@@ -473,8 +527,9 @@ class ServingEngine:
         self._chunking: dict = {}  # slot -> _ChunkPrefill in progress
         self._chunk_rr = 0         # budget-rotation cursor (fairness)
         self.async_decode = async_decode
-        self.caches = model.make_page_pool(num_pages, page_size,
-                                           quant=kv_quant).caches
+        pool = model.make_page_pool(num_pages, page_size, quant=kv_quant)
+        self.caches = pool.caches
+        self._page_bytes = pool.page_bytes
         self.valid = torch.zeros((self.B, self.T), dtype=torch.int32,
                                  device=device)
         if self._spec_k:
@@ -541,6 +596,20 @@ class ServingEngine:
                 # the draft slices the target's pool with the same layout
                 self._draft_lora = True
                 draft._adapter_layout = lay
+        ml = self.memory_ledger
+        if ml is not None:
+            # every device subsystem this engine owns at its LOGICAL size
+            # (the page_bytes arithmetic the admission gates use), then one
+            # device-truth poll; what the allocator holds beyond the sum
+            # (the CUDA graphs' pools, activations) is the remainder
+            ml.set("params", tree_bytes(model.module))
+            ml.set("kv_pool", num_pages * self._page_bytes)
+            if self._spec_k:
+                ml.set("draft_kv", tree_bytes(self._draft_caches))
+                ml.set("draft_params", tree_bytes(draft.module))
+            if adapter_store is not None:
+                ml.set("adapter_pool", tree_bytes(self._apool))
+            ml.poll_device()
         # pre-declared so a zero-request engine still exports the full set
         reg = self.registry
         if kv_quant is not None:
@@ -641,14 +710,36 @@ class ServingEngine:
                 or self.scheduler.active_count > 0
                 or self._pending is not None)
 
+    def declare_warmup_done(self) -> None:
+        """Everything this engine will run is captured now: any capture the
+        compile ledger sees from here on is a ``compile_storm`` (counted,
+        flight-warned, traced), and the perf attribution's cost join counts
+        only the executions from here on.  No-op without either."""
+        if self.compile_ledger is not None:
+            self.compile_ledger.declare_warmup_done("engine")
+        if self._perf is not None:
+            self._perf.mark_warmup_done()
+
     def step(self) -> List[RequestOutput]:
         """One engine iteration: sweep -> preempt for priority ->
         admit/prefill -> prefill chunks -> decode (or a speculative round)
         -> stop detection -> slot free.  Async: collect the in-flight step,
         dispatch the next (the guarded section), then run the collected
-        step's host work.  Then the step's gauges, its time, the watchdog
-        and the flight record.  Returns the requests that reached a
-        terminal state during this step."""
+        step's host work.  Then the step's gauges, its time, the watchdog,
+        the flight record, the perf gauges and the health rules.  Returns
+        the requests that reached a terminal state during this step.  With
+        a memory ledger, an exception that reads as memory exhaustion
+        dumps ``memory_breakdown.json`` (reason ``oom:...``) naming the
+        biggest holders before it propagates."""
+        if self.memory_ledger is None:
+            return self._step()
+        try:
+            return self._step()
+        except Exception as e:
+            self.memory_ledger.oom_dump(e)
+            raise
+
+    def _step(self) -> List[RequestOutput]:
         outputs: List[RequestOutput] = []
         now = self._clock()
         t_step0 = now
@@ -712,6 +803,12 @@ class ServingEngine:
                 queue_depth=self.scheduler.queue_depth,
                 slots_active=self.scheduler.active_count,
                 terminal=len(outputs))
+        if self._perf is not None:
+            # the perf/* rollup gauges the health trend rules read
+            self._perf.update_metrics()
+        if self._health is not None:
+            # on the engine clock: alert edges share the spans' timescale
+            self._health.on_step(now=self._clock())
 
     def dump_flight(self, reason: str) -> Optional[str]:
         """Persist the per-step flight ring (with an ``obs`` hub); the
@@ -737,7 +834,9 @@ class ServingEngine:
         return outputs
 
     def close(self) -> None:
-        """Seal every open span (aborted) and close the stats file."""
+        """Seal every open span (aborted), account an open batch step, dump
+        the memory breakdown (reason ``close``) and close the stats
+        file."""
         tr = self.tracer
         if tr is not None:
             now = self._clock()
@@ -749,6 +848,13 @@ class ServingEngine:
                 tr.end(rt.pop("phase", None), t=now, aborted=True)
                 tr.end(rt.get("root"), t=now, aborted=True)
             self._rt.clear()
+        if self._perf is not None and self._batch_t0 is not None:
+            self._note_batch(self._clock())
+        if self.memory_ledger is not None:
+            try:
+                self.memory_ledger.dump(reason="close")
+            except OSError as e:  # teardown IO must not mask the exit path
+                logger.warning("serving: memory breakdown dump failed: %s", e)
         if self._stats_f is not None:
             self._stats_f.close()
             self._stats_f = None
@@ -828,6 +934,10 @@ class ServingEngine:
             req, "prefill",
             t=req.prefill_time if req.prefill_time is not None else now,
             slot=slot)
+        if self._perf is not None:
+            # the grant instant the span starts at
+            self._perf_t0[req.request_id] = (
+                req.prefill_time if req.prefill_time is not None else now)
         if req.expired(now):
             self._expire_before_prefill(slot, req, outputs, now)
             return
@@ -972,6 +1082,10 @@ class ServingEngine:
         # prefill ends and decode begins at the same first-token instant
         self._trace_end_phase(req, t=now)
         self._trace_begin_phase(req, "decode", t=now)
+        if self._perf is not None:
+            t0 = self._perf_t0.pop(req.request_id, None)
+            if t0 is not None:
+                self._perf.note_phase("prefill", (now - t0) * 1e3)
         if req.first_token_time is None:
             req.first_token_time = now
             if req.submit_time is not None:
@@ -1041,9 +1155,13 @@ class ServingEngine:
         adapter = ((self._apool, self._adapter_tables[slot][None, :])
                    if self._adapters is not None else (None, None))
         tr = self.tracer
+        # one start stamp: the chunk span and its perf accounting measure
+        # the same interval
+        t0 = (self._clock() if tr is not None or self._perf is not None
+              else None)
         cspan = (tr.begin("prefill_chunk", request_id=st.req.request_id,
                           parent=self._trace_phase_of(st.req),
-                          t=self._clock(), tok_start=int(off),
+                          t=t0, tok_start=int(off),
                           tok_end=int(off + width), pages=n_pages)
                  if tr is not None else None)
         # a failure here fails the one request and reclaims its pages
@@ -1057,11 +1175,11 @@ class ServingEngine:
                 st.valid_row[None, :], paged_kernel=self._paged_kernel,
                 apool=adapter[0], atables=adapter[1])
         except BaseException as e:
-            if cspan is not None:
-                tr.end(cspan, t=self._clock(), failed=type(e).__name__)
+            if t0 is not None:
+                self._end_chunk(cspan, t0, failed=type(e).__name__)
             raise
-        if cspan is not None:
-            tr.end(cspan, t=self._clock())
+        if t0 is not None:
+            self._end_chunk(cspan, t0)
         if not self._paged_kernel:
             # the gather path attends a [1, T] clone of the pool
             self.registry.counter(GATHER_BYTES_TOTAL).inc(
@@ -1077,6 +1195,14 @@ class ServingEngine:
         self.prefill_chunks += 1
         self.registry.counter("serving/prefill_chunks_total").inc()
         self._count_quant(n_pages)
+
+    def _end_chunk(self, cspan, t0: float, **attrs) -> None:
+        """Close a chunk's span and account its phase time, at one stamp."""
+        t1 = self._clock()
+        if cspan is not None:
+            self.tracer.end(cspan, t=t1, **attrs)
+        if self._perf is not None:
+            self._perf.note_phase("prefill_chunk", (t1 - t0) * 1e3)
 
     def _count_quant(self, pages: int) -> None:
         """Pages written through the int8 quantize-on-write (a no-op on a
@@ -1150,10 +1276,24 @@ class ServingEngine:
                           for slot, req in active])
 
     def _begin_batch_span(self, name: str, active: list, **attrs) -> None:
+        """Open the batch ``decode_step``/``spec_round`` span and the perf
+        stamp of the step, at one stamp: dispatch to collect, the step's
+        window in flight."""
+        if self.tracer is None and self._perf is None:
+            return
+        t0 = self._clock()
+        if self._perf is not None:
+            self._batch_t0 = (name, t0)
         if self.tracer is not None:
             self._batch_span = self.tracer.begin(
-                name, t=self._clock(), step=self._steps, active=len(active),
+                name, t=t0, step=self._steps, active=len(active),
                 **attrs, weights_version=self.weights_version)
+
+    def _note_batch(self, now: float) -> None:
+        """Account the in-flight batch step's window to its family."""
+        fam, t0 = self._batch_t0
+        self._batch_t0 = None
+        self._perf.note_phase(fam, (now - t0) * 1e3)
 
     def _in_flight(self, slot: int, req: Request, gen: int) -> bool:
         """Whether the in-flight step's row still belongs to ``req``.  A
@@ -1207,6 +1347,8 @@ class ServingEngine:
             post.append(("tokens", slot, req, (tok,), ms, now))
         if bspan is not None:
             tr.end(bspan, t=now)
+        if self._perf is not None and self._batch_t0 is not None:
+            self._note_batch(now)
         return post
 
     def _spec_dispatch(self, active: list) -> None:
@@ -1335,6 +1477,8 @@ class ServingEngine:
             post.append(("tokens", slot, req, tuple(toks), per_tok, now))
         if bspan is not None:
             tr.end(bspan, t=now)
+        if self._perf is not None and self._batch_t0 is not None:
+            self._note_batch(now)
         if (ingest < self.T).any():
             (offs,) = self._audit.put(self._io, ingest)
             _, self._draft_caches, self._draft_valid = \
@@ -1447,6 +1591,14 @@ class ServingEngine:
         out = RequestOutput.from_request(req, now)
         if self._stats_path is not None:
             self._write_stats(req, out)
+        if self._health is not None:
+            # per-class deadline attainment feeds the SLO burn-rate windows
+            self._health.note_output(out, now)
+        if self._perf is not None:
+            # committed tokens feed the tokens/s-ceiling rollup; a stamp a
+            # failed admission left behind is dropped
+            self._perf.note_tokens(len(out.token_ids))
+            self._perf_t0.pop(req.request_id, None)
         return out
 
     def _write_stats(self, req: Request, out: RequestOutput) -> None:

@@ -20,6 +20,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import hashlib
+import time
 from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -31,6 +32,7 @@ from neuronx_distributed_tpu_torch.ops.paged_attention import (
     paged_attention,
     resolve_paged_kernel,
 )
+from neuronx_distributed_tpu_torch.utils import profiling
 from neuronx_distributed_tpu_torch.utils.device import resolve_device
 
 _MASK64 = (1 << 64) - 1
@@ -195,9 +197,25 @@ class PhaseGraphs:
     shapes: an engine that keeps its pool and mask keeps its graph.  A
     kernel's launch counters move in Python only while capturing, so the
     capture's moves are taken back and added once per replay.  Capture
-    errors propagate: there is no eager fallback."""
+    errors propagate: there is no eager fallback.
 
-    def __init__(self):
+    ``capture=False`` (the CPU, where a model routes its phases here only
+    to account them) keeps the keys and runs every call eagerly: the first
+    call of a key is still its "compile", so a compile ledger sees the
+    same keys on either device.
+
+    With a ``ledger`` (:class:`~..obs.compile_ledger.CompileLedger`) a
+    call accounts itself: the first call of a key is one ``compile`` row
+    (family: the phase name, the key's first element; kind
+    ``"cuda_graph"`` or ``"eager"``; its wall ms; the
+    :func:`~..utils.profiling.cost_report` of the eager call, run under
+    the counter and before the capture, never during it), a replay is a
+    cache hit, and the LRU's pop an eviction row.  With ``perf`` (a
+    :class:`~..obs.perf.PerfAttribution`) every call counts one execution
+    of its family."""
+
+    def __init__(self, capture: bool = True):
+        self.capture = capture
         self._graphs: "collections.OrderedDict" = collections.OrderedDict()
         self.captures = 0
         self.replays = 0
@@ -215,40 +233,141 @@ class PhaseGraphs:
             key += (apool.shape, apool.data_ptr())
         return key
 
-    def run(self, key, fn: Callable, inputs: Sequence[torch.Tensor]
-            ) -> torch.Tensor:
+    def run(self, key, fn: Callable, inputs: Sequence[torch.Tensor],
+            ledger=None, perf=None) -> torch.Tensor:
         """``fn(*inputs)`` through the graph of ``key`` (which must name
-        everything ``fn`` closes over); returns a fresh output tensor."""
+        everything ``fn`` closes over and lead with the phase name);
+        returns a fresh output tensor."""
+        family = key[0]
         key = (key, tuple((t.shape, t.dtype) for t in inputs))
-        g = self._graphs.get(key)
-        if g is not None:
+        if key in self._graphs:
+            g = self._graphs[key]
             self._graphs.move_to_end(key)
+            if ledger is not None:
+                ledger.cache_hit(family)
+            if perf is not None:
+                perf.note_program_call(family)
+            if g is None:  # accounted only: nothing was captured
+                return fn(*inputs)
             for buf, x in zip(g.inputs, inputs):
                 buf.copy_(x)
             g.graph.replay()
             _add_launch_counts(g.launches)
             self.replays += 1
             return g.output.clone()
+        if ledger is not None:
+            ledger.cache_miss(family)
+            ledger.set_capacity(family, MAX_GRAPHS)
+        t0 = time.perf_counter()
+        cost = None
         # the first call of a key is the port's compile: its eager run and
         # the capture (which synchronizes the device) are not the steady
         # path, so a serving engine's ``forbid`` sync guard is lifted here
         with allow_sync():
-            out = fn(*inputs)  # eager: this call's result, and the warm-up
-            static = tuple(x.clone() for x in inputs)
-            graph = torch.cuda.CUDAGraph()
-            before = _launch_counts()
-            with torch.cuda.graph(graph):
-                static_out = fn(*static)
-        moved = tuple(a - b for a, b in zip(_launch_counts(), before))
-        _add_launch_counts([-m for m in moved])  # capture launched nothing
-        self._graphs[key] = _PhaseGraph(graph, static, static_out, moved)
-        self.captures += 1
+            if ledger is not None and profiling.ACTIVE is None:
+                # eager: this call's result, the warm-up and the cost
+                out, cost = profiling.measure(fn, *inputs)
+            else:  # (a caller's counter, if any, counts this call)
+                out = fn(*inputs)
+            entry = None
+            if self.capture:
+                static = tuple(x.clone() for x in inputs)
+                graph = torch.cuda.CUDAGraph()
+                before = _launch_counts()
+                with torch.cuda.graph(graph):
+                    static_out = fn(*static)
+                moved = tuple(a - b for a, b in zip(_launch_counts(),
+                                                    before))
+                _add_launch_counts([-m for m in moved])  # capture launched nothing
+                entry = _PhaseGraph(graph, static, static_out, moved)
+                self.captures += 1
+        self._graphs[key] = entry
+        if ledger is not None:
+            ledger.record_compile(
+                family, key, (time.perf_counter() - t0) * 1e3,
+                kind="cuda_graph" if self.capture else "eager", cost=cost)
+        if perf is not None:
+            perf.note_program_call(family)
         while len(self._graphs) > MAX_GRAPHS:
-            self._graphs.popitem(last=False)
+            old_key, _ = self._graphs.popitem(last=False)
+            if ledger is not None:
+                if ledger.registry is not None:
+                    ledger.registry.counter(
+                        "trace/compiled_cache_evictions_total").inc()
+                ledger.record_eviction(old_key[0][0], old_key,
+                                       capacity=MAX_GRAPHS)
         return out
 
 
-class ParallelInferenceModel:
+class _ServingBase:
+    """The solo reference shared by :class:`ParallelInferenceModel` and the
+    loaded model of :mod:`.export`: ``generate`` over a subclass's
+    ``_context_fn(ids, valid)`` and ``_decode_fn(tok, offset, caches,
+    valid)`` at its ``config`` and ``device``."""
+
+    def _tensor(self, x, dtype=torch.int32) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x) if not isinstance(
+            x, torch.Tensor) else x).to(device=self.device, dtype=dtype)
+
+    def _valid_ctx(self, prompt_lens, B: int, C: int) -> torch.Tensor:
+        if prompt_lens is None:
+            return torch.ones((B, C), dtype=torch.int32, device=self.device)
+        lens = self._tensor(prompt_lens)
+        if lens.shape != (B,):
+            raise ValueError(f"prompt_lens shape {tuple(lens.shape)} != ({B},)")
+        ar = torch.arange(C, device=self.device)[None, :]
+        return (ar >= C - lens[:, None]).to(torch.int32)
+
+    def generate(self, prompt_ids, max_new_tokens: int,
+                 temperature: float = 0.0, seed: Optional[int] = None,
+                 prompt_lens=None, top_k: int = 0, top_p: float = 1.0,
+                 request_ids: Optional[Sequence[int]] = None) -> torch.Tensor:
+        """Prefill + stepped decode over a fixed batch; returns ``[B, C +
+        max_new_tokens]``.  ``prompt_lens`` enables left-padded ragged
+        prompts.  Sampling (``temperature > 0``) needs ``seed``; row ``b``
+        draws token ``i`` from the stream ``(seed, request_ids[b], i)``
+        (default request ids: the row indices), the streams the serving
+        engine uses."""
+        cfg = self.config
+        ids = self._tensor(prompt_ids, torch.long)
+        B, C = ids.shape
+        if B != cfg.batch_size or C != cfg.context_len:
+            raise ValueError(f"prompt shape {(B, C)} does not match the "
+                             f"serving shape {(cfg.batch_size, cfg.context_len)}")
+        if C + max_new_tokens > cfg.max_total_len:
+            raise ValueError(f"context {C} + new {max_new_tokens} exceeds "
+                             f"max_total_len {cfg.max_total_len}")
+        if temperature > 0.0 and seed is None:
+            raise ValueError("temperature sampling requires a seed")
+        rids = list(range(B)) if request_ids is None else list(request_ids)
+        if len(rids) != B:
+            raise ValueError(f"{len(rids)} request_ids for batch {B}")
+        keys = ([request_key(seed, r) for r in rids] if seed is not None
+                else [None] * B)
+        T = cfg.max_total_len
+        valid = self._valid_ctx(prompt_lens, B, C)
+        logits, caches = self._context_fn(ids, valid)
+        valid = torch.cat([valid, torch.zeros((B, T - C), dtype=torch.int32,
+                                              device=self.device)], dim=1)
+
+        def sample(lg, i):
+            return torch.stack([
+                sample_row(lg[b], temperature, top_k, top_p,
+                           None if keys[b] is None
+                           else token_generator(keys[b], i, self.device))
+                for b in range(B)])
+
+        toks: List[torch.Tensor] = [ids]
+        nxt = sample(logits, 0)[:, None]
+        toks.append(nxt)
+        for step in range(max_new_tokens - 1):
+            logits, caches, valid = self._decode_fn(nxt, C + step, caches, valid)
+            nxt = sample(logits, step + 1)[:, None]
+            toks.append(nxt)
+        return torch.cat(toks, dim=1)
+
+
+class ParallelInferenceModel(_ServingBase):
     """Serving wrapper around a causal LM with ``LlamaForCausalLM``'s
     forward (Llama, ``GemmaForCausalLM``, ``Gemma2ForCausalLM``): the
     per-phase functions the continuous-batching engine threads its state
@@ -260,13 +379,21 @@ class ParallelInferenceModel:
     ``cuda_graphs`` (``"auto"`` = on CUDA; ``True`` on the CPU raises)
     replays :meth:`decode_pages`, :meth:`verify_pages` and
     :meth:`decode_slots` from CUDA graphs (:class:`PhaseGraphs`) once a
-    shape and state has run once."""
+    shape and state has run once.  ``compile_ledger`` (an
+    ``obs.CompileLedger``; a serving engine attaches its own here) accounts
+    every capture, replay and eviction of those phases, and ``perf`` (an
+    ``obs.PerfAttribution``, attached the same way) counts their
+    executions; without graphs a ledger still routes the phases through
+    :class:`PhaseGraphs`, which then accounts them without capturing.
+    Both None (the default) cost one attribute test a phase call."""
 
     def __init__(self, module, config: InferenceConfig, paged_kernel="auto",
-                 device=None, cuda_graphs="auto"):
+                 device=None, cuda_graphs="auto", compile_ledger=None):
         self.device = resolve_device(device)
         self.cuda_graphs = resolve_cuda_graphs(cuda_graphs, self.device)
-        self.graphs = PhaseGraphs()
+        self.graphs = PhaseGraphs(capture=self.cuda_graphs)
+        self.compile_ledger = compile_ledger
+        self.perf = None
         self.module = module.to(self.device).eval()
         self.module.requires_grad_(False)
         self.config = config
@@ -275,10 +402,6 @@ class ParallelInferenceModel:
         self.num_kv_heads = mcfg.num_kv_heads
         self.head_dim = mcfg.head_dim_
         self.paged_kernel = resolve_paged_kernel(paged_kernel, self.device)
-
-    def _tensor(self, x, dtype=torch.int32) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(x) if not isinstance(
-            x, torch.Tensor) else x).to(device=self.device, dtype=dtype)
 
     def empty_caches(self, batch_size: Optional[int] = None):
         cfg = self.config
@@ -314,15 +437,15 @@ class ParallelInferenceModel:
         return self._context_fn(ids, valid)
 
     @torch.no_grad()
-    def _decode_fn(self, tok, offset: int, caches, valid):
+    def _decode_fn(self, tok, offset, caches, valid):
         """One token step at the scalar cache index ``offset`` (the solo
-        path); ``valid [B, T]`` gains the new key.  Returns ``(logits [B,
-        V], caches, valid)``."""
+        path: an int, or a 0-d int tensor, the form the exported decode
+        program takes); ``valid [B, T]`` gains the new key.  Returns
+        ``(logits [B, V], caches, valid)``."""
         tok = self._tensor(tok, torch.long)
-        T = valid.shape[1]
-        valid[:, offset] = 1
-        before = torch.where(
-            torch.arange(T, device=self.device)[None, :] < offset, valid, 0)
+        ar = torch.arange(valid.shape[1], device=self.device)[None, :]
+        valid.masked_fill_(ar == offset, 1)
+        before = torch.where(ar < offset, valid, 0)
         positions = before.sum(dim=1, keepdim=True)
         logits, caches = self.module(tok, positions, caches, offset,
                                      kv_valid=valid)
@@ -344,11 +467,12 @@ class ParallelInferenceModel:
         def fn(t, o, at=None):
             return self._decode_slots_fn(t, o, caches, valid, apool, at)
 
-        if not self.cuda_graphs:
+        if not self.cuda_graphs and self.compile_ledger is None:
             return fn(*inputs), caches, valid
         logits = self.graphs.run(
             ("decode_slots", apool is not None,
-             PhaseGraphs.state_key(caches, valid, apool)), fn, inputs)
+             PhaseGraphs.state_key(caches, valid, apool)), fn, inputs,
+            self.compile_ledger, self.perf)
         return logits, caches, valid
 
     @torch.no_grad()
@@ -462,11 +586,12 @@ class ParallelInferenceModel:
                                        paged_kernel=pk, last_only=last_only,
                                        apool=apool, atables=at)[0]
 
-        if not self.cuda_graphs:
+        if not self.cuda_graphs and self.compile_ledger is None:
             return fn(*inputs), caches, valid
         logits = self.graphs.run(
             (name, pk, apool is not None,
-             PhaseGraphs.state_key(caches, valid, apool)), fn, inputs)
+             PhaseGraphs.state_key(caches, valid, apool)), fn, inputs,
+            self.compile_ledger, self.perf)
         return logits, caches, valid
 
     def decode_pages(self, tok, offsets, block_table, caches, valid,
@@ -619,63 +744,6 @@ class ParallelInferenceModel:
         return caches
 
     # -- solo reference ----------------------------------------------------
-
-    def _valid_ctx(self, prompt_lens, B: int, C: int) -> torch.Tensor:
-        if prompt_lens is None:
-            return torch.ones((B, C), dtype=torch.int32, device=self.device)
-        lens = self._tensor(prompt_lens)
-        if lens.shape != (B,):
-            raise ValueError(f"prompt_lens shape {tuple(lens.shape)} != ({B},)")
-        ar = torch.arange(C, device=self.device)[None, :]
-        return (ar >= C - lens[:, None]).to(torch.int32)
-
-    def generate(self, prompt_ids, max_new_tokens: int,
-                 temperature: float = 0.0, seed: Optional[int] = None,
-                 prompt_lens=None, top_k: int = 0, top_p: float = 1.0,
-                 request_ids: Optional[Sequence[int]] = None) -> torch.Tensor:
-        """Prefill + stepped decode over a fixed batch; returns ``[B, C +
-        max_new_tokens]``.  ``prompt_lens`` enables left-padded ragged
-        prompts.  Sampling (``temperature > 0``) needs ``seed``; row ``b``
-        draws token ``i`` from the stream ``(seed, request_ids[b], i)``
-        (default request ids: the row indices), the streams the serving
-        engine uses."""
-        cfg = self.config
-        ids = self._tensor(prompt_ids, torch.long)
-        B, C = ids.shape
-        if B != cfg.batch_size or C != cfg.context_len:
-            raise ValueError(f"prompt shape {(B, C)} does not match the "
-                             f"serving shape {(cfg.batch_size, cfg.context_len)}")
-        if C + max_new_tokens > cfg.max_total_len:
-            raise ValueError(f"context {C} + new {max_new_tokens} exceeds "
-                             f"max_total_len {cfg.max_total_len}")
-        if temperature > 0.0 and seed is None:
-            raise ValueError("temperature sampling requires a seed")
-        rids = list(range(B)) if request_ids is None else list(request_ids)
-        if len(rids) != B:
-            raise ValueError(f"{len(rids)} request_ids for batch {B}")
-        keys = ([request_key(seed, r) for r in rids] if seed is not None
-                else [None] * B)
-        T = cfg.max_total_len
-        valid = self._valid_ctx(prompt_lens, B, C)
-        logits, caches = self._context_fn(ids, valid)
-        valid = torch.cat([valid, torch.zeros((B, T - C), dtype=torch.int32,
-                                              device=self.device)], dim=1)
-
-        def sample(lg, i):
-            return torch.stack([
-                sample_row(lg[b], temperature, top_k, top_p,
-                           None if keys[b] is None
-                           else token_generator(keys[b], i, self.device))
-                for b in range(B)])
-
-        toks: List[torch.Tensor] = [ids]
-        nxt = sample(logits, 0)[:, None]
-        toks.append(nxt)
-        for step in range(max_new_tokens - 1):
-            logits, caches, valid = self._decode_fn(nxt, C + step, caches, valid)
-            nxt = sample(logits, step + 1)[:, None]
-            toks.append(nxt)
-        return torch.cat(toks, dim=1)
 
 
 def sample_rows(logits, keys: Sequence[Optional[int]],

@@ -149,8 +149,55 @@ def test_walk_covers_the_slice():
                 "resilience.supervisor", "obs", "obs.registry",
                 "obs.schemas", "obs.flight", "obs.tracing",
                 "obs.transfer_audit", "obs.metrics_server",
-                "utils.timeline"):
+                "utils.timeline") + PART2_MODULES:
         assert f"neuronx_distributed_tpu_torch.{mod}" in names
+
+
+# ROADMAP A8 part 2: the modules the AST scan and the blocked import above
+# must reach
+PART2_MODULES = ("obs.compile_ledger", "obs.memory_ledger", "obs.perf",
+                 "obs.health", "obs.aggregate", "obs.report",
+                 "obs.hlo_audit", "utils.profiling", "trace.export")
+
+
+@pytest.mark.parametrize("mod", PART2_MODULES)
+def test_part2_module_imports_no_jax(mod):
+    path = os.path.join(PKG, *mod.split(".")) + ".py"
+    assert path in _port_files()
+    module = importlib.import_module(f"neuronx_distributed_tpu_torch.{mod}")
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names]
+    names += [n.module for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.level == 0]
+    assert not [n for n in names if _forbidden(n)], mod
+    assert module.__name__.endswith(mod)
+
+
+def test_part2_arguments_construct_on_the_cpu(tmp_path):
+    """``Observability(ledgers=True, health=True, perf=True)`` builds its
+    parts, and ``ServingEngine`` takes them on the CPU."""
+    from neuronx_distributed_tpu_torch.obs import Observability
+
+    hub = Observability(str(tmp_path), ledgers=True, health=True, perf=True)
+    assert None not in (hub.compile_ledger, hub.memory_ledger,
+                        hub.health_monitor, hub.perf)
+    cfg = LlamaConfig.tiny(dtype=torch.float32)
+    model = LlamaForCausalLM(cfg, device="cpu").init_random(0)
+    pim = ParallelInferenceModel(model, InferenceConfig(2, 4, 8,
+                                                        torch.float32),
+                                 device="cpu")
+    eng = ServingEngine(pim, page_size=4, device="cpu", obs=hub,
+                        compile_ledger=hub.compile_ledger,
+                        memory_ledger=hub.memory_ledger,
+                        health=hub.health_monitor, perf=hub.perf)
+    assert eng.compile_ledger is pim.compile_ledger is hub.compile_ledger
+    assert eng._perf is pim.perf is hub.perf
+    assert hub.memory_ledger.subsystems()["params"]["bytes"] == sum(
+        p.numel() * 4 for p in model.parameters())
+    eng.close()
+    hub.close()
 
 
 def test_training_entry_points_default_to_cuda(monkeypatch):

@@ -12,8 +12,8 @@ package.
   and the same dump apart from times; a ``torch.Tensor`` field raises a
   ``TypeError`` naming it and is never read.
 - The hub writes ``scalars.jsonl``, ``flight_record.json`` and
-  ``metrics.prom`` in the formats JAX validates, and refuses ROADMAP A8
-  part 2's arguments.
+  ``metrics.prom`` in the formats JAX validates, and builds part 2's
+  ledgers, monitor and attribution as the JAX hub does.
 - The transfer audit: modes, counts, the ``forbid`` guard is only counted
   on the CPU, and a section restores what it changed.
 - Scraping threads racing the one writer thread lose no update.
@@ -293,13 +293,57 @@ def test_observability_exception_exit_reason(tmp_path):
 @pytest.mark.parametrize("kw", [dict(ledgers=True), dict(health=True),
                                 dict(health="serving"), dict(perf=True)])
 def test_observability_part2_arguments_raise(tmp_path, kw):
-    with pytest.raises(NotImplementedError, match="A8 part 2"):
-        Observability(str(tmp_path), **kw)
+    """Part 2's arguments, which raised before the port reached them, now
+    build their parts, wired as the JAX hub wires them; closing writes
+    each artifact in the JAX package's schema."""
+    hub = Observability(str(tmp_path), **kw)
+    jhub = jax_obs.Observability(str(tmp_path / "jax"), **kw)
+    for name in ("compile_ledger", "memory_ledger", "health_monitor",
+                 "perf"):
+        assert (getattr(hub, name) is None) == (getattr(jhub, name) is None)
+    if kw.get("ledgers"):
+        assert hub.compile_ledger.memory_ledger is hub.memory_ledger
+        assert hub.compile_ledger.registry is hub.registry
+        hub.compile_ledger.record_compile("decode_pages", (1,), 2.5,
+                                          cost={"flops": 4.0,
+                                                "bytes_accessed": 8.0})
+        hub.memory_ledger.set("params", 100)
+    if kw.get("health"):
+        # True takes the union pack, a scope name that scope's pack
+        assert [r.name for r in hub.health_monitor.rules] == [
+            r.name for r in jhub.health_monitor.rules]
+    if kw.get("perf"):
+        hub.perf.note_phase("decode_step", 3.0)
+    hub.observe_step(1, loss=1.0)
+    hub.close()
+    jhub.close()
+    if kw.get("ledgers"):
+        assert jax_obs.validate_jsonl(
+            "compile_ledger", str(tmp_path / "compile_ledger.jsonl")) == 1
+        doc = json.load(open(tmp_path / "memory_breakdown.json"))
+        jax_schemas.validate_record("memory_breakdown", doc)
+        assert doc["subsystems"]["params"]["bytes"] == 100
+    if kw.get("perf"):
+        path = str(tmp_path / "perf_attribution.jsonl")
+        assert jax_obs.validate_jsonl("perf_attribution", path) == 2
+        recs = obs.read_perf_attribution(path)
+        assert [r["family"] for r in recs] == ["decode_step", "_total"]
 
 
 def test_observability_audit_executable_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="A8 part 2"):
-        Observability(str(tmp_path)).audit_executable("x", object())
+    """The collective audit, which raised before the port reached it, now
+    audits an FX graph: a plain program holds no collective, and the record
+    and gauges are the JAX hub's."""
+    gm = torch.fx.symbolic_trace(lambda x: torch.relu(x) * 2)
+    hub = Observability(str(tmp_path))
+    rec = hub.audit_executable("relu", gm)
+    assert rec["total_collective_count"] == 0
+    assert set(rec["collective_counts"]) == set(
+        jax_obs.hlo_audit.COLLECTIVE_OPS)
+    assert obs.read_audits(hub.hlo_audit_path)[0]["name"] == "relu"
+    assert hub.registry.gauge("hlo/relu/collective_bytes").value == 0.0
+    with pytest.raises(TypeError, match="GraphModule"):
+        hub.audit_executable("x", object())
 
 
 def test_obs_exports_exist_and_match_jax_names():

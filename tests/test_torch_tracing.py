@@ -48,6 +48,7 @@ from neuronx_distributed_tpu_torch.obs.metrics_server import (
 )
 from neuronx_distributed_tpu_torch.resilience import InjectedFault
 from neuronx_distributed_tpu_torch.serving import Request, ServingEngine
+from neuronx_distributed_tpu_torch.trace import PhaseGraphs
 from torch_port_pair import build_pair
 
 PAGE = 4
@@ -149,9 +150,11 @@ class _StepClock:
         return self.t
 
 
-def _serve(side, case, out_dir):
+def _serve(side, case, out_dir, part2=False):
     """The traffic of the module docstring through one side's engine with
-    full telemetry; returns the engine, registry, tracer, outputs and the
+    full telemetry (``part2``: the hub also builds the resource ledgers,
+    the health monitor and the perf attribution, and the engine takes the
+    hub's ledgers); returns the engine, registry, tracer, outputs and the
     refused submits."""
     ns, omod, fmod = SIDES[side]
     kw = dict(CASES[case])
@@ -165,10 +168,20 @@ def _serve(side, case, out_dir):
     clock = _StepClock()
     reg = omod.MetricRegistry()
     tracer = omod.Tracer(replica=0, clock=clock)
-    hub = omod.Observability(out_dir, registry=reg)
+    hub = omod.Observability(out_dir, registry=reg, ledgers=part2,
+                             health=part2, perf=part2)
     kw.update(page_size=PAGE, num_pages=3 * need + 1, clock=clock,
               registry=reg, tracer=tracer, obs=hub, shed_infeasible=True,
               stats_path=os.path.join(out_dir, "serving_stats.jsonl"))
+    if part2:
+        kw.update(compile_ledger=hub.compile_ledger,
+                  memory_ledger=hub.memory_ledger)
+        # a fresh compiled-program cache on each side, so that the ledger
+        # sees every compile whatever ran earlier in this process
+        if side == "jax":
+            pim._serving_lru(reset=True)
+        else:
+            pim.graphs = PhaseGraphs(capture=pim.cuda_graphs)
     if spec:
         kw.update(draft=pim, spec_k=k)
     if adapters:
@@ -227,6 +240,8 @@ def _serve(side, case, out_dir):
     eng.close()
     hub.close()
     tracer.export_jsonl(os.path.join(out_dir, "trace_events.jsonl"))
+    if part2:  # the ledger stays on the shared model otherwise
+        pim.compile_ledger = pim.perf = None
     return eng, reg, tracer, outs, refused
 
 
@@ -426,12 +441,25 @@ def test_close_seals_open_spans_and_scoped_engines_share_a_ring(tmp_path):
     assert len({s.span_id for s in spans}) == len(spans)
 
 
-def test_engine_refuses_part2_arguments_and_bad_guard():
+def test_engine_refuses_part2_arguments_and_bad_guard(tmp_path):
+    """Part 2's arguments, which raised before the port reached them, are
+    taken and attached (the model carries the compile ledger and the
+    perf attribution; the memory ledger accounts the pool); a bad guard
+    still raises."""
     _, tpim, _, _, _ = build_pair()
-    for kw in (dict(compile_ledger=object()), dict(memory_ledger=object()),
-               dict(health=object()), dict(perf=object())):
-        with pytest.raises(NotImplementedError, match="A8 part 2"):
-            ServingEngine(tpim, page_size=PAGE, device="cpu", **kw)
+    led, mem = obs.CompileLedger(), obs.MemoryLedger()
+    mon, perf = obs.HealthMonitor(obs.default_rules("serving")), \
+        obs.PerfAttribution()
+    try:
+        eng = ServingEngine(tpim, page_size=PAGE, device="cpu",
+                            compile_ledger=led, memory_ledger=mem,
+                            health=mon, perf=perf)
+        assert tpim.compile_ledger is led and tpim.perf is perf
+        assert led.registry is eng.registry and mon.registry is eng.registry
+        assert mem.subsystems()["kv_pool"]["bytes"] == (
+            eng._kv.alloc.num_pages * eng._page_bytes)
+    finally:
+        tpim.compile_ledger = tpim.perf = None
     with pytest.raises(ValueError, match="transfer_guard"):
         ServingEngine(tpim, page_size=PAGE, transfer_guard="observe",
                       device="cpu")
@@ -456,11 +484,8 @@ def test_metrics_server_serves_metrics_and_healthz():
     reg.histogram("serving/step_ms", obs.MS_BUCKETS).observe(3.0)
     state = {"ok": True}
 
-    class Monitor:  # duck-typed like part 2's HealthMonitor
-        def healthz(self):
-            return {"ok": True, "firing": []}
-
-    with MetricsServer(reg, health_fn=lambda: dict(state), monitor=Monitor(),
+    monitor = obs.HealthMonitor(obs.default_rules("serving"), registry=reg)
+    with MetricsServer(reg, health_fn=lambda: dict(state), monitor=monitor,
                        scopes={"x": lambda: "x 1\n"}, port=0,
                        host="127.0.0.1") as srv:
         base = f"http://127.0.0.1:{srv.port}"
@@ -470,7 +495,8 @@ def test_metrics_server_serves_metrics_and_healthz():
         assert urllib.request.urlopen(
             base + "/metrics?scope=x").read() == b"x 1\n"
         health = json.loads(urllib.request.urlopen(base + "/healthz").read())
-        assert health == {"ok": True, "firing": []}
+        assert health == {"ok": True, "firing": [], "alerts_firing": 0,
+                          "worst_severity": None}
         state["ok"] = False
         for path, code in (("/healthz", 503), ("/nope", 404),
                            ("/metrics?scope=fleet", 400)):
