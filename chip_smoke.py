@@ -58,7 +58,7 @@ of (a) and (b) beside the storeless engine's and the device time of the
 adapter work; (e, inside phase 5b) Gemma-2-2B over 2 adapters; (f)
 ``prefill_one_lora`` against the ``peft.merge_lora`` dense model on a
 2-layer cut.  Phase 2e serves with SLO scheduling on the async graph
-engine: (a) 8 batch requests (256-512 prompt, 128 new tokens) fill the
+engine: (a) 8 batch requests (256-512 prompt, 64 new tokens) fill the
 slots and 4 interactive ones (32-128 prompt, 32 new) arrive after 4
 steps and preempt batch victims, whose committed prompt chains stay
 pinned: tokens identical to the unpreempted eager synchronous run, no page
@@ -81,7 +81,22 @@ spans tiling each latency; (b) the steady graph step with and without
 telemetry in turns, with device busy and launches a step unchanged and
 the step's host time split by part; (c) ``obs.tracing.device_trace``
 naming the decode kernel 32 times a step; (d) a fault through
-``replay_trace`` leaving a valid flight record.  Phase 1 also holds
+``replay_trace`` leaving a valid flight record.  Phase 2g runs the
+resource ledgers, perf attribution, health rules and the report.  Phase
+2h runs the serving fleet over replicas of the async graph engine that
+share phase 2's model: (a) a ``FleetRouter`` of 2 replicas with prefix
+affinity over phase 2's requests and 8 sharing a 256-token preamble,
+tokens identical to one engine's, again with a replica killed at
+``fleet/replica_step`` (zero lost, the replica restarted), and the fleet
+step's device busy share; (b) a ``DisaggRouter`` (a prefill replica with
+128-token chunks, a decode replica): every request migrated once, pages
+exported = imported, tokens identical to one mixed engine's, each
+migration's bytes and ms; (c) a 32-page chain's transfer over bf16 and
+int8 pools, bit-exact, a chaos kill leaking nothing, the fleet prefix
+fill; (d) live weights on a 4-layer full-width cut (an in-place swap
+capturing nothing, the in-flight step stamped with its version, a
+2-replica rolling update with no compile storm); (e) the autopilot
+draining and restarting a replica under traffic.  Phase 1 also holds
 and times the verify call (B =
 8, S = 5) over both pool types, and the simt kernel at fp32 q.  Phase 1
 then holds the fp-pool kernels at head_dim 256
@@ -1921,6 +1936,11 @@ G2_ADAPTERS = 2
 MERGED_LAYERS, MERGED_REL_TOL, MERGED_GAP_MIN = 2, 2e-2, 5.0
 # steps of each steady-step reading of phase 2d
 STEADY_STEPS = 20
+# 2d's cuts to its time (the fleet's phase 2h took the room): (c) and (d)
+# serve one slot-full of phase 2's requests, not all 16, and the steady
+# step runs once per engine in turns, not twice
+D_CUT_REQUESTS = SLOTS
+D_STEADY_TURNS = ("storeless", "a", "b")
 
 
 def adapter_factors(cfg, aid: int, layers=None) -> list:
@@ -2140,9 +2160,9 @@ def phase2d(model_pim, sync_tokens, entries: dict):
     factors = {aid: adapter_factors(cfg, aid)
                for aid in range(1, N_ADAPTERS + 1)}
 
-    def requests(adapters):
-        return lambda: make_requests(cfg.vocab_size, N_REQUESTS,
-                                     NEW_TOKENS, SEED, adapters)
+    def requests(adapters, n=N_REQUESTS):
+        return lambda: make_requests(cfg.vocab_size, n, NEW_TOKENS, SEED,
+                                     adapters)
 
     store = make_store(pim, factors)
     layout = store.layout
@@ -2203,7 +2223,8 @@ def phase2d(model_pim, sync_tokens, entries: dict):
 
     # (c) int8 pages, 128-token chunks
     _, routes, eng, store, wall = serve_pair(
-        "phase2d(c)", pim, model_pim, requests(N_ADAPTERS), factors,
+        "phase2d(c)", pim, model_pim, requests(N_ADAPTERS, D_CUT_REQUESTS),
+        factors,
         kv_quant="int8", prefill_chunk_tokens=CHUNK_TOKENS)
     set_launches([entries["decode_int8"], entries["chunk"]], routes, "2d(c)")
     log(f"phase2d(c): int8 pages, {CHUNK_TOKENS}-token chunks, adapters "
@@ -2217,17 +2238,16 @@ def phase2d(model_pim, sync_tokens, entries: dict):
 
     # (d) a self draft sharing the adapters
     _, out["d"] = spec_run("phase2d(d) self draft, adapters", pim, pim,
-                           requests(N_ADAPTERS)(),
+                           requests(N_ADAPTERS, D_CUT_REQUESTS)(),
                            adapter_store=make_store(pim, factors))
     set_launches([entries["verify"]], out["d"]["launches_by_route"], "2d(d)")
     if not out["d"]["acceptance"] >= SELF_ACCEPT_MIN:
         raise AssertionError(f"phase2d(d): self-draft acceptance "
                              f"{out['d']['acceptance']} < {SELF_ACCEPT_MIN}")
 
-    # the steady step in turns: storeless (2c(a)'s engine), (a), (b),
-    # then (b), (a), storeless again
+    # the steady step in turns: storeless (2c(a)'s engine), (a), (b)
     runs = {"storeless": [], "a": [], "b": []}
-    for key in ("storeless", "a", "b", "b", "a", "storeless"):
+    for key in D_STEADY_TURNS:
         kw = {} if key == "storeless" else dict(
             adapter_store=make_store(pim, factors),
             adapters=N_ADAPTERS if key == "b" else 0)
@@ -2238,8 +2258,8 @@ def phase2d(model_pim, sync_tokens, entries: dict):
                     for f in ("steady_step_ms", "device_busy_ms")}
               for key, rs in runs.items()}
     base = steady["storeless"]
-    log(f"phase2d: steady step (B={SLOTS}), host clock, each a mean of 2 "
-        f"runs in turns: storeless (2c(a)'s engine) "
+    log(f"phase2d: steady step (B={SLOTS}), host clock, in turns: "
+        f"storeless (2c(a)'s engine) "
         f"{base['steady_step_ms']:.2f} ms, (a) "
         f"{steady['a']['steady_step_ms']:.2f} ms, (b) "
         f"{steady['b']['steady_step_ms']:.2f} ms ("
@@ -2264,7 +2284,12 @@ def phase2d(model_pim, sync_tokens, entries: dict):
 # interactive requests of 32..128 prompt tokens and E_INT_NEW new tokens
 # arrive.  (b): the int8 chunked engine, its batch requests E_B_NEW tokens,
 # one interactive arrival after one step (the victim is mid-chunk).
-E_BATCH_NEW, E_INTERACTIVE, E_INT_NEW, E_ARRIVE, E_B_NEW = 128, 4, 32, 4, 64
+E_BATCH_NEW, E_INTERACTIVE, E_INT_NEW, E_ARRIVE, E_B_NEW = 64, 4, 32, 4, 64
+# 2e's cuts to its time (the fleet's phase 2h took the room): the batch
+# requests' 128 new tokens became 64, and (a)'s TTFT runs and (e)'s
+# steady-step runs go once each in turns, not twice
+E_TURNS = ("interactive", "all_batch")
+E_STEADY_TURNS = ("no_plan", "inert_plan")
 
 
 def slo_traffic(vocab: int, all_batch: bool = False, n_int: int = E_INTERACTIVE,
@@ -2419,8 +2444,7 @@ def phase2e(model_pim, steady_2c_ms, entries: dict):
     ref_tokens = {rid: o.token_ids for rid, o in ref.items()}
     int_ids = range(SLOTS, SLOTS + E_INTERACTIVE)
     ttft = {"interactive": [], "all_batch": []}
-    for turn, kind in enumerate(("interactive", "all_batch", "all_batch",
-                                 "interactive")):
+    for turn, kind in enumerate(E_TURNS):
         eng = ServingEngine(pim, page_size=PAGE_SIZE)
         count = PrefillTokens(pim)
         zero_paged_counts()
@@ -2470,7 +2494,7 @@ def phase2e(model_pim, steady_2c_ms, entries: dict):
         f"{a['ttft_ms']['interactive']['median']:.2f} / "
         f"{a['ttft_ms']['interactive']['max']:.2f} ms, the same traffic all "
         f"batch {a['ttft_ms']['all_batch']['median']:.2f} / "
-        f"{a['ttft_ms']['all_batch']['max']:.2f} ms (2 runs each, in turns); "
+        f"{a['ttft_ms']['all_batch']['max']:.2f} ms (in turns); "
         f"TTFT estimate {a['ttft_ewma_s']:.4f} s")
     out["a"] = a
 
@@ -2690,7 +2714,7 @@ def phase2e(model_pim, steady_2c_ms, entries: dict):
     # the steady graph step with no plan and with an inert plan, in turns
     inert = {"faults": [{"point": "serving/none", "action": "nan"}]}
     steady = {"no_plan": [], "inert_plan": []}
-    for key in ("no_plan", "inert_plan", "inert_plan", "no_plan"):
+    for key in E_STEADY_TURNS:
         if key == "inert_plan":
             install_plan(inert)
         try:
@@ -2710,7 +2734,7 @@ def phase2e(model_pim, steady_2c_ms, entries: dict):
         f"identical to (a)'s; an exception at serving/prefill_chunk raised "
         f"InjectedFault with no page left, and the resubmission's tokens "
         f"equal the clean run's; steady graph step (B={SLOTS}), host clock, "
-        f"means of 2 runs in turns: no plan {mean['no_plan']:.3f} ms, an "
+        f"in turns: no plan {mean['no_plan']:.3f} ms, an "
         f"inert plan {mean['inert_plan']:.3f} ms; 2c(a) {steady_2c_ms:.3f} "
         f"ms")
     out["wall_s"] = time.perf_counter() - t_phase
@@ -3504,6 +3528,813 @@ def phase2g(model_pim, whole_tokens, entries: dict):
     tmp.cleanup()
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"phase2g: {out['wall_s']:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# -- phase 2h -----------------------------------------------------------------
+
+# The fleet (ROADMAP A7) on phase 2's Llama-3-8B.  Traffic: phase 2's 16
+# requests plus H_SHARED that share one H_PREAMBLE-token preamble (every
+# prompt H_PROMPT tokens: the left padding is page-aligned, so the
+# preamble's pages are one chain), H_NEW new tokens each.  Every replica's
+# pool holds H_PAGES pages (phase 2's).  H_FAULT_STEP: the replica step
+# the fault plan kills; H_PROFILE_STEPS: the fleet steps the profiler
+# reads; H_LAYERS: the live-weights cut (full width); H_CHAIN: the
+# standalone transfer's chain, in pages.
+H_SHARED, H_PREAMBLE, H_PROMPT, H_NEW = 8, 256, 320, 32
+H_PAGES, H_FAULT_STEP, H_PROFILE_STEPS = 513, 6, 6
+H_LAYERS, H_CHAIN = 4, 32
+# 2h(b)'s arrivals: one request every H_ARRIVE steps, so that one prompt
+# at a time chunks (at most 4 chunks a prompt) in the mixed reference and
+# on the prefill replica alike: a chunk's width sets its arithmetic, and
+# the shared chunk budget would split differently where the prefill
+# replica's slots free at each migration
+H_ARRIVE = 10
+
+
+def fleet_requests(vocab: int) -> list:
+    """Phase 2's requests (ids 0..15), then H_SHARED with a shared
+    preamble; fresh objects (a router re-keys the ones it takes)."""
+    import numpy as np
+
+    from neuronx_distributed_tpu_torch.serving import Request
+
+    reqs = make_requests(vocab, N_REQUESTS, NEW_TOKENS, SEED)
+    rs = np.random.RandomState(SEED + 30)
+    pre = rs.randint(1, vocab, size=H_PREAMBLE).tolist()
+    for i in range(H_SHARED):
+        tail = rs.randint(1, vocab, size=H_PROMPT - H_PREAMBLE).tolist()
+        reqs.append(Request(request_id=N_REQUESTS + i, prompt_ids=pre + tail,
+                            max_new_tokens=H_NEW))
+    return reqs
+
+
+class EngineLog:
+    """A replica factory over ``pim`` that keeps every engine it builds (a
+    dead replica's decode steps still count toward the launches), gives
+    each its own memory ledger with ``ledgers=True``, and with
+    ``timed=True`` times each chain export and import (synchronized):
+    ``transfers`` holds ``(kind, pages, bytes, ms)``."""
+
+    def __init__(self, pim, ledgers: bool = False, timed: bool = False,
+                 **engine_kw):
+        self.pim, self.ledgers, self.timed = pim, ledgers, timed
+        self.kw = engine_kw
+        self.made: list = []
+        self.transfers: list = []
+
+    def __call__(self):
+        from neuronx_distributed_tpu_torch import ServingEngine
+        from neuronx_distributed_tpu_torch.obs import MemoryLedger
+
+        kw = dict(self.kw)
+        if self.ledgers:
+            kw["memory_ledger"] = MemoryLedger()
+        eng = ServingEngine(self.pim, page_size=PAGE_SIZE,
+                            num_pages=H_PAGES, **kw)
+        if self.timed:
+            eng.export_prefix = self._timed(eng.export_prefix, "export")
+            eng.import_prefix = self._timed(eng.import_prefix, "import")
+        self.made.append(eng)
+        return eng
+
+    def _timed(self, fn, kind):
+        import torch
+
+        def call(arg):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = fn(arg)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            ex = got if kind == "export" else arg
+            if ex is not None:
+                self.transfers.append((kind, ex.n_pages, ex.nbytes, ms))
+            return got
+        return call
+
+    def decode_calls(self) -> int:
+        """Decode-route phase calls: decode steps and parked prewarms."""
+        return sum(e.decode_steps + e.prewarmed for e in self.made)
+
+    def chunks(self) -> int:
+        return sum(e.prefill_chunks for e in self.made)
+
+
+def drive(target, requests, on_step=None, gids=None,
+          every: int = 0) -> dict:
+    """Submit ``requests`` to ``target`` (a router or an engine) all at
+    once, or one every ``every`` steps, and step it until it drains;
+    returns ``{client id: output}``.  ``on_step(step)`` runs after every
+    step; ``gids`` (a dict) receives a router's ``{client id: global
+    id}``."""
+    outs = {}
+    pending = list(requests)
+    client = getattr(target, "client_id", None)
+    step = 0
+    while pending or target.has_work:
+        if pending and (not every or step % every == 0):
+            take, pending = ((pending, []) if not every
+                             else (pending[:1], pending[1:]))
+            for r in take:
+                cid = r.request_id
+                gid = target.submit(r)
+                if gids is not None:
+                    gids[cid] = gid
+        for o in target.step():
+            outs[client(o.request_id) if client else o.request_id] = o
+        step += 1
+        if on_step is not None:
+            on_step(step)
+        if step > 20_000:
+            raise AssertionError("the fleet did not drain")
+    return outs
+
+
+def check_served(label, outs, requests, want=None) -> None:
+    """Every request finished in full (zero lost); ``want``: the tokens
+    must equal these, request for request."""
+    bad = [(rid, o.state, len(o.token_ids)) for rid, o in outs.items()
+           if o.state != "finished"
+           or len(o.token_ids) != requests[rid].max_new_tokens]
+    if len(outs) != len(requests) or bad:
+        raise AssertionError(f"{label}: {len(outs)}/{len(requests)} served, "
+                             f"not in full: {bad}")
+    if want is not None:
+        diff = [rid for rid, o in outs.items()
+                if tuple(o.token_ids) != tuple(want[rid])]
+        if diff:
+            raise AssertionError(f"{label}: tokens differ from the single "
+                                 f"engine's for requests {diff}")
+
+
+def check_pools(label, engines) -> None:
+    """No page leaked; every page in use is the prefix index's, and a
+    flush returns them all: nothing is left on any side."""
+    for eng in engines:
+        eng._kv.assert_invariants()
+        if eng._kv.leaked_pages():
+            raise AssertionError(f"{label}: {eng._kv.leaked_pages()} pages "
+                                 "leaked")
+        eng._kv.flush_prefix_cache()
+        if eng._kv.alloc.in_use:
+            raise AssertionError(f"{label}: {eng._kv.alloc.in_use} pages "
+                                 "held after the flush")
+
+
+def phase2h(model_pim, entries: dict):
+    """The serving fleet on phase 2's Llama-3-8B (async graph replicas over
+    one shared model): (a) a ``FleetRouter`` over 2 bf16 replicas with
+    prefix affinity, tokens identical to one graph engine's, then again
+    with replica 0 killed at ``fleet/replica_step`` mid-run (zero lost,
+    identical, the replica restarted into rotation, no compile storm),
+    and the fleet step's device busy share; (b) a ``DisaggRouter``: a
+    prefill replica (128-token chunks, the wgmma kernel) and a decode
+    replica, every request migrated once, pages exported = imported,
+    nothing left, tokens identical to one mixed engine's, each migration's
+    bytes and ms; (c) a 32-page chain's export and import at Llama-3-8B's
+    page geometry over bf16 and int8 pools, bit-exact, a chaos kill at
+    ``kvcache/page_import`` leaking nothing, and the fleet prefix fill
+    running no prefill chunk; (d) live weights on a 4-layer full-width
+    cut: an unshared graph engine swaps from seed 0 to seed 1 capturing
+    nothing, the in-flight step stamped version 0, tokens identical to a
+    fresh engine on seed 1's weights, then a 2-replica ``rolling_update``
+    under traffic; (e) the ``Autopilot`` over (a)'s fleet drains and
+    restarts replica 1 on a forced firing edge under traffic.  Every
+    decode launch on the decode kernel, every chunk on the wgmma kernel,
+    none on the simt kernel.  ``entries``: the kernels-line entries whose
+    launches these runs count ("decode", "chunk")."""
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from neuronx_distributed_tpu_torch import (
+        InferenceConfig,
+        LlamaConfig,
+        LlamaForCausalLM,
+        ParallelInferenceModel,
+        ServingEngine,
+    )
+    from neuronx_distributed_tpu_torch.kvcache import (
+        BlockAllocator,
+        PrefixIndex,
+        export_chain,
+        import_chain,
+        init_page_pool_caches,
+        page_keys,
+    )
+    from neuronx_distributed_tpu_torch.obs import CompileLedger
+    from neuronx_distributed_tpu_torch.obs.aggregate import (
+        FleetAggregator,
+        FleetHealth,
+    )
+    from neuronx_distributed_tpu_torch.obs.schemas import validate_jsonl
+    from neuronx_distributed_tpu_torch.resilience import (
+        InjectedFault,
+        clear_plan,
+        install_plan,
+    )
+    from neuronx_distributed_tpu_torch.serving import Request
+    from neuronx_distributed_tpu_torch.serving.fleet import (
+        Autopilot,
+        AutopilotConfig,
+        DisaggRouter,
+        FleetRouter,
+        Replica,
+    )
+    from neuronx_distributed_tpu_torch.weights import WeightSwapper
+
+    cfg = model_pim.module.config
+    L, vocab = cfg.num_layers, cfg.vocab_size
+    dev = next(model_pim.module.parameters()).device
+    pim = graphed_pim(model_pim)
+    tmp = tempfile.mkdtemp(prefix="phase2h_")
+    out = {}
+    t_phase = time.perf_counter()
+
+    # (a) the reference: one graph engine over the same requests
+    reqs = fleet_requests(vocab)
+    ref_eng = ServingEngine(pim, page_size=PAGE_SIZE, num_pages=H_PAGES)
+    ref = drive(ref_eng, reqs)
+    check_served("phase2h(a) single engine", ref, reqs)
+    want = {rid: o.token_ids for rid, o in ref.items()}
+    ref_eng.close()
+    del ref_eng, ref
+
+    led = CompileLedger()
+    made = EngineLog(pim, compile_ledger=led)
+    health = FleetHealth(path=os.path.join(tmp, "alerts.jsonl"),
+                         eval_every=1)
+    router = FleetRouter([Replica(i, made, backoff_base_s=0.0)
+                          for i in range(2)], policy="prefix_affinity",
+                         health=health)
+    a = {}
+    for run in ("plain", "failover"):
+        reqs = fleet_requests(vocab)
+        zero_paged_counts()
+        calls0, captures0 = made.decode_calls(), pim.graphs.captures
+        snap0 = router.registry.snapshot()
+        if run == "failover":
+            install_plan({"faults": [{
+                "point": "fleet/replica_step", "action": "exception",
+                "match": {"replica": 0,
+                          "step": router.replicas[0].steps + H_FAULT_STEP},
+                "count": 1}]})
+        t0 = time.perf_counter()
+        gids = {}
+        try:
+            outs = drive(router, reqs, gids=gids)
+        finally:
+            clear_plan()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check_served(f"phase2h(a) {run}", outs, reqs, want)
+        routes = check_routes(f"phase2h(a) {run}",
+                              (made.decode_calls() - calls0) * L, 0)
+        snap = router.registry.snapshot()
+        delta = {k: snap[k] - snap0.get(k, 0.0) for k in (
+            "router/requeued_total", "router/failovers_total",
+            "router/restarts_total", "router/affinity_hits_total")}
+        placed = {}
+        for gid in gids.values():
+            rid = router._tracked[gid].replica_id
+            placed[rid] = placed.get(rid, 0) + 1
+        shared_on = {router._tracked[gids[cid]].replica_id
+                     for cid in gids if cid >= N_REQUESTS}
+        per_replica = {rid: len(r.engine.graph_templates())
+                       for rid, r in router.replicas.items() if r.alive}
+        if run == "plain":
+            if len(shared_on) != 1 or delta["router/affinity_hits_total"] \
+                    < H_SHARED - 1:
+                raise AssertionError(f"phase2h(a): the shared-preamble "
+                                     f"requests landed on {shared_on}")
+            set_launches([entries["decode"]], routes, "2h(a)")
+            led.declare_warmup_done()
+        else:
+            if (delta["router/failovers_total"] != 1
+                    or delta["router/restarts_total"] != 1
+                    or not delta["router/requeued_total"]
+                    or snap["router/replicas_alive"] != 2):
+                raise AssertionError(f"phase2h(a) failover: {delta}, "
+                                     f"alive {snap['router/replicas_alive']}")
+            if led.storms:
+                raise AssertionError(f"phase2h(a): {led.storms} compile "
+                                     "storms after the restart")
+        a[run] = {"wall_s": wall, "placements": placed,
+                  "shared_preamble_on": sorted(shared_on),
+                  "requeues": delta["router/requeued_total"],
+                  "restarts": delta["router/restarts_total"],
+                  "affinity_hits": delta["router/affinity_hits_total"],
+                  "launches_by_route": routes,
+                  "captures": pim.graphs.captures - captures0,
+                  "graphs_per_replica": per_replica}
+        log(f"phase2h(a) {run}: {len(reqs)} requests over 2 replicas "
+            f"(prefix_affinity) in {wall:.3f} s, tokens identical to one "
+            f"graph engine's; placements by replica {placed}, the "
+            f"{H_SHARED} shared-preamble requests on replica "
+            f"{sorted(shared_on)} ({int(delta['router/affinity_hits_total'])}"
+            f" affinity hits); requeues "
+            f"{int(delta['router/requeued_total'])}, restarts "
+            f"{int(delta['router/restarts_total'])}; captures "
+            f"{pim.graphs.captures - captures0}, graphs per live replica "
+            f"{per_replica}; launches by route {routes}; compile storms "
+            f"{led.storms}")
+
+    # the fleet step, every slot of both replicas decoding
+    for r in make_requests(vocab, 2 * SLOTS, 3 * H_PROFILE_STEPS + 8,
+                           SEED + 31):
+        router.submit(r)
+    for _ in range(40):
+        router.step()
+        if all(len(r.engine._decoding()) == SLOTS
+               for r in router.replicas.values()):
+            break
+    else:
+        raise AssertionError("phase2h(a): the slots never all decoded")
+    walls = []
+
+    def steps():
+        t0 = time.perf_counter()
+        for _ in range(H_PROFILE_STEPS):
+            router.step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+
+    events = trace(steps, router.step)
+    busy = sum(dev_us(e) for e in events) / 1e3 / H_PROFILE_STEPS
+    step_ms = walls[0] / H_PROFILE_STEPS * 1e3
+    launches = sum(e.count for e in events) / H_PROFILE_STEPS
+    decode = sum(e.count for e in events if PAGED_DECODE_KERNEL in e.key)
+    router.run_until_complete(max_steps=1_000)
+    a["fleet_step"] = {"step_ms": step_ms, "device_busy_ms": busy,
+                       "busy_share": busy / step_ms,
+                       "launches_per_step": launches,
+                       "decode_kernel_per_step": decode / H_PROFILE_STEPS}
+    log(f"phase2h(a) fleet step (2 replicas x {SLOTS} slots decoding, one "
+        f"host thread, one stream): {step_ms:.2f} ms a step under the "
+        f"profiler, device busy {busy:.3f} ms ({busy / step_ms:.1%}), "
+        f"{launches:.0f} device launches a step, "
+        f"{decode / H_PROFILE_STEPS:.0f} of them the decode kernel")
+    text = FleetAggregator.for_router(router).prometheus_text()
+    log(f"phase2h(a): fleet metrics exposition {len(text.splitlines())} "
+        f"lines, replica-labelled")
+    out["a"] = a
+
+    # (e) the autopilot over (a)'s fleet: a forced firing edge drains and
+    # restarts replica 1 under traffic
+    reqs = fleet_requests(vocab)
+    actions = os.path.join(tmp, "autopilot_actions.jsonl")
+    pilot = Autopilot(router, health, config=AutopilotConfig(fire_after=1),
+                      actions_path=actions)
+    zero_paged_counts()
+    calls0 = made.decode_calls()
+    restarts0 = router.registry.counter("router/restarts_total").value
+    fired = []
+
+    def force(step):
+        if step == 3:
+            pilot._drain_restart(
+                {"rule": "compile_storm", "key": "", "severity": "page",
+                 "replica": 1, "state": "firing", "window": 0.0,
+                 "observed": 1.0, "bound": 0.0, "since": 0.0},
+                now=time.monotonic(), emitted=fired)
+
+    outs = drive(router, reqs, force)
+    check_served("phase2h(e)", outs, reqs, want)
+    routes = check_routes("phase2h(e)", (made.decode_calls() - calls0) * L, 0)
+    restarts = router.registry.counter("router/restarts_total").value
+    pilot.close()
+    if ([f["action"] for f in fired] != ["restart"] or fired[0]["replica"]
+            != 1 or restarts != restarts0 + 1 or led.storms):
+        raise AssertionError(f"phase2h(e): actions {fired}, restarts "
+                             f"{restarts0} -> {restarts}, storms "
+                             f"{led.storms}")
+    n_actions = validate_jsonl("autopilot_action", actions)
+    edges = [e["rule"] for e in health.edges()]
+    out["e"] = {"actions": [f["action"] for f in fired],
+                "records": n_actions, "launches_by_route": routes,
+                "alert_rules": sorted(set(edges))}
+    log(f"phase2h(e): the autopilot drained and restarted replica 1 on a "
+        f"forced compile_storm edge under {len(reqs)} requests: zero lost, "
+        f"tokens identical to one graph engine's; {n_actions} valid "
+        f"autopilot_action record; restarts {int(restarts0)} -> "
+        f"{int(restarts)}; compile storms 0; launches by route {routes}; "
+        f"alert rules seen {sorted(set(edges))}")
+    router.close()
+    health.close()
+    pim.compile_ledger = None  # (b) books no compile rows
+    del router, made
+
+    # (b) disaggregated prefill and decode
+    reqs = make_requests(vocab, N_REQUESTS, NEW_TOKENS, SEED)
+    mixed = ServingEngine(pim, page_size=PAGE_SIZE, num_pages=H_PAGES,
+                          prefill_chunk_tokens=CHUNK_TOKENS)
+    ref = drive(mixed, reqs, every=H_ARRIVE)
+    check_served("phase2h(b) mixed engine", ref, reqs)
+    want_b = {rid: o.token_ids for rid, o in ref.items()}
+    mixed.close()
+    del mixed, ref
+    made_b = EngineLog(pim, timed=True, prefill_chunk_tokens=CHUNK_TOKENS)
+    router = DisaggRouter([Replica(0, made_b, role="prefill"),
+                           Replica(1, made_b, role="decode")])
+    pre, dec = made_b.made
+    reqs = make_requests(vocab, N_REQUESTS, NEW_TOKENS, SEED)
+    zero_paged_counts()
+    t0 = time.perf_counter()
+    outs = drive(router, reqs, every=H_ARRIVE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_served("phase2h(b)", outs, reqs, want_b)
+    routes = check_routes("phase2h(b)", made_b.decode_calls() * L,
+                          made_b.chunks() * L)
+    set_launches([entries["chunk"]], routes, "2h(b)")
+    migrations = [router._tracked[g].migrations for g in router._tracked]
+    exported = pre.registry.counter("kvcache/pages_exported_total").value
+    imported = dec.registry.counter("kvcache/pages_imported_total").value
+    skipped = dec.registry.counter("kvcache/prefill_skipped_total").value
+    if (migrations != [1] * N_REQUESTS or exported != imported
+            or dec.prefill_chunks or skipped != N_REQUESTS):
+        raise AssertionError(
+            f"phase2h(b): migrations {migrations}, pages exported "
+            f"{exported} vs imported {imported}, decode-replica chunks "
+            f"{dec.prefill_chunks}, full hits {skipped}")
+    ex = [t for t in made_b.transfers if t[0] == "export"]
+    im = [t for t in made_b.transfers if t[0] == "import"]
+    b = {"wall_s": wall, "launches_by_route": routes,
+         "pages_exported": exported, "pages_imported": imported,
+         "migrations": [{"pages": e[1], "bytes": e[2], "export_ms": e[3],
+                         "import_ms": i[3]} for e, i in zip(ex, im)]}
+    gbs = [m["bytes"] / m["export_ms"] / 1e6 for m in b["migrations"]]
+    gbs_i = [m["bytes"] / m["import_ms"] / 1e6 for m in b["migrations"]]
+    log(f"phase2h(b): 1 prefill replica ({CHUNK_TOKENS}-token chunks) + 1 "
+        f"decode replica, {N_REQUESTS} requests (one every {H_ARRIVE} "
+        f"steps) in {wall:.3f} s, each "
+        f"migrated once, tokens identical to one mixed engine's; pages "
+        f"exported {int(exported)} = imported {int(imported)}; the decode "
+        f"replica ran 0 chunks, {int(skipped)} full hits; launches by route "
+        f"{routes}")
+    log("phase2h(b) migrations (pages, bytes, export D2H ms, import H2D + "
+        "index_copy_ ms): " + "; ".join(
+            f"{m['pages']} p {m['bytes']} B {m['export_ms']:.3f} / "
+            f"{m['import_ms']:.3f}" for m in b["migrations"]))
+    b["export_ms_median"] = float(np.median([m["export_ms"]
+                                             for m in b["migrations"]]))
+    b["import_ms_median"] = float(np.median([m["import_ms"]
+                                             for m in b["migrations"]]))
+    log(f"phase2h(b): export {min(gbs):.2f}..{max(gbs):.2f} GB/s, import "
+        f"{min(gbs_i):.2f}..{max(gbs_i):.2f} GB/s; median export "
+        f"{b['export_ms_median']:.3f} ms, import "
+        f"{b['import_ms_median']:.3f} ms (the first exports of a size "
+        f"allocate their pinned block)")
+
+    # (b) again with all the requests submitted at once: the prefill
+    # replica chunks prompts side by side, splits the chunk budget and
+    # migrates several requests in one step.  Tokens are counted against
+    # the serial run, not checked: the mixed reference would split its
+    # budget differently (its slots stay busy decoding), and a chunk's
+    # width sets its bf16 arithmetic
+    check_pools("phase2h(b) serial", made_b.made)  # a cold prefix cache
+    for rid, r in router.replicas.items():
+        router.directory.resync(rid, r.prefix_fingerprints())
+    reqs = make_requests(vocab, N_REQUESTS, NEW_TOKENS, SEED)
+    counted = ((pre, "kvcache/pages_exported_total"),
+               (dec, "kvcache/pages_imported_total"),
+               (dec, "kvcache/prefill_skipped_total"))
+    base = [eng.registry.counter(k).value for eng, k in counted]
+    last = {"moves": len(made_b.transfers), "chunks": pre.prefill_chunks}
+    conc = {"chunking": 0, "chunks": 0, "migrations": 0}
+
+    def most_at_once(step):
+        moved = sum(t[0] == "export"
+                    for t in made_b.transfers[last["moves"]:])
+        conc["chunking"] = max(conc["chunking"], len(pre._chunking))
+        conc["chunks"] = max(conc["chunks"],
+                             pre.prefill_chunks - last["chunks"])
+        conc["migrations"] = max(conc["migrations"], moved)
+        last.update(moves=len(made_b.transfers), chunks=pre.prefill_chunks)
+
+    gids = {}
+    zero_paged_counts()
+    calls0, ch0 = made_b.decode_calls(), made_b.chunks()
+    t0 = time.perf_counter()
+    outs = drive(router, reqs, most_at_once, gids=gids)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_served("phase2h(b) at once", outs, reqs)
+    routes = check_routes("phase2h(b) at once",
+                          (made_b.decode_calls() - calls0) * L,
+                          (made_b.chunks() - ch0) * L)
+    migrations = [router._tracked[g].migrations for g in gids.values()]
+    exported, imported, skipped = (eng.registry.counter(k).value - v
+                                   for (eng, k), v in zip(counted, base))
+    same = sum(tuple(o.token_ids) == tuple(want_b[rid])
+               for rid, o in outs.items())
+    if (migrations != [1] * N_REQUESTS or exported != imported
+            or skipped != N_REQUESTS or dec.prefill_chunks
+            or conc["chunking"] < 2 or conc["chunks"] < 2):
+        raise AssertionError(
+            f"phase2h(b) at once: migrations {migrations}, pages exported "
+            f"{exported} vs imported {imported}, full hits {skipped}, "
+            f"decode-replica chunks {dec.prefill_chunks}, most at once "
+            f"{conc}")
+    check_pools("phase2h(b) at once", made_b.made)
+    b["at_once"] = {"wall_s": wall, "pages_exported": exported,
+                    "pages_imported": imported, "most_at_once": dict(conc),
+                    "tokens_as_serial": same, "launches_by_route": routes}
+    log(f"phase2h(b) at once: {N_REQUESTS} requests submitted together in "
+        f"{wall:.3f} s, zero lost, each migrated once; pages exported "
+        f"{int(exported)} = imported {int(imported)}, nothing left on "
+        f"either side; on the prefill replica at most {conc['chunking']} "
+        f"prompts chunking and {conc['chunks']} chunks in one step, "
+        f"{conc['migrations']} migrations in one step; {same}/{N_REQUESTS} "
+        f"requests' tokens as in the serial run (not checked: chunk widths "
+        f"differ); launches by route {routes}")
+
+    # (c) the fleet prefix fill: a prompt cached on the prefill replica,
+    # submitted as batch traffic, lands on the decode replica full-hit
+    router.migrate_after_prefill = False
+    prompt = np.random.RandomState(SEED + 34).randint(
+        1, vocab, size=H_PROMPT).tolist()
+    first = drive(router, [Request(request_id=0, prompt_ids=prompt,
+                                   max_new_tokens=H_NEW)])
+    chunks0 = dec.prefill_chunks
+    skipped0 = dec.registry.counter("kvcache/prefill_skipped_total").value
+    again = drive(router, [Request(request_id=0, prompt_ids=prompt,
+                                   max_new_tokens=H_NEW, priority="batch")])
+    hits = router.registry.counter("kvcache/fleet_prefix_hits_total").value
+    skipped = dec.registry.counter("kvcache/prefill_skipped_total").value
+    if (again[0].token_ids != first[0].token_ids or hits != 1
+            or dec.prefill_chunks != chunks0 or skipped != skipped0 + 1):
+        raise AssertionError(f"phase2h(c) prefix fill: hits {hits}, decode "
+                             f"chunks {chunks0} -> {dec.prefill_chunks}")
+    check_pools("phase2h(b)", made_b.made)
+    router.close()
+    del router, made_b, pre, dec
+    out["b"] = b
+
+    # (c) the transfer alone at Llama-3-8B's page geometry
+    c = {}
+    nkv, hd = cfg.num_kv_heads, cfg.head_dim_
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    ids = np.arange(1, H_CHAIN * PAGE_SIZE + 1, dtype=np.int64)
+    keys = page_keys(ids, np.ones(len(ids), np.int32), PAGE_SIZE)
+    for quant in (None, "int8"):
+        pools = [init_page_pool_caches(L, H_CHAIN + 2, PAGE_SIZE, nkv, hd,
+                                       torch.bfloat16, device=dev,
+                                       quant=quant) for _ in range(2)]
+        for layer in pools[0]:
+            for leaf in layer:
+                if leaf.dtype == torch.int8:
+                    leaf.copy_(torch.randint(-128, 128, leaf.shape,
+                                             generator=g, device=dev,
+                                             dtype=torch.int8))
+                else:
+                    leaf.copy_(torch.randn(leaf.shape, generator=g,
+                                           device=dev))
+        chain = BlockAllocator(H_CHAIN + 2).alloc(H_CHAIN)
+        payload = torch.randn(1, vocab, generator=g, device=dev)
+        export_ms = []  # the first allocates its pinned block, the second
+        for _ in range(2):  # reuses it
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            export = export_chain(pools[0], keys, chain, PAGE_SIZE,
+                                  payload=payload)
+            export_ms.append((time.perf_counter() - t0) * 1e3)
+        index = PrefixIndex(BlockAllocator(H_CHAIN + 2))
+        install_plan({"faults": [{"point": "kvcache/page_import",
+                                  "action": "exception", "count": 1}]})
+        try:
+            import_chain(pools[1], index, export)
+        except InjectedFault:
+            pass
+        else:
+            raise AssertionError("phase2h(c): the chaos kill did not fire")
+        finally:
+            clear_plan()
+        if index.alloc.free_count != H_CHAIN + 1 or len(index):
+            raise AssertionError(f"phase2h(c) chaos kill leaked: free "
+                                 f"{index.alloc.free_count}, nodes "
+                                 f"{len(index)}")
+        ptrs = [t.data_ptr() for layer in pools[1] for t in layer]
+        import_ms = []
+        for attempt in range(2):  # into a cold index each time
+            if attempt:
+                index = PrefixIndex(BlockAllocator(H_CHAIN + 2))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            import_chain(pools[1], index, export)
+            torch.cuda.synchronize()
+            import_ms.append((time.perf_counter() - t0) * 1e3)
+        matched, got = index.peek(keys)
+        same = all(torch.equal(b_[matched].view(torch.uint8),
+                               a_[chain].view(torch.uint8))
+                   for la, lb in zip(*pools) for a_, b_ in zip(la, lb))
+        if (not same or not torch.equal(got, payload)
+                or [t.data_ptr() for layer in pools[1] for t in layer]
+                != ptrs):
+            raise AssertionError(f"phase2h(c) {quant or 'bf16'}: the round "
+                                 "trip is not bit-exact in place")
+        page_b = (export.nbytes - payload.numel() * 4) // H_CHAIN
+        c[quant or "bf16"] = {"bytes": export.nbytes, "page_bytes": page_b,
+                              "export_ms": export_ms, "import_ms": import_ms}
+        log(f"phase2h(c) {quant or 'bf16'} pool: a {H_CHAIN}-page chain "
+            f"({page_b} B a page across {L} layers; {export.nbytes} B with "
+            f"the {vocab}-float payload) round trip bit-exact, in place; "
+            f"export {export_ms[0]:.3f} ms (its pinned block allocated), "
+            f"{export_ms[1]:.3f} ms (reused); import {import_ms[0]:.3f} / "
+            f"{import_ms[1]:.3f} ms; a chaos "
+            f"kill at kvcache/page_import left {index.alloc.capacity} pages "
+            f"free, no node")
+        del pools, export, index
+    c["prefix_fill"] = {"fleet_prefix_hits": hits, "decode_chunks": 0}
+    log(f"phase2h(c): a {H_PROMPT}-token prompt cached on the prefill "
+        f"replica, submitted as batch traffic, landed on the decode replica "
+        f"through the fleet prefix fill: 1 hit, no prefill chunk there, "
+        f"tokens identical")
+    out["c"] = c
+
+    # (d) live weights on a full-width cut: seed 0 -> seed 1
+    cut = LlamaConfig.llama3_8b(num_layers=H_LAYERS)
+    icfg = InferenceConfig(SLOTS, CONTEXT, MAX_TOTAL, torch.bfloat16)
+    m0 = LlamaForCausalLM(cut, device=dev).init_random(SEED)
+    m1 = LlamaForCausalLM(cut, device=dev).init_random(SEED + 1)
+    new = dict(m1.named_parameters())
+    d = {}
+    # a 2-replica rolling update over one shared model, under traffic
+    shared = ParallelInferenceModel(m0, icfg)
+    led_d = CompileLedger()
+    made_d = EngineLog(shared, ledgers=True, compile_ledger=led_d)
+    health = FleetHealth(path=os.path.join(tmp, "alerts_roll.jsonl"),
+                         eval_every=1)
+    router = FleetRouter([Replica(i, made_d) for i in range(2)],
+                         policy="round_robin", health=health)
+    drive(router, make_requests(vocab, 2 * SLOTS, 8, SEED + 32))
+    led_d.declare_warmup_done()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params0 = [e.memory_ledger.subsystems()["params"]["bytes"]
+               for e in made_d.made]
+    zero_paged_counts()
+    calls0 = made_d.decode_calls()
+    seen = []
+    swaps = os.path.join(tmp, "swaps")
+    os.makedirs(swaps)
+
+    def roll(step):
+        if step == 2:
+            router.rolling_update(new, swaps_dir=swaps)
+        if router.roll_status() is not None:
+            seen.append(tuple(r.describe()["weights_version"]
+                              for r in router.replicas.values()))
+
+    reqs = make_requests(vocab, 2 * SLOTS, H_NEW, SEED + 33)
+    t0 = time.perf_counter()
+    outs = drive(router, reqs, roll)
+    torch.cuda.synchronize()
+    roll_s = time.perf_counter() - t0
+    check_served("phase2h(d) roll", outs, reqs)
+    routes = check_routes("phase2h(d) roll",
+                          (made_d.decode_calls() - calls0) * H_LAYERS, 0)
+    while router.roll_status() is not None:
+        router.step()
+    versions = [r.describe()["weights_version"]
+                for r in router.replicas.values()]
+    mem1 = torch.cuda.memory_allocated()
+    peak_roll = torch.cuda.max_memory_allocated()
+    params1 = [e.memory_ledger.subsystems()["params"]["bytes"]
+               for e in made_d.made]
+    recs = []
+    for rid in range(2):
+        path = os.path.join(swaps, f"replica{rid}_weight_swaps.jsonl")
+        validate_jsonl("weight_swap", path)
+        recs += [json.loads(line) for line in open(path)]
+    storm_edges = [e for e in health.edges() if e["rule"] == "compile_storm"]
+    if (sorted(router.last_roll["done"]) != [0, 1] or versions != [1, 1]
+            or not any(len(set(v)) > 1 for v in seen) or led_d.storms
+            or storm_edges):
+        raise AssertionError(f"phase2h(d) roll: {router.last_roll}, "
+                             f"versions {versions}, mid-roll {seen}, storms "
+                             f"{led_d.storms}, edges {storm_edges}")
+    d["roll"] = {"wall_s": roll_s, "versions_seen": sorted(set(seen)),
+                 "swap_ms": [r["swap_ms"] for r in recs],
+                 "mem_allocated_before": mem0, "mem_allocated_after": mem1,
+                 "mem_allocated_peak": peak_roll,
+                 "params_bytes_before": params0,
+                 "params_bytes_after": params1, "launches_by_route": routes}
+    log(f"phase2h(d) rolling update: 2 replicas over one {H_LAYERS}-layer "
+        f"full-width model, {len(reqs)} requests in {roll_s:.3f} s, zero "
+        f"lost; versions seen mid-roll {sorted(set(seen))}, every replica "
+        f"on version 1; swap ms (host clock, each a private copy and its "
+        f"captures) {[round(r['swap_ms'], 1) for r in recs]}; no compile "
+        f"storm, no compile_storm edge; device memory allocated "
+        f"{mem0 / 2**30:.2f} -> {mem1 / 2**30:.2f} GiB (peak "
+        f"{peak_roll / 2**30:.2f} GiB), the ledgers' params "
+        f"{params0} -> {params1} B; launches by route {routes}")
+    router.close()
+    health.close()
+    del router, made_d, shared, m0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one warmed graph engine that owns its model swaps in place: a module
+    # of its own (the roll's replicas shared m0's for good), seed 0 again
+    own = ParallelInferenceModel(
+        LlamaForCausalLM(cut, device=dev).init_random(SEED), icfg)
+    led_u = CompileLedger()
+    eng = ServingEngine(own, page_size=PAGE_SIZE, compile_ledger=led_u)
+    for r in make_requests(vocab, SLOTS, 8, SEED + 35):
+        eng.submit(r)
+    eng.run_until_complete(max_steps=1_000)
+    eng.declare_warmup_done()
+    mark, captures = led_u.mark(), own.graphs.captures
+    stamps = []
+    eng.submit(Request(request_id=100, prompt_ids=list(range(1, 65)),
+                       max_new_tokens=H_NEW,
+                       stream_cb=lambda r, t: stamps.append(
+                           r.weights_version)))
+    for _ in range(3):
+        eng.step()
+    if eng._pending is None or eng.shares_model:
+        raise AssertionError("phase2h(d): no step in flight at the swap, "
+                             f"or a shared module ({eng.shares_model})")
+    before = len(stamps)
+    path = os.path.join(tmp, "weight_swaps.jsonl")
+    sw = WeightSwapper(eng, path=path)
+    torch.cuda.synchronize()
+    mem_own = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sw.swap(new)
+    torch.cuda.synchronize()
+    swap_ms = (time.perf_counter() - t0) * 1e3
+    # the in-place swap copies from the caller's tensors: no second set
+    peak_own = torch.cuda.max_memory_allocated() - mem_own
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in own.module.parameters())
+    if peak_own > param_bytes // 2:
+        raise AssertionError(f"phase2h(d): the in-place swap held "
+                             f"{peak_own} B more at its peak (weights "
+                             f"{param_bytes} B)")
+    sw.close()
+    eng.run_until_complete(max_steps=1_000)
+    if (stamps[:before + 1] != [0] * (before + 1)
+            or set(stamps[before + 1:]) != {1}):
+        raise AssertionError(f"phase2h(d): version stamps {stamps}")
+    reqs = make_requests(vocab, SLOTS, H_NEW, SEED + 36)
+    zero_paged_counts()
+    steps0 = eng.decode_steps
+    for r in reqs:
+        eng.submit(r)
+    got = {o.request_id: o.token_ids
+           for o in eng.run_until_complete(max_steps=1_000)}
+    routes = check_routes("phase2h(d) swapped engine",
+                          (eng.decode_steps - steps0) * H_LAYERS, 0)
+    compiles = led_u.compiles_since(mark)
+    if compiles or own.graphs.captures != captures or led_u.storms:
+        raise AssertionError(f"phase2h(d): the swap on an engine owning its "
+                             f"model booked {compiles} compile rows, "
+                             f"{own.graphs.captures - captures} captures")
+    n_recs = validate_jsonl("weight_swap", path)
+    eng.close()
+    del eng, own
+    fresh = ServingEngine(ParallelInferenceModel(m1, icfg),
+                          page_size=PAGE_SIZE)
+    for r in make_requests(vocab, SLOTS, H_NEW, SEED + 36):
+        fresh.submit(r)
+    want_d = {o.request_id: o.token_ids
+              for o in fresh.run_until_complete(max_steps=1_000)}
+    fresh.close()
+    del fresh
+    diff = [rid for rid in want_d if tuple(got[rid]) != tuple(want_d[rid])]
+    if diff or n_recs != 1:
+        raise AssertionError(f"phase2h(d): swapped tokens differ from a "
+                             f"fresh engine on seed 1's weights for {diff}; "
+                             f"{n_recs} swap records")
+    d["own"] = {"swap_ms": swap_ms, "compile_rows_after_warmup": compiles,
+                "peak_over_before_bytes": peak_own,
+                "param_bytes": param_bytes,
+                "in_flight_stamp": stamps[before], "launches_by_route": routes}
+    log(f"phase2h(d) one warmed graph engine that owns its model: swap to "
+        f"seed 1 in {swap_ms:.3f} ms (the in-place copies from the caller's "
+        f"tensors, synchronized), peak device memory {peak_own} B over the "
+        f"{mem_own} B before it (weights {param_bytes} B), 0 compile rows "
+        f"and 0 captures after warm-up; the "
+        f"step in flight stamped version {stamps[before]}, later tokens 1; "
+        f"{len(reqs)} requests after the swap identical to a fresh engine "
+        f"on seed 1's weights; 1 valid weight_swap record; launches by route "
+        f"{routes}")
+    out["d"] = d
+    del m1, new
+    shutil.rmtree(tmp, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase2h: {out['wall_s']:.1f} s")
+    del pim
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -4457,6 +5288,8 @@ def main() -> int:
         log(f"phase2f summary: {json.dumps(telemetry)}")
         part2 = phase2g(model_pim, whole_tokens, {"decode": dec})
         log(f"phase2g summary: {json.dumps(part2)}")
+        fleet = phase2h(model_pim, {"decode": dec, "chunk": entry_w})
+        log(f"phase2h summary: {json.dumps(fleet)}")
         del model_pim
         dec256, simt256 = phase1_gemma()
         flash, flash256 = phase3()

@@ -28,7 +28,11 @@ resumable page chains, shedding dead deadlines and rate-limiting tenants;
 serving and the restart-on-crash supervisor.  :mod:`.obs` is the
 observability core (metrics registry, artifact schemas, flight ring,
 request tracer, transfer audit, metrics server) the serving engine
-reports through, in the JAX package's artifact formats.  The port
+reports through, in the JAX package's artifact formats.  The serving
+fleet (:mod:`.serving.fleet`) puts engine replicas behind one router:
+routing policies, zero-loss failover, prefill/decode disaggregation with
+KV page-chain transfer (:mod:`.kvcache.transfer`), live weight swaps and
+rolling updates (:mod:`.weights`) and the alert-driven autopilot.  The port
 imports ``torch`` and nothing of JAX or of the JAX package.  Entry points
 run on the card unless the caller passes ``device="cpu"``.
 """

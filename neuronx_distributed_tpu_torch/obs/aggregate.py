@@ -1,8 +1,8 @@
 """Fleet-wide metric aggregation: merge N per-replica telemetry streams
 into one fleet-level view (a copy of
 ``neuronx_distributed_tpu/obs/aggregate.py``, stdlib only; the port's
-fleet, ROADMAP A7, will drive it, and today it reads the JAX fleet's
-files).
+fleet router, :mod:`..serving.fleet.router`, drives :class:`FleetHealth`
+and the offline half reads the fleet's files).
 
 A fleet run scatters its evidence: every replica engine owns a
 :class:`~.registry.MetricRegistry` (plus ``serving_stats.jsonl`` when

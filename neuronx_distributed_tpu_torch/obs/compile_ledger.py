@@ -104,6 +104,7 @@ class CompileLedger:
         self.rows: List[dict] = []
         self.warnings: List[dict] = []
         self.warmup_done = False
+        self._rewarm: Optional[str] = None
         self._lock = threading.Lock()
         # family -> {"keys": set, "capacity": int|None, "compiles": int,
         #            "evictions": int, "cold_ms": float, "thrashed": bool}
@@ -218,6 +219,8 @@ class CompileLedger:
         fam["keys"].add(repr(key))
         if wall_ms is not None:
             fam["cold_ms"] += float(wall_ms)
+        if self._rewarm is not None:
+            extra["rewarm"] = self._rewarm
         if self.warmup_done:
             extra["storm"] = True  # stamped BEFORE the row streams to disk
         row = self._row("compile", family, key, kind, wall_ms, **extra)
@@ -329,6 +332,20 @@ class CompileLedger:
             return
         self._row("warmup_done", label, None, "event", None)
         self.warmup_done = True
+
+    @contextmanager
+    def rewarm(self, label: str):
+        """Book the compiles inside as warm-up, not storms, after
+        :meth:`declare_warmup_done`: a new weight generation's captures
+        made inside a swap, or a rebuilt replica's captures of its
+        predecessor's phases, which the JAX engine reuses compiled.  Their
+        rows carry ``"rewarm": label`` and ``after_warmup`` False."""
+        prev, prev_label = self.warmup_done, self._rewarm
+        self.warmup_done, self._rewarm = False, str(label)
+        try:
+            yield
+        finally:
+            self.warmup_done, self._rewarm = prev, prev_label
 
     # -- queries -----------------------------------------------------------
 

@@ -13,8 +13,9 @@ Inputs (all optional -- the report covers whatever exists):
   monitor and the perf attribution);
 - ``trace_events.jsonl`` + ``serving_stats.jsonl`` (request waterfalls);
 - the fleet's files (``router_stats.jsonl``, ``*autopilot_actions.jsonl``,
-  ``*weight_swaps.jsonl`` and per-replica subdirectories), read as the
-  JAX package writes them;
+  ``*weight_swaps.jsonl`` and per-replica subdirectories), as the port's
+  fleet (:mod:`..serving.fleet`, :mod:`..weights`) writes them, in the
+  JAX package's formats;
 - Chrome-trace timeline files (:class:`~.tracing.Timeline` output).
 
 The output validates against ``obs.schemas.SCHEMAS["obs_report"]`` and has a

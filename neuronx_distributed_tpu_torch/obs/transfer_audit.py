@@ -140,6 +140,12 @@ class TransferAudit:
                     f"{label}/host_blocked_ms",
                     self._ms_buckets).observe(wait_s * 1e3)
 
+    def note_put(self) -> None:
+        """Account one explicit put the caller made itself (a KV chain
+        import)."""
+        if self.registry is not None:
+            self.registry.counter(PUTS_TOTAL).inc()
+
     def put(self, staging: Any, *arrays) -> Any:
         """The sanctioned host-to-device write: ``staging.put(*arrays)``,
         one packed copy from pinned memory, counted."""

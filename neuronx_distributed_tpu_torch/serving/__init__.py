@@ -3,7 +3,10 @@ decode by default, speculative decoding with ``draft=``/``spec_k=``, SLO
 scheduling (interactive/batch priorities with preemption, deadlines,
 feasibility shedding ``SLOInfeasible``, tenant rate limits
 ``RateLimited``), and the observability hooks (``registry=``,
-``stats_path=``, ``obs=``, ``tracer=``, ``transfer_guard=``)."""
+``stats_path=``, ``obs=``, ``tracer=``, ``transfer_guard=``).  The fleet
+(:mod:`.fleet`): replicas behind a :class:`FleetRouter` (routing policies,
+failover, drains, rolling weight updates), the disaggregated router and
+the autopilot."""
 
 from neuronx_distributed_tpu_torch.serving.driver import (
     percentiles,
@@ -16,6 +19,12 @@ from neuronx_distributed_tpu_torch.serving.engine import (
     SERVING_STATS_SCHEMA,
     ServingEngine,
     replay_trace,
+)
+from neuronx_distributed_tpu_torch.serving.fleet import (
+    FleetRouter,
+    FleetUnavailableError,
+    Replica,
+    ReplicaState,
 )
 from neuronx_distributed_tpu_torch.serving.paged import PagedKVManager
 from neuronx_distributed_tpu_torch.serving.request import (
@@ -39,8 +48,12 @@ __all__ = [
     "BackpressureError",
     "DEFAULT_MAX_BATCH_WAIT_S",
     "FAIL_NON_FINITE",
+    "FleetRouter",
+    "FleetUnavailableError",
     "PagedKVManager",
     "RateLimited",
+    "Replica",
+    "ReplicaState",
     "Request",
     "RequestOutput",
     "RequestState",

@@ -87,6 +87,14 @@ ignored.
   scheduler's state, shapes): telemetry adds no host sync, no kernel and
   no CUDA-graph input on the steady path.
 
+- The fleet's surface (:mod:`.fleet`): :meth:`ServingEngine.withdraw`
+  (a migration's hop), :meth:`~ServingEngine.export_prefix` and
+  :meth:`~ServingEngine.import_prefix` (page chains in and out of the
+  pool, the import in place), :meth:`~ServingEngine.install_params` (a
+  live weight swap; tokens carry the version that dispatched their step)
+  and :meth:`~ServingEngine.prewarm_graphs` (a rebuilt replica captures
+  its predecessor's phases at once, as warm-up).
+
 Greedy outputs are token-identical to a solo ``generate`` of the same
 prompt up to the arithmetic order of the attention path taken.  Chunked
 prefill over an int8 pool is the exception: each chunk attends the
@@ -97,19 +105,28 @@ bound.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import json
 import time
+import weakref
 from typing import Any, Callable, List, Optional
 
 import numpy as np
 import torch
 
-from neuronx_distributed_tpu_torch.kvcache.allocator import PoolExhausted
+from neuronx_distributed_tpu_torch.kvcache.allocator import NULL_PAGE, PoolExhausted
 from neuronx_distributed_tpu_torch.kvcache.pool import GATHER_BYTES_TOTAL
 from neuronx_distributed_tpu_torch.kvcache.quant import QUANT_PAGES_TOTAL
+from neuronx_distributed_tpu_torch.kvcache.transfer import (
+    ChainExport,
+    TransferError,
+    export_chain,
+    import_chain,
+)
 from neuronx_distributed_tpu_torch.obs import MS_BUCKETS, MetricRegistry
 from neuronx_distributed_tpu_torch.obs.memory_ledger import tree_bytes
-from neuronx_distributed_tpu_torch.obs.transfer_audit import TransferAudit
+from neuronx_distributed_tpu_torch.obs.transfer_audit import TransferAudit, allow_sync
 from neuronx_distributed_tpu_torch.ops.paged_attention import resolve_paged_kernel
 from neuronx_distributed_tpu_torch.resilience.faults import fault_point, perturb
 from neuronx_distributed_tpu_torch.serving.driver import replay as driver_replay
@@ -129,6 +146,7 @@ from neuronx_distributed_tpu_torch.serving.scheduler import (
 )
 from neuronx_distributed_tpu_torch.tenancy.store import AdapterLayout
 from neuronx_distributed_tpu_torch.trace.engine import (
+    PhaseGraphs,
     _filtered_logits,
     gumbel_draw,
     pack_tokens,
@@ -148,6 +166,38 @@ SERVING_STATS_SCHEMA = "serving_stats/6"
 
 FAIL_NON_FINITE = "non_finite_logits"
 SHED_EXPIRED_BEFORE_PREFILL = "expired_before_prefill"
+
+
+class _ModuleHolders:
+    """Which live serving engines serve each ``nn.Module``'s parameters.
+
+    Keyed on the module a weight swap writes, not on its
+    ``ParallelInferenceModel`` wrapper: two wrappers over one module serve
+    the same parameters.  A module two engines have held is SHARED for good
+    (a fleet's factory builds its rebuilt replicas on it, stamped with the
+    weights it holds), and a weight swap never writes a shared module's
+    parameters."""
+
+    def __init__(self):
+        self._engines = weakref.WeakKeyDictionary()
+        self._shared = weakref.WeakSet()
+
+    def hold(self, module, engine) -> None:
+        engines = self._engines.setdefault(module, weakref.WeakSet())
+        engines.add(engine)
+        if len(engines) > 1:
+            self._shared.add(module)
+
+    def release(self, module, engine) -> None:
+        engines = self._engines.get(module)
+        if engines is not None:
+            engines.discard(engine)
+
+    def shared(self, module) -> bool:
+        return module in self._shared
+
+
+_HOLDERS = _ModuleHolders()
 
 
 def replay_trace(engine: "ServingEngine", arrivals, requests,
@@ -442,6 +492,7 @@ class ServingEngine:
                 raise ValueError(f"draft device {draft.device} != engine "
                                  f"device {device}")
         self.model = model
+        _HOLDERS.hold(model.module, self)
         self.device = device
         self.obs = obs
         if registry is None and obs is not None:
@@ -496,8 +547,11 @@ class ServingEngine:
             self.registry,
             mode="forbid" if transfer_guard == "forbid" else "observe",
             device=device)
-        # the version of the serving weights (nothing swaps them yet)
+        # the version of the serving weights (weights.WeightSwapper bumps
+        # it) and the version that dispatched the step in flight: its tokens
+        # are stamped with the weights that computed them
         self.weights_version = 0
+        self._pending_version = 0
         self.B, self.C, self.T = (cfg.batch_size, cfg.context_len,
                                   cfg.max_total_len)
         self._spec_k = int(spec_k)
@@ -567,6 +621,7 @@ class ServingEngine:
         self.spec_accepted = 0
         self.spec_committed = 0
         self.prefill_chunks = 0  # chunk dispatches run
+        self.prewarmed = 0  # phases run over a parked batch (prewarm_graphs)
         self.quant_pages = 0  # pages written through a quantize-on-write
         self._steps = 0  # engine steps begun (the fault points' context)
         self.preemptions = 0
@@ -710,6 +765,232 @@ class ServingEngine:
                 or self.scheduler.active_count > 0
                 or self._pending is not None)
 
+    # -- disaggregation surface (fleet migration, fleet prefix cache) -----
+
+    def withdraw(self, request_id: int) -> Request:
+        """Pull a live request out of this engine WITHOUT a terminal output
+        (the disaggregated fleet's migration hop).  The slot is parked as a
+        preemption parks it (offset ``T``, pages and adapter pin released,
+        resume pin dropped), but nothing is requeued and no stats record is
+        written: the request goes on on a sibling replica.  The slot's
+        occupancy generation moves on, so a row of a step still in flight
+        is dropped at its collect and the withdrawn request emits no token
+        here.  Its committed prompt chain survives through the prefix
+        index's own references (the one a migration exports).  Raises
+        ``KeyError`` for an id this engine does not hold."""
+        now = self._clock()
+        # the open compute phase ends before the scheduler forgets the
+        # request (a queued withdrawal's wait span is the scheduler's)
+        if self.scheduler.slot_of(request_id) is not None:
+            rt = self._rt.get(request_id)
+            if rt is not None and self.tracer is not None:
+                self.tracer.end(rt.pop("phase", None), t=now, migrated=True)
+        req, slot = self.scheduler.withdraw(request_id, now=now)
+        if slot is not None:
+            self._slot_gen[slot] += 1
+            self._park(slot)
+        # a parked victim being migrated drops its local resume pin: the
+        # destination resumes from the imported chain instead
+        self._kv.release_resume(req)
+        if self.tracer is not None:
+            rt = self._rt.pop(request_id, None)
+            if rt is not None:
+                self.tracer.end(rt.get("root"), t=now, migrated=True,
+                                new_tokens=len(req.generated))
+        if self._perf is not None:
+            self._perf_t0.pop(request_id, None)
+        return req
+
+    def export_prefix(self, fingerprint: int) -> Optional[ChainExport]:
+        """Serialize the committed chain whose terminal fingerprint is
+        ``fingerprint`` out of this engine's prefix index (the donor half of
+        a migration and of the fleet-global prefix cache); None when the
+        index does not hold it.  May be called while a step is in flight:
+        the chain's pages are committed, and the copy, on the same stream,
+        is ordered after the in-flight step's writes.  The export makes a
+        small asynchronous upload of the page ids and ONE synchronizing
+        device-to-host copy of the packed rows and payload, booked as one
+        explicit fetch (allowed under ``forbid``)."""
+        if self._kv.index is None:
+            return None
+        hit = self._kv.index.find_fingerprint(fingerprint)
+        if hit is None:
+            return None
+        keys, pages, payload = hit
+        t0 = time.perf_counter()
+        with allow_sync():
+            export = export_chain(self.caches, keys, pages,
+                                  page_size=self._kv.page_size,
+                                  payload=payload, registry=self.registry)
+        self._io.fetches += 1
+        self._audit.note_fetch(time.perf_counter() - t0, label="kvcache")
+        return export
+
+    def import_prefix(self, export: ChainExport) -> int:
+        """Admit an exported chain into this engine's pool and prefix index
+        (the receiver half), in place: every captured graph keeps its pool.
+        Transactional (:func:`~..kvcache.transfer.import_chain`: any
+        failure, a chaos kill at ``kvcache/page_import`` included, leaks
+        nothing).  The import makes one asynchronous host-to-device copy of
+        the packed rows and payload and a small one of the destination
+        page ids, booked as one explicit put.  Returns the pages copied in
+        (0 = already fully cached here)."""
+        if self._kv.index is None:
+            raise TransferError(
+                "engine has no prefix index; cannot import a chain")
+        matched, _ = self._kv.index.peek(export.keys)
+        already = sum(1 for p in matched if p != NULL_PAGE)
+        with allow_sync():
+            self.caches = import_chain(self.caches, self._kv.index, export,
+                                       registry=self.registry)
+        self._io.puts += 1
+        self._audit.note_put()
+        return export.n_pages - already
+
+    # -- live weights ----------------------------------------------------
+
+    @property
+    def shares_model(self) -> bool:
+        """Whether another engine has held this engine's module: a weight
+        swap then moves the engine to a private model instead of writing
+        the parameters in place (:meth:`install_params`)."""
+        return _HOLDERS.shared(self.model.module)
+
+    @torch.no_grad()
+    def install_params(self, params: dict, version: int) -> None:
+        """Commit point of a live weight swap (``weights.WeightSwapper``,
+        which has validated ``params``, ``{name: tensor}`` over the
+        module's parameter names).
+
+        - The engine is the only engine that ever held its module: each
+          tensor is copied INTO its parameter on the current stream,
+          straight from the caller's tensor (which may lie on the host),
+          so no second weight set is held.  Every captured graph keeps
+          its addresses, so nothing is captured again; a step in flight
+          runs first in stream order, with the old weights, and its
+          tokens carry ``_pending_version``.
+        - The module is shared (:attr:`shares_model`: a fleet's replicas
+          share one, and its factory builds rebuilt replicas on it, so its
+          weights stay the ones the factory's engines are stamped with):
+          the swapper has staged ``params`` on the model's device, and the
+          engine moves to a private model whose module holds those staged
+          tensors (no further copy), with its own phase graphs, and
+          captures there, inside this call and over a parked batch, every
+          phase it had captured on the shared model, booked in the compile
+          ledger as the new generation's warm-up (no ``compile_storm``).
+          The JAX engine makes a shallow per-engine view of the params
+          instead: its programs take the params as an argument.
+
+        Then the prefix cache is flushed (cached KV and full-hit logits
+        are the outgoing weights'), the version bumps, and the memory
+        ledger accounts the live parameters."""
+        if self.shares_model:
+            self._move_to_private_model(params)
+        else:
+            for name, p in self.model.module.named_parameters():
+                p.copy_(params[name])
+        self.weights_version = int(version)
+        # cached prefix KV (and full-hit prefill logits) embody the
+        # OUTGOING weights: no admission after the swap may hit them
+        dropped = self._kv.flush_prefix_cache()
+        if dropped:
+            logger.info("serving: weight swap flushed %d cached prefix "
+                        "chain node(s)", dropped)
+        if self.memory_ledger is not None:
+            self.memory_ledger.account_tree("params", self.model.module)
+
+    def _move_to_private_model(self, params: dict) -> None:
+        """Serve from a per-engine copy of the shared model over the staged
+        parameters: buffers are copied, parameters are the staged tensors,
+        the phase graphs start empty and are captured again here for this
+        engine's templates; its graphs on the shared model are dropped."""
+        model = self.model
+        templates = self.graph_templates(draft=False)
+        self._drop_graphs(draft=False)
+        module = model.module
+        memo = {id(p): torch.nn.Parameter(params[name].to(p.device),
+                                          requires_grad=False)
+                for name, p in module.named_parameters()}
+        view = copy.copy(model)
+        view.module = copy.deepcopy(module, memo)
+        view.graphs = PhaseGraphs(capture=model.graphs.capture)
+        _HOLDERS.release(module, self)
+        _HOLDERS.hold(view.module, self)
+        self.model = view
+        self.prewarm_graphs(templates,
+                            label=f"weights_v{self.weights_version + 1}")
+
+    # -- phase graphs of this engine's state -------------------------------
+
+    def _graph_states(self, draft: bool = True) -> list:
+        """``(phase-graph cache, state key)`` of every state this engine's
+        phases capture over: the pool (with the adapter pool on adapter
+        phases) and, in spec mode, the draft's contiguous caches."""
+        states = [(self.model.graphs,
+                   PhaseGraphs.state_key(self.caches, self.valid))]
+        if self._adapters is not None:
+            states.append((self.model.graphs, PhaseGraphs.state_key(
+                self.caches, self.valid, self._apool)))
+        if self._spec_k and draft:
+            states.append((self._draft_model.graphs, PhaseGraphs.state_key(
+                self._draft_caches, self._draft_valid,
+                self._apool if self._draft_lora else None)))
+        return states
+
+    def graph_templates(self, draft: bool = True) -> list:
+        """The phases this engine has captured (or, on the CPU under a
+        ledger, accounted), as ``(phase key without the state, input
+        shapes and dtypes)``: what :meth:`prewarm_graphs` captures again
+        over another engine's state.  ``draft=False`` leaves the draft's
+        out."""
+        out = []
+        for graphs, state in self._graph_states(draft):
+            for key in graphs.keys_over(state):
+                out.append((key[0][:-1], key[1]))
+        return out
+
+    def prewarm_graphs(self, templates, label: str = "prewarm") -> int:
+        """Capture ``templates`` (:meth:`graph_templates` of this engine or
+        of an engine it replaces) over this engine's state, on a parked
+        batch (every offset ``T``: nothing is written), booked in the
+        compile ledger as warm-up.  A replica rebuilt after a crash or a
+        drain takes its predecessor's phases this way, as the JAX engine
+        reuses its compiled programs.  Returns the phases run."""
+        led = self.model.compile_ledger
+        window = (led.rewarm(label) if led is not None
+                  else contextlib.nullcontext())
+        n = 0
+        with window:
+            for phase, shapes in templates:
+                bufs = [torch.full(s, self.T, dtype=d, device=self.device)
+                        if i == 1 else
+                        torch.zeros(s, dtype=d, device=self.device)
+                        for i, (s, d) in enumerate(shapes)]
+                name = phase[0]
+                if name == "decode_slots":
+                    lora = phase[1]
+                    self._draft_model.decode_slots(
+                        bufs[0], bufs[1], self._draft_caches,
+                        self._draft_valid,
+                        self._apool if lora else None,
+                        bufs[2] if lora else None)
+                else:
+                    _, pk, lora = phase
+                    self.model._paged_phase(
+                        name, bufs[0], bufs[1], bufs[2], self.caches,
+                        self.valid, pk, name != "verify_pages",
+                        self._apool if lora else None,
+                        bufs[3] if lora else None)
+                n += 1
+        self.prewarmed += n
+        return n
+
+    def _drop_graphs(self, draft: bool = True) -> int:
+        """Drop the graphs captured over this engine's state from the
+        (possibly shared) models' phase-graph caches."""
+        return sum(graphs.drop(graphs.keys_over(state))
+                   for graphs, state in self._graph_states(draft))
+
     def declare_warmup_done(self) -> None:
         """Everything this engine will run is captured now: any capture the
         compile ledger sees from here on is a ``compile_storm`` (counted,
@@ -835,8 +1116,12 @@ class ServingEngine:
 
     def close(self) -> None:
         """Seal every open span (aborted), account an open batch step, dump
-        the memory breakdown (reason ``close``) and close the stats
-        file."""
+        the memory breakdown (reason ``close``), close the stats file, and
+        drop this engine's phase graphs from its (possibly shared) models:
+        they hold a pool that is going away, and in a fleet whose replicas
+        are rebuilt they would otherwise fill the shared LRU."""
+        self._drop_graphs()
+        _HOLDERS.release(self.model.module, self)
         tr = self.tracer
         if tr is not None:
             now = self._clock()
@@ -1253,6 +1538,7 @@ class ServingEngine:
         later (the step's window in flight)."""
         tok_idx = self._tok_idx(active)
         self._begin_batch_span("decode_step", active)
+        self._pending_version = self.weights_version
         tok, offs = self._stage()
         if self._adapters is not None:
             logits, self.caches, self.valid = self.model.decode_pages_lora(
@@ -1331,7 +1617,7 @@ class ServingEngine:
             last = self._last_tok_time[slot]
             ms = (now - last) * 1e3 if last is not None else None
             req.generated.append(tok)
-            req.weights_version = self.weights_version
+            req.weights_version = self._pending_version
             req.decode_steps += 1
             if bspan is not None:
                 tr.instant("decode_slot", request_id=req.request_id,
@@ -1362,6 +1648,7 @@ class ServingEngine:
         k = self._spec_k
         tok_idx = self._tok_idx(active)
         self._begin_batch_span("spec_round", active, k=k)
+        self._pending_version = self.weights_version
         offs_j = self._offsets[None, :] + np.arange(k, dtype=np.int32)[:, None]
         tok, offs, doffs = self._stage(offs_j)
         draft = self._draft_model
@@ -1458,7 +1745,7 @@ class ServingEngine:
             self.spec_committed += m
             reg.counter("serving/spec_committed_total").inc(m)
             if m:
-                req.weights_version = self.weights_version
+                req.weights_version = self._pending_version
             req.decode_steps += 1
             if bspan is not None:
                 tr.instant("spec_slot", request_id=req.request_id,

@@ -294,6 +294,24 @@ class PagedKVManager:
         req.resume_keys = None
         self._resume.pop(req.request_id, None)
 
+    def prefix_fingerprints(self) -> set:
+        """Chain fingerprints of every prompt chain the prefix index holds
+        (empty without a prefix cache): the fleet router's shadow-resync
+        source."""
+        if self.index is None:
+            return set()
+        return self.index.chain_fingerprints()
+
+    def flush_prefix_cache(self) -> int:
+        """Drop every cached prefix chain (the live weight swap: cached KV
+        and full-hit logits were computed by the outgoing weights, so no
+        admission after the swap may hit them).  Active slots and parked
+        resume pins keep their own page references.  Returns the nodes
+        dropped (0 without a prefix cache)."""
+        if self.index is None:
+            return 0
+        return self.index.flush()
+
     def _ensure_free(self, n: int) -> None:
         """Make room for ``n`` pages: evict LRU unpinned cached chains, then
         as a last resort drop parked victims' resume pins (oldest park

@@ -1,6 +1,5 @@
 """Slot scheduler: priority/deadline admission over a fixed-size slot table
-(counterpart of ``neuronx_distributed_tpu/serving/scheduler.py``; fleet
-withdrawal waits for the fleet's slice).
+(counterpart of ``neuronx_distributed_tpu/serving/scheduler.py``).
 
 The decode batch has a fixed width ``B``; the scheduler treats it as a pool
 of ``B`` slots.  Requests queue per priority class (``interactive`` ahead of
@@ -20,6 +19,9 @@ before admission.  On top of that:
   at submit with :class:`SLOInfeasible`;
 - **tenant limits** -- token buckets keyed by ``adapter_id`` refuse a
   tenant over its rate with :class:`RateLimited`;
+- **withdrawal** -- :meth:`SlotScheduler.withdraw` takes a live request
+  out without a terminal state: the fleet's migration hop, where the
+  request goes on on a sibling replica;
 - **tracing** -- with a ``tracer`` the scheduler owns the WAIT phases of a
   request's trace: a ``queue`` span from submit to grant (or sweep), a
   ``preempted`` span from park to re-grant, and ``sched/blocked`` instants
@@ -565,6 +567,33 @@ class SlotScheduler:
         self._keys.pop(request.request_id, None)
         self._cancel_requested.discard(request.request_id)
         return slot
+
+    def withdraw(self, request_id: int, now: Optional[float] = None
+                 ) -> Tuple[Request, Optional[int]]:
+        """Remove a NON-terminal request without a terminal transition (the
+        disaggregated fleet's migration hop: the request goes on on a
+        sibling replica, so here it simply ceases to exist).  An active
+        request frees its slot; a queued one leaves its class queue (its
+        open wait span sealed).  Returns ``(request, slot)``, ``slot`` None
+        for a queued withdrawal; raises ``KeyError`` for an id this
+        scheduler does not hold."""
+        now = time.monotonic() if now is None else now
+        req = self._by_id.pop(request_id, None)
+        if req is None:
+            raise KeyError(f"request {request_id} is not scheduled here")
+        slot = self._slot_of.pop(request_id, None)
+        if slot is not None:
+            self._slots[slot] = None
+        else:
+            self._queues[req.priority].remove(
+                self._keys[request_id] + (req,))
+        self._keys.pop(request_id, None)
+        self._cancel_requested.discard(request_id)
+        if self.tracer is not None:
+            span = self._qspans.pop(request_id, None)
+            if span is not None:
+                self.tracer.end(span, t=now, withdrawn=True)
+        return req, slot
 
     def trace_abort(self, now: Optional[float] = None) -> None:
         """Seal every open wait span (engine teardown)."""

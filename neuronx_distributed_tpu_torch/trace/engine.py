@@ -233,6 +233,16 @@ class PhaseGraphs:
             key += (apool.shape, apool.data_ptr())
         return key
 
+    def keys_over(self, state: tuple) -> list:
+        """The cached keys whose phase runs over ``state`` (a
+        :meth:`state_key`): one engine's graphs on a shared model."""
+        return [k for k in self._graphs if k[0][-1] == state]
+
+    def drop(self, keys) -> int:
+        """Forget ``keys`` (an engine closing, or moving to a private
+        model); returns how many were held."""
+        return sum(self._graphs.pop(k, False) is not False for k in keys)
+
     def run(self, key, fn: Callable, inputs: Sequence[torch.Tensor],
             ledger=None, perf=None) -> torch.Tensor:
         """``fn(*inputs)`` through the graph of ``key`` (which must name

@@ -149,7 +149,7 @@ def test_walk_covers_the_slice():
                 "resilience.supervisor", "obs", "obs.registry",
                 "obs.schemas", "obs.flight", "obs.tracing",
                 "obs.transfer_audit", "obs.metrics_server",
-                "utils.timeline") + PART2_MODULES:
+                "utils.timeline") + PART2_MODULES + FLEET_MODULES:
         assert f"neuronx_distributed_tpu_torch.{mod}" in names
 
 
@@ -160,9 +160,31 @@ PART2_MODULES = ("obs.compile_ledger", "obs.memory_ledger", "obs.perf",
                  "obs.hlo_audit", "utils.profiling", "trace.export")
 
 
+# ROADMAP A7, the fleet: the counterparts of the JAX package's fleet,
+# transfer and live-weights modules
+FLEET_MODULES = ("serving.fleet", "serving.fleet.replica",
+                 "serving.fleet.routing", "serving.fleet.router",
+                 "serving.fleet.autopilot", "serving.fleet.disagg",
+                 "serving.fleet.disagg.roles",
+                 "serving.fleet.disagg.directory",
+                 "serving.fleet.disagg.router", "kvcache.transfer",
+                 "weights", "weights.swapper")
+
+
 @pytest.mark.parametrize("mod", PART2_MODULES)
 def test_part2_module_imports_no_jax(mod):
-    path = os.path.join(PKG, *mod.split(".")) + ".py"
+    _check_module(mod)
+
+
+@pytest.mark.parametrize("mod", FLEET_MODULES)
+def test_fleet_module_imports_no_jax(mod):
+    _check_module(mod)
+
+
+def _check_module(mod):
+    path = os.path.join(PKG, *mod.split("."))
+    path = (os.path.join(path, "__init__.py") if os.path.isdir(path)
+            else path + ".py")
     assert path in _port_files()
     module = importlib.import_module(f"neuronx_distributed_tpu_torch.{mod}")
     with open(path) as f:
