@@ -96,7 +96,23 @@ int8 pools, bit-exact, a chaos kill leaking nothing, the fleet prefix
 fill; (d) live weights on a 4-layer full-width cut (an in-place swap
 capturing nothing, the in-flight step stamped with its version, a
 2-replica rolling update with no compile storm); (e) the autopilot
-draining and restarting a replica under traffic.  Phase 1 also holds
+draining and restarting a replica under traffic.  Phase 2i serves at
+tensor-parallel degree 2: two processes share the one card over gloo
+(NCCL refuses two ranks on one device), each holding half of Llama-3-8B
+at full width and depth (16 q on 4 kv heads, half the pool): (a) phase
+2's traffic on the async engine, the decode kernel launched 32 times a
+decode step on each rank and nothing else, both ranks' tokens and block
+tables identical; (b) B4 at the local heads (decode and chunk calls,
+bf16 and int8 pools) held to its plain version and timed beside it, the
+library call and the bound (in this process, before the ranks start);
+(c) the 16 prompts' prefill logits against phase 2's model, every first
+token equal to phase 2's, the greedy streams' common prefix with phase
+2's, and one decode step after 8 admissions fed tp = 1's first tokens
+against tp = 1's; (d) int8 pages and bf16 pages with 128-token chunks on a 4-layer
+cut, launches by route, the int8 decode logits against the tp = 1 cut's;
+(e) each rank's weight and pool bytes, steady step, busy share and
+collective time a step (two processes time-sliced on one card, not tp
+speed).  Phase 1 also holds
 and times the verify call (B =
 8, S = 5) over both pool types, and the simt kernel at fp32 q.  Phase 1
 then holds the fp-pool kernels at head_dim 256
@@ -130,6 +146,7 @@ exits non-zero at once.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -430,14 +447,31 @@ def check_events(name: str, profiler_ms: float, fn, iters: int,
         f"under 90 % of the {event_ms:.5f} ms between CUDA events")
 
 
-def check_bound(name: str, times: dict, bound: float) -> None:
+def check_bound(name: str, times: dict, bound: float,
+                retake=None) -> dict:
     """A device time below the least time the card needs for the work
-    means the profiler missed device work: fail rather than report it."""
+    means the profiler missed device work: never report it.  A reading
+    of ``what`` that falls below is taken again by ``retake[what]()``, up
+    to TRACE_TRIES readings in all (as an empty trace is), and the run
+    fails if none holds (on one H100 run a split-4 decode sweep read
+    0.04147 ms, 0.68 of its usual 0.061 and under its 0.04168 ms bound).
+    Returns ``times`` with the readings that held."""
+    held = dict(times)
     for what, ms in times.items():
-        if not ms >= bound:
-            raise AssertionError(
-                f"{name}: {what} reads {ms:.5f} ms, below its bound "
-                f"{bound:.5f} ms; the profiler missed device work")
+        reading = 1
+        while not ms >= bound:
+            if (retake is None or what not in retake
+                    or reading == TRACE_TRIES):
+                raise AssertionError(
+                    f"{name}: {what} reads {ms:.5f} ms, below its bound "
+                    f"{bound:.5f} ms; the profiler missed device work")
+            log(f"{name}: {what} reads {ms:.5f} ms, below its bound "
+                f"{bound:.5f} ms (reading {reading}/{TRACE_TRIES}); the "
+                f"profiler missed device work: taken again")
+            ms = retake[what]()
+            reading += 1
+        held[what] = ms
+    return held
 
 
 # -- phase 0: build guards ---------------------------------------------------
@@ -807,10 +841,12 @@ def time_paged(S: int, int8: bool, routes, iters: int, label: str,
     """Device ms per call of each route's kernel (``{route}_ms``), of the
     plain version and of the library call (gather (+ dequantize_page) +
     SDPA; ``opts``' sm_scale, and no softcap) on the same inputs (q in
-    ``dtype``, default bf16) over ROTATE copies, each held to the bound of its work; the first
-    route's time is ``ms``.  ``opts`` (sm_scale, softcap) go to the routes
-    and the plain version.  Each route's output at its default split is
-    held against the plain version within TOL first (``errs``).
+    ``dtype``, default bf16) over ROTATE copies, each held to the bound
+    of its work (a reading under it is taken again, :func:`check_bound`);
+    the first route's time is ``ms``.  ``opts`` (sm_scale, softcap) go to
+    the routes and the plain version.  Each route's output at its default
+    split, and the first route's at each split of ``sweep``, is held
+    against the plain version within TOL first (``errs``).
     ``sweep``: the first route's time at each of these splits
     (``split_k_ms``).  ``parked``: the first route's time with every slot
     parked (``parked_ms``: the call's fixed cost, no key read)."""
@@ -852,6 +888,22 @@ def time_paged(S: int, int8: bool, routes, iters: int, label: str,
         if not errs[r] <= TOL[name]:
             raise AssertionError(f"{label}: the {r} kernel disagrees with its "
                                  f"plain version: {errs[r]}")
+    # every split the sweep times does the whole work: its output is held
+    # too, so a reading under the bound can only be the profiler's
+    sweep_errs = {}
+    for sk in sweep:
+        out = _paged_attention_on(routes[0], q, pool, bt, off, start,
+                                  split_k=sk, **opts)
+        sweep_errs[sk] = (out.float() - ref).abs().max().item()
+        if not sweep_errs[sk] <= TOL[name]:
+            raise AssertionError(f"{label}: the {routes[0]} kernel at "
+                                 f"split_k {sk} disagrees with its plain "
+                                 f"version: {sweep_errs[sk]}")
+    if sweep:
+        log(f"{label}: {routes[0]} route at each swept split_k against the "
+            f"plain version, max_abs_err: " + ", ".join(
+                f"{sk}: {e:.3e}" for sk, e in sweep_errs.items()))
+        errs[routes[0]] = max(errs[routes[0]], *sweep_errs.values())
     del out, ref, args
     copies = [(q.clone(), tuple(p.clone() for p in pool))
               for _ in range(ROTATE)]
@@ -860,33 +912,41 @@ def time_paged(S: int, int8: bool, routes, iters: int, label: str,
         return [lambda qc=qc, pc=pc: fn(*pre, qc, pc, bt, off, start, **kw)
                 for qc, pc in copies]
 
-    times = {f"{r}_ms": device_ms(over_copies(_paged_attention_on, r, **opts),
-                                  iters, expect=PAGED_KERNELS[r],
-                                  launched=route_count(r))
-             for r in routes}
-    times["plain_ms"] = device_ms(over_copies(paged_attention_reference,
-                                              **opts), 10)
+    def route_ms(r, **kw):
+        return lambda: device_ms(over_copies(_paged_attention_on, r, **kw,
+                                             **opts),
+                                 iters, expect=PAGED_KERNELS[r],
+                                 launched=route_count(r))
+
     lib_scale = {"sm_scale": opts["sm_scale"]} if "sm_scale" in opts else {}
-    times["library_ms"] = device_ms(over_copies(library_call, **lib_scale), 50)
-    split_ms = {sk: device_ms(over_copies(_paged_attention_on, routes[0],
-                                          split_k=sk, **opts), iters,
-                              expect=PAGED_KERNELS[routes[0]],
-                              launched=route_count(routes[0]))
-                for sk in sweep}
+    timers = {f"{r}_ms": route_ms(r) for r in routes}
+    timers["plain_ms"] = lambda: device_ms(
+        over_copies(paged_attention_reference, **opts), 10)
+    timers["library_ms"] = lambda: device_ms(
+        over_copies(library_call, **lib_scale), 50)
+    timers.update({f"split_k {sk}": route_ms(routes[0], split_k=sk)
+                   for sk in sweep})
     b_ms, b_by = bound_ms(S, name, off.cpu(), start.cpu(), int8=int8,
                           pp=pp, **geom)
-    check_bound(label, {**times, **{f"split_k {sk}": ms
-                                    for sk, ms in split_ms.items()}}, b_ms)
+    held = check_bound(label, {k: t() for k, t in timers.items()}, b_ms,
+                       retake=timers)
+    split_ms = {sk: held.pop(f"split_k {sk}") for sk in sweep}
+    times = held
     if parked:
         off_p = torch.full_like(off, T)
-        times["parked_ms"] = device_ms(
-            [lambda qc=qc, pc=pc: _paged_attention_on(
-                routes[0], qc, pc, bt, off_p, start, **opts)
-             for qc, pc in copies], iters, expect=PAGED_KERNELS[routes[0]],
-            launched=route_count(routes[0]))
-        check_bound(label + " parked", {"parked": times["parked_ms"]},
-                    bound_ms(S, name, off_p.cpu(), start.cpu(),
-                             int8=int8, pp=pp, **geom)[0])
+
+        def parked_ms():
+            return device_ms(
+                [lambda qc=qc, pc=pc: _paged_attention_on(
+                    routes[0], qc, pc, bt, off_p, start, **opts)
+                 for qc, pc in copies], iters,
+                expect=PAGED_KERNELS[routes[0]],
+                launched=route_count(routes[0]))
+
+        times["parked_ms"] = check_bound(
+            label + " parked", {"parked": parked_ms()},
+            bound_ms(S, name, off_p.cpu(), start.cpu(), int8=int8, pp=pp,
+                     **geom)[0], retake={"parked": parked_ms})["parked"]
     live = [b for b in range(q.shape[0]) if off[b] < T]
     lib_err = (library_call(q, pool, bt, off, start, **lib_scale).float()
                - paged_attention_reference(q, pool, bt, off, start,
@@ -987,26 +1047,30 @@ def phase1():
 
 def phase1_int8():
     """The int8 pools against the plain version (which dequantizes the
-    gathered pages to q's type, as the kernels do): q in bf16 and fp32, D
-    64/128/256, S 1/4/128 (bf16 q takes the decode route at S = 1 and the
-    wgmma route at S > 1 by the rule, and is held on the simt route as
-    well), split-K 1 and the default (and at S = 1 the largest cluster), a
+    gathered pages to q's type, as the kernels do): bf16 q at D
+    64/128/256 and fp32 q at D 128, S 1/4/128 (bf16 q takes the decode
+    route at S = 1 and the wgmma route at S > 1 by the rule, and is held
+    on the simt route as well at D 128), split-K 1 and the default (and at S = 1 the largest cluster), a
     parked slot and a constant page in every case, plus a window and a
     softcap case.  All three routes timed at the decode shape."""
     import torch
 
     bf16, fp32 = torch.bfloat16, torch.float32
+    # fp32 q (the simt kernel's own route) at the served head dim only,
+    # to make room for phase 2i; the card tests hold it at every dim
     cases = [dict(S=S, d=d, split_k=sk, dtype=dt, int8=True)
-             for dt in (bf16, fp32) for d in INT8_DIMS for S in INT8_WIDTHS
-             for sk in (1, None)]
+             for dt, dims in ((bf16, INT8_DIMS), (fp32, (D,)))
+             for d in dims for S in INT8_WIDTHS for sk in (1, None)]
     cases += [dict(S=1, d=d, split_k=CLUSTER_MAX, dtype=bf16, int8=True)
               for d in INT8_DIMS]
     cases += [dict(S=1, d=D, split_k=None, dtype=dt, int8=True, window=256)
               for dt in (bf16, fp32)]
     cases += [dict(S=1, d=D, split_k=None, dtype=dt, int8=True, softcap=50.0,
                    sm_scale=SOFTCAP_SCALE) for dt in (bf16, fp32)]
-    cases += [dict(S=S, d=d, split_k=sk, dtype=bf16, int8=True, route="simt")
-              for d in INT8_DIMS for S in INT8_WIDTHS for sk in (1, None)]
+    # the simt kernel's forced bf16 code at the served head dim only (the
+    # rule never routes bf16 q there; its fp32 code holds every dim above)
+    cases += [dict(S=S, d=D, split_k=sk, dtype=bf16, int8=True, route="simt")
+              for S in INT8_WIDTHS for sk in (1, None)]
     worst = hold_paged_cases(cases, "phase1 int8")
     times = time_paged(1, True, DECODE_ROUTES, 200, "phase1 int8 decode",
                        sweep=SPLIT_SWEEP, parked=True)
@@ -1052,8 +1116,8 @@ SWEEP_WIDTHS = {NQ: (2, 3, 4, 16, 32, 64, 128), NKV: (2, 3, 4, 16)}
 
 def phase1_chunks():
     """The multi-row route (paged_attention_wgmma_kernel, bf16 q): held
-    against the plain version over bf16 and int8 pools at D 64/128/256, S
-    16/32/128, split-K 1 and the default, a parked slot, a constant int8
+    against the plain version over bf16 and int8 pools at the served head
+    dims 128 and 256, S 16/32/128, split-K 1 and the default, a parked slot, a constant int8
     page, a window and a softcap; timed against the simt kernel on the
     same inputs at the main path's chunk call (B = 1, S = 128, offset
     384) and at phase 1's B = 8, S = 128 shape, each route's output at
@@ -1069,19 +1133,23 @@ def phase1_chunks():
 
     bf16 = torch.bfloat16
     w = dict(dtype=bf16, route="wgmma")
+    # the served head dims (Llama's 128, Gemma-2's 256); the card tests
+    # hold D 64 too
+    dims = (D, G2_D)
     cases = [dict(S=S, d=d, split_k=sk, int8=i8, **w) for i8 in (False, True)
-             for d in INT8_DIMS for S in (16, 128) for sk in (1, None)]
+             for d in dims for S in (16, 128) for sk in (1, None)]
     cases += [dict(S=32, split_k=None, int8=i8, **w) for i8 in (False, True)]
     cases += [dict(S=128, split_k=None, int8=i8, window=256, **w)
               for i8 in (False, True)]
     cases += [dict(S=128, split_k=None, int8=i8, softcap=50.0,
                    sm_scale=SOFTCAP_SCALE, **w) for i8 in (False, True)]
     narrow = [dict(S=S, d=d, split_k=None, int8=i8, **w)
-              for i8 in (False, True) for d in INT8_DIMS for S in (2, 3)]
+              for i8 in (False, True) for d in dims for S in (2, 3)]
     worst = max(held[("wgmma", "bfloat16")] for held in (
         hold_paged_cases(cases, "phase1 wgmma"),
         hold_paged_cases(narrow, "phase1 wgmma"),
-        hold_paged_cases(narrow, "phase1 wgmma G=1", nq=NKV, nkv=NKV)))
+        hold_paged_cases([c for c in narrow if c["d"] == D],
+                         "phase1 wgmma G=1", nq=NKV, nkv=NKV)))
 
     rows = {}
     for key, i8, off in (("chunk_int8", True, CHUNK_OFFSET),
@@ -1255,7 +1323,7 @@ def serve(engine, requests):
     return outs
 
 
-def steady_decode_profile(model_pim, vocab: int, steps: int = 10,
+def steady_decode_profile(model_pim, vocab: int, steps: int = 5,
                           label: str = "phase2", adapters: int = 0,
                           **engine_kw) -> dict:
     """Where a steady decode step's time goes: the host clock over
@@ -1489,25 +1557,28 @@ def pool_bytes(model_pim, num_pages: int, quant) -> int:
     return n
 
 
-def admitted_engine(model_pim, vocab: int, **kw):
-    """An engine whose 8 slots hold freshly prefilled requests and has not
-    decoded yet (the engine's admission, without ``step()``'s decode)."""
+def admitted_engine(model_pim, vocab: int, seed: int = SEED + 1, **kw):
+    """An engine whose 8 slots hold freshly prefilled requests (from
+    ``seed``) and has not decoded yet (the engine's admission, without
+    ``step()``'s decode)."""
     from neuronx_distributed_tpu_torch import ServingEngine
 
     eng = ServingEngine(model_pim, page_size=PAGE_SIZE, prefix_cache=False,
                         **kw)
-    for r in make_requests(vocab, SLOTS, 8, SEED + 1):
+    for r in make_requests(vocab, SLOTS, 8, seed):
         eng.submit(r)
     for slot, req in eng.scheduler.admit(eng._clock()):
         eng._prefill_into_slot(slot, req, [])
     return eng
 
 
-def decode_logits(model_pim, eng, paged_kernel: bool):
-    """The engine's next decode step's logits over a copy of its pool."""
+def decode_logits(model_pim, eng, paged_kernel: bool, tokens=None):
+    """The engine's next decode step's logits over a copy of its pool, on
+    its own next tokens or on ``tokens`` (``[B]`` int64, numpy)."""
     caches = [tuple(t.clone() for t in entry) for entry in eng.caches]
+    tok = eng._next_tok if tokens is None else tokens
     lg, _, _ = model_pim.decode_pages(
-        eng._next_tok[:, None], eng._offsets, eng._kv.tables, caches,
+        tok[:, None], eng._offsets, eng._kv.tables, caches,
         eng.valid.clone(), paged_kernel=paged_kernel)
     return lg.float()
 
@@ -3169,7 +3240,7 @@ def phase2f(model_pim, entries: dict):
 
 # pairs of steady telemetry profiles in 2g(f) (part 1 only, then parts 1
 # and 2, in turns: part1, full, full, part1, ...)
-G_PAIRS = 4
+G_PAIRS = 2  # halved from 4 to make room for phase 2i
 # the export check's cut of Llama-3-8B: full width, this many layers, and
 # its serving shapes (32 new tokens: every decode position of the cache)
 G_EXPORT_LAYERS, G_EXPORT_B, G_EXPORT_C, G_EXPORT_NEW = 2, 2, 64, 32
@@ -4340,6 +4411,463 @@ def phase2h(model_pim, entries: dict):
     return out
 
 
+# -- phase 2i -----------------------------------------------------------------
+
+# serving at tensor-parallel degree 2: two processes share the one card over
+# gloo (NCCL refuses two ranks on one device), each holding half of the
+# weights and of the pool
+TP = 2
+# the int8 check's depth cut, and its chunk path's
+TP_INT8_LAYERS = 4
+# prefill logits at tp = 2 against tp = 1: relative L2 (bf16, the partial
+# sums of the row layers added in another order)
+TP_PREFILL_REL_TOL = 2e-2
+# the greedy streams' least common-prefix share with phase 2's: bf16
+# near-ties of the random weights flip a stream's argmax somewhere under
+# any change of summation order.  A reorder alone (phase 2's traffic on
+# the gather path against the kernel path at tp = 1) keeps 0.245-0.3125
+# over weight seeds 0-2, and the floor is its least share less that
+# spread, 0.1777, rounded up (tools/torch_tp_divergence.py; tp = 2 kept
+# 0.228-0.346 there; NVIDIA H100 80GB HBM3 at 700 W, PERF.md section 6).
+# A broken decode keeps only the first tokens, 1/64
+TP_PREFIX_SHARE_MIN = 0.178
+# one decode step's logits at tp = 2 against tp = 1's after the same 8
+# admissions, both fed tp = 1's first tokens (each engine's own first
+# tokens differ at near-ties): relative L2, the prefill's bound.  Over
+# weight seeds 0-2 tp = 2 reads 1.822e-2-1.875e-2 with every argmax equal,
+# and the gather path at tp = 1, a reorder alone, 1.731e-2-1.795e-2
+# (tools/torch_tp_divergence.py, NVIDIA H100 80GB HBM3 at 700 W, PERF.md
+# section 6)
+TP_DECODE_REL_TOL = 2e-2
+# the world's wall-clock limit
+TP_WORLD_TIMEOUT_S = 600
+# the prompt tokens of 2i(e)'s steady requests
+TP_STEADY_PROMPT = 64
+
+
+def left_padded(prompt):
+    """A prompt as the engine prefills it: left-padded to CONTEXT, with its
+    validity row."""
+    import numpy as np
+
+    ids = np.zeros((1, CONTEXT), np.int64)
+    ids[0, CONTEXT - len(prompt):] = prompt
+    valid = (np.arange(CONTEXT) >= CONTEXT - len(prompt)).astype(np.int32)
+    return ids, valid[None]
+
+
+def prefix_share(streams: dict, ref: dict) -> float:
+    """The tokens each stream shares with its reference before they first
+    differ, as a share of all the streams' tokens."""
+    same = 0
+    for rid, toks in streams.items():
+        for a, b in zip(toks, ref[rid]):
+            if a != b:
+                break
+            same += 1
+    return same / sum(len(t) for t in streams.values())
+
+
+def phase2i_refs(model_pim, whole_tokens) -> dict:
+    """The tp = 1 references phase 2i holds the tp = 2 ranks to: phase 2's
+    model's prefill logits of phase 2's 16 prompts, phase 2's tokens, its
+    first tokens and next decode step's logits after 8 admissions, and the
+    int8 pool's decode logits of the 4-layer cut after the same admissions
+    as 2i(d)'s."""
+    import numpy as np
+    import torch
+
+    from neuronx_distributed_tpu_torch import (
+        InferenceConfig,
+        LlamaConfig,
+        LlamaForCausalLM,
+        ParallelInferenceModel,
+    )
+
+    cfg = model_pim.module.config
+    prefill = []
+    requests = make_requests(cfg.vocab_size, N_REQUESTS, NEW_TOKENS, SEED)
+    for r in requests:
+        logits, _ = model_pim.prefill_one(*left_padded(r.prompt_ids))
+        prefill.append(logits.float().cpu().numpy()[0])
+    eng = admitted_engine(model_pim, cfg.vocab_size)
+    first = eng._next_tok.copy()
+    decode = decode_logits(model_pim, eng, True).cpu().numpy()
+    eng.close()
+    del eng
+    cut = LlamaForCausalLM(LlamaConfig.llama3_8b(num_layers=TP_INT8_LAYERS),
+                           device="cuda").init_random(SEED)
+    pim = ParallelInferenceModel(cut, InferenceConfig(
+        SLOTS, CONTEXT, MAX_TOTAL, torch.bfloat16), cuda_graphs=False)
+    eng = admitted_engine(pim, cfg.vocab_size, kv_quant="int8")
+    int8 = decode_logits(pim, eng, True).cpu().numpy()
+    del eng, pim, cut
+    return {"prefill": np.stack(prefill), "tokens": whole_tokens,
+            "decode_first": first, "decode_logits": decode,
+            "int8_logits": int8}
+
+
+def phase2i_kernels() -> dict:
+    """B4 at one tp = 2 rank's local heads (16 q on 4 kv heads, G = 4):
+    the decode route at phase 1's decode shape and the wgmma route at the
+    served chunk call, over bf16 and int8 pools, each held to its plain
+    version and timed beside the plain version, the library call and the
+    bound."""
+    geom = dict(nq=NQ // TP, nkv=NKV // TP)
+    csrc = "neuronx_distributed_tpu_torch/ops/csrc/"
+    entries = {}
+    for key, S, int8, route, kw in (
+            ("decode", 1, False, "decode", {}),
+            ("decode_int8", 1, True, "decode", {}),
+            ("chunk", CHUNK_TOKENS, False, "wgmma",
+             dict(chunk_offset=CHUNK_OFFSET)),
+            ("chunk_int8", CHUNK_TOKENS, True, "wgmma",
+             dict(chunk_offset=CHUNK_OFFSET))):
+        label = f"phase2i {key} at tp = {TP} local heads"
+        t = time_paged(S, int8, (route,), 200 if S == 1 else 100, label,
+                       **kw, **geom)
+        nb = 1 if kw else B
+        name = ("paged_attention_decode" if route == "decode"
+                else "paged_attention_wgmma")
+        entries[key] = {
+            "name": f"{name}{'_int8' if int8 else ''}_tp{TP}",
+            "route": "cuda",
+            "source": csrc + ("paged_attention_decode.cuh"
+                              if route == "decode"
+                              else "paged_attention_wgmma.cuh"),
+            "replaces": "neuronx_distributed_tpu/ops/paged_attention.py:"
+                        + ("211" if int8 else "164"),
+            "launches": None, "max_abs_err": t["errs"][route],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "library_call": "gather + " + ("kvcache.quant.dequantize_page + "
+                                           if int8 else "")
+            + "F.scaled_dot_product_attention",
+            "split_k": t["split_k"][route],
+            "shapes": {"q": [nb, S, NQ // TP, D],
+                       "pool": [nb * PP + 1, PAGE, NKV // TP, D],
+                       "pool_dtype": "int8" if int8 else "bfloat16",
+                       "block_table": [nb, PP], "dtype": "bfloat16",
+                       "tp": TP}}
+    return entries
+
+
+def tp_serve(engine, requests, digests):
+    """:func:`serve`, with a digest of the engine's block tables after
+    each step (the ranks hold the same tables iff the digests agree)."""
+    import hashlib
+
+    def step():
+        out = engine.step()
+        digests.append(hashlib.blake2b(engine._kv.tables.tobytes(),
+                                       digest_size=8).hexdigest())
+        return out
+
+    outs = {}
+    half = len(requests) // 2
+    for r in requests[:half]:
+        engine.submit(r)
+    for r in requests[half:]:
+        for o in step():
+            outs[o.request_id] = o
+        engine.submit(r)
+    steps = 0
+    while engine.has_work:
+        for o in step():
+            outs[o.request_id] = o
+        steps += 1
+        if steps > 10_000:
+            raise AssertionError("the tp = 2 engine did not drain")
+    return outs
+
+
+def tp2_rank(refs: dict) -> dict:
+    """One rank of phase 2i: Llama-3-8B at full width and depth at tp = 2
+    on the shared card, phase 2's traffic, then the int8 and bf16 chunked
+    runs on the 4-layer cut.  Every rank makes the same calls; each checks
+    its own launches and returns what the parent compares across ranks."""
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from neuronx_distributed_tpu_torch import (
+        InferenceConfig,
+        LlamaConfig,
+        LlamaForCausalLM,
+        ParallelInferenceModel,
+        ServingEngine,
+    )
+    from neuronx_distributed_tpu_torch.ops.paged_attention import paged_attention
+    from neuronx_distributed_tpu_torch.parallel import mappings, mesh
+    from neuronx_distributed_tpu_torch.utils.distributed import (
+        initialize_distributed,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(device="cuda", backend="gloo", timeout_s=300)
+    mesh.initialize_model_parallel(tensor_parallel_size=TP)
+    rank = dist.get_rank()
+    tag = f"phase2i rank {rank}"
+    cfg = LlamaConfig.llama3_8b()
+    L = cfg.num_layers
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device="cuda").init_random(SEED)
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    pim = ParallelInferenceModel(model, InferenceConfig(
+        SLOTS, CONTEXT, MAX_TOTAL, torch.bfloat16))
+    if pim.cuda_graphs or not pim.paged_kernel:
+        raise AssertionError(f"{tag}: graphs {pim.cuda_graphs}, kernel "
+                             f"{pim.paged_kernel} (want off, on)")
+    heads = (model.model.layer_0.attn.qkv.q_kernel.shape[1],
+             pim.num_kv_heads)
+    torch.cuda.synchronize()
+    log(f"{tag}: Llama-3-8B at tp = {TP}, {L} layers, local heads "
+        f"{heads[0]} q / {heads[1]} kv, {weight_bytes / 1e9:.3f} GB of "
+        f"weights on this rank, random init in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # (a) phase 2's traffic on the async engine, graphs off
+    engine = ServingEngine(pim, page_size=PAGE_SIZE)
+    pool_bytes = engine._kv.alloc.num_pages * engine._page_bytes
+    requests = make_requests(cfg.vocab_size, N_REQUESTS, NEW_TOKENS, SEED)
+    zero_paged_counts()
+    mappings.reset_counts()
+    lock = engine.lockstep
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    digests: list = []
+    outs = tp_serve(engine, requests, digests)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = engine.decode_steps
+    bad = [(o.request_id, o.state, len(o.token_ids)) for o in outs.values()
+           if o.state != "finished" or len(o.token_ids) != NEW_TOKENS]
+    if len(outs) != N_REQUESTS or bad:
+        raise AssertionError(f"{tag}: requests not served in full: {bad}")
+    routes = check_routes(tag, steps * L, 0)
+    if paged_attention.launches != steps * L:
+        raise AssertionError(f"{tag}: launches {paged_attention.launches}")
+    engine._kv.assert_invariants()
+    if engine._kv.leaked_pages():
+        raise AssertionError(f"{tag}: KV pages leaked")
+    tokens = {rid: list(o.token_ids) for rid, o in outs.items()}
+    coll_s = sum(mappings.SECONDS.values())
+    coll = dict(mappings.COUNTS)
+    log(f"{tag}: served {N_REQUESTS} requests, "
+        f"{sum(len(t) for t in tokens.values())} tokens in {wall:.3f} s "
+        f"over {steps} decode steps ({wall / steps * 1e3:.2f} ms/step incl. "
+        f"admissions, two processes time-sliced on one card); decode kernel "
+        f"launches {routes['decode']} = {steps} x {L}, by route {routes}; "
+        f"collectives {coll} taking {coll_s:.3f} s of host time; clock "
+        f"agreement {lock.reads} readings, {lock.seconds:.3f} s; pool "
+        f"{engine._kv.alloc.num_pages} pages x {engine._page_bytes} B = "
+        f"{pool_bytes / 1e9:.3f} GB on this rank")
+    engine.close()
+    del engine
+
+    # (c) the prefill logits against tp = 1 (phase 2's model)
+    rels = []
+    for i, r in enumerate(requests):
+        logits, _ = pim.prefill_one(*left_padded(r.prompt_ids))
+        got = logits.float().cpu().numpy()[0]
+        want = refs["prefill"][i]
+        rels.append(float(np.linalg.norm(got - want) / np.linalg.norm(want)))
+    first_equal = sum(tokens[rid][0] == refs["tokens"][rid][0]
+                      for rid in tokens)
+    share = prefix_share(tokens, refs["tokens"])
+    # one decode step after 8 admissions, fed tp = 1's first tokens
+    eng = admitted_engine(pim, cfg.vocab_size)
+    own_first = int((eng._next_tok == refs["decode_first"]).sum())
+    lg = decode_logits(pim, eng, True, refs["decode_first"]).cpu().numpy()
+    eng.close()
+    del eng
+    want = refs["decode_logits"]
+    decode_rel = float(np.linalg.norm(lg - want) / np.linalg.norm(want))
+    decode_agree = int((lg.argmax(-1) == want.argmax(-1)).sum())
+    log(f"{tag}: prefill logits against tp = 1, relative L2 max "
+        f"{max(rels):.3e} (tol {TP_PREFILL_REL_TOL}); first tokens equal to "
+        f"phase 2's {first_equal}/{N_REQUESTS}; greedy streams' common "
+        f"prefix with phase 2's {share:.3f} of the tokens (floor "
+        f"{TP_PREFIX_SHARE_MIN}); a decode step after {SLOTS} admissions "
+        f"fed tp = 1's first tokens (its own equal {own_first}/{SLOTS}): "
+        f"relative L2 {decode_rel:.3e} (tol {TP_DECODE_REL_TOL}), argmax "
+        f"equal {decode_agree}/{SLOTS}")
+
+    # (e) the steady decode step: host clock, then one profiled pass (no
+    # retry: a rank that stepped once more would leave its peer behind)
+    eng = ServingEngine(pim, page_size=PAGE_SIZE)
+    # short prompts: the decode step is what is timed, and each prefill's
+    # collectives go through the host
+    for r in make_requests(cfg.vocab_size, SLOTS, 40, SEED + 3):
+        r.prompt_ids = r.prompt_ids[:TP_STEADY_PROMPT]
+        eng.submit(r)
+    for _ in range(2):
+        eng.step()
+    mappings.reset_counts()
+    reads0, lock_s0 = eng.lockstep.reads, eng.lockstep.seconds
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = 10
+    for _ in range(n):
+        eng.step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / n * 1e3
+    coll_ms = sum(mappings.SECONDS.values()) / n * 1e3
+    lock_ms = (eng.lockstep.seconds - lock_s0) / n * 1e3
+    reads = (eng.lockstep.reads - reads0) / n
+    from torch.profiler import ProfilerActivity, profile
+
+    # a short device-only trace: its events are summed on the host
+    n_prof = 2
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_prof):
+            eng.step()
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) / n_prof * 1e3
+    busy_ms = sum(dev_us(e) for e in device_events(prof)) / 1e3 / n_prof
+    eng.close()
+    del eng
+    log(f"{tag}: steady decode step (B={SLOTS}, all slots decoding, two "
+        f"processes time-sliced on one card, not tp speed): {step_ms:.2f} "
+        f"ms/step host clock; collectives {coll_ms:.2f} ms/step of it "
+        f"(gloo, staged through the host), clock agreement {lock_ms:.3f} "
+        f"ms/step over {reads:.1f} readings; under the profiler "
+        f"{prof_ms:.2f} ms/step with this rank's device busy "
+        f"{busy_ms:.3f} ms/step ({busy_ms / prof_ms:.1%})"
+        + ("" if busy_ms > 0 else " (the profiler saw no device time: "
+           "busy share not measured)"))
+    del pim, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the 4-layer cut: int8 pages with 128-token chunks, then bf16
+    # chunks; the int8 decode logits against tp = 1's
+    cut = LlamaForCausalLM(LlamaConfig.llama3_8b(num_layers=TP_INT8_LAYERS),
+                           device="cuda").init_random(SEED)
+    pim = ParallelInferenceModel(cut, InferenceConfig(
+        SLOTS, CONTEXT, MAX_TOTAL, torch.bfloat16))
+    cut_runs = {}
+    # the bf16 run only puts the wgmma route at the local heads on the
+    # path: half the requests
+    for label, kw, n in (("int8", dict(kv_quant="int8"), N_REQUESTS),
+                         ("bf16", {}, N_REQUESTS // 2)):
+        eng = ServingEngine(pim, page_size=PAGE_SIZE,
+                            prefill_chunk_tokens=CHUNK_TOKENS, **kw)
+        zero_paged_counts()
+        got = tp_serve(eng, make_requests(cfg.vocab_size, n, NEW_TOKENS,
+                                          SEED), [])
+        if any(o.state != "finished" for o in got.values()):
+            raise AssertionError(f"{tag}: {label} chunked run unfinished")
+        r = check_routes(f"{tag} {label} chunked", eng.decode_steps
+                         * TP_INT8_LAYERS, eng.prefill_chunks * TP_INT8_LAYERS)
+        if label == "int8" and not (
+                paged_attention.int8_launches == paged_attention.launches):
+            raise AssertionError(f"{tag}: an int8 run launched a bf16 kernel")
+        cut_runs[label] = {"routes": r,
+                           "tokens": {i: list(o.token_ids)
+                                      for i, o in got.items()},
+                           "quant_pages": eng.quant_pages}
+        eng._kv.assert_invariants()
+        eng.close()
+    eng8 = admitted_engine(pim, cfg.vocab_size, kv_quant="int8")
+    lg = decode_logits(pim, eng8, True).cpu().numpy()
+    eng8.close()
+    drift = float(np.linalg.norm(lg - refs["int8_logits"])
+                  / np.linalg.norm(refs["int8_logits"]))
+    log(f"{tag}: {TP_INT8_LAYERS}-layer cut, {CHUNK_TOKENS}-token chunks: "
+        f"int8 launches by route {cut_runs['int8']['routes']} "
+        f"({cut_runs['int8']['quant_pages']} pages quantized on write), "
+        f"bf16 {cut_runs['bf16']['routes']}; int8 decode logits against "
+        f"tp = 1's after the same admissions: relative L2 {drift:.3e} (max "
+        f"{INT8_DRIFT_REL_MAX})")
+    del eng8, pim, cut
+    dist.barrier()
+    return {"rank": rank, "tokens": tokens, "digests": digests,
+            "routes": routes, "steps": steps, "wall_s": wall,
+            "heads": heads, "weight_bytes": weight_bytes,
+            "pool_bytes": pool_bytes, "prefill_rel": rels,
+            "first_equal": first_equal, "prefix_share": share,
+            "decode_rel": decode_rel, "decode_argmax_equal": decode_agree,
+            "decode_own_first_equal": own_first,
+            "collectives": coll, "collective_s": coll_s,
+            "lockstep_reads": lock.reads, "step_ms": step_ms,
+            "collective_ms_per_step": coll_ms,
+            "clock_agreement_ms_per_step": lock_ms,
+            "readings_per_step": reads, "profiled_step_ms": prof_ms,
+            "device_busy_ms": busy_ms, "cut": cut_runs, "int8_drift": drift}
+
+
+def phase2i(refs: dict, entries: dict) -> dict:
+    """Serving at tp = 2 on the one card (two processes over gloo):
+    Llama-3-8B at full width and depth, phase 2's traffic, the kernels at
+    the local heads, the ranks against each other and against tp = 1."""
+    from neuronx_distributed_tpu_torch.utils.distributed import spawn
+
+    t_phase = time.perf_counter()
+    ranks = spawn(tp2_rank, TP, (refs,), timeout_s=TP_WORLD_TIMEOUT_S,
+                  echo=True)
+    r0, r1 = ranks
+    for key in ("tokens", "digests", "routes", "steps"):
+        if r0[key] != r1[key]:
+            raise AssertionError(f"phase2i: the ranks disagree on {key}")
+    for label in ("int8", "bf16"):
+        for key in ("tokens", "routes"):
+            if r0["cut"][label][key] != r1["cut"][label][key]:
+                raise AssertionError(f"phase2i: the ranks disagree on the "
+                                     f"{label} cut's {key}")
+    if r0["heads"] != (NQ // TP, NKV // TP):
+        raise AssertionError(f"phase2i: local heads {r0['heads']}")
+    for r in ranks:
+        if not max(r["prefill_rel"]) <= TP_PREFILL_REL_TOL:
+            raise AssertionError(f"phase2i: prefill logits off tp = 1's: "
+                                 f"{max(r['prefill_rel'])}")
+        if r["first_equal"] != N_REQUESTS:
+            raise AssertionError(f"phase2i: first tokens equal to phase 2's "
+                                 f"{r['first_equal']}/{N_REQUESTS}")
+        if not r["prefix_share"] >= TP_PREFIX_SHARE_MIN:
+            raise AssertionError(
+                f"phase2i: common prefix share {r['prefix_share']} under "
+                f"{TP_PREFIX_SHARE_MIN}")
+        if not r["decode_rel"] <= TP_DECODE_REL_TOL:
+            raise AssertionError(
+                f"phase2i: teacher-forced decode logits off tp = 1's: "
+                f"{r['decode_rel']} > {TP_DECODE_REL_TOL}")
+        if not 0.0 < r["int8_drift"] <= INT8_DRIFT_REL_MAX:
+            raise AssertionError(f"phase2i: int8 drift {r['int8_drift']}")
+    cut = r0["cut"]
+    entries["decode"]["launches"] = r0["routes"]["decode"]
+    entries["decode_int8"]["launches"] = cut["int8"]["routes"]["decode"]
+    entries["chunk_int8"]["launches"] = cut["int8"]["routes"]["wgmma"]
+    entries["chunk"]["launches"] = cut["bf16"]["routes"]["wgmma"]
+    for e, phase in ((entries["decode"], "2i"),
+                     (entries["decode_int8"], "2i(d)"),
+                     (entries["chunk_int8"], "2i(d)"),
+                     (entries["chunk"], "2i(d)")):
+        e["launches_by_phase"] = {phase: e["launches"]}
+    seconds = time.perf_counter() - t_phase
+    log(f"phase2i: both ranks served identical tokens and tables; "
+        f"weights {r0['weight_bytes'] / 1e9:.3f} + pool "
+        f"{r0['pool_bytes'] / 1e9:.3f} GB a rank; phase 2i took "
+        f"{seconds:.1f} s")
+    keep = ("weight_bytes", "pool_bytes", "steps", "wall_s", "step_ms",
+            "collective_ms_per_step", "clock_agreement_ms_per_step",
+            "readings_per_step", "profiled_step_ms", "device_busy_ms",
+            "collectives", "lockstep_reads", "first_equal", "prefix_share",
+            "decode_rel", "decode_argmax_equal", "decode_own_first_equal",
+            "int8_drift")
+    return {"seconds": seconds,
+            "prefill_rel_max": max(max(r["prefill_rel"]) for r in ranks),
+            "routes": r0["routes"], "cut_routes": {
+                k: v["routes"] for k, v in cut.items()},
+            "ranks": [{k: r[k] for k in keep} for r in ranks]}
+
+
 # -- phase 3 ------------------------------------------------------------------
 
 # the training path's attention shape: Llama-3-8B heads at batch 4 x 2048
@@ -4630,14 +5158,16 @@ def time_flash(shape, sm_scale=None, variants=((None, None),), worst=None,
     Bt, HQ, HKV, S, Dt = shape
     dev = torch.device("cuda")
     copies = {}
+    # the inputs do not depend on the variant: each copy's q, k, v and dO
+    # are made once (on the host, the slow part at 8192 keys) and shared
+    case = ("timing", Bt, HQ, HKV, S, S, Dt, True, None, None, sm_scale,
+            False, False)
+    inputs = [flash_inputs(case, torch.bfloat16, dev, SEED + 100 + i)[:4]
+              for i in range(ROTATE)]
     for window, softcap in variants:
-        case = ("timing", Bt, HQ, HKV, S, S, Dt, True, window, softcap,
-                sm_scale, False, False)
         opts = dict(sm_scale=sm_scale, window=window, softcap=softcap)
         copies[window, softcap] = []
-        for i in range(ROTATE):
-            q, k, v, do, _, _, _ = flash_inputs(case, torch.bfloat16, dev,
-                                                SEED + 100 + i)
+        for q, k, v, do in inputs:
             o, lse = fa.flash_attention_fwd(q, k, v, **opts)
             delta = (do.float() * o.float()).sum(-1)
             copies[window, softcap].append((q, k, v, do, lse, delta))
@@ -4666,10 +5196,14 @@ def time_flash(shape, sm_scale=None, variants=((None, None),), worst=None,
                               retrace=lambda: device_ms(lib_fwd, 20))
     lib_bwd_ms = check_events("SDPA backward", lib_bwd_ms, lib_bwd[0], 10,
                               retrace=lambda: device_ms(lib_bwd, 10))
-    check_bound("SDPA forward", {"library": lib_fwd_ms},
-                flash_bound_ms(Bt, HQ, HKV, S, S, Dt, 2, "fwd")[0])
-    check_bound("SDPA backward", {"library": lib_bwd_ms},
-                flash_bound_ms(Bt, HQ, HKV, S, S, Dt, 2, "bwd")[0])
+    lib_fwd_ms = check_bound(
+        "SDPA forward", {"library": lib_fwd_ms},
+        flash_bound_ms(Bt, HQ, HKV, S, S, Dt, 2, "fwd")[0],
+        retake={"library": lambda: device_ms(lib_fwd, 20)})["library"]
+    lib_bwd_ms = check_bound(
+        "SDPA backward", {"library": lib_bwd_ms},
+        flash_bound_ms(Bt, HQ, HKV, S, S, Dt, 2, "bwd")[0],
+        retake={"library": lambda: device_ms(lib_bwd, 10)})["library"]
     log(f"phase3 ({label}): library forward agrees with the kernel to "
         f"{lib_err:.2e} (largest row relative error, scale {sm_scale})")
     entries = {}
@@ -4684,20 +5218,23 @@ def time_flash(shape, sm_scale=None, variants=((None, None),), worst=None,
             cs = copies[window, softcap]
             calls = [lambda c=c: kernel(*c[:nargs], **opts) for c in cs]
             count = lambda: kernel.launches  # noqa: E731
-            k_ms = device_ms(calls, 20, expect=kname, launched=count)
+            retake = {"kernel": lambda: device_ms(calls, 20, expect=kname,
+                                                  launched=count)}
             b_ms, b_by, flops, nbytes = flash_bound_ms(
                 Bt, HQ, HKV, S, S, Dt, 2, w, window)
             k_ms = check_events(
-                fn_name, k_ms, lambda: kernel(*cs[0][:nargs], **opts), 20,
-                retrace=lambda: device_ms(calls, 20, expect=kname,
-                                          launched=count))
+                fn_name, retake["kernel"](),
+                lambda: kernel(*cs[0][:nargs], **opts), 20,
+                retrace=retake["kernel"])
             times = {"kernel": k_ms}
             if (window, softcap) == variants[0]:
-                times["plain"] = device_ms(
+                retake["plain"] = lambda: device_ms(
                     [lambda c=c: plain(*c[:nargs], **opts) for c in cs[:2]],
                     2)
-            check_bound(f"{fn_name} {label} window {window} softcap "
-                        f"{softcap}", times, b_ms)
+                times["plain"] = retake["plain"]()
+            times = check_bound(f"{fn_name} {label} window {window} softcap "
+                                f"{softcap}", times, b_ms, retake=retake)
+            k_ms = times["kernel"]
             log(f"phase3 timing {fn_name} ({label}, window {window}, "
                 f"softcap {softcap}), "
                 f"device ms per call from torch.profiler: kernel "
@@ -5290,7 +5827,13 @@ def main() -> int:
         log(f"phase2g summary: {json.dumps(part2)}")
         fleet = phase2h(model_pim, {"decode": dec, "chunk": entry_w})
         log(f"phase2h summary: {json.dumps(fleet)}")
+        tp_entries = phase2i_kernels()
+        tp_refs = phase2i_refs(model_pim, whole_tokens)
         del model_pim
+        gc.collect()
+        torch.cuda.empty_cache()
+        tp = phase2i(tp_refs, tp_entries)
+        log(f"phase2i summary: {json.dumps(tp)}")
         dec256, simt256 = phase1_gemma()
         flash, flash256 = phase3()
         training = phase4(flash)
@@ -5304,6 +5847,8 @@ def main() -> int:
             flash256[w]["build"] = {256: guards[w][256]}
         kernels = ([dec, dec8, dec256, long["bf16"], long["int8"], simt,
                     simt8, simt256, entry_w, verify]
+                   + [tp_entries[k] for k in ("decode", "decode_int8",
+                                              "chunk", "chunk_int8")]
                    + [flash[w] for w in FLASH_KERNELS]
                    + [flash256[w] for w in FLASH_KERNELS])
         for k in kernels:

@@ -3,8 +3,9 @@
 The port's own copy of the JAX package's dataclasses: the mesh sizes,
 optimizer, pipeline and activation-checkpoint sub-configs, and the
 top-level :class:`TrainingConfig` with its flat-kwargs constructor
-:func:`training_config`.  The port runs at every parallel degree 1 on one
-card; the trainer refuses larger degrees (ROADMAP A10-A11).
+:func:`training_config`.  Serving runs at any tensor-parallel degree
+(:mod:`.parallel.mesh` lays out the ranks); the trainer refuses degrees
+above 1 (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -36,6 +37,11 @@ class MeshConfig:
             raise ValueError(
                 f"tensor_parallel_size ({self.tensor_parallel_size}) must be "
                 f"divisible by kv_size_multiplier ({self.kv_size_multiplier})")
+
+    @property
+    def model_parallel_size(self) -> int:
+        return (self.tensor_parallel_size * self.pipeline_parallel_size
+                * self.context_parallel_size * self.expert_parallel_size)
 
 
 @dataclasses.dataclass(frozen=True)

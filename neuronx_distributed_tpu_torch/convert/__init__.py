@@ -4,7 +4,9 @@ from neuronx_distributed_tpu_torch.convert.jax_params import (
     gemma2_params_from_jax,
     gemma_params_from_jax,
     llama_params_from_jax,
+    shard_dim,
+    shard_params_for_rank,
 )
 
 __all__ = ["gemma2_params_from_jax", "gemma_params_from_jax",
-           "llama_params_from_jax"]
+           "llama_params_from_jax", "shard_dim", "shard_params_for_rank"]

@@ -14,14 +14,71 @@ they are and ``load_state_dict`` casts them to the model's types, so a
 model built with ``param_dtype=torch.float32`` (training) keeps the JAX
 package's fp32 masters bit for bit, and a serving model (weights in the
 compute type) takes them rounded once.
+
+At tensor-parallel degree > 1 a rank's model holds its shard of each
+tensor: :func:`shard_params_for_rank` cuts the JAX tree (numpy) by the JAX
+package's partition specs (:func:`shard_dim` names the sharded dim of a
+parameter, None for a replicated one), and the converters take ``tp=`` to
+check the shard's shapes.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+
+# the sharded dim of each parameter kind, by name suffix (the JAX partition
+# specs: q/k/v heads over ('tp', 'kvr') / 'tp', a column kernel's and the
+# LM head's last dim, a row kernel's and the embedding's first dim); norms
+# are replicated
+_SHARD_DIMS = (
+    ("attn.qkv.q_kernel", 1), ("attn.qkv.k_kernel", 1),
+    ("attn.qkv.v_kernel", 1), ("attn.qkv.q_bias", 0),
+    ("attn.qkv.k_bias", 0), ("attn.qkv.v_bias", 0),
+    ("attn.o_proj.kernel", 0), ("mlp.gate_up.kernel", -1),
+    ("mlp.down.kernel", 0), ("embed.embedding", 0), ("lm_head.kernel", -1),
+)
+
+
+def shard_dim(name: str) -> Optional[int]:
+    """The dim along which ``name`` (a dotted parameter path) is sharded
+    over the tensor-parallel ranks, or None when it is replicated."""
+    for suffix, dim in _SHARD_DIMS:
+        if name.endswith(suffix):
+            return dim
+    return None
+
+
+def _cut(arr, dim: Optional[int], tp: int, rank: int):
+    if dim is None or tp == 1:
+        return arr
+    n = arr.shape[dim]
+    if n % tp:
+        raise ValueError(f"dim {dim} of size {n} does not split over "
+                         f"tensor-parallel degree {tp}")
+    idx = [slice(None)] * arr.ndim
+    idx[dim] = slice(rank * (n // tp), (rank + 1) * (n // tp))
+    return arr[tuple(idx)]
+
+
+def shard_params_for_rank(params: Mapping[str, Any], tp: int, rank: int
+                          ) -> Dict[str, Any]:
+    """Rank ``rank``'s shard of a JAX param tree at tensor-parallel degree
+    ``tp``: the same nesting, each sharded leaf cut to its slice (numpy,
+    a copy), replicated leaves as they are."""
+    def walk(tree, prefix):
+        out = {}
+        for key, val in tree.items():
+            path = f"{prefix}{key}"
+            if isinstance(val, Mapping):
+                out[key] = walk(val, path + ".")
+            else:
+                out[key] = np.array(_cut(np.asarray(val), shard_dim(path),
+                                         tp, rank))
+        return out
+    return walk(params, "")
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -36,7 +93,7 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
 
 
 def _expected_shapes(cfg, prefix: str = "model.", lm_head: bool = True,
-                     norms=("input_norm", "post_attn_norm")
+                     norms=("input_norm", "post_attn_norm"), tp: int = 1
                      ) -> Dict[str, tuple]:
     H, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     NQ, NKV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
@@ -59,32 +116,44 @@ def _expected_shapes(cfg, prefix: str = "model.", lm_head: bool = True,
             shapes.update({p + "attn.qkv.q_bias": (NQ, D),
                            p + "attn.qkv.k_bias": (NKV, D),
                            p + "attn.qkv.v_bias": (NKV, D)})
+    if tp > 1:
+        for name, shape in shapes.items():
+            dim = shard_dim(name)
+            if dim is not None:
+                shape = list(shape)
+                shape[dim] //= tp
+                shapes[name] = tuple(shape)
     return shapes
 
 
-def llama_params_from_jax(tree: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
+def llama_params_from_jax(tree: Mapping[str, Any], cfg,
+                          tp: int = 1) -> Dict[str, torch.Tensor]:
     """A JAX Llama param tree (unboxed, leaves convertible to numpy; with or
     without the leading ``params`` level) -> a ``state_dict`` for the
-    port's ``LlamaForCausalLM`` with config ``cfg``.  Raises on a missing,
-    extra or wrongly shaped parameter."""
-    return _convert(tree, _expected_shapes(cfg))
+    port's ``LlamaForCausalLM`` with config ``cfg`` (a rank's shard of
+    the tree, from :func:`shard_params_for_rank`, at ``tp > 1``).  Raises
+    on a missing, extra or wrongly shaped parameter."""
+    return _convert(tree, _expected_shapes(cfg, tp=tp))
 
 
-def gemma_params_from_jax(tree: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
+def gemma_params_from_jax(tree: Mapping[str, Any], cfg,
+                          tp: int = 1) -> Dict[str, torch.Tensor]:
     """A JAX ``GemmaForCausalLM`` param tree -> a ``state_dict`` for the
     port's ``GemmaForCausalLM`` with config ``cfg`` (a ``GemmaConfig``).
     The tree has no ``lm_head``: the head is the tied embedding."""
-    return _convert(tree, _expected_shapes(cfg, prefix="", lm_head=False))
+    return _convert(tree, _expected_shapes(cfg, prefix="", lm_head=False,
+                                           tp=tp))
 
 
-def gemma2_params_from_jax(tree: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
+def gemma2_params_from_jax(tree: Mapping[str, Any], cfg,
+                           tp: int = 1) -> Dict[str, torch.Tensor]:
     """A JAX ``Gemma2ForCausalLM`` param tree -> a ``state_dict`` for the
     port's ``Gemma2ForCausalLM``; each layer carries the four sandwich-norm
     weights."""
     return _convert(tree, _expected_shapes(
         cfg, prefix="", lm_head=False,
         norms=("input_norm", "post_attn_norm", "pre_ffw_norm",
-               "post_ffw_norm")))
+               "post_ffw_norm"), tp=tp))
 
 
 def _convert(tree: Mapping[str, Any], want: Dict[str, tuple]

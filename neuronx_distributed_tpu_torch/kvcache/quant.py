@@ -19,10 +19,13 @@ as ``jnp.round`` does, so codes equal the JAX package's.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from neuronx_distributed_tpu_torch.parallel.mappings import all_reduce, group_size
 
 # int8 codes span [-128, 127]; the affine form uses the unsigned view
 _LEVELS = 255.0
@@ -33,15 +36,42 @@ QUANTS = ("int8",)
 QUANT_PAGES_TOTAL = "kvcache/quant_pages_total"
 
 
-def quantize_page(x: torch.Tensor):
+def page_ranges(pages: Sequence[torch.Tensor], group=None) -> list:
+    """``(min, max)`` over the trailing ``[page, NKV, D]`` axes of each
+    tensor of ``pages``, fp32.  A tensor-parallel rank holds ``NKV / tp``
+    heads of every page, and a page's code is over ALL its heads (the JAX
+    package's GSPMD reduces the page's min/max across the shards): with a
+    ``group`` of more than one rank, the statistics of every tensor are
+    reduced over it in ONE all-reduce (None: this rank's own range) (``MAX`` of ``[max, -min]``), so each
+    rank's codes are the tp = 1 page's codes for its heads."""
+    mins = [x.float().amin(dim=(-3, -2, -1)) for x in pages]
+    maxs = [x.float().amax(dim=(-3, -2, -1)) for x in pages]
+    if group is None or group_size(group) == 1:
+        return list(zip(mins, maxs))
+    sizes = [m.numel() for m in mins]
+    packed = torch.cat([m.reshape(-1) for m in maxs]
+                       + [-m.reshape(-1) for m in mins])
+    packed = all_reduce(packed, group, op=dist.ReduceOp.MAX,
+                        kind="page_stats")
+    n = sum(sizes)
+    out, at = [], 0
+    for m, k in zip(mins, sizes):
+        out.append((-packed[n + at:n + at + k].reshape(m.shape),
+                    packed[at:at + k].reshape(m.shape)))
+        at += k
+    return out
+
+
+def quantize_page(x: torch.Tensor, stats=None):
     """Quantize pages over their trailing ``[page, NKV, D]`` axes.
 
     ``x`` is ``[..., page, NKV, D]`` float; returns ``(q int8, scale fp32,
     zero fp32)`` with ``scale``/``zero`` shaped like the leading axes:
-    ``zero = min(x)``, ``scale = (max - min) / 255``."""
+    ``zero = min(x)``, ``scale = (max - min) / 255``.  ``stats``: the
+    page's ``(min, max)`` from :func:`page_ranges` (a tensor-parallel
+    shard's whole-page range); None computes them from ``x``."""
     xf = x.float()
-    mn = xf.amin(dim=(-3, -2, -1))
-    mx = xf.amax(dim=(-3, -2, -1))
+    mn, mx = page_ranges([xf])[0] if stats is None else stats
     scale = (mx - mn) / _LEVELS
     safe = torch.where(scale > 0.0, scale, torch.ones_like(scale))
     q = torch.round((xf - mn[..., None, None, None])

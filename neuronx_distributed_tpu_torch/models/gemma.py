@@ -25,8 +25,10 @@ The module tree follows the JAX param tree (``embed.embedding``,
 check.  The forward signature is :class:`.llama.LlamaForCausalLM`'s, and the
 stack runs through :func:`.llama.run_layers` (one paged-step plan per
 forward, remat per block), so the trainer and the serving engine drive
-Gemma unchanged.  Sequence parallelism belongs to the tp > 1 slice, so the
-configs carry no ``sequence_parallel``.
+Gemma unchanged.  At tp > 1 the table is vocab-sharded and the tied head
+gives each rank its vocab slice; Gemma-2's final softcap is applied after
+:meth:`gather_logits` joins the slices.  Sequence parallelism belongs to
+the training layers (A11), so the configs carry no ``sequence_parallel``.
 """
 
 from __future__ import annotations
@@ -45,6 +47,10 @@ from neuronx_distributed_tpu_torch.models.llama import (
     run_layers,
 )
 from neuronx_distributed_tpu_torch.parallel.layers import ParallelEmbedding
+from neuronx_distributed_tpu_torch.parallel.mappings import (
+    gather_from_tensor_parallel_region,
+)
+from neuronx_distributed_tpu_torch.parallel.mesh import TensorParallel
 from neuronx_distributed_tpu_torch.parallel.norm import RMSNorm
 from neuronx_distributed_tpu_torch.utils.device import resolve_device
 
@@ -219,6 +225,7 @@ class _TiedDecoder(nn.Module):
         super().__init__()
         device = resolve_device(device)
         self.config = cfg
+        self.tp = TensorParallel.current()
         bcfg = blocks[0][1]
         self.embed = ParallelEmbedding(cfg.vocab_size, cfg.hidden_size,
                                        bcfg.dtype, device, bcfg.weight_dtype)
@@ -277,8 +284,17 @@ class _TiedDecoder(nn.Module):
                               segment_ids)
 
     def head(self, h):
-        """Logits for a (chunk of) hidden states through the tied table."""
+        """Logits for a (chunk of) hidden states through the tied table:
+        this rank's vocab slice ``[..., V / tp]``."""
         return self.embed.attend(h)
+
+    def gather_logits(self, logits):
+        """The full vocab ``[..., V]`` from every rank's slice (the
+        identity when the model was built at tp = 1): what a sampler
+        reads."""
+        if self.tp.size == 1:
+            return logits
+        return gather_from_tensor_parallel_region(logits, self.tp.group)
 
 
 class GemmaForCausalLM(_TiedDecoder):
@@ -297,9 +313,20 @@ class Gemma2ForCausalLM(_TiedDecoder):
         super().__init__(cfg, [(Gemma2Block, cfg.block_config(i % 2 == 0))
                                for i in range(cfg.num_layers)], device)
 
-    def head(self, h):
-        logits = self.embed.attend(h)
+    def _final_softcap(self, logits):
         cap = self.config.final_softcap
         if cap:
             logits = (cap * torch.tanh(logits.float() / cap)).to(logits.dtype)
         return logits
+
+    def head(self, h):
+        """The tied head's logits, softcapped at tp = 1; a shard's slice
+        comes back uncapped and :meth:`gather_logits` caps the full
+        vocab."""
+        logits = self.embed.attend(h)
+        return self._final_softcap(logits) if self.tp.size == 1 else logits
+
+    def gather_logits(self, logits):
+        if self.tp.size == 1:
+            return logits
+        return self._final_softcap(super().gather_logits(logits))

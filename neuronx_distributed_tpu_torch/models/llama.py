@@ -30,7 +30,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from neuronx_distributed_tpu_torch.kvcache.allocator import NULL_PAGE
-from neuronx_distributed_tpu_torch.kvcache.quant import dequantize_page, quantize_page
+from neuronx_distributed_tpu_torch.kvcache.quant import (
+    dequantize_page,
+    page_ranges,
+    quantize_page,
+)
 from neuronx_distributed_tpu_torch.models.common import maybe_remat
 from neuronx_distributed_tpu_torch.ops.flash_attention import (
     band_mask,
@@ -43,6 +47,10 @@ from neuronx_distributed_tpu_torch.parallel.layers import (
     ParallelEmbedding,
     RowParallelLinear,
 )
+from neuronx_distributed_tpu_torch.parallel.mappings import (
+    gather_from_tensor_parallel_region,
+)
+from neuronx_distributed_tpu_torch.parallel.mesh import TensorParallel
 from neuronx_distributed_tpu_torch.parallel.norm import RMSNorm
 from neuronx_distributed_tpu_torch.parallel.qkv import GQAQKVColumnParallelLinear
 from neuronx_distributed_tpu_torch.utils.device import resolve_device
@@ -328,34 +336,44 @@ def _plan_requant(block_table, cache_offset, kv_valid, n_new: int,
             src.reshape(-1, page))
 
 
-def _requant_paged(kv_cache: KVCache, k, v, paged: PagedStep) -> None:
+def _requant_paged(kv_cache: KVCache, k, v, paged: PagedStep,
+                   group=None) -> None:
     """Quantize-on-write for any number of new tokens: gather each page
     slot :func:`_plan_requant` planned, dequantize it to fp32, insert its
     hot new cells, requantize the whole page and write back codes, scale
     and zero; a slot that is not live writes back what it read.  Decode,
     verify and chunk writes touch only pages their slot owns alone (shared
     prefix pages are prompt pages, never written), so the live pages are
-    distinct and the read-modify-write needs no atomics."""
+    distinct and the read-modify-write needs no atomics.  A
+    tensor-parallel shard (``group``) takes each page's range over every
+    rank's heads, k and v in one all-reduce."""
     ck, cv, ks, kz, vs, vz = kv_cache
     pages, hot = paged.rmw_pages, paged.rmw_hot
     live = hot.any(dim=1)
+    olds, pgs = [], []
     for cq, sc, zp, new in ((ck, ks, kz, k), (cv, vs, vz, v)):
         flat = new.reshape(-1, *new.shape[2:])
         old = cq[pages], sc[pages], zp[pages]
-        pg = dequantize_page(*old)
-        pg = torch.where(hot[..., None, None], flat[paged.rmw_src].float(),
-                         pg)
-        q2, s2, z2 = quantize_page(pg)
+        olds.append(old)
+        pgs.append(torch.where(hot[..., None, None],
+                               flat[paged.rmw_src].float(),
+                               dequantize_page(*old)))
+    ranges = page_ranges(pgs, group)
+    for (cq, sc, zp), old, pg, stats in zip(
+            ((ck, ks, kz), (cv, vs, vz)), olds, pgs, ranges):
+        q2, s2, z2 = quantize_page(pg, stats)
         cq[pages] = torch.where(live[:, None, None, None], q2, old[0])
         sc[pages] = torch.where(live, s2, old[1])
         zp[pages] = torch.where(live, z2, old[2])
 
 
-def _scatter_paged(kv_cache: KVCache, k, v, paged: PagedStep) -> None:
+def _scatter_paged(kv_cache: KVCache, k, v, paged: PagedStep,
+                   group=None) -> None:
     """Write the new tokens into the pool in place, at the cells
-    :func:`plan_paged_step` chose (an int8 pool requantizes its pages)."""
+    :func:`plan_paged_step` chose (an int8 pool requantizes its pages,
+    over ``group``'s shards of each page)."""
     if len(kv_cache) == 6:
-        _requant_paged(kv_cache, k, v, paged)
+        _requant_paged(kv_cache, k, v, paged, group)
         return
     hot = paged.keep[..., None, None]
     for c, new in zip(kv_cache, (k, v)):
@@ -418,7 +436,7 @@ class LlamaAttention(nn.Module):
             per_slot = isinstance(cache_offset, torch.Tensor) \
                 and cache_offset.ndim == 1
             if paged is not None:
-                _scatter_paged(kv_cache, k, v, paged)
+                _scatter_paged(kv_cache, k, v, paged, self.qkv.tp.group)
             elif per_slot:
                 ck, cv = kv_cache
                 # per-slot write positions: a masked select over the time
@@ -594,6 +612,7 @@ class LlamaForCausalLM(nn.Module):
         super().__init__()
         device = resolve_device(device)
         self.config = cfg
+        self.tp = TensorParallel.current()
         self.model = LlamaModel(cfg, device)
         self.lm_head = ColumnParallelLinear(cfg.hidden_size, cfg.vocab_size,
                                             use_bias=False, dtype=cfg.dtype,
@@ -632,5 +651,14 @@ class LlamaForCausalLM(nn.Module):
                           segment_ids)
 
     def head(self, h):
-        """Logits for a (chunk of) hidden states."""
+        """Logits for a (chunk of) hidden states: this rank's vocab slice
+        ``[..., V / tp]``."""
         return self.lm_head(h)
+
+    def gather_logits(self, logits):
+        """The full vocab ``[..., V]`` from every rank's slice (the
+        identity when the model was built at tp = 1): what a sampler
+        reads."""
+        if self.tp.size == 1:
+            return logits
+        return gather_from_tensor_parallel_region(logits, self.tp.group)

@@ -87,6 +87,18 @@ ignored.
   scheduler's state, shapes): telemetry adds no host sync, no kernel and
   no CUDA-graph input on the steady path.
 
+- Tensor parallelism: over a model built at tp > 1 (each rank holds its
+  shard of the weights and of the pool), every rank runs this engine in
+  lockstep.  The caller makes the same calls on every rank in the same
+  order (a ``torchrun`` script does), the clock is rank 0's, agreed in
+  one all-reduce a reading (:class:`~.lockstep.LockstepClock`, which also
+  raises when the ranks' calls differ), and every rank samples the same
+  tokens from the same gathered logits, so every rank returns the same
+  outputs.  Tensor-parallel rank 0 alone writes ``stats_path`` and flight
+  dumps; the other ranks keep their registries in memory.  CUDA graphs
+  are off (ROADMAP A9a), and the fleet's surface below stays at tp = 1
+  (A9d).
+
 - The fleet's surface (:mod:`.fleet`): :meth:`ServingEngine.withdraw`
   (a migration's hop), :meth:`~ServingEngine.export_prefix` and
   :meth:`~ServingEngine.import_prefix` (page chains in and out of the
@@ -128,8 +140,10 @@ from neuronx_distributed_tpu_torch.obs import MS_BUCKETS, MetricRegistry
 from neuronx_distributed_tpu_torch.obs.memory_ledger import tree_bytes
 from neuronx_distributed_tpu_torch.obs.transfer_audit import TransferAudit, allow_sync
 from neuronx_distributed_tpu_torch.ops.paged_attention import resolve_paged_kernel
+from neuronx_distributed_tpu_torch.parallel import mesh
 from neuronx_distributed_tpu_torch.resilience.faults import fault_point, perturb
 from neuronx_distributed_tpu_torch.serving.driver import replay as driver_replay
+from neuronx_distributed_tpu_torch.serving.lockstep import LockstepClock
 from neuronx_distributed_tpu_torch.serving.paged import PagedKVManager
 from neuronx_distributed_tpu_torch.serving.request import (
     PRIORITIES,
@@ -475,7 +489,27 @@ class ServingEngine:
         if spec_k < 0:
             raise ValueError(f"spec_k must be >= 0, got {spec_k}")
         cfg = model.config
+        tp = getattr(model, "tp", None)
+        self.tp_size = tp.size if tp is not None else 1
+        # tensor-parallel rank 0 writes the engine's files; every rank's
+        # clock is rank 0's (see the module docstring)
+        self.primary = tp is None or tp.rank == 0
+        self.lockstep: Optional[LockstepClock] = None
+        if self.tp_size > 1:
+            group = mesh.get_tensor_parallel_cpu_group()
+            if group is None:
+                raise RuntimeError(
+                    "a model built at tensor-parallel degree > 1 needs the "
+                    "parallel state it was built in "
+                    "(initialize_model_parallel)")
+            self.lockstep = clock = LockstepClock(clock, group)
         if draft is not None:
+            dtp = getattr(draft, "tp", None)
+            if (dtp.size if dtp is not None else 1) != self.tp_size:
+                raise ValueError(
+                    f"draft tensor-parallel degree "
+                    f"{dtp.size if dtp is not None else 1} != the target's "
+                    f"{self.tp_size}")
             dcfg = draft.config
             for f in ("batch_size", "context_len", "max_total_len"):
                 if getattr(dcfg, f) != getattr(cfg, f):
@@ -705,6 +739,12 @@ class ServingEngine:
         deadline is dead under the current load (``shed_infeasible``),
         ``BackpressureError`` when the bounded queue is full, ``ValueError``
         for a sampled request on a seedless engine."""
+        if self.lockstep is not None:
+            sp = request.sampling
+            self.lockstep.note(
+                "submit", request.request_id, tuple(request.prompt_ids),
+                request.max_new_tokens, sp.temperature, sp.top_k, sp.top_p,
+                request.priority, request.deadline_s, request.adapter_id)
         if request.sampling.temperature > 0.0 and self._seed is None:
             raise ValueError(
                 f"request {request.request_id} samples (temperature "
@@ -755,6 +795,8 @@ class ServingEngine:
             self.tracer.end(root, t=self._clock(), **attrs)
 
     def cancel(self, request_id: int) -> bool:
+        if self.lockstep is not None:
+            self.lockstep.note("cancel", request_id)
         return self.scheduler.cancel(request_id)
 
     @property
@@ -778,6 +820,7 @@ class ServingEngine:
         here.  Its committed prompt chain survives through the prefix
         index's own references (the one a migration exports).  Raises
         ``KeyError`` for an id this engine does not hold."""
+        self._tp1_only("withdraw")
         now = self._clock()
         # the open compute phase ends before the scheduler forgets the
         # request (a queued withdrawal's wait span is the scheduler's)
@@ -801,6 +844,13 @@ class ServingEngine:
             self._perf_t0.pop(request_id, None)
         return req
 
+    def _tp1_only(self, what: str) -> None:
+        if self.tp_size > 1:
+            raise NotImplementedError(
+                f"{what} at tensor-parallel degree {self.tp_size}: the "
+                "fleet's surface (migration, page-chain transfer, weight "
+                "swaps) is not ported to tp > 1 yet (ROADMAP A9d)")
+
     def export_prefix(self, fingerprint: int) -> Optional[ChainExport]:
         """Serialize the committed chain whose terminal fingerprint is
         ``fingerprint`` out of this engine's prefix index (the donor half of
@@ -811,6 +861,7 @@ class ServingEngine:
         small asynchronous upload of the page ids and ONE synchronizing
         device-to-host copy of the packed rows and payload, booked as one
         explicit fetch (allowed under ``forbid``)."""
+        self._tp1_only("export_prefix")
         if self._kv.index is None:
             return None
         hit = self._kv.index.find_fingerprint(fingerprint)
@@ -835,6 +886,7 @@ class ServingEngine:
         the packed rows and payload and a small one of the destination
         page ids, booked as one explicit put.  Returns the pages copied in
         (0 = already fully cached here)."""
+        self._tp1_only("import_prefix")
         if self._kv.index is None:
             raise TransferError(
                 "engine has no prefix index; cannot import a chain")
@@ -884,6 +936,7 @@ class ServingEngine:
         Then the prefix cache is flushed (cached KV and full-hit logits
         are the outgoing weights'), the version bumps, and the memory
         ledger accounts the live parameters."""
+        self._tp1_only("install_params")
         if self.shares_model:
             self._move_to_private_model(params)
         else:
@@ -1092,9 +1145,10 @@ class ServingEngine:
             self._health.on_step(now=self._clock())
 
     def dump_flight(self, reason: str) -> Optional[str]:
-        """Persist the per-step flight ring (with an ``obs`` hub); the
-        crash-evidence path ``replay_trace`` takes."""
-        if self.obs is not None:
+        """Persist the per-step flight ring (with an ``obs`` hub, on
+        tensor-parallel rank 0); the crash-evidence path ``replay_trace``
+        takes."""
+        if self.obs is not None and self.primary:
             return self.obs.dump_flight(reason)
         return None
 
@@ -1890,9 +1944,8 @@ class ServingEngine:
 
     def _write_stats(self, req: Request, out: RequestOutput) -> None:
         """One ``serving_stats/6`` record (the file opens at the first,
-        and every record is flushed)."""
-        if self._stats_f is None:
-            self._stats_f = open(self._stats_path, "a")
+        and every record is flushed).  Every tensor-parallel rank builds
+        the record, with its clock reading; rank 0 alone writes it."""
         rec = {
             "schema": SERVING_STATS_SCHEMA,
             "time": time.time(),
@@ -1921,6 +1974,10 @@ class ServingEngine:
             "trace_id": out.trace_id,
             "weights_version": out.weights_version,
         }
+        if not self.primary:
+            return
+        if self._stats_f is None:
+            self._stats_f = open(self._stats_path, "a")
         self._stats_f.write(json.dumps(rec) + "\n")
         self._stats_f.flush()
 

@@ -163,6 +163,13 @@ class FleetRouter:
         ids = [r.replica_id for r in replicas]
         if len(set(ids)) != len(ids):
             raise ValueError(f"duplicate replica ids: {sorted(ids)}")
+        for r in replicas:
+            tp = getattr(r.engine, "tp_size", 1)
+            if tp > 1:
+                raise NotImplementedError(
+                    f"replica {r.replica_id} serves at tensor-parallel "
+                    f"degree {tp}: a fleet of tp > 1 replicas is not ported "
+                    "yet (ROADMAP A9d)")
         self.replicas: Dict[int, Replica] = {r.replica_id: r for r in replicas}
         self.policy = make_policy(policy, seed=seed)
         self.alloc = RequestIdAllocator(namespace)

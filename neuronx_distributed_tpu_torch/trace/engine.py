@@ -26,12 +26,13 @@ from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from neuronx_distributed_tpu_torch.kvcache.quant import quantize_page
+from neuronx_distributed_tpu_torch.kvcache.quant import page_ranges, quantize_page
 from neuronx_distributed_tpu_torch.obs.transfer_audit import allow_sync
 from neuronx_distributed_tpu_torch.ops.paged_attention import (
     paged_attention,
     resolve_paged_kernel,
 )
+from neuronx_distributed_tpu_torch.parallel.mesh import TensorParallel
 from neuronx_distributed_tpu_torch.utils import profiling
 from neuronx_distributed_tpu_torch.utils.device import resolve_device
 
@@ -153,16 +154,24 @@ def init_kv_caches(num_layers: int, batch_size: int, max_total_len: int,
             for _ in range(num_layers)]
 
 
-def resolve_cuda_graphs(flag, device) -> bool:
+def resolve_cuda_graphs(flag, device, tp_size: int = 1) -> bool:
     """Resolve the ``cuda_graphs`` knob (``"auto"`` | ``True`` |
     ``False``): auto captures on a CUDA device and runs eagerly on the
-    CPU; ``True`` on the CPU raises (a graph is a CUDA object)."""
+    CPU; ``True`` on the CPU raises (a graph is a CUDA object).  At
+    tensor-parallel degree > 1 the phases run collectives, which gloo
+    cannot capture and one card cannot test under NCCL: auto resolves to
+    off and ``True`` raises."""
     if flag in ("auto", None):
-        return torch.device(device).type == "cuda"
+        return torch.device(device).type == "cuda" and tp_size == 1
     if flag is True or flag is False:
         if flag and torch.device(device).type != "cuda":
             raise ValueError(f"cuda_graphs=True needs a CUDA device, got "
                              f"{device}")
+        if flag and tp_size > 1:
+            raise NotImplementedError(
+                f"cuda_graphs=True at tensor-parallel degree {tp_size}: "
+                "capturing the phases' collectives is not ported yet "
+                "(ROADMAP A9a, graphs over NCCL at tp > 1)")
         return flag
     raise ValueError(f"cuda_graphs must be 'auto', True or False, got "
                      f"{flag!r}")
@@ -400,7 +409,11 @@ class ParallelInferenceModel(_ServingBase):
     def __init__(self, module, config: InferenceConfig, paged_kernel="auto",
                  device=None, cuda_graphs="auto", compile_ledger=None):
         self.device = resolve_device(device)
-        self.cuda_graphs = resolve_cuda_graphs(cuda_graphs, self.device)
+        # the tensor-parallel context the module was built in: this rank
+        # holds NKV / tp heads of the pool and V / tp of the logits
+        self.tp = getattr(module, "tp", None) or TensorParallel()
+        self.cuda_graphs = resolve_cuda_graphs(cuda_graphs, self.device,
+                                               self.tp.size)
         self.graphs = PhaseGraphs(capture=self.cuda_graphs)
         self.compile_ledger = compile_ledger
         self.perf = None
@@ -409,9 +422,17 @@ class ParallelInferenceModel(_ServingBase):
         self.config = config
         mcfg = module.config
         self.num_layers = mcfg.num_layers
-        self.num_kv_heads = mcfg.num_kv_heads
+        self.num_kv_heads = self.tp.shard(mcfg.num_kv_heads, "kv heads")
         self.head_dim = mcfg.head_dim_
         self.paged_kernel = resolve_paged_kernel(paged_kernel, self.device)
+
+    def _full(self, logits):
+        """The full-vocab logits from this rank's slice (all-gathered at
+        tp > 1, after the last position is cut): every rank samples the
+        same tokens from them with the same generators."""
+        if self.tp.size == 1:
+            return logits
+        return self.module.gather_logits(logits)
 
     def empty_caches(self, batch_size: Optional[int] = None):
         cfg = self.config
@@ -438,7 +459,7 @@ class ParallelInferenceModel(_ServingBase):
         caches = self.empty_caches(B)
         logits, caches = self.module(ids, positions, caches, 0,
                                      kv_valid=kv_valid, adapters=adapters)
-        return logits[:, -1, :], caches
+        return self._full(logits[:, -1, :]), caches
 
     def prefill_one(self, ids, valid):
         """Single-request prefill ``[1, C] -> (logits [1, V], caches B=1)``:
@@ -459,7 +480,7 @@ class ParallelInferenceModel(_ServingBase):
         positions = before.sum(dim=1, keepdim=True)
         logits, caches = self.module(tok, positions, caches, offset,
                                      kv_valid=valid)
-        return logits[:, -1, :], caches, valid
+        return self._full(logits[:, -1, :]), caches, valid
 
     def decode_slots(self, tok, offsets, caches, valid, apool=None,
                      atables=None):
@@ -496,7 +517,7 @@ class ParallelInferenceModel(_ServingBase):
         logits, _ = self.module(tok, positions, caches, offsets,
                                 kv_valid=valid,
                                 adapters=self._gather_adapters(apool, atables))
-        return logits[:, -1, :]
+        return self._full(logits[:, -1, :])
 
     @torch.no_grad()
     def _score_chunk(self, toks, offset: int, caches, valid):
@@ -511,7 +532,7 @@ class ParallelInferenceModel(_ServingBase):
         positions = counts[:, offset:offset + S]
         logits, caches = self.module(toks, positions, caches, offset,
                                      kv_valid=valid)
-        return logits, caches, valid
+        return self._full(logits), caches, valid
 
     def score_chunk(self, ids, offset: int, caches, valid):
         """Score ``ids [B, S]`` written at the scalar cache index ``offset``
@@ -577,7 +598,7 @@ class ParallelInferenceModel(_ServingBase):
             adapters=self._gather_adapters(apool, atables))
         if last_only:
             logits = logits[:, -1, :]
-        return logits, caches, valid
+        return self._full(logits), caches, valid
 
     def _paged_phase(self, name: str, toks, offsets, block_table, caches,
                      valid, paged_kernel, last_only: bool, apool=None,
@@ -701,9 +722,21 @@ class ParallelInferenceModel(_ServingBase):
         layout = self._adapter_layout
         B = atables.shape[0]
         flat = apool[atables.long()].reshape(B, -1)  # [B, AP * page_elems]
-        return [tuple(flat[:, off:off + shape[0] * shape[1]].view(B, *shape)
-                      for _, off, shape in entries)
-                for entries in layout.layer_entries()]
+        out = [tuple(flat[:, off:off + shape[0] * shape[1]].view(B, *shape)
+                     for _, off, shape in entries)
+               for entries in layout.layer_entries()]
+        if self.tp.size > 1:
+            # the pool is replicated (the full factors); a rank's q/v
+            # projections are its head blocks, so it takes its columns of
+            # b_q and b_v
+            out = [(a_q, self._tp_columns(b_q), a_v, self._tp_columns(b_v))
+                   for a_q, b_q, a_v, b_v in out]
+        return out
+
+    def _tp_columns(self, b: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of the last dim of ``b`` (a view)."""
+        n = self.tp.shard(b.shape[-1], "adapter columns")
+        return b.narrow(-1, self.tp.rank * n, n)
 
     def prefill_one_lora(self, ids, valid, apool, atable):
         """:meth:`prefill_one` under the request's adapter (``atable [1,
@@ -725,6 +758,7 @@ class ParallelInferenceModel(_ServingBase):
         the chunk scatter's valid-masked write gives, so chunked and whole
         int8 prefills quantize the same pages.  An fp pool ignores
         ``row_valid``."""
+        quantized = []  # (codes, scale, zero, page) of an int8 pool
         for entry, (rk, rv) in zip(caches, row_caches):
             page = entry[0].shape[1]
             lo = logical_page * page
@@ -740,8 +774,14 @@ class ParallelInferenceModel(_ServingBase):
                 chunk = r[0, lo:lo + page]
                 if keep is not None:
                     chunk = chunk * keep[:, None, None].to(chunk.dtype)
-                cq[phys_page], sc[phys_page], zp[phys_page] = \
-                    quantize_page(chunk)
+                quantized.append((cq, sc, zp, chunk))
+        # a shard's page range is over every rank's heads: one all-reduce
+        # for every layer's k and v at tp > 1
+        ranges = (page_ranges([q[3] for q in quantized], self.tp.group)
+                  if quantized else [])
+        for (cq, sc, zp, chunk), stats in zip(quantized, ranges):
+            cq[phys_page], sc[phys_page], zp[phys_page] = \
+                quantize_page(chunk, stats)
         return caches
 
     @torch.no_grad()

@@ -1,6 +1,7 @@
 """PyTorch port: import boundaries and device defaults.
 
-The port and ``chip_smoke.py`` import ``torch`` and never ``jax``,
+The port, ``chip_smoke.py`` and the port's ``tools/torch_*.py`` scripts
+import ``torch`` and never ``jax``,
 ``flax`` or the JAX package (``neuronx_distributed_tpu``): an AST scan of
 every file shows it, and a subprocess that blocks those modules imports
 every port module.  Entry points called without ``device=`` run on CUDA
@@ -37,6 +38,9 @@ FORBIDDEN = ("jax", "flax", "neuronx_distributed_tpu")
 
 def _port_files():
     files = [os.path.join(REPO, "chip_smoke.py")]
+    tools = os.path.join(REPO, "tools")
+    files += [os.path.join(tools, n) for n in sorted(os.listdir(tools))
+              if n.startswith("torch_") and n.endswith(".py")]
     for root, _, names in os.walk(PKG):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return files
@@ -149,7 +153,7 @@ def test_walk_covers_the_slice():
                 "resilience.supervisor", "obs", "obs.registry",
                 "obs.schemas", "obs.flight", "obs.tracing",
                 "obs.transfer_audit", "obs.metrics_server",
-                "utils.timeline") + PART2_MODULES + FLEET_MODULES:
+                "utils.timeline") + PART2_MODULES + FLEET_MODULES + TP_MODULES:
         assert f"neuronx_distributed_tpu_torch.{mod}" in names
 
 
@@ -169,6 +173,16 @@ FLEET_MODULES = ("serving.fleet", "serving.fleet.replica",
                  "serving.fleet.disagg.directory",
                  "serving.fleet.disagg.router", "kvcache.transfer",
                  "weights", "weights.swapper")
+
+
+# ROADMAP A9 with A10's parallel state: tensor-parallel serving
+TP_MODULES = ("utils.common", "utils.distributed", "parallel.mesh",
+              "parallel.mappings", "serving.lockstep")
+
+
+@pytest.mark.parametrize("mod", TP_MODULES)
+def test_tp_module_imports_no_jax(mod):
+    _check_module(mod)
 
 
 @pytest.mark.parametrize("mod", PART2_MODULES)
