@@ -136,7 +136,15 @@ remat: the flash kernels at D = 256), with flash vs dense held on a 2-layer
 cut.  Phase 5b serves 8 requests through ``ServingEngine`` on Gemma-2-2B
 with random bf16 weights (the decode kernel at D = 256 with the softcap),
 counts launches by route, checks page accounting and compares kernel and gather
-logits.  A device time below the least time its work needs fails the run.
+logits.  Phase 6 pretrains GPT-NeoX at GPT-NeoX-20B's width cut to 4 layers
+(1 x 2048, selective remat) and BERT-large at full depth (16 x 512, 15 %
+MLM masking, NSP, dropout 0.1 from a step generator) through the trainer's
+entry points on the dense attention core: falling, finite losses, tokens/s,
+MFU, peak memory, busy share and top device ops for each, a bf16 forward
+held against the fp32 forward of the same weights on a 2-layer cut, and
+BERT's dropout invariants (one seed, one loss; no generator,
+deterministic).  A device time below the least time its work needs fails
+the run.
 
 Any failed check exits non-zero without the result line.  The line before
 the last is ``{"kernels": [...]}``; the last is ``{"ok": true, "device":
@@ -5386,14 +5394,17 @@ def flash_vs_dense(label, model_cls, cfg, state, loss_fn, batch,
 
 
 def train_steps(label, config, model, loss_fn, batch, fwd_per_layer,
-                flash_entries) -> dict:
+                flash_entries, generator=None, flops=None) -> dict:
     """The training main path after ``initialize_parallel_model``: the
     optimizer, ``make_train_step``, WARMUP_STEPS + TIMED_STEPS steps on
-    ``batch`` with every launch count set to 0 first.  Checks finite and
-    falling losses and the flash launches (``fwd_per_layer`` forwards, one
-    dq and one dk/dv per layer and step; written into ``flash_entries``),
-    then reports tokens/s, MFU, peak memory and where a profiled step's
-    device time goes."""
+    ``batch`` (each given ``generator``, the dropout stream) with every
+    launch count set to 0 first.  Checks finite and falling losses and the
+    flash launches (``fwd_per_layer`` forwards, one dq and one dk/dv per
+    layer and step; written into ``flash_entries``; None: the path runs
+    the dense core, so no flash launch at all), then reports tokens/s, MFU
+    (``flops``: ``(flops_per_token, formula)``, default the Llama family's
+    ``transformer_flops_per_token``), peak memory and where a profiled
+    step's device time goes."""
     import torch
 
     from neuronx_distributed_tpu_torch.ops import flash_attention as fa
@@ -5408,7 +5419,11 @@ def train_steps(label, config, model, loss_fn, batch, fwd_per_layer,
     cfg = model.module.config
     Bt, St = batch["ids"].shape
     opt = initialize_parallel_optimizer(config, model)
-    step = make_train_step(config, model, opt, loss_fn)
+    train = make_train_step(config, model, opt, loss_fn)
+
+    def step(b):
+        return train(b, generator)
+
     torch.cuda.reset_peak_memory_stats()
     # the main path: every launch count from 0 over the 12 steps
     for fn in (fa.flash_attention_fwd, fa.flash_attention_dq,
@@ -5434,13 +5449,17 @@ def train_steps(label, config, model, loss_fn, batch, fwd_per_layer,
     norms = [x.item() for x in norms]
     peak = torch.cuda.max_memory_allocated()
     tok_s = Bt * St * TIMED_STEPS / wall
-    fpt = transformer_flops_per_token(
-        cfg.num_layers, cfg.hidden_size, cfg.intermediate_size,
-        cfg.vocab_size, St, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_)
+    if flops is None:
+        flops = (transformer_flops_per_token(
+            cfg.num_layers, cfg.hidden_size, cfg.intermediate_size,
+            cfg.vocab_size, St, cfg.num_heads, cfg.num_kv_heads,
+            cfg.head_dim_), "6N + attention")
+    fpt, formula = flops
     util = mfu(tok_s, fpt, PEAK_FLOPS["bfloat16"])
     L = cfg.num_layers
-    want = {"fwd": steps * L * fwd_per_layer, "dq": steps * L,
-            "dkv": steps * L}
+    want = ({w: 0 for w in FLASH_KERNELS} if fwd_per_layer is None else
+            {"fwd": steps * L * fwd_per_layer, "dq": steps * L,
+             "dkv": steps * L})
     log(f"{label}: {steps} steps at batch {Bt} x {St}, remat {cfg.remat}, "
         f"lr {config.optimizer.learning_rate}, clip "
         f"{config.optimizer.max_grad_norm}: losses "
@@ -5448,10 +5467,11 @@ def train_steps(label, config, model, loss_fn, batch, fwd_per_layer,
         + ", ".join(f"{x:.3f}" for x in norms))
     log(f"{label}: {TIMED_STEPS} timed steps in {wall:.3f} s = "
         f"{wall / TIMED_STEPS * 1e3:.1f} ms/step, {tok_s:.1f} tokens/s, "
-        f"MFU {util:.4f} ({fpt / 1e9:.3f} GFLOP/token, 6N + attention, "
+        f"MFU {util:.4f} ({fpt / 1e9:.3f} GFLOP/token, {formula}, "
         f"against 989 TFLOP/s bf16); peak memory {peak / 2**30:.2f} GiB; "
-        f"launches {launches}, expected {want} ({steps} steps x {L} layers, "
-        f"{fwd_per_layer} forward(s) per layer under remat {cfg.remat})")
+        f"flash launches {launches}, expected {want} ({steps} steps x {L} "
+        f"layers, {fwd_per_layer} forward(s) per layer under remat "
+        f"{cfg.remat})")
     if not all(math.isfinite(x) for x in losses + norms):
         raise AssertionError(f"non-finite loss or grad norm: {losses}")
     if not losses[-1] < losses[0]:
@@ -5459,7 +5479,8 @@ def train_steps(label, config, model, loss_fn, batch, fwd_per_layer,
     if launches != want:
         raise AssertionError(f"flash launches {launches}, expected {want}")
     for w, n in launches.items():
-        flash_entries[w]["launches"] = n
+        if flash_entries is not None:
+            flash_entries[w]["launches"] = n
 
     # where a step's device time goes
     prof_wall = []
@@ -5488,16 +5509,18 @@ def train_steps(label, config, model, loss_fn, batch, fwd_per_layer,
     top = sorted(events, key=dev_us, reverse=True)[:8]
     log(f"{label} profiled step: {prof_ms:.1f} ms wall, device busy "
         f"{busy_ms:.1f} ms ({busy_ms / prof_ms:.1%}), flash kernels "
-        f"{flash_ms:.2f} ms ({flash_ms / busy_ms:.1%} of device time): "
-        + ", ".join(f"{w} ({FLASH_KERNELS[w][1]}) {ms:.2f} ms"
-                    for w, ms in flash_by.items()) + " per step")
+        f"{flash_ms:.2f} ms ({flash_ms / busy_ms:.1%} of device time)"
+        + ("" if fwd_per_layer is None else ": " + ", ".join(
+            f"{w} ({FLASH_KERNELS[w][1]}) {ms:.2f} ms"
+            for w, ms in flash_by.items()) + " per step"))
     log(f"{label} top device time per step: " + "; ".join(
         f"{e.key[:60]} {dev_us(e) / 1e3 / 2:.2f} ms" for e in top))
-    del opt, step
+    del opt, train, step
     return {"layers": L, "params": model.num_parameters(), "steps": steps,
             "batch": [Bt, St], "remat": cfg.remat, "losses": losses,
             "grad_norms": norms, "step_ms": wall / TIMED_STEPS * 1e3,
             "tok_s": tok_s, "mfu": util, "flops_per_token": fpt,
+            "flops_formula": formula,
             "peak_gib": peak / 2**30, "profiled_step_ms": prof_ms,
             "device_busy_ms": busy_ms, "device_busy_share": busy_ms / prof_ms,
             "flash_ms": flash_ms, "flash_ms_by_kernel": flash_by,
@@ -5766,6 +5789,234 @@ def phase5b(entries):
             "adapters": {"wall_s": d_wall, "launches_by_route": d_routes}}
 
 
+# -- phase 6 ------------------------------------------------------------------
+
+# GPT-NeoX-20B's width (hidden 6144, 64 heads of head_dim 96, MLP 24576,
+# vocab 50432, 24 of 96 dims rotated) cut to NEOX_LAYERS layers, batch 1 x
+# 2048 (max_seq_len), the JAX default remat "selective"; BERT-large at full
+# depth (24 post-LN layers, hidden 1024), batch 16 x 512 with 15 % of the
+# tokens masked as examples/training/bert_pretrain.py builds its batches
+# (ids from 999 up, [MASK] = 103), NSP labels, dropout 0.1 drawn from a
+# step generator
+NEOX_LAYERS, NEOX_B, NEOX_S = 4, 1, 2048
+BERT_B, BERT_S, BERT_MASK_PROB, BERT_MASK_ID, BERT_LOW_ID = 16, 512, 0.15, 103, 999
+# the bf16 forward against the fp32 forward of the same weights, both on the
+# card, on the width cut to 2 layers: the largest relative L2 difference of
+# an output (logits; BERT's MLM and NSP logits).  bf16 rounds each of ~8
+# products and norms a layer to 2^-9 relative; through 2 layers and the head
+# that is ~1e-2; a wrong cast or a dropped fp32 widening gives far more
+BF16_FWD_REL_TOL = 5e-2
+# dropout: one seed gives one loss (the forward has no atomics), to this
+# relative difference; another seed, or no generator, moves the loss by
+# more than DROPOUT_MOVES_RTOL (a 10 % mask changes a 24-layer loss by far
+# more)
+DROPOUT_SAME_RTOL, DROPOUT_MOVES_RTOL = 1e-6, 1e-4
+
+
+def dense_flops_per_token(L, H, I, V, S, extra=0.0) -> float:
+    """Training FLOPs a token of a GPT-NeoX or BERT layer stack, 3x the
+    forward's matmul FLOPs (remat's recompute not counted): a layer's fused
+    QKV 6H^2 and output projection 2H^2, its two-matmul MLP 4HI and its
+    dense attention core 4SH (QK^T and PV over all S keys, 4 B S^2 H a
+    layer over the batch; the causal half not discounted), then the head
+    2HV and ``extra``."""
+    return 3.0 * (L * (8 * H * H + 4 * H * I + 4 * S * H) + 2 * H * V
+                  + extra)
+
+
+def bf16_vs_fp32(label, model_cls, cfg, forward) -> list:
+    """``forward(model)`` (a tuple of outputs) of ``cfg`` cut to 2 layers,
+    once in fp32 and once in bf16 compute over the same fp32 weights, on
+    the card; fails beyond :data:`BF16_FWD_REL_TOL` or on a non-finite
+    output.  Returns the relative L2 difference of each output."""
+    import dataclasses
+
+    import torch
+
+    two = dataclasses.replace(cfg, num_layers=2, remat="none")
+    model = model_cls(dataclasses.replace(two, dtype=torch.float32),
+                      device="cuda").init_random(SEED)
+    with torch.no_grad():
+        ref = [x.float() for x in forward(model)]
+    state = model.state_dict()
+    del model
+    model = model_cls(dataclasses.replace(two, dtype=torch.bfloat16),
+                      device="cuda")
+    model.load_state_dict(state)
+    with torch.no_grad():
+        out = forward(model)
+    del model, state
+    rel = [((o.float() - r).norm() / r.norm()).item()
+           for o, r in zip(out, ref)]
+    finite = all(torch.isfinite(o).all().item() for o in out)
+    log(f"{label}: bf16 forward vs fp32 forward of the same weights, width "
+        f"cut to 2 layers: relative L2 " + ", ".join(
+            f"{tuple(o.shape)} {o.dtype} {r:.3e}" for o, r in zip(out, rel))
+        + f" (tol {BF16_FWD_REL_TOL}); finite {finite}")
+    if not finite or not max(rel) <= BF16_FWD_REL_TOL:
+        raise AssertionError(f"{label}: bf16 and fp32 forwards disagree: "
+                             f"{rel}, finite {finite}")
+    torch.cuda.empty_cache()
+    return rel
+
+
+def bert_batch(vocab: int, B_: int, S_: int, seed: int = SEED) -> dict:
+    """An MLM + NSP batch as examples/training/bert_pretrain.py builds one:
+    ids from BERT_LOW_ID up, 15 % of them replaced by [MASK] and labelled,
+    the rest labelled -100, random NSP labels."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    ids = rs.randint(BERT_LOW_ID, vocab, size=(B_, S_))
+    masked = rs.rand(B_, S_) < BERT_MASK_PROB
+    return {"ids": np.where(masked, BERT_MASK_ID, ids),
+            "mlm_labels": np.where(masked, ids, -100),
+            "nsp_labels": rs.randint(0, 2, size=(B_,))}
+
+
+def dropout_invariants(model, batch) -> dict:
+    """On the trained BERT: one generator seed gives one loss twice,
+    ``generator=None`` gives one loss twice, and another seed or no
+    generator moves the loss (dropout is on)."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.models.bert import pretraining_loss
+
+    dev = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
+
+    def loss_at(seed):
+        g = None if seed is None else torch.Generator().manual_seed(seed)
+        with torch.no_grad():
+            return pretraining_loss(model, dev, g).item()
+
+    got = {"seed1": loss_at(1), "seed1_again": loss_at(1),
+           "seed2": loss_at(2), "none": loss_at(None),
+           "none_again": loss_at(None)}
+
+    def rel(a, b):
+        return abs(got[a] - got[b]) / abs(got[b])
+
+    checks = {"same_seed_rel": rel("seed1_again", "seed1"),
+              "no_generator_rel": rel("none_again", "none"),
+              "other_seed_rel": rel("seed2", "seed1"),
+              "dropout_on_rel": rel("seed1", "none")}
+    log("phase6(b) dropout: losses " + ", ".join(
+        f"{k} {v:.6f}" for k, v in got.items()) + "; relative differences "
+        + ", ".join(f"{k} {v:.3e}" for k, v in checks.items())
+        + f" (same: <= {DROPOUT_SAME_RTOL}; moved: > {DROPOUT_MOVES_RTOL})")
+    if not (all(math.isfinite(v) for v in got.values())
+            and checks["same_seed_rel"] <= DROPOUT_SAME_RTOL
+            and checks["no_generator_rel"] <= DROPOUT_SAME_RTOL
+            and checks["other_seed_rel"] > DROPOUT_MOVES_RTOL
+            and checks["dropout_on_rel"] > DROPOUT_MOVES_RTOL):
+        raise AssertionError(f"dropout invariants broken: {got}")
+    return {"losses": got, **checks}
+
+
+def phase6():
+    """GPT-NeoX and BERT pretraining through the trainer's entry points
+    (ROADMAP A9e): (a) GPT-NeoX-20B's width cut to NEOX_LAYERS layers at 1
+    x 2048, (b) BERT-large at 16 x 512 with dropout under a step
+    generator.  Both run the dense attention core (no flash launch).  Each
+    holds a bf16 forward against the fp32 forward of the same weights on a
+    2-layer cut first."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from neuronx_distributed_tpu_torch.config import training_config
+    from neuronx_distributed_tpu_torch.models.bert import (
+        BertConfig,
+        BertForPreTraining,
+        pretraining_loss,
+    )
+    from neuronx_distributed_tpu_torch.models.common import (
+        make_causal_lm_loss_sum,
+    )
+    from neuronx_distributed_tpu_torch.models.gpt_neox import (
+        GPTNeoXConfig,
+        GPTNeoXForCausalLM,
+    )
+    from neuronx_distributed_tpu_torch.trainer import initialize_parallel_model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    config = training_config(learning_rate=1e-4, max_grad_norm=1.0,
+                             seed=SEED)
+    out = {}
+
+    # (a) GPT-NeoX-20B width
+    cfg = GPTNeoXConfig.neox_20b(num_layers=NEOX_LAYERS, remat="selective",
+                                 dtype=torch.bfloat16,
+                                 param_dtype=torch.float32)
+    batch = train_batch(cfg.vocab_size, NEOX_B, NEOX_S)
+    ids = torch.as_tensor(batch["ids"]).cuda()
+    rel = bf16_vs_fp32("phase6(a)", GPTNeoXForCausalLM, cfg,
+                       lambda m: (m(ids),))
+    t0 = time.perf_counter()
+    model = initialize_parallel_model(
+        config, lambda d: GPTNeoXForCausalLM(cfg, device=d), seed=SEED)
+    torch.cuda.synchronize()
+    H, I, V, L = (cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size,
+                  cfg.num_layers)
+    log(f"phase6(a): GPT-NeoX-20B width (hidden {H}, {cfg.num_heads} heads "
+        f"of {cfg.head_dim}, MLP {I}, vocab {V}, rotary "
+        f"{int(cfg.head_dim * cfg.rotary_pct)} of {cfg.head_dim} dims, "
+        f"parallel residual), {L} layers (cut from 44), "
+        f"{model.num_parameters() / 1e9:.3f}B params fp32 masters, bf16 "
+        f"compute, dense attention core, remat {cfg.remat}; random init in "
+        f"{time.perf_counter() - t0:.1f} s")
+    fpt = dense_flops_per_token(L, H, I, V, NEOX_S)
+    out["neox"] = dict(train_steps(
+        "phase6(a)", config, model, make_causal_lm_loss_sum(TRAIN_CHUNK),
+        batch, None, None,
+        flops=(fpt, "3 x (L (8H^2 + 4HI + 4SH) + 2HV)")), bf16_vs_fp32_rel=rel)
+    del model, ids
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) BERT-large
+    cfg = BertConfig.bert_large(dtype=torch.bfloat16,
+                                param_dtype=torch.float32)
+    check = bert_batch(cfg.vocab_size, 4, BERT_S, seed=SEED + 1)
+    tt = np.zeros((4, BERT_S), np.int64)
+    tt[:, BERT_S // 2:] = 1
+    am = np.ones((4, BERT_S), np.int64)
+    am[:, BERT_S - 64:] = 0   # the last 64 positions padding
+    fwd_in = [torch.as_tensor(a).cuda() for a in (check["ids"], tt, am)]
+    rel = bf16_vs_fp32("phase6(b)", BertForPreTraining, cfg,
+                       lambda m: m(*fwd_in))
+    batch = bert_batch(cfg.vocab_size, BERT_B, BERT_S)
+    t0 = time.perf_counter()
+    model = initialize_parallel_model(
+        config, lambda d: BertForPreTraining(cfg, device=d), seed=SEED)
+    torch.cuda.synchronize()
+    H, I, V, L = (cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size,
+                  cfg.num_layers)
+    log(f"phase6(b): BERT-large ({L} post-LN layers, hidden {H}, "
+        f"{cfg.num_heads} heads, vocab {V}, tied MLM decoder, NSP head), "
+        f"{model.num_parameters() / 1e9:.3f}B params fp32 masters, bf16 "
+        f"compute, dense attention core, remat {cfg.remat}, dropout "
+        f"{cfg.hidden_dropout} from a step generator; batch {BERT_B} x "
+        f"{BERT_S}, {int((batch['mlm_labels'] >= 0).sum())} MLM labels; "
+        f"random init in {time.perf_counter() - t0:.1f} s")
+    fpt = dense_flops_per_token(L, H, I, V, BERT_S,
+                                2 * H * H + (2 * H * H + 4 * H) / BERT_S)
+    gen = torch.Generator().manual_seed(SEED)
+    out["bert"] = dict(train_steps(
+        "phase6(b)", config, model, pretraining_loss, batch, None, None,
+        generator=gen,
+        flops=(fpt, "3 x (L (8H^2 + 4HI + 4SH) + 2HV + 2H^2 MLM transform "
+                    "+ (2H^2 + 4H) / S pooler and NSP)")),
+        bf16_vs_fp32_rel=rel,
+        dropout=dropout_invariants(model.module, batch))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -5842,6 +6093,8 @@ def main() -> int:
         log(f"phase5 summary: {json.dumps(gemma_training)}")
         gemma_serving = phase5b([dec256, simt256])
         log(f"phase5b summary: {json.dumps(gemma_serving)}")
+        pretraining = phase6()
+        log(f"phase6 summary: {json.dumps(pretraining)}")
         for w in FLASH_KERNELS:
             flash[w]["build"] = {d: guards[w][d] for d in (64, 128)}
             flash256[w]["build"] = {256: guards[w][256]}

@@ -9,7 +9,11 @@ layout: ``model/embed/embedding [V, H]``, ``model/layer_i/attn/qkv/
 the tree's paths with a shape check against the config.  Gemma and Gemma-2
 trees (``neuronx_distributed_tpu/models/gemma.py``) have no ``model/`` level
 and no ``lm_head`` (the head is the tied embedding); Gemma-2 layers carry
-four norm weights.  Arrays move as
+four norm weights.  GPT-NeoX and BERT trees
+(``neuronx_distributed_tpu/models/{gpt_neox,bert}.py``) hold fused QKV
+kernels ``[H, 3, H]`` with biases ``[3, H]``, biased linears, LayerNorm
+``weight``/``bias`` pairs and, in BERT, flax ``nn.Dense`` kernels ``[in,
+out]`` (pooler, MLM transform, NSP classifier).  Arrays move as
 they are and ``load_state_dict`` casts them to the model's types, so a
 model built with ``param_dtype=torch.float32`` (training) keeps the JAX
 package's fp32 masters bit for bit, and a serving model (weights in the
@@ -30,15 +34,28 @@ import numpy as np
 import torch
 
 # the sharded dim of each parameter kind, by name suffix (the JAX partition
-# specs: q/k/v heads over ('tp', 'kvr') / 'tp', a column kernel's and the
-# LM head's last dim, a row kernel's and the embedding's first dim); norms
-# are replicated
+# specs: q/k/v heads over ('tp', 'kvr') / 'tp', a column kernel's, a column
+# bias's and the LM head's last dim, a row kernel's and the embedding's
+# first dim); norms, row biases (added once, after the reduce) and flax
+# Dense layers are replicated.  BERT's mlm_bias is cut by vocab with the
+# tied table whose logits it shifts (JAX keeps it whole).  Each suffix
+# starts at a module boundary, so none captures another family's name
 _SHARD_DIMS = (
     ("attn.qkv.q_kernel", 1), ("attn.qkv.k_kernel", 1),
     ("attn.qkv.v_kernel", 1), ("attn.qkv.q_bias", 0),
     ("attn.qkv.k_bias", 0), ("attn.qkv.v_bias", 0),
     ("attn.o_proj.kernel", 0), ("mlp.gate_up.kernel", -1),
     ("mlp.down.kernel", 0), ("embed.embedding", 0), ("lm_head.kernel", -1),
+    # GPT-NeoX
+    ("attn.qkv.kernel", -1), ("attn.qkv.bias", -1), ("attn.dense.kernel", 0),
+    ("mlp.dense_h_to_4h.kernel", -1), ("mlp.dense_h_to_4h.bias", -1),
+    ("mlp.dense_4h_to_h.kernel", 0), ("embed_in.embedding", 0),
+    ("embed_out.kernel", -1),
+    # BERT
+    ("attention.qkv.kernel", -1), ("attention.qkv.bias", -1),
+    ("attention.dense.kernel", 0), ("intermediate.kernel", -1),
+    ("intermediate.bias", -1), ("output.kernel", 0),
+    ("word_embeddings.embedding", 0), ("mlm_bias", 0),
 )
 
 
@@ -46,7 +63,7 @@ def shard_dim(name: str) -> Optional[int]:
     """The dim along which ``name`` (a dotted parameter path) is sharded
     over the tensor-parallel ranks, or None when it is replicated."""
     for suffix, dim in _SHARD_DIMS:
-        if name.endswith(suffix):
+        if name == suffix or name.endswith("." + suffix):
             return dim
     return None
 
@@ -116,6 +133,11 @@ def _expected_shapes(cfg, prefix: str = "model.", lm_head: bool = True,
             shapes.update({p + "attn.qkv.q_bias": (NQ, D),
                            p + "attn.qkv.k_bias": (NKV, D),
                            p + "attn.qkv.v_bias": (NKV, D)})
+    return _sharded(shapes, tp)
+
+
+def _sharded(shapes: Dict[str, tuple], tp: int) -> Dict[str, tuple]:
+    """``shapes`` with each sharded dim cut to its ``1 / tp``."""
     if tp > 1:
         for name, shape in shapes.items():
             dim = shard_dim(name)
@@ -124,6 +146,55 @@ def _expected_shapes(cfg, prefix: str = "model.", lm_head: bool = True,
                 shape[dim] //= tp
                 shapes[name] = tuple(shape)
     return shapes
+
+
+def _norm(shapes: Dict[str, tuple], name: str, H: int) -> None:
+    shapes[name + ".weight"] = (H,)
+    shapes[name + ".bias"] = (H,)
+
+
+def _gpt_neox_shapes(cfg, tp: int) -> Dict[str, tuple]:
+    H, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    shapes = {"embed_in.embedding": (V, H), "embed_out.kernel": (H, V)}
+    _norm(shapes, "final_norm", H)
+    for i in range(cfg.num_layers):
+        p = f"layer_{i}."
+        shapes.update({
+            p + "attn.qkv.kernel": (H, 3, H), p + "attn.qkv.bias": (3, H),
+            p + "attn.dense.kernel": (H, H), p + "attn.dense.bias": (H,),
+            p + "mlp.dense_h_to_4h.kernel": (H, I),
+            p + "mlp.dense_h_to_4h.bias": (I,),
+            p + "mlp.dense_4h_to_h.kernel": (I, H),
+            p + "mlp.dense_4h_to_h.bias": (H,)})
+        _norm(shapes, p + "ln_1", H)
+        _norm(shapes, p + "ln_2", H)
+    return _sharded(shapes, tp)
+
+
+def _bert_shapes(cfg, tp: int) -> Dict[str, tuple]:
+    H, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    shapes = {
+        "bert.word_embeddings.embedding": (V, H),
+        "bert.position_embeddings": (cfg.max_position_embeddings, H),
+        "bert.token_type_embeddings": (cfg.type_vocab_size, H),
+        "bert.pooler.kernel": (H, H), "bert.pooler.bias": (H,),
+        "mlm_transform.kernel": (H, H), "mlm_transform.bias": (H,),
+        "mlm_bias": (V,),
+        "nsp_classifier.kernel": (H, 2), "nsp_classifier.bias": (2,)}
+    _norm(shapes, "bert.embed_norm", H)
+    _norm(shapes, "mlm_norm", H)
+    for i in range(cfg.num_layers):
+        p = f"bert.layer_{i}."
+        shapes.update({
+            p + "attention.qkv.kernel": (H, 3, H),
+            p + "attention.qkv.bias": (3, H),
+            p + "attention.dense.kernel": (H, H),
+            p + "attention.dense.bias": (H,),
+            p + "intermediate.kernel": (H, I), p + "intermediate.bias": (I,),
+            p + "output.kernel": (I, H), p + "output.bias": (H,)})
+        _norm(shapes, p + "attention_norm", H)
+        _norm(shapes, p + "output_norm", H)
+    return _sharded(shapes, tp)
 
 
 def llama_params_from_jax(tree: Mapping[str, Any], cfg,
@@ -154,6 +225,23 @@ def gemma2_params_from_jax(tree: Mapping[str, Any], cfg,
         cfg, prefix="", lm_head=False,
         norms=("input_norm", "post_attn_norm", "pre_ffw_norm",
                "post_ffw_norm"), tp=tp))
+
+
+def gpt_neox_params_from_jax(tree: Mapping[str, Any], cfg,
+                             tp: int = 1) -> Dict[str, torch.Tensor]:
+    """A JAX ``GPTNeoXForCausalLM`` param tree -> a ``state_dict`` for the
+    port's ``GPTNeoXForCausalLM`` with config ``cfg`` (a rank's shard at
+    ``tp > 1``): fused QKV, biased linears, LayerNorm pairs, the untied
+    ``embed_out``."""
+    return _convert(tree, _gpt_neox_shapes(cfg, tp))
+
+
+def bert_params_from_jax(tree: Mapping[str, Any], cfg,
+                         tp: int = 1) -> Dict[str, torch.Tensor]:
+    """A JAX ``BertForPreTraining`` param tree -> a ``state_dict`` for the
+    port's ``BertForPreTraining`` with config ``cfg`` (a rank's shard at
+    ``tp > 1``, ``mlm_bias`` cut by vocab)."""
+    return _convert(tree, _bert_shapes(cfg, tp))
 
 
 def _convert(tree: Mapping[str, Any], want: Dict[str, tuple]

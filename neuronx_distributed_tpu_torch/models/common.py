@@ -1,17 +1,31 @@
 """Shared model-building blocks (counterpart of
-``neuronx_distributed_tpu/models/common.py``): rematerialization and the
-causal-LM losses.
+``neuronx_distributed_tpu/models/common.py``): rematerialization, the
+causal-LM losses, the dense attention core and dropout.
 
-A loss function here is ``loss_fn(model, batch)`` -- the port's modules
-hold their own parameters, so the JAX ``(module, params, batch, rng)``
-signature loses ``params`` and ``rng`` -- and returns either a scalar mean
-or ``(loss_sum, token_count)``; ``trainer.make_train_step`` accepts both.
+A loss function here is ``loss_fn(model, batch, generator=None)`` -- the
+port's modules hold their own parameters, so the JAX ``(module, params,
+batch, rng)`` signature loses ``params``, and the ``rng`` key becomes a
+``torch.Generator`` (None: deterministic, as JAX treats ``rng=None``) --
+and returns either a scalar mean or ``(loss_sum, token_count)``;
+``trainer.make_train_step`` accepts both.  The causal-LM families carry no
+dropout, so their losses take the generator and ignore it, as JAX's
+ignore the key.
+
+Dropout under remat: ``torch.utils.checkpoint`` restores the default CPU
+and CUDA generators before it recomputes a block, never a user
+``Generator``, so a mask drawn from the step's stream inside a
+checkpointed block would be drawn again, differently, in backward.  A
+model therefore draws one seed a block from the stream before it runs
+the blocks (:func:`fork_seeds`), and each block makes its masks from a
+generator seeded inside the block (:func:`seeded_generator`): the
+recompute makes the same masks.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Callable
+import math
+from typing import Callable, List, Optional
 
 import torch
 from torch.utils.checkpoint import (
@@ -68,18 +82,19 @@ def _packed_kwargs(batch):
             if batch.get(key) is not None}
 
 
-def causal_lm_loss_sum(model, batch):
+def causal_lm_loss_sum(model, batch, generator=None):
     """``(loss_sum, tok)``: the summed next-token loss over unmasked
     positions (labels < 0 and ``mask == 0`` drop out) and their count, so
     the caller can normalise by the global token count.  A packed batch's
-    ``positions``/``segment_ids`` are forwarded to the model."""
+    ``positions``/``segment_ids`` are forwarded to the model; ``generator``
+    is ignored (no dropout in the causal-LM families)."""
     logits = model(batch["ids"], **_packed_kwargs(batch))
     mask = _token_mask(batch)
     per_tok = parallel_cross_entropy(logits, batch["labels"])
     return (per_tok * mask).sum(), mask.sum()
 
 
-def causal_lm_loss(model, batch) -> torch.Tensor:
+def causal_lm_loss(model, batch, generator=None) -> torch.Tensor:
     """Mean next-token loss over the unmasked positions of ``batch =
     {ids, labels[, mask, positions, segment_ids]}``."""
     loss_sum, tok = causal_lm_loss_sum(model, batch)
@@ -101,7 +116,7 @@ def make_causal_lm_loss_sum(chunk_size: int = 0):
         per_tok = parallel_cross_entropy(model.head(h_c), y_c)
         return torch.stack([(per_tok * m_c).sum(), m_c.sum()])
 
-    def loss_fn(model, batch):
+    def loss_fn(model, batch, generator=None):
         h = model.hidden(batch["ids"], **_packed_kwargs(batch))
         labels = batch["labels"]
         mask = _token_mask(batch)
@@ -115,3 +130,61 @@ def make_causal_lm_loss_sum(chunk_size: int = 0):
         return total[0], total[1]
 
     return loss_fn
+
+
+def dense_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              mask: Optional[torch.Tensor] = None,
+              causal: bool = False) -> torch.Tensor:
+    """Multi-head attention core over this rank's heads, ``q/k/v [B, S, N,
+    D]`` -> ``[B, S, N, D]`` in q's type (no collective: each rank computes
+    its own heads).  Scores in fp32 (q and k widened, as JAX's
+    ``preferred_element_type=float32``), scaled by ``1/sqrt(D)``; the
+    causal mask keeps ``t <= s + (T - S)``; ``mask`` (boolean,
+    broadcastable to ``[B, N, S, T]``, True = attend) and the causal mask
+    fill with the fp32 minimum; softmax in fp32, the probabilities cast to
+    q's type before the PV product."""
+    D = q.shape[-1]
+    S, T = q.shape[1], k.shape[1]
+    scores = torch.einsum("bsnd,btnd->bnst", q.float(), k.float())
+    scores = scores / float(math.sqrt(D))
+    low = torch.finfo(torch.float32).min
+    if causal:
+        t = torch.arange(T, device=q.device)
+        s = torch.arange(S, device=q.device)
+        keep = t[None, :] <= s[:, None] + (T - S)
+        scores = scores.masked_fill(~keep, low)
+    if mask is not None:
+        scores = scores.masked_fill(~mask.bool(), low)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bnst,btnd->bsnd", probs, v.to(q.dtype))
+
+
+def fork_seeds(generator: torch.Generator, n: int) -> List[int]:
+    """``n`` seeds drawn from ``generator``'s stream in one draw (a CUDA
+    generator costs one host sync; a CPU generator none)."""
+    return torch.randint(0, 2 ** 62, (n,), generator=generator,
+                         device=generator.device).tolist()
+
+
+def seeded_generator(seed: int, device) -> torch.Generator:
+    """A fresh generator on ``device`` seeded with ``seed``."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return g
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout as flax's ``nn.Dropout``: each element kept with
+    probability ``1 - rate`` (a uniform draw from ``generator`` below it)
+    and divided by it, in x's type.  ``generator=None`` or ``rate == 0`` is
+    the identity (deterministic)."""
+    if generator is None or rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator,
+                      device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))

@@ -17,6 +17,10 @@ import torch
 from torch import nn
 
 from neuronx_distributed_tpu_torch.config import TrainingConfig
+from neuronx_distributed_tpu_torch.models.common import (
+    fork_seeds,
+    seeded_generator,
+)
 from neuronx_distributed_tpu_torch.optimizer.adamw_fp32 import (
     adamw_fp32,
     build_lr_schedule,
@@ -160,16 +164,24 @@ def make_train_step(config: TrainingConfig, model: ParallelModel,
                     optimizer: ParallelOptimizer,
                     loss_fn: Optional[Callable[..., Any]] = None,
                     grad_accum_steps: int = 1):
-    """The train step: ``step(batch) -> {"loss", "grad_norm"}`` (0-dim
-    tensors).  It updates the model's parameters and the optimizer's state
-    IN PLACE, where the JAX step returns new ones and donates the old.
+    """The train step: ``step(batch, generator=None) -> {"loss",
+    "grad_norm"}`` (0-dim tensors).  It updates the model's parameters and
+    the optimizer's state IN PLACE, where the JAX step returns new ones and
+    donates the old.
 
     ``loss_fn(model, batch)`` returns a scalar mean loss or ``(loss_sum,
-    token_count)``.  With ``grad_accum_steps > 1`` the batch's leading dim
-    is split into that many microbatches whose gradients are summed in
-    fp32; the mean contract then averages the per-microbatch means, the
-    token contract divides the sums by the global token count once (the
-    exact token-masked mean).  Then the gradients are clipped to
+    token_count)``.  ``generator`` is JAX's per-step ``rng``: without it
+    the step calls ``loss_fn(model, batch)`` (deterministic, as JAX's
+    ``rng=None``); with it ``loss_fn(model, batch, generator=g)``, where
+    ``g`` is the step's generator itself, or under ``grad_accum_steps > 1``
+    one generator a microbatch seeded from it (one draw), as JAX splits the
+    key.  A CPU generator costs no host sync.
+
+    With ``grad_accum_steps > 1`` the batch's leading dim is split into
+    that many microbatches whose gradients are summed in fp32; the mean
+    contract then averages the per-microbatch means, the token contract
+    divides the sums by the global token count once (the exact
+    token-masked mean).  Then the gradients are clipped to
     ``max_grad_norm`` (when ``grad_clipping``), and AdamW takes one update
     at the schedule's rate for the update count.  Host batches (numpy or
     CPU tensors) are moved to the model's device inside the step."""
@@ -194,15 +206,24 @@ def make_train_step(config: TrainingConfig, model: ParallelModel,
         return [{k: parts[k][i] for k in batch}
                 for i in range(grad_accum_steps)]
 
-    def loss_and_grads(batch):
+    def streams(generator):
+        if generator is None:
+            return [None] * grad_accum_steps
+        if grad_accum_steps == 1:
+            return [generator]
+        return [seeded_generator(s, generator.device)
+                for s in fork_seeds(generator, grad_accum_steps)]
+
+    def loss_and_grads(batch, generator):
         loss_acc = torch.zeros((), dtype=torch.float32, device=device)
         tok_acc = torch.zeros((), dtype=torch.float32, device=device)
         # fp32 sums for parameters held in another type (fp32 params
         # accumulate in their own .grad)
         acc32 = {}
         token_weighted = None
-        for mb in split(batch):
-            out = loss_fn(module, mb)
+        for mb, g in zip(split(batch), streams(generator)):
+            out = (loss_fn(module, mb) if g is None
+                   else loss_fn(module, mb, generator=g))
             tw = isinstance(out, tuple)
             if tw and len(out) != 2:
                 raise ValueError("a tuple-returning loss_fn must return "
@@ -231,9 +252,10 @@ def make_train_step(config: TrainingConfig, model: ParallelModel,
                 p.grad.mul_(scale)
         return loss_acc * scale
 
-    def step(batch) -> Dict[str, torch.Tensor]:
+    def step(batch, generator: Optional[torch.Generator] = None
+             ) -> Dict[str, torch.Tensor]:
         batch = _to_device(batch, device)
-        loss = loss_and_grads(batch)
+        loss = loss_and_grads(batch, generator)
         grads = [p.grad for p in params]
         if oc.grad_clipping:
             _, grad_norm = clip_grad_norm(grads, oc.max_grad_norm)

@@ -198,10 +198,13 @@ def _worker_main(job_path: str, out_path: str) -> None:
     try:
         result = ("ok", _resolve(*target)(*args, **kwargs))
     except Exception as e:  # noqa: BLE001 - reported to the parent
+        # the time of the failure, before this rank's teardown breaks its
+        # peers' collectives: the parent orders the failures by it
+        failed_at = time.monotonic()
         import traceback
 
         traceback.print_exc()
-        result = ("error", f"{type(e).__name__}: {e}")
+        result = ("error", f"{type(e).__name__}: {e}", failed_at)
     finally:
         if dist.is_initialized():
             try:
@@ -234,6 +237,41 @@ def _tail(path: str, n: int = 4000) -> str:
     return data[-n:].decode(errors="replace")
 
 
+def _load_result(path: str):
+    """A rank's pickled result, or None when it wrote none."""
+    if not os.path.exists(path):
+        return None
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def failure_order(seen: Sequence[int], results: Sequence[Any]) -> List[int]:
+    """The failed ranks, the root cause first.  ``results[r]`` is rank r's
+    result (``("error", message, failed_at)`` for a rank whose body
+    raised, ``("ok", value)``, or None when it wrote none); ``seen`` lists
+    the ranks observed exiting non-zero, in the order the poll saw them.
+    Ranks whose body raised come first, by the time they raised (a rank
+    fails first, then its teardown breaks its peers' collectives, so the
+    peers raise later, even when every exit lands inside one poll); then
+    the ranks that died without a result, in the order seen."""
+    raised = [r for r, res in enumerate(results)
+              if res is not None and res[0] == "error"]
+    raised.sort(key=lambda r: (results[r][2], r))
+    return raised + [r for r in seen if r not in raised]
+
+
+def _failure_message(order, results, procs, logs, world_size) -> str:
+    first = order[0]
+    parts = [f"rank {first} of {world_size} failed first (rc "
+             f"{procs[first].returncode}); every worker killed; the failed "
+             f"ranks, the root cause first: {order}"]
+    for r in order:
+        what = results[r][1] if results[r] is not None else "no result"
+        parts.append(f"-- rank {r} (rc {procs[r].returncode}): {what}\n"
+                     + _tail(logs[r]))
+    return "\n".join(parts)
+
+
 def spawn(fn: Callable, world_size: int, args: Sequence = (),
           kwargs: Optional[dict] = None, timeout_s: float = 300.0,
           env: Optional[dict] = None, echo: bool = False) -> List[Any]:
@@ -247,7 +285,9 @@ def spawn(fn: Callable, world_size: int, args: Sequence = (),
     the script run as ``__main__``).  If any worker fails, or the world
     outlives ``timeout_s`` seconds of wall clock, every worker is killed
     and this raises ``RuntimeError`` / ``TimeoutError`` with the output
-    tails.  ``echo`` prints each rank's output once the world is done."""
+    tails: a failure names the rank that failed first and gives every
+    failed rank's tail, the root cause first (:func:`failure_order`).
+    ``echo`` prints each rank's output once the world is done."""
     repo = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     base = dict(os.environ)
@@ -276,15 +316,21 @@ def spawn(fn: Callable, world_size: int, args: Sequence = (),
             logs.append(log_path)
             outs.append(out)
         deadline = time.monotonic() + timeout_s
+        seen: List[int] = []   # ranks seen exiting non-zero, in poll order
+
+        def check_failures():
+            seen.extend(r for r, p in enumerate(procs)
+                        if p.poll() not in (None, 0) and r not in seen)
+            if not seen:
+                return
+            _kill(procs)
+            results = [_load_result(out) for out in outs]
+            order = failure_order(seen, results)
+            raise RuntimeError(_failure_message(order, results, procs, logs,
+                                                world_size))
+
         while any(p.poll() is None for p in procs):
-            failed = [r for r, p in enumerate(procs)
-                      if p.poll() not in (None, 0)]
-            if failed:
-                _kill(procs)
-                raise RuntimeError(
-                    f"rank {failed[0]} of {world_size} failed (rc "
-                    f"{procs[failed[0]].returncode}); every worker killed:\n"
-                    + _tail(logs[failed[0]]))
+            check_failures()
             if time.monotonic() > deadline:
                 _kill(procs)
                 raise TimeoutError(
@@ -293,16 +339,15 @@ def spawn(fn: Callable, world_size: int, args: Sequence = (),
                         f"-- rank {r}:\n{_tail(p, 1500)}"
                         for r, p in enumerate(logs)))
             time.sleep(0.05)
-        results = []
-        for rank, (p, out) in enumerate(zip(procs, outs)):
-            if p.returncode != 0 or not os.path.exists(out):
-                raise RuntimeError(f"rank {rank} failed (rc {p.returncode}):"
-                                   f"\n{_tail(logs[rank])}")
-            with open(out, "rb") as f:
-                status, value = pickle.load(f)
-            if status != "ok":
-                raise RuntimeError(f"rank {rank}: {value}\n{_tail(logs[rank])}")
-            results.append(value)
+        # every rank has exited: failures that landed inside the last poll
+        # are ordered as above, not by rank
+        check_failures()
+        results = [_load_result(out) for out in outs]
+        for rank, res in enumerate(results):
+            if res is None or res[0] != "ok":
+                raise RuntimeError(_failure_message(
+                    [rank], results, procs, logs, world_size))
+        results = [res[1] for res in results]
         if echo:
             for rank, path in enumerate(logs):
                 text = _tail(path, 1 << 20).rstrip()

@@ -153,7 +153,8 @@ def test_walk_covers_the_slice():
                 "resilience.supervisor", "obs", "obs.registry",
                 "obs.schemas", "obs.flight", "obs.tracing",
                 "obs.transfer_audit", "obs.metrics_server",
-                "utils.timeline") + PART2_MODULES + FLEET_MODULES + TP_MODULES:
+                "utils.timeline") + PART2_MODULES + FLEET_MODULES + TP_MODULES \
+            + A9E_MODULES:
         assert f"neuronx_distributed_tpu_torch.{mod}" in names
 
 
@@ -180,8 +181,18 @@ TP_MODULES = ("utils.common", "utils.distributed", "parallel.mesh",
               "parallel.mappings", "serving.lockstep")
 
 
+# ROADMAP A9e and A10's dtypes: GPT-NeoX and BERT pretraining (LayerNorm
+# and the dense core live in parallel.norm and models.common)
+A9E_MODULES = ("models.gpt_neox", "models.bert", "utils.dtypes")
+
+
 @pytest.mark.parametrize("mod", TP_MODULES)
 def test_tp_module_imports_no_jax(mod):
+    _check_module(mod)
+
+
+@pytest.mark.parametrize("mod", A9E_MODULES)
+def test_a9e_module_imports_no_jax(mod):
     _check_module(mod)
 
 

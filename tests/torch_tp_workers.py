@@ -588,3 +588,51 @@ def cuda_pair(layers: int, prompts: list, new_tokens: int):
         out["fleet_refusal"] = str(e)
     dist.barrier()
     return out
+
+
+# -- GPT-NeoX and BERT at tp = 2 (forward) -----------------------------------
+
+
+def neox_bert_forward(inp: dict):
+    """Each case's model at tp = 2, loaded from this rank's shard of the
+    JAX tree: the gathered logits (and BERT's NSP logits) of the case's
+    inputs, and the local vocab width the head gives."""
+    from neuronx_distributed_tpu_torch.convert import (
+        bert_params_from_jax,
+        gpt_neox_params_from_jax,
+        shard_params_for_rank,
+    )
+    from neuronx_distributed_tpu_torch.models.bert import (
+        BertConfig,
+        BertForPreTraining,
+    )
+    from neuronx_distributed_tpu_torch.models.gpt_neox import (
+        GPTNeoXConfig,
+        GPTNeoXForCausalLM,
+    )
+
+    _init(tensor_parallel_size=2)
+    rank = int(os.environ["RANK"])
+    out = {}
+    for name, case in inp.items():
+        shard = shard_params_for_rank(case["tree"], 2, rank)
+        if case["family"] == "neox":
+            cfg = GPTNeoXConfig.tiny(remat="none", dtype=torch.float32,
+                                     **case["config"])
+            model = GPTNeoXForCausalLM(cfg, device="cpu")
+            model.load_state_dict(gpt_neox_params_from_jax(shard, cfg, tp=2))
+            with torch.no_grad():
+                local = model(torch.from_numpy(case["ids"]))
+            out[name] = {"logits": model.gather_logits(local).numpy(),
+                         "local_vocab": local.shape[-1]}
+        else:
+            cfg = BertConfig.tiny(dtype=torch.float32, **case["config"])
+            model = BertForPreTraining(cfg, device="cpu")
+            model.load_state_dict(bert_params_from_jax(shard, cfg, tp=2))
+            with torch.no_grad():
+                mlm, nsp = model(*(torch.from_numpy(case[k]) for k in
+                                   ("ids", "token_type_ids",
+                                    "attention_mask")))
+            out[name] = {"logits": model.gather_logits(mlm).numpy(),
+                         "nsp": nsp.numpy(), "local_vocab": mlm.shape[-1]}
+    return out
