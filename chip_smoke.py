@@ -100,12 +100,12 @@ draining and restarting a replica under traffic.  Phase 2i serves at
 tensor-parallel degree 2: two processes share the one card over gloo
 (NCCL refuses two ranks on one device), each holding half of Llama-3-8B
 at full width and depth (16 q on 4 kv heads, half the pool): (a) phase
-2's traffic on the async engine, the decode kernel launched 32 times a
-decode step on each rank and nothing else, both ranks' tokens and block
+2's prompts with 32 new tokens each on the async engine, the decode
+kernel launched 32 times a decode step on each rank and nothing else, both ranks' tokens and block
 tables identical; (b) B4 at the local heads (decode and chunk calls,
 bf16 and int8 pools) held to its plain version and timed beside it, the
 library call and the bound (in this process, before the ranks start);
-(c) the 16 prompts' prefill logits against phase 2's model, every first
+(c) 8 prompts' prefill logits against phase 2's model, every first
 token equal to phase 2's, the greedy streams' common prefix with phase
 2's, and one decode step after 8 admissions fed tp = 1's first tokens
 against tp = 1's; (d) int8 pages and bf16 pages with 128-token chunks on a 4-layer
@@ -143,7 +143,19 @@ entry points on the dense attention core: falling, finite losses, tokens/s,
 MFU, peak memory, busy share and top device ops for each, a bf16 forward
 held against the fp32 forward of the same weights on a 2-layer cut, and
 BERT's dropout invariants (one seed, one loss; no generator,
-deterministic).  A device time below the least time its work needs fails
+deterministic).  Phase 7 trains past one rank, two processes sharing the
+card over gloo (correctness, launches and per-rank memory, not tp or dp
+speed): B1-B3 held and timed first at a tp = 2 rank's local heads (16 q
+on 4 kv heads, and on 8, G = 2); then (a) Llama-3-8B's width cut to 4
+layers at tp = 2 with sequence parallelism, fp32 masters, bf16 compute,
+flash, selective remat and the chunked loss head, 1 x 2048, 2 + 3 steps
+(+ 1 profiled) through the trainer's entry points: falling losses, the
+first step's loss and grad norm against tp = 1 from the same seed, B1-B3
+launches on each rank, the same collectives a step on both ranks, per-rank
+memory, step and collective time and busy share; (b) a 2-layer cut at dp
+= 2, 3 steps with ZeRO-1 on and off: parameters equal to the bit, AdamW
+state about halved; (c) a 2-layer cut at tp = 2 with kvr = 2, one step
+against tp = 1.  A device time below the least time its work needs fails
 the run.
 
 Any failed check exits non-zero without the result line.  The line before
@@ -154,6 +166,7 @@ exits non-zero at once.
 
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import math
@@ -517,9 +530,11 @@ def ptxas_functions(report: str) -> dict:
     return funcs
 
 
+@functools.lru_cache(maxsize=None)
 def sass_functions(lib_path: str) -> dict:
     """``{mangled name: SASS text}`` of a built library, from the
-    toolkit's ``cuobjdump -sass``."""
+    toolkit's ``cuobjdump -sass`` (one dump a library: each kernel's guard
+    reads the same one)."""
     from neuronx_distributed_tpu_torch.ops import _build
 
     tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
@@ -1118,8 +1133,9 @@ def phase1_long():
 CHUNK_OFFSET = 384
 # the route sweep, at the chunk call's offset: query widths at Llama-3-8B's
 # 32 q on 8 kv heads (G = 4), and at 8 q on 8 kv heads (G = 1), where the
-# fewest query rows share a kv head
-SWEEP_WIDTHS = {NQ: (2, 3, 4, 16, 32, 64, 128), NKV: (2, 3, 4, 16)}
+# fewest query rows share a kv head (6 widths: the time limit pays for
+# phase 7)
+SWEEP_WIDTHS = {NQ: (2, 4, 16, 128), NKV: (2, 16)}
 
 
 def phase1_chunks():
@@ -4451,6 +4467,15 @@ TP_DECODE_REL_TOL = 2e-2
 TP_WORLD_TIMEOUT_S = 600
 # the prompt tokens of 2i(e)'s steady requests
 TP_STEADY_PROMPT = 64
+# the new tokens of 2i(a)'s and 2i(d)'s requests, half of phase 2's 64
+# (the time limit pays for phase 7); over a shorter stream a common-prefix
+# share can only rise (min(p, 32) / 32 >= min(p, 64) / 64), so the floor
+# set over 64 tokens still holds
+TP_NEW_TOKENS = 32
+# the prompts whose prefill logits 2i(c) holds against tp = 1's (the
+# first half of phase 2's: each prefill at tp = 2 pays 64 host-staged
+# collectives)
+TP_PREFILL_PROMPTS = 8
 
 
 def left_padded(prompt):
@@ -4495,7 +4520,7 @@ def phase2i_refs(model_pim, whole_tokens) -> dict:
     cfg = model_pim.module.config
     prefill = []
     requests = make_requests(cfg.vocab_size, N_REQUESTS, NEW_TOKENS, SEED)
-    for r in requests:
+    for r in requests[:TP_PREFILL_PROMPTS]:
         logits, _ = model_pim.prefill_one(*left_padded(r.prompt_ids))
         prefill.append(logits.float().cpu().numpy()[0])
     eng = admitted_engine(model_pim, cfg.vocab_size)
@@ -4639,10 +4664,11 @@ def tp2_rank(refs: dict) -> dict:
         f"weights on this rank, random init in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    # (a) phase 2's traffic on the async engine, graphs off
+    # (a) phase 2's prompts, TP_NEW_TOKENS each, on the async engine,
+    # graphs off
     engine = ServingEngine(pim, page_size=PAGE_SIZE)
     pool_bytes = engine._kv.alloc.num_pages * engine._page_bytes
-    requests = make_requests(cfg.vocab_size, N_REQUESTS, NEW_TOKENS, SEED)
+    requests = make_requests(cfg.vocab_size, N_REQUESTS, TP_NEW_TOKENS, SEED)
     zero_paged_counts()
     mappings.reset_counts()
     lock = engine.lockstep
@@ -4654,7 +4680,7 @@ def tp2_rank(refs: dict) -> dict:
     wall = time.perf_counter() - t0
     steps = engine.decode_steps
     bad = [(o.request_id, o.state, len(o.token_ids)) for o in outs.values()
-           if o.state != "finished" or len(o.token_ids) != NEW_TOKENS]
+           if o.state != "finished" or len(o.token_ids) != TP_NEW_TOKENS]
     if len(outs) != N_REQUESTS or bad:
         raise AssertionError(f"{tag}: requests not served in full: {bad}")
     routes = check_routes(tag, steps * L, 0)
@@ -4680,7 +4706,7 @@ def tp2_rank(refs: dict) -> dict:
 
     # (c) the prefill logits against tp = 1 (phase 2's model)
     rels = []
-    for i, r in enumerate(requests):
+    for i, r in enumerate(requests[:TP_PREFILL_PROMPTS]):
         logits, _ = pim.prefill_one(*left_padded(r.prompt_ids))
         got = logits.float().cpu().numpy()[0]
         want = refs["prefill"][i]
@@ -4762,13 +4788,14 @@ def tp2_rank(refs: dict) -> dict:
         SLOTS, CONTEXT, MAX_TOTAL, torch.bfloat16))
     cut_runs = {}
     # the bf16 run only puts the wgmma route at the local heads on the
-    # path: half the requests
-    for label, kw, n in (("int8", dict(kv_quant="int8"), N_REQUESTS),
-                         ("bf16", {}, N_REQUESTS // 2)):
+    # path: a quarter of the requests, the int8 run half (the time limit
+    # pays for phase 7)
+    for label, kw, n in (("int8", dict(kv_quant="int8"), N_REQUESTS // 2),
+                         ("bf16", {}, N_REQUESTS // 4)):
         eng = ServingEngine(pim, page_size=PAGE_SIZE,
                             prefill_chunk_tokens=CHUNK_TOKENS, **kw)
         zero_paged_counts()
-        got = tp_serve(eng, make_requests(cfg.vocab_size, n, NEW_TOKENS,
+        got = tp_serve(eng, make_requests(cfg.vocab_size, n, TP_NEW_TOKENS,
                                           SEED), [])
         if any(o.state != "finished" for o in got.values()):
             raise AssertionError(f"{tag}: {label} chunked run unfinished")
@@ -6017,6 +6044,345 @@ def phase6():
     return out
 
 
+# -- phase 7 -----------------------------------------------------------------
+
+# training past one rank: two processes share the card over gloo (NCCL
+# refuses two ranks on one device), so this proves correctness, launches
+# and per-rank memory of the sharded step, not tp or dp speed.  (a) tp = 2
+# with sequence parallelism on Llama-3-8B's width cut to 4 layers; (b) dp
+# = 2 with ZeRO-1 on and off on a 2-layer cut; (c) tp = 2 with kvr = 2 on
+# a 2-layer cut
+P7_TP_LAYERS, P7_SMALL_LAYERS, P7_S, P7_CHUNK = 4, 2, 2048, 512
+P7_WARMUP, P7_TIMED, P7_DP_STEPS = 2, 3, 3
+# the first step's loss and grad norm at tp = 2 against tp = 1 from the
+# same seed and batch (bf16 compute: the row layers' fp32 partials and the
+# vocab-parallel loss sum in other orders)
+P7_LOSS_RTOL, P7_NORM_RTOL = 1e-2, 5e-2
+P7_WORLD_TIMEOUT_S = 600
+# B1-B3 at a tp = 2 rank's local heads: 16 q on 4 kv heads (G = 4, kvr =
+# 1, and kvr = 2 too: a rank's 16 q heads read 4 of its 8 replicated kv
+# heads), model layout; and 16 q on 8 kv heads (G = 2), a group size no
+# other phase holds
+P7_FLASH_CASES = [
+    ("tp2_local_heads_g4", 1, NQ // TP, NKV // TP, P7_S, P7_S, D, True, None,
+     None, None, False, False, True),
+    ("tp2_g2", 1, NQ // TP, NKV, P7_S, P7_S, D, True, None, None, None, False,
+     False, True),
+]
+
+
+def phase7_kernels() -> dict:
+    """B1-B3 held at the tp = 2 local-head shapes (G = 4 and G = 2) against
+    their plain versions, and timed at both beside SDPA and the bound."""
+    new_worst = lambda: {w: {"abs": 0.0, "row_rel": 0.0}  # noqa: E731
+                         for w in FLASH_KERNELS}
+    worst = {"g4": new_worst(), "g2": new_worst()}
+    worst_lse = {"bfloat16": 0.0, "float32": 0.0}
+    hold_flash_cases(P7_FLASH_CASES[:1], worst["g4"], worst_lse, seed0=200)
+    hold_flash_cases(P7_FLASH_CASES[1:], worst["g2"], worst_lse, seed0=201)
+    entries = time_flash((1, NQ // TP, NKV // TP, P7_S, D), worst=worst["g4"],
+                         suffix="_tp2")
+    g2 = time_flash((1, NQ // TP, NKV, P7_S, D), worst=worst["g2"],
+                    suffix="_tp2_g2")
+    for w in FLASH_KERNELS:
+        entries[w]["shapes"]["tp"] = TP
+        entries[w]["lse_max_abs_err"] = worst_lse
+        g2[w]["shapes"]["tp"] = TP
+    return {"g4": entries, "g2": g2}
+
+
+def phase7_refs() -> dict:
+    """The tp = 1 references of 7(a) and 7(c): the first step's loss and
+    grad norm of the 4- and 2-layer cuts from the seed and batch the ranks
+    use (init is tp-invariant, so a tp = 2 rank holds this model's
+    shard)."""
+    import gc
+
+    import torch
+
+    from neuronx_distributed_tpu_torch.config import training_config
+    from neuronx_distributed_tpu_torch.models.common import (
+        make_causal_lm_loss_sum,
+    )
+    from neuronx_distributed_tpu_torch.models.llama import (
+        LlamaConfig,
+        LlamaForCausalLM,
+    )
+    from neuronx_distributed_tpu_torch.trainer import initialize_parallel_model
+
+    refs = {}
+    batch = train_batch(128256, 1, P7_S)
+    one = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
+    for layers in (P7_TP_LAYERS, P7_SMALL_LAYERS):
+        cfg = LlamaConfig.llama3_8b(num_layers=layers, attention_impl="flash",
+                                    remat="selective", dtype=torch.bfloat16,
+                                    param_dtype=torch.float32)
+        model = initialize_parallel_model(
+            training_config(seed=SEED),
+            lambda d, c=cfg: LlamaForCausalLM(c, device=d), seed=SEED)
+        loss, norm, _ = loss_and_grads(model.module,
+                                       make_causal_lm_loss_sum(P7_CHUNK), one)
+        refs[layers] = {"loss": loss, "grad_norm": norm}
+        log(f"phase7 tp = 1 reference, {layers} layers: first-step loss "
+            f"{loss:.6f}, grad norm {norm:.6f}")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return refs
+
+
+def p7_train(label, config, cfg, batch, steps, warmup=0, profile=False):
+    """One rank's training through the entry points: the model, its
+    optimizer and step, ``warmup`` + ``steps`` steps on ``batch`` with the
+    launch and collective counts set to 0 first.  Returns the losses, grad
+    norms, launches, per-step collectives, memory and times; the model and
+    optimizer are dropped."""
+    import gc
+
+    import torch
+
+    from neuronx_distributed_tpu_torch.models.common import (
+        make_causal_lm_loss_sum,
+    )
+    from neuronx_distributed_tpu_torch.models.llama import LlamaForCausalLM
+    from neuronx_distributed_tpu_torch.ops import flash_attention as fa
+    from neuronx_distributed_tpu_torch.ops.paged_attention import paged_attention
+    from neuronx_distributed_tpu_torch.optimizer.zero1 import state_bytes
+    from neuronx_distributed_tpu_torch.parallel import mappings, mesh
+    from neuronx_distributed_tpu_torch.trainer import (
+        initialize_parallel_model,
+        initialize_parallel_optimizer,
+        make_train_step,
+    )
+
+    torch.cuda.reset_peak_memory_stats()
+    model = initialize_parallel_model(
+        config, lambda d: LlamaForCausalLM(cfg, device=d), seed=SEED)
+    module = model.module
+    opt = initialize_parallel_optimizer(config, model)
+    step = make_train_step(config, model, opt,
+                           make_causal_lm_loss_sum(P7_CHUNK))
+    for fn in (fa.flash_attention_fwd, fa.flash_attention_dq,
+               fa.flash_attention_dkv, paged_attention):
+        fn.launches = 0
+    losses, norms, counts, coll_s, times = [], [], [], [], []
+    for i in range(warmup + steps):
+        mappings.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(batch)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append(time.perf_counter() - t0)
+        counts.append(dict(mappings.COUNTS))
+        coll_s.append(sum(mappings.SECONDS.values()))
+    out = {"losses": losses, "grad_norms": norms,
+           "counts": counts, "collective_s": coll_s,
+           "step_ms": sum(times) / max(len(times), 1) * 1e3,
+           "param_bytes": sum(p.numel() * p.element_size()
+                              for p in module.parameters()),
+           "state_bytes": state_bytes(opt.optimizer),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "tp": (module.tp.size, module.tp.rank, module.tp.kvr),
+           "dp": (mesh.get_data_parallel_size(),
+                  mesh.get_data_parallel_rank()),
+           "zero1": opt.zero1 is not None,
+           "local_heads": (module.model.layer_0.attn.qkv.q_kernel.shape[1],
+                           module.model.layer_0.attn.qkv.kv_heads[1])}
+    if opt.zero1 is not None:
+        out["shard_bytes"] = sum(s.numel() * s.element_size()
+                                 for s, lay in zip(opt.zero1.shards,
+                                                   opt.zero1.layout)
+                                 if lay is not None)
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+
+        with prof_ctx(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(batch)
+            torch.cuda.synchronize()
+            out["profiled_step_ms"] = (time.perf_counter() - t0) * 1e3
+        out["device_busy_ms"] = sum(dev_us(e) for e in
+                                    device_events(prof)) / 1e3
+    # every step above ran the main path, the profiled one too
+    launches = out["launches"] = {w: getattr(fa, FLASH_KERNELS[w][0]).launches
+                                  for w in FLASH_KERNELS}
+    launches["paged"] = paged_attention.launches
+    out["params"] = ({n: p.detach().clone() for n, p in
+                      module.named_parameters()} if label == "keep" else None)
+    log(f"phase7 {label} rank tp {out['tp']} dp {out['dp']}: losses "
+        + ", ".join(f"{x:.4f}" for x in losses) + "; grad norms "
+        + ", ".join(f"{x:.3f}" for x in norms)
+        + f"; {out['step_ms']:.1f} ms a step (host clock, two processes "
+        f"time-sliced on one card); collectives a step {counts[-1]}, "
+        f"{coll_s[-1] * 1e3:.1f} ms; launches {launches}; parameters "
+        f"{out['param_bytes'] / 2**30:.3f} GiB, AdamW state "
+        f"{out['state_bytes'] / 2**30:.3f} GiB, peak "
+        f"{out['peak_bytes'] / 2**30:.3f} GiB")
+    del step, opt, model, module
+    mesh.destroy_model_parallel()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def p7_rank(task: dict) -> dict:
+    """One rank of phase 7: (a), (b) and (c) in turn, each laying its ranks
+    out from its ``TrainingConfig`` (``initialize_parallel_model``)."""
+    import torch
+    import torch.distributed as dist
+
+    from neuronx_distributed_tpu_torch.config import training_config
+    from neuronx_distributed_tpu_torch.models.llama import LlamaConfig
+    from neuronx_distributed_tpu_torch.utils.distributed import (
+        initialize_distributed,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(device="cuda", backend="gloo", timeout_s=300)
+    out = {"rank": dist.get_rank()}
+
+    def cfg(layers):
+        return LlamaConfig.llama3_8b(num_layers=layers, attention_impl="flash",
+                                     remat="selective", dtype=torch.bfloat16,
+                                     param_dtype=torch.float32)
+
+    one = train_batch(128256, 1, P7_S)
+    # (a) tp = 2, sequence parallelism (the config's default), kvr = 1
+    out["a"] = p7_train("(a) tp = 2 SP", training_config(
+        tensor_parallel_size=TP, learning_rate=1e-4, max_grad_norm=1.0,
+        seed=SEED), cfg(P7_TP_LAYERS), one, P7_TIMED, P7_WARMUP,
+        profile=True)
+    # (b) dp = 2, one row of 2048 a rank, ZeRO-1 on and off; clipping off:
+    # the global norm sums the slices in another order under ZeRO-1, and
+    # a clip coefficient an ulp apart would scale every gradient
+    two = train_batch(128256, 2, P7_S)
+    b = {}
+    for z in (True, False):
+        b[z] = p7_train("keep", training_config(
+            data_parallel_size=2, learning_rate=1e-4, grad_clipping=False,
+            zero_one_enabled=z, seed=SEED), cfg(P7_SMALL_LAYERS), two,
+            P7_DP_STEPS)
+    pz, pr = b[True].pop("params"), b[False].pop("params")
+    unequal = sum(int((pz[n] != pr[n]).sum().item()) for n in pz)
+    max_diff = max((pz[n] - pr[n]).abs().max().item() for n in pz)
+    log(f"phase7 (b) rank {out['rank']}: ZeRO-1 against replicated AdamW "
+        f"after {P7_DP_STEPS} steps: {unequal} of "
+        f"{sum(v.numel() for v in pz.values())} parameters differ, largest "
+        f"difference {max_diff:.3e}")
+    del pz, pr
+    torch.cuda.empty_cache()
+    out["b"] = {"zero1": b[True], "replicated": b[False],
+                "unequal": unequal, "max_diff": max_diff}
+    # (c) tp = 2 with kvr = 2: one step
+    out["c"] = p7_train("(c) tp = 2 kvr = 2", training_config(
+        tensor_parallel_size=TP, kv_size_multiplier=2, learning_rate=1e-4,
+        max_grad_norm=1.0, seed=SEED), cfg(P7_SMALL_LAYERS), one, 1)
+    dist.barrier()
+    return out
+
+
+def phase7(refs: dict, entries: dict) -> dict:
+    """Training past one rank on the one card: (a) tp = 2 with sequence
+    parallelism, (b) dp = 2 with ZeRO-1 against replicated AdamW, (c) tp =
+    2 with kvr = 2; the ranks against each other and against tp = 1."""
+    from neuronx_distributed_tpu_torch.utils.distributed import spawn
+
+    t_phase = time.perf_counter()
+    ranks = spawn(p7_rank, TP, ({},), timeout_s=P7_WORLD_TIMEOUT_S,
+                  echo=True)
+    a0, a1 = ranks[0]["a"], ranks[1]["a"]
+    L = P7_TP_LAYERS
+    steps = P7_WARMUP + P7_TIMED + 1    # the profiled step too
+    want = {"fwd": steps * L * 2, "dq": steps * L, "dkv": steps * L,
+            "paged": 0}   # selective remat runs each forward twice
+    for r in ranks:
+        a = r["a"]
+        if a["launches"] != want:
+            raise AssertionError(f"phase7(a): launches {a['launches']}, "
+                                 f"expected {want}")
+        if a["local_heads"] != (NQ // TP, NKV // TP):
+            raise AssertionError(f"phase7(a): local heads {a['local_heads']}")
+        if not all(math.isfinite(x) for x in a["losses"] + a["grad_norms"]):
+            raise AssertionError(f"phase7(a): non-finite {a['losses']}")
+        if not a["losses"][-1] < a["losses"][0]:
+            raise AssertionError(f"phase7(a): loss did not fall: "
+                                 f"{a['losses']}")
+        for key, ref, tol in (("losses", "loss", P7_LOSS_RTOL),
+                              ("grad_norms", "grad_norm", P7_NORM_RTOL)):
+            want_v = refs[P7_TP_LAYERS][ref]
+            rel = abs(a[key][0] - want_v) / abs(want_v)
+            if not rel <= tol:
+                raise AssertionError(f"phase7(a): first-step {ref} "
+                                     f"{a[key][0]} against tp = 1's {want_v}:"
+                                     f" rel {rel} > {tol}")
+    if a0["counts"] != a1["counts"] or a0["losses"] != a1["losses"]:
+        raise AssertionError("phase7(a): the ranks disagree on the collectives "
+                             "or the losses")
+    for r in ranks:
+        bz, br = r["b"]["zero1"], r["b"]["replicated"]
+        if not (bz["zero1"] and not br["zero1"] and bz["dp"][0] == 2):
+            raise AssertionError(f"phase7(b): layout {bz['dp']}")
+        if r["b"]["unequal"]:
+            raise AssertionError(f"phase7(b): ZeRO-1 parameters differ from "
+                                 f"replicated AdamW's in {r['b']['unequal']} "
+                                 f"elements (largest {r['b']['max_diff']})")
+        if bz["losses"] != br["losses"]:
+            raise AssertionError("phase7(b): ZeRO-1 losses differ")
+        if not bz["state_bytes"] < 0.55 * br["state_bytes"]:
+            raise AssertionError(f"phase7(b): ZeRO-1 state "
+                                 f"{bz['state_bytes']} not about half of "
+                                 f"{br['state_bytes']}")
+        c = r["c"]
+        if c["tp"][2] != 2 or c["local_heads"] != (NQ // TP, NKV // TP):
+            raise AssertionError(f"phase7(c): layout {c['tp']}, local heads "
+                                 f"{c['local_heads']}")
+        for key, ref, tol in (("losses", "loss", P7_LOSS_RTOL),
+                              ("grad_norms", "grad_norm", P7_NORM_RTOL)):
+            want_v = refs[P7_SMALL_LAYERS][ref]
+            rel = abs(c[key][0] - want_v) / abs(want_v)
+            if not rel <= tol:
+                raise AssertionError(f"phase7(c): first-step {ref} "
+                                     f"{c[key][0]} against tp = 1's {want_v}:"
+                                     f" rel {rel} > {tol}")
+        if c["launches"] != {"fwd": 2 * P7_SMALL_LAYERS,
+                             "dq": P7_SMALL_LAYERS, "dkv": P7_SMALL_LAYERS,
+                             "paged": 0}:
+            raise AssertionError(f"phase7(c): launches {c['launches']}")
+    g4 = entries["g4"]
+    for w in FLASH_KERNELS:
+        g4[w]["launches"] = a0["launches"][w]
+        g4[w]["launches_by_phase"] = {"7(a)": a0["launches"][w],
+                                      "7(c)": ranks[0]["c"]["launches"][w]}
+    seconds = time.perf_counter() - t_phase
+    busy = a0.get("device_busy_ms", 0.0)
+    log(f"phase7: (a) {a0['step_ms']:.1f} ms a step a rank, collectives "
+        f"{a0['collective_s'][-1] * 1e3:.1f} ms of it, busy {busy:.1f} of "
+        f"{a0.get('profiled_step_ms', 0.0):.1f} ms profiled; (b) ZeRO-1 "
+        f"state {ranks[0]['b']['zero1']['state_bytes'] / 2**30:.3f} against "
+        f"{ranks[0]['b']['replicated']['state_bytes'] / 2**30:.3f} GiB a "
+        f"rank, parameters equal to the bit; phase 7 took {seconds:.1f} s")
+    keep = ("losses", "grad_norms", "launches", "step_ms", "collective_s",
+            "param_bytes", "state_bytes", "peak_bytes", "tp", "dp",
+            "local_heads", "profiled_step_ms", "device_busy_ms",
+            "shard_bytes")
+    slim = lambda d: {k: d[k] for k in keep if k in d}  # noqa: E731
+    return {"seconds": seconds, "refs": refs,
+            "a": [dict(slim(r["a"]), counts=r["a"]["counts"][-1])
+                  for r in ranks],
+            "b": [{"zero1": slim(r["b"]["zero1"]),
+                   "replicated": slim(r["b"]["replicated"]),
+                   "unequal": r["b"]["unequal"],
+                   "max_diff": r["b"]["max_diff"]} for r in ranks],
+            "c": [slim(r["c"]) for r in ranks],
+            "g2_kernels": {w: {k: entries["g2"][w][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "max_abs_err", "max_err")} for w in FLASH_KERNELS}}
+
+
 def main() -> int:
     try:
         import torch
@@ -6095,6 +6461,12 @@ def main() -> int:
         log(f"phase5b summary: {json.dumps(gemma_serving)}")
         pretraining = phase6()
         log(f"phase6 summary: {json.dumps(pretraining)}")
+        tp_train_entries = phase7_kernels()
+        p7_refs = phase7_refs()
+        gc.collect()
+        torch.cuda.empty_cache()
+        tp_training = phase7(p7_refs, tp_train_entries)
+        log(f"phase7 summary: {json.dumps(tp_training)}")
         for w in FLASH_KERNELS:
             flash[w]["build"] = {d: guards[w][d] for d in (64, 128)}
             flash256[w]["build"] = {256: guards[w][256]}
@@ -6103,7 +6475,8 @@ def main() -> int:
                    + [tp_entries[k] for k in ("decode", "decode_int8",
                                               "chunk", "chunk_int8")]
                    + [flash[w] for w in FLASH_KERNELS]
-                   + [flash256[w] for w in FLASH_KERNELS])
+                   + [flash256[w] for w in FLASH_KERNELS]
+                   + [tp_train_entries["g4"][w] for w in FLASH_KERNELS])
         for k in kernels:
             if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms",
                                                      "library_ms",

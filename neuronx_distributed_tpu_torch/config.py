@@ -3,9 +3,10 @@
 The port's own copy of the JAX package's dataclasses: the mesh sizes,
 optimizer, pipeline and activation-checkpoint sub-configs, and the
 top-level :class:`TrainingConfig` with its flat-kwargs constructor
-:func:`training_config`.  Serving runs at any tensor-parallel degree
-(:mod:`.parallel.mesh` lays out the ranks); the trainer refuses degrees
-above 1 (ROADMAP A11).
+:func:`training_config`.  Serving and training run at any tensor and data
+parallel degree and KV replication (:mod:`.parallel.mesh` lays out the
+ranks); the trainer refuses pipeline, context and expert degrees above 1
+and ``fsdp`` (ROADMAP A15, A14, "Then", A11b).
 """
 
 from __future__ import annotations
@@ -48,9 +49,11 @@ class MeshConfig:
 class OptimizerConfig:
     """AdamW, clipping and the LR schedule (``constant`` | ``linear`` |
     ``cosine``, with warmup; decaying schedules need ``total_steps`` and
-    bottom out at ``min_lr_ratio * learning_rate``).  ZeRO-1 waits for the
-    data-parallel slice: at dp = 1 it would change nothing."""
+    bottom out at ``min_lr_ratio * learning_rate``).  ``zero_one_enabled``
+    shards the AdamW states over the data-parallel ranks
+    (:mod:`.optimizer.zero1`; nothing to shard at dp = 1)."""
 
+    zero_one_enabled: bool = True
     grad_clipping: bool = True
     max_grad_norm: float = 1.0
     learning_rate: float = 3e-4
@@ -89,7 +92,8 @@ class ActivationCheckpointConfig:
 class TrainingConfig:
     """Top-level config.  ``param_dtype``/``compute_dtype`` (dtype names)
     drive model construction: the trainer rebuilds a model whose config
-    disagrees."""
+    disagrees.  ``sequence_parallel`` is data only, as in the JAX package:
+    the model's own config decides sequence parallelism."""
 
     mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     optimizer: OptimizerConfig = dataclasses.field(
@@ -97,6 +101,7 @@ class TrainingConfig:
     pipeline: PipelineConfig = dataclasses.field(default_factory=PipelineConfig)
     activation_checkpoint: ActivationCheckpointConfig = dataclasses.field(
         default_factory=ActivationCheckpointConfig)
+    sequence_parallel: bool = True
     fsdp: bool = False
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"

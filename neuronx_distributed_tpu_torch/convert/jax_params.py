@@ -23,7 +23,12 @@ At tensor-parallel degree > 1 a rank's model holds its shard of each
 tensor: :func:`shard_params_for_rank` cuts the JAX tree (numpy) by the JAX
 package's partition specs (:func:`shard_dim` names the sharded dim of a
 parameter, None for a replicated one), and the converters take ``tp=`` to
-check the shard's shapes.
+check the shard's shapes.  Under KV replication (``kvr > 1``) the q heads
+and the attention output's rows are cut into ``tp`` blocks taken in the
+JAX ``('tp', 'kvr')`` order (rank ``(kvr = o, tp = i)`` holds block ``i *
+kvr + o``) and the k/v heads into ``tp / kvr`` blocks, the same on the kvr
+replicas.  :func:`zero1_shard_for_rank` cuts a rank's tree again for its
+ZeRO-1 slice (the optimizer state a data-parallel rank holds).
 """
 
 from __future__ import annotations
@@ -68,6 +73,17 @@ def shard_dim(name: str) -> Optional[int]:
     return None
 
 
+# the parameters cut in q-head blocks, and the k/v heads (replicated over
+# kvr), by name suffix
+_Q_BLOCKS = ("attn.qkv.q_kernel", "attn.qkv.q_bias", "attn.o_proj.kernel")
+_KV_BLOCKS = ("attn.qkv.k_kernel", "attn.qkv.v_kernel", "attn.qkv.k_bias",
+              "attn.qkv.v_bias")
+
+
+def _ends(name: str, suffixes) -> bool:
+    return any(name == s or name.endswith("." + s) for s in suffixes)
+
+
 def _cut(arr, dim: Optional[int], tp: int, rank: int):
     if dim is None or tp == 1:
         return arr
@@ -80,22 +96,54 @@ def _cut(arr, dim: Optional[int], tp: int, rank: int):
     return arr[tuple(idx)]
 
 
-def shard_params_for_rank(params: Mapping[str, Any], tp: int, rank: int
-                          ) -> Dict[str, Any]:
+def _block(name: str, tp: int, rank: int, kvr: int):
+    """``(blocks, block)``: how many blocks ``name``'s sharded dim is cut
+    into, and which one ``rank`` holds."""
+    inner = tp // kvr
+    if _ends(name, _Q_BLOCKS):
+        return tp, (rank % inner) * kvr + rank // inner
+    if _ends(name, _KV_BLOCKS):
+        return inner, rank % inner
+    return tp, rank
+
+
+def _walk(tree, prefix, leaf):
+    out = {}
+    for key, val in tree.items():
+        path = f"{prefix}{key}"
+        out[key] = (_walk(val, path + ".", leaf) if isinstance(val, Mapping)
+                    else leaf(path, np.asarray(val)))
+    return out
+
+
+def shard_params_for_rank(params: Mapping[str, Any], tp: int, rank: int,
+                          kvr: int = 1) -> Dict[str, Any]:
     """Rank ``rank``'s shard of a JAX param tree at tensor-parallel degree
-    ``tp``: the same nesting, each sharded leaf cut to its slice (numpy,
-    a copy), replicated leaves as they are."""
-    def walk(tree, prefix):
-        out = {}
-        for key, val in tree.items():
-            path = f"{prefix}{key}"
-            if isinstance(val, Mapping):
-                out[key] = walk(val, path + ".")
-            else:
-                out[key] = np.array(_cut(np.asarray(val), shard_dim(path),
-                                         tp, rank))
-        return out
-    return walk(params, "")
+    ``tp`` (the full degree, KV replication ``kvr``; ``rank`` in the
+    tensor-parallel group, kvr-major): the same nesting, each sharded leaf
+    cut to its slice (numpy, a copy), replicated leaves as they are."""
+    if tp % kvr:
+        raise ValueError(f"tensor-parallel degree {tp} not divisible by "
+                         f"kv_size_multiplier {kvr}")
+
+    def leaf(path, arr):
+        return np.array(_cut(arr, shard_dim(path), *_block(path, tp, rank,
+                                                           kvr)))
+    return _walk(params, "", leaf)
+
+
+def zero1_shard_for_rank(tree: Mapping[str, Any], dp: int, rank: int
+                         ) -> Dict[str, Any]:
+    """Data-parallel rank ``rank``'s ZeRO-1 slice of a (tensor-parallel
+    rank's) tree: each leaf cut along the first dim whose size divides
+    ``dp``, into ``dp`` pieces, or whole when none does -- what that rank's
+    optimizer state holds of a JAX ``mu``/``nu`` tree cut by
+    :func:`shard_params_for_rank` (:mod:`..optimizer.zero1`)."""
+    def leaf(path, arr):
+        dim = next((i for i, n in enumerate(arr.shape) if n % dp == 0),
+                   None) if dp > 1 else None
+        return np.array(_cut(arr, dim, dp, rank))
+    return _walk(tree, "", leaf)
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -110,8 +158,8 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
 
 
 def _expected_shapes(cfg, prefix: str = "model.", lm_head: bool = True,
-                     norms=("input_norm", "post_attn_norm"), tp: int = 1
-                     ) -> Dict[str, tuple]:
+                     norms=("input_norm", "post_attn_norm"), tp: int = 1,
+                     kvr: int = 1) -> Dict[str, tuple]:
     H, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     NQ, NKV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     shapes = {prefix + "embed.embedding": (V, H),
@@ -133,17 +181,19 @@ def _expected_shapes(cfg, prefix: str = "model.", lm_head: bool = True,
             shapes.update({p + "attn.qkv.q_bias": (NQ, D),
                            p + "attn.qkv.k_bias": (NKV, D),
                            p + "attn.qkv.v_bias": (NKV, D)})
-    return _sharded(shapes, tp)
+    return _sharded(shapes, tp, kvr)
 
 
-def _sharded(shapes: Dict[str, tuple], tp: int) -> Dict[str, tuple]:
-    """``shapes`` with each sharded dim cut to its ``1 / tp``."""
+def _sharded(shapes: Dict[str, tuple], tp: int,
+             kvr: int = 1) -> Dict[str, tuple]:
+    """``shapes`` with each sharded dim cut to its ``1 / tp`` (k/v heads
+    to ``kvr / tp``)."""
     if tp > 1:
         for name, shape in shapes.items():
             dim = shard_dim(name)
             if dim is not None:
                 shape = list(shape)
-                shape[dim] //= tp
+                shape[dim] //= _block(name, tp, 0, kvr)[0]
                 shapes[name] = tuple(shape)
     return shapes
 
@@ -197,14 +247,15 @@ def _bert_shapes(cfg, tp: int) -> Dict[str, tuple]:
     return _sharded(shapes, tp)
 
 
-def llama_params_from_jax(tree: Mapping[str, Any], cfg,
-                          tp: int = 1) -> Dict[str, torch.Tensor]:
+def llama_params_from_jax(tree: Mapping[str, Any], cfg, tp: int = 1,
+                          kvr: int = 1) -> Dict[str, torch.Tensor]:
     """A JAX Llama param tree (unboxed, leaves convertible to numpy; with or
     without the leading ``params`` level) -> a ``state_dict`` for the
     port's ``LlamaForCausalLM`` with config ``cfg`` (a rank's shard of
-    the tree, from :func:`shard_params_for_rank`, at ``tp > 1``).  Raises
-    on a missing, extra or wrongly shaped parameter."""
-    return _convert(tree, _expected_shapes(cfg, tp=tp))
+    the tree, from :func:`shard_params_for_rank`, at ``tp > 1`` and KV
+    replication ``kvr``).  Raises on a missing, extra or wrongly shaped
+    parameter."""
+    return _convert(tree, _expected_shapes(cfg, tp=tp, kvr=kvr))
 
 
 def gemma_params_from_jax(tree: Mapping[str, Any], cfg,

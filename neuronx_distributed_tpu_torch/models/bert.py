@@ -22,8 +22,11 @@ bert_params_from_jax` is a flatten plus a shape check.  At tp > 1 the
 word table and ``mlm_bias`` hold this rank's vocab rows (JAX keeps
 ``mlm_bias`` whole; the rank adds its slice), QKV and ``intermediate``
 their columns; :meth:`BertForPreTraining.gather_logits` joins the MLM
-slices.  Sequence parallelism belongs to A11, so the config carries no
-``sequence_parallel``.
+slices; it trains there too.  ``sequence_parallel`` (off by default, as
+in JAX) scatters the sequence after the embedding's dropout and gathers
+it before the pooler.  Dropout is tp-invariant: a layer's mask over a
+rank's sequence slice is the slice of the full-shape mask, so tp = 2
+under one seed draws tp = 1's masks.
 """
 
 from __future__ import annotations
@@ -42,16 +45,20 @@ from neuronx_distributed_tpu_torch.models.common import (
     fork_seeds,
     maybe_remat,
     seeded_generator,
+    sequence_parallel_active,
 )
 from neuronx_distributed_tpu_torch.parallel.layers import (
     ColumnParallelLinear,
     ParallelEmbedding,
     RowParallelLinear,
     init_normal_,
+    set_tp_layout,
 )
 from neuronx_distributed_tpu_torch.parallel.loss import parallel_cross_entropy
 from neuronx_distributed_tpu_torch.parallel.mappings import (
+    gather_from_sequence_parallel_region,
     gather_from_tensor_parallel_region,
+    scatter_to_sequence_parallel_region,
 )
 from neuronx_distributed_tpu_torch.parallel.mesh import TensorParallel
 from neuronx_distributed_tpu_torch.parallel.norm import LayerNorm
@@ -60,8 +67,7 @@ from neuronx_distributed_tpu_torch.utils.device import resolve_device
 
 @dataclasses.dataclass(frozen=True)
 class BertConfig:
-    """The JAX ``BertConfig`` without ``sequence_parallel`` (A11).
-    Defaults are BERT-large.  ``dtype`` is the compute type,
+    """The JAX ``BertConfig``.  Defaults are BERT-large.  ``dtype`` is the compute type,
     ``param_dtype`` the weights' (fp32 masters, as JAX)."""
 
     vocab_size: int = 30522
@@ -73,6 +79,7 @@ class BertConfig:
     type_vocab_size: int = 2
     ln_eps: float = 1e-12
     hidden_dropout: float = 0.1
+    sequence_parallel: bool = False
     remat: str = "none"  # none | selective | full
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
@@ -98,9 +105,12 @@ class BertConfig:
             hidden_dropout=0.0), **overrides})
 
 
-def _layer_norm(cfg: BertConfig, device) -> LayerNorm:
+def _layer_norm(cfg: BertConfig, device, in_sp: bool = False) -> LayerNorm:
+    """``in_sp``: an encoder layer's norm, on sequence shards under
+    sequence parallelism."""
     return LayerNorm(cfg.hidden_size, cfg.ln_eps, dtype=cfg.dtype,
-                     param_dtype=cfg.param_dtype, device=device)
+                     param_dtype=cfg.param_dtype, device=device,
+                     sequence_parallel=in_sp and cfg.sequence_parallel)
 
 
 class Dense(nn.Module):
@@ -134,23 +144,25 @@ class BertSelfAttention(nn.Module):
     def __init__(self, cfg: BertConfig, device=None):
         super().__init__()
         self.config = cfg
-        H = cfg.hidden_size
+        H, sp = cfg.hidden_size, cfg.sequence_parallel
         self.qkv = ColumnParallelLinear(H, 3 * H, use_bias=True, n_fused=3,
                                         dtype=cfg.dtype, device=device,
-                                        param_dtype=cfg.param_dtype)
+                                        param_dtype=cfg.param_dtype,
+                                        sequence_parallel=sp)
         self.heads = self.qkv.tp.shard(cfg.num_heads, "attention heads")
         self.dense = RowParallelLinear(H, H, use_bias=True, dtype=cfg.dtype,
                                        device=device,
-                                       param_dtype=cfg.param_dtype)
+                                       param_dtype=cfg.param_dtype,
+                                       sequence_parallel=sp)
 
-    def forward(self, x, attn_mask=None):
-        B, S = x.shape[:2]
+    def forward(self, x, attn_mask=None, sp: bool = False):
         D = self.config.head_dim
-        qkv = self.qkv(x)   # [B, S, 3, H / tp]
+        qkv = self.qkv(x, sp)   # [B, S, 3, H / tp], the whole sequence
+        B, S = qkv.shape[:2]
         q, k, v = (qkv[..., i, :].reshape(B, S, self.heads, D)
                    for i in range(3))
         out = dense_mha(q, k, v, mask=attn_mask, causal=False)
-        return self.dense(out.reshape(B, S, self.heads * D))
+        return self.dense(out.reshape(B, S, self.heads * D), sp)
 
 
 class BertLayer(nn.Module):
@@ -160,16 +172,17 @@ class BertLayer(nn.Module):
     def __init__(self, cfg: BertConfig, device=None):
         super().__init__()
         self.config = cfg
-        H, I = cfg.hidden_size, cfg.intermediate_size
+        H, I, sp = cfg.hidden_size, cfg.intermediate_size, cfg.sequence_parallel
         self.attention = BertSelfAttention(cfg, device)
-        self.attention_norm = _layer_norm(cfg, device)
+        self.attention_norm = _layer_norm(cfg, device, True)
         self.intermediate = ColumnParallelLinear(
             H, I, use_bias=True, dtype=cfg.dtype, device=device,
-            param_dtype=cfg.param_dtype)
+            param_dtype=cfg.param_dtype, sequence_parallel=sp)
         self.output = RowParallelLinear(I, H, use_bias=True, dtype=cfg.dtype,
                                         device=device,
-                                        param_dtype=cfg.param_dtype)
-        self.output_norm = _layer_norm(cfg, device)
+                                        param_dtype=cfg.param_dtype,
+                                        sequence_parallel=sp)
+        self.output_norm = _layer_norm(cfg, device, True)
 
     def reset_parameters(self, generator=None) -> None:
         self.attention.qkv.reset_parameters(generator)
@@ -177,17 +190,20 @@ class BertLayer(nn.Module):
         self.intermediate.reset_parameters(generator)
         self.output.reset_parameters(generator)
 
-    def forward(self, x, attn_mask=None, seed: Optional[int] = None):
+    def forward(self, x, attn_mask=None, seed: Optional[int] = None,
+                sp: bool = False):
         """``seed`` (None: deterministic) seeds this layer's dropout
         generator here, inside the layer, so a recompute draws the same
-        masks."""
+        masks.  ``sp``: ``x`` is this rank's sequence slice, and so are
+        the masks."""
         rate = self.config.hidden_dropout
         g = seeded_generator(seed, x.device) if seed is not None else None
-        h = self.attention(x, attn_mask)
-        x = self.attention_norm(x + dropout(h, rate, g))
-        h = F.gelu(self.intermediate(x), approximate="none")
-        h = self.output(h)
-        return self.output_norm(x + dropout(h, rate, g))
+        tp = self.attention.qkv.tp if sp else None
+        h = self.attention(x, attn_mask, sp)
+        x = self.attention_norm(x + dropout(h, rate, g, tp))
+        h = F.gelu(self.intermediate(x, sp), approximate="none")
+        h = self.output(h, sp)
+        return self.output_norm(x + dropout(h, rate, g, tp))
 
 
 class BertModel(nn.Module):
@@ -220,6 +236,8 @@ class BertModel(nn.Module):
                 generator: Optional[torch.Generator] = None):
         cfg = self.config
         S = ids.shape[1]
+        tp = self.word_embeddings.tp
+        sp = sequence_parallel_active(cfg.sequence_parallel, tp, S)
         seeds = ([None] * (cfg.num_layers + 1) if generator is None
                  else fork_seeds(generator, cfg.num_layers + 1))
         if token_type_ids is None:
@@ -231,13 +249,18 @@ class BertModel(nn.Module):
         if seeds[0] is not None:
             h = dropout(h, cfg.hidden_dropout,
                         seeded_generator(seeds[0], h.device))
+        if sp:
+            h = scatter_to_sequence_parallel_region(h, 1, tp.group)
         mask = None
         if attention_mask is not None:
             mask = attention_mask[:, None, None, :].bool()   # [B, 1, 1, T]
         remat = cfg.remat if torch.is_grad_enabled() else "none"
         for layer, seed in zip(self.layers(), seeds[1:]):
             h = maybe_remat(
-                lambda x, m, blk=layer, s=seed: blk(x, m, s), remat)(h, mask)
+                lambda x, m, blk=layer, s=seed: blk(x, m, s, sp), remat)(h,
+                                                                       mask)
+        if sp:
+            h = gather_from_sequence_parallel_region(h, 1, False, tp.group)
         pooled = torch.tanh(self.pooler(h[:, 0]))
         return h, pooled
 
@@ -258,9 +281,10 @@ class BertForPreTraining(nn.Module):
         self.bert = BertModel(cfg, device)
         self.mlm_transform = Dense(H, H, cfg.dtype, cfg.param_dtype, device)
         self.mlm_norm = _layer_norm(cfg, device)
-        self.mlm_bias = nn.Parameter(torch.zeros(
+        # this rank's vocab slice, as the tied table's
+        self.mlm_bias = set_tp_layout(nn.Parameter(torch.zeros(
             self.bert.word_embeddings.embedding.shape[0],
-            dtype=cfg.param_dtype, device=device))
+            dtype=cfg.param_dtype, device=device)), self.tp)
         self.nsp_classifier = Dense(H, 2, torch.float32, cfg.param_dtype,
                                     device)
 
@@ -312,7 +336,7 @@ def pretraining_loss(model: BertForPreTraining, batch,
     mlm_logits, nsp_logits = model(batch["ids"], batch.get("token_type_ids"),
                                    batch.get("attention_mask"), generator)
     labels = batch["mlm_labels"]
-    per_tok = parallel_cross_entropy(mlm_logits, labels)
+    per_tok = parallel_cross_entropy(mlm_logits, labels, tp=model.tp)
     mask = (labels >= 0).float()
     mlm_loss = (per_tok * mask).sum() / mask.sum().clamp(min=1.0)
     nsp_labels = batch.get("nsp_labels")

@@ -9,7 +9,15 @@ batch, rng)`` signature loses ``params``, and the ``rng`` key becomes a
 and returns either a scalar mean or ``(loss_sum, token_count)``;
 ``trainer.make_train_step`` accepts both.  The causal-LM families carry no
 dropout, so their losses take the generator and ignore it, as JAX's
-ignore the key.
+ignore the key.  At tensor-parallel degree > 1 the head gives this rank's
+vocab slice and the losses take the vocab-parallel cross entropy (the
+model's ``tp``); under sequence parallelism ``hidden`` gathers the
+sequence before the head, so the chunked head cuts the whole sequence.
+
+Dropout at tp > 1 is tp-invariant: a mask over a rank's slice of the
+sequence is the slice of the full-shape mask drawn from the same
+generator, so tp = 2 under one seed draws tp = 1's masks (the JAX
+property of ``tests/test_rng_dropout.py``).
 
 Dropout under remat: ``torch.utils.checkpoint`` restores the default CPU
 and CUDA generators before it recomputes a block, never a user
@@ -69,6 +77,26 @@ def maybe_remat(fn: Callable, remat: str) -> Callable:
     return wrapped
 
 
+def sequence_parallel_active(enabled: bool, tp, seq_len: int,
+                             cached: bool = False) -> bool:
+    """Whether a forward runs sequence-parallel: ``enabled`` by the model's
+    config, at tensor-parallel degree > 1, without caches (serving keeps
+    the plain collectives, as in JAX), over a sequence that splits over
+    tp.  A training forward (gradients on) whose sequence does not split
+    raises; a forward without gradients runs the plain collectives, which
+    give the same values."""
+    if not enabled or tp.size == 1 or cached:
+        return False
+    if seq_len % tp.size:
+        if torch.is_grad_enabled():
+            raise ValueError(
+                f"sequence_parallel: a sequence of {seq_len} does not split "
+                f"over tensor-parallel degree {tp.size}; pad it or build the "
+                f"model with sequence_parallel=False")
+        return False
+    return True
+
+
 def _token_mask(batch) -> torch.Tensor:
     labels = batch["labels"]
     mask = (labels >= 0).float()
@@ -90,7 +118,8 @@ def causal_lm_loss_sum(model, batch, generator=None):
     is ignored (no dropout in the causal-LM families)."""
     logits = model(batch["ids"], **_packed_kwargs(batch))
     mask = _token_mask(batch)
-    per_tok = parallel_cross_entropy(logits, batch["labels"])
+    per_tok = parallel_cross_entropy(logits, batch["labels"],
+                                     tp=getattr(model, "tp", None))
     return (per_tok * mask).sum(), mask.sum()
 
 
@@ -113,7 +142,8 @@ def make_causal_lm_loss_sum(chunk_size: int = 0):
         return causal_lm_loss_sum
 
     def chunk_loss(model, h_c, y_c, m_c):
-        per_tok = parallel_cross_entropy(model.head(h_c), y_c)
+        per_tok = parallel_cross_entropy(model.head(h_c), y_c,
+                                         tp=getattr(model, "tp", None))
         return torch.stack([(per_tok * m_c).sum(), m_c.sum()])
 
     def loss_fn(model, batch, generator=None):
@@ -174,17 +204,27 @@ def seeded_generator(seed: int, device) -> torch.Generator:
 
 
 def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator], tp=None,
+            dim: int = 1) -> torch.Tensor:
     """Inverted dropout as flax's ``nn.Dropout``: each element kept with
     probability ``1 - rate`` (a uniform draw from ``generator`` below it)
     and divided by it, in x's type.  ``generator=None`` or ``rate == 0`` is
-    the identity (deterministic)."""
+    the identity (deterministic).  With ``tp`` (a :class:`..parallel.mesh.
+    TensorParallel` of size > 1) ``x`` is this rank's slice along ``dim``
+    (the sequence under sequence parallelism): the mask is the slice of
+    the full-shape mask, the same draws as at tp = 1."""
     if generator is None or rate == 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator,
-                      device=x.device) < keep_prob
+    if tp is not None and tp.size > 1:
+        full = list(x.shape)
+        full[dim] *= tp.size
+        u = torch.rand(full, generator=generator, device=x.device)
+        keep = u.narrow(dim, tp.rank * x.shape[dim], x.shape[dim]) < keep_prob
+    else:
+        keep = torch.rand(x.shape, generator=generator,
+                          device=x.device) < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
                                                         device=x.device))

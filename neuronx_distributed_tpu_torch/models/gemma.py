@@ -27,8 +27,9 @@ stack runs through :func:`.llama.run_layers` (one paged-step plan per
 forward, remat per block), so the trainer and the serving engine drive
 Gemma unchanged.  At tp > 1 the table is vocab-sharded and the tied head
 gives each rank its vocab slice; Gemma-2's final softcap is applied after
-:meth:`gather_logits` joins the slices.  Sequence parallelism belongs to
-the training layers (A11), so the configs carry no ``sequence_parallel``.
+:meth:`gather_logits` joins the slices.  The configs carry no
+``sequence_parallel``: the blocks are built without it (Gemma under
+sequence parallelism and its training at tp > 1 are a ROADMAP item).
 """
 
 from __future__ import annotations
@@ -93,7 +94,8 @@ class GemmaConfig:
             max_seq_len=self.max_seq_len, rope_theta=self.rope_theta,
             rms_eps=self.rms_eps, remat=self.remat,
             attention_impl=self.attention_impl, mlp_activation="gelu_tanh",
-            dtype=self.dtype, param_dtype=self.param_dtype)
+            sequence_parallel=False, dtype=self.dtype,
+            param_dtype=self.param_dtype)
 
     @staticmethod
     def gemma_2b(**overrides) -> "GemmaConfig":
@@ -161,7 +163,8 @@ class Gemma2Config:
             sliding_window=self.sliding_window if sliding else None,
             attn_softcap=self.attn_softcap,
             attn_scale=self.query_pre_attn_scalar ** -0.5,
-            dtype=self.dtype, param_dtype=self.param_dtype)
+            sequence_parallel=False, dtype=self.dtype,
+            param_dtype=self.param_dtype)
 
     @staticmethod
     def gemma2_2b(**overrides) -> "Gemma2Config":
@@ -206,12 +209,14 @@ class Gemma2Block(nn.Module):
         self.mlp = LlamaMLP(cfg, device)
 
     def forward(self, x, positions, kv_cache=None, cache_offset=0,
-                kv_valid=None, paged=None, segment_ids=None, adapter=None):
+                kv_valid=None, paged=None, segment_ids=None, adapter=None,
+                sp: bool = False):
         h, cache = self.attn(self.input_norm(x), positions, kv_cache,
                              cache_offset, kv_valid, paged, segment_ids,
-                             adapter)
+                             adapter, sp)
         x = x + self.post_attn_norm(h)
-        return x + self.post_ffw_norm(self.mlp(self.pre_ffw_norm(x))), cache
+        return (x + self.post_ffw_norm(self.mlp(self.pre_ffw_norm(x), sp)),
+                cache)
 
 
 class _TiedDecoder(nn.Module):

@@ -16,9 +16,10 @@ shape check.  ``hidden``/``head`` serve the chunked loss head
 (:func:`.common.make_causal_lm_loss_sum`); ``remat`` applies per block when
 gradients are on.  At tp > 1 each layer holds its shard (heads, MLP
 columns, vocab rows) and :meth:`GPTNeoXForCausalLM.gather_logits` joins the
-head's vocab slices.  Sequence parallelism belongs to the training layers
-(A11), so the config carries no ``sequence_parallel``; the pipelined build
-waits for A15.
+head's vocab slices; it trains there too.  ``sequence_parallel`` (JAX's
+default on) runs the residual stream and the LayerNorms on a rank's
+sequence slice (:func:`.common.sequence_parallel_active`); the pipelined
+build waits for A15.
 """
 
 from __future__ import annotations
@@ -30,7 +31,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from neuronx_distributed_tpu_torch.models.common import dense_mha, maybe_remat
+from neuronx_distributed_tpu_torch.models.common import (
+    dense_mha,
+    maybe_remat,
+    sequence_parallel_active,
+)
 from neuronx_distributed_tpu_torch.models.llama import apply_rope, rope_sin_cos
 from neuronx_distributed_tpu_torch.parallel.layers import (
     ColumnParallelLinear,
@@ -38,6 +43,7 @@ from neuronx_distributed_tpu_torch.parallel.layers import (
     RowParallelLinear,
 )
 from neuronx_distributed_tpu_torch.parallel.mappings import (
+    gather_from_sequence_parallel_region,
     gather_from_tensor_parallel_region,
 )
 from neuronx_distributed_tpu_torch.parallel.mesh import TensorParallel
@@ -50,8 +56,7 @@ PIPELINE_DEFERRED = ("the pipelined GPT-NeoX is not ported yet (ROADMAP A15, "
 
 @dataclasses.dataclass(frozen=True)
 class GPTNeoXConfig:
-    """The JAX ``GPTNeoXConfig`` without ``sequence_parallel`` (A11).
-    Defaults are GPT-NeoX-20B.  ``dtype`` is the compute type,
+    """The JAX ``GPTNeoXConfig``.  Defaults are GPT-NeoX-20B.  ``dtype`` is the compute type,
     ``param_dtype`` the weights' (fp32 masters, as JAX)."""
 
     vocab_size: int = 50432
@@ -64,6 +69,7 @@ class GPTNeoXConfig:
     rope_theta: float = 10000.0
     ln_eps: float = 1e-5
     use_parallel_residual: bool = True
+    sequence_parallel: bool = True
     remat: str = "selective"  # none | selective | full
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
@@ -114,70 +120,78 @@ class GPTNeoXAttention(nn.Module):
     def __init__(self, cfg: GPTNeoXConfig, device=None):
         super().__init__()
         self.config = cfg
-        H = cfg.hidden_size
+        H, sp = cfg.hidden_size, cfg.sequence_parallel
         self.qkv = ColumnParallelLinear(H, 3 * H, use_bias=True, n_fused=3,
                                         dtype=cfg.dtype, device=device,
-                                        param_dtype=cfg.param_dtype)
+                                        param_dtype=cfg.param_dtype,
+                                        sequence_parallel=sp)
         self.heads = self.qkv.tp.shard(cfg.num_heads, "attention heads")
         self.dense = RowParallelLinear(H, H, use_bias=True, dtype=cfg.dtype,
                                        device=device,
-                                       param_dtype=cfg.param_dtype)
+                                       param_dtype=cfg.param_dtype,
+                                       sequence_parallel=sp)
 
     def reset_parameters(self, generator=None) -> None:
         self.qkv.reset_parameters(generator)
         self.dense.reset_parameters(generator)
 
-    def forward(self, x, positions):
+    def forward(self, x, positions, sp: bool = False):
         cfg = self.config
-        B, S = x.shape[:2]
-        qkv = self.qkv(x)   # [B, S, 3, H / tp]
+        qkv = self.qkv(x, sp)   # [B, S, 3, H / tp], the whole sequence
+        B, S = qkv.shape[:2]
         q, k, v = (qkv[..., i, :].reshape(B, S, self.heads, cfg.head_dim)
                    for i in range(3))
         q = apply_partial_rope(q, positions, cfg.rotary_pct, cfg.rope_theta)
         k = apply_partial_rope(k, positions, cfg.rotary_pct, cfg.rope_theta)
         out = dense_mha(q, k, v, causal=True)
-        return self.dense(out.reshape(B, S, self.heads * cfg.head_dim))
+        return self.dense(out.reshape(B, S, self.heads * cfg.head_dim), sp)
 
 
 class GPTNeoXMLP(nn.Module):
     def __init__(self, cfg: GPTNeoXConfig, device=None):
         super().__init__()
-        H, I = cfg.hidden_size, cfg.intermediate_size
+        H, I, sp = cfg.hidden_size, cfg.intermediate_size, cfg.sequence_parallel
         self.dense_h_to_4h = ColumnParallelLinear(
             H, I, use_bias=True, dtype=cfg.dtype, device=device,
-            param_dtype=cfg.param_dtype)
+            param_dtype=cfg.param_dtype, sequence_parallel=sp)
         self.dense_4h_to_h = RowParallelLinear(
             I, H, use_bias=True, dtype=cfg.dtype, device=device,
-            param_dtype=cfg.param_dtype)
+            param_dtype=cfg.param_dtype, sequence_parallel=sp)
 
     def reset_parameters(self, generator=None) -> None:
         self.dense_h_to_4h.reset_parameters(generator)
         self.dense_4h_to_h.reset_parameters(generator)
 
-    def forward(self, x):
+    def forward(self, x, sp: bool = False):
         # HF-exact erf GELU (checkpoint parity)
-        return self.dense_4h_to_h(F.gelu(self.dense_h_to_4h(x),
-                                         approximate="none"))
+        return self.dense_4h_to_h(F.gelu(self.dense_h_to_4h(x, sp),
+                                         approximate="none"), sp)
+
+
+def _layer_norm(cfg: GPTNeoXConfig, device) -> LayerNorm:
+    """A LayerNorm of the residual stream (on sequence shards under
+    sequence parallelism)."""
+    return LayerNorm(cfg.hidden_size, cfg.ln_eps, dtype=cfg.dtype,
+                     param_dtype=cfg.param_dtype, device=device,
+                     sequence_parallel=cfg.sequence_parallel)
 
 
 class GPTNeoXBlock(nn.Module):
     def __init__(self, cfg: GPTNeoXConfig, device=None):
         super().__init__()
         self.config = cfg
-        self.ln_1 = LayerNorm(cfg.hidden_size, cfg.ln_eps, dtype=cfg.dtype,
-                              param_dtype=cfg.param_dtype, device=device)
+        self.ln_1 = _layer_norm(cfg, device)
         self.attn = GPTNeoXAttention(cfg, device)
-        self.ln_2 = LayerNorm(cfg.hidden_size, cfg.ln_eps, dtype=cfg.dtype,
-                              param_dtype=cfg.param_dtype, device=device)
+        self.ln_2 = _layer_norm(cfg, device)
         self.mlp = GPTNeoXMLP(cfg, device)
 
-    def forward(self, x, positions):
-        attn_out = self.attn(self.ln_1(x), positions)
+    def forward(self, x, positions, sp: bool = False):
+        attn_out = self.attn(self.ln_1(x), positions, sp)
         if self.config.use_parallel_residual:
             # x + attn(ln_1(x)) + mlp(ln_2(x)), HF GPT-NeoX's parallel form
-            return x + attn_out + self.mlp(self.ln_2(x))
+            return x + attn_out + self.mlp(self.ln_2(x), sp)
         x = x + attn_out
-        return x + self.mlp(self.ln_2(x))
+        return x + self.mlp(self.ln_2(x), sp)
 
 
 class GPTNeoXForCausalLM(nn.Module):
@@ -191,14 +205,12 @@ class GPTNeoXForCausalLM(nn.Module):
         device = resolve_device(device)
         self.config = cfg
         self.tp = TensorParallel.current()
-        self.embed_in = ParallelEmbedding(cfg.vocab_size, cfg.hidden_size,
-                                          cfg.dtype, device, cfg.param_dtype)
+        self.embed_in = ParallelEmbedding(
+            cfg.vocab_size, cfg.hidden_size, cfg.dtype, device,
+            cfg.param_dtype, sequence_parallel_output=cfg.sequence_parallel)
         for i in range(cfg.num_layers):
             self.add_module(f"layer_{i}", GPTNeoXBlock(cfg, device))
-        self.final_norm = LayerNorm(cfg.hidden_size, cfg.ln_eps,
-                                    dtype=cfg.dtype,
-                                    param_dtype=cfg.param_dtype,
-                                    device=device)
+        self.final_norm = _layer_norm(cfg, device)
         self.embed_out = ColumnParallelLinear(
             cfg.hidden_size, cfg.vocab_size, use_bias=False, dtype=cfg.dtype,
             device=device, param_dtype=cfg.param_dtype)
@@ -232,16 +244,24 @@ class GPTNeoXForCausalLM(nn.Module):
         return self.head(self.hidden(ids, positions))
 
     def hidden(self, ids, positions=None):
-        """Backbone: final-norm hidden states ``[B, S, H]``, the input the
-        chunked loss head consumes."""
+        """Backbone: final-norm hidden states ``[B, S, H]`` (the sequence
+        gathered back from sequence parallelism), the input the chunked
+        loss head consumes."""
+        sp = sequence_parallel_active(self.config.sequence_parallel,
+                                      self.tp, ids.shape[1])
         if positions is None:
             positions = torch.arange(ids.shape[1], device=ids.device
                                      ).expand(ids.shape)
-        h = self.embed_in(ids)
+        h = self.embed_in(ids, sp)
         remat = self.config.remat if torch.is_grad_enabled() else "none"
         for block in self.layers():
-            h = maybe_remat(block, remat)(h, positions)
-        return self.final_norm(h)
+            h = maybe_remat(lambda x, p, blk=block: blk(x, p, sp),
+                            remat)(h, positions)
+        h = self.final_norm(h)
+        if sp:
+            h = gather_from_sequence_parallel_region(h, 1, False,
+                                                     self.tp.group)
+        return h
 
     def head(self, h):
         """Logits for a (chunk of) hidden states: this rank's vocab slice

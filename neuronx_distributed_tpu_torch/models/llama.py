@@ -6,7 +6,10 @@ The module tree and parameter names follow the JAX package's param tree
 path (:mod:`..convert.jax_params`).  Carried: RoPE with Llama-3.1
 frequency scaling; the dense GQA core (with packed-document segment ids)
 and, for training with ``attention_impl="flash"``, the flash kernels at
-context-parallel degree 1; rematerialization (``remat``) at block
+context-parallel degree 1, over a rank's local heads at any tensor-parallel
+degree and KV replication; sequence parallelism (``sequence_parallel``:
+the residual stream and the norms on a rank's slice of the sequence
+between the projections, for cacheless forwards); rematerialization (``remat``) at block
 granularity; ``hidden``/``head`` for the chunked loss; and three KV-cache
 writes -- the contiguous write at a scalar offset, the per-slot masked
 write at per-slot offsets, and the paged scatter through a block table --
@@ -35,7 +38,10 @@ from neuronx_distributed_tpu_torch.kvcache.quant import (
     page_ranges,
     quantize_page,
 )
-from neuronx_distributed_tpu_torch.models.common import maybe_remat
+from neuronx_distributed_tpu_torch.models.common import (
+    maybe_remat,
+    sequence_parallel_active,
+)
 from neuronx_distributed_tpu_torch.ops.flash_attention import (
     band_mask,
     flash_attention,
@@ -48,6 +54,7 @@ from neuronx_distributed_tpu_torch.parallel.layers import (
     RowParallelLinear,
 )
 from neuronx_distributed_tpu_torch.parallel.mappings import (
+    gather_from_sequence_parallel_region,
     gather_from_tensor_parallel_region,
 )
 from neuronx_distributed_tpu_torch.parallel.mesh import TensorParallel
@@ -66,9 +73,11 @@ MLP_ACTIVATIONS = {"silu": F.silu,
 
 @dataclasses.dataclass(frozen=True)
 class LlamaConfig:
-    """The JAX ``LlamaConfig`` fields the port carries (sequence
-    parallelism, cp layouts, scanned layers, MoE and LoRA belong to later
-    slices).  ``dtype`` is the compute type; ``param_dtype`` the weights'
+    """The JAX ``LlamaConfig`` fields the port carries (cp layouts,
+    scanned layers, MoE and LoRA belong to later slices).
+    ``sequence_parallel`` (JAX's default on) shards the residual stream's
+    sequence over tp in cacheless forwards
+    (:func:`.common.sequence_parallel_active`).  ``dtype`` is the compute type; ``param_dtype`` the weights'
     (None: the compute type, with fp32 norm weights -- the serving layout;
     training keeps fp32 masters).  ``remat``: ``none`` | ``selective``
     (save the matmul outputs, recompute the rest) | ``full``, applied per
@@ -89,6 +98,7 @@ class LlamaConfig:
     rope_scaling_high_freq_factor: float = 4.0
     rope_scaling_original_max_seq: int = 8192
     rms_eps: float = 1e-5
+    sequence_parallel: bool = True
     qkv_bias: bool = False
     # Gemma-2 score knobs and Mistral sliding window, honored by the dense
     # core and the paged kernel alike
@@ -407,18 +417,25 @@ class LlamaAttention(nn.Module):
         self.qkv = GQAQKVColumnParallelLinear(
             cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, D,
             use_bias=cfg.qkv_bias, dtype=cfg.dtype, device=device,
-            param_dtype=cfg.weight_dtype)
+            param_dtype=cfg.weight_dtype,
+            sequence_parallel=cfg.sequence_parallel)
+        # the attention output arrives in q-head blocks
         self.o_proj = RowParallelLinear(cfg.num_heads * D, cfg.hidden_size,
                                         use_bias=False, dtype=cfg.dtype,
                                         device=device,
-                                        param_dtype=cfg.weight_dtype)
+                                        param_dtype=cfg.weight_dtype,
+                                        sequence_parallel=cfg.sequence_parallel,
+                                        head_blocks=True)
 
     def forward(self, x, positions, kv_cache: Optional[KVCache] = None,
                 cache_offset=0, kv_valid=None,
                 paged: Optional[PagedStep] = None, segment_ids=None,
-                adapter=None):
+                adapter=None, sp: bool = False):
+        """``sp``: ``x`` is this rank's sequence slice (sequence
+        parallelism); q, k and v, and attention, cover the whole
+        sequence."""
         cfg = self.config
-        q, k, v = self.qkv(x)
+        q, k, v = self.qkv(x, sp)
         if adapter is not None:
             # part of the projection: before RoPE and before the page
             # write, so the pool holds the adapted v
@@ -488,7 +505,7 @@ class LlamaAttention(nn.Module):
                                  cache_offset if kv_cache is not None else 0,
                                  kv_valid, segment_ids)
         B, S = x.shape[0], q.shape[1]
-        return self.o_proj(out.reshape(B, S, -1)), kv_cache
+        return self.o_proj(out.reshape(B, S, -1), sp), kv_cache
 
     def reset_parameters(self, generator=None) -> None:
         self.qkv.reset_parameters(generator)
@@ -498,43 +515,51 @@ class LlamaAttention(nn.Module):
 class LlamaMLP(nn.Module):
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
+        sp = cfg.sequence_parallel
         self.gate_up = ColumnParallelLinear(
             cfg.hidden_size, 2 * cfg.intermediate_size, use_bias=False,
             n_fused=2, dtype=cfg.dtype, device=device,
-            param_dtype=cfg.weight_dtype)
+            param_dtype=cfg.weight_dtype, sequence_parallel=sp)
         self.down = RowParallelLinear(cfg.intermediate_size, cfg.hidden_size,
                                       use_bias=False, dtype=cfg.dtype,
                                       device=device,
-                                      param_dtype=cfg.weight_dtype)
+                                      param_dtype=cfg.weight_dtype,
+                                      sequence_parallel=sp)
         self.act = MLP_ACTIVATIONS[cfg.mlp_activation]
 
-    def forward(self, x):
-        gate_up = self.gate_up(x)
-        return self.down(self.act(gate_up[..., 0, :]) * gate_up[..., 1, :])
+    def forward(self, x, sp: bool = False):
+        gate_up = self.gate_up(x, sp)
+        return self.down(self.act(gate_up[..., 0, :]) * gate_up[..., 1, :],
+                         sp)
 
     def reset_parameters(self, generator=None) -> None:
         self.gate_up.reset_parameters(generator)
         self.down.reset_parameters(generator)
 
 
+def norm(cfg: LlamaConfig, device) -> RMSNorm:
+    """A block's RMSNorm; under sequence parallelism it acts on sequence
+    shards (its weight marked ``sequence_parallel``)."""
+    return RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype, device,
+                   cfg.norm_dtype, cfg.sequence_parallel)
+
+
 class LlamaBlock(nn.Module):
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
         self.attn = LlamaAttention(cfg, device)
-        self.input_norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype,
-                                  device, cfg.norm_dtype)
-        self.post_attn_norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype,
-                                      device, cfg.norm_dtype)
+        self.input_norm = norm(cfg, device)
+        self.post_attn_norm = norm(cfg, device)
         self.mlp = LlamaMLP(cfg, device)
 
     def forward(self, x, positions, kv_cache=None, cache_offset=0,
                 kv_valid=None, paged: Optional[PagedStep] = None,
-                segment_ids=None, adapter=None):
+                segment_ids=None, adapter=None, sp: bool = False):
         h, cache = self.attn(self.input_norm(x), positions, kv_cache,
                              cache_offset, kv_valid, paged, segment_ids,
-                             adapter)
+                             adapter, sp)
         x = x + h
-        return x + self.mlp(self.post_attn_norm(x)), cache
+        return x + self.mlp(self.post_attn_norm(x), sp), cache
 
 
 class LlamaModel(nn.Module):
@@ -544,12 +569,12 @@ class LlamaModel(nn.Module):
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
         self.config = cfg
-        self.embed = ParallelEmbedding(cfg.vocab_size, cfg.hidden_size,
-                                       cfg.dtype, device, cfg.weight_dtype)
+        self.embed = ParallelEmbedding(
+            cfg.vocab_size, cfg.hidden_size, cfg.dtype, device,
+            cfg.weight_dtype, sequence_parallel_output=cfg.sequence_parallel)
         for i in range(cfg.num_layers):
             self.add_module(f"layer_{i}", LlamaBlock(cfg, device))
-        self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, cfg.dtype,
-                                  device, cfg.norm_dtype)
+        self.final_norm = norm(cfg, device)
 
     def layers(self) -> List[LlamaBlock]:
         return [getattr(self, f"layer_{i}")
@@ -558,20 +583,35 @@ class LlamaModel(nn.Module):
     def forward(self, ids, positions=None, kv_caches=None, cache_offset=0,
                 kv_valid=None, block_table=None, paged_kernel=False,
                 segment_ids=None, adapters=None):
-        return self.final_norm(run_layers(
-            self.layers(), self.embed(ids), positions, kv_caches,
+        """The final-norm hidden states ``[B, S, H]`` (under sequence
+        parallelism the stack runs on sequence shards and the sequence is
+        gathered after the final norm)."""
+        sp = sequence_parallel_active(self.config.sequence_parallel,
+                                      self.embed.tp, ids.shape[1],
+                                      kv_caches is not None)
+        if positions is None:
+            positions = torch.arange(ids.shape[1], device=ids.device
+                                     ).expand(ids.shape)
+        h = self.final_norm(run_layers(
+            self.layers(), self.embed(ids, sp), positions, kv_caches,
             cache_offset, kv_valid, block_table, paged_kernel, segment_ids,
-            self.config.remat, adapters))
+            self.config.remat, adapters, sp))
+        if sp:
+            h = gather_from_sequence_parallel_region(h, 1, False,
+                                                     self.embed.tp.group)
+        return h
 
 
 def run_layers(layers, h, positions=None, kv_caches=None, cache_offset=0,
                kv_valid=None, block_table=None, paged_kernel=False,
                segment_ids=None, remat: str = "none",
-               adapters=None) -> torch.Tensor:
+               adapters=None, sp: bool = False) -> torch.Tensor:
     """The decoder stack over the embedded ``h [B, S, H]``.  Without
     caches: the training / teacher-forced forward,
     with per-document positions and segment ids (packed batches) and
-    ``remat`` per block when gradients are on.  With caches: the serving
+    ``remat`` per block when gradients are on; ``sp``: ``h`` is this
+    rank's sequence slice (sequence parallelism; ``positions`` and
+    ``segment_ids`` cover the whole sequence).  With caches: the serving
     forward, the paged step planned once for every layer when there is a
     block table.  ``adapters``: one :func:`apply_adapter` factor tuple per
     layer (multi-adapter serving), or None."""
@@ -587,7 +627,7 @@ def run_layers(layers, h, positions=None, kv_caches=None, cache_offset=0,
         for block, adapter in zip(layers, adapters):
             step = maybe_remat(
                 lambda x, p, blk=block, ad=adapter: blk(
-                    x, p, None, 0, kv_valid, None, segment_ids, ad)[0],
+                    x, p, None, 0, kv_valid, None, segment_ids, ad, sp)[0],
                 remat)
             h = step(h, positions)
         return h
@@ -644,7 +684,8 @@ class LlamaForCausalLM(nn.Module):
         return (logits, kv_caches) if kv_caches is not None else logits
 
     def hidden(self, ids, positions=None, kv_valid=None, segment_ids=None):
-        """Backbone only: final-norm hidden states ``[B, S, H]``, the input
+        """Backbone only: final-norm hidden states ``[B, S, H]`` with the
+        whole sequence (gathered back from sequence parallelism), the input
         the chunked loss head (``models.common.make_causal_lm_loss_sum``)
         consumes."""
         return self.model(ids, positions, None, 0, kv_valid, None, False,

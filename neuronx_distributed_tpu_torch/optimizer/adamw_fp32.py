@@ -9,6 +9,12 @@ correction by the update count, ``eps`` outside the square root, and
 decoupled weight decay ``lr * wd * p`` on every parameter.  The schedule
 is a function of the update count, read before each update (optax's
 ``count``, 0 for the first update).
+
+Every step of the update is elementwise, so AdamW over a rank's ZeRO-1
+state shards (:class:`.zero1.Zero1`: contiguous fp32 slices of the
+parameters, their gradients' slices) computes, element for element, the
+replicated optimizer's update on the same values: the shards go to the
+same ``torch.optim.AdamW`` (the same foreach kernels on the card).
 """
 
 from __future__ import annotations
@@ -25,7 +31,8 @@ def adamw_fp32(params: Iterable[torch.nn.Parameter],
                learning_rate: Union[float, Schedule],
                b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                weight_decay: float = 0.01) -> torch.optim.AdamW:
-    """AdamW over ``params`` (fp32 masters keep fp32 moments).  A schedule
+    """AdamW over ``params`` (fp32 masters keep fp32 moments; or a rank's
+    ZeRO-1 shards, leaf tensors whose ``grad`` the step sets).  A schedule
     is applied by the train step, which sets the group's ``lr`` to
     ``schedule(count)`` before each update; the optimizer starts at
     ``schedule(0)``."""

@@ -20,6 +20,25 @@ built at degree 1 calls no mapping, whatever group is initialized later.
   lookup plus an all-reduce, and :meth:`~ParallelEmbedding.attend` gives
   local-vocab logits.
 
+Sequence parallelism (``sequence_parallel``, the embedding's
+``sequence_parallel_output``): between the layers the activations hold
+this rank's slice of the sequence (dim -2, in tp-group rank order, the
+JAX ``SEQUENCE_AXES`` order at cp = 1).  A column layer all-gathers the
+sequence before its matmul (its backward reduce-scatters), a row layer
+reduce-scatters its fp32 partials onto the sequence instead of
+all-reducing them (then rounds once), and the embedding reduce-scatters
+its masked rows.  ``forward(..., sequence_parallel=False)`` runs the
+plain collectives for one call (a model decides per forward: serving
+and sequences that do not split run without).  A layer built without SP
+keeps the plain collectives.
+
+Every parameter records how its gradient lies over the tensor-parallel
+group (:func:`tp_layout`): ``"sharded"`` (each rank its own slice),
+``"kv_replicated"`` (k/v heads: sharded over ``tp / kvr``, the same on
+the ``kvr`` ranks of a kv block), or replicated; a replicated parameter
+that acts on sequence shards is also marked ``sequence_parallel`` (its
+rank's gradient covers only its shard, :mod:`.grads` sums them over tp).
+
 Parameters keep the JAX package's names and layouts so a JAX param tree
 loads by path (at tp > 1 after ``convert.shard_params_for_rank``):
 ``kernel [in, out]`` (``[in, n_fused, out / n_fused]`` fused), ``bias``,
@@ -42,23 +61,57 @@ from torch import nn
 
 from neuronx_distributed_tpu_torch.parallel.mappings import (
     copy_to_tensor_parallel_region,
+    gather_from_sequence_parallel_region,
     gather_from_tensor_parallel_region,
     reduce_from_tensor_parallel_region,
+    reduce_scatter_to_sequence_parallel_region,
 )
 from neuronx_distributed_tpu_torch.parallel.mesh import TensorParallel
+
+SHARDED, KV_REPLICATED = "sharded", "kv_replicated"
 
 
 def _kernel(shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 
 
+def set_tp_layout(p: nn.Parameter, tp: TensorParallel, layout: str = SHARDED,
+                  sequence_parallel: bool = False) -> nn.Parameter:
+    """Record ``p``'s layout over ``tp``'s group (nothing at degree 1,
+    where every parameter is whole)."""
+    if tp.size > 1:
+        if layout is not None:
+            p.tp_layout = layout
+        if sequence_parallel:
+            p.sequence_parallel = True
+    return p
+
+
+def tp_layout(p: torch.Tensor) -> Optional[str]:
+    """``"sharded"``, ``"kv_replicated"`` or None (replicated)."""
+    return getattr(p, "tp_layout", None)
+
+
+def is_sequence_parallel(p: torch.Tensor) -> bool:
+    return getattr(p, "sequence_parallel", False)
+
+
+def _sp(layer, override: Optional[bool]) -> bool:
+    """Whether this call runs the sequence-parallel collectives."""
+    if layer.tp.size == 1:
+        return False
+    return layer.sequence_parallel if override is None else override
+
+
 def init_normal_(p: torch.Tensor, std: float, generator=None,
                  full_shape: Optional[Sequence[int]] = None, dim: int = 0,
-                 tp: Optional[TensorParallel] = None) -> None:
+                 tp: Optional[TensorParallel] = None,
+                 block: Optional[int] = None) -> None:
     """``p ~ N(0, std^2)`` from ``generator``.  A shard (``tp.size > 1``)
     draws the whole ``full_shape`` tensor and keeps its slice along
-    ``dim``, so the generator advances as at tp = 1 and the values are the
-    tp = 1 tensor's."""
+    ``dim`` (block ``block`` of its size, default ``tp.rank``), so the
+    generator advances as at tp = 1 and the values are the tp = 1
+    tensor's."""
     with torch.no_grad():
         if tp is None or tp.size == 1:
             p.normal_(0.0, std, generator=generator)
@@ -66,7 +119,8 @@ def init_normal_(p: torch.Tensor, std: float, generator=None,
         full = torch.empty(tuple(full_shape), dtype=p.dtype, device=p.device)
         full.normal_(0.0, std, generator=generator)
         n = p.shape[dim]
-        p.copy_(full.narrow(dim, tp.rank * n, n))
+        p.copy_(full.narrow(dim, (tp.rank if block is None else block) * n,
+                            n))
 
 
 class ColumnParallelLinear(nn.Module):
@@ -78,7 +132,8 @@ class ColumnParallelLinear(nn.Module):
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
                  n_fused: int = 1, dtype: torch.dtype = torch.bfloat16,
                  device=None, param_dtype: Optional[torch.dtype] = None,
-                 gather_output: bool = False):
+                 gather_output: bool = False,
+                 sequence_parallel: bool = False):
         super().__init__()
         if features % n_fused:
             raise ValueError(f"{features} features do not split into "
@@ -87,6 +142,7 @@ class ColumnParallelLinear(nn.Module):
         self.n_fused = n_fused
         self.dtype = dtype
         self.gather_output = gather_output
+        self.sequence_parallel = sequence_parallel
         per = features // n_fused
         local = self.tp.shard(per, "output features a fused part")
         self.full_shape = ((in_features, features) if n_fused == 1
@@ -94,8 +150,9 @@ class ColumnParallelLinear(nn.Module):
         shape = ((in_features, local) if n_fused == 1
                  else (in_features, n_fused, local))
         pdt = param_dtype or dtype
-        self.kernel = _kernel(shape, pdt, device)
-        self.bias = (_kernel(shape[1:], pdt, device) if use_bias else None)
+        self.kernel = set_tp_layout(_kernel(shape, pdt, device), self.tp)
+        self.bias = (set_tp_layout(_kernel(shape[1:], pdt, device), self.tp)
+                     if use_bias else None)
 
     def reset_parameters(self, generator=None) -> None:
         init_normal_(self.kernel, 1.0 / math.sqrt(self.kernel.shape[0]),
@@ -104,9 +161,15 @@ class ColumnParallelLinear(nn.Module):
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                sequence_parallel: Optional[bool] = None) -> torch.Tensor:
         x = x.to(self.dtype)
-        if self.tp.size > 1:
+        if _sp(self, sequence_parallel):
+            # x holds this rank's sequence slice: the whole sequence in,
+            # its gradient reduce-scattered back
+            x = gather_from_sequence_parallel_region(x, x.ndim - 2, True,
+                                                     self.tp.group)
+        elif self.tp.size > 1:
             x = copy_to_tensor_parallel_region(x, self.tp.group)
         w = self.kernel.reshape(self.kernel.shape[0], -1).to(self.dtype)
         y = torch.matmul(x, w).reshape(*x.shape[:-1], *self.kernel.shape[1:])
@@ -117,15 +180,39 @@ class ColumnParallelLinear(nn.Module):
         return y
 
 
+class _MatmulFp32(torch.autograd.Function):
+    """``torch.mm(out_dtype=float32)`` (which has no derivative) with its
+    backward in the operands' type.  The gradient reaching the fp32 output
+    is the upcast of a compute-type gradient (the output is rounded to the
+    compute type once, after the reduce), so casting it back is exact and
+    ``dx``, ``dw`` are the tp = 1 products."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return y.reshape(*x.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        dx = torch.matmul(g, w.t()) if ctx.needs_input_grad[0] else None
+        dw = (torch.mm(x.reshape(-1, x.shape[-1]).t(),
+                       g.reshape(-1, g.shape[-1]))
+              if ctx.needs_input_grad[1] else None)
+        return dx, dw
+
+
 def _matmul_fp32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` with an fp32 result: bf16/fp16 operands on CUDA keep the
     tensor-core product and write its fp32 accumulator
-    (``torch.mm(out_dtype=)``); elsewhere the operands are widened."""
+    (``torch.mm(out_dtype=)``, differentiable through
+    :class:`_MatmulFp32`); elsewhere the operands are widened."""
     if x.dtype == torch.float32:
         return torch.matmul(x, w)
     if x.is_cuda:
-        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
-        return y.reshape(*x.shape[:-1], w.shape[-1])
+        return _MatmulFp32.apply(x, w)
     return torch.matmul(x.float(), w.float())
 
 
@@ -141,26 +228,38 @@ class RowParallelLinear(nn.Module):
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
                  dtype: torch.dtype = torch.bfloat16, device=None,
-                 param_dtype: Optional[torch.dtype] = None):
+                 param_dtype: Optional[torch.dtype] = None,
+                 sequence_parallel: bool = False, head_blocks: bool = False):
         super().__init__()
         self.tp = TensorParallel.current()
         self.dtype = dtype
+        self.sequence_parallel = sequence_parallel
+        # the input rows in q-head blocks (an attention output at kvr > 1,
+        # JAX ``input_partition_axes=Q_HEAD_AXES``), else in rank order
+        self.block = self.tp.q_block if head_blocks else self.tp.rank
         self.full_shape = (in_features, features)
         pdt = param_dtype or dtype
-        self.kernel = _kernel((self.tp.shard(in_features, "input features"),
-                               features), pdt, device)
-        self.bias = _kernel((features,), pdt, device) if use_bias else None
+        self.kernel = set_tp_layout(_kernel(
+            (self.tp.shard(in_features, "input features"), features), pdt,
+            device), self.tp)
+        self.bias = (set_tp_layout(_kernel((features,), pdt, device), self.tp,
+                                   None, sequence_parallel)
+                     if use_bias else None)
 
     def reset_parameters(self, generator=None) -> None:
         init_normal_(self.kernel, 1.0 / math.sqrt(self.full_shape[0]),
-                     generator, self.full_shape, 0, self.tp)
+                     generator, self.full_shape, 0, self.tp, self.block)
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                sequence_parallel: Optional[bool] = None) -> torch.Tensor:
         x, w = x.to(self.dtype), self.kernel.to(self.dtype)
         if self.tp.size == 1:
             y = torch.matmul(x, w)
+        elif _sp(self, sequence_parallel):
+            y = reduce_scatter_to_sequence_parallel_region(
+                _matmul_fp32(x, w), x.ndim - 2, self.tp.group).to(self.dtype)
         else:
             y = reduce_from_tensor_parallel_region(_matmul_fp32(x, w),
                                                    self.tp.group)
@@ -176,21 +275,27 @@ class ParallelEmbedding(nn.Module):
 
     def __init__(self, num_embeddings: int, features: int,
                  dtype: torch.dtype = torch.bfloat16, device=None,
-                 param_dtype: Optional[torch.dtype] = None):
+                 param_dtype: Optional[torch.dtype] = None,
+                 sequence_parallel_output: bool = False):
         super().__init__()
         self.tp = TensorParallel.current()
         self.dtype = dtype
+        self.sequence_parallel = sequence_parallel_output
         self.full_shape = (num_embeddings, features)
         local = self.tp.shard(num_embeddings, "vocabulary")
         self.vocab_start = self.tp.rank * local
-        self.embedding = _kernel((local, features), param_dtype or dtype,
-                                 device)
+        self.embedding = set_tp_layout(_kernel(
+            (local, features), param_dtype or dtype, device), self.tp)
 
     def reset_parameters(self, generator=None) -> None:
         init_normal_(self.embedding, 0.02, generator, self.full_shape, 0,
                      self.tp)
 
-    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, ids: torch.Tensor,
+                sequence_parallel: Optional[bool] = None) -> torch.Tensor:
+        """``[..., S] -> [..., S, H]``, or this rank's sequence slice ``[...,
+        S / tp, H]`` under sequence parallelism (the model's first SP
+        region)."""
         # gather, then cast: the same values as flax's cast-then-take, with
         # the table's gradient scattered in param_dtype
         if self.tp.size == 1:
@@ -200,6 +305,9 @@ class ParallelEmbedding(nn.Module):
         rows = self.embedding[torch.where(outside, 0, local)].to(self.dtype)
         rows = rows.masked_fill(outside[..., None], 0)
         # each id's row lives on one rank: the others add exact zeros
+        if _sp(self, sequence_parallel):
+            return reduce_scatter_to_sequence_parallel_region(
+                rows, rows.ndim - 2, self.tp.group)
         return reduce_from_tensor_parallel_region(rows, self.tp.group)
 
     def attend(self, x: torch.Tensor) -> torch.Tensor:

@@ -81,6 +81,20 @@ def all_reduce(x: torch.Tensor, group=None, op=dist.ReduceOp.SUM,
     return out
 
 
+def broadcast(x: torch.Tensor, src: int, group=None,
+              kind: str = "broadcast") -> torch.Tensor:
+    """``x`` of global rank ``src`` on every rank of ``group``, IN PLACE,
+    counted under ``kind``."""
+    g = _group(group)
+    if g is None or dist.get_world_size(g) == 1:
+        return x
+    t0 = time.perf_counter()
+    dist.broadcast(x, src=src, group=g)
+    SECONDS[kind] += time.perf_counter() - t0
+    COUNTS[kind] += 1
+    return x
+
+
 def all_gather(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
     """The group's shards of ``x`` concatenated along ``dim`` in rank
     order."""

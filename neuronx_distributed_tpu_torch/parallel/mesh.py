@@ -318,11 +318,21 @@ def get_expert_parallel_group():
 
 
 class TensorParallel:
-    """The tensor-parallel context a layer is built in: ``size``, ``rank``
-    and ``group`` (size 1, rank 0 and no group before initialization)."""
+    """The tensor-parallel context a layer is built in: ``size`` (the full
+    degree ``kvr * tp``), ``rank`` (in the group, kvr-major), ``group``,
+    and ``kvr`` with its ``kvr_group`` (size 1, rank 0 and no groups
+    before initialization).
 
-    def __init__(self, size: int = 1, rank: int = 0, group=None):
+    Heads are cut as the JAX specs cut them: q heads (and the attention
+    output's rows) over ``('tp', 'kvr')``, tp-major, so rank ``(kvr = o,
+    tp = i)`` holds q block :attr:`q_block` ``= i * kvr + o``; k/v heads
+    over ``'tp'`` only, block :attr:`kv_block` ``= i``, replicated along
+    kvr.  At ``kvr = 1`` both are ``rank``."""
+
+    def __init__(self, size: int = 1, rank: int = 0, group=None,
+                 kvr: int = 1, kvr_group=None):
         self.size, self.rank, self.group = size, rank, group
+        self.kvr, self.kvr_group = kvr, kvr_group
 
     @staticmethod
     def current() -> "TensorParallel":
@@ -330,7 +340,24 @@ class TensorParallel:
             return TensorParallel()
         return TensorParallel(get_tensor_parallel_size(),
                               get_tensor_parallel_rank(),
-                              get_tensor_parallel_group())
+                              get_tensor_parallel_group(),
+                              get_kv_size_multiplier(),
+                              get_group(KV_REPLICA_AXIS))
+
+    @property
+    def inner(self) -> int:
+        """The degree k/v heads split over, ``size / kvr``."""
+        return self.size // self.kvr
+
+    @property
+    def q_block(self) -> int:
+        """This rank's block of q heads (of ``size`` blocks)."""
+        return (self.rank % self.inner) * self.kvr + self.rank // self.inner
+
+    @property
+    def kv_block(self) -> int:
+        """This rank's block of k/v heads (of ``inner`` blocks)."""
+        return self.rank % self.inner
 
     def shard(self, n: int, what: str = "dimension") -> int:
         """``n / size``, raising when it does not divide."""
@@ -340,4 +367,5 @@ class TensorParallel:
         return n // self.size
 
     def __repr__(self) -> str:
-        return f"TensorParallel(size={self.size}, rank={self.rank})"
+        return (f"TensorParallel(size={self.size}, rank={self.rank}, "
+                f"kvr={self.kvr})")

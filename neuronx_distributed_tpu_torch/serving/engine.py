@@ -165,6 +165,7 @@ from neuronx_distributed_tpu_torch.trace.engine import (
     gumbel_draw,
     pack_tokens,
     propose_rows,
+    refuse_kv_replication,
     request_key,
     sample_rows,
     sampled_tokens,
@@ -490,6 +491,7 @@ class ServingEngine:
             raise ValueError(f"spec_k must be >= 0, got {spec_k}")
         cfg = model.config
         tp = getattr(model, "tp", None)
+        refuse_kv_replication(tp)
         self.tp_size = tp.size if tp is not None else 1
         # tensor-parallel rank 0 writes the engine's files; every rank's
         # clock is rank 0's (see the module docstring)

@@ -154,6 +154,17 @@ def init_kv_caches(num_layers: int, batch_size: int, max_total_len: int,
             for _ in range(num_layers)]
 
 
+def refuse_kv_replication(tp) -> None:
+    """Serving holds a rank's ``NKV / tp`` kv heads in its pool; at KV
+    replication ``kvr > 1`` the heads and the pool are cut otherwise, which
+    serving does not take yet."""
+    if tp is not None and tp.kvr > 1:
+        raise NotImplementedError(
+            f"serving at kv_size_multiplier={tp.kvr} is not ported yet: the "
+            f"page pool and the engines hold NKV / tp kv heads a rank "
+            f"(ROADMAP A9c; training at kvr > 1 is ported)")
+
+
 def resolve_cuda_graphs(flag, device, tp_size: int = 1) -> bool:
     """Resolve the ``cuda_graphs`` knob (``"auto"`` | ``True`` |
     ``False``): auto captures on a CUDA device and runs eagerly on the
@@ -412,6 +423,7 @@ class ParallelInferenceModel(_ServingBase):
         # the tensor-parallel context the module was built in: this rank
         # holds NKV / tp heads of the pool and V / tp of the logits
         self.tp = getattr(module, "tp", None) or TensorParallel()
+        refuse_kv_replication(self.tp)
         self.cuda_graphs = resolve_cuda_graphs(cuda_graphs, self.device,
                                                self.tp.size)
         self.graphs = PhaseGraphs(capture=self.cuda_graphs)

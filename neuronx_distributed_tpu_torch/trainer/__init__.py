@@ -8,8 +8,11 @@ from neuronx_distributed_tpu_torch.trainer.metrics import (
 from neuronx_distributed_tpu_torch.trainer.trainer import (
     ParallelModel,
     ParallelOptimizer,
+    data_parallel_slice,
+    default_batch_spec,
     initialize_parallel_model,
     initialize_parallel_optimizer,
+    make_eval_step,
     make_train_step,
 )
 
@@ -17,8 +20,11 @@ __all__ = [
     "ParallelModel",
     "ParallelOptimizer",
     "Throughput",
+    "data_parallel_slice",
+    "default_batch_spec",
     "initialize_parallel_model",
     "initialize_parallel_optimizer",
+    "make_eval_step",
     "make_train_step",
     "mfu",
     "transformer_flops_per_token",

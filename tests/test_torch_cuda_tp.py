@@ -98,3 +98,28 @@ def test_refusals(pair):
     for out in pair[1]:
         assert "A9a" in out["graphs_refusal"]
         assert "A9d" in out["fleet_refusal"]
+
+
+def test_fp32_partial_product_has_the_plain_gradients():
+    """The row layers' fp32-partial product (``torch.mm(out_dtype=)``,
+    which has no derivative of its own) gives the output of the fp32
+    product and the gradients of the bf16 product, bit for bit: its
+    backward runs the same bf16 products as autograd of ``x @ w``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from neuronx_distributed_tpu_torch.parallel.layers import _matmul_fp32
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(2, 64, 256, device="cuda", generator=g).bfloat16()
+    w = torch.randn(256, 512, device="cuda", generator=g).bfloat16()
+    ct = torch.randn(2, 64, 512, device="cuda", generator=g).bfloat16()
+    xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+    y = _matmul_fp32(xa, wa)
+    assert y.dtype == torch.float32
+    torch.testing.assert_close(y, x.float() @ w.float(), rtol=1e-5,
+                               atol=1e-4)
+    y.backward(ct.float())
+    xb, wb = x.clone().requires_grad_(), w.clone().requires_grad_()
+    (xb @ wb).backward(ct)
+    assert torch.equal(xa.grad, xb.grad)
+    assert torch.equal(wa.grad, wb.grad)

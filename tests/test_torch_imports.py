@@ -154,7 +154,7 @@ def test_walk_covers_the_slice():
                 "obs.schemas", "obs.flight", "obs.tracing",
                 "obs.transfer_audit", "obs.metrics_server",
                 "utils.timeline") + PART2_MODULES + FLEET_MODULES + TP_MODULES \
-            + A9E_MODULES:
+            + A9E_MODULES + A11_MODULES:
         assert f"neuronx_distributed_tpu_torch.{mod}" in names
 
 
@@ -186,8 +186,19 @@ TP_MODULES = ("utils.common", "utils.distributed", "parallel.mesh",
 A9E_MODULES = ("models.gpt_neox", "models.bert", "utils.dtypes")
 
 
+# ROADMAP A10's trainer degrees with A11: head padding and ZeRO-1 (the
+# layers, loss, grads and trainer were ported files already)
+A11_MODULES = ("parallel.pad", "optimizer.zero1", "parallel.loss",
+               "parallel.grads", "parallel.qkv", "trainer.trainer")
+
+
 @pytest.mark.parametrize("mod", TP_MODULES)
 def test_tp_module_imports_no_jax(mod):
+    _check_module(mod)
+
+
+@pytest.mark.parametrize("mod", A11_MODULES)
+def test_a11_module_imports_no_jax(mod):
     _check_module(mod)
 
 

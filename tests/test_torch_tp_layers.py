@@ -10,8 +10,9 @@ partition specs, the port's in a spawned 2-rank gloo world over each
 rank's cut of the same numpy weights.  Outputs agree within 1e-5 (fp32),
 the sharded ones joined over the ranks.  Also: the port's random init is
 tp-invariant (a tp = 2 model from seed s is the tp = 1 model from seed
-s, sliced), ``shard_params_for_rank`` round-trips to the full tree, and
-the head-count and kvr refusals.
+s, sliced), ``shard_params_for_rank`` round-trips to the full tree, the
+head-count refusals, and serving's refusal of kvr > 1 (ROADMAP A9c; the
+layers take it).
 """
 
 import jax
@@ -211,6 +212,8 @@ def test_refusals(results):
     assert "num_heads=5 not divisible by TP degree 2" in errors["q_heads"]
     assert "vocabulary of 63" in errors["vocab"]
     assert "A9c" in errors["kvr"]
+    # at kvr = 2 (tp = 2) a rank holds 4 of 8 q heads and both kv heads
+    assert ranks[0]["kvr_heads"] == (4, 2)
 
 
 def test_paged_attention_at_local_heads():

@@ -260,10 +260,17 @@ def test_cross_entropy_matches_jax():
 def test_trainer_refusals():
     cfg = LlamaConfig.tiny(dtype=torch.float32, param_dtype=torch.float32)
     build = lambda d: LlamaForCausalLM(cfg, device=d)  # noqa: E731
-    for kw in (dict(tensor_parallel_size=2), dict(context_parallel_size=2),
-               dict(pipeline_parallel_size=2), dict(data_parallel_size=2),
-               dict(fsdp=True)):
-        with pytest.raises(NotImplementedError, match="A10-A11"):
+    # the degrees still to port name the ROADMAP item that lifts them
+    for kw, item in ((dict(context_parallel_size=2), "A14"),
+                     (dict(pipeline_parallel_size=2), "A15"),
+                     (dict(expert_parallel_size=2), "Then"),
+                     (dict(fsdp=True), "A11b")):
+        with pytest.raises(NotImplementedError, match=item):
+            initialize_parallel_model(training_config(**kw), build,
+                                      device="cpu")
+    # tp and dp are ported: one process is no world of 2
+    for kw in (dict(tensor_parallel_size=2), dict(data_parallel_size=2)):
+        with pytest.raises(ValueError, match="not divisible|inconsistent"):
             initialize_parallel_model(training_config(**kw), build,
                                       device="cpu")
     config = training_config(compute_dtype="float32")

@@ -253,8 +253,21 @@ def layer_cases(inp: dict):
     mesh.destroy_model_parallel()
     mesh.initialize_model_parallel(tensor_parallel_size=2,
                                    kv_size_multiplier=2)
+    # the layers take kvr > 1 (training); serving refuses it
+    from neuronx_distributed_tpu_torch.trace import (
+        InferenceConfig,
+        ParallelInferenceModel,
+    )
+
+    kvr_model = LlamaForCausalLM(LlamaConfig.tiny(num_kv_heads=2,
+                                                  dtype=torch.float32),
+                                 device="cpu")
+    out["kvr_heads"] = (kvr_model.model.layer_0.attn.qkv.q_kernel.shape[1],
+                        kvr_model.model.layer_0.attn.qkv.k_kernel.shape[1])
     try:
-        GQAQKVColumnParallelLinear(16, 8, 2, 4, **f32)
+        ParallelInferenceModel(kvr_model, InferenceConfig(1, 4, 8,
+                                                          torch.float32),
+                               device="cpu")
     except NotImplementedError as e:
         errors["kvr"] = str(e)
     out["errors"] = errors
@@ -635,4 +648,378 @@ def neox_bert_forward(inp: dict):
                                     "attention_mask")))
             out[name] = {"logits": model.gather_logits(mlm).numpy(),
                          "nsp": nsp.numpy(), "local_vocab": mlm.shape[-1]}
+    return out
+
+
+# -- training past one rank: layers, loss, clipping, ZeRO-1 ------------------
+
+
+def _part(a, dim, r, n=2):
+    """Rank ``r``'s slice of ``a`` along ``dim`` (``n`` ranks) as a tensor."""
+    return torch.from_numpy(_cut(a, dim, r, n))
+
+
+def _np(t):
+    return t.detach().numpy().copy()
+
+
+class TinyMLP(torch.nn.Module):
+    """The JAX ``tests/test_grads_zero1.py`` MLP: column (64, no bias),
+    tanh GELU, row (16, no bias), fp32."""
+
+    def __init__(self):
+        from neuronx_distributed_tpu_torch.parallel import (
+            ColumnParallelLinear,
+            RowParallelLinear,
+        )
+
+        super().__init__()
+        f32 = dict(dtype=torch.float32, device="cpu", use_bias=False)
+        self.col = ColumnParallelLinear(16, 64, **f32)
+        self.row = RowParallelLinear(64, 16, **f32)
+
+    def forward(self, x):
+        import torch.nn.functional as F
+
+        return self.row(F.gelu(self.col(x), approximate="tanh"))
+
+
+def _mlp_loss(model, batch):
+    return ((model(batch["x"]) - batch["y"]) ** 2).mean()
+
+
+def layer_training_cases(inp: dict):
+    """The training layers at tp = 2 (sequence parallelism, the vocab-
+    parallel cross entropy), at tp = 2 with kvr = 2 (the QKV projection,
+    grouped attention and the global grad norm) and ZeRO-1 at dp = 2: each
+    rank's outputs and gradients, as numpy."""
+    import torch.nn.functional as F
+
+    from neuronx_distributed_tpu_torch.config import training_config
+    from neuronx_distributed_tpu_torch.convert import (
+        llama_params_from_jax,
+        shard_params_for_rank,
+    )
+    from neuronx_distributed_tpu_torch.models.llama import (
+        LlamaConfig,
+        LlamaForCausalLM,
+    )
+    from neuronx_distributed_tpu_torch.optimizer.zero1 import state_by_param
+    from neuronx_distributed_tpu_torch.parallel import (
+        ColumnParallelLinear,
+        GQAQKVColumnParallelLinear,
+        ParallelEmbedding,
+        RowParallelLinear,
+        mesh,
+    )
+    from neuronx_distributed_tpu_torch.parallel.grads import (
+        allreduce_kv_replicated_gradients,
+        allreduce_sequence_parallel_gradients,
+        clip_grad_norm,
+        get_grad_norm,
+    )
+    from neuronx_distributed_tpu_torch.parallel.layers import (
+        is_sequence_parallel,
+        tp_layout,
+    )
+    from neuronx_distributed_tpu_torch.parallel.loss import (
+        vocab_parallel_cross_entropy,
+    )
+    from neuronx_distributed_tpu_torch.parallel.mappings import group_rank
+    from neuronx_distributed_tpu_torch.trainer import (
+        initialize_parallel_model,
+        initialize_parallel_optimizer,
+        make_train_step,
+    )
+
+    f32 = dict(dtype=torch.float32, device="cpu")
+    t = torch.from_numpy
+    _init(tensor_parallel_size=2)
+    r = group_rank()
+    out = {}
+
+    # the column -> row MLP with biases under sequence parallelism: x and
+    # the output hold this rank's half of the sequence
+    col = ColumnParallelLinear(16, 64, sequence_parallel=True, **f32)
+    row = RowParallelLinear(64, 16, sequence_parallel=True, **f32)
+    with torch.no_grad():
+        col.kernel.copy_(_part(inp["w1"], 1, r))
+        col.bias.copy_(_part(inp["b1"], 0, r))
+        row.kernel.copy_(_part(inp["w2"], 0, r))
+        row.bias.copy_(t(inp["b2"]))
+    x = _part(inp["sp_x"], 1, r).requires_grad_(True)
+    y = row(F.gelu(col(x), approximate="tanh"))
+    (y * _part(inp["sp_ct"], 1, r)).sum().backward()
+    bias_before = _np(row.bias.grad)
+    allreduce_sequence_parallel_gradients([col.kernel, col.bias, row.kernel,
+                                           row.bias])
+    out["sp_mlp"] = {
+        "y": _np(y), "x": _np(x.grad), "w1": _np(col.kernel.grad),
+        "b1": _np(col.bias.grad), "w2": _np(row.kernel.grad),
+        "b2": _np(row.bias.grad), "b2_own_shard": bias_before,
+        "marked": [is_sequence_parallel(p) for p in (
+            col.kernel, col.bias, row.kernel, row.bias)],
+        "layouts": [tp_layout(p) for p in (col.kernel, col.bias, row.kernel,
+                                           row.bias)]}
+    # the embedding's sequence-parallel output
+    emb = ParallelEmbedding(64, 16, sequence_parallel_output=True, **f32)
+    with torch.no_grad():
+        emb.embedding.copy_(_part(inp["table"], 0, r))
+    e = emb(t(inp["emb_ids"]).long())
+    (e * _part(inp["emb_ct"], 1, r)).sum().backward()
+    out["sp_embed"] = {"y": _np(e), "table": _np(emb.embedding.grad)}
+
+    # the vocab-parallel cross entropy: values and logit gradients
+    for smoothing in (0.0, 0.1):
+        lg = _part(inp["ce_logits"], -1, r).requires_grad_(True)
+        loss = vocab_parallel_cross_entropy(lg, t(inp["ce_targets"]),
+                                            smoothing)
+        (loss * t(inp["ce_ct"])).sum().backward()
+        out[f"ce_{smoothing}"] = {"loss": _np(loss), "grad": _np(lg.grad)}
+    huge = torch.full((2, 32), 1e4)
+    out["ce_extreme"] = _np(vocab_parallel_cross_entropy(
+        huge, torch.tensor([3, 9])))
+
+    # kvr = 2 at tp = 2: a rank holds 4 of the 8 q heads and both kv heads
+    mesh.destroy_model_parallel()
+    mesh.initialize_model_parallel(tensor_parallel_size=2,
+                                   kv_size_multiplier=2)
+    qkv = GQAQKVColumnParallelLinear(16, 8, 2, 4, **f32)
+    with torch.no_grad():
+        qkv.q_kernel.copy_(_part(inp["q_kernel"], 1, qkv.tp.q_block))
+        qkv.k_kernel.copy_(t(inp["k_kernel"]))
+        qkv.v_kernel.copy_(t(inp["v_kernel"]))
+    x = t(inp["kv_x"]).clone().requires_grad_(True)
+    q, k, v = qkv(x)
+    B, S, NQ, D = q.shape
+    G = NQ // k.shape[2]
+    qg = q.reshape(B, S, k.shape[2], G, D)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k) / np.sqrt(D)
+    attn = torch.einsum("bkgst,btkd->bskgd", torch.softmax(scores, -1),
+                        v).reshape(B, S, NQ, D)
+    (attn * _part(inp["kv_ct"], 2, qkv.tp.q_block)).sum().backward()
+    k_own = _np(qkv.k_kernel.grad)
+    allreduce_kv_replicated_gradients(qkv.parameters())
+    out["kvr"] = {"q": _np(q), "k": _np(k), "v": _np(v), "attn": _np(attn),
+                  "q_grad": _np(qkv.q_kernel.grad),
+                  "k_grad": _np(qkv.k_kernel.grad), "k_own": k_own,
+                  "v_grad": _np(qkv.v_kernel.grad), "x_grad": _np(x.grad),
+                  "q_block": qkv.tp.q_block, "kv_heads": qkv.kv_heads,
+                  "layouts": [tp_layout(p) for p in (
+                      qkv.q_kernel, qkv.k_kernel, qkv.v_kernel)]}
+
+    # the global grad norm at tp = 2, kvr = 2 over a Llama's sharded (q,
+    # o_proj, MLP, embedding, head), kv-replicated (k, v) and replicated
+    # sequence-parallel (norm) gradients, each set to this rank's cut of
+    # one full gradient tree
+    cfg = LlamaConfig.tiny(num_kv_heads=2, dtype=torch.float32,
+                           param_dtype=torch.float32)
+    model = LlamaForCausalLM(cfg, device="cpu")
+    grads = llama_params_from_jax(
+        shard_params_for_rank(inp["grad_tree"], 2, r, kvr=2), cfg, tp=2,
+        kvr=2)
+    params = list(model.parameters())
+    for n, p in model.named_parameters():
+        p.grad = grads[n].clone()
+    gl = [p.grad for p in params]
+    norm = get_grad_norm(gl, params=params)
+    _, pre = clip_grad_norm(gl, inp["max_norm"], params=params)
+    out["clip"] = {"norm": norm.item(), "pre": pre.item(),
+                   "post": get_grad_norm(gl, params=params).item(),
+                   "local": get_grad_norm(grads.values()).item(),
+                   "kinds": sorted({str(tp_layout(p)) + str(
+                       is_sequence_parallel(p)) for p in params})}
+
+    # ZeRO-1 at dp = 2 (tp = 1): the trainer's step with the states sharded
+    # against the replicated step, from the same weights and batch
+    mesh.destroy_model_parallel()
+    mesh.initialize_model_parallel(tensor_parallel_size=1)
+    zero = {}
+    for z in (True, False):
+        config = training_config(learning_rate=1e-2, grad_clipping=False,
+                                 compute_dtype="float32",
+                                 zero_one_enabled=z)
+        model = initialize_parallel_model(config, lambda d: TinyMLP(),
+                                          device="cpu")
+        with torch.no_grad():
+            model.module.col.kernel.copy_(t(inp["z_w1"]))
+            model.module.row.kernel.copy_(t(inp["z_w2"]))
+        opt = initialize_parallel_optimizer(config, model)
+        step = make_train_step(config, model, opt, _mlp_loss)
+        losses = [step({"x": inp["z_x"], "y": inp["z_y"]})["loss"].item()
+                  for _ in range(inp["z_steps"])]
+        names = {p: n for n, p in model.module.named_parameters()}
+        zero[z] = {
+            "losses": losses,
+            "params": {n: _np(p) for n, p in model.module.named_parameters()},
+            "state": {n: {k: _np(v) for k, v in st.items()} for n, st in
+                      state_by_param(opt.optimizer, opt.zero1, names).items()},
+            "zero1": opt.zero1 is not None}
+    out["zero1"] = zero
+    out["dp"] = (mesh.get_data_parallel_size(), mesh.get_data_parallel_rank())
+    from neuronx_distributed_tpu_torch.parallel.grads import (
+        psum_over_data_parallel,
+    )
+
+    g = [torch.full((3,), float(out["dp"][1] + 1)), torch.ones(2, 2)]
+    out["psum"] = [_np(t) for t in psum_over_data_parallel(g)]
+    return out
+
+
+# -- training past one rank: models and the trainer ---------------------------
+
+
+def _train(config, build, state_fn, loss_fn, batches, generators=None,
+           accum=1, counts=False):
+    """``initialize_parallel_model`` (which lays out the ranks from
+    ``config.mesh``), this rank's weights from ``state_fn(module)``, the
+    optimizer and one ``make_train_step`` run over ``batches``; tears the
+    layout down after.  Returns losses, grad norms, this rank's final
+    parameters, its optimizer state by name and, with ``counts``, each
+    step's ``mappings.COUNTS``."""
+    from neuronx_distributed_tpu_torch.optimizer.zero1 import state_by_param
+    from neuronx_distributed_tpu_torch.parallel import mappings, mesh
+    from neuronx_distributed_tpu_torch.trainer import (
+        initialize_parallel_model,
+        initialize_parallel_optimizer,
+        make_eval_step,
+        make_train_step,
+    )
+
+    model = initialize_parallel_model(config, build, device="cpu")
+    module = model.module
+    if state_fn is not None:
+        module.load_state_dict(state_fn(module))
+    opt = initialize_parallel_optimizer(config, model)
+    step = make_train_step(config, model, opt, loss_fn,
+                           grad_accum_steps=accum)
+    eval_loss = make_eval_step(config, model, loss_fn)(batches[0])["loss"]
+    losses, norms, per_step = [], [], []
+    for i, b in enumerate(batches):
+        mappings.reset_counts()
+        g = None if generators is None else torch.Generator().manual_seed(
+            generators[i])
+        m = step(b, g)
+        per_step.append(dict(mappings.COUNTS))
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+    names = {p: n for n, p in module.named_parameters()}
+    out = {"losses": losses, "norms": norms, "eval_loss": eval_loss.item(),
+           "params": {n: _np(p) for n, p in module.named_parameters()},
+           "state": {n: {k: _np(v) for k, v in st.items()} for n, st in
+                     state_by_param(opt.optimizer, opt.zero1, names).items()},
+           "tp": (module.tp.size, module.tp.rank),
+           "dp": (mesh.get_data_parallel_size(),
+                  mesh.get_data_parallel_rank()),
+           "zero1": opt.zero1 is not None}
+    if counts:
+        out["counts"] = per_step
+    mesh.destroy_model_parallel()
+    return out
+
+
+def model_training_cases(inp: dict):
+    """GPT-NeoX and BERT trained at tp = 2 from this rank's shard of the
+    JAX trees, BERT with dropout under one seed at tp = 2, and the
+    collectives of one tp = 2 sequence-parallel Llama step at 2 and 4
+    layers."""
+    from neuronx_distributed_tpu_torch.config import training_config
+    from neuronx_distributed_tpu_torch.convert import (
+        bert_params_from_jax,
+        gpt_neox_params_from_jax,
+        shard_params_for_rank,
+    )
+    from neuronx_distributed_tpu_torch.models import (
+        BertConfig,
+        BertForPreTraining,
+        GPTNeoXConfig,
+        GPTNeoXForCausalLM,
+        LlamaConfig,
+        LlamaForCausalLM,
+        pretraining_loss,
+    )
+    from neuronx_distributed_tpu_torch.models.common import causal_lm_loss
+    from neuronx_distributed_tpu_torch.utils.distributed import (
+        initialize_distributed,
+    )
+
+    initialize_distributed(device="cpu", timeout_s=GROUP_TIMEOUT_S)
+    f32 = dict(dtype=torch.float32, param_dtype=torch.float32)
+    config = training_config(tensor_parallel_size=2, learning_rate=1e-3,
+                             compute_dtype="float32", seed=0)
+    out = {}
+
+    def shard(tree, convert, cfg):
+        return lambda m: convert(shard_params_for_rank(tree, 2, m.tp.rank),
+                                 cfg, tp=2)
+
+    neox = GPTNeoXConfig.tiny(**f32)
+    out["neox"] = _train(
+        config, lambda d: GPTNeoXForCausalLM(neox, device=d),
+        shard(inp["neox_tree"], gpt_neox_params_from_jax, neox),
+        causal_lm_loss, inp["neox_batches"])
+    for name, kw in (("bert", {}), ("bert_sp", dict(sequence_parallel=True))):
+        bcfg = BertConfig.tiny(**f32, **kw)
+        out[name] = _train(
+            config, lambda d, c=bcfg: BertForPreTraining(c, device=d),
+            shard(inp["bert_tree"], bert_params_from_jax, bcfg),
+            pretraining_loss, inp["bert_batches"])
+    drop = BertConfig.tiny(**f32, hidden_dropout=0.1, sequence_parallel=True)
+    out["bert_dropout"] = _train(
+        config, lambda d: BertForPreTraining(drop, device=d),
+        shard(inp["bert_tree"], bert_params_from_jax, drop),
+        pretraining_loss, inp["bert_batches"], inp["dropout_seeds"])
+    for layers in (2, 4):
+        for remat in ("none", "selective"):
+            lcfg = LlamaConfig.tiny(num_layers=layers, num_kv_heads=2,
+                                    remat=remat, max_seq_len=64, **f32)
+            out[f"budget_{layers}_{remat}"] = _train(
+                config, lambda d, c=lcfg: LlamaForCausalLM(c, device=d),
+                None, causal_lm_loss, inp["budget_batches"],
+                counts=True)["counts"][0]
+    return out
+
+
+def llama_dp_cases(inp: dict):
+    """The tiny Llama trained on a world of 4 at each case's layout (tp = 2
+    x dp = 2, with or without kvr = 2), from this rank's shard of the JAX
+    tree: what ``_train`` returns, by case."""
+    from neuronx_distributed_tpu_torch.config import training_config
+    from neuronx_distributed_tpu_torch.convert import (
+        llama_params_from_jax,
+        shard_params_for_rank,
+    )
+    from neuronx_distributed_tpu_torch.models.common import (
+        causal_lm_loss_sum,
+        make_causal_lm_loss_sum,
+    )
+    from neuronx_distributed_tpu_torch.models.llama import (
+        LlamaConfig,
+        LlamaForCausalLM,
+    )
+    from neuronx_distributed_tpu_torch.utils.distributed import (
+        initialize_distributed,
+    )
+
+    initialize_distributed(device="cpu", timeout_s=GROUP_TIMEOUT_S)
+    out = {}
+    for case in inp["cases"]:
+        kvr = case["kvr"]
+        config = training_config(tensor_parallel_size=2,
+                                 kv_size_multiplier=kvr, seed=0,
+                                 compute_dtype="float32", **case["opt"])
+        cfg = LlamaConfig.tiny(num_kv_heads=2, dtype=torch.float32,
+                               param_dtype=torch.float32,
+                               remat=case["remat"], max_seq_len=16,
+                               attention_impl=case["attention"])
+        loss = (make_causal_lm_loss_sum(case["chunk"]) if case["chunk"]
+                else causal_lm_loss_sum)
+
+        def state(m, tree=case["params"], kvr=kvr, cfg=cfg):
+            return llama_params_from_jax(shard_params_for_rank(
+                tree, 2, m.tp.rank, kvr), cfg, tp=2, kvr=kvr)
+
+        out[case["name"]] = _train(
+            config, lambda d, c=cfg: LlamaForCausalLM(c, device=d), state,
+            loss, case["batches"], accum=case["accum"], counts=True)
     return out
