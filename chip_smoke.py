@@ -58,7 +58,7 @@ of (a) and (b) beside the storeless engine's and the device time of the
 adapter work; (e, inside phase 5b) Gemma-2-2B over 2 adapters; (f)
 ``prefill_one_lora`` against the ``peft.merge_lora`` dense model on a
 2-layer cut.  Phase 2e serves with SLO scheduling on the async graph
-engine: (a) 8 batch requests (256-512 prompt, 64 new tokens) fill the
+engine: (a) 8 batch requests (256-512 prompt, 32 new tokens) fill the
 slots and 4 interactive ones (32-128 prompt, 32 new) arrive after 4
 steps and preempt batch victims, whose committed prompt chains stay
 pinned: tokens identical to the unpreempted eager synchronous run, no page
@@ -99,13 +99,14 @@ capturing nothing, the in-flight step stamped with its version, a
 draining and restarting a replica under traffic.  Phase 2i serves at
 tensor-parallel degree 2: two processes share the one card over gloo
 (NCCL refuses two ranks on one device), each holding half of Llama-3-8B
-at full width and depth (16 q on 4 kv heads, half the pool): (a) phase
-2's prompts with 32 new tokens each on the async engine, the decode
+at full width and depth (16 q on 4 kv heads, half the pool): (a) the
+first 8 of phase 2's prompts with 16 new tokens each on the async
+engine, the decode
 kernel launched 32 times a decode step on each rank and nothing else, both ranks' tokens and block
 tables identical; (b) B4 at the local heads (decode and chunk calls,
 bf16 and int8 pools) held to its plain version and timed beside it, the
 library call and the bound (in this process, before the ranks start);
-(c) 8 prompts' prefill logits against phase 2's model, every first
+(c) 2 prompts' prefill logits against phase 2's model, every first
 token equal to phase 2's, the greedy streams' common prefix with phase
 2's, and one decode step after 8 admissions fed tp = 1's first tokens
 against tp = 1's; (d) int8 pages and bf16 pages with 128-token chunks on a 4-layer
@@ -126,7 +127,7 @@ fp32) and times them
 at Llama's training shape and at Gemma-2-2B's (global and sliding-window
 layers, each with and without the softcap).  Phase 4 trains a
 Llama-3-8B-width model cut to 4 layers (fp32 masters, bf16 compute, flash
-attention) for 12 steps through the trainer's entry points, counts the
+attention) for 6 steps through the trainer's entry points, counts the
 flash kernels' launches on that run, compares one step's loss, gradient
 norm and attention-projection gradients through the flash and the dense
 core, and reports tokens/s, MFU, peak memory, the device-busy share of a
@@ -146,16 +147,33 @@ BERT's dropout invariants (one seed, one loss; no generator,
 deterministic).  Phase 7 trains past one rank, two processes sharing the
 card over gloo (correctness, launches and per-rank memory, not tp or dp
 speed): B1-B3 held and timed first at a tp = 2 rank's local heads (16 q
-on 4 kv heads, and on 8, G = 2); then (a) Llama-3-8B's width cut to 4
+on 4 kv heads, and on 8, G = 2); then (a) Llama-3-8B's width cut to 2
 layers at tp = 2 with sequence parallelism, fp32 masters, bf16 compute,
-flash, selective remat and the chunked loss head, 1 x 2048, 2 + 3 steps
+flash, selective remat and the chunked loss head, 1 x 2048, 1 + 2 steps
 (+ 1 profiled) through the trainer's entry points: falling losses, the
 first step's loss and grad norm against tp = 1 from the same seed, B1-B3
 launches on each rank, the same collectives a step on both ranks, per-rank
 memory, step and collective time and busy share; (b) a 2-layer cut at dp
-= 2, 3 steps with ZeRO-1 on and off: parameters equal to the bit, AdamW
-state about halved; (c) a 2-layer cut at tp = 2 with kvr = 2, one step
-against tp = 1.  A device time below the least time its work needs fails
+= 2, the chunked loss head, 2 steps replicated, with ZeRO-1 and with
+FSDP (the parameters themselves cut over dp, gathered before each use
+and again in the remat recompute, the head once for its chunks, their
+gradients reduce-scattered): parameters equal to the bit, AdamW state
+about halved, FSDP's parameters too, its gathers and reduce-scatters
+counted; (c) a 2-layer cut at tp = 2 with kvr = 2, one step against tp
+= 1.  Phase 8 drives the launcher
+(``neuronx_distributed_tpu_torch.examples.llama_pretrain``) on the
+card: Llama-3-8B's width cut to 2 layers, 1 x 2048, flash, selective
+remat, bf16 compute over fp32 masters, from an NXDT int32 token file
+written from the seed through the native loader: (a) the launcher's
+``fit`` run (``prefetch=2``, deferred metrics) under
+``transfer_guard="forbid"`` for 6 steps against a synchronous ``fit``
+of the same setup, losses equal to the bit; (b) ``main`` for 3 steps and
+a final checkpoint, then ``--resume`` to 6, steps 3-5 equal to (a)'s to
+the bit;
+(c) the checkpoint's bytes and its save, blocking and load seconds; (d)
+data-wait a step from the flight records, fit's steady step against a
+bare ``make_train_step`` loop on the same batches, its busy share and the
+B1-B3 launches.  A device time below the least time its work needs fails
 the run.
 
 Any failed check exits non-zero without the result line.  The line before
@@ -319,11 +337,13 @@ def trace(run, warm):
     from the second step only: a session that traces from its first
     kernel on dropped the kernels of 2 of 20 calls in one reading.  It
     still drops one call's now and then (:func:`device_ms` allows for
-    that)."""
+    that).  Device activity only: every reading takes the device rows,
+    and the host rows of a whole training or serving step took tens of
+    seconds to sort."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+    with profile(activities=[ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1,
                                    repeat=1)) as prof:
         warm()
@@ -1073,9 +1093,10 @@ def phase1_int8():
     gathered pages to q's type, as the kernels do): bf16 q at D
     64/128/256 and fp32 q at D 128, S 1/4/128 (bf16 q takes the decode
     route at S = 1 and the wgmma route at S > 1 by the rule, and is held
-    on the simt route as well at D 128), split-K 1 and the default (and at S = 1 the largest cluster), a
-    parked slot and a constant page in every case, plus a window and a
-    softcap case.  All three routes timed at the decode shape."""
+    on the simt route as well at D 128), split-K 1 and the default (and
+    at S = 1 the largest cluster), a parked slot and a constant page in
+    every case, plus a window and a softcap case.  All three routes timed
+    at the decode shape."""
     import torch
 
     bf16, fp32 = torch.bfloat16, torch.float32
@@ -1141,13 +1162,13 @@ SWEEP_WIDTHS = {NQ: (2, 4, 16, 128), NKV: (2, 16)}
 def phase1_chunks():
     """The multi-row route (paged_attention_wgmma_kernel, bf16 q): held
     against the plain version over bf16 and int8 pools at the served head
-    dims 128 and 256, S 16/32/128, split-K 1 and the default, a parked slot, a constant int8
-    page, a window and a softcap; timed against the simt kernel on the
-    same inputs at the main path's chunk call (B = 1, S = 128, offset
-    384) and at phase 1's B = 8, S = 128 shape, each route's output at
-    its default split held against the plain version there; then both
-    routes swept over SWEEP_WIDTHS at the chunk call's offset (the
-    routing rule), the narrowest widths held first."""
+    dims 128 and 256, S 16/32/128, split-K 1 and the default, a parked
+    slot, a constant int8 page, a window and a softcap; timed against the
+    simt kernel on the same inputs at the main path's chunk call (B = 1,
+    S = 128, offset 384) and at phase 1's B = 8, S = 128 shape, each
+    route's output at its default split held against the plain version
+    there; then both routes swept over SWEEP_WIDTHS at the chunk call's
+    offset (the routing rule), the narrowest widths held first."""
     import torch
 
     from neuronx_distributed_tpu_torch.ops.paged_attention import (
@@ -1160,8 +1181,9 @@ def phase1_chunks():
     # the served head dims (Llama's 128, Gemma-2's 256); the card tests
     # hold D 64 too
     dims = (D, G2_D)
-    cases = [dict(S=S, d=d, split_k=sk, int8=i8, **w) for i8 in (False, True)
-             for d in dims for S in (16, 128) for sk in (1, None)]
+    cases = [dict(S=S, d=d, split_k=sk, int8=i8, **w)
+             for i8 in (False, True) for d in dims for S in (16, 128)
+             for sk in (1, None)]
     cases += [dict(S=32, split_k=None, int8=i8, **w) for i8 in (False, True)]
     cases += [dict(S=128, split_k=None, int8=i8, window=256, **w)
               for i8 in (False, True)]
@@ -1719,12 +1741,13 @@ def phase2b(model_pim, entries, whole_tokens):
         raise AssertionError(f"int8 logit drift {drift} outside "
                              f"(0, {INT8_DRIFT_REL_MAX}]")
 
-    # chunked prefill over the bf16 pool against phase 2's whole prefill
+    # chunked prefill over the bf16 pool against phase 2's whole prefill:
+    # the first slot-full of phase 2's requests (all 16 before phase 8)
     zero_paged_counts()
     eng = ServingEngine(model_pim, page_size=PAGE_SIZE,
                         prefill_chunk_tokens=CHUNK_TOKENS)
     t0 = time.perf_counter()
-    chunked = serve(eng, make_requests(cfg.vocab_size, N_REQUESTS,
+    chunked = serve(eng, make_requests(cfg.vocab_size, SLOTS,
                                        NEW_TOKENS, SEED))
     torch.cuda.synchronize()
     fp_wall = time.perf_counter() - t0
@@ -1737,8 +1760,8 @@ def phase2b(model_pim, entries, whole_tokens):
     first_same = sum(o.token_ids[0] == whole_tokens[rid][0]
                      for rid, o in chunked.items())
     log(f"phase2b: bf16 pool with {CHUNK_TOKENS}-token chunks vs phase 2's "
-        f"whole prefill: greedy tokens equal {fp_same}/{tokens}, first "
-        f"tokens {first_same}/{N_REQUESTS} ({eng.prefill_chunks} chunk "
+        f"whole prefill: greedy tokens equal {fp_same}/{SLOTS * NEW_TOKENS}, "
+        f"first tokens {first_same}/{SLOTS} ({eng.prefill_chunks} chunk "
         f"dispatches, {eng.decode_steps} decode steps, launches by route "
         f"{fp_routes}, served in {fp_wall:.3f} s)")
     del eng
@@ -2031,11 +2054,15 @@ G2_ADAPTERS = 2
 MERGED_LAYERS, MERGED_REL_TOL, MERGED_GAP_MIN = 2, 2e-2, 5.0
 # steps of each steady-step reading of phase 2d
 STEADY_STEPS = 20
-# 2d's cuts to its time (the fleet's phase 2h took the room): (c) and (d)
-# serve one slot-full of phase 2's requests, not all 16, and the steady
-# step runs once per engine in turns, not twice
-D_CUT_REQUESTS = SLOTS
-D_STEADY_TURNS = ("storeless", "a", "b")
+# 2d's cuts to its time (the fleet's phase 2h took the room): (b), (c) and
+# (d) serve one request an adapter id (0..N_ADAPTERS; a slot-full before
+# phase 1's split-K 1 cases came back, all 16 before phase 8), and the
+# steady step runs once per engine in turns, not twice
+D_CUT_REQUESTS = N_ADAPTERS + 1
+# the steady step's turns: (a)'s reading (the store attached, every slot on
+# adapter 0) went to pay for phase 8 and 7(b)'s FSDP arm; (a) is still
+# served and its tokens held
+D_STEADY_TURNS = ("storeless", "b")
 
 
 def adapter_factors(cfg, aid: int, layers=None) -> list:
@@ -2121,32 +2148,6 @@ def serve_pair(label, graphed, eager, requests, factors, **engine_kw):
         raise AssertionError(f"{label}: adapter pins left after the drain")
     return ({rid: o.token_ids for rid, o in outs.items()}, routes, eng,
             store, wall)
-
-
-def lora_device_ms(pim, eng) -> float:
-    """Device ms of one decode step's adapter work at the served shapes:
-    the one gather of every slot's adapter pages and, for each layer, the
-    factor casts and the q and v product pairs and adds
-    (``models.llama.apply_adapter``), under ``torch.profiler``."""
-    import torch
-
-    from neuronx_distributed_tpu_torch.models.llama import apply_adapter
-
-    cfg = pim.module.config
-    g = torch.Generator(device="cuda").manual_seed(SEED)
-    x = torch.randn((SLOTS, 1, cfg.hidden_size), generator=g,
-                    device="cuda").to(cfg.dtype)
-    q = torch.randn((SLOTS, 1, cfg.num_heads, cfg.head_dim_), generator=g,
-                    device="cuda").to(cfg.dtype)
-    v = torch.randn((SLOTS, 1, cfg.num_kv_heads, cfg.head_dim_),
-                    generator=g, device="cuda").to(cfg.dtype)
-    atables = torch.from_numpy(eng._adapter_tables).to("cuda")
-
-    def step():
-        for adapter in pim._gather_adapters(eng._apool, atables):
-            apply_adapter(cfg, x, q, v, adapter)
-
-    return device_ms([step], 10, show="phase2d LoRA step ops")
 
 
 def merged_dense_check(factors) -> dict:
@@ -2289,9 +2290,11 @@ def phase2d(model_pim, sync_tokens, entries: dict):
                 "decode_steps": eng.decode_steps}
     del eng, store
 
-    # (b) round-robin over adapters 0..N_ADAPTERS
+    # (b) round-robin over adapters 0..N_ADAPTERS (D_CUT_REQUESTS, as (c)
+    # and (d))
     tokens, routes, eng, store, wall = serve_pair(
-        "phase2d(b)", pim, model_pim, requests(N_ADAPTERS), factors)
+        "phase2d(b)", pim, model_pim, requests(N_ADAPTERS, D_CUT_REQUESTS),
+        factors)
     leaked = [rid for rid, t in tokens.items()
               if rid % (N_ADAPTERS + 1) == 0
               and tuple(t) != tuple(sync_tokens[rid])]
@@ -2301,7 +2304,8 @@ def phase2d(model_pim, sync_tokens, entries: dict):
     moved = sum(tuple(t) != tuple(sync_tokens[rid])
                 for rid, t in tokens.items())
     set_launches([entries["decode"]], routes, "2d(b)")
-    log(f"phase2d(b): {N_REQUESTS} requests over adapters 0..{N_ADAPTERS}: "
+    log(f"phase2d(b): {D_CUT_REQUESTS} requests over adapters "
+        f"0..{N_ADAPTERS}: "
         f"tokens identical to the eager synchronous engine's in {wall:.3f} "
         f"s; adapter-0 requests identical to 2c(a)'s, {moved} adapter "
         f"requests differ from the base model's; {eng.decode_steps} decode "
@@ -2313,7 +2317,6 @@ def phase2d(model_pim, sync_tokens, entries: dict):
                 "hits": store.hits, "evictions": store.evictions,
                 "adapter_requests_differing_from_base": moved,
                 "puts": eng.puts, "fetches": eng.fetches}
-    lora_ms = lora_device_ms(pim, eng)
     del eng, store
 
     # (c) int8 pages, 128-token chunks
@@ -2340,8 +2343,8 @@ def phase2d(model_pim, sync_tokens, entries: dict):
         raise AssertionError(f"phase2d(d): self-draft acceptance "
                              f"{out['d']['acceptance']} < {SELF_ACCEPT_MIN}")
 
-    # the steady step in turns: storeless (2c(a)'s engine), (a), (b)
-    runs = {"storeless": [], "a": [], "b": []}
+    # the steady step in turns: storeless (2c(a)'s engine) and (b)
+    runs = {key: [] for key in D_STEADY_TURNS}
     for key in D_STEADY_TURNS:
         kw = {} if key == "storeless" else dict(
             adapter_store=make_store(pim, factors),
@@ -2353,17 +2356,19 @@ def phase2d(model_pim, sync_tokens, entries: dict):
                     for f in ("steady_step_ms", "device_busy_ms")}
               for key, rs in runs.items()}
     base = steady["storeless"]
+    # the adapter work's device time: (b)'s busy step less the storeless
+    # one's (a profile of the adapter ops alone, 22 s, went to pay for
+    # phase 8 and 7(b)'s FSDP arm)
+    lora_ms = steady["b"]["device_busy_ms"] - base["device_busy_ms"]
     log(f"phase2d: steady step (B={SLOTS}), host clock, in turns: "
         f"storeless (2c(a)'s engine) "
-        f"{base['steady_step_ms']:.2f} ms, (a) "
-        f"{steady['a']['steady_step_ms']:.2f} ms, (b) "
+        f"{base['steady_step_ms']:.2f} ms, (b) "
         f"{steady['b']['steady_step_ms']:.2f} ms ("
         f"{steady['b']['steady_step_ms'] - base['steady_step_ms']:+.2f} "
         f"ms); device busy {base['device_busy_ms']:.3f} / "
-        f"{steady['a']['device_busy_ms']:.3f} / "
         f"{steady['b']['device_busy_ms']:.3f} ms a step; the adapter work "
         f"(one gather, {L} x (casts, 2 product pairs, 2 adds)) "
-        f"{lora_ms:.3f} ms of device time a step")
+        f"{lora_ms:.3f} ms of device time a step (the difference)")
     out.update(steady=steady, steady_runs=runs, lora_device_ms=lora_ms)
     del pim
     gc.collect()
@@ -2379,7 +2384,10 @@ def phase2d(model_pim, sync_tokens, entries: dict):
 # interactive requests of 32..128 prompt tokens and E_INT_NEW new tokens
 # arrive.  (b): the int8 chunked engine, its batch requests E_B_NEW tokens,
 # one interactive arrival after one step (the victim is mid-chunk).
-E_BATCH_NEW, E_INTERACTIVE, E_INT_NEW, E_ARRIVE, E_B_NEW = 64, 4, 32, 4, 64
+# phase 8 and 7(b)'s FSDP arm took more room: the batch requests of (a) and
+# (b) take 32 new tokens (64 before), (b)'s 16 since phase 1's split-K 1
+# cases came back
+E_BATCH_NEW, E_INTERACTIVE, E_INT_NEW, E_ARRIVE, E_B_NEW = 32, 4, 32, 4, 16
 # 2e's cuts to its time (the fleet's phase 2h took the room): the batch
 # requests' 128 new tokens became 64, and (a)'s TTFT runs and (e)'s
 # steady-step runs go once each in turns, not twice
@@ -2601,14 +2609,12 @@ def phase2e(model_pim, steady_2c_ms, entries: dict):
     # the chunk widths a request gets depend on what else is chunking, and
     # on the card the wgmma route rounds differently at each width, so the
     # reference is the same traffic (preemption included) on the eager
-    # synchronous engine; the unpreempted run is logged beside it
-    sync_eng = lambda: ServingEngine(  # noqa: E731
+    # synchronous engine (the unpreempted run that was logged beside it
+    # went to pay for phase 8 and 7(b)'s FSDP arm)
+    ref, _, _ = slo_serve("phase2e(b) eager sync int8 chunks", ServingEngine(
         model_pim, page_size=PAGE_SIZE, kv_quant="int8",
-        prefill_chunk_tokens=CHUNK_TOKENS, async_decode=False)
-    ref, _, _ = slo_serve("phase2e(b) eager sync int8 chunks", sync_eng(),
-                          b_traffic(), arrive=1)
-    unpre, _, _ = slo_serve("phase2e(b) eager sync int8 chunks, all batch",
-                            sync_eng(), b_traffic(all_batch=True), arrive=1)
+        prefill_chunk_tokens=CHUNK_TOKENS, async_decode=False),
+        b_traffic(), arrive=1)
     eng = ServingEngine(pim, page_size=PAGE_SIZE, kv_quant="int8",
                         prefill_chunk_tokens=CHUNK_TOKENS)
     parked = {}
@@ -2645,11 +2651,6 @@ def phase2e(model_pim, steady_2c_ms, entries: dict):
             f"phase2e(b): {chunk_pages} chunk pages dispatched, prompts "
             f"{all_pages}, committed by victims {committed}")
     set_launches([entries["decode_int8"], entries["chunk"]], routes, "2e(b)")
-    victim_same = {rid: outs[rid].token_ids == unpre[rid].token_ids
-                   for rid in mid}
-    others_same = token_agreement(
-        {rid: o.token_ids for rid, o in outs.items() if rid not in mid},
-        {rid: o.token_ids for rid, o in unpre.items() if rid not in mid})
     out["b"] = {"wall_s": wall, "decode_steps": eng.decode_steps,
                 "chunks": eng.prefill_chunks, "launches_by_route": routes,
                 "mid_chunk_victims": {r: {"committed_pages": v[1],
@@ -2659,15 +2660,10 @@ def phase2e(model_pim, steady_2c_ms, entries: dict):
                                           "prompt_pages": prompt_pages[r]}
                                       for r, v in mid.items()},
                 "chunk_pages": chunk_pages,
-                "chunk_pages_from_scratch": scratch_pages,
-                "victims_equal_unpreempted": victim_same,
-                "others_vs_unpreempted": others_same}
+                "chunk_pages_from_scratch": scratch_pages}
     log(f"phase2e(b): int8 pages, {CHUNK_TOKENS}-token chunks, victims "
         f"parked mid-chunk {out['b']['mid_chunk_victims']}: tokens identical "
         f"to the eager synchronous int8 chunked run of the same traffic; "
-        f"against the unpreempted (all batch) run: victims identical "
-        f"{victim_same}, the others {others_same[0]}/{others_same[1]} "
-        f"positions, {others_same[2]} requests identical; "
         f"{eng.prefill_chunks} "
         f"chunk dispatches, launches by route {routes} = chunks x {L} on "
         f"wgmma, decode steps {eng.decode_steps} x {L} on decode; prompt "
@@ -2845,6 +2841,9 @@ def phase2e(model_pim, steady_2c_ms, entries: dict):
 # steady graph steps a telemetry profile times (host clock, host split,
 # profiler), and the steady steps under obs.tracing.device_trace
 F_STEADY_STEPS, F_TRACE_STEPS = 10, 3
+# (b)'s runs in turns: one default, one full (default, full, full, default
+# before phase 8 and 7(b)'s FSDP arm took the room)
+F_TURNS = ("default", "full")
 
 
 def full_telemetry(out_dir: str) -> dict:
@@ -3145,7 +3144,7 @@ def phase2f(model_pim, entries: dict):
 
     # (b) the steady step: default engine against full telemetry, in turns
     runs = {"default": [], "full": []}
-    for turn, kind in enumerate(("default", "full", "full", "default")):
+    for turn, kind in enumerate(F_TURNS):
         kw = (full_telemetry(os.path.join(root, f"b{turn}"))
               if kind == "full" else {})
         runs[kind].append(telemetry_profile(
@@ -3173,8 +3172,9 @@ def phase2f(model_pim, entries: dict):
         raise AssertionError(f"phase2f(b): device busy a step moved with "
                              f"telemetry: {busy}")
     out["b"] = {"mean": mean, "host_split_ms": split, "runs": runs}
-    log(f"phase2f(b): steady graph step (B={SLOTS}), means of 2 runs in "
-        f"turns: default {mean['default']['steady_step_ms']:.3f} ms, full "
+    log(f"phase2f(b): steady graph step (B={SLOTS}), means of "
+        f"{len(F_TURNS) // 2} run(s) each in turns {F_TURNS}: default "
+        f"{mean['default']['steady_step_ms']:.3f} ms, full "
         f"telemetry {mean['full']['steady_step_ms']:.3f} ms (host clock); "
         f"device busy {mean['default']['device_busy_ms']:.3f} / "
         f"{mean['full']['device_busy_ms']:.3f} ms and "
@@ -3264,7 +3264,9 @@ def phase2f(model_pim, entries: dict):
 
 # pairs of steady telemetry profiles in 2g(f) (part 1 only, then parts 1
 # and 2, in turns: part1, full, full, part1, ...)
-G_PAIRS = 2  # halved from 4 to make room for phase 2i
+# halved from 4 to make room for phase 2i, then to 1 for phase 8 and
+# 7(b)'s FSDP arm
+G_PAIRS = 1
 # the export check's cut of Llama-3-8B: full width, this many layers, and
 # its serving shapes (32 new tokens: every decode position of the cache)
 G_EXPORT_LAYERS, G_EXPORT_B, G_EXPORT_C, G_EXPORT_NEW = 2, 2, 64, 32
@@ -3542,7 +3544,7 @@ def phase2g(model_pim, whole_tokens, entries: dict):
     # (f) telemetry's cost: part 1 against parts 1 and 2, in turns
     pim = graphed_pim(model_pim)
     runs = {"part1": [], "full": []}
-    order = ["part1", "full", "full", "part1"] * (G_PAIRS // 2)
+    order = (["part1", "full", "full", "part1"] * G_PAIRS)[:2 * G_PAIRS]
     for turn, kind in enumerate(order):
         d = os.path.join(root, f"f{turn}")
         kw = part2_telemetry(d) if kind == "full" else full_telemetry(d)
@@ -4467,15 +4469,19 @@ TP_DECODE_REL_TOL = 2e-2
 TP_WORLD_TIMEOUT_S = 600
 # the prompt tokens of 2i(e)'s steady requests
 TP_STEADY_PROMPT = 64
-# the new tokens of 2i(a)'s and 2i(d)'s requests, half of phase 2's 64
-# (the time limit pays for phase 7); over a shorter stream a common-prefix
-# share can only rise (min(p, 32) / 32 >= min(p, 64) / 64), so the floor
-# set over 64 tokens still holds
-TP_NEW_TOKENS = 32
-# the prompts whose prefill logits 2i(c) holds against tp = 1's (the
-# first half of phase 2's: each prefill at tp = 2 pays 64 host-staged
+# the new tokens of 2i(a)'s and 2i(d)'s requests, a quarter of phase 2's
+# 64 (the time limit paid for phase 7 with 32, for phase 8 with 16); over
+# a shorter stream a common-prefix share can only rise (min(p, 16) / 16 >=
+# min(p, 64) / 64), so the floor set over 64 tokens still holds, and a
+# broken decode still keeps only 1/16 < 0.178
+TP_NEW_TOKENS = 16
+# the requests 2i(a) serves: the first slot-full of phase 2's (all 16
+# before phase 8: each admission at tp = 2 pays 64 host-staged
 # collectives)
-TP_PREFILL_PROMPTS = 8
+TP_REQUESTS = 8
+# the prompts whose prefill logits 2i(c) holds against tp = 1's (the
+# first 2 of phase 2's, 8 before phase 8)
+TP_PREFILL_PROMPTS = 2
 
 
 def left_padded(prompt):
@@ -4668,7 +4674,8 @@ def tp2_rank(refs: dict) -> dict:
     # graphs off
     engine = ServingEngine(pim, page_size=PAGE_SIZE)
     pool_bytes = engine._kv.alloc.num_pages * engine._page_bytes
-    requests = make_requests(cfg.vocab_size, N_REQUESTS, TP_NEW_TOKENS, SEED)
+    requests = make_requests(cfg.vocab_size, TP_REQUESTS, TP_NEW_TOKENS,
+                             SEED)
     zero_paged_counts()
     mappings.reset_counts()
     lock = engine.lockstep
@@ -4681,7 +4688,7 @@ def tp2_rank(refs: dict) -> dict:
     steps = engine.decode_steps
     bad = [(o.request_id, o.state, len(o.token_ids)) for o in outs.values()
            if o.state != "finished" or len(o.token_ids) != TP_NEW_TOKENS]
-    if len(outs) != N_REQUESTS or bad:
+    if len(outs) != TP_REQUESTS or bad:
         raise AssertionError(f"{tag}: requests not served in full: {bad}")
     routes = check_routes(tag, steps * L, 0)
     if paged_attention.launches != steps * L:
@@ -4692,7 +4699,7 @@ def tp2_rank(refs: dict) -> dict:
     tokens = {rid: list(o.token_ids) for rid, o in outs.items()}
     coll_s = sum(mappings.SECONDS.values())
     coll = dict(mappings.COUNTS)
-    log(f"{tag}: served {N_REQUESTS} requests, "
+    log(f"{tag}: served {TP_REQUESTS} requests, "
         f"{sum(len(t) for t in tokens.values())} tokens in {wall:.3f} s "
         f"over {steps} decode steps ({wall / steps * 1e3:.2f} ms/step incl. "
         f"admissions, two processes time-sliced on one card); decode kernel "
@@ -4725,7 +4732,7 @@ def tp2_rank(refs: dict) -> dict:
     decode_agree = int((lg.argmax(-1) == want.argmax(-1)).sum())
     log(f"{tag}: prefill logits against tp = 1, relative L2 max "
         f"{max(rels):.3e} (tol {TP_PREFILL_REL_TOL}); first tokens equal to "
-        f"phase 2's {first_equal}/{N_REQUESTS}; greedy streams' common "
+        f"phase 2's {first_equal}/{TP_REQUESTS}; greedy streams' common "
         f"prefix with phase 2's {share:.3f} of the tokens (floor "
         f"{TP_PREFIX_SHARE_MIN}); a decode step after {SLOTS} admissions "
         f"fed tp = 1's first tokens (its own equal {own_first}/{SLOTS}): "
@@ -4862,9 +4869,9 @@ def phase2i(refs: dict, entries: dict) -> dict:
         if not max(r["prefill_rel"]) <= TP_PREFILL_REL_TOL:
             raise AssertionError(f"phase2i: prefill logits off tp = 1's: "
                                  f"{max(r['prefill_rel'])}")
-        if r["first_equal"] != N_REQUESTS:
+        if r["first_equal"] != TP_REQUESTS:
             raise AssertionError(f"phase2i: first tokens equal to phase 2's "
-                                 f"{r['first_equal']}/{N_REQUESTS}")
+                                 f"{r['first_equal']}/{TP_REQUESTS}")
         if not r["prefix_share"] >= TP_PREFIX_SHARE_MIN:
             raise AssertionError(
                 f"phase2i: common prefix share {r['prefix_share']} under "
@@ -5352,7 +5359,9 @@ def phase3():
 # -- phase 4 ------------------------------------------------------------------
 
 TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_CHUNK = 4, 4, 2048, 512
-WARMUP_STEPS, TIMED_STEPS = 2, 10
+# 1 warm and 5 timed steps (2 and 10 before phase 8 and 7(b)'s FSDP arm
+# took the room)
+WARMUP_STEPS, TIMED_STEPS = 1, 5
 # one step through the flash and the dense core on the same weights and
 # batch, in bf16 compute (the path's) and in fp32: relative difference of
 # the loss, of the grad norm, and the largest relative L2 difference of
@@ -5452,7 +5461,8 @@ def train_steps(label, config, model, loss_fn, batch, fwd_per_layer,
         return train(b, generator)
 
     torch.cuda.reset_peak_memory_stats()
-    # the main path: every launch count from 0 over the 12 steps
+    # the main path: every launch count from 0 over the WARMUP_STEPS +
+    # TIMED_STEPS steps
     for fn in (fa.flash_attention_fwd, fa.flash_attention_dq,
                fa.flash_attention_dkv, paged_attention):
         fn.launches = 0
@@ -6049,11 +6059,14 @@ def phase6():
 # training past one rank: two processes share the card over gloo (NCCL
 # refuses two ranks on one device), so this proves correctness, launches
 # and per-rank memory of the sharded step, not tp or dp speed.  (a) tp = 2
-# with sequence parallelism on Llama-3-8B's width cut to 4 layers; (b) dp
-# = 2 with ZeRO-1 on and off on a 2-layer cut; (c) tp = 2 with kvr = 2 on
-# a 2-layer cut
-P7_TP_LAYERS, P7_SMALL_LAYERS, P7_S, P7_CHUNK = 4, 2, 2048, 512
-P7_WARMUP, P7_TIMED, P7_DP_STEPS = 2, 3, 3
+# with sequence parallelism on Llama-3-8B's width cut to 2 layers (4
+# before phase 1's split-K 1 cases came back); (b) dp = 2 with replicated
+# AdamW, ZeRO-1 and FSDP on a 2-layer cut; (c) tp = 2 with kvr = 2 on a
+# 2-layer cut
+P7_TP_LAYERS, P7_SMALL_LAYERS, P7_S, P7_CHUNK = 2, 2, 2048, 512
+# (a) warms 1 step and times 2, and (b) runs 2 steps an arm (2, 3 and 3
+# before phase 8 and 7(b)'s FSDP arm took the room)
+P7_WARMUP, P7_TIMED, P7_DP_STEPS = 1, 2, 2
 # the first step's loss and grad norm at tp = 2 against tp = 1 from the
 # same seed and batch (bf16 compute: the row layers' fp32 partials and the
 # vocab-parallel loss sum in other orders)
@@ -6113,7 +6126,7 @@ def phase7_refs() -> dict:
     refs = {}
     batch = train_batch(128256, 1, P7_S)
     one = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
-    for layers in (P7_TP_LAYERS, P7_SMALL_LAYERS):
+    for layers in sorted({P7_TP_LAYERS, P7_SMALL_LAYERS}):
         cfg = LlamaConfig.llama3_8b(num_layers=layers, attention_impl="flash",
                                     remat="selective", dtype=torch.bfloat16,
                                     param_dtype=torch.float32)
@@ -6133,8 +6146,9 @@ def phase7_refs() -> dict:
 
 def p7_train(label, config, cfg, batch, steps, warmup=0, profile=False):
     """One rank's training through the entry points: the model, its
-    optimizer and step, ``warmup`` + ``steps`` steps on ``batch`` with the
-    launch and collective counts set to 0 first.  Returns the losses, grad
+    optimizer and step (the loss head in P7_CHUNK-token chunks),
+    ``warmup`` + ``steps`` steps on ``batch`` with the launch and
+    collective counts set to 0 first.  Returns the losses, grad
     norms, launches, per-step collectives, memory and times; the model and
     optimizer are dropped."""
     import gc
@@ -6148,7 +6162,7 @@ def p7_train(label, config, cfg, batch, steps, warmup=0, profile=False):
     from neuronx_distributed_tpu_torch.ops import flash_attention as fa
     from neuronx_distributed_tpu_torch.ops.paged_attention import paged_attention
     from neuronx_distributed_tpu_torch.optimizer.zero1 import state_bytes
-    from neuronx_distributed_tpu_torch.parallel import mappings, mesh
+    from neuronx_distributed_tpu_torch.parallel import fsdp, mappings, mesh
     from neuronx_distributed_tpu_torch.trainer import (
         initialize_parallel_model,
         initialize_parallel_optimizer,
@@ -6210,8 +6224,17 @@ def p7_train(label, config, cfg, batch, steps, warmup=0, profile=False):
     launches = out["launches"] = {w: getattr(fa, FLASH_KERNELS[w][0]).launches
                                   for w in FLASH_KERNELS}
     launches["paged"] = paged_attention.launches
-    out["params"] = ({n: p.detach().clone() for n, p in
-                      module.named_parameters()} if label == "keep" else None)
+    out["params"] = None
+    if label == "keep":
+        # whole parameters: an FSDP piece is gathered over dp first
+        st = fsdp.fsdp_state(module)
+        with torch.no_grad():
+            out["params"] = {
+                n: (st.gather(p.detach(), st.pieces[n][2])
+                    if st is not None and n in st.pieces
+                    else p.detach().clone())
+                for n, p in module.named_parameters()}
+    out["fsdp"] = fsdp.fsdp_state(module) is not None
     log(f"phase7 {label} rank tp {out['tp']} dp {out['dp']}: losses "
         + ", ".join(f"{x:.4f}" for x in losses) + "; grad norms "
         + ", ".join(f"{x:.3f}" for x in norms)
@@ -6256,27 +6279,39 @@ def p7_rank(task: dict) -> dict:
         tensor_parallel_size=TP, learning_rate=1e-4, max_grad_norm=1.0,
         seed=SEED), cfg(P7_TP_LAYERS), one, P7_TIMED, P7_WARMUP,
         profile=True)
-    # (b) dp = 2, one row of 2048 a rank, ZeRO-1 on and off; clipping off:
-    # the global norm sums the slices in another order under ZeRO-1, and
-    # a clip coefficient an ulp apart would scale every gradient
+    # (b) dp = 2, one row of 2048 a rank, the chunked loss head:
+    # replicated AdamW, ZeRO-1 and FSDP; clipping off: the global norm sums
+    # the slices in another order under ZeRO-1 and FSDP, and a clip
+    # coefficient an ulp apart would scale every gradient.  Each arm's
+    # whole parameters after the steps against the replicated arm's
+    # (FSDP's gathered).  FSDP gathers the head once for its chunks and
+    # their recomputes and reduce-scatters its summed gradient once
+    # (``parallel.fsdp.reuse``), so its dp sum is the replicated arm's
     two = train_batch(128256, 2, P7_S)
-    b = {}
-    for z in (True, False):
-        b[z] = p7_train("keep", training_config(
-            data_parallel_size=2, learning_rate=1e-4, grad_clipping=False,
-            zero_one_enabled=z, seed=SEED), cfg(P7_SMALL_LAYERS), two,
-            P7_DP_STEPS)
-    pz, pr = b[True].pop("params"), b[False].pop("params")
-    unequal = sum(int((pz[n] != pr[n]).sum().item()) for n in pz)
-    max_diff = max((pz[n] - pr[n]).abs().max().item() for n in pz)
-    log(f"phase7 (b) rank {out['rank']}: ZeRO-1 against replicated AdamW "
-        f"after {P7_DP_STEPS} steps: {unequal} of "
-        f"{sum(v.numel() for v in pz.values())} parameters differ, largest "
-        f"difference {max_diff:.3e}")
-    del pz, pr
+    base = dict(data_parallel_size=2, learning_rate=1e-4,
+                grad_clipping=False, seed=SEED)
+    b = {"replicated": p7_train("keep", training_config(
+        zero_one_enabled=False, **base), cfg(P7_SMALL_LAYERS), two,
+        P7_DP_STEPS)}
+    pr = b["replicated"].pop("params")
+    for arm, kw in (("zero1", dict(zero_one_enabled=True)),
+                    ("fsdp", dict(zero_one_enabled=False, fsdp=True))):
+        b[arm] = p7_train("keep", training_config(**kw, **base),
+                          cfg(P7_SMALL_LAYERS), two, P7_DP_STEPS)
+        pa = b[arm].pop("params")
+        b[arm]["unequal"] = sum(int((pa[n] != pr[n]).sum().item())
+                                for n in pa)
+        b[arm]["max_diff"] = max((pa[n] - pr[n]).abs().max().item()
+                                 for n in pa)
+        log(f"phase7 (b) rank {out['rank']}: {arm} against replicated "
+            f"AdamW after {P7_DP_STEPS} steps: {b[arm]['unequal']} of "
+            f"{sum(v.numel() for v in pa.values())} parameters differ, "
+            f"largest difference {b[arm]['max_diff']:.3e}")
+        del pa
+        torch.cuda.empty_cache()
+    del pr
     torch.cuda.empty_cache()
-    out["b"] = {"zero1": b[True], "replicated": b[False],
-                "unequal": unequal, "max_diff": max_diff}
+    out["b"] = b
     # (c) tp = 2 with kvr = 2: one step
     out["c"] = p7_train("(c) tp = 2 kvr = 2", training_config(
         tensor_parallel_size=TP, kv_size_multiplier=2, learning_rate=1e-4,
@@ -6322,20 +6357,46 @@ def phase7(refs: dict, entries: dict) -> dict:
     if a0["counts"] != a1["counts"] or a0["losses"] != a1["losses"]:
         raise AssertionError("phase7(a): the ranks disagree on the collectives "
                              "or the losses")
+    b_launches = {"fwd": 2 * P7_DP_STEPS * P7_SMALL_LAYERS,
+                  "dq": P7_DP_STEPS * P7_SMALL_LAYERS,
+                  "dkv": P7_DP_STEPS * P7_SMALL_LAYERS, "paged": 0}
     for r in ranks:
-        bz, br = r["b"]["zero1"], r["b"]["replicated"]
-        if not (bz["zero1"] and not br["zero1"] and bz["dp"][0] == 2):
+        bz, br, bf = (r["b"][k] for k in ("zero1", "replicated", "fsdp"))
+        if not (bz["zero1"] and not br["zero1"] and bz["dp"][0] == 2
+                and bf["fsdp"] and not bf["zero1"] and not br["fsdp"]):
             raise AssertionError(f"phase7(b): layout {bz['dp']}")
-        if r["b"]["unequal"]:
-            raise AssertionError(f"phase7(b): ZeRO-1 parameters differ from "
-                                 f"replicated AdamW's in {r['b']['unequal']} "
-                                 f"elements (largest {r['b']['max_diff']})")
-        if bz["losses"] != br["losses"]:
-            raise AssertionError("phase7(b): ZeRO-1 losses differ")
-        if not bz["state_bytes"] < 0.55 * br["state_bytes"]:
-            raise AssertionError(f"phase7(b): ZeRO-1 state "
-                                 f"{bz['state_bytes']} not about half of "
-                                 f"{br['state_bytes']}")
+        for arm, x in (("ZeRO-1", bz), ("FSDP", bf)):
+            if x["unequal"]:
+                raise AssertionError(
+                    f"phase7(b): {arm} parameters differ from replicated "
+                    f"AdamW's in {x['unequal']} elements (largest "
+                    f"{x['max_diff']})")
+            if x["losses"] != br["losses"]:
+                raise AssertionError(f"phase7(b): {arm} losses differ")
+            if not x["state_bytes"] < 0.55 * br["state_bytes"]:
+                raise AssertionError(f"phase7(b): {arm} state "
+                                     f"{x['state_bytes']} not about half of "
+                                     f"{br['state_bytes']}")
+        for x in (bz, br, bf):
+            if x["launches"] != b_launches:
+                raise AssertionError(f"phase7(b): launches {x['launches']}, "
+                                     f"expected {b_launches}")
+        if not bf["param_bytes"] * 2 <= br["param_bytes"] * 1.001:
+            raise AssertionError(f"phase7(b): FSDP parameters "
+                                 f"{bf['param_bytes']} not half of "
+                                 f"{br['param_bytes']}")
+        # every parameter of the cut has an eligible dim: 3 + 8 a layer,
+        # gathered in forward (the head once for its chunks) and each
+        # layer's again in the recompute, each gradient reduce-scattered
+        # once
+        n_params = 3 + 8 * P7_SMALL_LAYERS
+        for c in bf["counts"]:
+            if (c.get("fsdp_all_gather"), c.get("fsdp_reduce_scatter")) != (
+                    n_params + 8 * P7_SMALL_LAYERS, n_params):
+                raise AssertionError(f"phase7(b): FSDP collectives {c}")
+    if ranks[0]["b"]["fsdp"]["counts"] != ranks[1]["b"]["fsdp"]["counts"]:
+        raise AssertionError("phase7(b): the ranks' FSDP collectives differ")
+    for r in ranks:
         c = r["c"]
         if c["tp"][2] != 2 or c["local_heads"] != (NQ // TP, NKV // TP):
             raise AssertionError(f"phase7(c): layout {c['tp']}, local heads "
@@ -6359,28 +6420,313 @@ def phase7(refs: dict, entries: dict) -> dict:
                                       "7(c)": ranks[0]["c"]["launches"][w]}
     seconds = time.perf_counter() - t_phase
     busy = a0.get("device_busy_ms", 0.0)
+    b0 = ranks[0]["b"]
     log(f"phase7: (a) {a0['step_ms']:.1f} ms a step a rank, collectives "
         f"{a0['collective_s'][-1] * 1e3:.1f} ms of it, busy {busy:.1f} of "
-        f"{a0.get('profiled_step_ms', 0.0):.1f} ms profiled; (b) ZeRO-1 "
-        f"state {ranks[0]['b']['zero1']['state_bytes'] / 2**30:.3f} against "
-        f"{ranks[0]['b']['replicated']['state_bytes'] / 2**30:.3f} GiB a "
-        f"rank, parameters equal to the bit; phase 7 took {seconds:.1f} s")
+        f"{a0.get('profiled_step_ms', 0.0):.1f} ms profiled; (b) a rank's "
+        + "; ".join(
+            f"{arm}: {b0[arm]['step_ms']:.1f} ms a step, collectives "
+            f"{b0[arm]['collective_s'][-1] * 1e3:.1f} ms, parameters "
+            f"{b0[arm]['param_bytes'] / 2**30:.3f} GiB, AdamW state "
+            f"{b0[arm]['state_bytes'] / 2**30:.3f} GiB, peak "
+            f"{b0[arm]['peak_bytes'] / 2**30:.3f} GiB"
+            for arm in ("replicated", "zero1", "fsdp"))
+        + f"; parameters equal to the bit; phase 7 took {seconds:.1f} s")
     keep = ("losses", "grad_norms", "launches", "step_ms", "collective_s",
             "param_bytes", "state_bytes", "peak_bytes", "tp", "dp",
             "local_heads", "profiled_step_ms", "device_busy_ms",
-            "shard_bytes")
+            "shard_bytes", "unequal", "max_diff")
     slim = lambda d: {k: d[k] for k in keep if k in d}  # noqa: E731
     return {"seconds": seconds, "refs": refs,
             "a": [dict(slim(r["a"]), counts=r["a"]["counts"][-1])
                   for r in ranks],
-            "b": [{"zero1": slim(r["b"]["zero1"]),
-                   "replicated": slim(r["b"]["replicated"]),
-                   "unequal": r["b"]["unequal"],
-                   "max_diff": r["b"]["max_diff"]} for r in ranks],
+            "b": [{arm: dict(slim(r["b"][arm]),
+                             counts=r["b"][arm]["counts"][-1])
+                   for arm in ("replicated", "zero1", "fsdp")}
+                  for r in ranks],
             "c": [slim(r["c"]) for r in ranks],
             "g2_kernels": {w: {k: entries["g2"][w][k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "max_abs_err", "max_err")} for w in FLASH_KERNELS}}
+
+
+# -- phase 8 -----------------------------------------------------------------
+
+# the launcher on the card: Llama-3-8B's width cut to 2 layers, one row of
+# 2048, flash, selective remat, bf16 compute over fp32 masters, the chunked
+# loss head, from an NXDT int32 token file of P8_CHUNKS rows written from
+# SEED through the native loader
+P8_LAYERS, P8_S, P8_STEPS, P8_STOP, P8_CHUNKS = 2, 2048, 6, 3, 16
+P8_CHUNK = 512
+# the checkpoint: 1,486,901,248 fp32 masters and two fp32 moments each
+# (about 17.8 GB); the free space it needs, with room to spare
+P8_CKPT_MARGIN = 1.1
+
+
+def p8_args(data: str, steps: int, *extra) -> list:
+    return ["--device", "cuda", "--preset", "llama3_8b", "--num-layers",
+            str(P8_LAYERS), "--batch-size", "1", "--seq-len", str(P8_S),
+            "--steps", str(steps), "--attention", "flash", "--remat",
+            "selective", "--bf16", "--loss-chunk", str(P8_CHUNK), "--data",
+            data, "--lr", "1e-4", "--warmup-steps", "2", "--seed", str(SEED),
+            *extra]
+
+
+class P8Recorder:
+    """A ``fit`` callback: each step's loss (exact float) and the host time
+    it was published; with ``profile`` a CUDA-activity profiler over the
+    dispatches of steps 2..5 (``on_params`` follows each dispatch, deferred
+    metrics or not), synchronised before it stops."""
+
+    def __init__(self, profile: bool = False):
+        self.losses, self.stamps = {}, {}
+        self.profile, self.prof, self.window_ms = profile, None, None
+        self.should_stop = False
+
+    def on_fit_start(self, step, model, optimizer):
+        pass
+
+    def on_step(self, step, metrics):
+        self.losses[step] = metrics["loss"]
+        self.stamps[step] = time.perf_counter()
+
+    def on_params(self, step, model, optimizer):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        if not self.profile:
+            return
+        if step == 1:
+            self.prof = profile(activities=[ProfilerActivity.CUDA])
+            torch.cuda.synchronize()
+            self.prof.start()
+            self._t0 = time.perf_counter()
+        elif step == P8_STEPS - 1 and self.prof is not None:
+            torch.cuda.synchronize()
+            self.window_ms = (time.perf_counter() - self._t0) * 1e3
+            self.prof.stop()
+
+    def on_eval(self, step, metrics):
+        pass
+
+    def on_checkpoint(self, step, path):
+        pass
+
+    def on_fit_end(self, result):
+        pass
+
+
+def phase8(flash_entries) -> dict:
+    """The launcher through the entry points a user calls (see the module
+    docstring): prefetch, deferred metrics and the sync guard against a
+    synchronous run, a stop with a checkpoint and a resume, the
+    checkpoint's bytes and seconds, the data wait, the bare loop and the
+    B1-B3 launches.  Its files live under ``_smoke_scratch/phase8`` and are
+    deleted at the end, pass or fail."""
+    import shutil
+
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "_smoke_scratch", "phase8")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        return _phase8(work, flash_entries)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _phase8(work: str, flash_entries) -> dict:
+    import shutil
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from neuronx_distributed_tpu_torch.data import write_token_file
+    from neuronx_distributed_tpu_torch.examples import llama_pretrain
+    from neuronx_distributed_tpu_torch.obs import Observability
+    from neuronx_distributed_tpu_torch.ops import flash_attention as fa
+    from neuronx_distributed_tpu_torch.trainer import checkpoint as ckpt_mod
+    from neuronx_distributed_tpu_torch.trainer import fit
+
+    t_phase = time.perf_counter()
+    data = os.path.join(work, "tokens.nxdt")
+    tokens = np.random.RandomState(SEED).randint(
+        0, 128256, size=P8_CHUNKS * P8_S + 1).astype(np.int32)
+    write_token_file(data, tokens)
+    out = {}
+
+    def reset():
+        for w in FLASH_KERNELS:
+            getattr(fa, FLASH_KERNELS[w][0]).launches = 0
+
+    def read():
+        return {w: getattr(fa, FLASH_KERNELS[w][0]).launches
+                for w in FLASH_KERNELS}
+
+    def release(res):
+        res.model = res.optimizer = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (a) the launcher's setup through fit: synchronous (no prefetch,
+    # metrics read each step) for the reference, then the launcher's own
+    # loop (staged, deferred) under the sync guard
+    config, model, opt, data_src, kw = llama_pretrain.prepare(
+        p8_args(data, P8_STEPS))
+    if not data_src.dataset.is_native:
+        raise AssertionError("phase8: the token loader fell back to numpy "
+                             "(the g++ build of the native library failed)")
+    sync = P8Recorder()
+    res = fit(config, model, opt, data_src, callbacks=[sync],
+              **dict(kw, prefetch=0, defer_metrics=False))
+    del model, opt
+    release(res)
+    config, model, opt, data_src, kw = llama_pretrain.prepare(
+        p8_args(data, P8_STEPS))
+    if (kw["prefetch"], kw["defer_metrics"]) != (2, True):
+        raise AssertionError(f"phase8: the launcher's loop is prefetch "
+                             f"{kw['prefetch']}, deferred "
+                             f"{kw['defer_metrics']}")
+    fast = P8Recorder(profile=True)
+    hub = Observability(os.path.join(work, "obs"))
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    res = fit(config, model, opt, data_src, callbacks=[fast], obs=hub,
+              transfer_guard="forbid", **kw)
+    out["fast_wall_s"] = time.perf_counter() - t0
+    del model, opt
+    launches = read()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    if torch.cuda.get_sync_debug_mode() != 0:
+        raise AssertionError("phase8: the sync guard was left set")
+    want = {"fwd": P8_STEPS * P8_LAYERS * 2, "dq": P8_STEPS * P8_LAYERS,
+            "dkv": P8_STEPS * P8_LAYERS}   # selective remat: B1 twice
+    if launches != want:
+        raise AssertionError(f"phase8(a): launches {launches}, expected "
+                             f"{want}")
+    steps = list(range(P8_STEPS))
+    if sorted(sync.losses) != steps or fast.losses != sync.losses:
+        raise AssertionError(f"phase8(a): staged + deferred + guarded losses "
+                             f"{fast.losses} != synchronous {sync.losses}")
+    if not all(math.isfinite(x) for x in sync.losses.values()):
+        raise AssertionError(f"phase8(a): non-finite {sync.losses}")
+    recs = list(hub.flight.records)
+    if [r["step"] for r in recs] != steps:
+        raise AssertionError(f"phase8(d): flight records for "
+                             f"{[r['step'] for r in recs]}")
+    out["data_wait_ms"] = [r["data_wait_s"] * 1e3 for r in recs]
+    gaps = [fast.stamps[s] - fast.stamps[s - 1] for s in range(2, P8_STEPS)]
+    out["fit_step_ms"] = statistics.median(gaps) * 1e3
+    busy = sum(dev_us(e) for e in device_events(fast.prof)) / 1e3
+    out["busy_ms"], out["window_ms"] = busy, fast.window_ms
+    out["busy_share"] = busy / fast.window_ms
+    out["launches"] = launches
+    out["losses"] = [sync.losses[s] for s in steps]
+    snap = hub.registry.snapshot()
+    out["explicit_fetches"] = snap["transfer/explicit_fetches_total"]
+    out["guarded_sections"] = snap["transfer/guarded_sections_total"]
+    out["staged"] = snap["data/prefetch_batches_staged_total"]
+    release(res)
+
+    # (d) the bare make_train_step loop over the same batches, host batches
+    # copied up at each step, no prefetch, no metric read until the end
+    from neuronx_distributed_tpu_torch.config import training_config
+    from neuronx_distributed_tpu_torch.models.common import (
+        make_causal_lm_loss_sum,
+    )
+    from neuronx_distributed_tpu_torch.models.llama import (
+        LlamaConfig,
+        LlamaForCausalLM,
+    )
+    from neuronx_distributed_tpu_torch.trainer import (
+        initialize_parallel_model,
+        initialize_parallel_optimizer,
+        make_train_step,
+    )
+
+    config = training_config(compute_dtype="bfloat16", param_dtype="float32",
+                             learning_rate=1e-4, lr_schedule="cosine",
+                             warmup_steps=2, total_steps=P8_STEPS, seed=SEED)
+    cfg = LlamaConfig.llama3_8b(num_layers=P8_LAYERS, max_seq_len=P8_S,
+                                attention_impl="flash", remat="selective",
+                                dtype=torch.bfloat16,
+                                param_dtype=torch.float32)
+    model = initialize_parallel_model(
+        config, lambda d: LlamaForCausalLM(cfg, device=d), seed=SEED)
+    opt = initialize_parallel_optimizer(config, model)
+    step = make_train_step(config, model, opt,
+                           make_causal_lm_loss_sum(P8_CHUNK))
+    batches = [data_src(s) for s in steps]
+    bare = []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(b)
+        torch.cuda.synchronize()
+        bare.append((time.perf_counter() - t0) * 1e3)
+        m = m["loss"].item()
+    out["bare_step_ms"] = statistics.median(bare[2:])
+    del step, opt, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) stop after P8_STOP steps with the final checkpoint, resume to
+    # P8_STEPS; (c) its bytes and seconds
+    ckpt = os.path.join(work, "ckpt")
+    os.makedirs(ckpt)
+    # the stop's checkpoint and the resumed run's final one live together
+    # until the second rotates the first out
+    need = 2 * 1486901248 * 4 * 3 * P8_CKPT_MARGIN
+    free = shutil.disk_usage(ckpt).free
+    out["disk_free_bytes"] = free
+    if free < need:
+        raise AssertionError(f"phase8(c): {free / 1e9:.1f} GB free under "
+                             f"{ckpt}, the checkpoint needs {need / 1e9:.1f}")
+    first = P8Recorder()
+    res = llama_pretrain.main(p8_args(data, P8_STOP, "--ckpt-dir", ckpt),
+                              callbacks=[first])
+    save = dict(ckpt_mod.LAST_SAVE)
+    release(res)
+    rest = P8Recorder()
+    # its final checkpoint downcasts the model payload (the optimizer's
+    # stays fp32): the bf16 option on the card, and 3 GB less to write
+    res = llama_pretrain.main(p8_args(data, P8_STEPS, "--ckpt-dir", ckpt,
+                                      "--resume", "--keep-ckpts", "1",
+                                      "--ckpt-bf16"), callbacks=[rest])
+    load = dict(ckpt_mod.LAST_LOAD)
+    save2 = dict(ckpt_mod.LAST_SAVE)
+    release(res)
+    if res.start_step != P8_STOP or sorted(rest.losses) != steps[P8_STOP:]:
+        raise AssertionError(f"phase8(b): resumed at {res.start_step}, "
+                             f"steps {sorted(rest.losses)}")
+    resumed = {**first.losses, **rest.losses}
+    if resumed != sync.losses:
+        raise AssertionError(f"phase8(b): stopped + resumed losses "
+                             f"{resumed} != uninterrupted {sync.losses}")
+    out["checkpoint"] = {"bytes": save["bytes"],
+                         "blocking_s": [save["blocking_s"],
+                                        save2["blocking_s"]],
+                         "save_s": [save["total_s"], save2["total_s"]],
+                         "load_bytes": load["bytes"],
+                         "load_s": load["seconds"]}
+    for w in FLASH_KERNELS:
+        flash_entries[w].setdefault("launches_by_phase", {})["8"] = \
+            launches[w]
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase8: losses {out['losses']} (staged + deferred + guarded and "
+        f"stopped + resumed equal the synchronous run to the bit); data "
+        f"wait a step {['%.3f' % x for x in out['data_wait_ms']]} ms; "
+        f"fit's steady step {out['fit_step_ms']:.1f} ms against the bare "
+        f"loop's {out['bare_step_ms']:.1f} ms; busy {busy:.1f} of "
+        f"{fast.window_ms:.1f} ms ({out['busy_share']:.3f}); launches "
+        f"{launches}; peak {out['peak_bytes'] / 2**30:.2f} GiB; checkpoint "
+        f"{save['bytes'] / 1e9:.2f} GB: {save['blocking_s']:.2f} s to host "
+        f"memory, {save['total_s']:.2f} s saved, {load['seconds']:.2f} s "
+        f"loaded ({free / 1e9:.0f} GB free); phase 8 took "
+        f"{out['seconds']:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -6467,6 +6813,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         tp_training = phase7(p7_refs, tp_train_entries)
         log(f"phase7 summary: {json.dumps(tp_training)}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        launcher = phase8(flash)
+        log(f"phase8 summary: {json.dumps(launcher)}")
         for w in FLASH_KERNELS:
             flash[w]["build"] = {d: guards[w][d] for d in (64, 128)}
             flash256[w]["build"] = {256: guards[w][256]}

@@ -32,7 +32,13 @@ reports through, in the JAX package's artifact formats.  The serving
 fleet (:mod:`.serving.fleet`) puts engine replicas behind one router:
 routing policies, zero-loss failover, prefill/decode disaggregation with
 KV page-chain transfer (:mod:`.kvcache.transfer`), live weight swaps and
-rolling updates (:mod:`.weights`) and the alert-driven autopilot.  The port
+rolling updates (:mod:`.weights`) and the alert-driven autopilot.
+Training runs through :func:`.trainer.fit` (cadence, sharded checkpoints
+with resume, the anomaly policy, device prefetch, deferred metrics) over
+the native data loader and packing (:mod:`.data`), at any tensor-,
+data-parallel and FSDP layout (:mod:`.parallel.fsdp`), launched by
+``python -m neuronx_distributed_tpu_torch.examples.llama_pretrain`` under
+the supervisor's CLI.  The port
 imports ``torch`` and nothing of JAX or of the JAX package.  Entry points
 run on the card unless the caller passes ``device="cpu"``.
 """
@@ -45,6 +51,7 @@ from neuronx_distributed_tpu_torch.ops.paged_attention import paged_attention
 from neuronx_distributed_tpu_torch.serving import Request, SamplingParams, ServingEngine
 from neuronx_distributed_tpu_torch.trace import InferenceConfig, ParallelInferenceModel
 from neuronx_distributed_tpu_torch.trainer import (
+    fit,
     initialize_parallel_model,
     initialize_parallel_optimizer,
     make_train_step,
@@ -63,6 +70,7 @@ __all__ = [
     "ServingEngine",
     "TrainingConfig",
     "__version__",
+    "fit",
     "flash_attention",
     "initialize_parallel_model",
     "initialize_parallel_optimizer",

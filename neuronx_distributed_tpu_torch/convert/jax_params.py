@@ -28,7 +28,11 @@ and the attention output's rows are cut into ``tp`` blocks taken in the
 JAX ``('tp', 'kvr')`` order (rank ``(kvr = o, tp = i)`` holds block ``i *
 kvr + o``) and the k/v heads into ``tp / kvr`` blocks, the same on the kvr
 replicas.  :func:`zero1_shard_for_rank` cuts a rank's tree again for its
-ZeRO-1 slice (the optimizer state a data-parallel rank holds).
+ZeRO-1 slice (the optimizer state a data-parallel rank holds), and
+:func:`fsdp_shard_for_rank` for its FSDP piece (the parameters, gradients
+and states a data-parallel rank holds under ``fsdp=True``, cut tp-major:
+``optimizer/zero1.py``).  :func:`tp_cut` gives a parameter's cut by
+name.
 """
 
 from __future__ import annotations
@@ -107,6 +111,18 @@ def _block(name: str, tp: int, rank: int, kvr: int):
     return tp, rank
 
 
+def tp_cut(name: str, ndim: int, tp: int, rank: int, kvr: int = 1
+           ) -> Optional[tuple]:
+    """``(dim, blocks, block)``: how ``name``'s global tensor is cut over
+    the tensor-parallel ranks (``dim`` >= 0, into ``blocks`` pieces, of
+    which ``rank`` holds ``block``), or None when it is replicated over
+    tp."""
+    dim = shard_dim(name)
+    if dim is None or tp == 1:
+        return None
+    return (dim % ndim, *_block(name, tp, rank, kvr))
+
+
 def _walk(tree, prefix, leaf):
     out = {}
     for key, val in tree.items():
@@ -143,6 +159,26 @@ def zero1_shard_for_rank(tree: Mapping[str, Any], dp: int, rank: int
         dim = next((i for i, n in enumerate(arr.shape) if n % dp == 0),
                    None) if dp > 1 else None
         return np.array(_cut(arr, dim, dp, rank))
+    return _walk(tree, "", leaf)
+
+
+def fsdp_shard_for_rank(tree: Mapping[str, Any], dp: int, rank: int,
+                        tp: int = 1, kvr: int = 1) -> Dict[str, Any]:
+    """Data-parallel rank ``rank``'s FSDP piece of a tensor-parallel rank's
+    tree (from :func:`shard_params_for_rank` at degree ``tp``, KV
+    replication ``kvr``; the tree's leaves have that rank's shapes): each
+    leaf cut into ``dp`` pieces along the dim ``optimizer.zero1.fsdp_dim``
+    picks (the largest global dim whose local size divides ``dp``), or
+    whole when none does.  What a rank's FSDP parameters hold of a JAX
+    param tree, and its AdamW moments of a JAX ``mu``/``nu`` tree."""
+    from neuronx_distributed_tpu_torch.optimizer.zero1 import fsdp_dim
+
+    def leaf(path, arr):
+        cut = tp_cut(path, arr.ndim, tp, 0, kvr)
+        full = list(arr.shape)
+        if cut is not None:
+            full[cut[0]] *= cut[1]
+        return np.array(_cut(arr, fsdp_dim(arr.shape, full, dp), dp, rank))
     return _walk(tree, "", leaf)
 
 

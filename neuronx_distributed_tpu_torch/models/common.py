@@ -42,6 +42,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from neuronx_distributed_tpu_torch.parallel import fsdp
 from neuronx_distributed_tpu_torch.parallel.loss import parallel_cross_entropy
 
 # the ops whose outputs ``remat="selective"`` saves: matmuls without batch
@@ -153,10 +154,13 @@ def make_causal_lm_loss_sum(chunk_size: int = 0):
         S = labels.shape[1]
         c = next(d for d in range(min(chunk_size, S), 0, -1) if S % d == 0)
         total = torch.zeros(2, dtype=torch.float32, device=h.device)
-        for i in range(0, S, c):
-            total = total + checkpoint(
-                chunk_loss, model, h[:, i:i + c], labels[:, i:i + c],
-                mask[:, i:i + c], use_reentrant=False)
+        # under FSDP the head is gathered once for every chunk and its
+        # recompute, and its gradient reduce-scattered once
+        with fsdp.reuse(model):
+            for i in range(0, S, c):
+                total = total + checkpoint(
+                    chunk_loss, model, h[:, i:i + c], labels[:, i:i + c],
+                    mask[:, i:i + c], use_reentrant=False)
         return total[0], total[1]
 
     return loss_fn

@@ -25,8 +25,17 @@ parameters' all-gather is one broadcast of each rank's slices (gloo takes
 only broadcast and all-reduce on CUDA tensors), so their bytes cross once
 and exactly.
 
-:func:`fsdp_spec` (ZeRO-3 as placement) is here as a function: the
-trainer's ``fsdp=True`` waits for ROADMAP A11b.
+:func:`fsdp_spec` (ZeRO-3 as placement) picks the dim a parameter itself
+is cut along over dp under ``fsdp=True``: the LARGEST eligible global dim
+(:func:`fsdp_dim` on a rank's local shard; :mod:`..parallel.fsdp` does the
+gathers).  The layout choice, the same as ZeRO-1's: a rank's dp piece is
+its tensor-parallel shard cut in ``dp`` pieces along that dim, so within a
+dim that tp also cuts the order is tp-major (global offset ``tp_block *
+n / tp + dp_rank * n / (tp * dp)``), where JAX's spec prepends the batch
+axes and is dp-major.  Either layout computes the same values; the
+converter (``convert.fsdp_shard_for_rank``), the checkpoint's ``meta.json``
+(each shard's box in the global tensor) and the parity tests all use the
+tp-major one.
 """
 
 from __future__ import annotations
@@ -107,6 +116,23 @@ def zero1_dim(local_shape: Sequence[int], dp: int) -> Optional[int]:
     if dp == 1:
         return None
     return next((i for i, n in enumerate(local_shape) if n % dp == 0), None)
+
+
+def fsdp_dim(local_shape: Sequence[int], global_shape: Sequence[int],
+             dp: int) -> Optional[int]:
+    """The dim of a rank's local shard that FSDP cuts over ``dp``: among
+    the dims whose local size divides ``dp`` (the global size divides ``dp
+    x`` its tensor-parallel cut, JAX's eligibility), the one with the
+    largest GLOBAL size, the first on a tie (:func:`fsdp_spec`'s pick);
+    None when none is eligible (the parameter stays replicated over
+    dp)."""
+    if dp == 1:
+        return None
+    best, best_size = None, 0
+    for i, (n, g) in enumerate(zip(local_shape, global_shape)):
+        if n % dp == 0 and g > best_size:
+            best, best_size = i, g
+    return best
 
 
 def optimizer_state_layout(params: Sequence[torch.Tensor], dp: int

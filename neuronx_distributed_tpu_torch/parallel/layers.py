@@ -314,8 +314,13 @@ class ParallelEmbedding(nn.Module):
         """The tied LM head: ``[..., H] -> [..., V / tp]`` (this rank's
         vocab slice) against the same table, in the compute type; its
         gradient adds to the lookup's in the one ``embedding``
-        parameter."""
+        parameter.  Under FSDP the table is gathered here too, as this is
+        not the module's ``forward``."""
+        # imported here: parallel.fsdp imports this module
+        from neuronx_distributed_tpu_torch.parallel.fsdp import gathered
+
         x = x.to(self.dtype)
         if self.tp.size > 1:
             x = copy_to_tensor_parallel_region(x, self.tp.group)
-        return torch.matmul(x, self.embedding.to(self.dtype).t())
+        with gathered(self):
+            return torch.matmul(x, self.embedding.to(self.dtype).t())

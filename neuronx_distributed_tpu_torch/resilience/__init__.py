@@ -1,8 +1,9 @@
 """Resilience of the PyTorch port: the fault-injection plane
 (:mod:`.faults`, whose fault points run through the serving engine, the
-paged-KV manager and the adapter store) and the restart-on-crash process
-supervisor (:mod:`.supervisor`).  The anomaly policies of ``fit()`` wait
-for the port's training loop."""
+paged-KV manager, the adapter store, ``fit``, the checkpoints and the
+data loader), the anomaly response policies of ``fit(policy=)``
+(:mod:`.policy`) and the restart-on-crash process supervisor with its CLI
+(:mod:`.supervisor`)."""
 
 from neuronx_distributed_tpu_torch.resilience.faults import (
     ENV_VAR,
@@ -16,6 +17,14 @@ from neuronx_distributed_tpu_torch.resilience.faults import (
     install_plan,
     perturb,
 )
+from neuronx_distributed_tpu_torch.resilience.policy import (
+    AnomalyPolicy,
+    PolicyDecision,
+    PolicyEngine,
+    PolicyHalt,
+    RetriesExhausted,
+    StepWatchdog,
+)
 from neuronx_distributed_tpu_torch.resilience.supervisor import (
     SUPERVISOR_EVENTS_SCHEMA,
     Supervisor,
@@ -25,10 +34,16 @@ from neuronx_distributed_tpu_torch.resilience.supervisor import (
 )
 
 __all__ = [
+    "AnomalyPolicy",
     "ENV_VAR",
     "FaultPlan",
     "InjectedFault",
     "KILL_EXIT_CODE",
+    "PolicyDecision",
+    "PolicyEngine",
+    "PolicyHalt",
+    "RetriesExhausted",
+    "StepWatchdog",
     "SUPERVISOR_EVENTS_SCHEMA",
     "Supervisor",
     "SupervisorResult",

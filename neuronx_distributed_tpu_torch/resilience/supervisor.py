@@ -15,8 +15,13 @@ crash budget, and record each attempt's resume point.
   contract between a crashed attempt and the next.
 
 Every event is validated against the ``supervisor_event`` schema of
-:mod:`..obs.schemas` before it is written.  The JAX package's CLI
-(``tools/train_supervisor.py``) waits for the port's trainer checkpoints.
+:mod:`..obs.schemas` before it is written.  The CLI, :func:`main`, runs a
+training command under supervision::
+
+    python -m neuronx_distributed_tpu_torch.resilience.supervisor \
+        --max-restarts 3 --ckpt-dir ck --events ev.jsonl --log child.log -- \
+        python -m neuronx_distributed_tpu_torch.examples.llama_pretrain \
+        --ckpt-dir ck --resume ...
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import json
 import os
 import signal
 import subprocess
+import sys
 import time
 from typing import IO, List, Optional, Sequence
 
@@ -269,3 +275,55 @@ class Supervisor:
             if self._events_f is not None:
                 self._events_f.close()
                 self._events_f = None
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    """The supervisor's CLI: run the command after ``--``, restart it on
+    crashes with exponential backoff under a crash budget, print one JSON
+    summary line; exit 0 when the command finally succeeded."""
+    import argparse
+
+    p = argparse.ArgumentParser(
+        prog="train_supervisor",
+        description="Supervised auto-resume: run a training command, restart "
+                    "on crashes with exponential backoff and a crash budget.")
+    p.add_argument("--max-restarts", type=int, default=3)
+    p.add_argument("--backoff-base", type=float, default=0.5,
+                   help="first backoff in seconds (doubles per restart)")
+    p.add_argument("--backoff-max", type=float, default=30.0)
+    p.add_argument("--timeout", type=float, default=None,
+                   help="per-attempt wall-clock limit; exceeding it kills the "
+                        "attempt (cause=timeout) and consumes crash budget")
+    p.add_argument("--ckpt-dir", default=None,
+                   help="checkpoint dir to record resume tags from")
+    p.add_argument("--events", default=None,
+                   help="supervisor_events.jsonl path (append)")
+    p.add_argument("--log", default=None,
+                   help="child stdout/stderr log (append; enables crash-cause "
+                        "classification)")
+    p.add_argument("command", nargs=argparse.REMAINDER,
+                   help="the training command (prefix with --)")
+    args = p.parse_args(argv)
+    command = args.command
+    if command and command[0] == "--":
+        command = command[1:]
+    if not command:
+        p.error("no command given (pass it after --)")
+
+    sup = Supervisor(
+        command, max_restarts=args.max_restarts,
+        backoff_base_s=args.backoff_base, backoff_max_s=args.backoff_max,
+        timeout_s=args.timeout, ckpt_dir=args.ckpt_dir,
+        events_path=args.events, log_path=args.log)
+    res = sup.run()
+    print(json.dumps({
+        "supervisor": "done", "ok": res.ok, "attempts": res.attempts,
+        "restarts": res.restarts, "final_rc": res.final_rc,
+        "causes": res.causes,
+        "total_runtime_s": round(res.total_runtime_s, 3),
+    }), flush=True)
+    return 0 if res.ok else 1
+
+
+if __name__ == "__main__":  # pragma: no cover
+    sys.exit(main())

@@ -363,9 +363,9 @@ class FleetRouter:
           ``role`` (requires ``role=``) and rejoin with pages intact.
         - ``then="swap"``: live weight swap — once empty, install new
           params via ``weights.WeightSwapper`` (requires ``payload=`` with
-          ``"params"``; optional ``"copy"``, ``"swaps_path"``; a
-          ``"ckpt_dir"`` payload raises ``NotImplementedError`` until the
-          port has the trainer's checkpoints) and rejoin.  The engine is
+          ``"params"`` or ``"ckpt_dir"`` (and an optional ``"tag"``: a
+          checkpoint of ``trainer.checkpoint``); optional ``"copy"``,
+          ``"swaps_path"``) and rejoin.  The engine is
           never rebuilt; a replica over a shared model moves to a private
           one and captures its phases again inside the swap, booked as
           warm-up, so the rejoined replica fires no compile storm.  A swap
@@ -380,11 +380,6 @@ class FleetRouter:
             raise ValueError(
                 "drain(then='swap') requires payload= with 'params' or "
                 "'ckpt_dir'")
-        if then == "swap" and "params" not in payload:
-            raise NotImplementedError(
-                "checkpoint swaps load through the trainer's checkpoints, "
-                "which the port does not have yet; pass payload={'params': "
-                "...}")
         replica = self.replicas.get(replica_id)
         if replica is None:
             raise ValueError(f"unknown replica {replica_id}")
@@ -506,8 +501,13 @@ class FleetRouter:
                 # its bytes, the shared mapping may be a live trainer's
                 # tensors.  A caller that KNOWS the tensors are immutable
                 # may pass "copy": False to alias them across the fleet.
-                version = swapper.swap(payload["params"], source="memory",
-                                       copy=payload.get("copy"))
+                if "params" in payload:
+                    version = swapper.swap(payload["params"],
+                                           source="memory",
+                                           copy=payload.get("copy"))
+                else:
+                    version = swapper.swap_from_checkpoint(
+                        payload["ckpt_dir"], tag=payload.get("tag"))
             finally:
                 swapper.close()
         except (SwapError, Exception) as e:  # noqa: BLE001 — audit + rejoin
@@ -549,8 +549,8 @@ class FleetRouter:
         ``Replica.describe()['weights_version']``).
 
         ``params`` routes the in-memory path (the rollout→train→swap
-        loop); ``ckpt_dir``/``tag`` the checkpoint path (not in the port yet:
-        it loads through the trainer's checkpoints).
+        loop); ``ckpt_dir``/``tag`` the checkpoint path (a
+        ``trainer.checkpoint`` tag, loaded by each replica's swapper).
         ``swaps_dir`` (optional) receives one
         ``replica<rid>_weight_swaps.jsonl`` audit file per replica.  The
         roll advances inside :meth:`step` — keep stepping (serving traffic
@@ -562,11 +562,6 @@ class FleetRouter:
             raise ValueError(
                 "rolling_update needs exactly one of params= (in-memory) "
                 "or ckpt_dir= (checkpoint)")
-        if ckpt_dir is not None:
-            raise NotImplementedError(
-                "rolling_update(ckpt_dir=) loads through the trainer's "
-                "checkpoints, which the port does not have yet; pass "
-                "params=")
         if self._rolling is not None:
             raise ValueError("a rolling update is already in progress")
         payload: dict = {}

@@ -1,9 +1,11 @@
 """Training metrics (counterpart of
-``neuronx_distributed_tpu/trainer/metrics.py``): moving-window throughput
-and the 6N + attention FLOP count behind MFU."""
+``neuronx_distributed_tpu/trainer/metrics.py``): moving-window throughput,
+the 6N + attention FLOP count behind MFU, and the JSON results file."""
 
 from __future__ import annotations
 
+import json
+import os
 import time
 from collections import deque
 from typing import Optional
@@ -60,3 +62,22 @@ def mfu(tokens_per_sec: float, flops_per_token: float,
         peak_flops: float) -> float:
     """Model FLOPs utilization against the device's peak rate."""
     return tokens_per_sec * flops_per_token / peak_flops
+
+
+class TrainingMetrics:
+    """JSON results file writer: ``update(**kw)`` then ``write()`` (a temp
+    file and an atomic rename, so a crash mid-write leaves the previous
+    complete file)."""
+
+    def __init__(self, json_file: str):
+        self.json_file = json_file
+        self.metrics = {}
+
+    def update(self, **kwargs) -> None:
+        self.metrics.update(kwargs)
+
+    def write(self) -> None:
+        tmp = f"{self.json_file}.tmp.{os.getpid()}"
+        with open(tmp, "w") as f:
+            json.dump(self.metrics, f, indent=2)
+        os.replace(tmp, self.json_file)

@@ -8,9 +8,11 @@ rank holds its shard, and the step does by hand what GSPMD derives in the
 JAX step -- this rank's slice of the global batch, the loss sum and token
 count over dp, the sequence-parallel and kvr gradient sums, the gradient
 sum over dp (reduce-scattered under ZeRO-1, :mod:`..optimizer.zero1`) and
-the global norm for clipping.  Pipeline (A15), context (A14) and expert
-("Then") parallelism, FSDP (A11b) and ``trainable=`` (PEFT, A13) are not
-ported yet and raise.
+the global norm for clipping.  ``fsdp=True`` cuts the parameters
+themselves over dp (:mod:`..parallel.fsdp`: gathered before each use,
+their gradients reduce-scattered in backward).  Pipeline (A15), context
+(A14) and expert ("Then") parallelism and ``trainable=`` (PEFT, A13) are
+not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from neuronx_distributed_tpu_torch.optimizer.adamw_fp32 import (
     build_lr_schedule,
 )
 from neuronx_distributed_tpu_torch.optimizer.zero1 import Zero1
-from neuronx_distributed_tpu_torch.parallel import mappings, mesh
+from neuronx_distributed_tpu_torch.parallel import fsdp, mappings, mesh
 from neuronx_distributed_tpu_torch.parallel.grads import (
     allreduce_kv_replicated_gradients,
     allreduce_sequence_parallel_gradients,
@@ -88,15 +90,16 @@ class ParallelOptimizer:
 
 def _check_degrees(config: TrainingConfig) -> None:
     m = config.mesh
+    if config.fsdp and m.pipeline_parallel_size > 1:
+        raise ValueError(
+            "fsdp=True requires pipeline_parallel_size == 1: a pipeline "
+            "stage's parameters stay replicated along dp (use "
+            "zero_one_enabled for state sharding)")
     for name, item in DEFERRED_DEGREES.items():
         value = getattr(m, name)
         if value > 1:
             raise NotImplementedError(f"{name}={value} is not ported yet: "
                                       f"{item}")
-    if config.fsdp:
-        raise NotImplementedError(
-            "fsdp=True is not ported yet: ZeRO-3 placement of the "
-            "parameters over dp (ROADMAP A11b); use zero_one_enabled")
 
 
 def _initialize_parallel_state(config: TrainingConfig, device) -> None:
@@ -163,16 +166,23 @@ def initialize_parallel_model(config: TrainingConfig,
     config disagrees with ``config`` on dtypes or remat, and initialise its
     weights from ``seed`` (default ``config.seed``) when it has
     ``init_random`` (tp-invariant: a rank's shard of the tp = 1 weights).
-    The parallel state comes from ``config.mesh`` when none is live (the
-    world from the ``torchrun`` environment).  Raises
-    ``NotImplementedError`` for pipeline, context or expert degrees above
-    1 and for ``fsdp``."""
+    With ``config.fsdp`` at data-parallel degree > 1 the parameters are
+    then cut over dp (:func:`..parallel.fsdp.shard_module`; load weights
+    afterwards through ``convert.fsdp_shard_for_rank``).  The parallel
+    state comes from ``config.mesh`` when none is live (the world from the
+    ``torchrun`` environment).  Raises ``NotImplementedError`` for
+    pipeline, context or expert degrees above 1, and ``ValueError`` for
+    ``fsdp`` with a pipeline."""
     _check_degrees(config)
     dev = resolve_device(device)
     _initialize_parallel_state(config, dev)
     module = _align_module_with_config(model_fn(dev), config, dev)
     if hasattr(module, "init_random"):
         module.init_random(config.seed if seed is None else seed)
+    if config.fsdp and mesh.get_data_parallel_size() > 1:
+        fsdp.shard_module(module, mesh.get_data_parallel_group(),
+                          mesh.get_data_parallel_size(),
+                          mesh.get_data_parallel_rank())
     module.train()
     model = ParallelModel(module=module, device=dev)
     logger.info("initialized model: %.2fM params on %s",
@@ -188,7 +198,9 @@ def initialize_parallel_optimizer(config: TrainingConfig,
     (a float or ``count -> lr``; default: the config's schedule).  With
     ``zero_one_enabled`` at data-parallel degree > 1 each rank keeps the
     states of its slice only (:class:`..optimizer.zero1.Zero1`).
-    ``trainable=`` (PEFT) is not ported yet."""
+    Under FSDP the optimizer takes the parameters' pieces (their states
+    are cut as they are) and ZeRO-1 has nothing left to do.  ``trainable=``
+    (PEFT) is not ported yet."""
     if trainable is not None:
         raise NotImplementedError(
             "trainable= (PEFT) is not ported yet (ROADMAP A13, PEFT training)")
@@ -199,7 +211,8 @@ def initialize_parallel_optimizer(config: TrainingConfig,
     params = [p for p in model.module.parameters() if p.requires_grad]
     zero1 = None
     dp = mesh.get_data_parallel_size()
-    if oc.zero_one_enabled and dp > 1:
+    if oc.zero_one_enabled and dp > 1 and \
+            fsdp.fsdp_state(model.module) is None:
         zero1 = Zero1(params, mesh.get_data_parallel_group(), dp,
                       mesh.get_data_parallel_rank())
         params = zero1.shards
@@ -272,8 +285,9 @@ def _global_loss(out_sum, tok, token_weighted, n_parts, dp: _DataParallel):
     if token_weighted:
         scale = 1.0 / sums[1].clamp(min=1.0)
     else:
-        scale = torch.tensor(1.0 / (n_parts * dp.size),
-                             device=out_sum.device)
+        # a fill, not a host-to-device copy: no sync inside the step
+        scale = torch.full((), 1.0 / (n_parts * dp.size),
+                           dtype=torch.float32, device=out_sum.device)
     return sums[0] * scale, scale
 
 
@@ -306,7 +320,8 @@ def make_train_step(config: TrainingConfig, model: ParallelModel,
     microbatch means of every rank (exact when each carries the same
     tokens).  Then the sequence-parallel and kvr-replicated gradients are
     summed over their groups, every gradient over dp (reduce-scattered
-    under ZeRO-1), the global norm clips them to ``max_grad_norm`` (when
+    under ZeRO-1; an FSDP piece's was reduce-scattered in backward), the
+    global norm clips them to ``max_grad_norm`` (when
     ``grad_clipping``), and AdamW takes one update at the schedule's rate
     for the update count (ZeRO-1: on this rank's slices, then the
     parameters are all-gathered)."""
@@ -321,6 +336,7 @@ def make_train_step(config: TrainingConfig, model: ParallelModel,
     params = [p for p in module.parameters() if p.requires_grad]
     dp = _DataParallel()
     zero1 = optimizer.zero1
+    sharded = fsdp.fsdp_state(module) is not None
 
     def split(batch):
         if grad_accum_steps == 1:
@@ -394,8 +410,11 @@ def make_train_step(config: TrainingConfig, model: ParallelModel,
             owners, sliced = zero1.params, zero1.sliced
         else:
             grads = [p.grad for p in params]
-            psum_over_data_parallel(grads, mean=False)
-            owners, sliced = params, None
+            psum_over_data_parallel(
+                [g for p, g in zip(params, grads) if not fsdp.is_sharded(p)],
+                mean=False)
+            owners = params
+            sliced = [fsdp.is_sharded(p) for p in params] if sharded else None
         if oc.grad_clipping:
             _, grad_norm = clip_grad_norm(grads, oc.max_grad_norm,
                                           params=owners, dp_sliced=sliced)

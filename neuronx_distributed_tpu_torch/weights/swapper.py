@@ -7,7 +7,9 @@ qkv.q_kernel``...) to tensors or arrays, as
 :func:`~..convert.jax_params.llama_params_from_jax` produces it or a
 co-located trainer holds it, validates it against the running
 :class:`~..trace.engine.ParallelInferenceModel`'s envelope (names, shapes,
-dtypes), and installs it between ``ServingEngine.step()`` calls.
+dtypes), and installs it between ``ServingEngine.step()`` calls;
+:meth:`WeightSwapper.swap_from_checkpoint` loads the mapping from a
+training checkpoint first.
 
 Where the JAX package passes the parameters to every compiled program as
 its first argument, every CUDA graph of the port has the module's
@@ -151,6 +153,31 @@ class WeightSwapper:
         logger.info("weights: swapped to version %d (%s, %.1f ms)",
                     next_version, source, swap_ms)
         return next_version
+
+    def swap_from_checkpoint(self, ckpt_dir: str,
+                             tag: Optional[str] = None) -> int:
+        """Load a checkpoint's model payload (``trainer.checkpoint``, e.g.
+        one ``fit`` wrote), re-sharded to the live model with the engine's
+        own parameters as the template (their shapes, dtypes and device:
+        fp32 masters come back in the serving types), and :meth:`swap` it
+        in.  A load failure is a failed attempt, audited, with the old
+        weights still serving."""
+        from neuronx_distributed_tpu_torch.trainer.checkpoint import (
+            load_checkpoint,
+            model_shards,
+        )
+
+        t0 = self._clock()
+        try:
+            restored, _, _, _ = load_checkpoint(
+                ckpt_dir, tag=tag,
+                model_template=model_shards(self.engine.model))
+        except BaseException as e:
+            self._note_failure(e, "checkpoint", (self._clock() - t0) * 1e3)
+            raise SwapError(
+                f"checkpoint load failed ({ckpt_dir!r}, tag={tag!r}): "
+                f"{e}") from e
+        return self.swap(restored, source="checkpoint")
 
     def close(self) -> None:
         if self._f is not None:

@@ -263,11 +263,18 @@ def test_trainer_refusals():
     # the degrees still to port name the ROADMAP item that lifts them
     for kw, item in ((dict(context_parallel_size=2), "A14"),
                      (dict(pipeline_parallel_size=2), "A15"),
-                     (dict(expert_parallel_size=2), "Then"),
-                     (dict(fsdp=True), "A11b")):
+                     (dict(expert_parallel_size=2), "Then")):
         with pytest.raises(NotImplementedError, match=item):
             initialize_parallel_model(training_config(**kw), build,
                                       device="cpu")
+    # FSDP is ported (A11b) but not under a pipeline, as in JAX; in one
+    # process it is no placement at all (dp = 1)
+    with pytest.raises(ValueError, match="fsdp.*pipeline"):
+        initialize_parallel_model(training_config(
+            fsdp=True, pipeline_parallel_size=2), build, device="cpu")
+    whole = initialize_parallel_model(training_config(fsdp=True), build,
+                                      device="cpu")
+    assert not hasattr(whole.module, "_fsdp")
     # tp and dp are ported: one process is no world of 2
     for kw in (dict(tensor_parallel_size=2), dict(data_parallel_size=2)):
         with pytest.raises(ValueError, match="not divisible|inconsistent"):

@@ -4,8 +4,11 @@ run -- against the JAX package.
 
 Every JAX oracle test of ``tests/test_weights.py`` of a ported module has
 a counterpart here.  Left out: the four ``save_nxd_checkpoint`` tests and
-``shard_for_rank`` (``convert/nxd.py`` is not ported) and
-``swap_from_checkpoint`` (it loads through the trainer's checkpoints).
+``shard_for_rank`` (``convert/nxd.py`` is not ported).
+``swap_from_checkpoint`` loads the port's own checkpoint format
+(``tests/test_torch_checkpoint.py`` holds it to an in-memory swap); here a
+checkpoint roll over a missing directory fails each replica's swap,
+audited, as JAX's does.
 
 The rig is the oracle's: the tiny fp32 Llama at B = 2 (page 4, 9 pages)
 with two envelope-identical weight sets (JAX init seeds 0 and 7, moved to
@@ -488,13 +491,23 @@ def test_exactly_one_roll_at_a_time_and_arg_validation(rig):
         router.close()
 
     both(run)
-    # checkpoint swaps wait for the trainer's checkpoints in the port
-    router, _ = _roll_fleet(ns("port"), rig, 1)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
+
+    # a checkpoint roll over a missing directory: each replica's swap is a
+    # failed, audited attempt and the replica rejoins on its old weights
+    def run_missing(n, log):
+        router, _ = _roll_fleet(n, rig, 1)
         router.rolling_update(ckpt_dir="/nope")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        router.drain(0, then="swap", payload={"ckpt_dir": "/nope"})
-    router.close()
+        for _ in range(100):
+            router.step()
+            if router.roll_status() is None:
+                break
+        roll = dict(router.last_roll)
+        roll.pop("duration_s")
+        log.append(roll)
+        assert roll["failed"] == [0] and roll["done"] == []
+        router.close()
+
+    both(run_missing)
 
 
 def test_autopilot_drain_restart_skips_draining_replica(rig):
