@@ -154,7 +154,7 @@ flash, selective remat and the chunked loss head, 1 x 2048, 1 + 2 steps
 first step's loss and grad norm against tp = 1 from the same seed, B1-B3
 launches on each rank, the same collectives a step on both ranks, per-rank
 memory, step and collective time and busy share; (b) a 2-layer cut at dp
-= 2, the chunked loss head, 2 steps replicated, with ZeRO-1 and with
+= 2, the chunked loss head, 1 step replicated, with ZeRO-1 and with
 FSDP (the parameters themselves cut over dp, gathered before each use
 and again in the remat recompute, the head once for its chunks, their
 gradients reduce-scattered): parameters equal to the bit, AdamW state
@@ -162,7 +162,7 @@ about halved, FSDP's parameters too, its gathers and reduce-scatters
 counted; (c) a 2-layer cut at tp = 2 with kvr = 2, one step against tp
 = 1.  Phase 8 drives the launcher
 (``neuronx_distributed_tpu_torch.examples.llama_pretrain``) on the
-card: Llama-3-8B's width cut to 2 layers, 1 x 2048, flash, selective
+card: Llama-3-8B's width cut to 1 layer, 1 x 2048, flash, selective
 remat, bf16 compute over fp32 masters, from an NXDT int32 token file
 written from the seed through the native loader: (a) the launcher's
 ``fit`` run (``prefetch=2``, deferred metrics) under
@@ -173,8 +173,23 @@ the bit;
 (c) the checkpoint's bytes and its save, blocking and load seconds; (d)
 data-wait a step from the flight records, fit's steady step against a
 bare ``make_train_step`` loop on the same batches, its busy share and the
-B1-B3 launches.  A device time below the least time its work needs fails
-the run.
+B1-B3 launches.  Phase 9 (a) trains the whole 32-layer Llama-3-8B with
+rank-16 LoRA adapters on qkv, o_proj and mlp and the base frozen
+(``trainable=peft.lora_trainable``), flash, selective remat, the chunked
+head, 1 x 2048, 1 + 5 steps: zero-init adapters leave the base model's
+logits bit for bit, the base stays bit-unchanged (checksums and version
+counters), every adapter moves, the loss falls, B1-B3 launches exact;
+parameter, gradient, AdamW and peak memory, MFU over the frozen-base FLOP
+count; ``merge_lora`` into a model without adapters against the adapted
+logits in fp32 (1e-3) and bf16 (twice bf16's own noise).  (b) cp = 2, two
+processes sharing the card over gloo: B1-B3 held at every chunk call of
+the ring, zigzag and ulysses schedules and the window schedule's S != T
+call, with an lse cotangent, and timed at the schedules' calls beside
+SDPA; then Llama-3-8B's width cut to 2 layers at 1 x 8192, the
+contiguous ring, zigzag and ulysses, 1 + 2 steps each: the first step's
+loss and grad norm against cp = 1, the ranks equal, B1-B3 launches from
+the schedule, collective ms and bytes a step.  A device time below the
+least time its work needs fails the run.
 
 Any failed check exits non-zero without the result line.  The line before
 the last is ``{"kernels": [...]}``; the last is ``{"ok": true, "device":
@@ -224,7 +239,8 @@ TRACE_TRIES = 3
 SPIN_CYCLES_PER_MS = 2.0e6
 # Phase 2: the served engine
 SLOTS, CONTEXT, MAX_TOTAL, PAGE_SIZE = 8, 512, 1024, 16
-N_REQUESTS, NEW_TOKENS = 16, 64
+# 32 new tokens a request (64 before phase 9 took the room)
+N_REQUESTS, NEW_TOKENS = 16, 32
 # Phase 2 kernel-vs-gather logits: relative L2 error of the last decode
 # step's logits (bf16 weights and pool, 32 layers of rounding apart)
 LOGITS_REL_TOL = 5e-2
@@ -4469,8 +4485,8 @@ TP_DECODE_REL_TOL = 2e-2
 TP_WORLD_TIMEOUT_S = 600
 # the prompt tokens of 2i(e)'s steady requests
 TP_STEADY_PROMPT = 64
-# the new tokens of 2i(a)'s and 2i(d)'s requests, a quarter of phase 2's
-# 64 (the time limit paid for phase 7 with 32, for phase 8 with 16); over
+# the new tokens of 2i(a)'s and 2i(d)'s requests, half of phase 2's 32
+# (the time limit paid for phase 7 with 32, for phase 8 with 16); over
 # a shorter stream a common-prefix share can only rise (min(p, 16) / 16 >=
 # min(p, 64) / 64), so the floor set over 64 tokens still holds, and a
 # broken decode still keeps only 1/16 < 0.178
@@ -5014,8 +5030,9 @@ def median_row_rms(ref) -> float:
 
 
 def flash_inputs(case, dtype, device, seed):
-    """Seeded inputs of one case; segment ids are three documents and a
-    padding run (id 0) at random cut points."""
+    """Seeded inputs of one case, drawn on the device (host draws of the
+    8192-key timing copies took ~10 s a shape); segment ids are three
+    documents and a padding run (id 0) at random cut points."""
     import numpy as np
     import torch
 
@@ -5023,10 +5040,12 @@ def flash_inputs(case, dtype, device, seed):
     segs, lse_cot = case[11], case[12]
     model_layout = len(case) > 13 and case[13]
     rs = np.random.RandomState(seed)
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
 
     def f(*shape):
-        x = torch.from_numpy(rs.standard_normal(shape).astype(
-            np.float32)).to(device, dtype)
+        x = torch.randn(shape, generator=g, device=device,
+                        dtype=torch.float32).to(dtype)
         return (x.transpose(1, 2).contiguous().transpose(1, 2)
                 if model_layout else x)
 
@@ -5034,19 +5053,26 @@ def flash_inputs(case, dtype, device, seed):
         f(B, HQ, S, D)
     qs = ks = None
     if segs:
+        # the cut points the cases were chosen with: drawn after four host
+        # draws of the inputs' shapes
+        for shape in ((B, HQ, S, D), (B, HKV, T, D), (B, HKV, T, D),
+                      (B, HQ, S, D)):
+            rs.standard_normal(shape)
         ids = np.zeros((B, T), np.int32)
         cuts = sorted(rs.choice(np.arange(16, T - 16), 3, replace=False))
         for i, (a, b) in enumerate(zip([0] + cuts[:2], cuts)):
             ids[:, a:b] = i + 1
         ks = torch.from_numpy(ids).to(device)
         qs = ks[:, T - S:].contiguous()
-    dlse = (torch.from_numpy(rs.standard_normal((B, HQ, S)).astype(
-        np.float32)).to(device) if lse_cot else None)
+    dlse = (torch.randn((B, HQ, S), generator=g, device=device,
+                        dtype=torch.float32) if lse_cot else None)
     return q, k, v, do, qs, ks, dlse
 
 
-def flash_bound_ms(B, HQ, HKV, S, T, D, item, which, window=None) -> tuple:
-    """Least time for one kernel call at a causal shape.  Operations: per
+def flash_bound_ms(B, HQ, HKV, S, T, D, item, which, window=None,
+                   causal=True) -> tuple:
+    """Least time for one kernel call at a shape (causal: the pairs the
+    mask leaves; else every pair).  Operations: per
     visible (q, k) pair 4D (q.k and p.v), 6D for dq (q.k, dO.v, dS.k) and
     8D for dk/dv (q.k, dO.v, p^T.dO, dS^T.q), at the peak of the inputs'
     type; ``which="bwd"`` is one call producing dq, dk and dv together
@@ -5056,7 +5082,7 @@ def flash_bound_ms(B, HQ, HKV, S, T, D, item, which, window=None) -> tuple:
         visible_pairs,
     )
 
-    pairs = B * HQ * visible_pairs(S, T, True, window)
+    pairs = B * HQ * visible_pairs(S, T, causal, window)
     per = {"bwd": 10}.get(which) or FLASH_KERNELS[which][2]
     flops = per * D * pairs
     qd, kd = B * HQ * S * D * item, B * HKV * T * D * item
@@ -5183,8 +5209,9 @@ def variant_key(window, softcap) -> str:
 
 def time_flash(shape, sm_scale=None, variants=((None, None),), worst=None,
                source="neuronx_distributed_tpu_torch/ops/csrc/"
-                      "flash_attention.cu", suffix="") -> dict:
-    """B1-B3 at one causal bf16 ``shape = (B, HQ, HKV, S, D)``, ROTATE
+                      "flash_attention.cu", suffix="", causal=True) -> dict:
+    """B1-B3 at one bf16 ``shape = (B, HQ, HKV, S, D)`` (causal, or every
+    key visible with ``causal=False``: a ring's off-diagonal chunk), ROTATE
     input copies: device ms per call of each kernel for every ``(window,
     softcap)`` in ``variants`` (the first is the entry's own, and has
     neither, like the yardstick), of its plain version and of the library
@@ -5201,13 +5228,14 @@ def time_flash(shape, sm_scale=None, variants=((None, None),), worst=None,
     dev = torch.device("cuda")
     copies = {}
     # the inputs do not depend on the variant: each copy's q, k, v and dO
-    # are made once (on the host, the slow part at 8192 keys) and shared
-    case = ("timing", Bt, HQ, HKV, S, S, Dt, True, None, None, sm_scale,
+    # are made once (on the device) and shared
+    case = ("timing", Bt, HQ, HKV, S, S, Dt, causal, None, None, sm_scale,
             False, False)
     inputs = [flash_inputs(case, torch.bfloat16, dev, SEED + 100 + i)[:4]
               for i in range(ROTATE)]
     for window, softcap in variants:
-        opts = dict(sm_scale=sm_scale, window=window, softcap=softcap)
+        opts = dict(sm_scale=sm_scale, window=window, softcap=softcap,
+                    causal=causal)
         copies[window, softcap] = []
         for q, k, v, do in inputs:
             o, lse = fa.flash_attention_fwd(q, k, v, **opts)
@@ -5216,19 +5244,20 @@ def time_flash(shape, sm_scale=None, variants=((None, None),), worst=None,
     torch.cuda.synchronize()
     first = copies[variants[0]]
     lib_fwd = [lambda c=c: F.scaled_dot_product_attention(
-        c[0], c[1], c[2], is_causal=True, scale=sm_scale, enable_gqa=True)
+        c[0], c[1], c[2], is_causal=causal, scale=sm_scale, enable_gqa=True)
         for c in first]
     lib_bwd = []
     for c in first[:2]:
         leaves = [x.detach().requires_grad_() for x in c[:3]]
-        out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+        out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
                                              scale=sm_scale, enable_gqa=True)
         lib_bwd.append(lambda out=out, leaves=leaves, do=c[3]:
                        torch.autograd.grad(out, leaves, do,
                                            retain_graph=True))
     lib_err = row_err(lib_fwd[0](), fa.flash_attention_fwd(
-        *first[0][:3], sm_scale=sm_scale)[0])
-    label = f"B={Bt} HQ={HQ} HKV={HKV} S=T={S} D={Dt} bf16 causal"
+        *first[0][:3], sm_scale=sm_scale, causal=causal)[0])
+    label = (f"B={Bt} HQ={HQ} HKV={HKV} S=T={S} D={Dt} bf16 "
+             f"{'causal' if causal else 'full'}")
     fwd_names, bwd_names = [], []
     lib_fwd_ms = device_ms(lib_fwd, 20, show=f"phase3 SDPA forward {label}",
                            names=fwd_names)
@@ -5240,11 +5269,11 @@ def time_flash(shape, sm_scale=None, variants=((None, None),), worst=None,
                               retrace=lambda: device_ms(lib_bwd, 10))
     lib_fwd_ms = check_bound(
         "SDPA forward", {"library": lib_fwd_ms},
-        flash_bound_ms(Bt, HQ, HKV, S, S, Dt, 2, "fwd")[0],
+        flash_bound_ms(Bt, HQ, HKV, S, S, Dt, 2, "fwd", causal=causal)[0],
         retake={"library": lambda: device_ms(lib_fwd, 20)})["library"]
     lib_bwd_ms = check_bound(
         "SDPA backward", {"library": lib_bwd_ms},
-        flash_bound_ms(Bt, HQ, HKV, S, S, Dt, 2, "bwd")[0],
+        flash_bound_ms(Bt, HQ, HKV, S, S, Dt, 2, "bwd", causal=causal)[0],
         retake={"library": lambda: device_ms(lib_bwd, 10)})["library"]
     log(f"phase3 ({label}): library forward agrees with the kernel to "
         f"{lib_err:.2e} (largest row relative error, scale {sm_scale})")
@@ -5256,14 +5285,15 @@ def time_flash(shape, sm_scale=None, variants=((None, None),), worst=None,
         nargs = 3 if w == "fwd" else 6
         by_variant = {}
         for window, softcap in variants:
-            opts = dict(sm_scale=sm_scale, window=window, softcap=softcap)
+            opts = dict(sm_scale=sm_scale, window=window, softcap=softcap,
+                        causal=causal)
             cs = copies[window, softcap]
             calls = [lambda c=c: kernel(*c[:nargs], **opts) for c in cs]
             count = lambda: kernel.launches  # noqa: E731
             retake = {"kernel": lambda: device_ms(calls, 20, expect=kname,
                                                   launched=count)}
             b_ms, b_by, flops, nbytes = flash_bound_ms(
-                Bt, HQ, HKV, S, S, Dt, 2, w, window)
+                Bt, HQ, HKV, S, S, Dt, 2, w, window, causal)
             k_ms = check_events(
                 fn_name, retake["kernel"](),
                 lambda: kernel(*cs[0][:nargs], **opts), 20,
@@ -5284,7 +5314,7 @@ def time_flash(shape, sm_scale=None, variants=((None, None),), worst=None,
                                  if "plain" in times else "")
                 + f", library {lib_fwd_ms if w == 'fwd' else lib_bwd_ms:.5f}"
                 f" ({'SDPA forward' if w == 'fwd' else 'SDPA backward, dq+dk+dv'}"
-                f", causal, no window); bound {b_ms:.5f} ({b_by}: "
+                f", {'causal' if causal else 'full'}, no window); bound {b_ms:.5f} ({b_by}: "
                 f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), kernel / "
                 f"bound {k_ms / b_ms:.2f}, "
                 f"{flops / (k_ms * 1e-3) / 1e12:.1f} TFLOP/s")
@@ -5312,7 +5342,7 @@ def time_flash(shape, sm_scale=None, variants=((None, None),), worst=None,
                              "(dq, dk and dv together)"),
             "library_kernel": (fwd_names if w == "fwd" else bwd_names)[0],
             "shapes": {"q": [Bt, HQ, S, Dt], "kv": [Bt, HKV, S, Dt],
-                       "dtype": "bfloat16", "causal": True,
+                       "dtype": "bfloat16", "causal": causal,
                        "sm_scale": sm_scale},
         }
         for var in variants[1:]:
@@ -5430,7 +5460,8 @@ def flash_vs_dense(label, model_cls, cfg, state, loss_fn, batch,
 
 
 def train_steps(label, config, model, loss_fn, batch, fwd_per_layer,
-                flash_entries, generator=None, flops=None) -> dict:
+                flash_entries, generator=None, flops=None,
+                trainable=None, lr=None) -> dict:
     """The training main path after ``initialize_parallel_model``: the
     optimizer, ``make_train_step``, WARMUP_STEPS + TIMED_STEPS steps on
     ``batch`` (each given ``generator``, the dropout stream) with every
@@ -5440,7 +5471,9 @@ def train_steps(label, config, model, loss_fn, batch, fwd_per_layer,
     the dense core, so no flash launch at all), then reports tokens/s, MFU
     (``flops``: ``(flops_per_token, formula)``, default the Llama family's
     ``transformer_flops_per_token``), peak memory and where a profiled
-    step's device time goes."""
+    step's device time goes.  ``trainable``: the optimizer's predicate
+    (PEFT); the result then also holds the trainable parameters' and
+    AdamW state's bytes."""
     import torch
 
     from neuronx_distributed_tpu_torch.ops import flash_attention as fa
@@ -5452,9 +5485,12 @@ def train_steps(label, config, model, loss_fn, batch, fwd_per_layer,
         transformer_flops_per_token,
     )
 
+    from neuronx_distributed_tpu_torch.optimizer.zero1 import state_bytes
+
     cfg = model.module.config
     Bt, St = batch["ids"].shape
-    opt = initialize_parallel_optimizer(config, model)
+    opt = initialize_parallel_optimizer(config, model, learning_rate=lr,
+                                        trainable=trainable)
     train = make_train_step(config, model, opt, loss_fn)
 
     def step(b):
@@ -5552,8 +5588,10 @@ def train_steps(label, config, model, loss_fn, batch, fwd_per_layer,
             for w, ms in flash_by.items()) + " per step"))
     log(f"{label} top device time per step: " + "; ".join(
         f"{e.key[:60]} {dev_us(e) / 1e3 / 2:.2f} ms" for e in top))
+    opt_bytes = state_bytes(opt.optimizer)
     del opt, train, step
     return {"layers": L, "params": model.num_parameters(), "steps": steps,
+            "state_bytes": opt_bytes,
             "batch": [Bt, St], "remat": cfg.remat, "losses": losses,
             "grad_norms": norms, "step_ms": wall / TIMED_STEPS * 1e3,
             "tok_s": tok_s, "mfu": util, "flops_per_token": fpt,
@@ -6144,7 +6182,8 @@ def phase7_refs() -> dict:
     return refs
 
 
-def p7_train(label, config, cfg, batch, steps, warmup=0, profile=False):
+def p7_train(label, config, cfg, batch, steps, warmup=0, profile=False,
+             phase="phase7"):
     """One rank's training through the entry points: the model, its
     optimizer and step (the loss head in P7_CHUNK-token chunks),
     ``warmup`` + ``steps`` steps on ``batch`` with the launch and
@@ -6179,7 +6218,10 @@ def p7_train(label, config, cfg, batch, steps, warmup=0, profile=False):
     for fn in (fa.flash_attention_fwd, fa.flash_attention_dq,
                fa.flash_attention_dkv, paged_attention):
         fn.launches = 0
+    for w in FLASH_KERNELS:
+        getattr(fa, FLASH_KERNELS[w][0]).launches_by_shape = {}
     losses, norms, counts, coll_s, times = [], [], [], [], []
+    coll_bytes = []
     for i in range(warmup + steps):
         mappings.reset_counts()
         torch.cuda.synchronize()
@@ -6192,8 +6234,10 @@ def p7_train(label, config, cfg, batch, steps, warmup=0, profile=False):
             times.append(time.perf_counter() - t0)
         counts.append(dict(mappings.COUNTS))
         coll_s.append(sum(mappings.SECONDS.values()))
+        coll_bytes.append(dict(mappings.BYTES))
     out = {"losses": losses, "grad_norms": norms,
            "counts": counts, "collective_s": coll_s,
+           "collective_bytes": coll_bytes,
            "step_ms": sum(times) / max(len(times), 1) * 1e3,
            "param_bytes": sum(p.numel() * p.element_size()
                               for p in module.parameters()),
@@ -6202,6 +6246,8 @@ def p7_train(label, config, cfg, batch, steps, warmup=0, profile=False):
            "tp": (module.tp.size, module.tp.rank, module.tp.kvr),
            "dp": (mesh.get_data_parallel_size(),
                   mesh.get_data_parallel_rank()),
+           "cp": (mesh.get_context_parallel_size(),
+                  mesh.get_context_parallel_rank()),
            "zero1": opt.zero1 is not None,
            "local_heads": (module.model.layer_0.attn.qkv.q_kernel.shape[1],
                            module.model.layer_0.attn.qkv.kv_heads[1])}
@@ -6224,6 +6270,10 @@ def p7_train(label, config, cfg, batch, steps, warmup=0, profile=False):
     launches = out["launches"] = {w: getattr(fa, FLASH_KERNELS[w][0]).launches
                                   for w in FLASH_KERNELS}
     launches["paged"] = paged_attention.launches
+    # {(S, T, causal): launches} at each wrapper's launch site
+    out["launches_by_shape"] = {
+        w: dict(getattr(fa, FLASH_KERNELS[w][0]).launches_by_shape)
+        for w in FLASH_KERNELS}
     out["params"] = None
     if label == "keep":
         # whole parameters: an FSDP piece is gathered over dp first
@@ -6235,12 +6285,14 @@ def p7_train(label, config, cfg, batch, steps, warmup=0, profile=False):
                     else p.detach().clone())
                 for n, p in module.named_parameters()}
     out["fsdp"] = fsdp.fsdp_state(module) is not None
-    log(f"phase7 {label} rank tp {out['tp']} dp {out['dp']}: losses "
+    log(f"{phase} {label} rank tp {out['tp']} dp {out['dp']} cp "
+        f"{out['cp']}: losses "
         + ", ".join(f"{x:.4f}" for x in losses) + "; grad norms "
         + ", ".join(f"{x:.3f}" for x in norms)
         + f"; {out['step_ms']:.1f} ms a step (host clock, two processes "
         f"time-sliced on one card); collectives a step {counts[-1]}, "
-        f"{coll_s[-1] * 1e3:.1f} ms; launches {launches}; parameters "
+        f"{coll_s[-1] * 1e3:.1f} ms, {sum(coll_bytes[-1].values()) / 1e6:.1f}"
+        f" MB; launches {launches}; parameters "
         f"{out['param_bytes'] / 2**30:.3f} GiB, AdamW state "
         f"{out['state_bytes'] / 2**30:.3f} GiB, peak "
         f"{out['peak_bytes'] / 2**30:.3f} GiB")
@@ -6452,11 +6504,11 @@ def phase7(refs: dict, entries: dict) -> dict:
 
 # -- phase 8 -----------------------------------------------------------------
 
-# the launcher on the card: Llama-3-8B's width cut to 2 layers, one row of
-# 2048, flash, selective remat, bf16 compute over fp32 masters, the chunked
-# loss head, from an NXDT int32 token file of P8_CHUNKS rows written from
-# SEED through the native loader
-P8_LAYERS, P8_S, P8_STEPS, P8_STOP, P8_CHUNKS = 2, 2048, 6, 3, 16
+# the launcher on the card: Llama-3-8B's width cut to 1 layer (2 before
+# phase 9 took the room), one row of 2048, flash, selective remat, bf16
+# compute over fp32 masters, the chunked loss head, from an NXDT int32
+# token file of P8_CHUNKS rows written from SEED through the native loader
+P8_LAYERS, P8_S, P8_STEPS, P8_STOP, P8_CHUNKS = 1, 2048, 6, 3, 16
 P8_CHUNK = 512
 # the checkpoint: 1,486,901,248 fp32 masters and two fp32 moments each
 # (about 17.8 GB); the free space it needs, with room to spare
@@ -6729,6 +6781,477 @@ def _phase8(work: str, flash_entries) -> dict:
     return out
 
 
+# -- phase 9 -----------------------------------------------------------------
+
+# (a) PEFT on the whole Llama-3-8B (32 layers, the published widths):
+# rank-16 adapters (alpha 16) on qkv, o_proj and mlp, the base frozen
+# (``trainable=peft.lora_trainable``), flash, selective remat, the chunked
+# head, 1 x 2048, WARMUP_STEPS + TIMED_STEPS steps.  Full AdamW training of
+# this model needs ~128 GB; frozen, its fp32 masters take ~32 GB
+P9_RANK, P9_ALPHA, P9_TARGETS = 16, 16.0, ("qkv", "o_proj", "mlp")
+P9_S, P9_CHUNK, P9_LR, P9_PROBE = 2048, 512, 1e-3, 512
+# the merged model's logits against the adapted model's: in fp32 compute
+# the largest relative L2 error of one row (the merge's algebra); in bf16
+# compute the whole probe's relative L2 error, within twice what bf16
+# compute alone moves either model's logits from its fp32 ones (two
+# independent roundings; a fixed 2e-2 read 2.6e-2 through 32 layers
+# after 8 steps at lr 1e-3 on an H100)
+P9_MERGE_TOL_FP32, P9_MERGE_NOISE = 1e-3, 2.0
+# (b) cp = 2: two processes sharing the card over gloo (NCCL refuses two
+# ranks on one device, so this holds correctness, launches and bytes, not
+# cp speed), Llama-3-8B width cut to 2 layers, 1 x 8192 (4096 tokens a
+# rank), flash, selective remat, the chunked head; each arm 1 + 2 steps
+P9_CP, P9_CP_LAYERS, P9_CP_S, P9_CP_WARMUP, P9_CP_TIMED = 2, 2, 8192, 1, 2
+P9_ARMS = {"ring": ("ring", False), "zigzag": ("ring", True),
+           "ulysses": ("ulysses", False)}
+P9_WORLD_TIMEOUT_S = 600
+# each arm's first-step loss and grad norm against cp = 1's: set from an
+# H100's readings (worst arm 6.1e-6 and 3.7e-5), which a ring dropping its
+# off-diagonal chunk call moves by far more (phase 7's 1e-2 and 5e-2 let
+# such a ring pass)
+P9_LOSS_RTOL, P9_NORM_RTOL = 1e-4, 1e-3
+# the chunk calls of the three cp = 2 schedules at 1 x 8192, each kernel
+# held at them against its plain version with an lse cotangent (the
+# schedules' backward takes the combine's), model layout; and the window
+# schedule's [C] queries against [left | own] 2C keys (S != T; not on this
+# path, Llama-3-8B has no window)
+P9_C = P9_CP_S // P9_CP
+P9_FLASH_CASES = [
+    ("cp2_ring_diag", 1, NQ, NKV, P9_C, P9_C, D, True, None, None, None,
+     False, True, True),
+    ("cp2_ring_full", 1, NQ, NKV, P9_C, P9_C, D, False, None, None, None,
+     False, True, True),
+    ("cp2_zigzag_diag", 1, NQ, NKV, P9_C // 2, P9_C // 2, D, True, None,
+     None, None, False, True, True),
+    ("cp2_zigzag_full", 1, NQ, NKV, P9_C // 2, P9_C // 2, D, False, None,
+     None, None, False, True, True),
+    ("cp2_ulysses", 1, NQ // P9_CP, NKV // P9_CP, P9_CP_S, P9_CP_S, D, True,
+     None, None, None, False, True, True),
+    ("cp2_window_left", 1, NQ, NKV, P9_C, 2 * P9_C, D, True, P9_C, None,
+     None, False, True, True),
+]
+# the chunk calls one layer's forward makes on each cp rank, {(S, T,
+# causal): calls}, by design: the contiguous ring's rank 0 sees only its
+# own chunk (diagonal), rank 1 its own and rank 0's (full); each zigzag
+# rank makes 2 diagonal and 3 full half-chunk calls; ulysses one causal
+# call over the whole sequence on NQ/cp heads
+P9_CALLS = {
+    "ring": [{(P9_C, P9_C, True): 1},
+             {(P9_C, P9_C, True): 1, (P9_C, P9_C, False): 1}],
+    "zigzag": [{(P9_C // 2, P9_C // 2, True): 2,
+                (P9_C // 2, P9_C // 2, False): 3}] * 2,
+    "ulysses": [{(P9_CP_S, P9_CP_S, True): 1}] * 2,
+}
+# the timed chunk calls: kernels-line suffix, (B, HQ, HKV, S, D), causal,
+# and the arm and call ``(S, T, causal)`` whose launches they carry
+P9_TIMED = [
+    ("_cp2_ring_diag", (1, NQ, NKV, P9_C, D), True, "ring",
+     (P9_C, P9_C, True)),
+    ("_cp2_ring_full", (1, NQ, NKV, P9_C, D), False, "ring",
+     (P9_C, P9_C, False)),
+    ("_cp2_zigzag_diag", (1, NQ, NKV, P9_C // 2, D), True, "zigzag",
+     (P9_C // 2, P9_C // 2, True)),
+    ("_cp2_zigzag_full", (1, NQ, NKV, P9_C // 2, D), False, "zigzag",
+     (P9_C // 2, P9_C // 2, False)),
+    ("_cp2_ulysses", (1, NQ // P9_CP, NKV // P9_CP, P9_CP_S, D), True,
+     "ulysses", (P9_CP_S, P9_CP_S, True)),
+]
+
+
+def frozen_base_flops_per_token(cfg, S: int) -> tuple:
+    """Training FLOPs a token of a frozen-base LoRA step, written out (the
+    terms of ``transformer_flops_per_token``): the base's projections, MLP
+    and head run forward and backward for the activations only (no weight
+    gradient): 2 x their forward; the attention core forward and backward
+    (3 x; the causal half not discounted, as there); each adapter forward,
+    backward for the activations and for its weights (3 x)."""
+    H, I, V, L = (cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size,
+                  cfg.num_layers)
+    q, kv, r = cfg.num_heads * cfg.head_dim_, cfg.num_kv_heads * cfg.head_dim_, \
+        cfg.lora_rank
+    proj = 2 * H * (q + 2 * kv) + 2 * q * H
+    core = 2 * 2 * S * q
+    mlp = 2 * 3 * H * I
+    head = 2 * H * V
+    lora = 0
+    if "qkv" in cfg.lora_targets:   # q and v
+        lora += 2 * r * (H + q) + 2 * r * (H + kv)
+    if "o_proj" in cfg.lora_targets:
+        lora += 2 * r * (q + H)
+    if "mlp" in cfg.lora_targets:   # gate_up, down
+        lora += 2 * r * (H + 2 * I) + 2 * r * (I + H)
+    flops = 2 * (L * (proj + mlp) + head) + 3 * L * core + 3 * L * lora
+    return float(flops), ("2 x (projections + MLP + head) forward, no base "
+                          "weight gradients; 3 x attention core; 3 x "
+                          "adapters")
+
+
+def _nest(flat: dict) -> dict:
+    out = {}
+    for name, v in flat.items():
+        node = out
+        *head, leaf = name.split(".")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    return out
+
+
+def _flatten(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def phase9a() -> dict:
+    """PEFT on the whole Llama-3-8B through the entry points: zero-init
+    adapters leave the base model's logits bit for bit; 1 + 5 frozen-base
+    steps (the base bit-unchanged, every adapter moved, the loss falling,
+    B1-B3 launches exact); memory by kind; MFU over the frozen-base FLOP
+    count; ``merge_lora`` into a model without adapters within the bf16
+    bound of the adapted logits."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from neuronx_distributed_tpu_torch import peft
+    from neuronx_distributed_tpu_torch.config import training_config
+    from neuronx_distributed_tpu_torch.models.common import (
+        make_causal_lm_loss_sum,
+    )
+    from neuronx_distributed_tpu_torch.models.llama import (
+        LlamaConfig,
+        LlamaForCausalLM,
+    )
+    from neuronx_distributed_tpu_torch.trainer import initialize_parallel_model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg = LlamaConfig.llama3_8b(
+        attention_impl="flash", remat="selective", lora_rank=P9_RANK,
+        lora_alpha=P9_ALPHA, lora_targets=P9_TARGETS, dtype=torch.bfloat16,
+        param_dtype=torch.float32)
+    base_cfg = dataclasses.replace(cfg, lora_rank=0)
+    config = training_config(learning_rate=P9_LR, max_grad_norm=1.0,
+                             seed=SEED)
+    batch = train_batch(cfg.vocab_size, 1, P9_S)
+    ids = torch.as_tensor(batch["ids"]).cuda()
+
+    # the base model alone, from the seed: its first-step logits
+    base = LlamaForCausalLM(base_cfg).init_random(SEED)
+    with torch.no_grad():
+        base_logits = base(ids)
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = initialize_parallel_model(
+        config, lambda d: LlamaForCausalLM(cfg, device=d), seed=SEED)
+    module = model.module
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        adapted_logits = module(ids)
+    zero_equal = bool(torch.equal(adapted_logits, base_logits))
+    log(f"phase9(a): Llama-3-8B, {cfg.num_layers} layers, "
+        f"{model.num_parameters() / 1e9:.3f}B params (fp32 masters, bf16 "
+        f"compute), rank-{P9_RANK} adapters on {P9_TARGETS}; random init "
+        f"in {time.perf_counter() - t0:.1f} s; zero-init adapters' logits "
+        f"{'equal' if zero_equal else 'DIFFER from'} the base model's bit "
+        f"for bit")
+    if not zero_equal:
+        raise AssertionError("phase9(a): zero-init adapters changed the base "
+                             "model's logits")
+    del base_logits, adapted_logits
+
+    base_params = {n: p for n, p in module.named_parameters()
+                   if "lora_" not in n}
+
+    def checksums():
+        return torch.stack([p.detach().view(torch.int32).sum(
+            dtype=torch.int64) for p in base_params.values()]).cpu()
+
+    sums0 = checksums()
+    versions0 = {n: p._version for n, p in base_params.items()}
+    lora0 = {n: p.detach().clone() for n, p in module.named_parameters()
+             if "lora_" in n}
+    fpt = frozen_base_flops_per_token(cfg, P9_S)
+    summary = train_steps("phase9(a)", config, model,
+                          make_causal_lm_loss_sum(P9_CHUNK), batch, 2, None,
+                          flops=fpt, trainable=peft.lora_trainable)
+    base_kept = bool(torch.equal(sums0, checksums())) and all(
+        p._version == versions0[n] and p.grad is None and
+        not p.requires_grad for n, p in base_params.items())
+    moved = [n for n, p in module.named_parameters()
+             if n in lora0 and not torch.equal(p, lora0[n])]
+    params = list(module.parameters())
+    train_bytes = sum(p.numel() * p.element_size() for p in params
+                      if p.requires_grad)
+    mem = {"param_gib": sum(p.numel() * p.element_size()
+                            for p in params) / 2**30,
+           # a step's gradients: the trainable parameters' (fp32), none
+           # for the frozen base
+           "grad_gib": train_bytes / 2**30,
+           "adamw_gib": summary["state_bytes"] / 2**30,
+           "peak_gib": summary["peak_gib"]}
+    log(f"phase9(a): base bit-unchanged after {summary['steps']} + 2 "
+        f"profiled steps: {base_kept}; adapters moved: {len(moved)} of "
+        f"{len(lora0)}; trainable {train_bytes / 4 / 1e6:.2f}M of "
+        f"{model.num_parameters() / 1e6:.1f}M parameters; parameters "
+        f"{mem['param_gib']:.3f} GiB, gradients {mem['grad_gib']:.3f} GiB, "
+        f"AdamW state {mem['adamw_gib']:.3f} GiB, peak {mem['peak_gib']:.3f}"
+        f" GiB")
+    if not base_kept:
+        raise AssertionError("phase9(a): a frozen base parameter changed or "
+                             "took a gradient")
+    if len(moved) != len(lora0):
+        raise AssertionError(f"phase9(a): only {len(moved)} of {len(lora0)} "
+                             f"adapter tensors moved")
+    del lora0, sums0
+
+    # merge_lora into a model without adapters, each model built on the
+    # meta device to take its tensors without a copy: in bf16 compute
+    # (the path's) and in fp32, where the merge's algebra is held tightly
+    probe = ids[:, :P9_PROBE]
+    state = {n: p.detach() for n, p in module.state_dict().items()}
+    del model, module, base_params, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    merged = _flatten(peft.merge_lora(_nest(state), alpha=P9_ALPHA))
+    logits = {}
+    for dt in (torch.bfloat16, torch.float32):
+        for kind, c, sd in (("adapted", cfg, state),
+                            ("merged", base_cfg, merged)):
+            m = LlamaForCausalLM(dataclasses.replace(c, dtype=dt),
+                                 device="meta")
+            m.load_state_dict(sd, assign=True)
+            with torch.no_grad():
+                logits[kind, dt] = m(probe).float()
+            del m
+    rel = lambda x, y: ((x - y).norm() / y.norm()).item()  # noqa: E731
+    bf, fp = torch.bfloat16, torch.float32
+    merge = {
+        "bf16_rel_l2": rel(logits["merged", bf], logits["adapted", bf]),
+        # what bf16 compute alone moves each model's logits: the bound
+        "bf16_noise": max(rel(logits[k, bf], logits[k, fp])
+                          for k in ("adapted", "merged")),
+        "fp32_row_rel": row_err(logits["merged", fp], logits["adapted", fp]),
+        "finite": all(bool(torch.isfinite(x).all())
+                      for x in logits.values())}
+    log(f"phase9(a): merge_lora into a model without adapters, logits of 1 "
+        f"x {P9_PROBE} against the adapted model's: bf16 compute relative "
+        f"L2 {merge['bf16_rel_l2']:.3e} (bound {P9_MERGE_NOISE}x the "
+        f"{merge['bf16_noise']:.3e} bf16 compute moves either model's from "
+        f"its fp32 logits), fp32 compute largest row "
+        f"{merge['fp32_row_rel']:.3e} (tol {P9_MERGE_TOL_FP32})")
+    if not (merge["finite"] and merge["bf16_rel_l2"] <= P9_MERGE_NOISE
+            * merge["bf16_noise"]
+            and merge["fp32_row_rel"] <= P9_MERGE_TOL_FP32):
+        raise AssertionError(f"phase9(a): merged logits off the adapted "
+                             f"model's: {merge}")
+    del state, merged, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    log(f"phase9(a) took {seconds:.1f} s")
+    return dict(summary, **mem, seconds=seconds, merge=merge,
+                trainable_params=train_bytes // 4, zero_init_equal=zero_equal,
+                base_unchanged=base_kept, adapters_moved=len(moved))
+
+
+def phase9_kernels() -> dict:
+    """B1-B3 held at every chunk call of the cp = 2 schedules (and the
+    window schedule's S != T call) against their plain versions with an
+    lse cotangent, and timed at each schedule's calls beside SDPA on the
+    same call and the bound."""
+    new_worst = lambda: {w: {"abs": 0.0, "row_rel": 0.0}  # noqa: E731
+                         for w in FLASH_KERNELS}
+    worst = new_worst()
+    worst_lse = {"bfloat16": 0.0, "float32": 0.0}
+    hold_flash_cases(P9_FLASH_CASES, worst, worst_lse, seed0=300)
+    entries = {}
+    for suffix, shape, causal, _, _ in P9_TIMED:
+        entries[suffix] = time_flash(shape, worst=worst, suffix=suffix,
+                                     causal=causal)
+        for w in FLASH_KERNELS:
+            entries[suffix][w]["shapes"]["cp"] = P9_CP
+            entries[suffix][w]["lse_max_abs_err"] = worst_lse
+    return entries
+
+
+def phase9_refs() -> dict:
+    """The cp = 1 reference of 9(b): the first step's loss and grad norm of
+    the 2-layer cut at 1 x 8192 from the seed and batch the ranks use."""
+    import gc
+
+    import torch
+
+    from neuronx_distributed_tpu_torch.config import training_config
+    from neuronx_distributed_tpu_torch.models.common import (
+        make_causal_lm_loss_sum,
+    )
+    from neuronx_distributed_tpu_torch.models.llama import (
+        LlamaConfig,
+        LlamaForCausalLM,
+    )
+    from neuronx_distributed_tpu_torch.trainer import initialize_parallel_model
+
+    batch = train_batch(128256, 1, P9_CP_S)
+    one = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
+    cfg = LlamaConfig.llama3_8b(num_layers=P9_CP_LAYERS,
+                                attention_impl="flash", remat="selective",
+                                dtype=torch.bfloat16,
+                                param_dtype=torch.float32)
+    model = initialize_parallel_model(
+        training_config(seed=SEED),
+        lambda d: LlamaForCausalLM(cfg, device=d), seed=SEED)
+    loss, norm, _ = loss_and_grads(model.module,
+                                   make_causal_lm_loss_sum(P7_CHUNK), one)
+    log(f"phase9 cp = 1 reference, {P9_CP_LAYERS} layers, 1 x {P9_CP_S}: "
+        f"first-step loss {loss:.6f}, grad norm {norm:.6f}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"loss": loss, "grad_norm": norm}
+
+
+def p9_rank(task: dict) -> dict:
+    """One rank of 9(b): each arm laid out from its ``TrainingConfig``
+    (``context_parallel_size=2``), 1 + 2 steps on the rank's half of the
+    batch (the zigzag arm's batch in ``zigzag_permute`` order)."""
+    import torch
+    import torch.distributed as dist
+
+    from neuronx_distributed_tpu_torch.config import training_config
+    from neuronx_distributed_tpu_torch.models.llama import LlamaConfig
+    from neuronx_distributed_tpu_torch.ops.ring_attention import (
+        zigzag_permute,
+    )
+    from neuronx_distributed_tpu_torch.utils.distributed import (
+        initialize_distributed,
+    )
+
+    import numpy as np
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(device="cuda", backend="gloo", timeout_s=300)
+    out = {"rank": dist.get_rank()}
+    batch = train_batch(128256, 1, P9_CP_S)
+    for arm, (impl, zigzag) in P9_ARMS.items():
+        b = dict(batch)
+        if zigzag:
+            b["positions"] = np.arange(P9_CP_S)[None]
+            b = {k: zigzag_permute(v, P9_CP, 1) for k, v in b.items()}
+        cfg = LlamaConfig.llama3_8b(
+            num_layers=P9_CP_LAYERS, attention_impl="flash",
+            remat="selective", cp_impl=impl, cp_zigzag=zigzag,
+            dtype=torch.bfloat16, param_dtype=torch.float32)
+        out[arm] = p7_train(f"(b) {arm}", training_config(
+            context_parallel_size=P9_CP, learning_rate=1e-4,
+            max_grad_norm=1.0, seed=SEED), cfg, b, P9_CP_TIMED,
+            P9_CP_WARMUP, phase="phase9")
+    dist.barrier()
+    return out
+
+
+def phase9b(refs: dict, entries: dict) -> dict:
+    """cp = 2 on the one card: the contiguous ring, zigzag and ulysses
+    arms against cp = 1 and against each other's ranks, with their B1-B3
+    launches by call shape against the schedules' design (P9_CALLS)."""
+    from neuronx_distributed_tpu_torch.utils.distributed import spawn
+
+    t_phase = time.perf_counter()
+    ranks = spawn(p9_rank, P9_CP, ({},), timeout_s=P9_WORLD_TIMEOUT_S,
+                  echo=True)
+    L, steps = P9_CP_LAYERS, P9_CP_WARMUP + P9_CP_TIMED
+    out = {"seconds": None, "refs": refs, "arms": {}}
+    for arm in P9_ARMS:
+        per_rank = []
+        for r in ranks:
+            a = r[arm]
+            calls = P9_CALLS[arm][a["cp"][1]]
+            # selective remat runs each forward twice
+            per = {"fwd": 2, "dq": 1, "dkv": 1}
+            want = {w: {key: steps * L * per[w] * n
+                        for key, n in calls.items()} for w in per}
+            if a["launches_by_shape"] != want:
+                raise AssertionError(f"phase9(b) {arm}: launches by (S, T, "
+                                     f"causal) {a['launches_by_shape']} on "
+                                     f"cp rank {a['cp'][1]}, expected {want}")
+            total = dict({w: sum(v.values()) for w, v in want.items()},
+                         paged=0)
+            if a["launches"] != total:
+                raise AssertionError(f"phase9(b) {arm}: launches "
+                                     f"{a['launches']} on cp rank "
+                                     f"{a['cp'][1]}, expected {total}")
+            if a["cp"][0] != P9_CP:
+                raise AssertionError(f"phase9(b) {arm}: layout {a['cp']}")
+            if not all(math.isfinite(x) for x in a["losses"] +
+                       a["grad_norms"]):
+                raise AssertionError(f"phase9(b) {arm}: non-finite "
+                                     f"{a['losses']}")
+            if not a["losses"][-1] < a["losses"][0]:
+                raise AssertionError(f"phase9(b) {arm}: loss did not fall: "
+                                     f"{a['losses']}")
+            for key, ref, tol in (("losses", "loss", P9_LOSS_RTOL),
+                                  ("grad_norms", "grad_norm", P9_NORM_RTOL)):
+                rel = abs(a[key][0] - refs[ref]) / abs(refs[ref])
+                if not rel <= tol:
+                    raise AssertionError(
+                        f"phase9(b) {arm}: first-step {ref} {a[key][0]} "
+                        f"against cp = 1's {refs[ref]}: rel {rel} > {tol}")
+            per_rank.append({
+                "losses": a["losses"], "grad_norms": a["grad_norms"],
+                "launches": a["launches"],
+                "launches_by_shape": {
+                    w: {f"{k[0]}x{k[1]} {'causal' if k[2] else 'full'}": n
+                        for k, n in v.items()}
+                    for w, v in a["launches_by_shape"].items()},
+                "step_ms": a["step_ms"],
+                "collective_ms": a["collective_s"][-1] * 1e3,
+                "collective_bytes": a["collective_bytes"][-1],
+                "counts": a["counts"][-1], "peak_gib": a["peak_bytes"] / 2**30,
+                "param_gib": a["param_bytes"] / 2**30,
+                "state_gib": a["state_bytes"] / 2**30,
+                "first_step_rel": [
+                    abs(a["losses"][0] - refs["loss"]) / refs["loss"],
+                    abs(a["grad_norms"][0] - refs["grad_norm"])
+                    / refs["grad_norm"]]})
+        a0, a1 = ranks[0][arm], ranks[1][arm]
+        if a0["losses"] != a1["losses"] or \
+                a0["grad_norms"] != a1["grad_norms"]:
+            raise AssertionError(f"phase9(b) {arm}: the ranks disagree: "
+                                 f"{a0['losses']} / {a1['losses']}")
+        out["arms"][arm] = per_rank
+        log(f"phase9(b) {arm}: first-step loss {a0['losses'][0]:.6f}, grad "
+            f"norm {a0['grad_norms'][0]:.6f} against cp = 1's "
+            f"{refs['loss']:.6f}, {refs['grad_norm']:.6f}; "
+            + "; ".join(
+                f"cp rank {i}: {p['step_ms']:.1f} ms a step (host clock, two "
+                f"processes time-sliced on one card), collectives "
+                f"{p['collective_ms']:.1f} ms and "
+                f"{sum(p['collective_bytes'].values()) / 1e6:.1f} MB a step "
+                f"{p['collective_bytes']}, launches {p['launches']}"
+                for i, p in enumerate(per_rank)))
+    # each timed chunk call's launches in its arm over both ranks, as the
+    # wrappers counted them by (S, T, causal)
+    for suffix, _, _, arm, key in P9_TIMED:
+        for w in FLASH_KERNELS:
+            entries[suffix][w]["launches"] = sum(
+                r[arm]["launches_by_shape"][w].get(key, 0) for r in ranks)
+            entries[suffix][w]["launches_are"] = (
+                f"9(b) {arm} arm, both cp ranks, {steps} steps")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase9(b) took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -6817,6 +7340,17 @@ def main() -> int:
         torch.cuda.empty_cache()
         launcher = phase8(flash)
         log(f"phase8 summary: {json.dumps(launcher)}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        peft_training = phase9a()
+        for w in FLASH_KERNELS:
+            flash[w].setdefault("launches_by_phase", {})["9(a)"] = \
+                peft_training["launches"][w]
+        log(f"phase9a summary: {json.dumps(peft_training)}")
+        cp_entries = phase9_kernels()
+        cp_refs = phase9_refs()
+        cp_training = phase9b(cp_refs, cp_entries)
+        log(f"phase9b summary: {json.dumps(cp_training)}")
         for w in FLASH_KERNELS:
             flash[w]["build"] = {d: guards[w][d] for d in (64, 128)}
             flash256[w]["build"] = {256: guards[w][256]}
@@ -6826,7 +7360,9 @@ def main() -> int:
                                               "chunk", "chunk_int8")]
                    + [flash[w] for w in FLASH_KERNELS]
                    + [flash256[w] for w in FLASH_KERNELS]
-                   + [tp_train_entries["g4"][w] for w in FLASH_KERNELS])
+                   + [tp_train_entries["g4"][w] for w in FLASH_KERNELS]
+                   + [cp_entries[sfx][w] for sfx, *_ in P9_TIMED
+                      for w in FLASH_KERNELS])
         for k in kernels:
             if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms",
                                                      "library_ms",

@@ -55,6 +55,13 @@ _SHARD_DIMS = (
     ("attn.qkv.k_bias", 0), ("attn.qkv.v_bias", 0),
     ("attn.o_proj.kernel", 0), ("mlp.gate_up.kernel", -1),
     ("mlp.down.kernel", 0), ("embed.embedding", 0), ("lm_head.kernel", -1),
+    # LoRA: a column layer's lora_b on its output dim, a row layer's
+    # lora_a on its input dim, the QKV lora_b_* on heads; the other
+    # factors are replicated
+    ("attn.qkv.lora_b_q", 1), ("attn.qkv.lora_b_k", 1),
+    ("attn.qkv.lora_b_v", 1), ("attn.o_proj.lora_a", 0),
+    ("mlp.gate_up.lora_b", -1), ("mlp.down.lora_a", 0),
+    ("lm_head.lora_b", -1),
     # GPT-NeoX
     ("attn.qkv.kernel", -1), ("attn.qkv.bias", -1), ("attn.dense.kernel", 0),
     ("mlp.dense_h_to_4h.kernel", -1), ("mlp.dense_h_to_4h.bias", -1),
@@ -79,9 +86,10 @@ def shard_dim(name: str) -> Optional[int]:
 
 # the parameters cut in q-head blocks, and the k/v heads (replicated over
 # kvr), by name suffix
-_Q_BLOCKS = ("attn.qkv.q_kernel", "attn.qkv.q_bias", "attn.o_proj.kernel")
+_Q_BLOCKS = ("attn.qkv.q_kernel", "attn.qkv.q_bias", "attn.o_proj.kernel",
+             "attn.qkv.lora_b_q", "attn.o_proj.lora_a")
 _KV_BLOCKS = ("attn.qkv.k_kernel", "attn.qkv.v_kernel", "attn.qkv.k_bias",
-              "attn.qkv.v_bias")
+              "attn.qkv.v_bias", "attn.qkv.lora_b_k", "attn.qkv.lora_b_v")
 
 
 def _ends(name: str, suffixes) -> bool:
@@ -217,7 +225,40 @@ def _expected_shapes(cfg, prefix: str = "model.", lm_head: bool = True,
             shapes.update({p + "attn.qkv.q_bias": (NQ, D),
                            p + "attn.qkv.k_bias": (NKV, D),
                            p + "attn.qkv.v_bias": (NKV, D)})
+        shapes.update(_lora_shapes(cfg, p, H, I, NQ, NKV, D))
+    if lm_head:
+        shapes.update(_lora_shapes(cfg, "", H, I, NQ, NKV, D, head=True))
     return _sharded(shapes, tp, kvr)
+
+
+def _lora_shapes(cfg, p: str, H: int, I: int, NQ: int, NKV: int, D: int,
+                 head: bool = False) -> Dict[str, tuple]:
+    """The adapters of layer prefix ``p`` (or of the LM head) under
+    ``cfg.lora_rank`` and ``cfg.lora_targets`` (the QKV adapters on q and
+    v, JAX's default)."""
+    r = getattr(cfg, "lora_rank", 0)
+    targets = getattr(cfg, "lora_targets", ())
+    if not r:
+        return {}
+    if head:
+        return ({"lm_head.lora_a": (H, r),
+                 "lm_head.lora_b": (r, cfg.vocab_size)}
+                if "lm_head" in targets else {})
+    out = {}
+    if "qkv" in targets:
+        out.update({p + "attn.qkv.lora_a_q": (H, r),
+                    p + "attn.qkv.lora_b_q": (r, NQ, D),
+                    p + "attn.qkv.lora_a_v": (H, r),
+                    p + "attn.qkv.lora_b_v": (r, NKV, D)})
+    if "o_proj" in targets:
+        out.update({p + "attn.o_proj.lora_a": (NQ * D, r),
+                    p + "attn.o_proj.lora_b": (r, H)})
+    if "mlp" in targets:
+        out.update({p + "mlp.gate_up.lora_a": (H, r),
+                    p + "mlp.gate_up.lora_b": (r, 2, I),
+                    p + "mlp.down.lora_a": (I, r),
+                    p + "mlp.down.lora_b": (r, H)})
+    return out
 
 
 def _sharded(shapes: Dict[str, tuple], tp: int,

@@ -37,7 +37,6 @@ import torch
 # that brings it
 DEFERRED_FLAGS = {
     "pp": "the pipelined train step (ROADMAP A15)",
-    "cp": "ring and ulysses context parallelism (ROADMAP A14)",
     "scan_layers": "a stacked layer scan: each port layer is its own module "
                    "(ROADMAP, \"not faults\")",
 }
@@ -57,7 +56,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--pp", type=int, default=1,
                    help="pipeline parallel degree (not ported: must be 1)")
     p.add_argument("--cp", type=int, default=1,
-                   help="context parallel degree (not ported: must be 1)")
+                   help="context parallel degree (ring attention)")
     p.add_argument("--scan-layers", action="store_true",
                    help="not ported: each port layer is its own module")
     p.add_argument("--kv-multiplier", type=int, default=1,
@@ -222,11 +221,12 @@ def prepare(argv: Optional[Sequence[str]] = None) -> Tuple:
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world % (args.tp * args.pp * args.cp):
         raise ValueError(f"world size {world} is not a multiple of tp "
-                         f"{args.tp}")
+                         f"{args.tp} x cp {args.cp}")
     on_card = device.type == "cuda"
     config = training_config(
         tensor_parallel_size=args.tp, kv_size_multiplier=args.kv_multiplier,
-        data_parallel_size=world // args.tp, learning_rate=args.lr,
+        context_parallel_size=args.cp,
+        data_parallel_size=world // (args.tp * args.cp), learning_rate=args.lr,
         lr_schedule="cosine", warmup_steps=args.warmup_steps,
         total_steps=max(args.steps, args.warmup_steps + 1),
         zero_one_enabled=not args.no_zero1,

@@ -51,7 +51,10 @@ from neuronx_distributed_tpu_torch.parallel.layers import ParallelEmbedding
 from neuronx_distributed_tpu_torch.parallel.mappings import (
     gather_from_tensor_parallel_region,
 )
-from neuronx_distributed_tpu_torch.parallel.mesh import TensorParallel
+from neuronx_distributed_tpu_torch.parallel.mesh import (
+    TensorParallel,
+    get_context_parallel_size,
+)
 from neuronx_distributed_tpu_torch.parallel.norm import RMSNorm
 from neuronx_distributed_tpu_torch.utils.device import resolve_device
 
@@ -228,6 +231,10 @@ class _TiedDecoder(nn.Module):
 
     def __init__(self, cfg, blocks, device=None):
         super().__init__()
+        if get_context_parallel_size() > 1:
+            raise NotImplementedError(
+                "Gemma at context-parallel degree > 1 is not ported yet: it "
+                "comes with Gemma's sequence parallelism (ROADMAP, \"Then\")")
         device = resolve_device(device)
         self.config = cfg
         self.tp = TensorParallel.current()

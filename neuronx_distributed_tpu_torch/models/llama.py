@@ -48,16 +48,21 @@ from neuronx_distributed_tpu_torch.ops.flash_attention import (
     flash_attention_segmented,
 )
 from neuronx_distributed_tpu_torch.ops.paged_attention import gather_pages, paged_attention
+from neuronx_distributed_tpu_torch.ops.ring_attention import ring_attention
 from neuronx_distributed_tpu_torch.parallel.layers import (
     ColumnParallelLinear,
     ParallelEmbedding,
     RowParallelLinear,
+    reset_lora_parameters,
 )
 from neuronx_distributed_tpu_torch.parallel.mappings import (
     gather_from_sequence_parallel_region,
     gather_from_tensor_parallel_region,
 )
-from neuronx_distributed_tpu_torch.parallel.mesh import TensorParallel
+from neuronx_distributed_tpu_torch.parallel.mesh import (
+    ContextParallel,
+    TensorParallel,
+)
 from neuronx_distributed_tpu_torch.parallel.norm import RMSNorm
 from neuronx_distributed_tpu_torch.parallel.qkv import GQAQKVColumnParallelLinear
 from neuronx_distributed_tpu_torch.utils.device import resolve_device
@@ -71,10 +76,19 @@ MLP_ACTIVATIONS = {"silu": F.silu,
                    "gelu_tanh": functools.partial(F.gelu, approximate="tanh")}
 
 
+# the modules LoRA adapters can target (JAX ``LlamaConfig.lora_targets``)
+LORA_TARGETS = ("qkv", "o_proj", "mlp", "lm_head")
+
+
+def lora_rank_for(cfg, target: str) -> int:
+    """The adapter rank of ``target``'s module (0: no adapter)."""
+    return cfg.lora_rank if target in cfg.lora_targets else 0
+
+
 @dataclasses.dataclass(frozen=True)
 class LlamaConfig:
-    """The JAX ``LlamaConfig`` fields the port carries (cp layouts,
-    scanned layers, MoE and LoRA belong to later slices).
+    """The JAX ``LlamaConfig`` fields the port carries (scanned layers and
+    MoE are not ported).
     ``sequence_parallel`` (JAX's default on) shards the residual stream's
     sequence over tp in cacheless forwards
     (:func:`.common.sequence_parallel_active`).  ``dtype`` is the compute type; ``param_dtype`` the weights'
@@ -82,7 +96,15 @@ class LlamaConfig:
     training keeps fp32 masters).  ``remat``: ``none`` | ``selective``
     (save the matmul outputs, recompute the rest) | ``full``, applied per
     block when gradients are on.  ``attention_impl``: ``dense`` | ``flash``
-    (the CUDA flash kernels for the training forward)."""
+    (the CUDA flash kernels for the training forward; at context-parallel
+    degree > 1 through :func:`..ops.ring_attention.ring_attention`, with
+    ``cp_impl`` ``ring`` | ``ulysses`` and ``cp_zigzag``, the load-balanced
+    layout whose ids, positions and segment ids arrive in
+    ``zigzag_permute`` order).  ``lora_rank > 0`` adds zero-initialised
+    LoRA adapters (``lora_alpha``) to the ``lora_targets`` among ``qkv``
+    (the q and v projections), ``o_proj``, ``mlp`` and ``lm_head``; freeze
+    the base with ``initialize_parallel_optimizer(trainable=
+    peft.lora_trainable)``."""
 
     vocab_size: int = 32000
     hidden_size: int = 4096
@@ -108,10 +130,21 @@ class LlamaConfig:
     remat: str = "selective"
     attention_impl: str = "dense"
     mlp_activation: str = "silu"    # a key of MLP_ACTIVATIONS
+    cp_zigzag: bool = False
+    cp_impl: str = "ring"
+    lora_rank: int = 0
+    lora_alpha: float = 16.0
+    lora_targets: Tuple[str, ...] = ("qkv",)
     dtype: torch.dtype = torch.bfloat16
     param_dtype: Optional[torch.dtype] = None
 
     def __post_init__(self):
+        if self.cp_impl not in ("ring", "ulysses"):
+            raise ValueError(f"unknown cp_impl {self.cp_impl!r}")
+        bad = set(self.lora_targets) - set(LORA_TARGETS)
+        if bad:
+            raise ValueError(f"unknown lora_targets {sorted(bad)} (of "
+                             f"{LORA_TARGETS})")
         if self.remat not in ("none", "selective", "full"):
             raise ValueError(f"unknown remat mode {self.remat!r}")
         if self.attention_impl not in ("dense", "flash"):
@@ -239,11 +272,22 @@ def core_attention(cfg: LlamaConfig, q, k, v, q_offset=0, kv_valid=None,
     return out.reshape(B, S, NQ, D)
 
 
-def flash_core(cfg: LlamaConfig, q, k, v, segment_ids=None):
-    """The flash path at context-parallel degree 1 (the JAX
-    ``ring_attention`` at cp = 1): ``[B, S, N, D]`` activations go to the
+def flash_core(cfg: LlamaConfig, q, k, v, segment_ids=None,
+               cp: Optional[ContextParallel] = None):
+    """The flash path: at context-parallel degree 1 (the JAX
+    ``ring_attention`` at cp = 1) ``[B, S, N, D]`` activations go to the
     kernels as ``[B, N, S, D]`` views without a copy, and the output comes
-    back as a ``[B, S, NQ, D]`` view of memory in that order."""
+    back as a ``[B, S, NQ, D]`` view of memory in that order; at cp > 1
+    this rank's chunk goes through :func:`..ops.ring_attention.
+    ring_attention` (``cfg.cp_impl``, ``cfg.cp_zigzag``).  JAX sends a
+    segmented call whose chunk does not tile by 128 to its dense core
+    (``seg_ok``), a Pallas limit: the port's kernels take any length, so
+    every segmented case stays here, with the same values."""
+    if cp is not None and cp.size > 1:
+        return ring_attention(
+            q, k, v, True, cfg.attn_scale,
+            "zigzag" if cfg.cp_zigzag else "contiguous", cfg.cp_impl,
+            segment_ids, cfg.sliding_window, cfg.attn_softcap, cp=cp)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     if segment_ids is None:
         o = flash_attention(qt, kt, vt, True, cfg.attn_scale,
@@ -418,14 +462,18 @@ class LlamaAttention(nn.Module):
             cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, D,
             use_bias=cfg.qkv_bias, dtype=cfg.dtype, device=device,
             param_dtype=cfg.weight_dtype,
-            sequence_parallel=cfg.sequence_parallel)
+            sequence_parallel=cfg.sequence_parallel,
+            lora_rank=lora_rank_for(cfg, "qkv"), lora_alpha=cfg.lora_alpha)
         # the attention output arrives in q-head blocks
         self.o_proj = RowParallelLinear(cfg.num_heads * D, cfg.hidden_size,
                                         use_bias=False, dtype=cfg.dtype,
                                         device=device,
                                         param_dtype=cfg.weight_dtype,
                                         sequence_parallel=cfg.sequence_parallel,
-                                        head_blocks=True)
+                                        head_blocks=True,
+                                        lora_rank=lora_rank_for(cfg, "o_proj"),
+                                        lora_alpha=cfg.lora_alpha)
+        self.cp = ContextParallel.current()
 
     def forward(self, x, positions, kv_cache: Optional[KVCache] = None,
                 cache_offset=0, kv_valid=None,
@@ -435,6 +483,13 @@ class LlamaAttention(nn.Module):
         parallelism); q, k and v, and attention, cover the whole
         sequence."""
         cfg = self.config
+        if self.cp.size > 1 and (kv_cache is not None
+                                 or cfg.attention_impl != "flash"):
+            raise NotImplementedError(
+                "at context-parallel degree > 1 the port runs the cacheless "
+                "flash path only (attention_impl='flash'): the dense core "
+                "and serving at cp > 1 are not ported (ROADMAP A14's "
+                "remainder)")
         q, k, v = self.qkv(x, sp)
         if adapter is not None:
             # part of the projection: before RoPE and before the page
@@ -492,7 +547,7 @@ class LlamaAttention(nn.Module):
                 raise ValueError("the flash path requires q_offset == 0")
             if kv_valid is not None:
                 raise ValueError("the flash path has no padding-mask support")
-            out = flash_core(cfg, q, k, v, segment_ids)
+            out = flash_core(cfg, q, k, v, segment_ids, self.cp)
         else:
             if kv_cache is None:
                 keys, values = k, v
@@ -519,12 +574,15 @@ class LlamaMLP(nn.Module):
         self.gate_up = ColumnParallelLinear(
             cfg.hidden_size, 2 * cfg.intermediate_size, use_bias=False,
             n_fused=2, dtype=cfg.dtype, device=device,
-            param_dtype=cfg.weight_dtype, sequence_parallel=sp)
+            param_dtype=cfg.weight_dtype, sequence_parallel=sp,
+            lora_rank=lora_rank_for(cfg, "mlp"), lora_alpha=cfg.lora_alpha)
         self.down = RowParallelLinear(cfg.intermediate_size, cfg.hidden_size,
                                       use_bias=False, dtype=cfg.dtype,
                                       device=device,
                                       param_dtype=cfg.weight_dtype,
-                                      sequence_parallel=sp)
+                                      sequence_parallel=sp,
+                                      lora_rank=lora_rank_for(cfg, "mlp"),
+                                      lora_alpha=cfg.lora_alpha)
         self.act = MLP_ACTIVATIONS[cfg.mlp_activation]
 
     def forward(self, x, sp: bool = False):
@@ -569,6 +627,7 @@ class LlamaModel(nn.Module):
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
         self.config = cfg
+        self.cp = ContextParallel.current()
         self.embed = ParallelEmbedding(
             cfg.vocab_size, cfg.hidden_size, cfg.dtype, device,
             cfg.weight_dtype, sequence_parallel_output=cfg.sequence_parallel)
@@ -590,8 +649,12 @@ class LlamaModel(nn.Module):
                                       self.embed.tp, ids.shape[1],
                                       kv_caches is not None)
         if positions is None:
-            positions = torch.arange(ids.shape[1], device=ids.device
-                                     ).expand(ids.shape)
+            # at cp > 1, ids are this rank's chunk: its slice of arange(S)
+            # (in zigzag layout JAX's default too: the permuted array's
+            # index order)
+            start = self.cp.rank * ids.shape[1]
+            positions = torch.arange(start, start + ids.shape[1],
+                                     device=ids.device).expand(ids.shape)
         h = self.final_norm(run_layers(
             self.layers(), self.embed(ids, sp), positions, kv_caches,
             cache_offset, kv_valid, block_table, paged_kernel, segment_ids,
@@ -654,15 +717,18 @@ class LlamaForCausalLM(nn.Module):
         self.config = cfg
         self.tp = TensorParallel.current()
         self.model = LlamaModel(cfg, device)
-        self.lm_head = ColumnParallelLinear(cfg.hidden_size, cfg.vocab_size,
-                                            use_bias=False, dtype=cfg.dtype,
-                                            device=device,
-                                            param_dtype=cfg.weight_dtype)
+        self.lm_head = ColumnParallelLinear(
+            cfg.hidden_size, cfg.vocab_size, use_bias=False, dtype=cfg.dtype,
+            device=device, param_dtype=cfg.weight_dtype,
+            lora_rank=lora_rank_for(cfg, "lm_head"),
+            lora_alpha=cfg.lora_alpha)
 
     @torch.no_grad()
     def init_random(self, seed: int) -> "LlamaForCausalLM":
         """Random weights from one seeded generator on the parameters'
-        device: kernels ~ N(0, 1/fan_in), embedding ~ N(0, 0.02^2), norms 1."""
+        device: kernels ~ N(0, 1/fan_in), embedding ~ N(0, 0.02^2), norms 1;
+        then the LoRA adapters (``lora_a`` like kernels, ``lora_b`` zero),
+        so the base weights are those of the model without adapters."""
         g = torch.Generator(device=self.lm_head.kernel.device)
         g.manual_seed(seed)
         self.model.embed.reset_parameters(g)
@@ -673,6 +739,7 @@ class LlamaForCausalLM(nn.Module):
             nn.init.ones_(block.post_attn_norm.weight)
         nn.init.ones_(self.model.final_norm.weight)
         self.lm_head.reset_parameters(g)
+        reset_lora_parameters(self, g)
         return self
 
     def forward(self, ids, positions=None, kv_caches=None, cache_offset=0,

@@ -24,10 +24,12 @@ are not counted.
 On a CUDA tensor a wrapper launches its kernel (``csrc/flash_attention.cuh``,
 built by ``nvcc`` at first use into one library for head_dim 64 and 128 and
 one for 256, bound with ``ctypes``) or raises, and counts the launch in its
-``launches``; on a CPU tensor it runs its plain version.  bf16 runs the
-Hopper kernels (TMA, ``wgmma``, warp-specialised: ``flash_fwd_wgmma_kernel``,
-``flash_dq_wgmma_kernel``, ``flash_dkv_wgmma_kernel``), fp32 the
-``mma.sync``-shaped ones (``wgmma`` has no fp32 mode).
+``launches`` and, by call shape ``(S, T, causal)``, in its
+``launches_by_shape``; on a CPU tensor it runs its plain version.  bf16
+runs the Hopper kernels (TMA, ``wgmma``, warp-specialised:
+``flash_fwd_wgmma_kernel``, ``flash_dq_wgmma_kernel``,
+``flash_dkv_wgmma_kernel``), fp32 the ``mma.sync``-shaped ones (``wgmma``
+has no fp32 mode).
 A masked key has probability exactly 0, so a row with no visible key
 (segment id 0, or a segment absent from the keys) gets o = 0 and lse =
 ``NEG_INF``; the JAX kernels leave such rows' o undefined, and they are
@@ -365,6 +367,14 @@ def flash_cost(which: str, q, k, causal: bool = True,
     return float(flops), float(nbytes)
 
 
+def _count(wrapper, q, k, causal: bool) -> None:
+    """One launch of ``wrapper``'s kernel, in its ``launches`` and in its
+    ``launches_by_shape`` under ``(S, T, causal)``."""
+    wrapper.launches += 1
+    key = (q.shape[2], k.shape[2], causal)
+    wrapper.launches_by_shape[key] = wrapper.launches_by_shape.get(key, 0) + 1
+
+
 def flash_attention_fwd(q, k, v, q_seg=None, kv_seg=None, *,
                         causal: bool = True, sm_scale: Optional[float] = None,
                         window: Optional[int] = None,
@@ -391,7 +401,7 @@ def _fwd(q, k, v, q_seg, kv_seg, causal, sm_scale, window, softcap):
     _launch("fwd", q, k, v, o=o, lse=lse, q_seg=q_seg, kv_seg=kv_seg,
             causal=causal, scale=_scale(q, sm_scale), window=window,
             softcap=softcap)
-    flash_attention_fwd.launches += 1
+    _count(flash_attention_fwd, q, k, causal)
     return o, lse
 
 
@@ -422,7 +432,7 @@ def _dq(q, k, v, do, lse, delta, q_seg, kv_seg, causal, sm_scale, window,
     _launch("dq", q, k, v, do=do, lse=lse, delta=delta, dq=dq, q_seg=q_seg,
             kv_seg=kv_seg, causal=causal, scale=_scale(q, sm_scale),
             window=window, softcap=softcap)
-    flash_attention_dq.launches += 1
+    _count(flash_attention_dq, q, k, causal)
     return dq
 
 
@@ -454,13 +464,16 @@ def _dkv(q, k, v, do, lse, delta, q_seg, kv_seg, causal, sm_scale, window,
     _launch("dkv", q, k, v, do=do, lse=lse, delta=delta, dk=dk, dv=dv,
             q_seg=q_seg, kv_seg=kv_seg, causal=causal,
             scale=_scale(q, sm_scale), window=window, softcap=softcap)
-    flash_attention_dkv.launches += 1
+    _count(flash_attention_dkv, q, k, causal)
     return dk, dv
 
 
 flash_attention_fwd.launches = 0
 flash_attention_dq.launches = 0
 flash_attention_dkv.launches = 0
+flash_attention_fwd.launches_by_shape = {}
+flash_attention_dq.launches_by_shape = {}
+flash_attention_dkv.launches_by_shape = {}
 
 
 # ---------------------------------------------------------------------------

@@ -10,8 +10,9 @@ norm weight after its sequence-parallel sum) counts once, on tp rank 0; a
 ``kv_replicated`` one (a K/V kernel at kvr > 1) once per kv block, on its
 kvr rank 0.  Under ZeRO-1 (``dp_sliced``) a gradient that is this rank's
 slice over dp is summed over dp as well; the others count on dp rank 0.
-Each rank adds only the gradients it owns and one all-reduce over the
-world gives every rank the global norm (pp = cp = 1).
+Gradients are whole over cp (the trainer sums them there), so only cp
+rank 0 counts them.  Each rank adds only the gradients it owns and one
+all-reduce over the world gives every rank the global norm (pp = 1).
 
 The reductions the reference does by hand and GSPMD derives:
 :func:`allreduce_sequence_parallel_gradients` (replicated parameters
@@ -48,7 +49,8 @@ def _owned(p, sliced: bool) -> bool:
         mine = rank < inner
     else:
         mine = layout == SHARDED or rank == 0
-    return mine and (sliced or mesh.get_data_parallel_rank() == 0)
+    return (mine and (sliced or mesh.get_data_parallel_rank() == 0)
+            and mesh.get_context_parallel_rank() == 0)
 
 
 def _partial(g: torch.Tensor, norm_type: float) -> torch.Tensor:

@@ -39,6 +39,24 @@ the ``kvr`` ranks of a kv block), or replicated; a replicated parameter
 that acts on sequence shards is also marked ``sequence_parallel`` (its
 rank's gradient covers only its shard, :mod:`.grads` sums them over tp).
 
+LoRA (``lora_rank > 0``): a column or row layer adds ``(lora_alpha / r) *
+(x @ lora_a) @ lora_b`` to its output before the bias, with ``lora_a [in,
+r]`` drawn like a kernel and ``lora_b`` zero (the adapter starts as the
+identity).  A column layer's ``lora_a`` is replicated and its ``lora_b``
+(``[r, out]``, fused ``[r, n_fused, out / n_fused]``) cut on the output
+features like the kernel; the branch starts from the layer's input before
+its collective and carries ``x @ lora_a`` through its own mapping (copied
+into the tensor-parallel region, or gathered over the sequence), so the
+partial ``d(x @ lora_a)`` of each rank is summed there and ``lora_a``'s
+gradient is whole (under sequence parallelism it covers the rank's
+sequence slice and the parameter is marked ``sequence_parallel``).  A row
+layer's ``lora_a`` is cut on the input dim like its kernel, the partial
+``x @ lora_a`` reduced (or reduce-scattered onto the sequence) in fp32
+before ``@ lora_b``; ``lora_b`` is replicated (``sequence_parallel``
+under SP).  Random init draws the adapters after the base
+(:func:`reset_lora_parameters`), so a model's base weights do not depend
+on its adapters.
+
 Parameters keep the JAX package's names and layouts so a JAX param tree
 loads by path (at tp > 1 after ``convert.shard_params_for_rank``):
 ``kernel [in, out]`` (``[in, n_fused, out / n_fused]`` fused), ``bias``,
@@ -123,6 +141,44 @@ def init_normal_(p: torch.Tensor, std: float, generator=None,
                             n))
 
 
+def reset_lora_(module: nn.Module, generator=None) -> None:
+    """Draw ``module``'s LoRA ``A`` factors (``lora_a*``) like kernels,
+    ``N(0, 1/in)``, each a tp shard's slice of the whole tensor, and zero
+    its ``B`` factors; a layer without adapters draws nothing."""
+    for name, p in module.named_parameters(recurse=False):
+        if name.startswith("lora_b"):
+            nn.init.zeros_(p)
+        elif name.startswith("lora_a"):
+            full, dim, block = module.lora_full[name]
+            init_normal_(p, 1.0 / math.sqrt(full[0]), generator, full, dim,
+                         module.tp, block)
+
+
+def reset_lora_parameters(model: nn.Module, generator=None) -> None:
+    """:func:`reset_lora_` over every module of ``model`` that holds
+    adapters, in module order."""
+    for m in model.modules():
+        if getattr(m, "lora_full", None):
+            reset_lora_(m, generator)
+
+
+def lora_branch_input(layer, x: torch.Tensor, a: torch.Tensor,
+                      sp: bool) -> torch.Tensor:
+    """``x @ a`` for a column-style adapter whose ``a`` is replicated, on
+    the layer's input before its collective: at tp > 1 the product enters
+    the tensor-parallel region through the conjugate of the input's own
+    mapping (gathered over the sequence under SP, else copied), so each
+    rank's partial gradient is summed over tp on the ``r``-wide product,
+    not on ``x``."""
+    xa = torch.matmul(x, a.to(layer.dtype))
+    if sp:
+        return gather_from_sequence_parallel_region(xa, xa.ndim - 2, True,
+                                                    layer.tp.group)
+    if layer.tp.size > 1:
+        return copy_to_tensor_parallel_region(xa, layer.tp.group)
+    return xa
+
+
 class ColumnParallelLinear(nn.Module):
     """``y = x @ kernel (+ bias)`` over this rank's output features; with
     ``n_fused > 1`` the output is ``[..., n_fused, features // n_fused /
@@ -133,7 +189,8 @@ class ColumnParallelLinear(nn.Module):
                  n_fused: int = 1, dtype: torch.dtype = torch.bfloat16,
                  device=None, param_dtype: Optional[torch.dtype] = None,
                  gather_output: bool = False,
-                 sequence_parallel: bool = False):
+                 sequence_parallel: bool = False, lora_rank: int = 0,
+                 lora_alpha: float = 16.0):
         super().__init__()
         if features % n_fused:
             raise ValueError(f"{features} features do not split into "
@@ -153,8 +210,18 @@ class ColumnParallelLinear(nn.Module):
         self.kernel = set_tp_layout(_kernel(shape, pdt, device), self.tp)
         self.bias = (set_tp_layout(_kernel(shape[1:], pdt, device), self.tp)
                      if use_bias else None)
+        self.lora_rank, self.lora_alpha = lora_rank, lora_alpha
+        if lora_rank > 0:
+            r = lora_rank
+            self.lora_a = set_tp_layout(
+                _kernel((in_features, r), pdt, device), self.tp, None,
+                sequence_parallel)
+            self.lora_b = set_tp_layout(
+                _kernel((r, *shape[1:]), pdt, device), self.tp)
+            self.lora_full = {"lora_a": ((in_features, r), 0, 0)}
 
     def reset_parameters(self, generator=None) -> None:
+        """The kernel and bias (the adapters: :func:`reset_lora_`)."""
         init_normal_(self.kernel, 1.0 / math.sqrt(self.kernel.shape[0]),
                      generator, self.full_shape, self.kernel.ndim - 1,
                      self.tp)
@@ -164,7 +231,10 @@ class ColumnParallelLinear(nn.Module):
     def forward(self, x: torch.Tensor,
                 sequence_parallel: Optional[bool] = None) -> torch.Tensor:
         x = x.to(self.dtype)
-        if _sp(self, sequence_parallel):
+        sp = _sp(self, sequence_parallel)
+        xa = (lora_branch_input(self, x, self.lora_a, sp)
+              if self.lora_rank > 0 else None)
+        if sp:
             # x holds this rank's sequence slice: the whole sequence in,
             # its gradient reduce-scattered back
             x = gather_from_sequence_parallel_region(x, x.ndim - 2, True,
@@ -173,6 +243,10 @@ class ColumnParallelLinear(nn.Module):
             x = copy_to_tensor_parallel_region(x, self.tp.group)
         w = self.kernel.reshape(self.kernel.shape[0], -1).to(self.dtype)
         y = torch.matmul(x, w).reshape(*x.shape[:-1], *self.kernel.shape[1:])
+        if xa is not None:
+            b = self.lora_b.reshape(self.lora_rank, -1).to(self.dtype)
+            delta = torch.matmul(xa, b).reshape(y.shape)
+            y = y + (self.lora_alpha / self.lora_rank) * delta
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)
         if self.gather_output and self.tp.size > 1:
@@ -229,7 +303,8 @@ class RowParallelLinear(nn.Module):
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
                  dtype: torch.dtype = torch.bfloat16, device=None,
                  param_dtype: Optional[torch.dtype] = None,
-                 sequence_parallel: bool = False, head_blocks: bool = False):
+                 sequence_parallel: bool = False, head_blocks: bool = False,
+                 lora_rank: int = 0, lora_alpha: float = 16.0):
         super().__init__()
         self.tp = TensorParallel.current()
         self.dtype = dtype
@@ -245,25 +320,43 @@ class RowParallelLinear(nn.Module):
         self.bias = (set_tp_layout(_kernel((features,), pdt, device), self.tp,
                                    None, sequence_parallel)
                      if use_bias else None)
+        self.lora_rank, self.lora_alpha = lora_rank, lora_alpha
+        if lora_rank > 0:
+            r = lora_rank
+            self.lora_a = set_tp_layout(_kernel(
+                (self.kernel.shape[0], r), pdt, device), self.tp)
+            self.lora_b = set_tp_layout(_kernel((r, features), pdt, device),
+                                        self.tp, None, sequence_parallel)
+            self.lora_full = {"lora_a": ((in_features, r), 0, self.block)}
 
     def reset_parameters(self, generator=None) -> None:
+        """The kernel and bias (the adapters: :func:`reset_lora_`)."""
         init_normal_(self.kernel, 1.0 / math.sqrt(self.full_shape[0]),
                      generator, self.full_shape, 0, self.tp, self.block)
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
+    def _partial_reduce(self, x, w, sp: bool) -> torch.Tensor:
+        """``x @ w`` over this rank's input rows, summed over tp in fp32
+        (reduce-scattered onto the sequence under SP) and rounded once."""
+        if self.tp.size == 1:
+            return torch.matmul(x, w)
+        if sp:
+            return reduce_scatter_to_sequence_parallel_region(
+                _matmul_fp32(x, w), x.ndim - 2, self.tp.group).to(self.dtype)
+        return reduce_from_tensor_parallel_region(
+            _matmul_fp32(x, w), self.tp.group).to(self.dtype)
+
     def forward(self, x: torch.Tensor,
                 sequence_parallel: Optional[bool] = None) -> torch.Tensor:
         x, w = x.to(self.dtype), self.kernel.to(self.dtype)
-        if self.tp.size == 1:
-            y = torch.matmul(x, w)
-        elif _sp(self, sequence_parallel):
-            y = reduce_scatter_to_sequence_parallel_region(
-                _matmul_fp32(x, w), x.ndim - 2, self.tp.group).to(self.dtype)
-        else:
-            y = reduce_from_tensor_parallel_region(_matmul_fp32(x, w),
-                                                   self.tp.group)
-            y = y.to(self.dtype)
+        sp = _sp(self, sequence_parallel)
+        y = self._partial_reduce(x, w, sp)
+        if self.lora_rank > 0:
+            # the partial x @ A of each rank's input rows, summed as y is
+            xa = self._partial_reduce(x, self.lora_a.to(self.dtype), sp)
+            delta = torch.matmul(xa, self.lora_b.to(self.dtype))
+            y = y + (self.lora_alpha / self.lora_rank) * delta
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)
         return y

@@ -28,15 +28,24 @@ it was, and one path serves every device.  NCCL's own all-gather and
 reduce-scatter move 1/tp of those bytes; they come with the first
 two-card measurement (ROADMAP A9a).
 
-:data:`COUNTS` counts every collective by kind, and :data:`SECONDS` the
-host time spent inside them (the whole cost under gloo, which returns
-when its work is done); :func:`reset_counts` zeroes both.
+Context parallelism passes blocks around its ring (:func:`exchange`:
+point-to-point sends and receives) and re-shards sequence and heads
+(:func:`all_to_all`, its own conjugate).  Neither has a CUDA path under
+gloo, so there they are staged through host memory over the group's gloo
+twin.
+
+:data:`COUNTS` counts every collective by kind, :data:`SECONDS` the host
+time spent inside them (the whole cost under gloo, which returns when its
+work is done) and :data:`BYTES` the bytes each rank hands them (a
+reduce's whole tensor, a send's blocks); :func:`reset_counts` zeroes all
+three.
 """
 
 from __future__ import annotations
 
 import collections
 import time
+from typing import List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -45,11 +54,17 @@ from neuronx_distributed_tpu_torch.parallel import mesh
 
 COUNTS: "collections.Counter[str]" = collections.Counter()
 SECONDS: "collections.Counter[str]" = collections.Counter()
+BYTES: "collections.Counter[str]" = collections.Counter()
 
 
 def reset_counts() -> None:
     COUNTS.clear()
     SECONDS.clear()
+    BYTES.clear()
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def _group(group):
@@ -78,6 +93,7 @@ def all_reduce(x: torch.Tensor, group=None, op=dist.ReduceOp.SUM,
     dist.all_reduce(out, op=op, group=g)
     SECONDS[kind] += time.perf_counter() - t0
     COUNTS[kind] += 1
+    BYTES[kind] += _nbytes(out)
     return out
 
 
@@ -92,6 +108,7 @@ def broadcast(x: torch.Tensor, src: int, group=None,
     dist.broadcast(x, src=src, group=g)
     SECONDS[kind] += time.perf_counter() - t0
     COUNTS[kind] += 1
+    BYTES[kind] += _nbytes(x)
     return x
 
 
@@ -111,6 +128,7 @@ def all_gather(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
     dist.all_reduce(out, group=g)
     SECONDS["all_gather"] += time.perf_counter() - t0
     COUNTS["all_gather"] += 1
+    BYTES["all_gather"] += _nbytes(out)
     return out
 
 
@@ -142,7 +160,99 @@ def reduce_scatter(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
     out = split(full, dim, g)
     SECONDS["reduce_scatter"] += time.perf_counter() - t0
     COUNTS["reduce_scatter"] += 1
+    BYTES["reduce_scatter"] += _nbytes(full)
     return out
+
+
+def _staged(t: torch.Tensor, group) -> bool:
+    """Whether ``t`` must pass through host memory: gloo has no CUDA
+    send, receive or all-to-all."""
+    return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
+class Pending:
+    """Blocks on their way (:func:`exchange`): :meth:`wait` returns the
+    received blocks on their device, or an empty list when this rank
+    receives nothing."""
+
+    def __init__(self, works, received, device, kind: str, t0: float):
+        self._works, self._received = works, received
+        self._device, self._kind, self._t0 = device, kind, t0
+
+    def wait(self) -> List[torch.Tensor]:
+        t0 = time.perf_counter()
+        for w in self._works:
+            w.wait()
+        out = [r.to(self._device, non_blocking=True) for r in self._received]
+        SECONDS[self._kind] += time.perf_counter() - t0 + self._t0
+        return out
+
+
+def exchange(tensors: Sequence[torch.Tensor], send_to: Optional[int],
+             recv_from: Optional[int], group, cpu_group=None,
+             kind: str = "cp_send") -> Pending:
+    """Start sending ``tensors`` to global rank ``send_to`` and receiving
+    blocks of the same shapes and types from ``recv_from`` (either None:
+    that half is skipped); returns at once with a :class:`Pending`.
+    Under gloo, CUDA blocks are staged through host memory over
+    ``cpu_group`` (default: ``group``, a gloo group itself).  Counted
+    once a call under ``kind``, its bytes those sent."""
+    t0 = time.perf_counter()
+    device = tensors[0].device
+    stage = _staged(tensors[0], group)
+    g = (cpu_group or group) if stage else group
+    ops, received = [], []
+    if send_to is not None:
+        for i, t in enumerate(tensors):
+            t = t.detach().contiguous()
+            t = t.cpu() if stage else t
+            ops.append(dist.P2POp(dist.isend, t, send_to, g, i))
+            BYTES[kind] += _nbytes(t)
+    if recv_from is not None:
+        for i, t in enumerate(tensors):
+            buf = torch.empty(t.shape, dtype=t.dtype,
+                              device="cpu" if stage else device)
+            ops.append(dist.P2POp(dist.irecv, buf, recv_from, g, i))
+            received.append(buf)
+    works = dist.batch_isend_irecv(ops) if ops else []
+    COUNTS[kind] += 1
+    return Pending(works, received, device, kind,
+                   time.perf_counter() - t0)
+
+
+def _all_to_all(x: torch.Tensor, group, cpu_group) -> torch.Tensor:
+    t0 = time.perf_counter()
+    stage = _staged(x, group)
+    src = x.detach().contiguous()
+    src = src.cpu() if stage else src
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=(cpu_group or group) if stage
+                           else group)
+    SECONDS["all_to_all"] += time.perf_counter() - t0
+    COUNTS["all_to_all"] += 1
+    BYTES["all_to_all"] += _nbytes(src)
+    return out.to(x.device, non_blocking=True) if stage else out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, cpu_group):
+        ctx.group, ctx.cpu_group = group, cpu_group
+        return _all_to_all(x, group, cpu_group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group, ctx.cpu_group), None, None
+
+
+def all_to_all(x: torch.Tensor, group, cpu_group=None) -> torch.Tensor:
+    """Dim 0 of ``x`` cut into one block per rank of ``group``: block
+    ``j`` goes to rank ``j``, and block ``j`` of the result came from rank
+    ``j``.  Its own conjugate (backward: the same exchange); staged
+    through host memory over ``cpu_group`` under gloo."""
+    if group_size(group) == 1:
+        return x
+    return _AllToAll.apply(x, group, cpu_group)
 
 
 class _Copy(torch.autograd.Function):

@@ -15,7 +15,10 @@ JAX mesh's device ids without starting a process.
 
 The tensor-parallel group also has a gloo twin (the same group under a
 gloo default): the serving engine agrees on host decisions over it, which
-works on CPU tensors whatever the device backend.
+works on CPU tensors whatever the device backend.  The context-parallel
+group has one too, over which ring attention stages the blocks it passes
+when the device backend cannot send them (:class:`ContextParallel`, with
+the ring's next and previous ranks).
 
 ``named_sharding``, ``mesh_context``, ``strip_axes_from_spec`` and
 ``ambient_manual_axes`` are GSPMD machinery (placing arrays on a mesh,
@@ -137,6 +140,7 @@ class _State:
         self.groups: Dict[Tuple[str, ...], object] = {}
         self.ranks: Dict[Tuple[str, ...], List[int]] = {}
         self.tp_cpu_group = None
+        self.cp_cpu_group = None
         self.owned: list = []
 
 
@@ -183,12 +187,15 @@ def initialize_model_parallel(tensor_parallel_size: int = 1,
                 state.groups[key] = group
                 state.ranks[key] = line
     state.tp_cpu_group = state.groups.get(TENSOR_AXES)
+    state.cp_cpu_group = state.groups.get((CONTEXT_AXIS,))
     if in_world and not gloo:
-        for line in axis_lines(layout, TENSOR_AXES):
-            group = dist.new_group(line, backend="gloo", timeout=timeout)
-            state.owned.append(group)
-            if rank in line:
-                state.tp_cpu_group = group
+        for axes, attr in ((TENSOR_AXES, "tp_cpu_group"),
+                           ((CONTEXT_AXIS,), "cp_cpu_group")):
+            for line in axis_lines(layout, axes):
+                group = dist.new_group(line, backend="gloo", timeout=timeout)
+                state.owned.append(group)
+                if rank in line:
+                    setattr(state, attr, group)
     _STATE.__dict__.update(state.__dict__)
     logger.info("initialized the layout: dp=%d ep=%d pp=%d cp=%d kvr=%d "
                 "tp=%d over %d ranks", *mesh_shape(cfg), world)
@@ -305,6 +312,22 @@ def get_context_parallel_group():
     return get_group(CONTEXT_AXIS)
 
 
+def get_context_parallel_cpu_group():
+    """The gloo group over this rank's context-parallel ranks; None
+    outside a world."""
+    return _STATE.cp_cpu_group
+
+
+def get_context_parallel_neighbors() -> Tuple[int, int]:
+    """``(next, previous)``: the global ranks after and before this one on
+    the context-parallel ring (itself at cp = 1)."""
+    if _STATE.config is None:
+        return 0, 0
+    line = _STATE.ranks[(CONTEXT_AXIS,)]
+    i = line.index(_STATE.rank)
+    return line[(i + 1) % len(line)], line[(i - 1) % len(line)]
+
+
 def get_expert_parallel_size() -> int:
     return _size(EXPERT_AXIS)
 
@@ -369,3 +392,29 @@ class TensorParallel:
     def __repr__(self) -> str:
         return (f"TensorParallel(size={self.size}, rank={self.rank}, "
                 f"kvr={self.kvr})")
+
+
+class ContextParallel:
+    """The context-parallel context a model is built in: ``size``,
+    ``rank`` (this rank's chunk of the sequence), ``group``, its gloo twin
+    ``cpu_group`` and the ring's ``next``/``prev`` global ranks (size 1
+    and no groups before initialization)."""
+
+    def __init__(self, size: int = 1, rank: int = 0, group=None,
+                 cpu_group=None, next: int = 0, prev: int = 0):
+        self.size, self.rank, self.group = size, rank, group
+        self.cpu_group, self.next, self.prev = cpu_group, next, prev
+
+    @staticmethod
+    def current() -> "ContextParallel":
+        if not model_parallel_is_initialized() or \
+                get_context_parallel_size() == 1:
+            return ContextParallel()
+        return ContextParallel(get_context_parallel_size(),
+                               get_context_parallel_rank(),
+                               get_context_parallel_group(),
+                               get_context_parallel_cpu_group(),
+                               *get_context_parallel_neighbors())
+
+    def __repr__(self) -> str:
+        return f"ContextParallel(size={self.size}, rank={self.rank})"

@@ -33,6 +33,14 @@ engines) is ROADMAP A9c and raises there, not here.
 With ``sequence_parallel`` the input is this rank's sequence slice and is
 all-gathered before the projection, as in :class:`.layers.
 ColumnParallelLinear`.
+
+LoRA (``lora_rank > 0``) on the projections named in ``lora_targets``
+(default ``("q", "v")``, JAX's): ``lora_a_{t} [H, r]`` replicated and
+``lora_b_{t} [r, heads, D]`` cut like its projection's heads (q blocks
+tp-major; k/v blocks replicated along kvr, marked ``kv_replicated``, and
+narrowed to :attr:`kv_heads` at kvr > 1), zero at init.  The targets'
+``x @ lora_a`` products are concatenated and enter the tensor-parallel
+region through one mapping, as in :func:`.layers.lora_branch_input`.
 """
 
 from __future__ import annotations
@@ -50,6 +58,7 @@ from neuronx_distributed_tpu_torch.parallel.layers import (
     _kernel,
     _sp,
     init_normal_,
+    lora_branch_input,
     set_tp_layout,
 )
 from neuronx_distributed_tpu_torch.parallel.mappings import (
@@ -83,7 +92,9 @@ class GQAQKVColumnParallelLinear(nn.Module):
                  head_dim: int, use_bias: bool = False,
                  dtype: torch.dtype = torch.bfloat16, device=None,
                  param_dtype: Optional[torch.dtype] = None,
-                 sequence_parallel: bool = False):
+                 sequence_parallel: bool = False, lora_rank: int = 0,
+                 lora_alpha: float = 16.0,
+                 lora_targets: Tuple[str, ...] = ("q", "v")):
         super().__init__()
         if num_heads % num_kv_heads:
             raise ValueError(f"num_heads={num_heads} not divisible by "
@@ -124,6 +135,21 @@ class GQAQKVColumnParallelLinear(nn.Module):
             self.q_bias = param((nq, head_dim), "q")
             self.k_bias = param((nkv, head_dim), "k")
             self.v_bias = param((nkv, head_dim), "v")
+        bad = set(lora_targets) - {"q", "k", "v"}
+        if bad:
+            raise ValueError(f"unknown QKV LoRA targets {sorted(bad)}")
+        self.lora_rank, self.lora_alpha = lora_rank, lora_alpha
+        self.lora_targets = tuple(t for t in ("q", "k", "v")
+                                  if t in lora_targets) if lora_rank else ()
+        self.lora_full = {}
+        for t in self.lora_targets:
+            a = set_tp_layout(_kernel((in_features, lora_rank), pdt, device),
+                              tp, None, sequence_parallel)
+            setattr(self, f"lora_a_{t}", a)
+            heads = nq if t == "q" else nkv
+            setattr(self, f"lora_b_{t}",
+                    param((lora_rank, heads, head_dim), t))
+            self.lora_full[f"lora_a_{t}"] = ((in_features, lora_rank), 0, 0)
 
     def reset_parameters(self, generator=None) -> None:
         std = 1.0 / math.sqrt(self.q_kernel.shape[0])
@@ -141,7 +167,14 @@ class GQAQKVColumnParallelLinear(nn.Module):
         """``(q, k, v)``: this rank's q heads and the kv heads they read
         (:attr:`kv_heads`)."""
         x = x.to(self.dtype)
-        if _sp(self, sequence_parallel):
+        sp = _sp(self, sequence_parallel)
+        xa = None
+        if self.lora_targets:
+            a = torch.cat([getattr(self, f"lora_a_{t}")
+                           for t in self.lora_targets], dim=1)
+            xa = lora_branch_input(self, x, a, sp).split(self.lora_rank, -1)
+            xa = dict(zip(self.lora_targets, xa))
+        if sp:
             x = gather_from_sequence_parallel_region(x, x.ndim - 2, True,
                                                      self.tp.group)
         elif self.tp.size > 1:
@@ -155,9 +188,18 @@ class GQAQKVColumnParallelLinear(nn.Module):
             return torch.matmul(x, w.reshape(w.shape[0], -1).to(
                 self.dtype)).reshape(*lead, *w.shape[1:])
 
-        q = proj(self.q_kernel)
-        k = proj(used(self.k_kernel, 1))
-        v = proj(used(self.v_kernel, 1))
+        def lora(y, t):
+            if xa is None or t not in xa:
+                return y
+            b = getattr(self, f"lora_b_{t}")
+            b = b if t == "q" else used(b, 1)
+            delta = torch.matmul(xa[t], b.reshape(self.lora_rank, -1).to(
+                self.dtype)).reshape(y.shape)
+            return y + (self.lora_alpha / self.lora_rank) * delta
+
+        q = lora(proj(self.q_kernel), "q")
+        k = lora(proj(used(self.k_kernel, 1)), "k")
+        v = lora(proj(used(self.v_kernel, 1)), "v")
         if self.use_bias:
             q, k, v = (q + self.q_bias.to(self.dtype),
                        k + used(self.k_bias, 0).to(self.dtype),

@@ -4,13 +4,22 @@ tuples whose leaves are numpy arrays or tensors, the JAX param tree as
 numpy.  The JAX package walks the tree with ``jax.tree_util``; the port
 walks it itself.
 
-- :func:`lora_trainable` -- the ``trainable=`` predicate (train the
-  adapters, freeze the base; PEFT training is ROADMAP A13);
+- :func:`lora_trainable` -- the ``trainable=`` predicate of
+  ``trainer.initialize_parallel_optimizer`` (train the adapters, freeze
+  the base), over the port's parameter names (``model.layer_0.attn.qkv.
+  lora_a_q`` ...) as over JAX's paths;
 - :func:`lora_params` / :func:`strip_lora` -- split a tree into the
   adapter-only tree and the base;
 - :func:`merge_lora` -- fold adapters into their base kernels
   (``kernel += (alpha/r) * A @ B``), giving a dense tree for a model
   without adapters.
+
+A port ``state_dict`` is flat (dotted names): nest it by its dots first.
+Each rank's shard merges on its own at any tensor-parallel degree: a
+column layer's ``A`` is whole and its ``B`` and kernel cut alike on the
+output, a row layer's ``A`` and kernel cut alike on the input, and a
+fused ``[in, n_fused, out]`` kernel takes ``A @ B`` reshaped from ``B``'s
+``[r, n_fused, out]``.
 """
 
 from __future__ import annotations

@@ -1,18 +1,23 @@
 """Trainer facade: config -> model and optimizer -> train step (counterpart
 of ``neuronx_distributed_tpu/trainer/trainer.py``), one process a rank.
 
-The port trains at any tensor-parallel degree, KV replication and
-data-parallel degree, with sequence parallelism (the model config's
-``sequence_parallel``) and ZeRO-1 (``optimizer.zero_one_enabled``): each
-rank holds its shard, and the step does by hand what GSPMD derives in the
-JAX step -- this rank's slice of the global batch, the loss sum and token
-count over dp, the sequence-parallel and kvr gradient sums, the gradient
-sum over dp (reduce-scattered under ZeRO-1, :mod:`..optimizer.zero1`) and
-the global norm for clipping.  ``fsdp=True`` cuts the parameters
-themselves over dp (:mod:`..parallel.fsdp`: gathered before each use,
-their gradients reduce-scattered in backward).  Pipeline (A15), context
-(A14) and expert ("Then") parallelism and ``trainable=`` (PEFT, A13) are
-not ported yet and raise.
+The port trains at any tensor-parallel degree, KV replication,
+data-parallel and context-parallel degree, with sequence parallelism (the
+model config's ``sequence_parallel``) and ZeRO-1
+(``optimizer.zero_one_enabled``): each rank holds its shard, and the step
+does by hand what GSPMD derives in the JAX step -- this rank's rows of
+the global batch and, at cp > 1, its contiguous ``S / cp`` of every
+sequence (:func:`context_parallel_slice`; a zigzag model takes the batch
+already in ``zigzag_permute`` order), the loss sum and token count over
+dp and cp, the gradient sum over cp (parameters are replicated over cp as
+over dp), the sequence-parallel and kvr gradient sums, the gradient sum
+over dp (reduce-scattered under ZeRO-1, :mod:`..optimizer.zero1`, which
+shards over dp only) and the global norm for clipping.  ``fsdp=True``
+cuts the parameters themselves over dp (:mod:`..parallel.fsdp`: gathered
+before each use, their gradients reduce-scattered in backward).
+``initialize_parallel_optimizer(trainable=)`` freezes the parameters its
+predicate rejects (PEFT: ``peft.lora_trainable``).  Pipeline (A15) and
+expert ("Then") parallelism are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from neuronx_distributed_tpu_torch.parallel.grads import (
     allreduce_kv_replicated_gradients,
     allreduce_sequence_parallel_gradients,
     clip_grad_norm,
+    coalesced_all_reduce,
     get_grad_norm,
     psum_over_data_parallel,
 )
@@ -52,8 +58,6 @@ logger = get_logger(__name__)
 # lifts each refusal
 DEFERRED_DEGREES = {
     "pipeline_parallel_size": "the pipelined train step (ROADMAP A15)",
-    "context_parallel_size": "ring and ulysses context parallelism "
-                             "(ROADMAP A14)",
     "expert_parallel_size": "expert parallelism, with MoE (ROADMAP, "
                             "\"Then\")",
 }
@@ -81,6 +85,8 @@ class ParallelOptimizer:
     lr_schedule: Union[float, Callable[[int], float]]
     update_count: int = 0
     zero1: Optional[Zero1] = None
+    # parameter name -> trainable, under ``trainable=`` (None: all train)
+    update_mask: Optional[Dict[str, bool]] = None
 
     def lr(self) -> float:
         """The rate of the next update."""
@@ -110,6 +116,7 @@ def _initialize_parallel_state(config: TrainingConfig, device) -> None:
         return
     m = config.mesh
     wants_world = (m.tensor_parallel_size > 1 or m.kv_size_multiplier > 1
+                   or m.context_parallel_size > 1
                    or (m.data_parallel_size or 1) > 1)
     if not (wants_world or dist.is_initialized()):
         return
@@ -171,8 +178,8 @@ def initialize_parallel_model(config: TrainingConfig,
     afterwards through ``convert.fsdp_shard_for_rank``).  The parallel
     state comes from ``config.mesh`` when none is live (the world from the
     ``torchrun`` environment).  Raises ``NotImplementedError`` for
-    pipeline, context or expert degrees above 1, and ``ValueError`` for
-    ``fsdp`` with a pipeline."""
+    pipeline or expert degrees above 1, and ``ValueError`` for ``fsdp``
+    with a pipeline."""
     _check_degrees(config)
     dev = resolve_device(device)
     _initialize_parallel_state(config, dev)
@@ -199,12 +206,25 @@ def initialize_parallel_optimizer(config: TrainingConfig,
     ``zero_one_enabled`` at data-parallel degree > 1 each rank keeps the
     states of its slice only (:class:`..optimizer.zero1.Zero1`).
     Under FSDP the optimizer takes the parameters' pieces (their states
-    are cut as they are) and ZeRO-1 has nothing left to do.  ``trainable=``
-    (PEFT) is not ported yet."""
-    if trainable is not None:
-        raise NotImplementedError(
-            "trainable= (PEFT) is not ported yet (ROADMAP A13, PEFT training)")
+    are cut as they are) and ZeRO-1 has nothing left to do.
+
+    ``trainable`` (a predicate over parameter names, ``model.layer_0.attn.
+    qkv.lora_a_q`` ...) freezes every parameter it rejects: frozen
+    parameters get ``requires_grad=False``, so they take no gradient, no
+    update and no AdamW state, and the train step's gradient sums, ZeRO-1
+    slices and global norm see only the trainable ones (the JAX
+    ``optax.set_to_zero`` branch, with its ``update_mask``)."""
     oc = config.optimizer
+    update_mask = None
+    if trainable is not None:
+        update_mask = {}
+        for name, p in model.module.named_parameters():
+            update_mask[name] = bool(trainable(name))
+            p.requires_grad_(update_mask[name])
+        n_train = sum(p.numel() for p in model.module.parameters()
+                      if p.requires_grad)
+        logger.info("trainable filter active: %.3fM of %.3fM params update",
+                    n_train / 1e6, model.num_parameters() / 1e6)
     lr = learning_rate if learning_rate is not None else build_lr_schedule(
         oc.learning_rate, oc.lr_schedule, oc.warmup_steps, oc.total_steps,
         oc.min_lr_ratio)
@@ -218,7 +238,8 @@ def initialize_parallel_optimizer(config: TrainingConfig,
         params = zero1.shards
     opt = adamw_fp32(params, lr, b1=oc.beta1, b2=oc.beta2, eps=oc.eps,
                      weight_decay=oc.weight_decay)
-    return ParallelOptimizer(optimizer=opt, lr_schedule=lr, zero1=zero1)
+    return ParallelOptimizer(optimizer=opt, lr_schedule=lr, zero1=zero1,
+                             update_mask=update_mask)
 
 
 def _to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
@@ -263,30 +284,70 @@ def data_parallel_slice(batch: Dict[str, Any], dp: int, rank: int,
     return out
 
 
+def context_parallel_slice(batch: Dict[str, Any], cp: int,
+                           rank: int) -> Dict[str, Any]:
+    """This context-parallel rank's contiguous ``S / cp`` of every sequence
+    array (dim 1 of each array with one: ids, labels, positions, segment
+    ids, masks); per-row arrays pass whole.  A zigzag model's batch
+    arrives in ``zigzag_permute`` order, so rank i's contiguous chunk is
+    its half-chunk pair."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(v)
+        if t.ndim >= 2:
+            S = t.shape[1]
+            if S % cp:
+                raise ValueError(f"sequence length {S} not divisible by cp "
+                                 f"degree {cp}")
+            t = t.narrow(1, rank * (S // cp), S // cp)
+        out[k] = t
+    return out
+
+
 class _DataParallel:
-    """The data-parallel context of a step: degree, rank and group."""
+    """The batch-parallel context of a step: the data-parallel degree,
+    rank and group, and the context-parallel group (the batch's sequence
+    is cut over it, so losses and gradients sum over it too)."""
 
     def __init__(self):
+        live = mesh.model_parallel_is_initialized()
         self.size = mesh.get_data_parallel_size()
         self.rank = mesh.get_data_parallel_rank()
-        self.group = (mesh.get_data_parallel_group()
-                      if mesh.model_parallel_is_initialized() else None)
+        self.group = mesh.get_data_parallel_group() if live else None
+        self.cp_size = mesh.get_context_parallel_size()
+        self.cp_rank = mesh.get_context_parallel_rank()
+        self.cp_group = mesh.get_context_parallel_group() if live else None
 
     def sum(self, t: torch.Tensor) -> torch.Tensor:
-        return mappings.all_reduce(t, self.group) if self.size > 1 else t
+        """``t`` summed over dp and cp."""
+        if self.size > 1:
+            t = mappings.all_reduce(t, self.group)
+        if self.cp_size > 1:
+            t = mappings.all_reduce(t, self.cp_group)
+        return t
+
+    def slice(self, batch, grad_accum_steps: int = 1):
+        """This rank's part of the global host batch: its dp rows, then its
+        cp chunk of each sequence."""
+        if self.size > 1:
+            batch = data_parallel_slice(batch, self.size, self.rank,
+                                        grad_accum_steps)
+        if self.cp_size > 1:
+            batch = context_parallel_slice(batch, self.cp_size, self.cp_rank)
+        return batch
 
 
 def _global_loss(out_sum, tok, token_weighted, n_parts, dp: _DataParallel):
     """The global loss and the gradient scale from this rank's summed
     losses (and token count): the exact token-masked mean over the global
     batch for ``(loss_sum, tok)`` losses, the mean of the ``n_parts``
-    microbatch means of every rank otherwise."""
+    microbatch means of every dp and cp rank otherwise."""
     sums = dp.sum(torch.stack([out_sum, tok]))
     if token_weighted:
         scale = 1.0 / sums[1].clamp(min=1.0)
     else:
         # a fill, not a host-to-device copy: no sync inside the step
-        scale = torch.full((), 1.0 / (n_parts * dp.size),
+        scale = torch.full((), 1.0 / (n_parts * dp.size * dp.cp_size),
                            dtype=torch.float32, device=out_sum.device)
     return sums[0] * scale, scale
 
@@ -398,11 +459,10 @@ def make_train_step(config: TrainingConfig, model: ParallelModel,
 
     def step(batch, generator: Optional[torch.Generator] = None
              ) -> Dict[str, torch.Tensor]:
-        if dp.size > 1:
-            batch = data_parallel_slice(batch, dp.size, dp.rank,
-                                        grad_accum_steps)
-        batch = _to_device(batch, device)
+        batch = _to_device(dp.slice(batch, grad_accum_steps), device)
         loss = loss_and_grads(batch, generator)
+        if dp.cp_size > 1:
+            coalesced_all_reduce([p.grad for p in params], dp.cp_group)
         allreduce_sequence_parallel_gradients(params)
         allreduce_kv_replicated_gradients(params)
         if zero1 is not None:
@@ -450,9 +510,7 @@ def make_eval_step(config: TrainingConfig, model: ParallelModel,
 
     @torch.no_grad()
     def step(batch) -> Dict[str, torch.Tensor]:
-        if dp.size > 1:
-            batch = data_parallel_slice(batch, dp.size, dp.rank)
-        out = loss_fn(module, _to_device(batch, device))
+        out = loss_fn(module, _to_device(dp.slice(batch), device))
         tw = isinstance(out, tuple)
         loss = out[0] if tw else out
         tok = (out[1].float() if tw

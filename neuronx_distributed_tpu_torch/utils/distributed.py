@@ -287,13 +287,19 @@ def spawn(fn: Callable, world_size: int, args: Sequence = (),
     and this raises ``RuntimeError`` / ``TimeoutError`` with the output
     tails: a failure names the rank that failed first and gives every
     failed rank's tail, the root cause first (:func:`failure_order`).
-    ``echo`` prints each rank's output once the world is done."""
+    ``echo`` prints each rank's output once the world is done.
+
+    Each rank runs 2 intra-op threads (``OMP_NUM_THREADS``, which ``env``
+    may override): a rank left at torch's default takes every core, so a
+    few worlds side by side, or beside other work, run many times more
+    threads than there are cores and stall in their collectives'
+    timeouts."""
     repo = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     base = dict(os.environ)
     base["PYTHONPATH"] = repo + os.pathsep + base.get("PYTHONPATH", "")
     base.update({"WORLD_SIZE": str(world_size), "MASTER_ADDR": "127.0.0.1",
-                 "MASTER_PORT": str(free_port())})
+                 "MASTER_PORT": str(free_port()), "OMP_NUM_THREADS": "2"})
     base.update(env or {})
     work = tempfile.mkdtemp(prefix="nxd_spawn_")
     job = os.path.join(work, "job.pkl")

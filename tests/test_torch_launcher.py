@@ -6,7 +6,8 @@ checkpoints and resumes from them to the uninterrupted run's exact final
 loss, packs an eos-joined document stream (``--packed``: segment ids and
 per-document positions into the model), runs as ``python -m``, and
 refuses the JAX flags whose feature is not ported, naming the ROADMAP
-item.  The supervisor's CLI restarts a crashing command and reports one
+item; at ``--cp 2`` it trains in a 2-rank gloo world.  The supervisor's
+CLI restarts a crashing command and reports one
 JSON line.
 """
 
@@ -21,6 +22,8 @@ import pytest
 from neuronx_distributed_tpu_torch.data import write_token_file
 from neuronx_distributed_tpu_torch.examples import llama_pretrain
 from neuronx_distributed_tpu_torch.resilience import supervisor
+from neuronx_distributed_tpu_torch.utils.distributed import spawn
+import torch_tp_workers as workers
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BASE = ["--device", "cpu", "--preset", "tiny", "--batch-size", "4",
@@ -89,11 +92,26 @@ def test_module_entry_point(tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--pp", "2"], "A15"), (["--cp", "2"], "A14"),
-    (["--scan-layers"], "not faults")])
+    (["--pp", "2"], "A15"), (["--scan-layers"], "not faults")])
 def test_unported_flags_name_their_item(flag, item):
     with pytest.raises(NotImplementedError, match=item):
         llama_pretrain.parse_args(BASE + flag)
+
+
+def test_cp_flag_lays_out_context_parallelism():
+    """``--cp`` (A14) parses, a world of one is no cp = 2 layout, and a
+    world of two trains through ``fit`` at cp = 2 (the ring on the flash
+    path) to the loss of one process at cp = 1 on the same batches."""
+    assert llama_pretrain.parse_args(BASE + ["--cp", "2"]).cp == 2
+    with pytest.raises(ValueError, match="cp 2"):
+        llama_pretrain.prepare(BASE + ["--cp", "2"])
+    argv = BASE + ["--steps", "3", "--attention", "flash"]
+    one = llama_pretrain.main(argv)
+    ranks = spawn(workers.launcher_rank, 2, (argv + ["--cp", "2"],),
+                  timeout_s=170)
+    for loss, steps in ranks:
+        assert steps == 3
+        assert loss == pytest.approx(one.final_loss, rel=1e-5)
 
 
 def test_flag_errors():

@@ -1,5 +1,6 @@
 """PyTorch port: how ``utils.distributed.spawn`` orders a world's
-failures, with no world started.
+failures, with no world started, and the intra-op threads it gives each
+rank.
 
 When a rank raises, its teardown breaks its peers' collectives and they
 raise too; both exits can land inside one poll of the parent.  The report
@@ -10,7 +11,11 @@ those that died without a result, in the order the poll saw them.
 
 import pytest
 
-from neuronx_distributed_tpu_torch.utils.distributed import failure_order
+from neuronx_distributed_tpu_torch.utils.distributed import (
+    failure_order,
+    spawn,
+)
+import torch_tp_workers as workers
 
 ROOT = ("error", "ValueError: planned failure", 10.0)
 PEER = ("error", "RuntimeError: Connection closed by peer", 10.2)
@@ -32,3 +37,11 @@ PEER = ("error", "RuntimeError: Connection closed by peer", 10.2)
         "crash_after_raise", "crashes_in_poll_order", "tie_by_rank"])
 def test_failure_order_puts_the_root_cause_first(seen, results, want):
     assert failure_order(seen, results) == want
+
+
+def test_spawned_ranks_run_a_fixed_thread_count():
+    """Each rank runs 2 intra-op threads, not one a core: worlds side by
+    side would oversubscribe the machine.  ``env`` sets another count."""
+    assert spawn(workers.rank_threads, 2, timeout_s=60) == [(2, "2")] * 2
+    assert spawn(workers.rank_threads, 1, timeout_s=60,
+                 env={"OMP_NUM_THREADS": "3"}) == [(3, "3")]

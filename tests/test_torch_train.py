@@ -261,8 +261,7 @@ def test_trainer_refusals():
     cfg = LlamaConfig.tiny(dtype=torch.float32, param_dtype=torch.float32)
     build = lambda d: LlamaForCausalLM(cfg, device=d)  # noqa: E731
     # the degrees still to port name the ROADMAP item that lifts them
-    for kw, item in ((dict(context_parallel_size=2), "A14"),
-                     (dict(pipeline_parallel_size=2), "A15"),
+    for kw, item in ((dict(pipeline_parallel_size=2), "A15"),
                      (dict(expert_parallel_size=2), "Then")):
         with pytest.raises(NotImplementedError, match=item):
             initialize_parallel_model(training_config(**kw), build,
@@ -275,15 +274,23 @@ def test_trainer_refusals():
     whole = initialize_parallel_model(training_config(fsdp=True), build,
                                       device="cpu")
     assert not hasattr(whole.module, "_fsdp")
-    # tp and dp are ported: one process is no world of 2
-    for kw in (dict(tensor_parallel_size=2), dict(data_parallel_size=2)):
+    # tp, dp and cp are ported: one process is no world of 2
+    for kw in (dict(tensor_parallel_size=2), dict(data_parallel_size=2),
+               dict(context_parallel_size=2)):
         with pytest.raises(ValueError, match="not divisible|inconsistent"):
             initialize_parallel_model(training_config(**kw), build,
                                       device="cpu")
     config = training_config(compute_dtype="float32")
     model = initialize_parallel_model(config, build, device="cpu")
-    with pytest.raises(NotImplementedError, match="PEFT"):
-        initialize_parallel_optimizer(config, model, trainable=lambda p: True)
+    # trainable= (PEFT, A13) freezes what its predicate rejects
+    frozen = initialize_parallel_optimizer(
+        config, model, trainable=lambda n: n.startswith("lm_head"))
+    assert frozen.update_mask == {n: n == "lm_head.kernel" for n, _ in
+                                  model.module.named_parameters()}
+    assert [n for n, p in model.module.named_parameters()
+            if p.requires_grad] == ["lm_head.kernel"]
+    for p in model.module.parameters():
+        p.requires_grad_(True)
     opt = initialize_parallel_optimizer(config, model)
     with pytest.raises(ValueError, match="loss_fn"):
         make_train_step(config, model, opt)

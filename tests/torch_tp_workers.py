@@ -870,7 +870,7 @@ def layer_training_cases(inp: dict):
 
 
 def _train(config, build, state_fn, loss_fn, batches, generators=None,
-           accum=1, counts=False):
+           accum=1, counts=False, trainable=None):
     """``initialize_parallel_model`` (which lays out the ranks from
     ``config.mesh``), this rank's weights from ``state_fn(module)``, the
     optimizer and one ``make_train_step`` run over ``batches``; tears the
@@ -890,7 +890,7 @@ def _train(config, build, state_fn, loss_fn, batches, generators=None,
     module = model.module
     if state_fn is not None:
         module.load_state_dict(state_fn(module))
-    opt = initialize_parallel_optimizer(config, model)
+    opt = initialize_parallel_optimizer(config, model, trainable=trainable)
     step = make_train_step(config, model, opt, loss_fn,
                            grad_accum_steps=accum)
     eval_loss = make_eval_step(config, model, loss_fn)(batches[0])["loss"]
@@ -911,6 +911,8 @@ def _train(config, build, state_fn, loss_fn, batches, generators=None,
            "tp": (module.tp.size, module.tp.rank),
            "dp": (mesh.get_data_parallel_size(),
                   mesh.get_data_parallel_rank()),
+           "cp": (mesh.get_context_parallel_size(),
+                  mesh.get_context_parallel_rank()),
            "zero1": opt.zero1 is not None}
     if counts:
         out["counts"] = per_step
@@ -1023,3 +1025,264 @@ def llama_dp_cases(inp: dict):
             config, lambda d, c=cfg: LlamaForCausalLM(c, device=d), state,
             loss, case["batches"], accum=case["accum"], counts=True)
     return out
+
+
+# -- PEFT and context parallelism ---------------------------------------------
+
+
+def _nest(flat: dict) -> dict:
+    """A flat ``{dotted name: array}`` mapping as the nested tree
+    ``peft`` walks."""
+    out = {}
+    for name, v in flat.items():
+        node = out
+        *head, leaf = name.split(".")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    return out
+
+
+def _flat_tree(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_tree(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def lora_cases(inp: dict, zero: dict):
+    """The tiny Llama with LoRA adapters at tp = 2 under sequence
+    parallelism, from this rank's shard of a JAX tree: with ``zero``'s
+    tree (zero-init adapters), its logits against the base model's and the
+    base model's from a stripped tree whose adapters moved; with
+    ``inp``'s, 3 frozen-base steps (``trainable=peft.lora_trainable``)
+    and the merged model's logits against the adapted model's; then the
+    same steps at dp = 2 under ZeRO-1."""
+    import dataclasses
+
+    from neuronx_distributed_tpu_torch import peft
+    from neuronx_distributed_tpu_torch.config import training_config
+    from neuronx_distributed_tpu_torch.convert import (
+        llama_params_from_jax,
+        shard_params_for_rank,
+    )
+    from neuronx_distributed_tpu_torch.models.common import causal_lm_loss
+    from neuronx_distributed_tpu_torch.models.llama import (
+        LlamaConfig,
+        LlamaForCausalLM,
+    )
+    from neuronx_distributed_tpu_torch.optimizer.zero1 import state_by_param
+    from neuronx_distributed_tpu_torch.parallel import mesh
+    from neuronx_distributed_tpu_torch.trainer import (
+        initialize_parallel_model,
+        initialize_parallel_optimizer,
+        make_train_step,
+    )
+    from neuronx_distributed_tpu_torch.utils.distributed import (
+        initialize_distributed,
+    )
+
+    initialize_distributed(device="cpu", timeout_s=GROUP_TIMEOUT_S)
+    f32 = dict(dtype=torch.float32, param_dtype=torch.float32)
+    cfg_l = LlamaConfig.tiny(lora_rank=4, lora_targets=tuple(inp["targets"]),
+                             sequence_parallel=True, remat="none", **f32)
+    cfg_0 = dataclasses.replace(cfg_l, lora_rank=0)
+    ids = torch.as_tensor(inp["ids"])
+    out = {}
+
+    config = training_config(tensor_parallel_size=2, learning_rate=1e-3,
+                             compute_dtype="float32", seed=0)
+    model = initialize_parallel_model(
+        config, lambda d: LlamaForCausalLM(cfg_l, device=d), device="cpu")
+    module = model.module
+    rank = module.tp.rank
+
+    def load(m, tree, cfg):
+        m.load_state_dict(llama_params_from_jax(
+            shard_params_for_rank(tree, 2, rank), cfg, tp=2))
+        return m
+
+    def logits(m, x):
+        with torch.no_grad():
+            return m.gather_logits(m(x)).numpy()
+
+    def state(m):
+        return _nest({n: p.detach().clone()
+                      for n, p in m.state_dict().items()})
+
+    load(module, zero["tree"], cfg_l)
+    base = load(LlamaForCausalLM(cfg_0, device="cpu"),
+                peft.strip_lora(zero["tree"]), cfg_0)
+    moved = peft.map_with_path(
+        lambda p, x: x + 0.5 if "lora_b" in p[-1] else x, state(module))
+    stripped = LlamaForCausalLM(cfg_0, device="cpu")
+    stripped.load_state_dict(_flat_tree(peft.strip_lora(moved)))
+    out["zero"] = {"adapted0": logits(module, ids), "base": logits(base, ids),
+                   "stripped": logits(stripped, ids)}
+
+    load(module, inp["tree"], cfg_l)
+    opt = initialize_parallel_optimizer(config, model,
+                                        trainable=peft.lora_trainable)
+    before = {n: p.detach().clone() for n, p in module.named_parameters()}
+    step = make_train_step(config, model, opt, causal_lm_loss)
+    losses, norms = [], []
+    for b in inp["batches"]:
+        m = step(b)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+    names = {p: n for n, p in module.named_parameters()}
+    out["tp2"] = {
+        "losses": losses, "norms": norms, "rank": rank,
+        "params": {n: _np(p) for n, p in module.named_parameters()},
+        "unchanged": {n: bool(torch.equal(before[n], p))
+                      for n, p in module.named_parameters()},
+        "requires_grad": {n: p.requires_grad
+                          for n, p in module.named_parameters()},
+        "state": sorted(state_by_param(opt.optimizer, opt.zero1, names)),
+        "mask": dict(opt.update_mask)}
+    merged = LlamaForCausalLM(cfg_0, device="cpu")
+    merged.load_state_dict(_flat_tree(peft.merge_lora(
+        state(module), alpha=cfg_l.lora_alpha)))
+    out["tp2_merge"] = {"adapted": logits(module, ids[:2]),
+                        "merged": logits(merged, ids[:2])}
+    mesh.destroy_model_parallel()
+
+    config = training_config(data_parallel_size=2, zero_one_enabled=True,
+                             learning_rate=1e-3, compute_dtype="float32",
+                             seed=0)
+    cfg_dp = dataclasses.replace(cfg_l, sequence_parallel=False)
+    out["dp2"] = _train(
+        config, lambda d: LlamaForCausalLM(cfg_dp, device=d),
+        lambda m: llama_params_from_jax(inp["tree_dp2"], cfg_dp),
+        causal_lm_loss, inp["batches"], trainable=peft.lora_trainable)
+
+    def pieces(m):
+        from neuronx_distributed_tpu_torch.convert import fsdp_shard_for_rank
+
+        tree = fsdp_shard_for_rank(inp["tree_dp2"], 2,
+                                   mesh.get_data_parallel_rank())
+        return {n: torch.from_numpy(np.array(v))
+                for n, v in _flat_tree(tree).items()}
+
+    config = training_config(data_parallel_size=2, fsdp=True,
+                             zero_one_enabled=False, learning_rate=1e-3,
+                             compute_dtype="float32", seed=0)
+    out["dp2_fsdp"] = _train(
+        config, lambda d: LlamaForCausalLM(cfg_dp, device=d), pieces,
+        causal_lm_loss, inp["batches"], trainable=peft.lora_trainable)
+
+    config = training_config(tensor_parallel_size=2, kv_size_multiplier=2,
+                             learning_rate=1e-3, compute_dtype="float32",
+                             seed=0)
+    cfg_kv = dataclasses.replace(cfg_l, num_kv_heads=1)
+    out["kvr2"] = _train(
+        config, lambda d: LlamaForCausalLM(cfg_kv, device=d),
+        lambda m: llama_params_from_jax(shard_params_for_rank(
+            inp["tree_kvr2"], 2, m.tp.rank, 2), cfg_kv, tp=2, kvr=2),
+        causal_lm_loss, inp["batches"], trainable=peft.lora_trainable)
+    return out
+
+
+def ring_cases(inp: dict):
+    """``ring_attention`` on this rank's chunk of each case's global
+    inputs at the case's cp (a world of 4: cp = 4, then cp = 2 x dp = 2):
+    the local output and the gradients of ``sum(o * w)``, and the
+    collectives by kind."""
+    from neuronx_distributed_tpu_torch.ops.ring_attention import (
+        ring_attention,
+    )
+    from neuronx_distributed_tpu_torch.parallel import mappings, mesh
+
+    out = {}
+    first = True
+    for cp in inp["degrees"]:
+        if first:
+            _init(context_parallel_size=cp)
+            first = False
+        else:
+            mesh.initialize_model_parallel(context_parallel_size=cp)
+        r = mesh.get_context_parallel_rank()
+        for case in inp["cases"]:
+            if case["cp"] != cp:
+                continue
+            S = case["q"].shape[1]
+            C = S // cp
+
+            def local(a):
+                return torch.tensor(a[:, r * C:(r + 1) * C],
+                                    requires_grad=a.dtype != np.int32)
+
+            q, k, v = (local(case[x]) for x in ("q", "k", "v"))
+            segs = (local(case["segs"]) if case.get("segs") is not None
+                    else None)
+            mappings.reset_counts()
+            o = ring_attention(q, k, v, case["causal"], case.get("scale"),
+                               case["layout"], case["impl"], segs,
+                               case.get("window"), case.get("softcap"))
+            (o * local(case["w"]).detach()).sum().backward()
+            out[case["name"]] = {
+                "rank": r, "o": _np(o), "dq": _np(q.grad),
+                "dk": _np(k.grad), "dv": _np(v.grad),
+                "counts": dict(mappings.COUNTS)}
+        mesh.destroy_model_parallel()
+    return out
+
+
+def cp_train_cases(inp: dict):
+    """The tiny Llama on the flash path trained at each case's tp x cp (x
+    dp) layout in a world of 4, from this rank's tp shard of the JAX tree:
+    what ``_train`` returns, by case."""
+    from neuronx_distributed_tpu_torch.config import training_config
+    from neuronx_distributed_tpu_torch.convert import (
+        llama_params_from_jax,
+        shard_params_for_rank,
+    )
+    from neuronx_distributed_tpu_torch.models.common import causal_lm_loss
+    from neuronx_distributed_tpu_torch.models.llama import (
+        LlamaConfig,
+        LlamaForCausalLM,
+    )
+    from neuronx_distributed_tpu_torch.utils.distributed import (
+        initialize_distributed,
+    )
+
+    initialize_distributed(device="cpu", timeout_s=GROUP_TIMEOUT_S)
+    out = {}
+    for case in inp["cases"]:
+        tp = case["tp"]
+        config = training_config(
+            tensor_parallel_size=tp, context_parallel_size=case["cp"],
+            zero_one_enabled=True, learning_rate=inp["lr"],
+            compute_dtype="float32", seed=0)
+        cfg = LlamaConfig.tiny(
+            num_kv_heads=case["kv_heads"], attention_impl="flash",
+            cp_impl=case["impl"], cp_zigzag=case["zigzag"],
+            sequence_parallel=tp > 1, remat=case["remat"],
+            max_seq_len=inp["seq"], dtype=torch.float32,
+            param_dtype=torch.float32)
+
+        def state(m, cfg=cfg, tp=tp):
+            return llama_params_from_jax(shard_params_for_rank(
+                inp["tree"][case["kv_heads"]], tp, m.tp.rank), cfg, tp=tp)
+
+        out[case["name"]] = _train(
+            config, lambda d, c=cfg: LlamaForCausalLM(c, device=d), state,
+            causal_lm_loss, case["batches"], counts=True)
+    return out
+
+
+def launcher_rank(argv: list):
+    """The Llama launcher's ``main`` in this rank (its world from the
+    environment): the final loss and steps run."""
+    from neuronx_distributed_tpu_torch.examples import llama_pretrain
+
+    res = llama_pretrain.main(list(argv))
+    return res.final_loss, res.steps_run
+
+
+def rank_threads():
+    """This rank's intra-op thread count and ``OMP_NUM_THREADS``."""
+    return torch.get_num_threads(), os.environ.get("OMP_NUM_THREADS")
