@@ -5,8 +5,10 @@ GPU and check it end to end.
     python3 chip_smoke.py
 
 Phase 0 prints the card and builds every CUDA kernel from the sources in
-the checkout, one ``nvcc`` per source started together (``-Xptxas -v``
-report included), and holds the bf16 flash forward, dq and dk/dv kernels
+the checkout, one ``nvcc`` per part of each source (a kernel or a route),
+all started together (``-Xptxas -v`` report included); phase 1 waits for
+the paged library only, and the flash libraries build on behind it.  It
+holds the bf16 flash forward, dq and dk/dv kernels
 as built to their design: no spill, no wgmma serialisation, no ignored
 ``setmaxnreg``, and HGMMA and UTMALDG instructions in their SASS at every
 head dim; the multi-row paged kernel likewise, with HGMMA and LDGSTS
@@ -186,10 +188,23 @@ processes sharing the card over gloo: B1-B3 held at every chunk call of
 the ring, zigzag and ulysses schedules and the window schedule's S != T
 call, with an lse cotangent, and timed at the schedules' calls beside
 SDPA; then Llama-3-8B's width cut to 2 layers at 1 x 8192, the
-contiguous ring, zigzag and ulysses, 1 + 2 steps each: the first step's
+contiguous ring, zigzag and ulysses, 1 + 1 steps each: the first step's
 loss and grad norm against cp = 1, the ranks equal, B1-B3 launches from
-the schedule, collective ms and bytes a step.  A device time below the
-least time its work needs fails the run.
+the schedule, collective ms and bytes a step.  Phase 10 trains at
+pipeline degree 2, two processes sharing the card over gloo: B1-B3 held
+and timed at the microbatch's call (1 x 32 q on 8 kv heads x 2048); then
+Llama-3-8B's width cut to 4 layers, 2 a stage (the embedding on rank 0,
+the head on rank 1), 4 x 2048 in 4 microbatches, flash, selective remat,
+through ``initialize_parallel_model`` at ``pipeline_parallel_size=2``:
+(a) 1F1B, 1 + 2 steps, (b) GPipe and the interleaved schedule (2 virtual
+stages of one layer a rank), 2 steps each: every first step's loss and
+grad norm against pp = 1 on the same weights and batch, the ranks equal,
+falling losses, B1-B3 launched 16 / 8 / 8 a step on each rank at
+(2048, 2048, causal), 1F1B holding P - r microbatch graphs and GPipe M;
+(c) 1F1B's activation peak below GPipe's on rank 0; (d) ``forward_fn``'s
+logits with pp = 1's greedy argmax at every position; (e) each rank's
+step time, receive-wait share, transfer bytes and memory.  A device time
+below the least time its work needs fails the run.
 
 Any failed check exits non-zero without the result line.  The line before
 the last is ``{"kernels": [...]}``; the last is ``{"ok": true, "device":
@@ -627,14 +642,11 @@ def guard_kernels(paths: dict, lib_name: str, kname: str, tags: dict,
     return found
 
 
-def check_build_guards(paths: dict) -> dict:
+def check_flash_guards(paths: dict) -> dict:
     """The bf16 flash forward, dq and dk/dv kernels in each library that
-    instantiates them (HGMMA and UTMALDG at every head dim), the
-    multi-row paged kernel (HGMMA and LDGSTS, cp.async, at every head dim
-    over bf16 and int8 pools) and the decode kernel (HMMA, mma.sync, and
-    LDGSTS at the same six): no spill, no wgmma serialisation, no ignored
-    setmaxnreg.  Returns ``{kernel: {instantiation: registers, shared
-    memory and instruction counts}}``."""
+    instantiates them: HGMMA and UTMALDG at every head dim, no spill, no
+    wgmma serialisation, no ignored setmaxnreg.  Returns ``{kernel:
+    {head dim: registers, shared memory and instruction counts}}``."""
     from neuronx_distributed_tpu_torch.ops import _build
 
     found = {w: {} for w in WGMMA_KERNELS}
@@ -645,6 +657,22 @@ def check_build_guards(paths: dict) -> dict:
                 paths, name, kname, {d: f"ILi{d}E" for d in dims},
                 ("HGMMA", "UTMALDG"),
                 lambda d, which=which: lib.flash_wgmma_smem_bytes(which, d)))
+    log("phase0 guard: the bf16 forward, dq and dk/dv use HGMMA and UTMALDG "
+        "at every head dim; none spills; no wgmma serialisation, no ignored "
+        "setmaxnreg")
+    return found
+
+
+def check_paged_guards(paths: dict) -> dict:
+    """The multi-row paged kernel (HGMMA and LDGSTS, cp.async, at every
+    head dim over bf16 and int8 pools) and the decode kernel (HMMA,
+    mma.sync, and LDGSTS at the same six): no spill, no wgmma
+    serialisation, no ignored setmaxnreg; and the decode kernel's
+    clusters.  Returns ``{kernel: {instantiation: registers, shared
+    memory and instruction counts}}``."""
+    from neuronx_distributed_tpu_torch.ops import _build
+
+    found = {}
     paged = _build.load("paged_attention")
     found["paged_wgmma"] = guard_kernels(
         paths, "paged_attention", PAGED_WGMMA_KERNEL,
@@ -661,8 +689,7 @@ def check_build_guards(paths: dict) -> dict:
         lambda key: paged.paged_decode_smem_bytes(int(key.split()[0]),
                                                   int(key.endswith("int8"))))
     found["paged_decode_clusters"] = decode_clusters(paged)
-    log("phase0 guard: the bf16 forward, dq and dk/dv use HGMMA and UTMALDG "
-        "at every head dim, the multi-row paged kernel HGMMA and LDGSTS and "
+    log("phase0 guard: the multi-row paged kernel uses HGMMA and LDGSTS and "
         "the decode kernel HMMA and LDGSTS at every head dim and pool type; "
         "none spills; no wgmma serialisation, no ignored setmaxnreg")
     return found
@@ -3281,8 +3308,10 @@ def phase2f(model_pim, entries: dict):
 # pairs of steady telemetry profiles in 2g(f) (part 1 only, then parts 1
 # and 2, in turns: part1, full, full, part1, ...)
 # halved from 4 to make room for phase 2i, then to 1 for phase 8 and
-# 7(b)'s FSDP arm
-G_PAIRS = 1
+# 7(b)'s FSDP arm, and back to 2 when one pair's device busy read 9.166
+# against 9.443 ms (3 %, the same 2108 launches a step; the card's clock
+# between two profiles, which the turns' order cancels when it drifts)
+G_PAIRS = 2
 # the export check's cut of Llama-3-8B: full width, this many layers, and
 # its serving shapes (32 new tokens: every decode position of the cache)
 G_EXPORT_LAYERS, G_EXPORT_B, G_EXPORT_C, G_EXPORT_NEW = 2, 2, 64, 32
@@ -6102,9 +6131,11 @@ def phase6():
 # AdamW, ZeRO-1 and FSDP on a 2-layer cut; (c) tp = 2 with kvr = 2 on a
 # 2-layer cut
 P7_TP_LAYERS, P7_SMALL_LAYERS, P7_S, P7_CHUNK = 2, 2, 2048, 512
-# (a) warms 1 step and times 2, and (b) runs 2 steps an arm (2, 3 and 3
-# before phase 8 and 7(b)'s FSDP arm took the room)
-P7_WARMUP, P7_TIMED, P7_DP_STEPS = 1, 2, 2
+# (a) warms 1 step and times 2, and (b) runs 1 step an arm, after which
+# ZeRO-1's and FSDP's parameters are held to replicated AdamW's (2 before
+# phase 10 took the room, 3 before phase 8 and 7(b)'s FSDP arm did; a
+# step an arm is 9-13 s of host-staged collectives)
+P7_WARMUP, P7_TIMED, P7_DP_STEPS = 1, 2, 1
 # the first step's loss and grad norm at tp = 2 against tp = 1 from the
 # same seed and batch (bf16 compute: the row layers' fp32 partials and the
 # vocab-parallel loss sum in other orders)
@@ -6800,8 +6831,10 @@ P9_MERGE_TOL_FP32, P9_MERGE_NOISE = 1e-3, 2.0
 # (b) cp = 2: two processes sharing the card over gloo (NCCL refuses two
 # ranks on one device, so this holds correctness, launches and bytes, not
 # cp speed), Llama-3-8B width cut to 2 layers, 1 x 8192 (4096 tokens a
-# rank), flash, selective remat, the chunked head; each arm 1 + 2 steps
-P9_CP, P9_CP_LAYERS, P9_CP_S, P9_CP_WARMUP, P9_CP_TIMED = 2, 2, 8192, 1, 2
+# rank), flash, selective remat, the chunked head; each arm 1 + 1 steps
+# (1 + 2 before phase 10 took the room: a step is 7-10 s of host-staged
+# gradient sums)
+P9_CP, P9_CP_LAYERS, P9_CP_S, P9_CP_WARMUP, P9_CP_TIMED = 2, 2, 8192, 1, 1
 P9_ARMS = {"ring": ("ring", False), "zigzag": ("ring", True),
            "ulysses": ("ulysses", False)}
 P9_WORLD_TIMEOUT_S = 600
@@ -7122,7 +7155,7 @@ def phase9_refs() -> dict:
 
 def p9_rank(task: dict) -> dict:
     """One rank of 9(b): each arm laid out from its ``TrainingConfig``
-    (``context_parallel_size=2``), 1 + 2 steps on the rank's half of the
+    (``context_parallel_size=2``), 1 + 1 steps on the rank's half of the
     batch (the zigzag arm's batch in ``zigzag_permute`` order)."""
     import torch
     import torch.distributed as dist
@@ -7251,6 +7284,404 @@ def phase9b(refs: dict, entries: dict) -> dict:
     log(f"phase9(b) took {out['seconds']:.1f} s")
     return out
 
+# -- phase 10 ----------------------------------------------------------------
+
+# the pipelined train step at pp = 2: two processes sharing the card over
+# gloo (NCCL refuses two ranks on one device, so this holds correctness,
+# launches, transfers and per-rank memory, not pp speed), Llama-3-8B's
+# width cut to 4 layers, 2 a stage (the embedding on rank 0, the head on
+# rank 1), flash, selective remat, bf16 compute over fp32 masters, 4
+# sequences of 2048 in 4 microbatches of 1
+P10_PP, P10_LAYERS, P10_B, P10_S, P10_M = 2, 4, 4, 2048, 4
+# (a) 1F1B warms 1 step and times 2; (b) GPipe and interleaved (V = 2, one
+# layer a chunk) take 2 steps each, the second for (c)'s memory
+P10_WARMUP, P10_TIMED, P10_ARM_STEPS = 1, 2, 2
+P10_ARMS = {"1f1b": ("1f1b", 1), "gpipe": ("gpipe", 1),
+            "interleaved": ("interleaved", 2)}
+P10_WORLD_TIMEOUT_S = 600
+# each arm's first-step loss and grad norm against pp = 1 on the same
+# weights and batch (the reference runs the same microbatches, one
+# sequence at a time): set from an H100's readings (every arm 1.9e-8 and
+# 0: the same kernels on the same shapes, the loss summed in another
+# order); a last stage dropping one microbatch's backward moves the grad
+# norm by far more
+P10_LOSS_RTOL, P10_NORM_RTOL = 1e-6, 1e-6
+# a rank's B1-B3 calls a step, by design: its 2 layers x 4 microbatches,
+# the forward twice under selective remat, all at (S, T, causal) =
+# (2048, 2048, True)
+P10_LAYERS_A_RANK = P10_LAYERS // P10_PP
+P10_PER_STEP = {"fwd": 2 * P10_LAYERS_A_RANK * P10_M,
+                "dq": P10_LAYERS_A_RANK * P10_M,
+                "dkv": P10_LAYERS_A_RANK * P10_M}
+P10_KEY = (P10_S, P10_S, True)
+# B1-B3 at the microbatch's call: 1 x 32 q on 8 kv heads x 2048, causal,
+# the model's layout
+P10_FLASH_CASES = [
+    ("pp2_microbatch", 1, NQ, NKV, P10_S, P10_S, D, True, None, None, None,
+     False, False, True),
+]
+
+
+def p10_cfg():
+    import torch
+
+    from neuronx_distributed_tpu_torch.models.llama import LlamaConfig
+
+    return LlamaConfig.llama3_8b(num_layers=P10_LAYERS,
+                                 attention_impl="flash", remat="selective",
+                                 dtype=torch.bfloat16,
+                                 param_dtype=torch.float32)
+
+
+def phase10_kernels() -> dict:
+    """B1-B3 held at the pipeline's microbatch call against their plain
+    versions, and timed there beside SDPA and the bound."""
+    worst = {w: {"abs": 0.0, "row_rel": 0.0} for w in FLASH_KERNELS}
+    worst_lse = {"bfloat16": 0.0, "float32": 0.0}
+    hold_flash_cases(P10_FLASH_CASES, worst, worst_lse, seed0=400)
+    entries = time_flash((1, NQ, NKV, P10_S, D), worst=worst, suffix="_pp2")
+    for w in FLASH_KERNELS:
+        entries[w]["shapes"]["pp"] = P10_PP
+        entries[w]["lse_max_abs_err"] = worst_lse
+    return entries
+
+
+def phase10_refs() -> dict:
+    """The pp = 1 reference of phase 10 on the seed's weights and batch:
+    the first step's loss and grad norm (the 4 sequences one at a time,
+    as the microbatches run, gradients summed in fp32 and divided by the
+    token count), and (d)'s greedy argmax at every position and the last
+    position's logits of every row."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.config import training_config
+    from neuronx_distributed_tpu_torch.models.common import causal_lm_loss_sum
+    from neuronx_distributed_tpu_torch.models.llama import LlamaForCausalLM
+    from neuronx_distributed_tpu_torch.parallel.grads import get_grad_norm
+    from neuronx_distributed_tpu_torch.trainer import initialize_parallel_model
+
+    t0 = time.perf_counter()
+    batch = train_batch(128256, P10_B, P10_S)
+    cfg = p10_cfg()
+    model = initialize_parallel_model(
+        training_config(seed=SEED),
+        lambda d: LlamaForCausalLM(cfg, device=d), seed=SEED)
+    module = model.module
+    loss_sum, tok = 0.0, 0.0
+    argmax, last = [], []
+    for m in range(P10_M):
+        mb = {k: torch.as_tensor(v[m:m + 1]).cuda() for k, v in batch.items()}
+        ls, n = causal_lm_loss_sum(module, mb)
+        ls.backward()
+        loss_sum += ls.item()
+        tok += n.item()
+        with torch.no_grad():
+            logits = module(mb["ids"])
+            argmax.append(logits.argmax(-1).cpu())
+            last.append(logits[:, -1].float().cpu())
+            del logits
+    grads = [p.grad / tok for p in module.parameters()]
+    norm = get_grad_norm(grads).item()
+    out = {"loss": loss_sum / tok, "grad_norm": norm,
+           "argmax": torch.cat(argmax).numpy(),
+           "last_logits": torch.cat(last).numpy()}
+    log(f"phase10 pp = 1 reference, {P10_LAYERS} layers, {P10_B} x "
+        f"{P10_S}: first-step loss {out['loss']:.6f}, grad norm {norm:.6f} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del model, module, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def p10_train(arm: str, cfg, batch, steps: int, warmup: int = 0) -> dict:
+    """One rank's pipelined training through the entry points
+    (``initialize_parallel_model`` at pp = 2 gives this rank's stage):
+    ``warmup`` + ``steps`` steps on ``batch``, with the launch counts set to
+    0 first.  Returns the losses, grad norms, launches (by call shape),
+    each step's transfers, the schedule's peak in flight and memory, and
+    times; the model and optimizer are dropped."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.config import training_config
+    from neuronx_distributed_tpu_torch.models.llama import LlamaForCausalLM
+    from neuronx_distributed_tpu_torch.ops import flash_attention as fa
+    from neuronx_distributed_tpu_torch.ops.paged_attention import paged_attention
+    from neuronx_distributed_tpu_torch.optimizer.zero1 import state_bytes
+    from neuronx_distributed_tpu_torch.parallel import mappings, mesh
+    from neuronx_distributed_tpu_torch.trainer import (
+        initialize_parallel_model,
+        initialize_parallel_optimizer,
+        make_train_step,
+    )
+
+    schedule, V = P10_ARMS[arm]
+    config = training_config(
+        pipeline_parallel_size=P10_PP, num_microbatches=P10_M,
+        schedule=schedule, virtual_stages=V, learning_rate=1e-4,
+        max_grad_norm=1.0, seed=SEED)
+    t_build = time.perf_counter()
+    model = initialize_parallel_model(
+        config, lambda d: LlamaForCausalLM(cfg, device=d), seed=SEED)
+    stage = model.module
+    opt = initialize_parallel_optimizer(config, model)
+    step = make_train_step(config, model, opt)
+    build_s = time.perf_counter() - t_build
+    # the schedule's own peak (the update's AdamW temporaries would hide
+    # the activations in a whole step's)
+    sched_peaks = []
+    inner = model.loss_and_grad_fn
+
+    def probed(*args):
+        torch.cuda.reset_peak_memory_stats()
+        out = inner(*args)
+        sched_peaks.append(torch.cuda.max_memory_allocated())
+        return out
+
+    model.loss_and_grad_fn = probed
+    for fn in (fa.flash_attention_fwd, fa.flash_attention_dq,
+               fa.flash_attention_dkv, paged_attention):
+        fn.launches = 0
+    for w in FLASH_KERNELS:
+        getattr(fa, FLASH_KERNELS[w][0]).launches_by_shape = {}
+    losses, norms, times, moved, waits, in_flight = [], [], [], [], [], []
+    for i in range(warmup + steps):
+        mappings.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(batch)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if i >= warmup:
+            times.append(dt)
+        moved.append({k: v for k, v in mappings.BYTES.items()
+                      if k.startswith("pp_")})
+        waits.append((mappings.SECONDS["pp_recv_forward"]
+                      + mappings.SECONDS["pp_recv_backward"]) / dt)
+        in_flight.append(model.stats.get("peak_in_flight"))
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in stage.parameters())
+    st_bytes = state_bytes(opt.optimizer)
+    out = {"arm": arm, "losses": losses, "grad_norms": norms,
+           "step_ms": sum(times) / max(len(times), 1) * 1e3,
+           "build_s": build_s, "bytes": moved, "recv_wait_share": waits,
+           "peak_in_flight": in_flight, "param_bytes": param_bytes,
+           "state_bytes": st_bytes, "schedule_peak_bytes": sched_peaks[-1],
+           # the peak less parameters, their fp32 gradients and the state
+           "activation_peak_bytes": sched_peaks[-1] - 2 * param_bytes
+           - st_bytes,
+           "pp": (mesh.get_pipeline_parallel_size(),
+                  mesh.get_pipeline_parallel_rank()),
+           "layers": stage.chunks,
+           "embed": stage.has_embed, "head": stage.has_head}
+    launches = out["launches"] = {w: getattr(fa, FLASH_KERNELS[w][0]).launches
+                                  for w in FLASH_KERNELS}
+    launches["paged"] = paged_attention.launches
+    out["launches_by_shape"] = {
+        w: dict(getattr(fa, FLASH_KERNELS[w][0]).launches_by_shape)
+        for w in FLASH_KERNELS}
+    last = moved[-1]
+    log(f"phase10 {arm} pp rank {out['pp'][1]} (layers {stage.chunks}, "
+        f"embed {stage.has_embed}, head {stage.has_head}): losses "
+        + ", ".join(f"{x:.6f}" for x in losses) + "; grad norms "
+        + ", ".join(f"{x:.6f}" for x in norms)
+        + f"; {out['step_ms']:.1f} ms a step (host clock, two processes "
+        f"time-sliced on one card), receives waited {waits[-1]:.3f} of it; "
+        f"stage transfers a step {last}; launches {launches}; peak in "
+        f"flight {in_flight}; parameters {param_bytes / 2**30:.3f} GiB, "
+        f"AdamW state {st_bytes / 2**30:.3f} GiB, schedule peak "
+        f"{sched_peaks[-1] / 2**30:.3f} GiB, activations "
+        f"{out['activation_peak_bytes'] / 2**30:.3f} GiB; built in "
+        f"{build_s:.1f} s")
+    del step, opt, model, stage, inner
+    mesh.destroy_model_parallel()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def p10_forward(cfg, batch) -> dict:
+    """(d): ``forward_fn``'s logits on the batch (1F1B's stage, the seed's
+    weights): the last stage's logits, broadcast to every rank once."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.config import training_config
+    from neuronx_distributed_tpu_torch.models.llama import LlamaForCausalLM
+    from neuronx_distributed_tpu_torch.parallel import mappings, mesh
+    from neuronx_distributed_tpu_torch.trainer import initialize_parallel_model
+
+    config = training_config(pipeline_parallel_size=P10_PP,
+                             num_microbatches=P10_M, seed=SEED)
+    model = initialize_parallel_model(
+        config, lambda d: LlamaForCausalLM(cfg, device=d), seed=SEED)
+    model.module.eval()
+    mappings.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = model.forward_fn(torch.as_tensor(batch["ids"]))
+    torch.cuda.synchronize()
+    out = {"ms": (time.perf_counter() - t0) * 1e3,
+           "shape": tuple(logits.shape),
+           "argmax": logits.argmax(-1).cpu().numpy(),
+           "last_logits": logits[:, -1].float().cpu().numpy(),
+           "finite": bool(torch.isfinite(logits).all().item()),
+           "bytes": {k: v for k, v in mappings.BYTES.items()
+                     if k.startswith("pp_")}}
+    del logits, model
+    mesh.destroy_model_parallel()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def p10_rank(task: dict) -> dict:
+    """One rank of phase 10: (a) 1F1B, (b) GPipe and interleaved, each
+    laid out from its ``TrainingConfig``, then (d) the forward-only
+    path."""
+    import torch
+    import torch.distributed as dist
+
+    from neuronx_distributed_tpu_torch.utils.distributed import (
+        initialize_distributed,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(device="cuda", backend="gloo", timeout_s=300)
+    out = {"rank": dist.get_rank()}
+    cfg = p10_cfg()
+    batch = train_batch(128256, P10_B, P10_S)
+    out["1f1b"] = p10_train("1f1b", cfg, batch, P10_TIMED, P10_WARMUP)
+    for arm in ("gpipe", "interleaved"):
+        out[arm] = p10_train(arm, cfg, batch, P10_ARM_STEPS)
+    out["forward"] = p10_forward(cfg, batch)
+    dist.barrier()
+    return out
+
+
+def phase10(refs: dict, entries: dict) -> dict:
+    """Pipeline parallelism at pp = 2 on the one card: each schedule's
+    first step against pp = 1, the ranks against each other, B1-B3
+    launches by call shape against the design, 1F1B's activation peak
+    below GPipe's, and the forward-only path's logits against pp = 1's."""
+    import numpy as np
+
+    from neuronx_distributed_tpu_torch.utils.distributed import spawn
+
+    t_phase = time.perf_counter()
+    ranks = spawn(p10_rank, P10_PP, ({},), timeout_s=P10_WORLD_TIMEOUT_S,
+                  echo=True)
+    out = {"refs": {k: refs[k] for k in ("loss", "grad_norm")}, "arms": {},
+           "layers": {}}
+    for arm, (schedule, V) in P10_ARMS.items():
+        per_rank = []
+        for r in ranks:
+            a = r[arm]
+            steps = len(a["losses"])
+            want = {w: {P10_KEY: steps * n} for w, n in P10_PER_STEP.items()}
+            if a["launches_by_shape"] != want:
+                raise AssertionError(f"phase10 {arm}: launches by (S, T, "
+                                     f"causal) {a['launches_by_shape']} on "
+                                     f"pp rank {a['pp'][1]}, expected {want}")
+            total = dict({w: steps * n for w, n in P10_PER_STEP.items()},
+                         paged=0)
+            if a["launches"] != total:
+                raise AssertionError(f"phase10 {arm}: launches "
+                                     f"{a['launches']}, expected {total}")
+            if a["pp"][0] != P10_PP or len(a["layers"]) != V or \
+                    sum(len(c) for c in a["layers"]) != P10_LAYERS_A_RANK:
+                raise AssertionError(f"phase10 {arm}: layout {a['pp']}, "
+                                     f"layers {a['layers']}")
+            if a["embed"] != (a["pp"][1] == 0) or \
+                    a["head"] != (a["pp"][1] == P10_PP - 1):
+                raise AssertionError(f"phase10 {arm}: embedding / head on "
+                                     f"the wrong rank")
+            if not all(math.isfinite(x) for x in a["losses"]
+                       + a["grad_norms"]):
+                raise AssertionError(f"phase10 {arm}: non-finite "
+                                     f"{a['losses']}")
+            if not a["losses"][-1] < a["losses"][0]:
+                raise AssertionError(f"phase10 {arm}: loss did not fall: "
+                                     f"{a['losses']}")
+            for key, ref, tol in (("losses", "loss", P10_LOSS_RTOL),
+                                  ("grad_norms", "grad_norm",
+                                   P10_NORM_RTOL)):
+                rel = abs(a[key][0] - refs[ref]) / abs(refs[ref])
+                if not rel <= tol:
+                    raise AssertionError(
+                        f"phase10 {arm}: first-step {ref} {a[key][0]} "
+                        f"against pp = 1's {refs[ref]}: rel {rel} > {tol}")
+            per_rank.append({
+                k: a[k] for k in ("losses", "grad_norms", "launches",
+                                  "step_ms", "recv_wait_share",
+                                  "peak_in_flight", "build_s")}
+                | {"bytes_a_step": a["bytes"][-1],
+                   "param_gib": a["param_bytes"] / 2**30,
+                   "state_gib": a["state_bytes"] / 2**30,
+                   "schedule_peak_gib": a["schedule_peak_bytes"] / 2**30,
+                   "activation_peak_gib": a["activation_peak_bytes"] / 2**30,
+                   "first_step_rel": [
+                       abs(a["losses"][0] - refs["loss"]) / refs["loss"],
+                       abs(a["grad_norms"][0] - refs["grad_norm"])
+                       / refs["grad_norm"]]})
+        a0, a1 = ranks[0][arm], ranks[1][arm]
+        if a0["losses"] != a1["losses"] or \
+                a0["grad_norms"] != a1["grad_norms"]:
+            raise AssertionError(f"phase10 {arm}: the ranks disagree: "
+                                 f"{a0['losses']} / {a1['losses']}")
+        out["arms"][arm] = per_rank
+        out["layers"][arm] = [r[arm]["layers"] for r in ranks]
+    # the 1F1B stash bound (P - r graphs on rank r) and GPipe's M
+    for r in ranks:
+        rank = r["1f1b"]["pp"][1]
+        if max(r["1f1b"]["peak_in_flight"]) != P10_PP - rank:
+            raise AssertionError(f"phase10: 1F1B held "
+                                 f"{r['1f1b']['peak_in_flight']} microbatch "
+                                 f"graphs on rank {rank}")
+        if max(r["gpipe"]["peak_in_flight"]) != P10_M:
+            raise AssertionError(f"phase10: GPipe held "
+                                 f"{r['gpipe']['peak_in_flight']} graphs")
+    # (c) memory: 1F1B's activations below GPipe's on rank 0
+    act = {arm: ranks[0][arm]["activation_peak_bytes"] for arm in P10_ARMS}
+    if not act["1f1b"] < act["gpipe"]:
+        raise AssertionError(f"phase10(c): 1F1B's activation peak "
+                             f"{act['1f1b']} not below GPipe's "
+                             f"{act['gpipe']} on rank 0")
+    out["rank0_activation_gib"] = {k: v / 2**30 for k, v in act.items()}
+    # (d) the forward-only path: the same logits on both ranks, finite, and
+    # pp = 1's greedy argmax at every position of every row
+    fw = [r["forward"] for r in ranks]
+    for f in fw:
+        if f["shape"] != (P10_B, P10_S, p10_cfg().vocab_size) or \
+                not f["finite"]:
+            raise AssertionError(f"phase10(d): logits {f['shape']}, finite "
+                                 f"{f['finite']}")
+        flips = int((f["argmax"] != refs["argmax"]).sum())
+        if flips:
+            raise AssertionError(f"phase10(d): greedy argmax differs from "
+                                 f"pp = 1's at {flips} positions")
+    if not (fw[0]["argmax"] == fw[1]["argmax"]).all():
+        raise AssertionError("phase10(d): the ranks' logits differ")
+    err = float(np.abs(fw[0]["last_logits"] - refs["last_logits"]).max())
+    out["forward"] = {"ms": fw[0]["ms"], "last_logits_max_abs_err": err,
+                      "bytes": [f["bytes"] for f in fw]}
+    # each timed kernel's launches: the 1F1B arm's, one rank's, all steps
+    for w in FLASH_KERNELS:
+        entries[w]["launches"] = ranks[0]["1f1b"]["launches"][w]
+        entries[w]["launches_are"] = (
+            f"10(a) 1F1B, pp rank 0, {P10_WARMUP + P10_TIMED} steps")
+        entries[w]["launches_by_phase"] = {
+            f"10 {arm}": ranks[0][arm]["launches"][w] for arm in P10_ARMS}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase10: 1F1B {out['arms']['1f1b'][0]['step_ms']:.1f} / "
+        f"{out['arms']['1f1b'][1]['step_ms']:.1f} ms a step on ranks 0 / 1; "
+        f"rank 0 activation peaks {out['rank0_activation_gib']} GiB; "
+        f"forward logits max abs err at the last position {err:.3e}; "
+        f"phase 10 took {out['seconds']:.1f} s")
+    return out
+
 
 def main() -> int:
     try:
@@ -7279,20 +7710,35 @@ def main() -> int:
         log(f"nvidia-smi: {smi}")
         from neuronx_distributed_tpu_torch.ops import _build
 
+        # every library's parts start at once; phase 1 needs the paged
+        # library only, so the flash libraries build behind it, at a lower
+        # CPU priority
         t0 = time.perf_counter()
-        paths = _build.build_all()
-        log(f"phase0: kernels built in {time.perf_counter() - t0:.1f} s "
-            f"(one nvcc per source, in parallel)")
+        jobs = _build.start_all(background=WGMMA_LIBS)
+        try:
+            paths = _build.finish_all(jobs, ["paged_attention"])
+            log(f"phase0: paged_attention built in "
+                f"{time.perf_counter() - t0:.1f} s (one nvcc per part, every "
+                f"library's parts started together; the flash libraries "
+                f"build on behind phase 1)")
+            guards = check_paged_guards(paths)
+            dec, simt = phase1()
+            dec["build"] = guards["paged_decode"]
+            dec8, simt8 = phase1_int8()
+            long = phase1_long()
+            entry_w = phase1_chunks()
+            entry_w["build"] = guards["paged_wgmma"]
+            verify = phase1_verify()
+            t1 = time.perf_counter()
+            paths.update(_build.finish_all(jobs))
+        finally:
+            _build.stop_all(jobs)
+        log(f"phase0: phase 1 ended {t1 - t0:.1f} s after the builds "
+            f"started; the flash libraries were waited for "
+            f"{time.perf_counter() - t1:.1f} s more")
         for name, report in _build.build_logs.items():
             log(f"phase0: nvcc -Xptxas -v for {name}:\n{report}")
-        guards = check_build_guards(paths)
-        dec, simt = phase1()
-        dec["build"] = guards["paged_decode"]
-        dec8, simt8 = phase1_int8()
-        long = phase1_long()
-        entry_w = phase1_chunks()
-        entry_w["build"] = guards["paged_wgmma"]
-        verify = phase1_verify()
+        guards.update(check_flash_guards(paths))
         serving, model_pim, whole_tokens = phase2([dec, simt, long["bf16"]])
         log(f"phase2 summary: {json.dumps(serving)}")
         quantized, int8_tokens = phase2b(
@@ -7351,6 +7797,12 @@ def main() -> int:
         cp_refs = phase9_refs()
         cp_training = phase9b(cp_refs, cp_entries)
         log(f"phase9b summary: {json.dumps(cp_training)}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        pp_entries = phase10_kernels()
+        pp_refs = phase10_refs()
+        pp_training = phase10(pp_refs, pp_entries)
+        log(f"phase10 summary: {json.dumps(pp_training)}")
         for w in FLASH_KERNELS:
             flash[w]["build"] = {d: guards[w][d] for d in (64, 128)}
             flash256[w]["build"] = {256: guards[w][256]}
@@ -7362,7 +7814,8 @@ def main() -> int:
                    + [flash256[w] for w in FLASH_KERNELS]
                    + [tp_train_entries["g4"][w] for w in FLASH_KERNELS]
                    + [cp_entries[sfx][w] for sfx, *_ in P9_TIMED
-                      for w in FLASH_KERNELS])
+                      for w in FLASH_KERNELS]
+                   + [pp_entries[w] for w in FLASH_KERNELS])
         for k in kernels:
             if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms",
                                                      "library_ms",

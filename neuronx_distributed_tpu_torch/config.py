@@ -3,10 +3,10 @@
 The port's own copy of the JAX package's dataclasses: the mesh sizes,
 optimizer, pipeline and activation-checkpoint sub-configs, and the
 top-level :class:`TrainingConfig` with its flat-kwargs constructor
-:func:`training_config`.  Serving and training run at any tensor and data
-parallel degree and KV replication (:mod:`.parallel.mesh` lays out the
-ranks); the trainer refuses pipeline, context and expert degrees above 1
-and ``fsdp`` (ROADMAP A15, A14, "Then", A11b).
+:func:`training_config`.  Training runs at any tensor, pipeline, context
+and data parallel degree and KV replication, with ZeRO-1 or ``fsdp``
+(not under a pipeline, as in JAX); :mod:`.parallel.mesh` lays out the
+ranks.  The trainer refuses an expert degree above 1 (ROADMAP "Then").
 """
 
 from __future__ import annotations
@@ -69,12 +69,28 @@ class OptimizerConfig:
 
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
-    """Pipeline schedule settings, kept as data: the port's trainer refuses
-    ``pipeline_parallel_size > 1``."""
+    """Pipeline schedule settings (JAX ``PipelineConfig``): the microbatch
+    count, the schedule (``"1f1b"`` | ``"gpipe"`` | ``"interleaved"``),
+    the interleaved schedule's virtual stages a rank (V model chunks,
+    ``schedule="interleaved"`` only), explicit uneven stage cuts (the
+    layer indices beginning each new stage; None = balanced) and packed
+    inputs (the batches carry ``positions`` and ``segment_ids``, threaded
+    to every block)."""
 
     num_microbatches: int = 1
     schedule: str = "1f1b"  # "1f1b" | "gpipe" | "interleaved" | "inference"
     virtual_stages: int = 1
+
+    def __post_init__(self):
+        if self.virtual_stages > 1 and self.schedule != "interleaved":
+            raise ValueError(
+                f"virtual_stages={self.virtual_stages} requires "
+                f"schedule='interleaved' (got {self.schedule!r}) -- other "
+                "schedules would silently ignore the chunking")
+        if self.virtual_stages < 1:
+            raise ValueError(
+                f"virtual_stages must be >= 1, got {self.virtual_stages}")
+
     pipeline_cuts: Optional[tuple] = None
     packed_inputs: bool = False
 

@@ -7,6 +7,8 @@ from neuronx_distributed_tpu_torch.convert.jax_params import (
     gemma_params_from_jax,
     gpt_neox_params_from_jax,
     llama_params_from_jax,
+    pipelined_grads_from_jax,
+    pipelined_params_from_jax,
     shard_dim,
     shard_params_for_rank,
     tp_cut,
@@ -16,5 +18,6 @@ from neuronx_distributed_tpu_torch.convert.jax_params import (
 __all__ = ["bert_params_from_jax", "fsdp_shard_for_rank",
            "gemma2_params_from_jax",
            "gemma_params_from_jax", "gpt_neox_params_from_jax",
-           "llama_params_from_jax", "shard_dim", "shard_params_for_rank",
+           "llama_params_from_jax", "pipelined_grads_from_jax",
+           "pipelined_params_from_jax", "shard_dim", "shard_params_for_rank",
            "tp_cut", "zero1_shard_for_rank"]

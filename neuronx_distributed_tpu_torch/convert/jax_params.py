@@ -33,6 +33,14 @@ ZeRO-1 slice (the optimizer state a data-parallel rank holds), and
 and states a data-parallel rank holds under ``fsdp=True``, cut tp-major:
 ``optimizer/zero1.py``).  :func:`tp_cut` gives a parameter's cut by
 name.
+
+JAX's pipelined models keep ``{embed, layers, head}`` with the layers
+stacked ``[L', ...]`` in a padded, possibly permuted row layout
+(``pipeline/partition.py``; ``layer_rows[i]`` is real layer ``i``'s row):
+:func:`pipelined_params_from_jax` gives one pipeline stage's parameters
+(any layers, with or without the embedding and the head, at any tp or
+kvr rank) under the pp = 1 model's names, and
+:func:`pipelined_grads_from_jax` the same for JAX's pipelined gradients.
 """
 
 from __future__ import annotations
@@ -387,3 +395,67 @@ def _convert(tree: Mapping[str, Any], want: Dict[str, tuple]
             raise ValueError(f"{name}: shape {arr.shape}, config wants {shape}")
         sd[name] = torch.from_numpy(np.array(arr))  # a writable copy
     return sd
+
+
+# the pp = 1 names of a pipelined tree's parts, by family: the embedding's
+# path, a layer's path, and the head's children's paths
+_PIPELINED_NAMES = {
+    "llama": ("model.embed", "model.layer_{}",
+              {"final_norm": "model.final_norm", "lm_head": "lm_head"}),
+    "gpt_neox": ("embed_in", "layer_{}",
+                 {"final_norm": "final_norm", "embed_out": "embed_out"}),
+}
+
+
+def _pipelined_flat(tree: Mapping[str, Any], layer_rows, layers, embed: bool,
+                    head: bool, family: str, tp: int, rank: int,
+                    kvr: int) -> Dict[str, np.ndarray]:
+    if family not in _PIPELINED_NAMES:
+        raise ValueError(f"unknown pipelined family {family!r} (one of "
+                         f"{sorted(_PIPELINED_NAMES)})")
+    embed_path, block_path, head_places = _PIPELINED_NAMES[family]
+    tree = tree.get("params", tree)
+    out: Dict[str, np.ndarray] = {}
+    if embed:
+        for k, v in _flatten(tree["embed"]).items():
+            out[f"{embed_path}.{k}"] = np.asarray(v)
+    stack = _flatten(tree["layers"])
+    for i in layers:
+        for k, v in stack.items():
+            out[f"{block_path.format(i)}.{k}"] = np.asarray(v)[layer_rows[i]]
+    if head:
+        for k, v in _flatten(tree["head"]).items():
+            child, rest = k.split(".", 1)
+            out[f"{head_places[child]}.{rest}"] = np.asarray(v)
+    return shard_params_for_rank(out, tp, rank, kvr)
+
+
+def pipelined_params_from_jax(tree: Mapping[str, Any], layer_rows,
+                              layers, *, embed: bool, head: bool,
+                              family: str = "llama", tp: int = 1,
+                              rank: int = 0, kvr: int = 1
+                              ) -> Dict[str, torch.Tensor]:
+    """One pipeline stage's ``state_dict`` from a JAX pipelined param tree
+    (``{embed, layers: [L', ...], head}``, leaves convertible to numpy):
+    real layer ``i`` of ``layers`` is row ``layer_rows[i]`` of the stack,
+    the embedding and the head are included when ``embed``/``head``, and
+    every name is the pp = 1 model's (``model.layer_2.attn...`` for
+    ``family="llama"``, ``layer_2...`` for ``"gpt_neox"``), cut for
+    tensor-parallel rank ``rank`` at degree ``tp`` and KV replication
+    ``kvr``.  ``layers=range(L)`` with both flags gives the whole pp = 1
+    model.  ``load_state_dict`` checks the names and shapes."""
+    flat = _pipelined_flat(tree, layer_rows, layers, embed, head, family, tp,
+                           rank, kvr)
+    return {k: torch.from_numpy(np.array(v)) for k, v in flat.items()}
+
+
+def pipelined_grads_from_jax(grads: Mapping[str, Any], layer_rows, layers,
+                             *, embed: bool, head: bool,
+                             family: str = "llama", tp: int = 1,
+                             rank: int = 0, kvr: int = 1
+                             ) -> Dict[str, np.ndarray]:
+    """JAX's pipelined gradients (the param tree's structure) under the
+    same names and cuts as :func:`pipelined_params_from_jax`, as numpy
+    arrays (the padded rows' zero gradients are dropped)."""
+    return _pipelined_flat(grads, layer_rows, layers, embed, head, family,
+                           tp, rank, kvr)

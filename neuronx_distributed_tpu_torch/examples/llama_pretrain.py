@@ -1,8 +1,8 @@
 """Llama pretraining launcher (counterpart of the JAX package's
-``examples/training/llama_pretrain.py``): tensor x sequence x data
-parallelism with ZeRO-1, checkpoints and resume, the native token
-loader (or synthetic data), packing, throughput and MFU, all through
-``fit()``.
+``examples/training/llama_pretrain.py``): tensor x sequence x pipeline x
+context x data parallelism with ZeRO-1, checkpoints and resume, the
+native token loader (or synthetic data), packing, throughput and MFU,
+all through ``fit()``.
 
 Run it as a module; it trains on the card unless ``--device cpu``::
 
@@ -15,8 +15,15 @@ Run it as a module; it trains on the card unless ``--device cpu``::
       --ckpt-dir ckpts --resume
 
 Past one rank, start one process a rank with ``torchrun`` (the world comes
-from its environment; the data-parallel degree is the world over ``--tp``).
-Every rank reads the same global batch, as ``make_train_step`` takes it.
+from its environment; the data-parallel degree is the world over ``--tp``
+x ``--pp`` x ``--cp``).  Every rank reads the same global batch, as
+``make_train_step`` takes it.  ``--pp 2 --microbatches 4`` trains two
+pipeline stages under 1F1B (``--pp-schedule gpipe | interleaved``,
+``--virtual-stages V`` with the interleaved schedule)::
+
+  torchrun --nproc-per-node 2 -m \\
+      neuronx_distributed_tpu_torch.examples.llama_pretrain --device cpu \\
+      --preset tiny --num-layers 4 --pp 2 --microbatches 4 --steps 20
 
 The loop stages batches 2 steps ahead on the device and reads each step's
 loss and grad norm one step late (``fit``'s ``prefetch=2`` and deferred
@@ -36,7 +43,6 @@ import torch
 # JAX flags whose feature the port does not have yet, by the ROADMAP item
 # that brings it
 DEFERRED_FLAGS = {
-    "pp": "the pipelined train step (ROADMAP A15)",
     "scan_layers": "a stacked layer scan: each port layer is its own module "
                    "(ROADMAP, \"not faults\")",
 }
@@ -54,7 +60,14 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="cuda (default; raises without a card) or cpu")
     p.add_argument("--tp", type=int, default=1, help="tensor parallel degree")
     p.add_argument("--pp", type=int, default=1,
-                   help="pipeline parallel degree (not ported: must be 1)")
+                   help="pipeline parallel degree")
+    p.add_argument("--microbatches", type=int, default=1,
+                   help="pipeline microbatches (pp > 1)")
+    p.add_argument("--pp-schedule", default="1f1b",
+                   choices=["1f1b", "gpipe", "interleaved"])
+    p.add_argument("--virtual-stages", type=int, default=1,
+                   help="interleaved virtual stages a pp rank (with "
+                        "--pp-schedule interleaved)")
     p.add_argument("--cp", type=int, default=1,
                    help="context parallel degree (ring attention)")
     p.add_argument("--scan-layers", action="store_true",
@@ -111,6 +124,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                 f"--{flag.replace('_', '-')} is not ported yet: {item}")
     if args.ckpt_on_signal and not args.ckpt_dir:
         p.error("--ckpt-on-signal requires --ckpt-dir")
+    if args.loss_chunk and args.pp > 1:
+        p.error("--loss-chunk has no effect with --pp > 1: the pipeline "
+                "engine owns the head+loss (its last stage computes per-"
+                "microbatch logits already bounded by the microbatch size)")
     if args.packed and not args.data:
         p.error("--packed requires --data (an eos-joined NXDT document "
                 "stream)")
@@ -221,12 +238,16 @@ def prepare(argv: Optional[Sequence[str]] = None) -> Tuple:
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world % (args.tp * args.pp * args.cp):
         raise ValueError(f"world size {world} is not a multiple of tp "
-                         f"{args.tp} x cp {args.cp}")
+                         f"{args.tp} x pp {args.pp} x cp {args.cp}")
     on_card = device.type == "cuda"
     config = training_config(
         tensor_parallel_size=args.tp, kv_size_multiplier=args.kv_multiplier,
-        context_parallel_size=args.cp,
-        data_parallel_size=world // (args.tp * args.cp), learning_rate=args.lr,
+        context_parallel_size=args.cp, pipeline_parallel_size=args.pp,
+        num_microbatches=args.microbatches, schedule=args.pp_schedule,
+        virtual_stages=args.virtual_stages,
+        packed_inputs=args.packed and args.pp > 1,
+        data_parallel_size=world // (args.tp * args.pp * args.cp),
+        learning_rate=args.lr,
         lr_schedule="cosine", warmup_steps=args.warmup_steps,
         total_steps=max(args.steps, args.warmup_steps + 1),
         zero_one_enabled=not args.no_zero1,

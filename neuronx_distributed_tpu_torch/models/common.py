@@ -1,6 +1,7 @@
 """Shared model-building blocks (counterpart of
 ``neuronx_distributed_tpu/models/common.py``): rematerialization, the
-causal-LM losses, the dense attention core and dropout.
+causal-LM losses, the dense attention core, dropout and the pipelined
+causal LM's wiring (:func:`build_pipelined_causal_lm`).
 
 A loss function here is ``loss_fn(model, batch, generator=None)`` -- the
 port's modules hold their own parameters, so the JAX ``(module, params,
@@ -33,7 +34,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Callable, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 from torch.utils.checkpoint import (
@@ -232,3 +233,69 @@ def dropout(x: torch.Tensor, rate: float,
                           device=x.device) < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
                                                         device=x.device))
+
+
+def build_pipelined_causal_lm(
+        *, make_embed: Callable, make_block: Callable, make_head: Callable,
+        embed_path: str, block_path: Callable[[int], str],
+        head_places: Dict[str, str], block_fn: Callable,
+        init_plan: Sequence, num_layers: int, hidden_size: int,
+        vocab_size: int, dtype: torch.dtype, remat: str,
+        sequence_parallel: bool, num_microbatches: int, seed: int = 0,
+        schedule: str = "1f1b", pipeline_cuts=None,
+        extra_keys: Sequence[str] = (), num_chunks: int = 1, device=None):
+    """Shared pipeline wiring for the causal-LM families (JAX
+    ``build_pipelined_causal_lm``): a family supplies its modules'
+    factories (``make_*(device)``) and their pp = 1 names (``embed_path``,
+    ``block_path(i)``, ``head_places``: the head module's children by
+    path), ``block_fn(block, x, extras, sp, seq_len) -> y`` (``extras``:
+    this microbatch's per-token arrays of ``extra_keys``, ``seq_len`` the
+    whole sequence's length) and its random-init order ``init_plan``;
+    this adds the vocab-parallel head loss, the remat policy per block,
+    the sequence-parallel activation layout (a stage boundary carries a
+    rank's sequence slice) and builds this rank's
+    :class:`..pipeline.engine.PipelinedModel` on ``device``."""
+    from neuronx_distributed_tpu_torch.parallel.mesh import (
+        ContextParallel,
+        TensorParallel,
+    )
+    from neuronx_distributed_tpu_torch.pipeline.engine import (
+        build_pipelined_model,
+    )
+    from neuronx_distributed_tpu_torch.utils.device import resolve_device
+
+    if ContextParallel.current().size > 1:
+        raise NotImplementedError(
+            "context parallelism inside a pipeline stage is not ported "
+            "(ROADMAP, \"Then\")")
+    tp = TensorParallel.current()
+
+    def run_fn(blocks, x, extras, sp):
+        S = x.shape[1] * (tp.size if sp else 1)
+        mode = remat if torch.is_grad_enabled() else "none"
+        for blk in blocks:
+            x = maybe_remat(
+                lambda h, *ex, b=blk: block_fn(b, h, ex, sp, S), mode)(
+                    x, *extras)
+        return x
+
+    def loss_fn(logits, labels):
+        per_tok = parallel_cross_entropy(logits, labels, tp=tp)
+        mask = (labels >= 0).float()
+        return (per_tok * mask).sum(), mask.sum()
+
+    parts: Dict[str, Any] = dict(
+        make_embed=make_embed, make_block=make_block, make_head=make_head,
+        embed_path=embed_path, block_path=block_path,
+        head_places=dict(head_places),
+        embed_fn=lambda embed, ids, sp: embed(ids, sp),
+        run_fn=run_fn, head_fn=lambda head, h, sp: head(h, sp),
+        loss_fn=loss_fn,
+        sp_active=lambda S: sequence_parallel_active(sequence_parallel, tp,
+                                                     S),
+        init_plan=list(init_plan), hidden_size=hidden_size,
+        vocab_size=vocab_size, dtype=dtype, tp=tp)
+    return build_pipelined_model(
+        parts, num_layers, num_microbatches, seed=seed, schedule=schedule,
+        pipeline_cuts=pipeline_cuts, extra_keys=extra_keys,
+        num_chunks=num_chunks, device=resolve_device(device))

@@ -18,8 +18,9 @@ gradients are on.  At tp > 1 each layer holds its shard (heads, MLP
 columns, vocab rows) and :meth:`GPTNeoXForCausalLM.gather_logits` joins the
 head's vocab slices; it trains there too.  ``sequence_parallel`` (JAX's
 default on) runs the residual stream and the LayerNorms on a rank's
-sequence slice (:func:`.common.sequence_parallel_active`); the pipelined
-build waits for A15.
+sequence slice (:func:`.common.sequence_parallel_active`).
+:func:`build_pipelined_gpt_neox` stages it for pipeline parallelism (the
+blocks run without dropout, as JAX's ``block_fn``).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from neuronx_distributed_tpu_torch.models.common import (
+    build_pipelined_causal_lm,
     dense_mha,
     maybe_remat,
     sequence_parallel_active,
@@ -49,10 +51,6 @@ from neuronx_distributed_tpu_torch.parallel.mappings import (
 from neuronx_distributed_tpu_torch.parallel.mesh import TensorParallel
 from neuronx_distributed_tpu_torch.parallel.norm import LayerNorm
 from neuronx_distributed_tpu_torch.utils.device import resolve_device
-
-PIPELINE_DEFERRED = ("the pipelined GPT-NeoX is not ported yet (ROADMAP A15, "
-                     "the pipeline engines)")
-
 
 @dataclasses.dataclass(frozen=True)
 class GPTNeoXConfig:
@@ -219,8 +217,16 @@ class GPTNeoXForCausalLM(nn.Module):
         return [getattr(self, f"layer_{i}")
                 for i in range(self.config.num_layers)]
 
-    def build_pipelined(self, *args, **kwargs):
-        raise NotImplementedError(PIPELINE_DEFERRED)
+    def build_pipelined(self, num_microbatches: int, schedule: str = "1f1b",
+                        seed: int = 0, pipeline_cuts=None,
+                        num_chunks: int = 1, device=None):
+        """The pipeline-capable-model protocol ``initialize_parallel_model``
+        calls at ``pipeline_parallel_size > 1``: this rank's
+        :func:`build_pipelined_gpt_neox` stage of this model's config."""
+        return build_pipelined_gpt_neox(
+            self.config, num_microbatches=num_microbatches, seed=seed,
+            schedule=schedule, pipeline_cuts=pipeline_cuts,
+            num_chunks=num_chunks, device=device)
 
     @torch.no_grad()
     def init_random(self, seed: int) -> "GPTNeoXForCausalLM":
@@ -276,5 +282,71 @@ class GPTNeoXForCausalLM(nn.Module):
         return gather_from_tensor_parallel_region(logits, self.tp.group)
 
 
-def build_pipelined_gpt_neox(*args, **kwargs):
-    raise NotImplementedError(PIPELINE_DEFERRED)
+class GPTNeoXHead(nn.Module):
+    """Final LayerNorm + vocab-parallel ``embed_out``, the pipeline's head
+    stage (JAX ``GPTNeoXHead``): ``forward(h, sp) -> logits`` (this rank's
+    vocab slice)."""
+
+    def __init__(self, cfg: GPTNeoXConfig, device=None):
+        super().__init__()
+        self.final_norm = _layer_norm(cfg, device)
+        self.embed_out = ColumnParallelLinear(
+            cfg.hidden_size, cfg.vocab_size, use_bias=False, dtype=cfg.dtype,
+            device=device, param_dtype=cfg.param_dtype)
+        self.tp = self.embed_out.tp
+
+    def forward(self, h, sp: bool = False):
+        h = self.final_norm(h)
+        if sp:
+            h = gather_from_sequence_parallel_region(h, 1, False,
+                                                     self.tp.group)
+        return self.embed_out(h)
+
+
+def _layer_norms_init(module: nn.Module) -> None:
+    for m in module.modules():
+        if isinstance(m, LayerNorm):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
+
+
+def build_pipelined_gpt_neox(cfg: GPTNeoXConfig, num_microbatches: int,
+                             seed: int = 0, schedule: str = "1f1b",
+                             pipeline_cuts=None, num_chunks: int = 1,
+                             device=None):
+    """This rank's :class:`..pipeline.engine.PipelinedModel` for pipelined
+    GPT-NeoX (JAX ``build_pipelined_gpt_neox``, the reference's 20B TP8 x
+    PP4 milestone topology): ``embed_in`` on the first stage, its
+    ``layer_i`` blocks, :class:`GPTNeoXHead` on the last, the pp = 1
+    model's weights from ``seed``."""
+
+    def block_fn(blk, x, extras, sp, S):
+        positions = torch.arange(S, device=x.device).expand(x.shape[0], S)
+        return blk(x, positions, sp)
+
+    def block_init(blk, g):
+        blk.attn.reset_parameters(g)
+        blk.mlp.reset_parameters(g)
+        _layer_norms_init(blk)
+
+    def head_init(head, g):
+        head.embed_out.reset_parameters(g)
+        _layer_norms_init(head)
+
+    plan = [("embed", lambda m, g: m.reset_parameters(g))]
+    plan += [(("layer", i), block_init) for i in range(cfg.num_layers)]
+    plan.append(("head", head_init))
+    return build_pipelined_causal_lm(
+        make_embed=lambda d: ParallelEmbedding(
+            cfg.vocab_size, cfg.hidden_size, cfg.dtype, d, cfg.param_dtype,
+            sequence_parallel_output=cfg.sequence_parallel),
+        make_block=lambda d: GPTNeoXBlock(cfg, d),
+        make_head=lambda d: GPTNeoXHead(cfg, d),
+        embed_path="embed_in", block_path="layer_{}".format,
+        head_places={"final_norm": "final_norm", "embed_out": "embed_out"},
+        block_fn=block_fn, init_plan=plan, num_layers=cfg.num_layers,
+        hidden_size=cfg.hidden_size, vocab_size=cfg.vocab_size,
+        dtype=cfg.dtype, remat=cfg.remat,
+        sequence_parallel=cfg.sequence_parallel,
+        num_microbatches=num_microbatches, seed=seed, schedule=schedule,
+        pipeline_cuts=pipeline_cuts, num_chunks=num_chunks, device=device)

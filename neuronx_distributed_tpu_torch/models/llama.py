@@ -39,6 +39,7 @@ from neuronx_distributed_tpu_torch.kvcache.quant import (
     quantize_page,
 )
 from neuronx_distributed_tpu_torch.models.common import (
+    build_pipelined_causal_lm,
     maybe_remat,
     sequence_parallel_active,
 )
@@ -750,6 +751,19 @@ class LlamaForCausalLM(nn.Module):
         logits = self.lm_head(h)
         return (logits, kv_caches) if kv_caches is not None else logits
 
+    def build_pipelined(self, num_microbatches: int, schedule: str = "1f1b",
+                        seed: int = 0, pipeline_cuts=None,
+                        packed: bool = False, num_chunks: int = 1,
+                        device=None):
+        """The pipeline-capable-model protocol ``initialize_parallel_model``
+        calls at ``pipeline_parallel_size > 1``: this rank's
+        :func:`build_pipelined_llama` stage of this model's config (the
+        model itself may live on the ``meta`` device)."""
+        return build_pipelined_llama(
+            self.config, num_microbatches=num_microbatches, seed=seed,
+            schedule=schedule, pipeline_cuts=pipeline_cuts, packed=packed,
+            num_chunks=num_chunks, device=device)
+
     def hidden(self, ids, positions=None, kv_valid=None, segment_ids=None):
         """Backbone only: final-norm hidden states ``[B, S, H]`` with the
         whole sequence (gathered back from sequence parallelism), the input
@@ -770,3 +784,102 @@ class LlamaForCausalLM(nn.Module):
         if self.tp.size == 1:
             return logits
         return gather_from_tensor_parallel_region(logits, self.tp.group)
+
+
+class LlamaHead(nn.Module):
+    """Final norm + vocab-parallel LM head, the pipeline's head stage (JAX
+    ``LlamaHead``): ``forward(h, sp) -> logits`` (this rank's vocab
+    slice), the sequence gathered back after the norm under sequence
+    parallelism.  A stage registers its children under the pp = 1 names
+    ``model.final_norm`` and ``lm_head``."""
+
+    def __init__(self, cfg: LlamaConfig, device=None):
+        super().__init__()
+        self.final_norm = norm(cfg, device)
+        self.lm_head = ColumnParallelLinear(
+            cfg.hidden_size, cfg.vocab_size, use_bias=False, dtype=cfg.dtype,
+            device=device, param_dtype=cfg.weight_dtype,
+            lora_rank=lora_rank_for(cfg, "lm_head"),
+            lora_alpha=cfg.lora_alpha)
+        self.tp = self.lm_head.tp
+
+    def forward(self, h, sp: bool = False):
+        h = self.final_norm(h)
+        if sp:
+            h = gather_from_sequence_parallel_region(h, 1, False,
+                                                     self.tp.group)
+        return self.lm_head(h)
+
+
+def _llama_init_plan(cfg: LlamaConfig) -> list:
+    """``LlamaForCausalLM.init_random``'s order as ``(part, reset)``
+    pairs (:meth:`..pipeline.engine.PipelineStage.init_random`)."""
+
+    def block(blk, g):
+        blk.attn.reset_parameters(g)
+        blk.mlp.reset_parameters(g)
+        nn.init.ones_(blk.input_norm.weight)
+        nn.init.ones_(blk.post_attn_norm.weight)
+
+    def head(h, g):
+        nn.init.ones_(h.final_norm.weight)
+        h.lm_head.reset_parameters(g)
+
+    plan = [("embed", lambda m, g: m.reset_parameters(g))]
+    plan += [(("layer", i), block) for i in range(cfg.num_layers)]
+    plan.append(("head", head))
+    if cfg.lora_rank:
+        # the adapters after the base, in module order
+        plan += [(("layer", i), reset_lora_parameters)
+                 for i in range(cfg.num_layers)]
+        plan.append(("head", reset_lora_parameters))
+    return plan
+
+
+def build_pipelined_llama(cfg: LlamaConfig, num_microbatches: int,
+                          seed: int = 0, schedule: str = "1f1b",
+                          pipeline_cuts=None, packed: bool = False,
+                          num_chunks: int = 1, device=None):
+    """This rank's :class:`..pipeline.engine.PipelinedModel` for pipelined
+    Llama training (JAX ``build_pipelined_llama``): the embedding on the
+    first stage, its layers (``layer_i`` blocks, the pp = 1 model's) and
+    :class:`LlamaHead` on the last, with the pp = 1 model's weights from
+    ``seed``.  ``packed``: the schedule functions take ``positions`` and
+    ``segment_ids`` after ``labels`` and thread them to every block (per-
+    document RoPE and segment masking, as at pp = 1); ``sliding_window``
+    comes from the config."""
+    if getattr(cfg, "num_experts", 1) > 1:
+        raise NotImplementedError(
+            "MoE under pipeline parallelism is not ported (ROADMAP, "
+            "\"Then\")")
+
+    def block_fn(blk, x, extras, sp, S):
+        if packed:
+            if len(extras) != 2:
+                raise TypeError(
+                    "packed pipelined model: the schedule functions take "
+                    "(ids, labels, positions, segment_ids)")
+            positions, segment_ids = extras
+        else:
+            positions = torch.arange(S, device=x.device).expand(
+                x.shape[0], S)
+            segment_ids = None
+        return blk(x, positions, None, 0, None, None, segment_ids, None,
+                   sp)[0]
+
+    return build_pipelined_causal_lm(
+        make_embed=lambda d: ParallelEmbedding(
+            cfg.vocab_size, cfg.hidden_size, cfg.dtype, d, cfg.weight_dtype,
+            sequence_parallel_output=cfg.sequence_parallel),
+        make_block=lambda d: LlamaBlock(cfg, d),
+        make_head=lambda d: LlamaHead(cfg, d),
+        embed_path="model.embed", block_path="model.layer_{}".format,
+        head_places={"final_norm": "model.final_norm", "lm_head": "lm_head"},
+        block_fn=block_fn, init_plan=_llama_init_plan(cfg),
+        num_layers=cfg.num_layers, hidden_size=cfg.hidden_size,
+        vocab_size=cfg.vocab_size, dtype=cfg.dtype, remat=cfg.remat,
+        sequence_parallel=cfg.sequence_parallel,
+        num_microbatches=num_microbatches, seed=seed, schedule=schedule,
+        pipeline_cuts=pipeline_cuts,
+        extra_keys=("positions", "segment_ids") if packed else (),
+        num_chunks=num_chunks, device=device)

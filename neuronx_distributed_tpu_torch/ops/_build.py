@@ -5,9 +5,12 @@ library with a plain C interface, at first use, into ``_build/`` beside the
 package (listed in ``.gitignore``), and loaded with ``ctypes``.  The library
 name carries a hash of the source and of the ``csrc`` headers it includes
 (followed through headers that include others), so an edited kernel
-rebuilds and a stale library is never loaded.
-:func:`build_all` starts one ``nvcc`` per source at once.  Nothing here
-runs at import time.
+rebuilds and a stale library is never loaded.  A source listed in
+:data:`PARTS` is compiled as several objects, one ``nvcc -c`` per part
+(a macro on its command line picks the part), which are then linked into
+its one library.
+:func:`build_all` starts one ``nvcc`` per source, or per part, at once.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -27,7 +30,17 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# sources compiled in parts, side by side, then linked: the flash
+# libraries one part per kernel (FLASH_PART in flash_attention.cuh), since
+# cicc runs minutes on one core for the three of them together, and the
+# paged library one part per route
+_FLASH_PARTS = ("-DFLASH_PART=1", "-DFLASH_PART=2", "-DFLASH_PART=3")
+PARTS = {"flash_attention": _FLASH_PARTS,
+         "flash_attention_d256": _FLASH_PARTS,
+         # one part per route (PAGED_PART in paged_attention.cu)
+         "paged_attention": ("-DPAGED_PART=1", "-DPAGED_PART=2",
+                             "-DPAGED_PART=3")}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -118,10 +131,11 @@ def _includes(path: str, seen: set) -> bytes:
 
 def _source(name: str, csrc: str = CSRC) -> Tuple[str, str]:
     """The source's path and a hash of it, of the ``csrc`` headers it
-    includes (transitively) and of the flags."""
+    includes (transitively), of the flags and of its parts."""
     path = os.path.join(csrc, f"{name}.cu")
     digest = hashlib.sha256(_includes(path, set())
-                            + " ".join(NVCC_FLAGS).encode())
+                            + " ".join(NVCC_FLAGS).encode()
+                            + " ".join(PARTS.get(name, ())).encode())
     return path, digest.hexdigest()[:16]
 
 
@@ -129,8 +143,9 @@ def _log_path(lib: str) -> str:
     return lib[:-len(".so")] + ".log"
 
 
-def _start(name: str):
-    """``(library path, running nvcc or None when already built)``."""
+def _start(name: str, nice: int = 0):
+    """``(library path, running nvcc or None when already built)``; its
+    ``nvcc`` run ``nice`` steps below this process's priority."""
     src, digest = _source(name)
     os.makedirs(BUILD_DIR, exist_ok=True)
     lib = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
@@ -142,28 +157,66 @@ def _start(name: str):
         return lib, None
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    proc = subprocess.Popen([find_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
-    return lib, (proc, tmp, src)
+    parts = PARTS.get(name)
+    if parts is None:
+        objs = []
+        procs = [_nvcc([*NVCC_FLAGS, "-shared", "-o", tmp, src])]
+    else:
+        objs = [f"{tmp[:-len('.so')]}.part{i}.o" for i in range(len(parts))]
+        procs = [_nvcc([*NVCC_FLAGS, "-c", flag, "-o", obj, src])
+                 for flag, obj in zip(parts, objs)]
+    for p in procs if nice else ():
+        try:   # the compilers nvcc starts from here on inherit it
+            os.setpriority(os.PRIO_PROCESS, p.pid,
+                           os.getpriority(os.PRIO_PROCESS, 0) + nice)
+        except OSError:
+            pass
+    return lib, (procs, objs, tmp, src)
+
+
+def _nvcc(args) -> subprocess.Popen:
+    return subprocess.Popen([find_nvcc(), *args], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _wait(proc: subprocess.Popen, what: str) -> str:
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed on {what} (rc {proc.returncode}):\n{out}")
+    return out.strip()
+
+
+def _discard(job) -> None:
+    """Stop a build's ``nvcc`` still running and remove its files."""
+    procs, objs, tmp, _ = job
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    for path in [tmp, *objs]:
+        if os.path.exists(path):
+            os.remove(path)
 
 
 def _finish(name: str, lib: str, job) -> str:
     if job is None:
         return lib
-    proc, tmp, src = job
+    procs, objs, tmp, src = job
     try:
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed on {src} (rc {proc.returncode}):\n{out}")
+        parts = PARTS.get(name, (None,))
+        outs = [_wait(p, f"{src} {part or ''}".strip())
+                for p, part in zip(procs, parts)]
+        if objs:
+            _wait(_nvcc([*NVCC_FLAGS, "-shared", "-o", tmp, *objs]),
+                  f"the link of {name}")
+        out = "\n".join(outs)
         with open(_log_path(lib), "w") as f:  # the report of a cached build
-            f.write(out.strip())
+            f.write(out)
         os.replace(tmp, lib)  # atomic: a reader never sees a partial file
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    build_logs[name] = out.strip()
+    finally:   # a failed part's siblings are not left running
+        _discard(job)
+    build_logs[name] = out
     return lib
 
 
@@ -174,13 +227,42 @@ def build(name: str) -> str:
     return _finish(name, *_start(name))
 
 
+def start_all(names=None, background=()) -> Dict[str, tuple]:
+    """Start the build of every library in ``names`` (default: all of
+    :data:`SIGNATURES`), one ``nvcc`` per source or part, all at once, and
+    return at once; :func:`finish_all` waits for them.  The libraries in
+    ``background`` build at a lower CPU priority, so the others, and this
+    process's own work, come first."""
+    names = list(SIGNATURES) if names is None else list(names)
+    return {name: _start(name, nice=10 if name in background else 0)
+            for name in names}
+
+
+def finish_all(jobs: Dict[str, tuple], names=None) -> Dict[str, str]:
+    """Wait for the builds of ``names`` (default: every one) that
+    :func:`start_all` started, removing them from ``jobs``; returns their
+    paths.  When one fails, every build left in ``jobs`` is stopped."""
+    names = list(jobs) if names is None else list(names)
+    try:
+        return {name: _finish(name, *jobs.pop(name)) for name in names}
+    except BaseException:
+        stop_all(jobs)
+        raise
+
+
+def stop_all(jobs: Dict[str, tuple]) -> None:
+    """Stop every build still in ``jobs`` and remove its files."""
+    for _, job in jobs.values():
+        if job is not None:
+            _discard(job)
+    jobs.clear()
+
+
 def build_all(names=None) -> Dict[str, str]:
     """Build every library in ``names`` (default: all of
-    :data:`SIGNATURES`), one ``nvcc`` per source, all started together;
-    returns their paths."""
-    names = list(SIGNATURES) if names is None else list(names)
-    jobs = {name: _start(name) for name in names}
-    return {name: _finish(name, *jobs[name]) for name in names}
+    :data:`SIGNATURES`), one ``nvcc`` per source or part, all started
+    together; returns their paths."""
+    return finish_all(start_all(names))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,8 +1,12 @@
 // Flash-attention forward, dq and dk/dv kernels for Hopper (sm_90a), plain C
 // interface.  This header holds the kernels; each library source defines
 // FLASH_HEAD_DIMS (the head dims it instantiates) and includes it:
-// flash_attention.cu builds D = 64 and 128, flash_attention_d256.cu D = 256,
-// so the two nvcc runs go in parallel.
+// flash_attention.cu builds D = 64 and 128, flash_attention_d256.cu D = 256.
+// FLASH_PART (1 forward, 2 dq, 3 dk/dv; unset: all three), given on the
+// nvcc command line, limits a translation unit to one kernel's entry point:
+// ops/_build.py compiles the three parts of each library side by side
+// (cicc takes minutes on one core for all of them) and links them into
+// the one library.
 //
 // Replaces the three TPU kernels of neuronx_distributed_tpu/ops/
 // flash_attention.py: _fwd_kernel (B1, pallas_call in _fwd_impl),
@@ -105,6 +109,9 @@
 
 #ifndef FLASH_HEAD_DIMS
 #error "define FLASH_HEAD_DIMS (the head dims to instantiate) before including"
+#endif
+#ifndef FLASH_PART
+#define FLASH_PART 0
 #endif
 
 #include <cuda_runtime.h>
@@ -1890,17 +1897,24 @@ int dispatch(const FlashParams* p, void* stream) {
 // (the wgmma kernels), 999 when the driver has no tensor-map encoder and
 // 1000 + the CUresult when it refuses a map.  Pointers and every (b, h, s)
 // stride must be 16-byte aligned.
+#if FLASH_PART == 0 || FLASH_PART == 1
 extern "C" int flash_attention_fwd(const FlashParams* p, void* stream) {
   return dispatch<FWD, FLASH_HEAD_DIMS>(p, stream);
 }
+#endif
+#if FLASH_PART == 0 || FLASH_PART == 2
 extern "C" int flash_attention_dq(const FlashParams* p, void* stream) {
   return dispatch<DQ, FLASH_HEAD_DIMS>(p, stream);
 }
+#endif
+#if FLASH_PART == 0 || FLASH_PART == 3
 extern "C" int flash_attention_dkv(const FlashParams* p, void* stream) {
   return dispatch<DKV, FLASH_HEAD_DIMS>(p, stream);
 }
+#endif
 // sizeof(FlashParams), checked by the Python binding against its ctypes
 // mirror before the first launch
+#if FLASH_PART == 0 || FLASH_PART == 1
 extern "C" int flash_params_size() { return (int)sizeof(FlashParams); }
 // dynamic shared memory of the bf16 (wgmma) kernel `which` (0 forward, 1
 // dq, 2 dk/dv) at head dim D (-1 for a D this library was not built with)
@@ -1917,3 +1931,4 @@ int wgmma_smem_bytes(int which, int D) {
 extern "C" int flash_wgmma_smem_bytes(int which, int D) {
   return wgmma_smem_bytes<FLASH_HEAD_DIMS>(which, D);
 }
+#endif

@@ -54,6 +54,14 @@
 // split_k > 1 writes unnormalised fp32 partials acc [B, NKV, sk, G*S, D],
 // m and l [B, NKV, sk, G*S] to a workspace, and a second kernel merges them
 // by logsumexp weight into out (the TPU kernel's epilogue, :407-420).
+//
+// PAGED_PART (1 the simt route, 2 the wgmma route, 3 the decode route;
+// unset: all three), given on the nvcc command line, limits a translation
+// unit to one route's entry points: ops/_build.py compiles the three parts
+// side by side and links them into the one library.
+#ifndef PAGED_PART
+#define PAGED_PART 0
+#endif
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -543,6 +551,7 @@ int decode_max_clusters(int G, int split_k) {
 // mean "none".  Returns cudaGetLastError() after the launches (0 =
 // launched), or -1 for an argument the kernel does not take.  Pages must
 // be 16-byte aligned.
+#if PAGED_PART == 0 || PAGED_PART == 1
 extern "C" int paged_attention_fwd(
     int dtype, int quant, const void* q, const void* k, const void* v,
     const void* k_scale, const void* k_zero, const void* v_scale,
@@ -581,11 +590,13 @@ extern "C" int paged_attention_fwd(
         PP, sm_scale, window, softcap, split_k, s);
   return -1;
 }
+#endif
 
 // The multi-row route (paged_attention_wgmma_kernel): q and out bf16, the
 // pool bf16 (quant 0) or int8 with page params (quant 1); every other
 // argument as paged_attention_fwd's.  Returns cudaGetLastError() after the
 // launches, or -1 for an argument the kernel does not take.
+#if PAGED_PART == 0 || PAGED_PART == 2
 extern "C" int paged_attention_wgmma_fwd(
     int quant, const void* q, const void* k, const void* v,
     const void* k_scale, const void* k_zero, const void* v_scale,
@@ -621,9 +632,11 @@ extern "C" int paged_attention_wgmma_fwd(
 #undef PAGED_WGMMA
   return -1;
 }
+#endif
 
 // dynamic shared memory of paged_attention_wgmma_kernel at head dim D over
 // a bf16 (quant 0) or int8 (quant 1) pool; -1 for a D it is not built for
+#if PAGED_PART == 0 || PAGED_PART == 2
 extern "C" int paged_wgmma_smem_bytes(int D, int quant) {
   if (D == 64) return quant ? (int)paged_wgmma::Cfg<64, true>::bytes
                             : (int)paged_wgmma::Cfg<64, false>::bytes;
@@ -633,6 +646,7 @@ extern "C" int paged_wgmma_smem_bytes(int D, int quant) {
                              : (int)paged_wgmma::Cfg<256, false>::bytes;
   return -1;
 }
+#endif
 
 // The decode route (paged_attention_decode_kernel): q and out bf16 at S = 1
 // with at most paged_decode::MAX_G q heads a kv head, the pool bf16 (quant
@@ -640,6 +654,7 @@ extern "C" int paged_wgmma_smem_bytes(int D, int quant) {
 // used only when split_k exceeds a cluster (8); every other argument as
 // paged_attention_fwd's.  Returns cudaGetLastError() after the launches, or
 // -1 for an argument the kernel does not take.
+#if PAGED_PART == 0 || PAGED_PART == 3
 extern "C" int paged_attention_decode_fwd(
     int quant, const void* q, const void* k, const void* v,
     const void* k_scale, const void* k_zero, const void* v_scale,
@@ -678,9 +693,11 @@ extern "C" int paged_attention_decode_fwd(
 #undef PAGED_DECODE
   return -1;
 }
+#endif
 
 // dynamic shared memory of paged_attention_decode_kernel at head dim D over
 // a bf16 (quant 0) or int8 (quant 1) pool; -1 for a D it is not built for
+#if PAGED_PART == 0 || PAGED_PART == 3
 extern "C" int paged_decode_smem_bytes(int D, int quant) {
   if (D == 64) return quant ? paged_decode::Cfg<64, true>::bytes
                             : paged_decode::Cfg<64, false>::bytes;
@@ -690,10 +707,12 @@ extern "C" int paged_decode_smem_bytes(int D, int quant) {
                              : paged_decode::Cfg<256, false>::bytes;
   return -1;
 }
+#endif
 
 // clusters of split_k (2..8) decode blocks at head dim D over a bf16
 // (quant 0) or int8 (quant 1) pool with G q heads a kv head that the card
 // holds at once; -1 for arguments it does not take, -(CUDA error) else
+#if PAGED_PART == 0 || PAGED_PART == 3
 extern "C" int paged_decode_max_clusters(int D, int quant, int G,
                                          int split_k) {
   if (G < 1 || G > paged_decode::MAX_G || split_k < 2 ||
@@ -707,3 +726,4 @@ extern "C" int paged_decode_max_clusters(int D, int quant, int G,
                              : decode_max_clusters<256, false>(G, split_k);
   return -1;
 }
+#endif

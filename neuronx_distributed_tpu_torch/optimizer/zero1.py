@@ -13,6 +13,9 @@ gradient, runs AdamW over its state shards (fp32, the same elementwise
 update as the replicated optimizer: ``optimizer.adamw_fp32``), and the
 updated slices are all-gathered back into the parameters.
 
+At pp > 1 the same runs inside each stage: a stage's parameters, sliced
+over its data-parallel group.
+
 The eligible dim of a local shard is the first whose size divides dp
 (:func:`zero1_dim`): the dim JAX picks, since the shard's size is the
 full size over the existing sharding.  Within that dim the port's slices

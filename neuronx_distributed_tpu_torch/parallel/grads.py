@@ -12,7 +12,10 @@ kvr rank 0.  Under ZeRO-1 (``dp_sliced``) a gradient that is this rank's
 slice over dp is summed over dp as well; the others count on dp rank 0.
 Gradients are whole over cp (the trainer sums them there), so only cp
 rank 0 counts them.  Each rank adds only the gradients it owns and one
-all-reduce over the world gives every rank the global norm (pp = 1).
+all-reduce over the world gives every rank the global norm.  At pp > 1
+each stage's parameters are distinct (the embedding and the head live on
+one stage each, not replicated along pp), so every stage counts its own
+and the world's sum runs over the pp ranks too.
 
 The reductions the reference does by hand and GSPMD derives:
 :func:`allreduce_sequence_parallel_gradients` (replicated parameters

@@ -30,7 +30,10 @@ two-card measurement (ROADMAP A9a).
 
 Context parallelism passes blocks around its ring (:func:`exchange`:
 point-to-point sends and receives) and re-shards sequence and heads
-(:func:`all_to_all`, its own conjugate).  Neither has a CUDA path under
+(:func:`all_to_all`, its own conjugate).  Pipeline stages pass
+activations forward and their gradients back (:func:`stage_exchange`:
+one batch of tagged sends and receives whose receives are waited one by
+one, when their data is needed).  None of these has a CUDA path under
 gloo, so there they are staged through host memory over the group's gloo
 twin.
 
@@ -45,7 +48,7 @@ from __future__ import annotations
 
 import collections
 import time
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -218,6 +221,55 @@ def exchange(tensors: Sequence[torch.Tensor], send_to: Optional[int],
     COUNTS[kind] += 1
     return Pending(works, received, device, kind,
                    time.perf_counter() - t0)
+
+
+def stage_exchange(sends: Sequence[tuple], recvs: Sequence[tuple], group,
+                   cpu_group=None) -> Tuple[List[Pending], List[Pending]]:
+    """Post one batch of stage-to-stage transfers over ``group`` and return
+    at once: ``sends`` ``[(tensor, dst, tag, kind)]`` and ``recvs``
+    ``[(shape, dtype, device, src, tag, kind)]`` (``dst``/``src`` global
+    ranks; a receive matches the send of the same tag).  The receives are
+    posted before the sends (the reference's receive-before-send rule),
+    all in one ``batch_isend_irecv``.  Returns ``(receives, sends)``, one
+    :class:`Pending` each: a receive's :meth:`Pending.wait` gives ``[the
+    tensor]`` on its device.  Each transfer counts one call and its bytes
+    under its ``kind``; a receive's seconds are the time spent waiting
+    for it, a send's the time to post it (its host copy under gloo).
+    Under gloo, CUDA tensors are staged through host memory over
+    ``cpu_group``."""
+    ops, meta = [], []
+    for shape, dtype, device, src, tag, kind in recvs:
+        t0 = time.perf_counter()
+        stage = torch.device(device).type == "cuda" and \
+            dist.get_backend(group) == "gloo"
+        g = (cpu_group or group) if stage else group
+        buf = torch.empty(tuple(shape), dtype=dtype,
+                          device="cpu" if stage else device)
+        ops.append(dist.P2POp(dist.irecv, buf, src, g, tag))
+        meta.append(("recv", buf, device, kind, time.perf_counter() - t0))
+        COUNTS[kind] += 1
+        BYTES[kind] += _nbytes(buf)
+    for t, dst, tag, kind in sends:
+        t0 = time.perf_counter()
+        stage = _staged(t, group)
+        g = (cpu_group or group) if stage else group
+        t = t.detach().contiguous()
+        t = t.cpu() if stage else t
+        ops.append(dist.P2POp(dist.isend, t, dst, g, tag))
+        meta.append(("send", t, t.device, kind, time.perf_counter() - t0))
+        COUNTS[kind] += 1
+        BYTES[kind] += _nbytes(t)
+    works = dist.batch_isend_irecv(ops) if ops else []
+    received, sent = [], []
+    for w, (what, buf, device, kind, t_post) in zip(works, meta):
+        if what == "recv":
+            received.append(Pending([w], [buf], device, kind, t_post))
+        else:
+            # the send's buffer stays referenced until its wait
+            p = Pending([w], [], device, kind, t_post)
+            p.buffer = buf
+            sent.append(p)
+    return received, sent
 
 
 def _all_to_all(x: torch.Tensor, group, cpu_group) -> torch.Tensor:

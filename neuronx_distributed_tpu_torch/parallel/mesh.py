@@ -18,7 +18,9 @@ gloo default): the serving engine agrees on host decisions over it, which
 works on CPU tensors whatever the device backend.  The context-parallel
 group has one too, over which ring attention stages the blocks it passes
 when the device backend cannot send them (:class:`ContextParallel`, with
-the ring's next and previous ranks).
+the ring's next and previous ranks), and so has the pipeline-parallel
+group, over which a stage stages the activations and gradients it sends
+its neighbours (:class:`PipelineParallel`).
 
 ``named_sharding``, ``mesh_context``, ``strip_axes_from_spec`` and
 ``ambient_manual_axes`` are GSPMD machinery (placing arrays on a mesh,
@@ -141,6 +143,7 @@ class _State:
         self.ranks: Dict[Tuple[str, ...], List[int]] = {}
         self.tp_cpu_group = None
         self.cp_cpu_group = None
+        self.pp_cpu_group = None
         self.owned: list = []
 
 
@@ -188,9 +191,11 @@ def initialize_model_parallel(tensor_parallel_size: int = 1,
                 state.ranks[key] = line
     state.tp_cpu_group = state.groups.get(TENSOR_AXES)
     state.cp_cpu_group = state.groups.get((CONTEXT_AXIS,))
+    state.pp_cpu_group = state.groups.get((PIPELINE_AXIS,))
     if in_world and not gloo:
         for axes, attr in ((TENSOR_AXES, "tp_cpu_group"),
-                           ((CONTEXT_AXIS,), "cp_cpu_group")):
+                           ((CONTEXT_AXIS,), "cp_cpu_group"),
+                           ((PIPELINE_AXIS,), "pp_cpu_group")):
             for line in axis_lines(layout, axes):
                 group = dist.new_group(line, backend="gloo", timeout=timeout)
                 state.owned.append(group)
@@ -285,6 +290,23 @@ def get_pipeline_parallel_rank() -> int:
 
 def get_pipeline_parallel_group():
     return get_group(PIPELINE_AXIS)
+
+
+def get_pipeline_parallel_cpu_group():
+    """The gloo group over this rank's pipeline-parallel ranks; None
+    outside a world."""
+    return _STATE.pp_cpu_group
+
+
+def get_pipeline_parallel_neighbors() -> Tuple[int, int]:
+    """``(next, previous)``: the global ranks of the stages after and
+    before this one (a ring: the last stage's next is stage 0, as the
+    interleaved schedule's chunk wrap needs; itself at pp = 1)."""
+    if _STATE.config is None:
+        return 0, 0
+    line = _STATE.ranks[(PIPELINE_AXIS,)]
+    i = line.index(_STATE.rank)
+    return line[(i + 1) % len(line)], line[(i - 1) % len(line)]
 
 
 def get_data_parallel_size() -> int:
@@ -418,3 +440,41 @@ class ContextParallel:
 
     def __repr__(self) -> str:
         return f"ContextParallel(size={self.size}, rank={self.rank})"
+
+
+class PipelineParallel:
+    """The pipeline-parallel context a stage runs in: ``size`` (the number
+    of stages), ``rank`` (this rank's stage), ``group``, its gloo twin
+    ``cpu_group``, the global ranks ``next``/``prev`` of the neighbouring
+    stages (a ring) and ``last``, the global rank of the last stage (size
+    1 and no groups before initialization)."""
+
+    def __init__(self, size: int = 1, rank: int = 0, group=None,
+                 cpu_group=None, next: int = 0, prev: int = 0,
+                 last: int = 0):
+        self.size, self.rank, self.group = size, rank, group
+        self.cpu_group, self.next, self.prev = cpu_group, next, prev
+        self.last = last
+
+    @staticmethod
+    def current() -> "PipelineParallel":
+        if not model_parallel_is_initialized() or \
+                get_pipeline_parallel_size() == 1:
+            return PipelineParallel()
+        return PipelineParallel(get_pipeline_parallel_size(),
+                                get_pipeline_parallel_rank(),
+                                get_pipeline_parallel_group(),
+                                get_pipeline_parallel_cpu_group(),
+                                *get_pipeline_parallel_neighbors(),
+                                get_group_ranks(PIPELINE_AXIS)[-1])
+
+    @property
+    def is_first(self) -> bool:
+        return self.rank == 0
+
+    @property
+    def is_last(self) -> bool:
+        return self.rank == self.size - 1
+
+    def __repr__(self) -> str:
+        return f"PipelineParallel(size={self.size}, rank={self.rank})"

@@ -31,6 +31,7 @@ from neuronx_distributed_tpu_torch.trainer.trainer import (
     initialize_parallel_model,
     initialize_parallel_optimizer,
     make_eval_step,
+    make_pipelined_train_step,
     make_train_step,
 )
 
@@ -50,6 +51,7 @@ __all__ = [
     "initialize_parallel_optimizer",
     "load_checkpoint",
     "make_eval_step",
+    "make_pipelined_train_step",
     "make_train_step",
     "mfu",
     "model_shards",

@@ -18,7 +18,10 @@ the same contract:
 - :func:`load_checkpoint` re-shards to the live layout: the template's
   leaves say which box each rank wants, and it is assembled from every
   stored piece that overlaps it (memory-mapped reads), whatever the mesh
-  that wrote it.  Leaves come back at the template's dtype and device;
+  that wrote it.  Leaves come back at the template's dtype and device.
+  A pipeline stage's tree holds only its own parameters, under the pp = 1
+  model's names, so the index joins the stages' names and any pp degree
+  loads any other's checkpoint;
 - ``save_dtype`` downcasts the model payload's floating leaves only;
 - ``async_save=True`` returns once the tensors are copied to host memory;
   the files are written on background threads and the save is finalised

@@ -23,6 +23,14 @@ the device-prefetch pipeline, deferred metrics and the telemetry hub.
   raises.  The deferred loop's losses equal the synchronous loop's.
 - **The update count lives in the optimizer**, and is checkpointed with
   it, so the LR schedule continues exactly on resume.
+- **A pipelined model trains the same way.**  A
+  :class:`~..pipeline.engine.PipelinedModel` (``initialize_parallel_model``
+  at pp > 1) runs its schedule's step and eval; each stage saves its own
+  pieces under the pp = 1 model's parameter names, so a checkpoint written
+  at pp = 2 resumes at pp = 2 and loads at pp = 1, and the reverse
+  (:mod:`.checkpoint`'s re-shard on load).  ``transfer_guard="forbid"``
+  on the card needs the stages' transfers off the host (NCCL): under gloo
+  they are staged through host memory, a synchronizing copy.
 """
 
 from __future__ import annotations
@@ -39,6 +47,11 @@ import torch
 from neuronx_distributed_tpu_torch.config import TrainingConfig
 from neuronx_distributed_tpu_torch.models.common import seeded_generator
 from neuronx_distributed_tpu_torch.obs.transfer_audit import TransferAudit
+from neuronx_distributed_tpu_torch.parallel import mesh
+from neuronx_distributed_tpu_torch.pipeline.engine import PipelinedModel
+from neuronx_distributed_tpu_torch.pipeline.scheduler import (
+    export_schedule_metrics,
+)
 from neuronx_distributed_tpu_torch.resilience.faults import fault_point, perturb
 from neuronx_distributed_tpu_torch.trainer.checkpoint import (
     load_checkpoint,
@@ -172,8 +185,9 @@ def fit(
     defer_metrics: "bool | str" = "auto",
     transfer_guard: str = "off",
 ) -> FitResult:
-    """Run the training loop over a ``ParallelModel`` and
-    ``ParallelOptimizer`` (both updated in place).
+    """Run the training loop over a ``ParallelModel`` (or a
+    ``PipelinedModel``) and ``ParallelOptimizer`` (both updated in
+    place).
 
     Args:
       data: ``data(step) -> batch`` (exact resume for free) or an iterable
@@ -272,6 +286,11 @@ def fit(
 
         obs_rt = obs if isinstance(obs, Observability) else Observability(
             str(obs), timeline=timeline)
+    if obs_rt is not None and isinstance(model, PipelinedModel):
+        # the host-driven executor runs the eager schedule: its bubble
+        export_schedule_metrics(
+            obs_rt.registry, model.num_microbatches,
+            mesh.get_pipeline_parallel_size(), "eager", model.num_chunks)
     compile_led = getattr(obs_rt, "compile_ledger", None)
     memory_led = getattr(obs_rt, "memory_ledger", None)
     perf_rt = getattr(obs_rt, "perf", None)

@@ -16,8 +16,12 @@ shards over dp only) and the global norm for clipping.  ``fsdp=True``
 cuts the parameters themselves over dp (:mod:`..parallel.fsdp`: gathered
 before each use, their gradients reduce-scattered in backward).
 ``initialize_parallel_optimizer(trainable=)`` freezes the parameters its
-predicate rejects (PEFT: ``peft.lora_trainable``).  Pipeline (A15) and
-expert ("Then") parallelism are not ported yet and raise.
+predicate rejects (PEFT: ``peft.lora_trainable``).  At pipeline degree >
+1 the model is a :class:`..pipeline.engine.PipelinedModel` (this rank's
+stage, from the module's ``build_pipelined``) and the step runs its
+schedule (:func:`make_pipelined_train_step`): the gradient sums over tp,
+dp (ZeRO-1 inside a stage) and the norm over every stage are the same
+code.  Expert parallelism ("Then") is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ from neuronx_distributed_tpu_torch.parallel.grads import (
     get_grad_norm,
     psum_over_data_parallel,
 )
+from neuronx_distributed_tpu_torch.pipeline.engine import PipelinedModel
 from neuronx_distributed_tpu_torch.utils import distributed
 from neuronx_distributed_tpu_torch.utils.device import resolve_device
 from neuronx_distributed_tpu_torch.utils.logger import get_logger
@@ -57,7 +62,6 @@ logger = get_logger(__name__)
 # the degrees the trainer does not take yet, by the ROADMAP item that
 # lifts each refusal
 DEFERRED_DEGREES = {
-    "pipeline_parallel_size": "the pipelined train step (ROADMAP A15)",
     "expert_parallel_size": "expert parallelism, with MoE (ROADMAP, "
                             "\"Then\")",
 }
@@ -117,6 +121,7 @@ def _initialize_parallel_state(config: TrainingConfig, device) -> None:
     m = config.mesh
     wants_world = (m.tensor_parallel_size > 1 or m.kv_size_multiplier > 1
                    or m.context_parallel_size > 1
+                   or m.pipeline_parallel_size > 1
                    or (m.data_parallel_size or 1) > 1)
     if not (wants_world or dist.is_initialized()):
         return
@@ -167,7 +172,8 @@ def _align_module_with_config(module: nn.Module, config: TrainingConfig,
 def initialize_parallel_model(config: TrainingConfig,
                               model_fn: Callable[[torch.device], nn.Module],
                               seed: Optional[int] = None,
-                              device=None) -> ParallelModel:
+                              device=None
+                              ) -> Union[ParallelModel, PipelinedModel]:
     """Build the model with ``model_fn(device)`` on ``device`` (default
     CUDA; raises without it unless ``device="cpu"``), rebuild it if its
     config disagrees with ``config`` on dtypes or remat, and initialise its
@@ -177,12 +183,21 @@ def initialize_parallel_model(config: TrainingConfig,
     then cut over dp (:func:`..parallel.fsdp.shard_module`; load weights
     afterwards through ``convert.fsdp_shard_for_rank``).  The parallel
     state comes from ``config.mesh`` when none is live (the world from the
-    ``torchrun`` environment).  Raises ``NotImplementedError`` for
-    pipeline or expert degrees above 1, and ``ValueError`` for ``fsdp``
-    with a pipeline."""
+    ``torchrun`` environment).
+
+    At ``pipeline_parallel_size > 1`` the model is built on the ``meta``
+    device (no memory) and its ``build_pipelined(num_microbatches,
+    schedule, seed, [pipeline_cuts], [packed], [num_chunks], device)``
+    gives this rank's :class:`..pipeline.engine.PipelinedModel` (the
+    Llama and GPT-NeoX families have it) from ``config.pipeline``: its
+    stage holds the pp = 1 model's weights from ``seed`` for its pieces.
+    Raises ``NotImplementedError`` for an expert degree above 1, and
+    ``ValueError`` for ``fsdp`` with a pipeline."""
     _check_degrees(config)
     dev = resolve_device(device)
     _initialize_parallel_state(config, dev)
+    if config.mesh.pipeline_parallel_size > 1:
+        return _initialize_pipelined_model(config, model_fn, seed, dev)
     module = _align_module_with_config(model_fn(dev), config, dev)
     if hasattr(module, "init_random"):
         module.init_random(config.seed if seed is None else seed)
@@ -194,6 +209,38 @@ def initialize_parallel_model(config: TrainingConfig,
     model = ParallelModel(module=module, device=dev)
     logger.info("initialized model: %.2fM params on %s",
                 model.num_parameters() / 1e6, dev)
+    return model
+
+
+def _initialize_pipelined_model(config: TrainingConfig, model_fn,
+                                seed: Optional[int], dev) -> PipelinedModel:
+    meta = torch.device("meta")
+    module = _align_module_with_config(model_fn(meta), config, meta)
+    build = getattr(module, "build_pipelined", None)
+    if build is None:
+        raise ValueError(
+            f"pipeline_parallel_size={config.mesh.pipeline_parallel_size} "
+            f"but {type(module).__name__} has no build_pipelined(); use a "
+            "pipeline-capable model family or pp=1")
+    pc = config.pipeline
+    extra = {}
+    if pc.pipeline_cuts is not None:
+        extra["pipeline_cuts"] = pc.pipeline_cuts
+    if pc.packed_inputs:
+        extra["packed"] = True
+    if pc.virtual_stages > 1 or pc.schedule == "interleaved":
+        extra["num_chunks"] = pc.virtual_stages
+    model = build(num_microbatches=pc.num_microbatches,
+                    schedule=pc.schedule,
+                    seed=config.seed if seed is None else seed, device=dev,
+                    **extra)
+    model.module.train()
+    logger.info("initialized pipelined stage %d of %d: %.2fM params, "
+                "schedule=%s, microbatches=%d",
+                mesh.get_pipeline_parallel_rank(),
+                mesh.get_pipeline_parallel_size(),
+                model.num_parameters() / 1e6, pc.schedule,
+                pc.num_microbatches)
     return model
 
 
@@ -385,19 +432,30 @@ def make_train_step(config: TrainingConfig, model: ParallelModel,
     global norm clips them to ``max_grad_norm`` (when
     ``grad_clipping``), and AdamW takes one update at the schedule's rate
     for the update count (ZeRO-1: on this rank's slices, then the
-    parameters are all-gathered)."""
+    parameters are all-gathered).
+
+    A :class:`..pipeline.engine.PipelinedModel` goes to
+    :func:`make_pipelined_train_step` (its schedule's loss replaces
+    ``loss_fn``; ``grad_accum_steps`` raises, as in JAX: the schedule
+    accumulates over its microbatches)."""
+    if isinstance(model, PipelinedModel):
+        if grad_accum_steps != 1:
+            raise ValueError(
+                "grad_accum_steps does not apply to pipelined models -- the "
+                "schedule already accumulates over pipeline.num_microbatches;"
+                " raise that instead")
+        _check_batch_spec(batch_spec)
+        return make_pipelined_train_step(config, model, optimizer)
     if loss_fn is None:
         raise ValueError("loss_fn is required")
     if grad_accum_steps < 1:
         raise ValueError(
             f"grad_accum_steps must be >= 1, got {grad_accum_steps}")
     _check_batch_spec(batch_spec)
-    oc = config.optimizer
     module, device = model.module, model.device
     params = [p for p in module.parameters() if p.requires_grad]
     dp = _DataParallel()
-    zero1 = optimizer.zero1
-    sharded = fsdp.fsdp_state(module) is not None
+    update = _make_update(config, module, optimizer, params, dp)
 
     def split(batch):
         if grad_accum_steps == 1:
@@ -461,6 +519,22 @@ def make_train_step(config: TrainingConfig, model: ParallelModel,
              ) -> Dict[str, torch.Tensor]:
         batch = _to_device(dp.slice(batch, grad_accum_steps), device)
         loss = loss_and_grads(batch, generator)
+        return {"loss": loss, "grad_norm": update()}
+
+    return step
+
+
+def _make_update(config: TrainingConfig, module: nn.Module,
+                 optimizer: ParallelOptimizer, params, dp: _DataParallel):
+    """``update() -> grad_norm``: the step's tail once the parameters'
+    ``.grad`` hold this rank's normalized gradients -- the cp, sequence-
+    parallel and kvr sums, the dp sum (ZeRO-1's reduce-scatter), the
+    global norm and clipping, and one AdamW update."""
+    oc = config.optimizer
+    zero1 = optimizer.zero1
+    sharded = fsdp.fsdp_state(module) is not None
+
+    def update() -> torch.Tensor:
         if dp.cp_size > 1:
             coalesced_all_reduce([p.grad for p in params], dp.cp_group)
         allreduce_sequence_parallel_gradients(params)
@@ -490,7 +564,43 @@ def make_train_step(config: TrainingConfig, model: ParallelModel,
         else:
             optimizer.optimizer.zero_grad(set_to_none=True)
         optimizer.update_count += 1
-        return {"loss": loss, "grad_norm": grad_norm}
+        return grad_norm
+
+    return update
+
+
+def make_pipelined_train_step(config: TrainingConfig, model: PipelinedModel,
+                              optimizer: ParallelOptimizer):
+    """The train step of a :class:`..pipeline.engine.PipelinedModel` (JAX
+    ``make_pipelined_train_step``): ``step(batch, generator=None) ->
+    {"loss", "grad_norm"}`` over the GLOBAL host batch ``{"ids",
+    "labels", *model.extra_keys}`` (``B = num_microbatches x microbatch x
+    dp``), the same on every rank.  The model's schedule
+    (``loss_and_grad_fn``) leaves this rank's gradient sums in its
+    stage; they are divided by the global token count (the exact token-
+    masked mean, as at pp = 1), then summed and clipped as every step's
+    are (the global norm sums every stage's squares: the world's all-
+    reduce covers pp), and AdamW updates the stage IN PLACE.  The blocks
+    carry no dropout, so ``generator`` is accepted and unused."""
+    params = [p for p in model.module.parameters() if p.requires_grad]
+    update = _make_update(config, model.module, optimizer, params,
+                          _DataParallel())
+    keys = ("ids", "labels", *model.extra_keys)
+
+    def step(batch, generator: Optional[torch.Generator] = None
+             ) -> Dict[str, torch.Tensor]:
+        missing = [k for k in keys if batch.get(k) is None]
+        if missing:
+            raise KeyError(f"the pipelined step needs batch keys {missing}")
+        loss_sum, tok = model.loss_and_grad_fn(
+            *(torch.as_tensor(batch[k]) for k in keys))
+        scale = 1.0 / tok.clamp(min=1.0)
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)  # unused: still decayed
+            else:
+                p.grad.mul_(scale)
+        return {"loss": loss_sum * scale, "grad_norm": update()}
 
     return step
 
@@ -501,10 +611,21 @@ def make_eval_step(config: TrainingConfig, model: ParallelModel,
     """A loss-only step for validation (JAX ``make_eval_step``): ``step(
     batch) -> {"loss"}`` over the global host batch, split over dp as the
     train step splits it, without gradients or an optimizer; the loss is
-    normalized as the train step's."""
+    normalized as the train step's.  A pipelined model runs its forward
+    schedule (``loss_fn`` is not needed)."""
+    _check_batch_spec(batch_spec)
+    if isinstance(model, PipelinedModel):
+        keys = ("ids", "labels", *model.extra_keys)
+
+        @torch.no_grad()
+        def pipelined(batch) -> Dict[str, torch.Tensor]:
+            loss_sum, tok = model.loss_fn(
+                *(torch.as_tensor(batch[k]) for k in keys))
+            return {"loss": loss_sum / tok.clamp(min=1.0)}
+
+        return pipelined
     if loss_fn is None:
         raise ValueError("loss_fn is required")
-    _check_batch_spec(batch_spec)
     module, device = model.module, model.device
     dp = _DataParallel()
 

@@ -28,6 +28,7 @@ raises on the ranks that wait instead of blocking forever.
 
 from __future__ import annotations
 
+import ctypes
 import datetime
 import importlib
 import importlib.util
@@ -150,6 +151,8 @@ def is_primary() -> bool:
 
 # -- spawning a world on this host -----------------------------------------
 
+_PR_SET_PDEATHSIG = 1   # <linux/prctl.h>
+
 
 def free_port() -> int:
     """A TCP port on the loopback interface that is free right now."""
@@ -190,31 +193,46 @@ def _resolve(mod: str, path: str, qualname: str) -> Callable:
     return obj
 
 
+def _die_with_parent(parent: int) -> None:
+    """Ask Linux to SIGKILL this process when ``parent`` (the process
+    that spawned it) dies, so a caller killed mid-world leaves no rank
+    running; exits at once if the parent is already gone."""
+    try:
+        libc = ctypes.CDLL(None, use_errno=True)
+        libc.prctl(_PR_SET_PDEATHSIG, signal.SIGKILL)
+    except (OSError, AttributeError):  # not Linux: the wall-clock kill
+        return
+    if os.getppid() != parent:
+        os._exit(1)
+
+
 def _worker_main(job_path: str, out_path: str) -> None:
     """A spawned rank: run the pickled job, pickle its result (or its
-    error) to ``out_path``."""
+    error) to ``out_path``.  The result is written before this rank's
+    teardown, which breaks its peers' collectives: by the time a peer
+    fails on the closed connection, the first failure is on disk."""
+    _die_with_parent(int(os.environ["NXD_SPAWN_PARENT"]))
     with open(job_path, "rb") as f:
         target, args, kwargs = pickle.load(f)
     try:
         result = ("ok", _resolve(*target)(*args, **kwargs))
     except Exception as e:  # noqa: BLE001 - reported to the parent
-        # the time of the failure, before this rank's teardown breaks its
-        # peers' collectives: the parent orders the failures by it
+        # the time of the failure: the parent orders the failures by it
         failed_at = time.monotonic()
         import traceback
 
         traceback.print_exc()
         result = ("error", f"{type(e).__name__}: {e}", failed_at)
-    finally:
-        if dist.is_initialized():
-            try:
-                destroy_distributed()
-            except Exception:  # noqa: BLE001 - teardown after the result
-                pass
-    with open(out_path, "wb") as f:
+    with open(out_path + ".tmp", "wb") as f:
         pickle.dump(result, f)
+    os.replace(out_path + ".tmp", out_path)
     sys.stdout.flush()
     sys.stderr.flush()
+    if dist.is_initialized():
+        try:
+            destroy_distributed()
+        except Exception:  # noqa: BLE001 - teardown after the result
+            pass
     # the result is on disk: skip interpreter teardown (a library's exit
     # handlers cannot hang the caller's wall-clock budget)
     os._exit(0 if result[0] == "ok" else 1)
@@ -287,7 +305,9 @@ def spawn(fn: Callable, world_size: int, args: Sequence = (),
     and this raises ``RuntimeError`` / ``TimeoutError`` with the output
     tails: a failure names the rank that failed first and gives every
     failed rank's tail, the root cause first (:func:`failure_order`).
-    ``echo`` prints each rank's output once the world is done.
+    ``echo`` prints each rank's output once the world is done.  A worker
+    is killed with its caller (Linux's parent-death signal), so a caller
+    killed mid-world leaves no rank running.
 
     Each rank runs 2 intra-op threads (``OMP_NUM_THREADS``, which ``env``
     may override): a rank left at torch's default takes every core, so a
@@ -299,7 +319,8 @@ def spawn(fn: Callable, world_size: int, args: Sequence = (),
     base = dict(os.environ)
     base["PYTHONPATH"] = repo + os.pathsep + base.get("PYTHONPATH", "")
     base.update({"WORLD_SIZE": str(world_size), "MASTER_ADDR": "127.0.0.1",
-                 "MASTER_PORT": str(free_port()), "OMP_NUM_THREADS": "2"})
+                 "MASTER_PORT": str(free_port()), "OMP_NUM_THREADS": "2",
+                 "NXD_SPAWN_PARENT": str(os.getpid())})
     base.update(env or {})
     work = tempfile.mkdtemp(prefix="nxd_spawn_")
     job = os.path.join(work, "job.pkl")

@@ -280,14 +280,33 @@ def test_converter_names_and_refusals():
 
 
 def test_entry_points_default_to_cuda_and_pipelining_waits(monkeypatch):
-    with pytest.raises(NotImplementedError, match="A15"):
-        build_pipelined_gpt_neox(GPTNeoXConfig.tiny(), 2)
+    """The entry points default to CUDA; the pipelined build (A15, ported)
+    does too, and on the CPU one process is one stage holding the whole
+    pp = 1 model: the same weights from the seed, the same loss and
+    gradients under its 1F1B schedule."""
+    cfg = GPTNeoXConfig.tiny(dtype=torch.float32, param_dtype=torch.float32)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         GPTNeoXForCausalLM(GPTNeoXConfig.tiny())
-    model = GPTNeoXForCausalLM(GPTNeoXConfig.tiny(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A15"):
-        model.build_pipelined(2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_pipelined_gpt_neox(cfg, 2)
+    model = GPTNeoXForCausalLM(cfg, device="cpu").init_random(5)
+    pm = model.build_pipelined(2, seed=5, device="cpu")
+    assert pm.module.layer_ids == tuple(range(cfg.num_layers))
+    state = dict(model.named_parameters())
+    assert set(dict(pm.module.named_parameters())) == set(state)
+    for n, p in pm.module.named_parameters():
+        assert torch.equal(p, state[n]), n
+    ids = torch.from_numpy(np.random.RandomState(0).randint(0, 256, (4, S)))
+    labels = ids.roll(-1, 1)
+    loss_sum, tok = pm.loss_and_grad_fn(ids, labels)
+    want, want_tok = causal_lm_loss_sum(model, {"ids": ids, "labels": labels})
+    want.backward()
+    assert tok.item() == want_tok.item()
+    np.testing.assert_allclose(loss_sum.item(), want.item(), rtol=1e-6)
+    for n, p in pm.module.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), state[n].grad.numpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=n)
     with pytest.raises(ValueError, match="remat"):
         GPTNeoXConfig.tiny(remat="some")
     assert importlib.import_module(

@@ -94,6 +94,19 @@ def test_module_entry_point(tmp_path):
 @pytest.mark.parametrize("flag,item", [
     (["--pp", "2"], "A15"), (["--scan-layers"], "not faults")])
 def test_unported_flags_name_their_item(flag, item):
+    """``--scan-layers`` is not ported and names its ROADMAP entry.
+    ``--pp`` (A15) is ported: it parses with its schedule flags, and
+    ``--loss-chunk`` with it is an error, as in JAX's launcher (the
+    pipeline's last stage owns the head)."""
+    if flag[0] == "--pp":
+        args = llama_pretrain.parse_args(
+            BASE + flag + ["--microbatches", "4", "--pp-schedule",
+                           "interleaved", "--virtual-stages", "2"])
+        assert (args.pp, args.microbatches, args.pp_schedule,
+                args.virtual_stages) == (2, 4, "interleaved", 2)
+        with pytest.raises(SystemExit):
+            llama_pretrain.parse_args(BASE + flag + ["--loss-chunk", "8"])
+        return
     with pytest.raises(NotImplementedError, match=item):
         llama_pretrain.parse_args(BASE + flag)
 
@@ -112,6 +125,25 @@ def test_cp_flag_lays_out_context_parallelism():
     for loss, steps in ranks:
         assert steps == 3
         assert loss == pytest.approx(one.final_loss, rel=1e-5)
+
+
+def test_pp_flag_trains_pipeline_stages():
+    """``--pp 2`` (A15): a world of one is no pp = 2 layout, and a world of
+    two trains two stages through ``fit`` (1F1B over 2 microbatches, then
+    the interleaved schedule with a layer a chunk) to the loss of one
+    process at pp = 1 on the same batches."""
+    with pytest.raises(ValueError, match="pp 2"):
+        llama_pretrain.prepare(BASE + ["--pp", "2"])
+    argv = BASE + ["--steps", "3", "--num-layers", "4"]
+    one = llama_pretrain.main(argv)
+    for extra in (["--microbatches", "2"],
+                  ["--microbatches", "4", "--pp-schedule", "interleaved",
+                   "--virtual-stages", "2"]):
+        ranks = spawn(workers.launcher_rank, 2,
+                      (argv + ["--pp", "2"] + extra,), timeout_s=170)
+        for loss, steps in ranks:
+            assert steps == 3
+            assert loss == pytest.approx(one.final_loss, rel=1e-5)
 
 
 def test_flag_errors():

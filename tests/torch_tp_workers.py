@@ -1286,3 +1286,29 @@ def launcher_rank(argv: list):
 def rank_threads():
     """This rank's intra-op thread count and ``OMP_NUM_THREADS``."""
     return torch.get_num_threads(), os.environ.get("OMP_NUM_THREADS")
+
+
+def fail_on_rank1():
+    """Rank 1 raises at once; rank 0 waits in a barrier that rank 1's
+    teardown breaks."""
+    import torch.distributed as dist
+
+    from neuronx_distributed_tpu_torch.utils.distributed import (
+        initialize_distributed,
+    )
+
+    initialize_distributed(device="cpu", timeout_s=GROUP_TIMEOUT_S)
+    if dist.get_rank() == 1:
+        raise ValueError("planned failure on rank 1")
+    dist.barrier()
+    return "rank 0 passed the barrier"
+
+
+def report_pid_and_sleep(folder):
+    """Write this rank's pid to ``folder``, then sleep past any test."""
+    pid = os.getpid()
+    with open(os.path.join(folder, f"{pid}.tmp"), "w") as f:
+        f.write(str(pid))
+    os.replace(os.path.join(folder, f"{pid}.tmp"),
+               os.path.join(folder, f"{pid}.pid"))
+    time.sleep(120)
