@@ -187,7 +187,8 @@ logits in fp32 (1e-3) and bf16 (twice bf16's own noise).  (b) cp = 2, two
 processes sharing the card over gloo: B1-B3 held at every chunk call of
 the ring, zigzag and ulysses schedules and the window schedule's S != T
 call, with an lse cotangent, and timed at the schedules' calls beside
-SDPA; then Llama-3-8B's width cut to 2 layers at 1 x 8192, the
+SDPA (the window call beside SDPA with the band as a boolean mask); then
+Llama-3-8B's width cut to 1 layer at 1 x 8192, the
 contiguous ring, zigzag and ulysses, 1 + 1 steps each: the first step's
 loss and grad norm against cp = 1, the ranks equal, B1-B3 launches from
 the schedule, collective ms and bytes a step.  Phase 10 trains at
@@ -203,8 +204,21 @@ falling losses, B1-B3 launched 16 / 8 / 8 a step on each rank at
 (2048, 2048, causal), 1F1B holding P - r microbatch graphs and GPipe M;
 (c) 1F1B's activation peak below GPipe's on rank 0; (d) ``forward_fn``'s
 logits with pp = 1's greedy argmax at every position; (e) each rank's
-step time, receive-wait share, transfer bytes and memory.  A device time
-below the least time its work needs fails the run.
+step time, receive-wait share, transfer bytes and memory.  Phase 11
+trains the MoE: (a) Mixtral-8x7B's width (8 experts, top-2, scatter
+dispatch) cut to 2 layers, 4 x 2048, flash, selective remat, bf16 compute
+over fp32 masters, 1 + 3 steps through the trainer's entry points:
+falling losses, B1-B3 launched on the MoE blocks by call shape, MFU over
+the active FLOPs, each layer's dropped share and aux, the profiled step's
+device ops; layer 0 on its first 256 input tokens at capacity factor 4 in
+fp32 against the dense-routing oracle (no capacity) within 2e-4, einsum
+against scatter dispatch bit for bit in fp32 and within 2e-2 in bf16; (b)
+ep = 2 as two processes sharing the card over gloo, 1 layer, 2 x 2048, 1
+step: each rank holding 4 of the 8 experts, the first step's loss and
+grad norm against ep = 1 on the same weights and batch (phase 7's
+bounds), the ranks equal, the token gathers and reduce-scatters a step
+by count and bytes, each rank's memory.  A device time below the least
+time its work needs fails the run.
 
 Any failed check exits non-zero without the result line.  The line before
 the last is ``{"kernels": [...]}``; the last is ``{"ok": true, "device":
@@ -5490,9 +5504,10 @@ def flash_vs_dense(label, model_cls, cfg, state, loss_fn, batch,
 
 def train_steps(label, config, model, loss_fn, batch, fwd_per_layer,
                 flash_entries, generator=None, flops=None,
-                trainable=None, lr=None) -> dict:
+                trainable=None, lr=None, warmup=None, timed=None) -> dict:
     """The training main path after ``initialize_parallel_model``: the
-    optimizer, ``make_train_step``, WARMUP_STEPS + TIMED_STEPS steps on
+    optimizer, ``make_train_step``, ``warmup`` + ``timed`` steps (default
+    WARMUP_STEPS + TIMED_STEPS) on
     ``batch`` (each given ``generator``, the dropout stream) with every
     launch count set to 0 first.  Checks finite and falling losses and the
     flash launches (``fwd_per_layer`` forwards, one dq and one dk/dv per
@@ -5518,6 +5533,8 @@ def train_steps(label, config, model, loss_fn, batch, fwd_per_layer,
 
     cfg = model.module.config
     Bt, St = batch["ids"].shape
+    warmup = WARMUP_STEPS if warmup is None else warmup
+    timed = TIMED_STEPS if timed is None else timed
     opt = initialize_parallel_optimizer(config, model, learning_rate=lr,
                                         trainable=trainable)
     train = make_train_step(config, model, opt, loss_fn)
@@ -5526,19 +5543,19 @@ def train_steps(label, config, model, loss_fn, batch, fwd_per_layer,
         return train(b, generator)
 
     torch.cuda.reset_peak_memory_stats()
-    # the main path: every launch count from 0 over the WARMUP_STEPS +
-    # TIMED_STEPS steps
+    # the main path: every launch count from 0 over the warmup + timed
+    # steps
     for fn in (fa.flash_attention_fwd, fa.flash_attention_dq,
                fa.flash_attention_dkv, paged_attention):
         fn.launches = 0
     losses, norms = [], []
-    for _ in range(WARMUP_STEPS):
+    for _ in range(warmup):
         m = step(batch)
         losses.append(m["loss"])
         norms.append(m["grad_norm"])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(TIMED_STEPS):
+    for _ in range(timed):
         m = step(batch)
         losses.append(m["loss"])
         norms.append(m["grad_norm"])
@@ -5546,11 +5563,11 @@ def train_steps(label, config, model, loss_fn, batch, fwd_per_layer,
     wall = time.perf_counter() - t0
     launches = {w: getattr(fa, FLASH_KERNELS[w][0]).launches
                 for w in FLASH_KERNELS}
-    steps = WARMUP_STEPS + TIMED_STEPS
+    steps = warmup + timed
     losses = [x.item() for x in losses]
     norms = [x.item() for x in norms]
     peak = torch.cuda.max_memory_allocated()
-    tok_s = Bt * St * TIMED_STEPS / wall
+    tok_s = Bt * St * timed / wall
     if flops is None:
         flops = (transformer_flops_per_token(
             cfg.num_layers, cfg.hidden_size, cfg.intermediate_size,
@@ -5567,8 +5584,8 @@ def train_steps(label, config, model, loss_fn, batch, fwd_per_layer,
         f"{config.optimizer.max_grad_norm}: losses "
         + ", ".join(f"{x:.4f}" for x in losses) + "; grad norms "
         + ", ".join(f"{x:.3f}" for x in norms))
-    log(f"{label}: {TIMED_STEPS} timed steps in {wall:.3f} s = "
-        f"{wall / TIMED_STEPS * 1e3:.1f} ms/step, {tok_s:.1f} tokens/s, "
+    log(f"{label}: {timed} timed steps in {wall:.3f} s = "
+        f"{wall / timed * 1e3:.1f} ms/step, {tok_s:.1f} tokens/s, "
         f"MFU {util:.4f} ({fpt / 1e9:.3f} GFLOP/token, {formula}, "
         f"against 989 TFLOP/s bf16); peak memory {peak / 2**30:.2f} GiB; "
         f"flash launches {launches}, expected {want} ({steps} steps x {L} "
@@ -5622,7 +5639,7 @@ def train_steps(label, config, model, loss_fn, batch, fwd_per_layer,
     return {"layers": L, "params": model.num_parameters(), "steps": steps,
             "state_bytes": opt_bytes,
             "batch": [Bt, St], "remat": cfg.remat, "losses": losses,
-            "grad_norms": norms, "step_ms": wall / TIMED_STEPS * 1e3,
+            "grad_norms": norms, "step_ms": wall / timed * 1e3,
             "tok_s": tok_s, "mfu": util, "flops_per_token": fpt,
             "flops_formula": formula,
             "peak_gib": peak / 2**30, "profiled_step_ms": prof_ms,
@@ -6281,7 +6298,10 @@ def p7_train(label, config, cfg, batch, steps, warmup=0, profile=False,
                   mesh.get_context_parallel_rank()),
            "zero1": opt.zero1 is not None,
            "local_heads": (module.model.layer_0.attn.qkv.q_kernel.shape[1],
-                           module.model.layer_0.attn.qkv.kv_heads[1])}
+                           module.model.layer_0.attn.qkv.kv_heads[1]),
+           "local_experts": [blk.moe_mlp.gate_up.shape[0]
+                             for blk in module.model.layers()
+                             if hasattr(blk, "moe_mlp")]}
     if opt.zero1 is not None:
         out["shard_bytes"] = sum(s.numel() * s.element_size()
                                  for s, lay in zip(opt.zero1.shards,
@@ -6830,11 +6850,11 @@ P9_S, P9_CHUNK, P9_LR, P9_PROBE = 2048, 512, 1e-3, 512
 P9_MERGE_TOL_FP32, P9_MERGE_NOISE = 1e-3, 2.0
 # (b) cp = 2: two processes sharing the card over gloo (NCCL refuses two
 # ranks on one device, so this holds correctness, launches and bytes, not
-# cp speed), Llama-3-8B width cut to 2 layers, 1 x 8192 (4096 tokens a
-# rank), flash, selective remat, the chunked head; each arm 1 + 1 steps
-# (1 + 2 before phase 10 took the room: a step is 7-10 s of host-staged
-# gradient sums)
-P9_CP, P9_CP_LAYERS, P9_CP_S, P9_CP_WARMUP, P9_CP_TIMED = 2, 2, 8192, 1, 1
+# cp speed), Llama-3-8B width cut to 1 layer (2 before phase 11 took the
+# room), 1 x 8192 (4096 tokens a rank), flash, selective remat, the
+# chunked head; each arm 1 + 1 steps (1 + 2 before phase 10 took the
+# room: a step is 7-10 s of host-staged gradient sums)
+P9_CP, P9_CP_LAYERS, P9_CP_S, P9_CP_WARMUP, P9_CP_TIMED = 2, 1, 8192, 1, 1
 P9_ARMS = {"ring": ("ring", False), "zigzag": ("ring", True),
            "ulysses": ("ulysses", False)}
 P9_WORLD_TIMEOUT_S = 600
@@ -7114,7 +7134,101 @@ def phase9_kernels() -> dict:
         for w in FLASH_KERNELS:
             entries[suffix][w]["shapes"]["cp"] = P9_CP
             entries[suffix][w]["lse_max_abs_err"] = worst_lse
+    # the window schedule's call rides on the contiguous ring's entry: the
+    # 9(b) arms do not run it (Llama-3-8B has no window)
+    window = time_window_call()
+    for w in FLASH_KERNELS:
+        entries["_cp2_ring_diag"][w]["cp2_window_left"] = window[w]
     return entries
+
+
+def time_window_call() -> dict:
+    """B1-B3 at the window schedule's call: ``[C]`` queries over ``[left |
+    own]`` 2C keys, causal with window C (1 x 32 q on 8 kv heads, C =
+    P9_C, D 128, bf16): each kernel's device ms, its plain version's, the
+    bound (the band's visible pairs; the operations bound it) and SDPA's
+    forward and backward (dq, dk and dv together) with the same band as a
+    boolean mask, the kernels' forward held to SDPA's."""
+    import torch
+    import torch.nn.functional as F
+
+    from neuronx_distributed_tpu_torch.ops import flash_attention as fa
+
+    C, dev = P9_C, torch.device("cuda")
+    case = ("timing_window", 1, NQ, NKV, C, 2 * C, D, True, C, None, None,
+            False, False)
+    opts = dict(window=C, causal=True)
+    copies = []
+    for i in range(2):
+        q, k, v, do = flash_inputs(case, torch.bfloat16, dev,
+                                   SEED + 500 + i)[:4]
+        o, lse = fa.flash_attention_fwd(q, k, v, **opts)
+        copies.append((q, k, v, do, lse, (do.float() * o.float()).sum(-1)))
+    mask = fa.band_mask(C, 2 * C, C, C, device=dev)
+    lib_fwd = [lambda c=c: F.scaled_dot_product_attention(
+        c[0], c[1], c[2], attn_mask=mask, enable_gqa=True) for c in copies]
+    lib_bwd = []
+    for c in copies:
+        leaves = [x.detach().requires_grad_() for x in c[:3]]
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                             enable_gqa=True)
+        lib_bwd.append(lambda out=out, leaves=leaves, do=c[3]:
+                       torch.autograd.grad(out, leaves, do,
+                                           retain_graph=True))
+    lib_err = row_err(lib_fwd[0](), fa.flash_attention_fwd(
+        *copies[0][:3], **opts)[0])
+    if not lib_err <= TOL["bfloat16"]:
+        raise AssertionError(f"window call: SDPA with the band mask and the "
+                             f"flash forward differ by {lib_err:.3e}")
+    label = f"window call B=1 HQ={NQ} HKV={NKV} S={C} T={2 * C} D={D} bf16"
+    lib_ms = {}
+    for which, fns, n in (("fwd", lib_fwd, 10), ("bwd", lib_bwd, 4)):
+        retrace = (lambda fns=fns, n=n: device_ms(fns, n))
+        ms = check_events(f"SDPA {which} {label}", retrace(), fns[0], n,
+                          retrace=retrace)
+        lib_ms[which] = check_bound(
+            f"SDPA {which} {label}", {"library": ms},
+            flash_bound_ms(1, NQ, NKV, C, 2 * C, D, 2, which, C)[0],
+            retake={"library": retrace})["library"]
+    out = {}
+    for w, (fn_name, kname, _, _) in FLASH_KERNELS.items():
+        kernel = getattr(fa, fn_name)
+        plain = {"fwd": fa.flash_fwd_reference, "dq": fa.flash_dq_reference,
+                 "dkv": fa.flash_dkv_reference}[w]
+        nargs = 3 if w == "fwd" else 6
+        calls = [lambda c=c: kernel(*c[:nargs], **opts) for c in copies]
+        b_ms, b_by, flops, nbytes = flash_bound_ms(1, NQ, NKV, C, 2 * C, D,
+                                                   2, w, C)
+        retake = {"kernel": lambda calls=calls, kname=kname, kernel=kernel:
+                  device_ms(calls, 20, expect=kname,
+                            launched=lambda: kernel.launches),
+                  "plain": lambda: device_ms(
+                      [lambda c=c: plain(*c[:nargs], **opts)
+                       for c in copies], 2)}
+        k_ms = check_events(fn_name, retake["kernel"](),
+                            lambda: kernel(*copies[0][:nargs], **opts), 20,
+                            retrace=retake["kernel"])
+        times = check_bound(f"{fn_name} {label}",
+                            {"kernel": k_ms, "plain": retake["plain"]()},
+                            b_ms, retake=retake)
+        lib = lib_ms["fwd" if w == "fwd" else "bwd"]
+        out[w] = {"ms": times["kernel"], "plain_ms": times["plain"],
+                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+                  "library_call": ("F.scaled_dot_product_attention "
+                                   + ("forward" if w == "fwd" else
+                                      "backward (dq, dk and dv together)")
+                                   + ", the band as a boolean mask"),
+                  "shapes": {"q": [1, NQ, C, D], "kv": [1, NKV, 2 * C, D],
+                             "window": C, "causal": True}}
+        log(f"phase9 timing {fn_name} ({label}, window {C}): device ms per "
+            f"call kernel {times['kernel']:.5f}, plain {times['plain']:.5f}, "
+            f"library {lib:.5f} (SDPA {'forward' if w == 'fwd' else 'backward'}"
+            f" with the band mask); bound {b_ms:.5f} ({b_by}: "
+            f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), kernel / bound "
+            f"{times['kernel'] / b_ms:.2f}")
+    del copies, lib_fwd, lib_bwd
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase9_refs() -> dict:
@@ -7683,6 +7797,348 @@ def phase10(refs: dict, entries: dict) -> dict:
     return out
 
 
+# -- phase 11 ----------------------------------------------------------------
+
+# MoE training at Mixtral-8x7B's width (H 4096, I 14336, 8 experts, top-2,
+# 32 q on 8 kv heads, vocab 32000, rope theta 1e6, scatter dispatch), cut
+# to 2 of its 32 layers (3.16B parameters with the embedding and head, 16
+# bytes each with fp32 masters, gradients and AdamW: ~51 GB), 4 x 2048,
+# flash, selective remat, bf16 compute; 1 + 3 steps (+ the profiled ones)
+P11_LAYERS, P11_B, P11_S, P11_WARMUP, P11_TIMED = 2, 4, 2048, 1, 3
+# the layer-0 holds: its first 256 input tokens at capacity factor 4 (no
+# drop: the capacity is the 256 tokens) in fp32 against the dense-routing
+# oracle, and einsum against scatter dispatch on the same input
+P11_ORACLE_TOKENS, P11_ORACLE_CAP, P11_ORACLE_TOL = 256, 4.0, 2e-4
+P11_DISPATCH_BF16_TOL = 2e-2
+# (b) ep = 2: two processes sharing the card over gloo (correctness,
+# launches, bytes and memory, not ep speed), full width, 1 layer, global
+# batch 2 x 2048, 1 step, against ep = 1 on the same weights and batch
+# within phase 7's bounds
+P11_EP, P11_EP_LAYERS, P11_EP_B = 2, 1, 2
+P11_WORLD_TIMEOUT_S = 600
+
+
+def p11_cfg(layers: int):
+    import torch
+
+    from neuronx_distributed_tpu_torch.models.llama import LlamaConfig
+
+    return LlamaConfig.mixtral_8x7b(num_layers=layers,
+                                    attention_impl="flash",
+                                    remat="selective", dtype=torch.bfloat16,
+                                    param_dtype=torch.float32)
+
+
+def moe_flops(cfg, S: int) -> tuple:
+    """Training FLOPs a token over the ACTIVE parameters (the non-expert
+    ones, the router and the top-k experts a token runs: k / E of the
+    expert parameters), and the formula."""
+    from neuronx_distributed_tpu_torch.trainer import (
+        transformer_flops_per_token,
+    )
+
+    fpt = transformer_flops_per_token(
+        cfg.num_layers, cfg.hidden_size, cfg.intermediate_size,
+        cfg.vocab_size, S, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_,
+        cfg.num_experts, cfg.moe_top_k)
+    return fpt, (f"3 x (L x (attention projections + 4 S D NQ + k x 6 H I "
+                 f"+ 2 H E) + 2 H V), k = {cfg.moe_top_k} of E = "
+                 f"{cfg.num_experts} experts")
+
+
+def dense_moe_oracle(mod, x):
+    """The MoE FFN with no capacity or dispatch machinery, fp32 (JAX
+    ``tests/test_moe.py:_dense_moe_reference`` in torch): each token's
+    top-k experts, their gates renormalised, ``silu(x W_g) * (x W_u) W_d``
+    summed."""
+    import torch
+    import torch.nn.functional as F
+
+    router = mod.router.float()
+    wi, wo = mod.gate_up.float(), mod.down.float()
+    E, H = wi.shape[0], wi.shape[1]
+    probs = torch.softmax(x @ router, dim=-1)
+    gates, idx = torch.topk(probs, mod.top_k, dim=-1)
+    gates = gates / gates.sum(-1, keepdim=True)
+    out = torch.zeros_like(x)
+    for e in range(E):
+        sel = idx == e
+        rows = sel.any(-1).nonzero().flatten()
+        if rows.numel() == 0:
+            continue
+        g = (gates * sel).sum(-1)[rows]
+        gu = (x[rows] @ wi[e].reshape(H, -1)).reshape(rows.numel(), 2, -1)
+        h = F.silu(gu[:, 0]) * gu[:, 1]
+        out[rows] += g[:, None] * (h @ wo[e])
+    return out
+
+
+def p11_layer_holds(mod, x) -> dict:
+    """Layer 0's weights on ``x [n, H]`` (its input tokens): the fp32
+    scatter layer at capacity factor 4 against the dense-routing oracle,
+    einsum against scatter dispatch in fp32 (bit for bit) and in bf16."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.parallel.moe import ExpertParallelMLP
+
+    state = {k: v.detach() for k, v in mod.state_dict().items()}
+    out = {}
+    ys = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for disp in ("scatter", "einsum"):
+            m = ExpertParallelMLP(
+                mod.hidden_size, mod.num_experts_global,
+                mod.intermediate_size, top_k=mod.top_k,
+                capacity_factor=P11_ORACLE_CAP, dispatch=disp, dtype=dt,
+                param_dtype=torch.float32, device=x.device)
+            m.load_state_dict(state)
+            with torch.no_grad():
+                ys[dt, disp] = m(x.to(dt)[None])[0][0].float()
+            if dt == torch.float32 and disp == "scatter":
+                out["dropped"] = float(m.stats["dropped"])
+                out["capacity"] = m.stats["capacity"]
+            del m
+    with torch.no_grad():
+        ref = dense_moe_oracle(mod, x.float())
+    got = ys[torch.float32, "scatter"]
+    excess = ((got - ref).abs() - P11_ORACLE_TOL
+              - P11_ORACLE_TOL * ref.abs()).max().item()
+    out["oracle_max_abs_err"] = (got - ref).abs().max().item()
+    out["oracle_ref_max_abs"] = ref.abs().max().item()
+    if not excess <= 0:
+        raise AssertionError(
+            f"phase11(a): the MoE FFN of layer 0 differs from the dense-"
+            f"routing oracle by {out['oracle_max_abs_err']:.3e} beyond "
+            f"rtol = atol = {P11_ORACLE_TOL}")
+    if out["dropped"] != 0.0:
+        raise AssertionError(f"phase11(a): capacity factor "
+                             f"{P11_ORACLE_CAP} dropped {out['dropped']}")
+    e32 = ys[torch.float32, "einsum"]
+    out["fp32_dispatch_unequal"] = int((e32 != got).sum().item())
+    if out["fp32_dispatch_unequal"]:
+        raise AssertionError(
+            f"phase11(a): einsum and scatter dispatch differ in fp32 at "
+            f"{out['fp32_dispatch_unequal']} elements (max "
+            f"{(e32 - got).abs().max().item():.3e})")
+    s16, e16 = ys[torch.bfloat16, "scatter"], ys[torch.bfloat16, "einsum"]
+    out["bf16_dispatch_rel"] = ((e16 - s16).abs().max()
+                                / s16.abs().max()).item()
+    out["bf16_vs_fp32_rel"] = ((s16 - got).abs().max()
+                               / got.abs().max()).item()
+    if not out["bf16_dispatch_rel"] <= P11_DISPATCH_BF16_TOL:
+        raise AssertionError(
+            f"phase11(a): einsum and scatter dispatch differ in bf16 by "
+            f"{out['bf16_dispatch_rel']:.3e} of the largest output, beyond "
+            f"{P11_DISPATCH_BF16_TOL}")
+    return out
+
+
+def phase11a() -> dict:
+    """(a) the MoE Llama at Mixtral-8x7B's width on one card through the
+    trainer's entry points: B1-B3 on the MoE blocks' attention, falling
+    losses, active-FLOP MFU, memory, each layer's drops and aux, the
+    profiled step's device ops, then layer 0's holds."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.config import training_config
+    from neuronx_distributed_tpu_torch.models.common import (
+        make_causal_lm_loss_sum,
+    )
+    from neuronx_distributed_tpu_torch.models.llama import LlamaForCausalLM
+    from neuronx_distributed_tpu_torch.ops import flash_attention as fa
+    from neuronx_distributed_tpu_torch.trainer import initialize_parallel_model
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = p11_cfg(P11_LAYERS)
+    config = training_config(learning_rate=1e-4, max_grad_norm=1.0,
+                             seed=SEED)
+    t0 = time.perf_counter()
+    model = initialize_parallel_model(
+        config, lambda d: LlamaForCausalLM(cfg, device=d), seed=SEED)
+    torch.cuda.synchronize()
+    module = model.module
+    experts = sum(p.numel() for n, p in module.named_parameters()
+                  if "moe_mlp.gate_up" in n or "moe_mlp.down" in n)
+    log(f"phase11(a): Mixtral-8x7B width ({cfg.num_experts} experts, top-"
+        f"{cfg.moe_top_k}, {cfg.moe_dispatch} dispatch, capacity factor "
+        f"{cfg.moe_capacity_factor}), {cfg.num_layers} layers (cut from "
+        f"32), vocab {cfg.vocab_size}, {model.num_parameters() / 1e9:.3f}B "
+        f"params ({experts / 1e9:.3f}B in experts) fp32 masters, bf16 "
+        f"compute, flash attention, remat {cfg.remat}; random init in "
+        f"{time.perf_counter() - t0:.1f} s")
+    batch = train_batch(cfg.vocab_size, P11_B, P11_S)
+    # layer 0's MoE input on the first forward: the holds' tokens
+    seen = {}
+
+    def grab(mod, args):
+        if "x" not in seen:
+            seen["x"] = args[0][0, :P11_ORACLE_TOKENS].detach().float() \
+                .clone()
+
+    hook = module.model.layer_0.moe_mlp.register_forward_pre_hook(grab)
+    for w in FLASH_KERNELS:
+        getattr(fa, FLASH_KERNELS[w][0]).launches_by_shape = {}
+    summary = train_steps("phase11(a)", config, model,
+                          make_causal_lm_loss_sum(P7_CHUNK), batch, 2, None,
+                          flops=moe_flops(cfg, P11_S), warmup=P11_WARMUP,
+                          timed=P11_TIMED)
+    hook.remove()
+    by_shape = {w: {f"{k[0]}x{k[1]} {'causal' if k[2] else 'full'}": n
+                    for k, n in getattr(fa, FLASH_KERNELS[w][0])
+                    .launches_by_shape.items()} for w in FLASH_KERNELS}
+    stats = [{"dropped": float(blk.moe_mlp.stats["dropped"]),
+              "aux": float(blk.moe_mlp.stats["aux"]),
+              "capacity": blk.moe_mlp.stats["capacity"]}
+             for blk in module.model.layers()]
+    log(f"phase11(a): B1-B3 launches by (S, T, causal), the {P11_WARMUP} + "
+        f"{P11_TIMED} steps and the 3 of the profile: {by_shape}; the last "
+        f"step's routing by layer (dropped share of the (token, choice) "
+        f"pairs, aux, capacity of {P11_B * P11_S} tokens): {stats}")
+    holds = p11_layer_holds(module.model.layer_0.moe_mlp, seen["x"])
+    log(f"phase11(a): layer 0 on its first {P11_ORACLE_TOKENS} tokens at "
+        f"capacity factor {P11_ORACLE_CAP} ({holds['capacity']} slots an "
+        f"expert, dropped {holds['dropped']}): fp32 scatter against the "
+        f"dense-routing oracle max abs err {holds['oracle_max_abs_err']:.3e} "
+        f"(largest output {holds['oracle_ref_max_abs']:.3e}, rtol = atol = "
+        f"{P11_ORACLE_TOL}); einsum against scatter: fp32 "
+        f"{holds['fp32_dispatch_unequal']} unequal elements, bf16 "
+        f"{holds['bf16_dispatch_rel']:.3e} of the largest output (tol "
+        f"{P11_DISPATCH_BF16_TOL}); bf16 against fp32 "
+        f"{holds['bf16_vs_fp32_rel']:.3e}")
+    del model, module
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    log(f"phase11(a) took {seconds:.1f} s")
+    return dict(summary, launches_by_shape=by_shape, routing=stats,
+                holds=holds, expert_params=experts, seconds=seconds)
+
+
+def phase11b_ref() -> dict:
+    """ep = 1 on (b)'s weights and batch: the first step's loss and grad
+    norm (init is ep-invariant: a rank draws every expert and keeps its
+    own)."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.config import training_config
+    from neuronx_distributed_tpu_torch.models.common import (
+        make_causal_lm_loss_sum,
+    )
+    from neuronx_distributed_tpu_torch.models.llama import LlamaForCausalLM
+    from neuronx_distributed_tpu_torch.trainer import initialize_parallel_model
+
+    cfg = p11_cfg(P11_EP_LAYERS)
+    batch = train_batch(cfg.vocab_size, P11_EP_B, P11_S)
+    model = initialize_parallel_model(
+        training_config(seed=SEED),
+        lambda d: LlamaForCausalLM(cfg, device=d), seed=SEED)
+    loss, norm, _ = loss_and_grads(
+        model.module, make_causal_lm_loss_sum(P7_CHUNK),
+        {k: torch.as_tensor(v).cuda() for k, v in batch.items()})
+    log(f"phase11(b) ep = 1 reference, {P11_EP_LAYERS} layer, {P11_EP_B} x "
+        f"{P11_S}: first-step loss {loss:.6f}, grad norm {norm:.6f}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"loss": loss, "grad_norm": norm}
+
+
+def p11_rank(task: dict) -> dict:
+    """One rank of 11(b): ep = 2 from its ``TrainingConfig``, one step."""
+    import torch
+    import torch.distributed as dist
+
+    from neuronx_distributed_tpu_torch.config import training_config
+    from neuronx_distributed_tpu_torch.utils.distributed import (
+        initialize_distributed,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(device="cuda", backend="gloo", timeout_s=300)
+    cfg = p11_cfg(P11_EP_LAYERS)
+    out = p7_train("(b) ep = 2", training_config(
+        expert_parallel_size=P11_EP, learning_rate=1e-4, max_grad_norm=1.0,
+        seed=SEED), cfg, train_batch(cfg.vocab_size, P11_EP_B, P11_S), 1,
+        phase="phase11")
+    out["rank"] = dist.get_rank()
+    dist.barrier()
+    return out
+
+
+def phase11b(ref: dict) -> dict:
+    """(b) ep = 2 on the one card: each rank's 4 of 8 experts, the first
+    step's loss and grad norm against ep = 1, the ranks equal, B1-B3
+    launches, the token gathers and reduce-scatters a step by count and
+    bytes, each rank's peak memory."""
+    from neuronx_distributed_tpu_torch.utils.distributed import spawn
+
+    t_phase = time.perf_counter()
+    ranks = spawn(p11_rank, P11_EP, ({},), timeout_s=P11_WORLD_TIMEOUT_S,
+                  echo=True)
+    cfg = p11_cfg(P11_EP_LAYERS)
+    want = {"fwd": 2 * P11_EP_LAYERS, "dq": P11_EP_LAYERS,
+            "dkv": P11_EP_LAYERS, "paged": 0}
+    out = {"ref": ref, "ranks": []}
+    for r in ranks:
+        if r["local_experts"] != [cfg.num_experts // P11_EP] * P11_EP_LAYERS:
+            raise AssertionError(f"phase11(b): rank {r['rank']} holds "
+                                 f"{r['local_experts']} experts a layer")
+        if r["launches"] != want:
+            raise AssertionError(f"phase11(b): launches {r['launches']}, "
+                                 f"expected {want}")
+        gaps = [abs(r["losses"][0] - ref["loss"]) / abs(ref["loss"]),
+                abs(r["grad_norms"][0] - ref["grad_norm"])
+                / abs(ref["grad_norm"])]
+        if not (gaps[0] <= P7_LOSS_RTOL and gaps[1] <= P7_NORM_RTOL):
+            raise AssertionError(
+                f"phase11(b): first-step loss {r['losses'][0]} and grad norm "
+                f"{r['grad_norms'][0]} against ep = 1's {ref['loss']}, "
+                f"{ref['grad_norm']}: rel {gaps} beyond "
+                f"{(P7_LOSS_RTOL, P7_NORM_RTOL)}")
+        if not all(math.isfinite(x) for x in r["losses"] + r["grad_norms"]):
+            raise AssertionError(f"phase11(b): non-finite {r['losses']}")
+        ep_counts = {k: v for k, v in r["counts"][-1].items()
+                     if k.startswith("ep_")}
+        ep_bytes = {k: v for k, v in r["collective_bytes"][-1].items()
+                    if k.startswith("ep_")}
+        if not ep_counts.get("ep_all_gather") or \
+                not ep_counts.get("ep_reduce_scatter"):
+            raise AssertionError(f"phase11(b): no token gather or reduce-"
+                                 f"scatter counted: {r['counts'][-1]}")
+        out["ranks"].append({
+            "rank": r["rank"], "local_experts": r["local_experts"],
+            "loss": r["losses"][0], "grad_norm": r["grad_norms"][0],
+            "first_step_rel": gaps, "launches": r["launches"],
+            "ep_counts": ep_counts, "ep_bytes": ep_bytes,
+            "counts": r["counts"][-1],
+            "collective_bytes": r["collective_bytes"][-1],
+            "collective_ms": r["collective_s"][-1] * 1e3,
+            "step_ms": r["step_ms"], "peak_gib": r["peak_bytes"] / 2**30,
+            "param_gib": r["param_bytes"] / 2**30,
+            "state_gib": r["state_bytes"] / 2**30})
+    a0, a1 = ranks[0], ranks[1]
+    if a0["losses"] != a1["losses"] or a0["grad_norms"] != a1["grad_norms"]:
+        raise AssertionError(f"phase11(b): the ranks disagree: "
+                             f"{a0['losses']} / {a1['losses']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    for p in out["ranks"]:
+        log(f"phase11(b) rank {p['rank']}: experts a layer "
+            f"{p['local_experts']} of {cfg.num_experts}; first-step loss "
+            f"{p['loss']:.6f} (rel {p['first_step_rel'][0]:.2e} to ep = 1), "
+            f"grad norm {p['grad_norm']:.6f} (rel "
+            f"{p['first_step_rel'][1]:.2e}); token collectives a step "
+            f"{p['ep_counts']}, {p['ep_bytes']} bytes; all collectives "
+            f"{p['counts']}, {p['collective_ms']:.1f} ms; {p['step_ms']:.1f} "
+            f"ms a step (host clock, two processes time-sliced on one "
+            f"card); parameters {p['param_gib']:.3f} GiB, AdamW state "
+            f"{p['state_gib']:.3f} GiB, peak {p['peak_gib']:.3f} GiB")
+    log(f"phase11(b) took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -7803,6 +8259,19 @@ def main() -> int:
         pp_refs = phase10_refs()
         pp_training = phase10(pp_refs, pp_entries)
         log(f"phase10 summary: {json.dumps(pp_training)}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t11 = time.perf_counter()
+        moe = phase11a()
+        log(f"phase11a summary: {json.dumps(moe)}")
+        moe_ep = phase11b(phase11b_ref())
+        log(f"phase11b summary: {json.dumps(moe_ep)}")
+        log(f"phase11 took {time.perf_counter() - t11:.1f} s")
+        for w in FLASH_KERNELS:
+            flash[w].setdefault("launches_by_phase", {})["11(a)"] = \
+                moe["launches"][w]
+            flash[w]["launches_by_phase"]["11(b) a rank"] = \
+                moe_ep["ranks"][0]["launches"][w]
         for w in FLASH_KERNELS:
             flash[w]["build"] = {d: guards[w][d] for d in (64, 128)}
             flash256[w]["build"] = {256: guards[w][256]}

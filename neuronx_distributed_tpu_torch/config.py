@@ -3,10 +3,10 @@
 The port's own copy of the JAX package's dataclasses: the mesh sizes,
 optimizer, pipeline and activation-checkpoint sub-configs, and the
 top-level :class:`TrainingConfig` with its flat-kwargs constructor
-:func:`training_config`.  Training runs at any tensor, pipeline, context
-and data parallel degree and KV replication, with ZeRO-1 or ``fsdp``
-(not under a pipeline, as in JAX); :mod:`.parallel.mesh` lays out the
-ranks.  The trainer refuses an expert degree above 1 (ROADMAP "Then").
+:func:`training_config`.  Training runs at any tensor, pipeline, context,
+expert and data parallel degree and KV replication, with ZeRO-1 or
+``fsdp`` (not under a pipeline, as in JAX); :mod:`.parallel.mesh` lays out
+the ranks.
 """
 
 from __future__ import annotations

@@ -41,6 +41,11 @@ stacked ``[L', ...]`` in a padded, possibly permuted row layout
 (any layers, with or without the embedding and the head, at any tp or
 kvr rank) under the pp = 1 model's names, and
 :func:`pipelined_grads_from_jax` the same for JAX's pipelined gradients.
+
+An MoE Llama's layers hold ``moe_mlp.router [H, E]`` (replicated),
+``moe_mlp.gate_up [E, H, 2, I]`` and ``moe_mlp.down [E, I, H]`` in place of
+``mlp``: their I cut over tp like the dense MLP's, their experts over ep
+by :func:`ep_shard_for_rank`; ZeRO-1 and FSDP leave them whole.
 """
 
 from __future__ import annotations
@@ -63,6 +68,9 @@ _SHARD_DIMS = (
     ("attn.qkv.k_bias", 0), ("attn.qkv.v_bias", 0),
     ("attn.o_proj.kernel", 0), ("mlp.gate_up.kernel", -1),
     ("mlp.down.kernel", 0), ("embed.embedding", 0), ("lm_head.kernel", -1),
+    # an MoE layer's experts: [E, H, 2, I] and [E, I, H], I over tp (the
+    # experts over ep: _EXPERT_LEAVES)
+    ("moe_mlp.gate_up", -1), ("moe_mlp.down", 1),
     # LoRA: a column layer's lora_b on its output dim, a row layer's
     # lora_a on its input dim, the QKV lora_b_* on heads; the other
     # factors are replicated
@@ -81,6 +89,16 @@ _SHARD_DIMS = (
     ("intermediate.bias", -1), ("output.kernel", 0),
     ("word_embeddings.embedding", 0), ("mlm_bias", 0),
 )
+
+
+# an MoE layer's expert tensors, cut over ep on dim 0 (the experts)
+_EXPERT_LEAVES = ("moe_mlp.gate_up", "moe_mlp.down")
+
+
+def is_expert_leaf(name: str) -> bool:
+    """Whether ``name`` (a dotted parameter path) is an MoE expert tensor:
+    cut over ep, never over dp by ZeRO-1 or FSDP."""
+    return _ends(name, _EXPERT_LEAVES)
 
 
 def shard_dim(name: str) -> Optional[int]:
@@ -164,16 +182,28 @@ def shard_params_for_rank(params: Mapping[str, Any], tp: int, rank: int,
     return _walk(params, "", leaf)
 
 
+def ep_shard_for_rank(tree: Mapping[str, Any], ep: int, rank: int
+                      ) -> Dict[str, Any]:
+    """Expert-parallel rank ``rank``'s cut of a tree at ep degree ``ep``:
+    each MoE expert tensor (``moe_mlp.gate_up``/``down``) keeps experts
+    ``rank * E / ep`` on (dim 0), every other leaf as it is."""
+    def leaf(path, arr):
+        return np.array(_cut(arr, 0 if is_expert_leaf(path) else None, ep,
+                             rank))
+    return _walk(tree, "", leaf)
+
+
 def zero1_shard_for_rank(tree: Mapping[str, Any], dp: int, rank: int
                          ) -> Dict[str, Any]:
     """Data-parallel rank ``rank``'s ZeRO-1 slice of a (tensor-parallel
     rank's) tree: each leaf cut along the first dim whose size divides
-    ``dp``, into ``dp`` pieces, or whole when none does -- what that rank's
-    optimizer state holds of a JAX ``mu``/``nu`` tree cut by
+    ``dp``, into ``dp`` pieces, or whole when none does (an MoE expert
+    tensor stays whole, as JAX leaves a spec naming ``ep``) -- what that
+    rank's optimizer state holds of a JAX ``mu``/``nu`` tree cut by
     :func:`shard_params_for_rank` (:mod:`..optimizer.zero1`)."""
     def leaf(path, arr):
         dim = next((i for i, n in enumerate(arr.shape) if n % dp == 0),
-                   None) if dp > 1 else None
+                   None) if dp > 1 and not is_expert_leaf(path) else None
         return np.array(_cut(arr, dim, dp, rank))
     return _walk(tree, "", leaf)
 
@@ -185,11 +215,14 @@ def fsdp_shard_for_rank(tree: Mapping[str, Any], dp: int, rank: int,
     replication ``kvr``; the tree's leaves have that rank's shapes): each
     leaf cut into ``dp`` pieces along the dim ``optimizer.zero1.fsdp_dim``
     picks (the largest global dim whose local size divides ``dp``), or
-    whole when none does.  What a rank's FSDP parameters hold of a JAX
-    param tree, and its AdamW moments of a JAX ``mu``/``nu`` tree."""
+    whole when none does (an MoE expert tensor too).  What a rank's FSDP
+    parameters hold of a JAX param tree, and its AdamW moments of a JAX
+    ``mu``/``nu`` tree."""
     from neuronx_distributed_tpu_torch.optimizer.zero1 import fsdp_dim
 
     def leaf(path, arr):
+        if is_expert_leaf(path):
+            return np.array(arr)
         cut = tp_cut(path, arr.ndim, tp, 0, kvr)
         full = list(arr.shape)
         if cut is not None:
@@ -211,9 +244,10 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
 
 def _expected_shapes(cfg, prefix: str = "model.", lm_head: bool = True,
                      norms=("input_norm", "post_attn_norm"), tp: int = 1,
-                     kvr: int = 1) -> Dict[str, tuple]:
+                     kvr: int = 1, ep: int = 1) -> Dict[str, tuple]:
     H, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     NQ, NKV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    E = getattr(cfg, "num_experts", 1)
     shapes = {prefix + "embed.embedding": (V, H),
               prefix + "final_norm.weight": (H,)}
     if lm_head:
@@ -225,10 +259,18 @@ def _expected_shapes(cfg, prefix: str = "model.", lm_head: bool = True,
             p + "attn.qkv.k_kernel": (H, NKV, D),
             p + "attn.qkv.v_kernel": (H, NKV, D),
             p + "attn.o_proj.kernel": (NQ * D, H),
-            p + "mlp.gate_up.kernel": (H, 2, I),
-            p + "mlp.down.kernel": (I, H),
             **{f"{p}{n}.weight": (H,) for n in norms},
         })
+        if E > 1:
+            if E % ep:
+                raise ValueError(f"num_experts ({E}) must divide by the "
+                                 f"expert-parallel degree ({ep})")
+            shapes.update({p + "moe_mlp.router": (H, E),
+                           p + "moe_mlp.gate_up": (E // ep, H, 2, I),
+                           p + "moe_mlp.down": (E // ep, I, H)})
+        else:
+            shapes.update({p + "mlp.gate_up.kernel": (H, 2, I),
+                           p + "mlp.down.kernel": (I, H)})
         if getattr(cfg, "qkv_bias", False):
             shapes.update({p + "attn.qkv.q_bias": (NQ, D),
                            p + "attn.qkv.k_bias": (NKV, D),
@@ -261,7 +303,7 @@ def _lora_shapes(cfg, p: str, H: int, I: int, NQ: int, NKV: int, D: int,
     if "o_proj" in targets:
         out.update({p + "attn.o_proj.lora_a": (NQ * D, r),
                     p + "attn.o_proj.lora_b": (r, H)})
-    if "mlp" in targets:
+    if "mlp" in targets and getattr(cfg, "num_experts", 1) == 1:
         out.update({p + "mlp.gate_up.lora_a": (H, r),
                     p + "mlp.gate_up.lora_b": (r, 2, I),
                     p + "mlp.down.lora_a": (I, r),
@@ -333,14 +375,17 @@ def _bert_shapes(cfg, tp: int) -> Dict[str, tuple]:
 
 
 def llama_params_from_jax(tree: Mapping[str, Any], cfg, tp: int = 1,
-                          kvr: int = 1) -> Dict[str, torch.Tensor]:
+                          kvr: int = 1, ep: int = 1
+                          ) -> Dict[str, torch.Tensor]:
     """A JAX Llama param tree (unboxed, leaves convertible to numpy; with or
     without the leading ``params`` level) -> a ``state_dict`` for the
     port's ``LlamaForCausalLM`` with config ``cfg`` (a rank's shard of
     the tree, from :func:`shard_params_for_rank`, at ``tp > 1`` and KV
-    replication ``kvr``).  Raises on a missing, extra or wrongly shaped
+    replication ``kvr``; an MoE config's ``moe_mlp.{router, gate_up,
+    down}`` leaves, their experts cut by :func:`ep_shard_for_rank` at
+    ``ep > 1``).  Raises on a missing, extra or wrongly shaped
     parameter."""
-    return _convert(tree, _expected_shapes(cfg, tp=tp, kvr=kvr))
+    return _convert(tree, _expected_shapes(cfg, tp=tp, kvr=kvr, ep=ep))
 
 
 def gemma_params_from_jax(tree: Mapping[str, Any], cfg,
@@ -409,7 +454,8 @@ _PIPELINED_NAMES = {
 
 def _pipelined_flat(tree: Mapping[str, Any], layer_rows, layers, embed: bool,
                     head: bool, family: str, tp: int, rank: int,
-                    kvr: int) -> Dict[str, np.ndarray]:
+                    kvr: int, ep: int = 1, ep_rank: int = 0
+                    ) -> Dict[str, np.ndarray]:
     if family not in _PIPELINED_NAMES:
         raise ValueError(f"unknown pipelined family {family!r} (one of "
                          f"{sorted(_PIPELINED_NAMES)})")
@@ -427,13 +473,15 @@ def _pipelined_flat(tree: Mapping[str, Any], layer_rows, layers, embed: bool,
         for k, v in _flatten(tree["head"]).items():
             child, rest = k.split(".", 1)
             out[f"{head_places[child]}.{rest}"] = np.asarray(v)
-    return shard_params_for_rank(out, tp, rank, kvr)
+    return ep_shard_for_rank(shard_params_for_rank(out, tp, rank, kvr), ep,
+                             ep_rank)
 
 
 def pipelined_params_from_jax(tree: Mapping[str, Any], layer_rows,
                               layers, *, embed: bool, head: bool,
                               family: str = "llama", tp: int = 1,
-                              rank: int = 0, kvr: int = 1
+                              rank: int = 0, kvr: int = 1, ep: int = 1,
+                              ep_rank: int = 0
                               ) -> Dict[str, torch.Tensor]:
     """One pipeline stage's ``state_dict`` from a JAX pipelined param tree
     (``{embed, layers: [L', ...], head}``, leaves convertible to numpy):
@@ -442,20 +490,21 @@ def pipelined_params_from_jax(tree: Mapping[str, Any], layer_rows,
     every name is the pp = 1 model's (``model.layer_2.attn...`` for
     ``family="llama"``, ``layer_2...`` for ``"gpt_neox"``), cut for
     tensor-parallel rank ``rank`` at degree ``tp`` and KV replication
-    ``kvr``.  ``layers=range(L)`` with both flags gives the whole pp = 1
+    ``kvr``, an MoE layer's experts for ep rank ``ep_rank`` at degree
+    ``ep``.  ``layers=range(L)`` with both flags gives the whole pp = 1
     model.  ``load_state_dict`` checks the names and shapes."""
     flat = _pipelined_flat(tree, layer_rows, layers, embed, head, family, tp,
-                           rank, kvr)
+                           rank, kvr, ep, ep_rank)
     return {k: torch.from_numpy(np.array(v)) for k, v in flat.items()}
 
 
 def pipelined_grads_from_jax(grads: Mapping[str, Any], layer_rows, layers,
                              *, embed: bool, head: bool,
                              family: str = "llama", tp: int = 1,
-                             rank: int = 0, kvr: int = 1
-                             ) -> Dict[str, np.ndarray]:
+                             rank: int = 0, kvr: int = 1, ep: int = 1,
+                             ep_rank: int = 0) -> Dict[str, np.ndarray]:
     """JAX's pipelined gradients (the param tree's structure) under the
     same names and cuts as :func:`pipelined_params_from_jax`, as numpy
     arrays (the padded rows' zero gradients are dropped)."""
     return _pipelined_flat(grads, layer_rows, layers, embed, head, family,
-                           tp, rank, kvr)
+                           tp, rank, kvr, ep, ep_rank)

@@ -25,6 +25,11 @@ pipeline stages under 1F1B (``--pp-schedule gpipe | interleaved``,
       neuronx_distributed_tpu_torch.examples.llama_pretrain --device cpu \\
       --preset tiny --num-layers 4 --pp 2 --microbatches 4 --steps 20
 
+``--preset mixtral_8x7b`` trains the Mixtral-8x7B-shaped MoE (8 experts,
+top-2, scatter dispatch; MFU over its active FLOPs); the experts shard
+over the expert-parallel degree of a ``TrainingConfig`` built in code
+(JAX's launcher has no ep flag either).
+
 The loop stages batches 2 steps ahead on the device and reads each step's
 loss and grad norm one step late (``fit``'s ``prefetch=2`` and deferred
 metrics): the same losses as a synchronous loop, without a wait a step.
@@ -47,7 +52,7 @@ DEFERRED_FLAGS = {
                    "(ROADMAP, \"not faults\")",
 }
 
-PRESETS = ("tiny", "llama3_8b")
+PRESETS = ("tiny", "llama3_8b", "mixtral_8x7b")
 H100_BF16_PEAK_FLOPS = 989e12  # H100 SXM dense bf16 peak
 
 
@@ -269,7 +274,7 @@ def prepare(argv: Optional[Sequence[str]] = None) -> Tuple:
     flops_tok = transformer_flops_per_token(
         cfg.num_layers, cfg.hidden_size, cfg.intermediate_size,
         cfg.vocab_size, args.seq_len, cfg.num_heads, cfg.num_kv_heads,
-        cfg.head_dim_)
+        cfg.head_dim_, cfg.num_experts, cfg.moe_top_k)
     kwargs = dict(
         steps=args.steps, loss_fn=make_causal_lm_loss_sum(args.loss_chunk),
         ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,

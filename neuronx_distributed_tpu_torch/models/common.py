@@ -112,24 +112,62 @@ def _packed_kwargs(batch):
             if batch.get(key) is not None}
 
 
+# the Switch-Transformer load-balancing coefficient of an MoE model's aux
+# term (JAX ``MOE_AUX_COEF``)
+MOE_AUX_COEF = 0.01
+
+
+def _moe_kwargs(model) -> dict:
+    """``{"aux": []}`` for an MoE model (``config.num_experts > 1``): the
+    list its forward fills with each MoE layer's aux term (the port's
+    counterpart of flax's ``sow`` into the ``losses`` collection); ``{}``
+    for a dense one."""
+    cfg = getattr(model, "config", None)
+    return {"aux": []} if getattr(cfg, "num_experts", 1) > 1 else {}
+
+
+def _aux_mean(kw: dict) -> Optional[torch.Tensor]:
+    """The layer mean of the aux terms a forward collected, or None."""
+    terms = kw.get("aux")
+    return torch.stack(terms).mean() if terms else None
+
+
+def _causal_lm_parts(model, batch):
+    """``(masked loss sum, unmasked token count, aux layer mean or
+    None)``."""
+    kw = _moe_kwargs(model)
+    logits = model(batch["ids"], **_packed_kwargs(batch), **kw)
+    mask = _token_mask(batch)
+    per_tok = parallel_cross_entropy(logits, batch["labels"],
+                                     tp=getattr(model, "tp", None))
+    return (per_tok * mask).sum(), mask.sum(), _aux_mean(kw)
+
+
 def causal_lm_loss_sum(model, batch, generator=None):
     """``(loss_sum, tok)``: the summed next-token loss over unmasked
     positions (labels < 0 and ``mask == 0`` drop out) and their count, so
     the caller can normalise by the global token count.  A packed batch's
     ``positions``/``segment_ids`` are forwarded to the model; ``generator``
-    is ignored (no dropout in the causal-LM families)."""
-    logits = model(batch["ids"], **_packed_kwargs(batch))
-    mask = _token_mask(batch)
-    per_tok = parallel_cross_entropy(logits, batch["labels"],
-                                     tp=getattr(model, "tp", None))
-    return (per_tok * mask).sum(), mask.sum()
+    is ignored (no dropout in the causal-LM families).  An MoE model's aux
+    terms are added as ``MOE_AUX_COEF * layer mean * tok``, so ``loss_sum
+    / tok`` is :func:`causal_lm_loss`, and summed over the data-parallel
+    ranks (every rank routes the global batch, so its aux is the global
+    one) the trainer's division by the global count gives JAX's mean."""
+    loss_sum, tok, aux = _causal_lm_parts(model, batch)
+    if aux is not None:
+        loss_sum = loss_sum + MOE_AUX_COEF * aux * tok
+    return loss_sum, tok
 
 
 def causal_lm_loss(model, batch, generator=None) -> torch.Tensor:
     """Mean next-token loss over the unmasked positions of ``batch =
-    {ids, labels[, mask, positions, segment_ids]}``."""
-    loss_sum, tok = causal_lm_loss_sum(model, batch)
-    return loss_sum / tok.clamp(min=1.0)
+    {ids, labels[, mask, positions, segment_ids]}``, plus ``MOE_AUX_COEF``
+    times the layer mean of an MoE model's aux terms."""
+    loss_sum, tok, aux = _causal_lm_parts(model, batch)
+    loss = loss_sum / tok.clamp(min=1.0)
+    if aux is not None:
+        loss = loss + MOE_AUX_COEF * aux
+    return loss
 
 
 def make_causal_lm_loss_sum(chunk_size: int = 0):
@@ -149,7 +187,8 @@ def make_causal_lm_loss_sum(chunk_size: int = 0):
         return torch.stack([(per_tok * m_c).sum(), m_c.sum()])
 
     def loss_fn(model, batch, generator=None):
-        h = model.hidden(batch["ids"], **_packed_kwargs(batch))
+        kw = _moe_kwargs(model)
+        h = model.hidden(batch["ids"], **_packed_kwargs(batch), **kw)
         labels = batch["labels"]
         mask = _token_mask(batch)
         S = labels.shape[1]
@@ -162,6 +201,9 @@ def make_causal_lm_loss_sum(chunk_size: int = 0):
                 total = total + checkpoint(
                     chunk_loss, model, h[:, i:i + c], labels[:, i:i + c],
                     mask[:, i:i + c], use_reentrant=False)
+        aux = _aux_mean(kw)
+        if aux is not None:
+            return total[0] + MOE_AUX_COEF * aux * total[1], total[1]
         return total[0], total[1]
 
     return loss_fn
@@ -243,7 +285,8 @@ def build_pipelined_causal_lm(
         vocab_size: int, dtype: torch.dtype, remat: str,
         sequence_parallel: bool, num_microbatches: int, seed: int = 0,
         schedule: str = "1f1b", pipeline_cuts=None,
-        extra_keys: Sequence[str] = (), num_chunks: int = 1, device=None):
+        extra_keys: Sequence[str] = (), num_chunks: int = 1, device=None,
+        block_aux: bool = False):
     """Shared pipeline wiring for the causal-LM families (JAX
     ``build_pipelined_causal_lm``): a family supplies its modules'
     factories (``make_*(device)``) and their pp = 1 names (``embed_path``,
@@ -254,7 +297,11 @@ def build_pipelined_causal_lm(
     this adds the vocab-parallel head loss, the remat policy per block,
     the sequence-parallel activation layout (a stage boundary carries a
     rank's sequence slice) and builds this rank's
-    :class:`..pipeline.engine.PipelinedModel` on ``device``."""
+    :class:`..pipeline.engine.PipelinedModel` on ``device``.
+    ``block_aux``: ``block_fn`` returns ``(y, aux)`` (an MoE block's
+    load-balancing term, ``MOE_AUX_COEF`` folded in) and the stage's run
+    returns ``(x, the sum over its layers)`` for the engine's aux
+    channel (JAX ``block_aux``)."""
     from neuronx_distributed_tpu_torch.parallel.mesh import (
         ContextParallel,
         TensorParallel,
@@ -273,11 +320,17 @@ def build_pipelined_causal_lm(
     def run_fn(blocks, x, extras, sp):
         S = x.shape[1] * (tp.size if sp else 1)
         mode = remat if torch.is_grad_enabled() else "none"
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for blk in blocks:
-            x = maybe_remat(
+            out = maybe_remat(
                 lambda h, *ex, b=blk: block_fn(b, h, ex, sp, S), mode)(
                     x, *extras)
-        return x
+            if block_aux:
+                x, a = out
+                aux = aux + a.float()
+            else:
+                x = out
+        return (x, aux) if block_aux else x
 
     def loss_fn(logits, labels):
         per_tok = parallel_cross_entropy(logits, labels, tp=tp)
@@ -294,7 +347,7 @@ def build_pipelined_causal_lm(
         sp_active=lambda S: sequence_parallel_active(sequence_parallel, tp,
                                                      S),
         init_plan=list(init_plan), hidden_size=hidden_size,
-        vocab_size=vocab_size, dtype=dtype, tp=tp)
+        vocab_size=vocab_size, dtype=dtype, tp=tp, block_aux=block_aux)
     return build_pipelined_model(
         parts, num_layers, num_microbatches, seed=seed, schedule=schedule,
         pipeline_cuts=pipeline_cuts, extra_keys=extra_keys,

@@ -39,6 +39,7 @@ from neuronx_distributed_tpu_torch.kvcache.quant import (
     quantize_page,
 )
 from neuronx_distributed_tpu_torch.models.common import (
+    MOE_AUX_COEF,
     build_pipelined_causal_lm,
     maybe_remat,
     sequence_parallel_active,
@@ -62,8 +63,11 @@ from neuronx_distributed_tpu_torch.parallel.mappings import (
 )
 from neuronx_distributed_tpu_torch.parallel.mesh import (
     ContextParallel,
+    ExpertParallel,
+    PipelineParallel,
     TensorParallel,
 )
+from neuronx_distributed_tpu_torch.parallel.moe import ExpertParallelMLP
 from neuronx_distributed_tpu_torch.parallel.norm import RMSNorm
 from neuronx_distributed_tpu_torch.parallel.qkv import GQAQKVColumnParallelLinear
 from neuronx_distributed_tpu_torch.utils.device import resolve_device
@@ -88,8 +92,8 @@ def lora_rank_for(cfg, target: str) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class LlamaConfig:
-    """The JAX ``LlamaConfig`` fields the port carries (scanned layers and
-    MoE are not ported).
+    """The JAX ``LlamaConfig`` fields the port carries (scanned layers are
+    not ported).
     ``sequence_parallel`` (JAX's default on) shards the residual stream's
     sequence over tp in cacheless forwards
     (:func:`.common.sequence_parallel_active`).  ``dtype`` is the compute type; ``param_dtype`` the weights'
@@ -105,7 +109,13 @@ class LlamaConfig:
     LoRA adapters (``lora_alpha``) to the ``lora_targets`` among ``qkv``
     (the q and v projections), ``o_proj``, ``mlp`` and ``lm_head``; freeze
     the base with ``initialize_parallel_optimizer(trainable=
-    peft.lora_trainable)``."""
+    peft.lora_trainable)``.  ``num_experts > 1`` replaces every block's MLP
+    with an expert-parallel routed FFN (:class:`..parallel.moe.
+    ExpertParallelMLP`, ``moe_mlp``): ``moe_top_k`` experts a token,
+    ``moe_capacity_factor``, ``moe_dispatch`` ``einsum`` | ``scatter``,
+    ``moe_router`` ``topk`` | ``expert_choice``; ``moe_local_experts`` is
+    set by :func:`build_pipelined_llama` (the experts a rank holds under a
+    pipeline at ep > 1; 0 otherwise)."""
 
     vocab_size: int = 32000
     hidden_size: int = 4096
@@ -136,6 +146,12 @@ class LlamaConfig:
     lora_rank: int = 0
     lora_alpha: float = 16.0
     lora_targets: Tuple[str, ...] = ("qkv",)
+    num_experts: int = 1
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_dispatch: str = "einsum"
+    moe_router: str = "topk"
+    moe_local_experts: int = 0
     dtype: torch.dtype = torch.bfloat16
     param_dtype: Optional[torch.dtype] = None
 
@@ -184,6 +200,16 @@ class LlamaConfig:
         return LlamaConfig(**{**dict(
             vocab_size=128256, hidden_size=4096, intermediate_size=14336,
             num_layers=32, num_heads=32, num_kv_heads=8, rope_theta=500000.0),
+            **overrides})
+
+    @staticmethod
+    def mixtral_8x7b(**overrides) -> "LlamaConfig":
+        """Mixtral-8x7B-shaped MoE config: 8 experts, top-2, scatter
+        dispatch."""
+        return LlamaConfig(**{**dict(
+            vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+            num_layers=32, num_heads=32, num_kv_heads=8, rope_theta=1e6,
+            num_experts=8, moe_top_k=2, moe_dispatch="scatter"),
             **overrides})
 
     @staticmethod
@@ -604,21 +630,56 @@ def norm(cfg: LlamaConfig, device) -> RMSNorm:
 
 
 class LlamaBlock(nn.Module):
+    """Attention and the gated MLP, each after its RMSNorm and added to the
+    residual stream; an MoE config (``num_experts > 1``) has ``moe_mlp``
+    in place of ``mlp`` and appends its aux term to ``aux`` (a list) when
+    one is given."""
+
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
         self.attn = LlamaAttention(cfg, device)
         self.input_norm = norm(cfg, device)
         self.post_attn_norm = norm(cfg, device)
-        self.mlp = LlamaMLP(cfg, device)
+        if cfg.num_experts > 1:
+            if ContextParallel.current().size > 1:
+                raise NotImplementedError(
+                    "MoE at context-parallel degree > 1 is not ported: the "
+                    "routing set would span the cp ranks' chunks")
+            local = cfg.moe_local_experts
+            self.moe_mlp = ExpertParallelMLP(
+                cfg.hidden_size, local or cfg.num_experts,
+                cfg.intermediate_size, top_k=cfg.moe_top_k,
+                capacity_factor=cfg.moe_capacity_factor,
+                dispatch=cfg.moe_dispatch,
+                num_experts_global=cfg.num_experts if local else 0,
+                router_type=cfg.moe_router, dtype=cfg.dtype,
+                param_dtype=cfg.weight_dtype, device=device)
+        else:
+            self.mlp = LlamaMLP(cfg, device)
 
     def forward(self, x, positions, kv_cache=None, cache_offset=0,
                 kv_valid=None, paged: Optional[PagedStep] = None,
-                segment_ids=None, adapter=None, sp: bool = False):
+                segment_ids=None, adapter=None, sp: bool = False,
+                aux: Optional[list] = None):
         h, cache = self.attn(self.input_norm(x), positions, kv_cache,
                              cache_offset, kv_valid, paged, segment_ids,
                              adapter, sp)
         x = x + h
-        return x + self.mlp(self.post_attn_norm(x), sp), cache
+        normed = self.post_attn_norm(x)
+        if hasattr(self, "moe_mlp"):
+            h, a = self.moe_mlp(normed, sp)
+            if aux is not None:
+                aux.append(a)
+            return x + h, cache
+        return x + self.mlp(normed, sp), cache
+
+    def reset_parameters(self, generator=None) -> None:
+        """The block's random init: attention, the (routed) MLP, norms 1."""
+        self.attn.reset_parameters(generator)
+        (self.moe_mlp if hasattr(self, "moe_mlp") else self.mlp
+         ).reset_parameters(generator)
+        nn.init.ones_(self.input_norm.weight)
+        nn.init.ones_(self.post_attn_norm.weight)
 
 
 class LlamaModel(nn.Module):
@@ -642,10 +703,11 @@ class LlamaModel(nn.Module):
 
     def forward(self, ids, positions=None, kv_caches=None, cache_offset=0,
                 kv_valid=None, block_table=None, paged_kernel=False,
-                segment_ids=None, adapters=None):
+                segment_ids=None, adapters=None, aux=None):
         """The final-norm hidden states ``[B, S, H]`` (under sequence
         parallelism the stack runs on sequence shards and the sequence is
-        gathered after the final norm)."""
+        gathered after the final norm); ``aux``: a list the MoE layers'
+        aux terms are appended to, in layer order."""
         sp = sequence_parallel_active(self.config.sequence_parallel,
                                       self.embed.tp, ids.shape[1],
                                       kv_caches is not None)
@@ -659,7 +721,7 @@ class LlamaModel(nn.Module):
         h = self.final_norm(run_layers(
             self.layers(), self.embed(ids, sp), positions, kv_caches,
             cache_offset, kv_valid, block_table, paged_kernel, segment_ids,
-            self.config.remat, adapters, sp))
+            self.config.remat, adapters, sp, aux))
         if sp:
             h = gather_from_sequence_parallel_region(h, 1, False,
                                                      self.embed.tp.group)
@@ -669,7 +731,8 @@ class LlamaModel(nn.Module):
 def run_layers(layers, h, positions=None, kv_caches=None, cache_offset=0,
                kv_valid=None, block_table=None, paged_kernel=False,
                segment_ids=None, remat: str = "none",
-               adapters=None, sp: bool = False) -> torch.Tensor:
+               adapters=None, sp: bool = False,
+               aux: Optional[list] = None) -> torch.Tensor:
     """The decoder stack over the embedded ``h [B, S, H]``.  Without
     caches: the training / teacher-forced forward,
     with per-document positions and segment ids (packed batches) and
@@ -678,7 +741,9 @@ def run_layers(layers, h, positions=None, kv_caches=None, cache_offset=0,
     ``segment_ids`` cover the whole sequence).  With caches: the serving
     forward, the paged step planned once for every layer when there is a
     block table.  ``adapters``: one :func:`apply_adapter` factor tuple per
-    layer (multi-adapter serving), or None."""
+    layer (multi-adapter serving), or None.  ``aux``: a list the MoE
+    layers' aux terms are appended to (each layer's comes out of its
+    remat region with its output, so a recompute appends nothing)."""
     if adapters is None:
         adapters = [None] * len(layers)
     if positions is None:
@@ -689,11 +754,22 @@ def run_layers(layers, h, positions=None, kv_caches=None, cache_offset=0,
     if kv_caches is None:
         remat = remat if torch.is_grad_enabled() else "none"
         for block, adapter in zip(layers, adapters):
-            step = maybe_remat(
-                lambda x, p, blk=block, ad=adapter: blk(
-                    x, p, None, 0, kv_valid, None, segment_ids, ad, sp)[0],
-                remat)
-            h = step(h, positions)
+            def call(x, p, blk=block, ad=adapter):
+                if not hasattr(blk, "moe_mlp"):
+                    return blk(x, p, None, 0, kv_valid, None, segment_ids,
+                               ad, sp)[0]
+                terms = []
+                y = blk(x, p, None, 0, kv_valid, None, segment_ids, ad, sp,
+                        aux=terms)[0]
+                return y, terms[0]
+
+            out = maybe_remat(call, remat)(h, positions)
+            if isinstance(out, tuple):
+                h, a = out
+                if aux is not None:
+                    aux.append(a)
+            else:
+                h = out
         return h
     paged = None
     if block_table is not None:
@@ -734,10 +810,7 @@ class LlamaForCausalLM(nn.Module):
         g.manual_seed(seed)
         self.model.embed.reset_parameters(g)
         for block in self.model.layers():
-            block.attn.reset_parameters(g)
-            block.mlp.reset_parameters(g)
-            nn.init.ones_(block.input_norm.weight)
-            nn.init.ones_(block.post_attn_norm.weight)
+            block.reset_parameters(g)
         nn.init.ones_(self.model.final_norm.weight)
         self.lm_head.reset_parameters(g)
         reset_lora_parameters(self, g)
@@ -745,9 +818,11 @@ class LlamaForCausalLM(nn.Module):
 
     def forward(self, ids, positions=None, kv_caches=None, cache_offset=0,
                 kv_valid=None, block_table=None, paged_kernel=False,
-                segment_ids=None, adapters=None):
+                segment_ids=None, adapters=None, aux=None):
+        """``aux``: a list the MoE layers' aux terms are appended to (the
+        losses of ``models.common`` pass one for an MoE config)."""
         h = self.model(ids, positions, kv_caches, cache_offset, kv_valid,
-                       block_table, paged_kernel, segment_ids, adapters)
+                       block_table, paged_kernel, segment_ids, adapters, aux)
         logits = self.lm_head(h)
         return (logits, kv_caches) if kv_caches is not None else logits
 
@@ -764,13 +839,14 @@ class LlamaForCausalLM(nn.Module):
             schedule=schedule, pipeline_cuts=pipeline_cuts, packed=packed,
             num_chunks=num_chunks, device=device)
 
-    def hidden(self, ids, positions=None, kv_valid=None, segment_ids=None):
+    def hidden(self, ids, positions=None, kv_valid=None, segment_ids=None,
+               aux=None):
         """Backbone only: final-norm hidden states ``[B, S, H]`` with the
         whole sequence (gathered back from sequence parallelism), the input
         the chunked loss head (``models.common.make_causal_lm_loss_sum``)
         consumes."""
         return self.model(ids, positions, None, 0, kv_valid, None, False,
-                          segment_ids)
+                          segment_ids, aux=aux)
 
     def head(self, h):
         """Logits for a (chunk of) hidden states: this rank's vocab slice
@@ -816,10 +892,7 @@ def _llama_init_plan(cfg: LlamaConfig) -> list:
     pairs (:meth:`..pipeline.engine.PipelineStage.init_random`)."""
 
     def block(blk, g):
-        blk.attn.reset_parameters(g)
-        blk.mlp.reset_parameters(g)
-        nn.init.ones_(blk.input_norm.weight)
-        nn.init.ones_(blk.post_attn_norm.weight)
+        blk.reset_parameters(g)
 
     def head(h, g):
         nn.init.ones_(h.final_norm.weight)
@@ -847,11 +920,20 @@ def build_pipelined_llama(cfg: LlamaConfig, num_microbatches: int,
     ``seed``.  ``packed``: the schedule functions take ``positions`` and
     ``segment_ids`` after ``labels`` and thread them to every block (per-
     document RoPE and segment masking, as at pp = 1); ``sliding_window``
-    comes from the config."""
-    if getattr(cfg, "num_experts", 1) > 1:
-        raise NotImplementedError(
-            "MoE under pipeline parallelism is not ported (ROADMAP, "
-            "\"Then\")")
+    comes from the config.  An MoE config's blocks hand their aux terms
+    (``MOE_AUX_COEF`` folded in) to the engine's aux channel; at pp > 1
+    and ep > 1 a rank holds ``num_experts // ep`` experts
+    (``moe_local_experts``) and routes over its ep group, as JAX's manual
+    ep does."""
+    moe = cfg.num_experts > 1
+    ep = ExpertParallel.current().size
+    if moe and PipelineParallel.current().size > 1 and ep > 1:
+        if cfg.num_experts % ep != 0:
+            raise ValueError(
+                f"num_experts ({cfg.num_experts}) must divide by the "
+                f"expert-parallel degree ({ep}) under pipeline parallelism")
+        cfg = dataclasses.replace(cfg,
+                                  moe_local_experts=cfg.num_experts // ep)
 
     def block_fn(blk, x, extras, sp, S):
         if packed:
@@ -864,8 +946,13 @@ def build_pipelined_llama(cfg: LlamaConfig, num_microbatches: int,
             positions = torch.arange(S, device=x.device).expand(
                 x.shape[0], S)
             segment_ids = None
-        return blk(x, positions, None, 0, None, None, segment_ids, None,
-                   sp)[0]
+        if not moe:
+            return blk(x, positions, None, 0, None, None, segment_ids, None,
+                       sp)[0]
+        terms = []
+        y = blk(x, positions, None, 0, None, None, segment_ids, None, sp,
+                aux=terms)[0]
+        return y, MOE_AUX_COEF * torch.stack(terms).sum()
 
     return build_pipelined_causal_lm(
         make_embed=lambda d: ParallelEmbedding(
@@ -882,4 +969,4 @@ def build_pipelined_llama(cfg: LlamaConfig, num_microbatches: int,
         num_microbatches=num_microbatches, seed=seed, schedule=schedule,
         pipeline_cuts=pipeline_cuts,
         extra_keys=("positions", "segment_ids") if packed else (),
-        num_chunks=num_chunks, device=device)
+        num_chunks=num_chunks, device=device, block_aux=moe)

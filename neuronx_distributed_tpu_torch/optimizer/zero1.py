@@ -16,6 +16,11 @@ updated slices are all-gathered back into the parameters.
 At pp > 1 the same runs inside each stage: a stage's parameters, sliced
 over its data-parallel group.
 
+An MoE expert's weights (``expert_parallel``) keep a whole state on their
+ep shard, as JAX's ``_dp_extend`` leaves a spec that already names a batch
+axis, and their gradients are summed over the pure dp axis
+(``expert_group``), not dp x ep.
+
 The eligible dim of a local shard is the first whose size divides dp
 (:func:`zero1_dim`): the dim JAX picks, since the shard's size is the
 full size over the existing sharding.  Within that dim the port's slices
@@ -55,6 +60,7 @@ from neuronx_distributed_tpu_torch.parallel.grads import (
     coalesced_all_reduce,
     unflatten_into,
 )
+from neuronx_distributed_tpu_torch.parallel.moe import is_expert_parallel
 
 # a spec entry: None (replicated), one axis name, or a tuple of axis names
 Entry = Union[None, str, Tuple[str, ...]]
@@ -145,6 +151,9 @@ def optimizer_state_layout(params: Sequence[torch.Tensor], dp: int
     replicated over dp."""
     out = []
     for p in params:
+        if is_expert_parallel(p):
+            out.append(None)
+            continue
         d = zero1_dim(p.shape, dp)
         out.append(None if d is None else (d, p.shape[d] // dp))
     return out
@@ -155,12 +164,14 @@ class Zero1:
     rank's local shards) for data-parallel ``group`` of ``size`` ranks at
     ``rank``.  :attr:`shards` are what the optimizer updates: for an
     eligible parameter a contiguous fp32 copy of this rank's slice (its
-    state is that slice's), else the parameter itself."""
+    state is that slice's), else the parameter itself.  ``expert_group``
+    (the pure dp axis) sums the MoE experts' gradients."""
 
     def __init__(self, params: Sequence[torch.nn.Parameter], group, size: int,
-                 rank: int):
+                 rank: int, expert_group=None):
         self.params = list(params)
         self.group, self.size, self.rank = group, size, rank
+        self.expert_group = expert_group
         self.layout = optimizer_state_layout(self.params, size)
         with torch.no_grad():
             self.shards = [p if lay is None else
@@ -177,9 +188,15 @@ class Zero1:
         """Sum every gradient over dp and hand each eligible slice to its
         shard (the full gradient is dropped); returns the shards'
         gradients in order."""
+        expert = [is_expert_parallel(p) for p in self.params]
         grads = [p.grad for p in self.params]
-        coalesced_all_reduce([g for g in grads if g is not None], self.group,
+        coalesced_all_reduce([g for g, e in zip(grads, expert)
+                              if g is not None and not e], self.group,
                              kind="reduce_scatter")
+        ex = [g for g, e in zip(grads, expert) if g is not None and e]
+        if ex and self.expert_group is not None:
+            coalesced_all_reduce(ex, self.expert_group,
+                                 kind="expert_all_reduce")
         for p, s, lay in zip(self.params, self.shards, self.layout):
             if lay is not None:
                 s.grad = p.grad.narrow(lay[0], self.rank * lay[1],

@@ -1,7 +1,7 @@
 """Parallel state, collectives and layers of the PyTorch port: the
 six-axis rank layout and its process groups (:mod:`.mesh`), the
-conjugate-pair collectives (:mod:`.mappings`) and the tensor-parallel
-layers."""
+conjugate-pair collectives (:mod:`.mappings`), the tensor-parallel
+layers and the expert-parallel MoE layer (:mod:`.moe`)."""
 
 from neuronx_distributed_tpu_torch.parallel.layers import (
     ColumnParallelLinear,
@@ -14,11 +14,16 @@ from neuronx_distributed_tpu_torch.parallel.mesh import (
     initialize_model_parallel,
     model_parallel_is_initialized,
 )
+from neuronx_distributed_tpu_torch.parallel.moe import (
+    ExpertParallelMLP,
+    load_balancing_loss,
+)
 from neuronx_distributed_tpu_torch.parallel.norm import RMSNorm
 from neuronx_distributed_tpu_torch.parallel.qkv import GQAQKVColumnParallelLinear
 
 __all__ = [
     "ColumnParallelLinear",
+    "ExpertParallelMLP",
     "GQAQKVColumnParallelLinear",
     "ParallelEmbedding",
     "RMSNorm",
@@ -26,5 +31,6 @@ __all__ = [
     "TensorParallel",
     "destroy_model_parallel",
     "initialize_model_parallel",
+    "load_balancing_loss",
     "model_parallel_is_initialized",
 ]

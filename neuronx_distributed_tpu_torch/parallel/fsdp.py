@@ -23,8 +23,9 @@ The Function's backward reduce-scatters the full gradient onto the piece
 over gloo, ROADMAP A9a), so after backward a piece's ``.grad`` is already
 summed over dp and the trainer skips its data-parallel sum.  A rank holds
 only its pieces of parameters, gradients and AdamW state.  Parameters with
-no eligible dim stay replicated over dp (their gradients are summed by the
-trainer as without FSDP).  ``mappings.COUNTS`` counts ``fsdp_all_gather``
+no eligible dim, and MoE experts (whole on their ep shard, as JAX's
+``fsdp_spec`` leaves a spec naming ``ep``), stay replicated over dp (their
+gradients are summed by the trainer as without FSDP).  ``mappings.COUNTS`` counts ``fsdp_all_gather``
 and ``fsdp_reduce_scatter`` (one a piece a gather).
 
 Two uses fall outside that pattern, and each has its own entry:
@@ -56,6 +57,7 @@ from neuronx_distributed_tpu_torch.optimizer.zero1 import fsdp_dim
 from neuronx_distributed_tpu_torch.parallel import mappings
 from neuronx_distributed_tpu_torch.parallel.layers import tp_layout
 from neuronx_distributed_tpu_torch.parallel.mesh import TensorParallel
+from neuronx_distributed_tpu_torch.parallel.moe import is_expert_parallel
 
 # the parameter attributes the trainer and the checkpoints read, carried
 # from a parameter to its FSDP piece
@@ -239,6 +241,8 @@ def shard_module(module: nn.Module, group, size: int, rank: int
     tp = TensorParallel.current()
     owners = {}
     for name, p in list(module.named_parameters()):
+        if is_expert_parallel(p):
+            continue   # an MoE expert stays whole on its ep shard (JAX fsdp_spec)
         cut = tp_cut(name, p.ndim, tp.size, tp.rank, tp.kvr)
         if cut is None and tp_layout(p) is not None:
             raise ValueError(

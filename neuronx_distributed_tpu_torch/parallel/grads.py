@@ -11,7 +11,9 @@ norm weight after its sequence-parallel sum) counts once, on tp rank 0; a
 kvr rank 0.  Under ZeRO-1 (``dp_sliced``) a gradient that is this rank's
 slice over dp is summed over dp as well; the others count on dp rank 0.
 Gradients are whole over cp (the trainer sums them there), so only cp
-rank 0 counts them.  Each rank adds only the gradients it owns and one
+rank 0 counts them.  An MoE expert's gradient (``expert_parallel``) is
+its ep rank's own experts, whole over dp: it counts on each ep rank, at
+pure-dp rank 0.  Each rank adds only the gradients it owns and one
 all-reduce over the world gives every rank the global norm.  At pp > 1
 each stage's parameters are distinct (the embedding and the head live on
 one stage each, not replicated along pp), so every stage counts its own
@@ -22,7 +24,8 @@ The reductions the reference does by hand and GSPMD derives:
 acting on sequence shards: each rank's gradient covers its shard) and
 :func:`allreduce_kv_replicated_gradients` (the kvr replicas of a K/V
 kernel each see their own q heads' share), each one coalesced all-reduce
-a step, and :func:`psum_over_data_parallel` (the data-parallel sum).
+a step, :func:`psum_over_data_parallel` (the data-parallel sum) and
+:func:`allreduce_expert_gradients` (an expert's, over the pure dp axis).
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from neuronx_distributed_tpu_torch.parallel.layers import (
     is_sequence_parallel,
     tp_layout,
 )
+from neuronx_distributed_tpu_torch.parallel.moe import is_expert_parallel
 
 # bytes of one coalesced all-reduce (the reference's bucket size)
 BUCKET_BYTES = 512 * 2 ** 20
@@ -52,8 +56,11 @@ def _owned(p, sliced: bool) -> bool:
         mine = rank < inner
     else:
         mine = layout == SHARDED or rank == 0
-    return (mine and (sliced or mesh.get_data_parallel_rank() == 0)
-            and mesh.get_context_parallel_rank() == 0)
+    if is_expert_parallel(p):
+        dp_first = mesh.get_expert_data_parallel_rank() == 0
+    else:
+        dp_first = sliced or mesh.get_data_parallel_rank() == 0
+    return mine and dp_first and mesh.get_context_parallel_rank() == 0
 
 
 def _partial(g: torch.Tensor, norm_type: float) -> torch.Tensor:
@@ -170,6 +177,16 @@ def allreduce_kv_replicated_gradients(params: Iterable[torch.Tensor]) -> None:
              if tp_layout(p) == KV_REPLICATED and p.grad is not None]
     if grads:
         coalesced_all_reduce(grads, mesh.get_group(mesh.KV_REPLICA_AXIS))
+
+
+def allreduce_expert_gradients(grads: Sequence[torch.Tensor]) -> None:
+    """Sum MoE experts' gradients over the pure data-parallel axis, in
+    place: the ep ranks hold different experts, and each one's gradient
+    already covers every token of its routing group."""
+    grads = [g for g in grads if g is not None]
+    if grads and mesh.model_parallel_is_initialized():
+        coalesced_all_reduce(grads, mesh.get_expert_data_parallel_group(),
+                             kind="expert_all_reduce")
 
 
 def psum_over_data_parallel(grads: Sequence[torch.Tensor],

@@ -14,6 +14,8 @@ all-gather along last dim                      split along last dim
 split along seq dim                            all-gather along seq dim
 all-gather along seq dim                       reduce-scatter | split
 reduce-scatter along seq dim                   all-gather along seq dim
+all-gather along token dim (MoE, any group)    reduce-scatter
+reduce-scatter along token dim                 all-gather
 =============================================  ==========================
 
 ``group`` defaults to the tensor-parallel group of :mod:`.mesh`; a group
@@ -115,9 +117,10 @@ def broadcast(x: torch.Tensor, src: int, group=None,
     return x
 
 
-def all_gather(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+def all_gather(x: torch.Tensor, dim: int, group=None,
+               kind: str = "all_gather") -> torch.Tensor:
     """The group's shards of ``x`` concatenated along ``dim`` in rank
-    order."""
+    order, counted under ``kind``."""
     g = _group(group)
     n = 1 if g is None else dist.get_world_size(g)
     if n == 1:
@@ -129,9 +132,9 @@ def all_gather(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
     out = torch.zeros(shape, dtype=x.dtype, device=x.device)
     out.narrow(dim, dist.get_rank(g) * x.shape[dim], x.shape[dim]).copy_(x)
     dist.all_reduce(out, group=g)
-    SECONDS["all_gather"] += time.perf_counter() - t0
-    COUNTS["all_gather"] += 1
-    BYTES["all_gather"] += _nbytes(out)
+    SECONDS[kind] += time.perf_counter() - t0
+    COUNTS[kind] += 1
+    BYTES[kind] += _nbytes(out)
     return out
 
 
@@ -148,8 +151,10 @@ def split(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
     return x.narrow(dim, dist.get_rank(g) * chunk, chunk).contiguous()
 
 
-def reduce_scatter(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
-    """The sum over the group of ``x``, this rank's slice along ``dim``."""
+def reduce_scatter(x: torch.Tensor, dim: int, group=None,
+                   kind: str = "reduce_scatter") -> torch.Tensor:
+    """The sum over the group of ``x``, this rank's slice along ``dim``,
+    counted under ``kind``."""
     g = _group(group)
     n = 1 if g is None else dist.get_world_size(g)
     if n == 1:
@@ -161,9 +166,9 @@ def reduce_scatter(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
     full = x.contiguous().clone()
     dist.all_reduce(full, group=g)
     out = split(full, dim, g)
-    SECONDS["reduce_scatter"] += time.perf_counter() - t0
-    COUNTS["reduce_scatter"] += 1
-    BYTES["reduce_scatter"] += _nbytes(full)
+    SECONDS[kind] += time.perf_counter() - t0
+    COUNTS[kind] += 1
+    BYTES[kind] += _nbytes(full)
     return out
 
 
@@ -385,6 +390,28 @@ class _ReduceScatterSeq(torch.autograd.Function):
         return all_gather(g, ctx.seq_dim, ctx.group), None, None
 
 
+class _GatherTokens(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_gather(x, 0, group, kind="ep_all_gather")
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, 0, ctx.group, kind="ep_reduce_scatter"), None
+
+
+class _ReduceScatterTokens(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return reduce_scatter(x, 0, group, kind="ep_reduce_scatter")
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, 0, ctx.group, kind="ep_all_gather"), None
+
+
 def _trivial(group) -> bool:
     return group_size(group) == 1
 
@@ -435,3 +462,17 @@ def reduce_scatter_to_sequence_parallel_region(x: torch.Tensor,
     if _trivial(group):
         return x
     return _ReduceScatterSeq.apply(x, seq_dim, _group(group))
+
+
+def gather_tokens(x: torch.Tensor, group) -> torch.Tensor:
+    """Forward all-gather of the token dim (dim 0) over ``group`` in rank
+    order, backward reduce-scatter of it: an MoE layer's tokens in
+    (counted as ``ep_all_gather`` and ``ep_reduce_scatter``)."""
+    return x if _trivial(group) else _GatherTokens.apply(x, group)
+
+
+def reduce_scatter_tokens(x: torch.Tensor, group) -> torch.Tensor:
+    """Forward reduce-scatter of the token dim (dim 0) over ``group``,
+    backward all-gather of it: an MoE layer's partial outputs back to the
+    rank that holds each token."""
+    return x if _trivial(group) else _ReduceScatterTokens.apply(x, group)

@@ -362,6 +362,20 @@ def get_expert_parallel_group():
     return get_group(EXPERT_AXIS)
 
 
+def get_expert_data_parallel_size() -> int:
+    """The pure data-parallel degree ``dp`` (the batch degree without
+    ``ep``): an expert's replicas, over which its gradient is summed."""
+    return _size(DATA_AXIS)
+
+
+def get_expert_data_parallel_rank() -> int:
+    return _rank(DATA_AXIS)
+
+
+def get_expert_data_parallel_group():
+    return get_group(DATA_AXIS)
+
+
 class TensorParallel:
     """The tensor-parallel context a layer is built in: ``size`` (the full
     degree ``kvr * tp``), ``rank`` (in the group, kvr-major), ``group``,
@@ -440,6 +454,47 @@ class ContextParallel:
 
     def __repr__(self) -> str:
         return f"ContextParallel(size={self.size}, rank={self.rank})"
+
+
+class ExpertParallel:
+    """The expert-parallel context an MoE layer is built in: ``size`` (the
+    ep degree), ``rank`` and ``group`` (a rank holds experts ``rank *
+    E / size`` on), and the routing group its tokens are gathered over,
+    ``route_group`` with ``route_size`` and ``route_rank``: at pipeline
+    degree 1 the batch group (dp x ep, the JAX GSPMD layer routes over
+    the global batch), under a pipeline the ep group (the JAX engine's
+    manual-ep layer routes over its ep group's microbatch rows).  Ranks
+    of the routing group are batch-ordered, dp-major, so this rank's ep
+    group holds the consecutive rows :attr:`line_start` on (size 1 and no
+    groups before initialization)."""
+
+    def __init__(self, size: int = 1, rank: int = 0, group=None,
+                 route_size: int = 1, route_rank: int = 0,
+                 route_group=None):
+        self.size, self.rank, self.group = size, rank, group
+        self.route_size, self.route_rank = route_size, route_rank
+        self.route_group = route_group
+
+    @staticmethod
+    def current() -> "ExpertParallel":
+        if not model_parallel_is_initialized():
+            return ExpertParallel()
+        ep = (get_expert_parallel_size(), get_expert_parallel_rank(),
+              get_expert_parallel_group())
+        if get_pipeline_parallel_size() > 1:
+            return ExpertParallel(*ep, *ep)
+        return ExpertParallel(*ep, get_data_parallel_size(),
+                              get_data_parallel_rank(),
+                              get_data_parallel_group())
+
+    def line_start(self, n: int) -> int:
+        """The first row of this rank's ep group among the routing group's
+        gathered rows, ``n`` rows a rank."""
+        return (self.route_rank - self.rank) * n
+
+    def __repr__(self) -> str:
+        return (f"ExpertParallel(size={self.size}, rank={self.rank}, "
+                f"route_size={self.route_size})")
 
 
 class PipelineParallel:

@@ -166,8 +166,12 @@ class PipelineStage(nn.Module):
         return self.parts["embed_fn"](self._embed, ids, sp)
 
     def run(self, chunk: int, x, extras: Sequence, sp: bool):
-        return self.parts["run_fn"]([self.block(i) for i in self.chunks[chunk]],
-                                    x, extras, sp)
+        """``(the chunk's output, the sum of its blocks' aux terms)``; the
+        aux is None unless the family's blocks return one (``block_aux``:
+        an MoE block's load-balancing term)."""
+        out = self.parts["run_fn"]([self.block(i) for i in self.chunks[chunk]],
+                                   x, extras, sp)
+        return out if self.parts.get("block_aux") else (out, None)
 
     def logits(self, h, sp: bool):
         return self.parts["head_fn"](self._head, h, sp)
@@ -414,6 +418,7 @@ class PipelinedModel:
     extra_keys: Tuple[str, ...] = ()
     num_chunks: int = 1
     stats: Dict[str, int] = dataclasses.field(default_factory=dict)
+    num_layers: int = 0
 
     def num_parameters(self) -> int:
         return sum(p.numel() for p in self.module.parameters())
@@ -449,8 +454,9 @@ class _Engine:
     """The executor behind a :class:`PipelinedModel`'s functions."""
 
     def __init__(self, stage: PipelineStage, M: int, schedule: str, V: int,
-                 extra_keys):
+                 extra_keys, num_layers: int):
         self.stage, self.M, self.schedule, self.V = stage, M, schedule, V
+        self.num_layers = num_layers
         self.pp = PipelineParallel.current()
         self.S = self.pp.size * V
         self.n_extra = len(extra_keys)
@@ -488,6 +494,16 @@ class _Engine:
     def _sp(self, b: _Batch) -> bool:
         return self.stage.parts["sp_active"](b.ids.shape[2])
 
+    def _aux_weight(self, b: _Batch):
+        """The weight of a stage's aux sum in the loss sum (JAX's
+        ``aux_w``): the global token count over layers x microbatches x
+        the batch degree, so that the loss sum over pp and dp, divided by
+        the token count, is the mean loss plus the layer, microbatch and
+        routing-group mean of the aux terms (every batch rank of one
+        routing group holds its group's aux)."""
+        dp = mesh.get_data_parallel_size()
+        return b.tok / (self.num_layers * self.M * dp)
+
     def _sum_loss(self, loss_local):
         """The loss sum over pp and dp (the same on every rank)."""
         if self.pp.size > 1:
@@ -515,6 +531,7 @@ class _Engine:
         stash: Dict[tuple, tuple] = {}
         outgoing: Dict[tuple, torch.Tensor] = {}
         loss_local = torch.zeros((), dtype=torch.float32, device=dev)
+        aux_w = self._aux_weight(b)
         peak = 0
         program = train_program(self.schedule, self.M, self.pp.size,
                                 self.pp.rank, self.V)
@@ -526,21 +543,32 @@ class _Engine:
                         x = stage.embed(b.ids[m], sp)
                     else:
                         x = link.take("F", v, m).requires_grad_()
-                    y = stage.run(v, x, b.extra(m), sp)
+                    y, aux = stage.run(v, x, b.extra(m), sp)
+                    term = None
+                    if aux is not None:
+                        term = aux * aux_w
+                        loss_local = loss_local + term.detach()
+                        if not term.requires_grad:
+                            term = None
                     if vs == self.S - 1:
                         ls, _ = stage.head_loss(y, b.labels[m], sp)
                         loss_local = loss_local + ls.detach().float()
-                        stash[(v, m)] = (x, ls)
+                        stash[(v, m)] = (x, ls if term is None
+                                         else ls.float() + term, None)
                     else:
                         outgoing[("F", v, m)] = y.detach()
-                        stash[(v, m)] = (x, y)
+                        stash[(v, m)] = (x, y, term)
                     peak = max(peak, len(stash))
                 else:
-                    x, out = stash.pop((v, m))
+                    x, out, term = stash.pop((v, m))
                     if vs == self.S - 1:
                         torch.autograd.backward(out)
-                    else:
+                    elif term is None:
                         torch.autograd.backward(out, link.take("B", v, m))
+                    else:
+                        torch.autograd.backward(
+                            [out, term],
+                            [link.take("B", v, m), torch.ones_like(term)])
                     if vs > 0:
                         outgoing[("B", v, m)] = x.grad
             link.post(recvs, sends, outgoing)
@@ -559,6 +587,7 @@ class _Engine:
         anchor = torch.zeros((), device=dev, requires_grad=True)
         outgoing: Dict[tuple, torch.Tensor] = {}
         loss_local = torch.zeros((), dtype=torch.float32, device=dev)
+        aux_w = None if want_logits else self._aux_weight(b)
         logits = {}
         program = forward_program(self.schedule, self.M, self.pp.size,
                                   self.pp.rank, self.V)
@@ -572,7 +601,9 @@ class _Engine:
                     x = link.take("F", v, m)
                     if differentiable:
                         x = _RecvActivation.apply(anchor, x, link, ("F", v, m))
-                y = stage.run(v, x, b.extra(m), sp)
+                y, aux = stage.run(v, x, b.extra(m), sp)
+                if aux is not None and aux_w is not None:
+                    loss_local = loss_local + aux * aux_w
                 n_live += 1
                 if vs == self.S - 1:
                     if want_logits:
@@ -721,7 +752,8 @@ def build_pipelined_model(parts: Dict[str, Any], num_layers: int,
         stage.init_random(seed)
     # interleaved at pp = 1 is the plain 1F1B engine, as in JAX
     sched = schedule if (schedule != "interleaved" or pp.size > 1) else "1f1b"
-    engine = _Engine(stage, num_microbatches, sched, V, extra_keys)
+    engine = _Engine(stage, num_microbatches, sched, V, extra_keys,
+                     num_layers)
 
     def loss_fn(ids, labels, *extras):
         return engine.forward_loss(ids, labels, *extras)
@@ -737,7 +769,7 @@ def build_pipelined_model(parts: Dict[str, Any], num_layers: int,
         loss_fn=loss_fn, forward_fn=forward_fn,
         loss_and_grad_fn=loss_and_grad_fn, schedule=schedule,
         layer_rows=rows, extra_keys=tuple(extra_keys), num_chunks=V,
-        stats=engine.stats)
+        stats=engine.stats, num_layers=num_layers)
     return model
 
 
@@ -784,7 +816,7 @@ def _variant(model: PipelinedModel, schedule: str) -> PipelinedModel:
         raise ValueError("a chunked (interleaved) stage runs the "
                          "interleaved schedule only")
     engine = _Engine(model.module, model.num_microbatches, schedule, 1,
-                     model.extra_keys)
+                     model.extra_keys, model.num_layers)
 
     return dataclasses.replace(
         model, loss_and_grad_fn=engine.loss_and_grad, schedule=schedule,

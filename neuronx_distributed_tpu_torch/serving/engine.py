@@ -166,6 +166,7 @@ from neuronx_distributed_tpu_torch.trace.engine import (
     pack_tokens,
     propose_rows,
     refuse_kv_replication,
+    refuse_moe,
     request_key,
     sample_rows,
     sampled_tokens,
@@ -492,6 +493,7 @@ class ServingEngine:
         cfg = model.config
         tp = getattr(model, "tp", None)
         refuse_kv_replication(tp)
+        refuse_moe(getattr(getattr(model, "module", None), "config", None))
         self.tp_size = tp.size if tp is not None else 1
         # tensor-parallel rank 0 writes the engine's files; every rank's
         # clock is rank 0's (see the module docstring)

@@ -165,6 +165,18 @@ def refuse_kv_replication(tp) -> None:
             f"(ROADMAP A9c; training at kvr > 1 is ported)")
 
 
+def refuse_moe(model_config) -> None:
+    """Serving runs dense models only: an MoE model's routing is capacity-
+    bounded over the tokens of one forward, so a decode step would route
+    differently from the teacher-forced pass, and that parity is work of
+    its own (JAX has no MoE serving test either)."""
+    n = getattr(model_config, "num_experts", 1)
+    if n > 1:
+        raise NotImplementedError(
+            f"serving an MoE model (num_experts={n}) is not ported yet "
+            f"(ROADMAP T1b, MoE serving; MoE training is ported)")
+
+
 def resolve_cuda_graphs(flag, device, tp_size: int = 1) -> bool:
     """Resolve the ``cuda_graphs`` knob (``"auto"`` | ``True`` |
     ``False``): auto captures on a CUDA device and runs eagerly on the
@@ -424,6 +436,7 @@ class ParallelInferenceModel(_ServingBase):
         # holds NKV / tp heads of the pool and V / tp of the logits
         self.tp = getattr(module, "tp", None) or TensorParallel()
         refuse_kv_replication(self.tp)
+        refuse_moe(getattr(module, "config", None))
         self.cuda_graphs = resolve_cuda_graphs(cuda_graphs, self.device,
                                                self.tp.size)
         self.graphs = PhaseGraphs(capture=self.cuda_graphs)

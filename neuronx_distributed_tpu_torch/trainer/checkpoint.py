@@ -503,6 +503,17 @@ def _tp_cuts(name: str, p: torch.Tensor) -> tuple:
     return () if cut is None else (cut,)
 
 
+def _ep_cuts(p: torch.Tensor) -> tuple:
+    """An MoE expert's cut over ep: its rank's experts on dim 0."""
+    from neuronx_distributed_tpu_torch.parallel import mesh
+    from neuronx_distributed_tpu_torch.parallel.moe import is_expert_parallel
+
+    ep = mesh.get_expert_parallel_size()
+    if ep == 1 or not is_expert_parallel(p):
+        return ()
+    return ((0, ep, mesh.get_expert_parallel_rank()),)
+
+
 def _dp_cut(dim: Optional[int]) -> tuple:
     from neuronx_distributed_tpu_torch.parallel import mesh
 
@@ -514,10 +525,10 @@ def _dp_cut(dim: Optional[int]) -> tuple:
 
 def model_shards(model) -> Dict[str, Shard]:
     """``{parameter name: Shard}`` of a ``ParallelModel`` (or module): this
-    rank's tensor-parallel shard of each parameter, cut again over dp
-    under FSDP."""
+    rank's tensor-parallel shard of each parameter (an MoE expert's cut
+    over ep too), cut again over dp under FSDP."""
     module = getattr(model, "module", model)
-    return {name: Shard(p, _tp_cuts(name, p)
+    return {name: Shard(p, _tp_cuts(name, p) + _ep_cuts(p)
                         + _dp_cut(getattr(p, "fsdp_dim", None)))
             for name, p in module.named_parameters()}
 
@@ -553,7 +564,7 @@ def optimizer_shards(model, optimizer) -> dict:
            "exp_avg_sq": {}}
     for name, p, key, dim in _state_pairs(model, optimizer):
         st = opt.state.get(key, {})
-        cuts = _tp_cuts(name, p) + _dp_cut(dim)
+        cuts = _tp_cuts(name, p) + _ep_cuts(p) + _dp_cut(dim)
         for m in ("exp_avg", "exp_avg_sq"):
             t = st.get(m)
             out[m][name] = Shard(torch.zeros_like(key) if t is None else t,

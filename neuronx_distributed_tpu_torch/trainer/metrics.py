@@ -40,10 +40,15 @@ def transformer_flops_per_token(
     num_heads: Optional[int] = None,
     num_kv_heads: Optional[int] = None,
     head_dim: Optional[int] = None,
+    num_experts: int = 1,
+    top_k: int = 1,
 ) -> float:
     """Approximate training FLOPs per token (fwd + bwd = 3x the forward
     matmul FLOPs): projections, MLP, the attention core at full ``seq_len``
-    (the causal half is not discounted) and the LM head."""
+    (the causal half is not discounted) and the LM head.  An MoE model
+    (``num_experts > 1``) counts its ACTIVE FLOPs: the router and the
+    ``top_k`` experts a token runs (``top_k / num_experts`` of the expert
+    parameters), not every expert."""
     num_heads = num_heads or (hidden // 128)
     head_dim = head_dim or (hidden // num_heads)
     num_kv_heads = num_kv_heads or num_heads
@@ -52,6 +57,8 @@ def transformer_flops_per_token(
     attn_proj = 2 * hidden * (q_size + 2 * kv_size) + 2 * q_size * hidden
     attn_core = 2 * 2 * seq_len * q_size  # qk^T + pv, per token
     mlp = 2 * 3 * hidden * intermediate  # gate, up, down
+    if num_experts > 1:
+        mlp = top_k * mlp + 2 * hidden * num_experts   # experts + router
     per_layer = attn_proj + attn_core + mlp
     lm_head = 2 * hidden * vocab
     fwd = num_layers * per_layer + lm_head

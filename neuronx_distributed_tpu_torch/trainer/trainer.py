@@ -2,7 +2,8 @@
 of ``neuronx_distributed_tpu/trainer/trainer.py``), one process a rank.
 
 The port trains at any tensor-parallel degree, KV replication,
-data-parallel and context-parallel degree, with sequence parallelism (the
+data-parallel, expert-parallel and context-parallel degree, with sequence
+parallelism (the
 model config's ``sequence_parallel``) and ZeRO-1
 (``optimizer.zero_one_enabled``): each rank holds its shard, and the step
 does by hand what GSPMD derives in the JAX step -- this rank's rows of
@@ -21,7 +22,12 @@ predicate rejects (PEFT: ``peft.lora_trainable``).  At pipeline degree >
 stage, from the module's ``build_pipelined``) and the step runs its
 schedule (:func:`make_pipelined_train_step`): the gradient sums over tp,
 dp (ZeRO-1 inside a stage) and the norm over every stage are the same
-code.  Expert parallelism ("Then") is not ported yet and raises.
+code.  At expert-parallel degree > 1 (an MoE model: ``parallel.moe``)
+the batch splits over dp x ep as over data parallelism, and a rank holds
+``E / ep`` experts: an expert's gradient, which already holds every token
+of its routing group, is summed over the pure dp axis only, its ZeRO-1
+state stays whole and FSDP leaves it whole (the JAX specs naming ``ep``);
+every other parameter's gradient sums over dp x ep.
 """
 
 from __future__ import annotations
@@ -44,7 +50,9 @@ from neuronx_distributed_tpu_torch.optimizer.adamw_fp32 import (
 )
 from neuronx_distributed_tpu_torch.optimizer.zero1 import Zero1
 from neuronx_distributed_tpu_torch.parallel import fsdp, mappings, mesh
+from neuronx_distributed_tpu_torch.parallel.moe import is_expert_parallel
 from neuronx_distributed_tpu_torch.parallel.grads import (
+    allreduce_expert_gradients,
     allreduce_kv_replicated_gradients,
     allreduce_sequence_parallel_gradients,
     clip_grad_norm,
@@ -58,14 +66,6 @@ from neuronx_distributed_tpu_torch.utils.device import resolve_device
 from neuronx_distributed_tpu_torch.utils.logger import get_logger
 
 logger = get_logger(__name__)
-
-# the degrees the trainer does not take yet, by the ROADMAP item that
-# lifts each refusal
-DEFERRED_DEGREES = {
-    "expert_parallel_size": "expert parallelism, with MoE (ROADMAP, "
-                            "\"Then\")",
-}
-
 
 @dataclasses.dataclass
 class ParallelModel:
@@ -105,11 +105,6 @@ def _check_degrees(config: TrainingConfig) -> None:
             "fsdp=True requires pipeline_parallel_size == 1: a pipeline "
             "stage's parameters stay replicated along dp (use "
             "zero_one_enabled for state sharding)")
-    for name, item in DEFERRED_DEGREES.items():
-        value = getattr(m, name)
-        if value > 1:
-            raise NotImplementedError(f"{name}={value} is not ported yet: "
-                                      f"{item}")
 
 
 def _initialize_parallel_state(config: TrainingConfig, device) -> None:
@@ -122,6 +117,7 @@ def _initialize_parallel_state(config: TrainingConfig, device) -> None:
     wants_world = (m.tensor_parallel_size > 1 or m.kv_size_multiplier > 1
                    or m.context_parallel_size > 1
                    or m.pipeline_parallel_size > 1
+                   or m.expert_parallel_size > 1
                    or (m.data_parallel_size or 1) > 1)
     if not (wants_world or dist.is_initialized()):
         return
@@ -191,8 +187,7 @@ def initialize_parallel_model(config: TrainingConfig,
     gives this rank's :class:`..pipeline.engine.PipelinedModel` (the
     Llama and GPT-NeoX families have it) from ``config.pipeline``: its
     stage holds the pp = 1 model's weights from ``seed`` for its pieces.
-    Raises ``NotImplementedError`` for an expert degree above 1, and
-    ``ValueError`` for ``fsdp`` with a pipeline."""
+    Raises ``ValueError`` for ``fsdp`` with a pipeline."""
     _check_degrees(config)
     dev = resolve_device(device)
     _initialize_parallel_state(config, dev)
@@ -281,7 +276,8 @@ def initialize_parallel_optimizer(config: TrainingConfig,
     if oc.zero_one_enabled and dp > 1 and \
             fsdp.fsdp_state(model.module) is None:
         zero1 = Zero1(params, mesh.get_data_parallel_group(), dp,
-                      mesh.get_data_parallel_rank())
+                      mesh.get_data_parallel_rank(),
+                      mesh.get_expert_data_parallel_group())
         params = zero1.shards
     opt = adamw_fp32(params, lr, b1=oc.beta1, b2=oc.beta2, eps=oc.eps,
                      weight_decay=oc.weight_decay)
@@ -528,8 +524,9 @@ def _make_update(config: TrainingConfig, module: nn.Module,
                  optimizer: ParallelOptimizer, params, dp: _DataParallel):
     """``update() -> grad_norm``: the step's tail once the parameters'
     ``.grad`` hold this rank's normalized gradients -- the cp, sequence-
-    parallel and kvr sums, the dp sum (ZeRO-1's reduce-scatter), the
-    global norm and clipping, and one AdamW update."""
+    parallel and kvr sums, the dp sum (ZeRO-1's reduce-scatter; an
+    expert's over the pure dp axis), the global norm and clipping, and one
+    AdamW update."""
     oc = config.optimizer
     zero1 = optimizer.zero1
     sharded = fsdp.fsdp_state(module) is not None
@@ -545,8 +542,11 @@ def _make_update(config: TrainingConfig, module: nn.Module,
         else:
             grads = [p.grad for p in params]
             psum_over_data_parallel(
-                [g for p, g in zip(params, grads) if not fsdp.is_sharded(p)],
+                [g for p, g in zip(params, grads)
+                 if not (fsdp.is_sharded(p) or is_expert_parallel(p))],
                 mean=False)
+            allreduce_expert_gradients(
+                [g for p, g in zip(params, grads) if is_expert_parallel(p)])
             owners = params
             sliced = [fsdp.is_sharded(p) for p in params] if sharded else None
         if oc.grad_clipping:

@@ -260,11 +260,6 @@ def test_cross_entropy_matches_jax():
 def test_trainer_refusals():
     cfg = LlamaConfig.tiny(dtype=torch.float32, param_dtype=torch.float32)
     build = lambda d: LlamaForCausalLM(cfg, device=d)  # noqa: E731
-    # the degree still to port names the ROADMAP item that lifts it
-    for kw, item in ((dict(expert_parallel_size=2), "Then"),):
-        with pytest.raises(NotImplementedError, match=item):
-            initialize_parallel_model(training_config(**kw), build,
-                                      device="cpu")
     # FSDP is ported (A11b) but not under a pipeline, as in JAX; in one
     # process it is no placement at all (dp = 1)
     with pytest.raises(ValueError, match="fsdp.*pipeline"):
@@ -273,10 +268,11 @@ def test_trainer_refusals():
     whole = initialize_parallel_model(training_config(fsdp=True), build,
                                       device="cpu")
     assert not hasattr(whole.module, "_fsdp")
-    # tp, dp, cp and pp are ported: one process is no world of 2
+    # tp, dp, cp, pp and ep are ported: one process is no world of 2
     for kw in (dict(tensor_parallel_size=2), dict(data_parallel_size=2),
                dict(context_parallel_size=2),
-               dict(pipeline_parallel_size=2)):
+               dict(pipeline_parallel_size=2),
+               dict(expert_parallel_size=2)):
         with pytest.raises(ValueError, match="not divisible|inconsistent"):
             initialize_parallel_model(training_config(**kw), build,
                                       device="cpu")
