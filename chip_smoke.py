@@ -217,7 +217,24 @@ ep = 2 as two processes sharing the card over gloo, 1 layer, 2 x 2048, 1
 step: each rank holding 4 of the 8 experts, the first step's loss and
 grad norm against ep = 1 on the same weights and batch (phase 7's
 bounds), the ranks equal, the token gathers and reduce-scatters a step
-by count and bytes, each rank's memory.  A device time below the least
+by count and bytes, each rank's memory.  Phase 12 converts checkpoints:
+B4 at Qwen2-7B's 7 q heads a kv head (every route; the decode route pads
+G to 8) and B1-B3 at Llama-2-7B's one (MHA) held against their plain
+versions and timed; (a) a random bf16 HF state dict of Qwen2-7B (28
+layers, QKV biases, an untied head) drawn on the card, loaded by
+``convert.llama_params_from_hf`` and given back bit for bit by
+``llama_params_to_hf``, then served whole: 8 requests, 16 new tokens
+each, every decode call of every layer on the decode kernel, no page
+leaked, one full-width decode step on the kernel path against the gather
+path; (b) Llama-2-7B's width cut to 2 layers, written by
+``save_nxd_checkpoint`` at tp = 2 in the reference's fused layout, merged
+back bit for bit by ``load_nxd_checkpoint`` and trained 1 + 2 steps at 4 x
+2048 (flash, selective remat, bf16 over fp32 masters), the first step's
+loss equal to the bit to that of the source weights loaded without the
+files; (c) ``examples.convert_checkpoints to-framework`` of (b)'s weights as
+a safetensors file, ``examples.eval_perplexity --ckpt`` of the result
+over 16 x 2048 tokens against an in-process loss sum (rtol 1e-3), and
+``to-hf`` back to the source bit for bit.  A device time below the least
 time its work needs fails the run.
 
 Any failed check exits non-zero without the result line.  The line before
@@ -8139,6 +8156,511 @@ def phase11b(ref: dict) -> dict:
     return out
 
 
+# -- phase 12 ----------------------------------------------------------------
+
+# (a) Qwen2-7B (28 layers, H 3584, I 18944, 28 q on 4 kv heads: G = 7, the
+# first served group that is not a power of two; QKV biases, rope theta
+# 1e6, vocab 152064) from a random bf16 HF-layout state dict drawn on the
+# card, served whole: 8 requests of 32-512 prompt tokens, 16 new tokens
+P12_REQUESTS, P12_NEW_TOKENS = 8, 16
+QW_NQ, QW_NKV = 28, 4
+# the random checkpoint's scale, the port's init_random: a projection
+# N(0, 1 / fan_in), the embedding N(0, 0.02^2); the biases N(0, 0.02^2) and
+# the norm weights 1 + N(0, 0.02^2), so neither is all zeros or ones (at
+# N(0, 0.02^2) everywhere the residual stream grew until one decode step's
+# kernel and gather logits stood 4.7e-2 apart, near phase 2's 5e-2; each
+# stood 5.9e-2 from an fp32 path on the same weights, so that was bf16
+# rounding on both: tools/torch_qwen2_draw_witness.py)
+P12_STD = 0.02
+# (b) Llama-2-7B's width (H 4096, I 11008, 32 q on 32 kv heads: G = 1 for
+# B1-B3, vocab 32000) cut to 2 of its 32 layers, written at tp = 2 in the
+# reference's fused layout, imported and trained 1 + 2 steps at 4 x 2048
+P12_LAYERS, P12_B, P12_S, P12_TP = 2, 4, 2048, 2
+P12_WARMUP, P12_TIMED = 1, 2
+# (c) eval_perplexity over 16 sequences of 2048 tokens, 4 a batch, held to
+# an in-process loss sum over the same loader order within JAX's test's
+# bound
+P12_EVAL_SEQS, P12_EVAL_BATCH, P12_EVAL_RTOL = 16, 4, 1e-3
+# B1-B3 at G = 1 (32 q on 32 kv heads): the path's call, and packed
+# segments and a window with a softcap on 8 q on 8 kv heads
+P12_FLASH_CASES = [
+    ("llama2_g1", 1, 32, 32, P12_S, P12_S, 128, True, None, None, None,
+     False, False),
+    ("g1_segments", 2, 8, 8, 777, 777, 128, True, None, None, None, True,
+     False),
+    ("g1_window_softcap", 1, 8, 8, 1000, 1000, 128, True, 256, 50.0,
+     SOFTCAP_SCALE, False, False),
+]
+
+
+def phase12_kernels() -> dict:
+    """The new shapes of phase 12's path, each held against its plain
+    version and then timed beside it, the library call and the bound: B4 at
+    Qwen2-7B's G = 7 (the decode route pads the 7 q heads a kv head to the
+    mma's N of 8; the simt and wgmma routes, and the wgmma kernel at S = 4,
+    are held there too) and B1-B3 at Llama-2-7B's G = 1."""
+    import torch
+
+    bf16, fp32 = torch.bfloat16, torch.float32
+    geom = dict(nq=QW_NQ, nkv=QW_NKV)
+    cases = [dict(S=1, split_k=sk, dtype=bf16)
+             for sk in (1, 4, None, CLUSTER_MAX)]
+    cases += [dict(S=1, split_k=None, dtype=bf16, window=256),
+              dict(S=1, split_k=None, dtype=bf16, softcap=50.0,
+                   sm_scale=SOFTCAP_SCALE)]
+    cases += [dict(S=S, split_k=sk, dtype=fp32) for S in (1, 4)
+              for sk in (1, 4)]
+    cases += [dict(S=4, split_k=sk, dtype=bf16) for sk in (1, None)]
+    cases += [dict(S=1, split_k=4, dtype=bf16, route="simt")]
+    worst = hold_paged_cases(cases, "phase12 qwen2", **geom)
+    times = time_paged(1, False, DECODE_ROUTES, 200, "phase12 qwen2 decode",
+                       sweep=SPLIT_SWEEP, parked=True, **geom)
+    dec = decode_entries(
+        times, "_qwen2_g7", worst,
+        {"q": [B, 1, QW_NQ, D], "pool": [B * PP + 1, PAGE, QW_NKV, D],
+         "block_table": [B, PP], "dtype": "bfloat16"},
+        "gather + F.scaled_dot_product_attention",
+        "neuronx_distributed_tpu/ops/paged_attention.py:164")[0]
+    dec["wgmma_s4_max_abs_err"] = worst.get(("wgmma", "bfloat16"))
+
+    new_worst = {w: {"abs": 0.0, "row_rel": 0.0} for w in FLASH_KERNELS}
+    worst_lse = {"bfloat16": 0.0, "float32": 0.0}
+    hold_flash_cases(P12_FLASH_CASES, new_worst, worst_lse, seed0=500)
+    flash = time_flash((P12_B, 32, 32, P12_S, D), worst=new_worst,
+                       suffix="_llama2_g1")
+    for w in FLASH_KERNELS:
+        flash[w]["lse_max_abs_err"] = worst_lse
+    torch.cuda.empty_cache()
+    return {"decode": dec, "flash": flash}
+
+
+def p12_hf_state(cfg, seed: int, proj_std=None) -> dict:
+    """A random bf16 HF ``LlamaForCausalLM``/``Qwen2ForCausalLM`` state
+    dict at ``cfg``'s shapes (``[out, in]`` weights, QKV biases when
+    ``cfg.qkv_bias``, an untied ``lm_head.weight``), drawn on the card from
+    one generator seeded with ``seed`` (scales: P12_STD's comment; every
+    projection and the head at N(0, ``proj_std``^2) when it is given, as
+    ``tools/torch_qwen2_draw_witness.py`` draws it)."""
+    import torch
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+
+    def draw(*shape, mean=0.0, std=P12_STD):
+        return torch.empty(shape, dtype=torch.bfloat16, device="cuda"
+                           ).normal_(mean, std, generator=g)
+
+    def weight(out, fan_in):  # a projection [out, in]: N(0, 1 / fan_in)
+        return draw(out, fan_in, std=proj_std or fan_in ** -0.5)
+
+    H, I, V, D_ = (cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size,
+                   cfg.head_dim_)
+    NQ, NKV = cfg.num_heads, cfg.num_kv_heads
+    sd = {"model.embed_tokens.weight": draw(V, H),
+          "model.norm.weight": draw(H, mean=1.0)}
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        sd.update({p + "self_attn.q_proj.weight": weight(NQ * D_, H),
+                   p + "self_attn.k_proj.weight": weight(NKV * D_, H),
+                   p + "self_attn.v_proj.weight": weight(NKV * D_, H),
+                   p + "self_attn.o_proj.weight": weight(H, NQ * D_),
+                   p + "mlp.gate_proj.weight": weight(I, H),
+                   p + "mlp.up_proj.weight": weight(I, H),
+                   p + "mlp.down_proj.weight": weight(H, I),
+                   p + "input_layernorm.weight": draw(H, mean=1.0),
+                   p + "post_attention_layernorm.weight": draw(H, mean=1.0)})
+        if cfg.qkv_bias:
+            for n, rows in (("q", NQ), ("k", NKV), ("v", NKV)):
+                sd[p + f"self_attn.{n}_proj.bias"] = draw(rows * D_)
+    sd["lm_head.weight"] = weight(V, H)
+    return sd
+
+
+def unequal_tensors(got: dict, want: dict) -> list:
+    """The keys of ``want`` whose tensor ``got`` lacks or holds another
+    value (compared in fp32, where every bf16 value is exact: a bf16
+    source's norms come back fp32 from the serving layout), and the keys
+    ``got`` has beyond ``want``."""
+    import torch
+
+    def same(a, b):
+        return a.shape == b.shape and torch.equal(
+            a.to(device=b.device, dtype=torch.float32), b.float())
+
+    return ([k for k, v in want.items() if k not in got or not same(got[k], v)]
+            + sorted(set(got) - set(want)))
+
+
+def phase12a(entry: dict) -> dict:
+    """A Qwen2-7B HF checkpoint converted on the card and served whole
+    through ``ParallelInferenceModel`` and ``ServingEngine`` (paged, eager):
+    the conversion's round trip bit for bit, every request in full, no page
+    leaked, every decode call on the decode kernel at G = 7, a full-width
+    decode step on the kernel path against the gather path."""
+    import torch
+
+    from neuronx_distributed_tpu_torch import (
+        InferenceConfig,
+        LlamaConfig,
+        LlamaForCausalLM,
+        ParallelInferenceModel,
+        ServingEngine,
+    )
+    from neuronx_distributed_tpu_torch.convert import (
+        llama_params_from_hf,
+        llama_params_to_hf,
+    )
+    from neuronx_distributed_tpu_torch.ops.paged_attention import paged_attention
+
+    t_phase = time.perf_counter()
+    cfg = LlamaConfig.qwen2_7b()
+    torch.cuda.reset_peak_memory_stats()
+    sd = p12_hf_state(cfg, SEED)
+    torch.cuda.synchronize()
+    hf_bytes = sum(t.numel() * t.element_size() for t in sd.values())
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device="cuda")
+    model.load_state_dict(llama_params_from_hf(sd, cfg))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bad = unequal_tensors(llama_params_to_hf(model.state_dict(), cfg), sd)
+    back_s = time.perf_counter() - t0
+    convert_peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"phase12(a): Qwen2-7B ({cfg.num_layers} layers, H "
+        f"{cfg.hidden_size}, I {cfg.intermediate_size}, {cfg.num_heads} q / "
+        f"{cfg.num_kv_heads} kv heads, QKV biases, vocab {cfg.vocab_size}): "
+        f"a random bf16 HF state dict of {len(sd)} tensors, "
+        f"{hf_bytes / 1e9:.2f} GB, drawn on the card; llama_params_from_hf "
+        f"+ load_state_dict {load_s:.2f} s, {n_params / 1e9:.3f}B params; "
+        f"llama_params_to_hf of the loaded model against the source "
+        f"{back_s:.2f} s: {len(bad)} tensors differ; peak "
+        f"{convert_peak / 2**30:.2f} GiB with the dict and the model both "
+        f"on the card")
+    if bad:
+        raise AssertionError(f"phase12(a): the round trip changed {bad[:5]}")
+    del sd
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    pim = ParallelInferenceModel(
+        model, InferenceConfig(SLOTS, CONTEXT, MAX_TOTAL, torch.bfloat16),
+        cuda_graphs=False)
+    if not pim.paged_kernel:
+        raise AssertionError("paged_kernel did not resolve to the kernel")
+    engine = ServingEngine(pim, page_size=PAGE_SIZE, async_decode=False)
+    requests = make_requests(cfg.vocab_size, P12_REQUESTS, P12_NEW_TOKENS,
+                             SEED)
+    torch.cuda.reset_peak_memory_stats()
+    zero_paged_counts()
+    t0 = time.perf_counter()
+    outs = serve(engine, requests)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, steps = paged_attention.launches, engine.decode_steps
+    peak = torch.cuda.max_memory_allocated()
+    tokens = sum(len(o.token_ids) for o in outs.values())
+    bad = [(o.request_id, o.state, len(o.token_ids)) for o in outs.values()
+           if o.state != "finished" or len(o.token_ids) != P12_NEW_TOKENS]
+    if len(outs) != P12_REQUESTS or bad:
+        raise AssertionError(f"phase12(a): requests not served in full: "
+                             f"{bad}, {len(outs)}/{P12_REQUESTS} outputs")
+    routes = check_routes("phase12(a)", steps * cfg.num_layers, 0)
+    engine._kv.assert_invariants()
+    leaks = engine._kv.leaked_pages()
+    if leaks:
+        raise AssertionError(f"phase12(a): {leaks} KV pages leaked")
+    set_launches([entry], routes, "12(a)")
+    log(f"phase12(a): served {P12_REQUESTS} requests, {tokens} tokens in "
+        f"{wall:.3f} s ({tokens / wall:.1f} tok/s overall, {steps} batched "
+        f"decode steps, {wall / steps * 1e3:.2f} ms/step incl. admissions); "
+        f"kernel launches {launches} = {steps} x {cfg.num_layers}, by route "
+        f"{routes}; page leaks 0; peak memory {peak / 2**30:.2f} GiB")
+    del engine
+
+    eng = admitted_engine(pim, cfg.vocab_size)
+    lg_k = decode_logits(pim, eng, True)
+    lg_g = decode_logits(pim, eng, False)
+    del eng
+    rel, agree = compare_logits(lg_k, lg_g)
+    log(f"phase12(a): kernel vs gather logits, one decode step at full "
+        f"width: rel L2 {rel:.3e} (tol {LOGITS_REL_TOL}), argmax agreement "
+        f"{agree:.3f}, max |logit| {lg_g.abs().max().item():.3e}")
+    if not rel <= LOGITS_REL_TOL or not torch.isfinite(lg_k).all():
+        raise AssertionError(f"phase12(a): kernel and gather logits "
+                             f"disagree: rel {rel}")
+    del pim, model, lg_k, lg_g
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    log(f"phase12(a) took {seconds:.1f} s")
+    return {"hf_gb": hf_bytes / 1e9, "load_s": load_s, "round_trip_s": back_s,
+            "convert_peak_gib": convert_peak / 2**30, "wall_s": wall,
+            "tokens": tokens, "tok_s": tokens / wall, "decode_steps": steps,
+            "ms_per_step": wall / steps * 1e3, "launches": launches,
+            "launches_by_route": routes, "peak_gib": peak / 2**30,
+            "logits_rel_l2": rel, "argmax_agreement": agree,
+            "seconds": seconds}
+
+
+def p12_cfg(**kw):
+    import torch
+
+    from neuronx_distributed_tpu_torch.models.llama import LlamaConfig
+
+    return LlamaConfig.llama2_7b(
+        num_layers=P12_LAYERS, attention_impl="flash",
+        dtype=torch.bfloat16, param_dtype=torch.float32, **kw)
+
+
+def phase12b(work: str, flash_entries: dict) -> tuple:
+    """A reference (neuronx-distributed) checkpoint of Llama-2-7B's width,
+    cut to 2 layers, written by ``save_nxd_checkpoint`` at tp = 2 in the
+    fused layout, brought back by ``load_nxd_checkpoint``,
+    ``split_fused_llama`` and ``llama_params_from_hf``, and trained 1 + 2
+    steps through the trainer's entry points: the merged tensors equal to
+    the source bit for bit, the first step's loss equal to the bit to that
+    of the same step on the source weights loaded without the files.
+    Returns ``(summary, source HF state dict on the card)``."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.config import training_config
+    from neuronx_distributed_tpu_torch.convert import (
+        fuse_split_llama,
+        llama_params_from_hf,
+        llama_params_to_hf,
+        load_nxd_checkpoint,
+        save_nxd_checkpoint,
+        split_fused_llama,
+    )
+    from neuronx_distributed_tpu_torch.models.common import (
+        make_causal_lm_loss_sum,
+    )
+    from neuronx_distributed_tpu_torch.models.llama import LlamaForCausalLM
+    from neuronx_distributed_tpu_torch.trainer import (
+        initialize_parallel_model,
+        initialize_parallel_optimizer,
+        make_train_step,
+    )
+
+    t_phase = time.perf_counter()
+    cfg = p12_cfg(remat="selective")
+    config = training_config(learning_rate=1e-4, max_grad_norm=1.0,
+                             seed=SEED)
+    loss_fn = make_causal_lm_loss_sum(P7_CHUNK)
+
+    def build(state):
+        model = initialize_parallel_model(
+            config, lambda d: LlamaForCausalLM(cfg, device=d), seed=SEED)
+        if state is not None:
+            model.module.load_state_dict(state)
+        return model
+
+    # the source: the seed's weights as a bf16 HF state dict on the card
+    model = build(None)
+    src = {k: v.to(torch.bfloat16) for k, v in
+           llama_params_to_hf(model.module.state_dict(), cfg).items()}
+    del model
+    ref_dir = os.path.join(work, "nxd")
+    t0 = time.perf_counter()
+    files = save_nxd_checkpoint(ref_dir, src, tp=P12_TP, fuse_llama=True)
+    save_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(f) for f in files)
+    t0 = time.perf_counter()
+    merged = load_nxd_checkpoint(ref_dir)
+    load_s = time.perf_counter() - t0
+    fused = fuse_split_llama(src)
+    bad = unequal_tensors(merged, fused) + [
+        k for k in merged if k in fused and merged[k].dtype != fused[k].dtype]
+    log(f"phase12(b): Llama-2-7B width ({cfg.hidden_size} hidden, "
+        f"{cfg.num_heads} q / {cfg.num_kv_heads} kv heads, vocab "
+        f"{cfg.vocab_size}) cut to {cfg.num_layers} of 32 layers: the "
+        f"reference checkpoint at tp = {P12_TP} (qkv_proj stride 3, "
+        f"gate_up_proj stride 2), {len(files)} rank files, "
+        f"{nbytes / 1e9:.3f} GB bf16, written in {save_s:.2f} s, merged "
+        f"back in {load_s:.2f} s: {len(bad)} of {len(fused)} fused "
+        f"tensors differ from the source")
+    if bad or set(merged) != set(fused):
+        raise AssertionError(f"phase12(b): the merge changed {bad[:5]}")
+    del fused
+    hf_back = split_fused_llama(merged, cfg.num_heads, cfg.num_kv_heads,
+                                cfg.head_dim_)
+    imported = llama_params_from_hf(
+        {k: v.to("cuda") for k, v in hf_back.items()}, cfg)
+    del merged, hf_back
+
+    batch = train_batch(cfg.vocab_size, P12_B, P12_S)
+    # the same first step on the source weights loaded without the files
+    model = build(llama_params_from_hf(src, cfg))
+    opt = initialize_parallel_optimizer(config, model)
+    direct = make_train_step(config, model, opt, loss_fn)(batch)["loss"]
+    direct = direct.item()
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model = build(imported)
+    del imported
+    summary = train_steps("phase12(b)", config, model, loss_fn, batch, 2,
+                          flash_entries, warmup=P12_WARMUP, timed=P12_TIMED)
+    first = summary["losses"][0]
+    log(f"phase12(b): the imported checkpoint's first-step loss {first!r} "
+        f"against {direct!r} on the source weights loaded without the files "
+        f"(equal to the bit: {first == direct})")
+    if first != direct:
+        raise AssertionError(f"phase12(b): first-step loss {first!r} is not "
+                             f"the direct load's {direct!r}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    log(f"phase12(b) took {seconds:.1f} s")
+    return (dict(summary, nxd_gb=nbytes / 1e9, nxd_save_s=save_s,
+                 nxd_load_s=load_s, direct_first_loss=direct,
+                 seconds=seconds), src)
+
+
+def phase12c(work: str, src: dict) -> dict:
+    """The two CLIs on the card: ``convert_checkpoints to-framework`` of a
+    safetensors file of (b)'s weights, ``eval_perplexity --ckpt`` of the
+    result against an in-process loss sum over the same loader order, and
+    ``to-hf`` back, read by the port's reader, against the source."""
+    import numpy as np
+    import torch
+
+    from neuronx_distributed_tpu_torch.config import training_config
+    from neuronx_distributed_tpu_torch.convert import (
+        llama_params_from_hf,
+        load_hf_state_dict,
+        save_hf_state_dict,
+    )
+    from neuronx_distributed_tpu_torch.data import (
+        TokenDataLoader,
+        TokenDataset,
+        write_token_file,
+    )
+    from neuronx_distributed_tpu_torch.examples import (
+        convert_checkpoints,
+        eval_perplexity,
+    )
+    from neuronx_distributed_tpu_torch.models.common import causal_lm_loss_sum
+    from neuronx_distributed_tpu_torch.models.llama import LlamaForCausalLM
+    from neuronx_distributed_tpu_torch.ops import flash_attention as fa
+    from neuronx_distributed_tpu_torch.trainer import initialize_parallel_model
+
+    t_phase = time.perf_counter()
+    hf_dir, ckpt = os.path.join(work, "hf"), os.path.join(work, "ckpt")
+    t0 = time.perf_counter()
+    save_hf_state_dict(src, hf_dir)
+    write_s = time.perf_counter() - t0
+    preset = ["--config", "llama2_7b", "--num-layers", str(P12_LAYERS),
+              "--family", "llama"]
+    t0 = time.perf_counter()
+    to_fw = convert_checkpoints.main(["to-framework", "--hf", hf_dir,
+                                      "--out", ckpt] + preset)
+    to_fw_s = time.perf_counter() - t0
+
+    data = os.path.join(work, "tokens.nxdt")
+    write_token_file(data, np.random.RandomState(SEED).randint(
+        0, 32000, size=P12_EVAL_SEQS * P12_S + 1).astype(np.int32))
+    fa.flash_attention_fwd.launches = 0
+    t0 = time.perf_counter()
+    res = eval_perplexity.evaluate(
+        ["--data", data, "--preset", "llama2_7b", "--num-layers",
+         str(P12_LAYERS), "--batch", str(P12_EVAL_BATCH), "--seq",
+         str(P12_S), "--ckpt", ckpt])
+    eval_s = time.perf_counter() - t0
+    eval_fwd = fa.flash_attention_fwd.launches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the in-process loss sum: the source weights, the same model setup
+    cfg = p12_cfg(remat="none", max_seq_len=P12_S, sequence_parallel=False)
+    model = initialize_parallel_model(
+        training_config(compute_dtype="bfloat16", param_dtype="float32",
+                        seed=SEED),
+        lambda d: LlamaForCausalLM(cfg, device=d), seed=SEED)
+    model.module.load_state_dict(llama_params_from_hf(src, cfg))
+    model.module.eval()
+    total, tok = 0.0, 0
+    loader = TokenDataLoader(TokenDataset(data), P12_EVAL_BATCH, P12_S,
+                             seed=0)
+    with torch.no_grad():
+        for b in loader:
+            s, n = causal_lm_loss_sum(model.module,
+                                      {k: v.cuda() for k, v in b.items()})
+            total += float(s.double())
+            tok += int(n)
+    loader.close()
+    want = math.exp(total / tok)
+    rel = abs(res["value"] - want) / want
+    log(f"phase12(c): convert_checkpoints to-framework of a "
+        f"{sum(t.numel() for t in src.values()) * 2 / 1e9:.3f} GB bf16 "
+        f"safetensors file (written in {write_s:.2f} s) in {to_fw_s:.2f} s "
+        f"({to_fw['tensors']} tensors); eval_perplexity --ckpt over "
+        f"{res['tokens']} tokens in {eval_s:.2f} s: perplexity "
+        f"{res['value']:.6f}, loss {res['loss']:.6f}, B1 launches "
+        f"{eval_fwd} ({res['batches']} batches x {P12_LAYERS} layers); the "
+        f"in-process loss sum's perplexity {want:.6f} over {tok} tokens: "
+        f"relative difference {rel:.3e} (rtol {P12_EVAL_RTOL})")
+    if res["tokens"] != tok or not rel <= P12_EVAL_RTOL:
+        raise AssertionError(f"phase12(c): eval_perplexity {res} against "
+                             f"{want} over {tok} tokens")
+    if eval_fwd != res["batches"] * P12_LAYERS:
+        raise AssertionError(f"phase12(c): {eval_fwd} flash launches, "
+                             f"expected {res['batches'] * P12_LAYERS}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    hf_back = os.path.join(work, "hf_back")
+    t0 = time.perf_counter()
+    convert_checkpoints.main(["to-hf", "--ckpt", ckpt, "--out", hf_back]
+                             + preset)
+    to_hf_s = time.perf_counter() - t0
+    back = load_hf_state_dict(hf_back)
+    bad = unequal_tensors(back, src) + [
+        k for k in src if k in back and back[k].dtype != src[k].dtype]
+    log(f"phase12(c): convert_checkpoints to-hf in {to_hf_s:.2f} s; the "
+        f"port's reader of its file against the source: {len(bad)} of "
+        f"{len(src)} tensors differ")
+    if bad:
+        raise AssertionError(f"phase12(c): to-hf changed {bad[:5]}")
+    seconds = time.perf_counter() - t_phase
+    log(f"phase12(c) took {seconds:.1f} s")
+    return {"to_framework_s": to_fw_s, "eval_s": eval_s, "to_hf_s": to_hf_s,
+            "perplexity": res["value"], "loss": res["loss"],
+            "tokens": res["tokens"], "in_process_perplexity": want,
+            "rel": rel, "eval_flash_fwd_launches": eval_fwd,
+            "seconds": seconds}
+
+
+def phase12(flash_entries: dict, decode_entry: dict) -> dict:
+    """Checkpoint conversion on the card: (a), (b) and (c) above, with
+    their files under ``_smoke_scratch/phase12``, deleted at the end, pass
+    or fail."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "_smoke_scratch", "phase12")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        served = phase12a(decode_entry)
+        trained, src = phase12b(work, flash_entries)
+        for w in FLASH_KERNELS:
+            flash_entries[w].setdefault("launches_by_phase", {})["12(b)"] = \
+                flash_entries[w]["launches"]
+        clis = phase12c(work, src)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    log(f"phase12 took {seconds:.1f} s")
+    return {"a": served, "b": trained, "c": clis, "seconds": seconds}
+
+
 def main() -> int:
     try:
         import torch
@@ -8272,9 +8794,18 @@ def main() -> int:
                 moe["launches"][w]
             flash[w]["launches_by_phase"]["11(b) a rank"] = \
                 moe_ep["ranks"][0]["launches"][w]
+        gc.collect()
+        torch.cuda.empty_cache()
+        t12 = time.perf_counter()
+        p12 = phase12_kernels()
+        conversion = phase12(p12["flash"], p12["decode"])
+        log(f"phase12 summary: {json.dumps(conversion)}")
+        log(f"phase12 with its kernel holds and timings took "
+            f"{time.perf_counter() - t12:.1f} s")
         for w in FLASH_KERNELS:
             flash[w]["build"] = {d: guards[w][d] for d in (64, 128)}
             flash256[w]["build"] = {256: guards[w][256]}
+            p12["flash"][w]["build"] = {128: guards[w][128]}
         kernels = ([dec, dec8, dec256, long["bf16"], long["int8"], simt,
                     simt8, simt256, entry_w, verify]
                    + [tp_entries[k] for k in ("decode", "decode_int8",
@@ -8284,7 +8815,9 @@ def main() -> int:
                    + [tp_train_entries["g4"][w] for w in FLASH_KERNELS]
                    + [cp_entries[sfx][w] for sfx, *_ in P9_TIMED
                       for w in FLASH_KERNELS]
-                   + [pp_entries[w] for w in FLASH_KERNELS])
+                   + [pp_entries[w] for w in FLASH_KERNELS]
+                   + [p12["decode"]]
+                   + [p12["flash"][w] for w in FLASH_KERNELS])
         for k in kernels:
             if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms",
                                                      "library_ms",

@@ -14,7 +14,8 @@ four norm weights.  GPT-NeoX and BERT trees
 kernels ``[H, 3, H]`` with biases ``[3, H]``, biased linears, LayerNorm
 ``weight``/``bias`` pairs and, in BERT, flax ``nn.Dense`` kernels ``[in,
 out]`` (pooler, MLM transform, NSP classifier).  Arrays move as
-they are and ``load_state_dict`` casts them to the model's types, so a
+they are (a tensor leaf, as :mod:`.hf` passes them, keeps its device,
+dtype and view) and ``load_state_dict`` casts them to the model's types, so a
 model built with ``param_dtype=torch.float32`` (training) keeps the JAX
 package's fp32 masters bit for bit, and a serving model (weights in the
 compute type) takes them rounded once.
@@ -435,10 +436,15 @@ def _convert(tree: Mapping[str, Any], want: Dict[str, tuple]
                          f"{missing[:5]}, unexpected {extra[:5]}")
     sd = {}
     for name, shape in want.items():
-        arr = np.asarray(flat[name])
-        if arr.shape != shape:
-            raise ValueError(f"{name}: shape {arr.shape}, config wants {shape}")
-        sd[name] = torch.from_numpy(np.array(arr))  # a writable copy
+        val = flat[name]
+        # a tensor stays as it is (its device, its dtype, a view stays a
+        # view); anything else becomes a tensor over a writable copy
+        arr = val if isinstance(val, torch.Tensor) else np.asarray(val)
+        if tuple(arr.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(arr.shape)}, config "
+                             f"wants {shape}")
+        sd[name] = val if isinstance(val, torch.Tensor) else \
+            torch.from_numpy(np.array(arr))
     return sd
 
 

@@ -196,11 +196,59 @@ class LlamaConfig:
                 self.rope_scaling_original_max_seq)
 
     @staticmethod
+    def llama2_7b(**overrides) -> "LlamaConfig":
+        return LlamaConfig(**{**dict(
+            vocab_size=32000, hidden_size=4096, intermediate_size=11008,
+            num_layers=32, num_heads=32, num_kv_heads=32), **overrides})
+
+    @staticmethod
+    def llama2_13b(**overrides) -> "LlamaConfig":
+        return LlamaConfig(**{**dict(
+            vocab_size=32000, hidden_size=5120, intermediate_size=13824,
+            num_layers=40, num_heads=40, num_kv_heads=40), **overrides})
+
+    @staticmethod
+    def llama2_70b(**overrides) -> "LlamaConfig":
+        return LlamaConfig(**{**dict(
+            vocab_size=32000, hidden_size=8192, intermediate_size=28672,
+            num_layers=80, num_heads=64, num_kv_heads=8), **overrides})
+
+    @staticmethod
     def llama3_8b(**overrides) -> "LlamaConfig":
         return LlamaConfig(**{**dict(
             vocab_size=128256, hidden_size=4096, intermediate_size=14336,
             num_layers=32, num_heads=32, num_kv_heads=8, rope_theta=500000.0),
             **overrides})
+
+    @staticmethod
+    def qwen2_7b(**overrides) -> "LlamaConfig":
+        """Qwen2-7B: the Llama architecture with QKV biases, 28 q heads on 4
+        kv heads, a 152k vocabulary."""
+        return LlamaConfig(**{**dict(
+            vocab_size=152064, hidden_size=3584, intermediate_size=18944,
+            num_layers=28, num_heads=28, num_kv_heads=4, rope_theta=1e6,
+            qkv_bias=True, rms_eps=1e-6), **overrides})
+
+    @staticmethod
+    def llama31_8b(**overrides) -> "LlamaConfig":
+        """Llama-3.1-8B: the 3.0 layout with "llama3" RoPE scaling (factor
+        8, 128k context); ``max_seq_len`` keeps the default, so raise it
+        (and cut the sequence over cp) for long contexts."""
+        return LlamaConfig(**{**dict(
+            vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+            num_layers=32, num_heads=32, num_kv_heads=8, rope_theta=500000.0,
+            rope_scaling_factor=8.0, rope_scaling_low_freq_factor=1.0,
+            rope_scaling_high_freq_factor=4.0,
+            rope_scaling_original_max_seq=8192), **overrides})
+
+    @staticmethod
+    def mistral_7b(**overrides) -> "LlamaConfig":
+        """Mistral-7B-v0.1: the Llama architecture with 8 kv heads and a
+        4096-token sliding window."""
+        return LlamaConfig(**{**dict(
+            vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+            num_layers=32, num_heads=32, num_kv_heads=8,
+            max_seq_len=32768, sliding_window=4096), **overrides})
 
     @staticmethod
     def mixtral_8x7b(**overrides) -> "LlamaConfig":
