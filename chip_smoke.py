@@ -6248,13 +6248,14 @@ def phase7_refs() -> dict:
 
 
 def p7_train(label, config, cfg, batch, steps, warmup=0, profile=False,
-             phase="phase7"):
-    """One rank's training through the entry points: the model, its
-    optimizer and step (the loss head in P7_CHUNK-token chunks),
-    ``warmup`` + ``steps`` steps on ``batch`` with the launch and
-    collective counts set to 0 first.  Returns the losses, grad
-    norms, launches, per-step collectives, memory and times; the model and
-    optimizer are dropped."""
+             phase="phase7", build=None, prepare=None):
+    """One rank's training through the entry points: the model
+    (``build(device)``, default a Llama of ``cfg``; ``prepare(module)``
+    runs after its init), its optimizer and step (the loss head in
+    P7_CHUNK-token chunks), ``warmup`` + ``steps`` steps on ``batch`` with
+    the launch and collective counts set to 0 first.  Returns the losses,
+    grad norms, launches, per-step collectives, memory and times; the
+    model and optimizer are dropped."""
     import gc
 
     import torch
@@ -6275,8 +6276,11 @@ def p7_train(label, config, cfg, batch, steps, warmup=0, profile=False,
 
     torch.cuda.reset_peak_memory_stats()
     model = initialize_parallel_model(
-        config, lambda d: LlamaForCausalLM(cfg, device=d), seed=SEED)
+        config, build or (lambda d: LlamaForCausalLM(cfg, device=d)),
+        seed=SEED)
     module = model.module
+    if prepare is not None:
+        prepare(module)
     opt = initialize_parallel_optimizer(config, model)
     step = make_train_step(config, model, opt,
                            make_causal_lm_loss_sum(P7_CHUNK))
@@ -6287,6 +6291,8 @@ def p7_train(label, config, cfg, batch, steps, warmup=0, profile=False,
         getattr(fa, FLASH_KERNELS[w][0]).launches_by_shape = {}
     losses, norms, counts, coll_s, times = [], [], [], [], []
     coll_bytes = []
+    blocks = (module.model.layers() if hasattr(module, "model")
+              else module.layers())
     for i in range(warmup + steps):
         mappings.reset_counts()
         torch.cuda.synchronize()
@@ -6314,11 +6320,10 @@ def p7_train(label, config, cfg, batch, steps, warmup=0, profile=False,
            "cp": (mesh.get_context_parallel_size(),
                   mesh.get_context_parallel_rank()),
            "zero1": opt.zero1 is not None,
-           "local_heads": (module.model.layer_0.attn.qkv.q_kernel.shape[1],
-                           module.model.layer_0.attn.qkv.kv_heads[1]),
+           "local_heads": (blocks[0].attn.qkv.q_kernel.shape[1],
+                           blocks[0].attn.qkv.kv_heads[1]),
            "local_experts": [blk.moe_mlp.gate_up.shape[0]
-                             for blk in module.model.layers()
-                             if hasattr(blk, "moe_mlp")]}
+                             for blk in blocks if hasattr(blk, "moe_mlp")]}
     if opt.zero1 is not None:
         out["shard_bytes"] = sum(s.numel() * s.element_size()
                                  for s, lay in zip(opt.zero1.shards,
@@ -6870,10 +6875,13 @@ P9_MERGE_TOL_FP32, P9_MERGE_NOISE = 1e-3, 2.0
 # cp speed), Llama-3-8B width cut to 1 layer (2 before phase 11 took the
 # room), 1 x 8192 (4096 tokens a rank), flash, selective remat, the
 # chunked head; each arm 1 + 1 steps (1 + 2 before phase 10 took the
-# room: a step is 7-10 s of host-staged gradient sums)
+# room: a step is 7-10 s of host-staged gradient sums).  The contiguous
+# ring's arm went to pay for phase 13: 13(b)'s ring arm holds the ring at
+# the model level (Gemma-2, D = 256), and 13(c), pp = 2 x cp = 2 on this
+# width at 1 x 8192 microbatches, makes this arm's D = 128 chunk calls and
+# carries their rows' launches
 P9_CP, P9_CP_LAYERS, P9_CP_S, P9_CP_WARMUP, P9_CP_TIMED = 2, 1, 8192, 1, 1
-P9_ARMS = {"ring": ("ring", False), "zigzag": ("ring", True),
-           "ulysses": ("ulysses", False)}
+P9_ARMS = {"zigzag": ("ring", True), "ulysses": ("ulysses", False)}
 P9_WORLD_TIMEOUT_S = 600
 # each arm's first-step loss and grad norm against cp = 1's: set from an
 # H100's readings (worst arm 6.1e-6 and 3.7e-5), which a ring dropping its
@@ -6901,19 +6909,17 @@ P9_FLASH_CASES = [
      None, False, True, True),
 ]
 # the chunk calls one layer's forward makes on each cp rank, {(S, T,
-# causal): calls}, by design: the contiguous ring's rank 0 sees only its
-# own chunk (diagonal), rank 1 its own and rank 0's (full); each zigzag
-# rank makes 2 diagonal and 3 full half-chunk calls; ulysses one causal
-# call over the whole sequence on NQ/cp heads
+# causal): calls}, by design: each zigzag rank makes 2 diagonal and 3 full
+# half-chunk calls; ulysses one causal call over the whole sequence on
+# NQ/cp heads (the contiguous ring's are P13_PP_CALLS)
 P9_CALLS = {
-    "ring": [{(P9_C, P9_C, True): 1},
-             {(P9_C, P9_C, True): 1, (P9_C, P9_C, False): 1}],
     "zigzag": [{(P9_C // 2, P9_C // 2, True): 2,
                 (P9_C // 2, P9_C // 2, False): 3}] * 2,
     "ulysses": [{(P9_CP_S, P9_CP_S, True): 1}] * 2,
 }
 # the timed chunk calls: kernels-line suffix, (B, HQ, HKV, S, D), causal,
-# and the arm and call ``(S, T, causal)`` whose launches they carry
+# and the arm and call ``(S, T, causal)`` whose launches they carry (the
+# "ring" rows': 13(c)'s)
 P9_TIMED = [
     ("_cp2_ring_diag", (1, NQ, NKV, P9_C, D), True, "ring",
      (P9_C, P9_C, True)),
@@ -7159,22 +7165,24 @@ def phase9_kernels() -> dict:
     return entries
 
 
-def time_window_call() -> dict:
+def time_window_call(C=None, HQ=NQ, HKV=NKV, Dh=D, scale=None,
+                     phase="phase9") -> dict:
     """B1-B3 at the window schedule's call: ``[C]`` queries over ``[left |
-    own]`` 2C keys, causal with window C (1 x 32 q on 8 kv heads, C =
-    P9_C, D 128, bf16): each kernel's device ms, its plain version's, the
-    bound (the band's visible pairs; the operations bound it) and SDPA's
-    forward and backward (dq, dk and dv together) with the same band as a
-    boolean mask, the kernels' forward held to SDPA's."""
+    own]`` 2C keys, causal with window C (default 1 x 32 q on 8 kv heads,
+    C = P9_C, D 128, bf16; ``scale`` the score scale): each kernel's
+    device ms, its plain version's, the bound (the band's visible pairs;
+    the operations bound it) and SDPA's forward and backward (dq, dk and
+    dv together) with the same band as a boolean mask, the kernels'
+    forward held to SDPA's."""
     import torch
     import torch.nn.functional as F
 
     from neuronx_distributed_tpu_torch.ops import flash_attention as fa
 
-    C, dev = P9_C, torch.device("cuda")
-    case = ("timing_window", 1, NQ, NKV, C, 2 * C, D, True, C, None, None,
+    C, dev = C or P9_C, torch.device("cuda")
+    case = ("timing_window", 1, HQ, HKV, C, 2 * C, Dh, True, C, None, scale,
             False, False)
-    opts = dict(window=C, causal=True)
+    opts = dict(window=C, causal=True, sm_scale=scale)
     copies = []
     for i in range(2):
         q, k, v, do = flash_inputs(case, torch.bfloat16, dev,
@@ -7183,12 +7191,13 @@ def time_window_call() -> dict:
         copies.append((q, k, v, do, lse, (do.float() * o.float()).sum(-1)))
     mask = fa.band_mask(C, 2 * C, C, C, device=dev)
     lib_fwd = [lambda c=c: F.scaled_dot_product_attention(
-        c[0], c[1], c[2], attn_mask=mask, enable_gqa=True) for c in copies]
+        c[0], c[1], c[2], attn_mask=mask, scale=scale, enable_gqa=True)
+        for c in copies]
     lib_bwd = []
     for c in copies:
         leaves = [x.detach().requires_grad_() for x in c[:3]]
         out = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
-                                             enable_gqa=True)
+                                             scale=scale, enable_gqa=True)
         lib_bwd.append(lambda out=out, leaves=leaves, do=c[3]:
                        torch.autograd.grad(out, leaves, do,
                                            retain_graph=True))
@@ -7197,7 +7206,7 @@ def time_window_call() -> dict:
     if not lib_err <= TOL["bfloat16"]:
         raise AssertionError(f"window call: SDPA with the band mask and the "
                              f"flash forward differ by {lib_err:.3e}")
-    label = f"window call B=1 HQ={NQ} HKV={NKV} S={C} T={2 * C} D={D} bf16"
+    label = f"window call B=1 HQ={HQ} HKV={HKV} S={C} T={2 * C} D={Dh} bf16"
     lib_ms = {}
     for which, fns, n in (("fwd", lib_fwd, 10), ("bwd", lib_bwd, 4)):
         retrace = (lambda fns=fns, n=n: device_ms(fns, n))
@@ -7205,7 +7214,7 @@ def time_window_call() -> dict:
                           retrace=retrace)
         lib_ms[which] = check_bound(
             f"SDPA {which} {label}", {"library": ms},
-            flash_bound_ms(1, NQ, NKV, C, 2 * C, D, 2, which, C)[0],
+            flash_bound_ms(1, HQ, HKV, C, 2 * C, Dh, 2, which, C)[0],
             retake={"library": retrace})["library"]
     out = {}
     for w, (fn_name, kname, _, _) in FLASH_KERNELS.items():
@@ -7214,7 +7223,7 @@ def time_window_call() -> dict:
                  "dkv": fa.flash_dkv_reference}[w]
         nargs = 3 if w == "fwd" else 6
         calls = [lambda c=c: kernel(*c[:nargs], **opts) for c in copies]
-        b_ms, b_by, flops, nbytes = flash_bound_ms(1, NQ, NKV, C, 2 * C, D,
+        b_ms, b_by, flops, nbytes = flash_bound_ms(1, HQ, HKV, C, 2 * C, Dh,
                                                    2, w, C)
         retake = {"kernel": lambda calls=calls, kname=kname, kernel=kernel:
                   device_ms(calls, 20, expect=kname,
@@ -7235,9 +7244,9 @@ def time_window_call() -> dict:
                                    + ("forward" if w == "fwd" else
                                       "backward (dq, dk and dv together)")
                                    + ", the band as a boolean mask"),
-                  "shapes": {"q": [1, NQ, C, D], "kv": [1, NKV, 2 * C, D],
-                             "window": C, "causal": True}}
-        log(f"phase9 timing {fn_name} ({label}, window {C}): device ms per "
+                  "shapes": {"q": [1, HQ, C, Dh], "kv": [1, HKV, 2 * C, Dh],
+                             "window": C, "causal": True, "sm_scale": scale}}
+        log(f"{phase} timing {fn_name} ({label}, window {C}): device ms per "
             f"call kernel {times['kernel']:.5f}, plain {times['plain']:.5f}, "
             f"library {lib:.5f} (SDPA {'forward' if w == 'fwd' else 'backward'}"
             f" with the band mask); bound {b_ms:.5f} ({b_by}: "
@@ -7406,6 +7415,8 @@ def phase9b(refs: dict, entries: dict) -> dict:
     # each timed chunk call's launches in its arm over both ranks, as the
     # wrappers counted them by (S, T, causal)
     for suffix, _, _, arm, key in P9_TIMED:
+        if arm not in P9_ARMS:
+            continue    # 13(c) fills them
         for w in FLASH_KERNELS:
             entries[suffix][w]["launches"] = sum(
                 r[arm]["launches_by_shape"][w].get(key, 0) for r in ranks)
@@ -7525,13 +7536,15 @@ def phase10_refs() -> dict:
     return out
 
 
-def p10_train(arm: str, cfg, batch, steps: int, warmup: int = 0) -> dict:
+def p10_train(arm: str, cfg, batch, steps: int, warmup: int = 0,
+              config=None, phase: str = "phase10") -> dict:
     """One rank's pipelined training through the entry points
-    (``initialize_parallel_model`` at pp = 2 gives this rank's stage):
-    ``warmup`` + ``steps`` steps on ``batch``, with the launch counts set to
-    0 first.  Returns the losses, grad norms, launches (by call shape),
-    each step's transfers, the schedule's peak in flight and memory, and
-    times; the model and optimizer are dropped."""
+    (``initialize_parallel_model`` at pp = 2 gives this rank's stage; its
+    ``config`` defaults to phase 10's for ``arm``): ``warmup`` + ``steps``
+    steps on ``batch``, with the launch counts set to 0 first.  Returns
+    the losses, grad norms, launches (by call shape), each step's
+    transfers, the schedule's peak in flight and memory, the stage's
+    neighbours, and times; the model and optimizer are dropped."""
     import torch
 
     from neuronx_distributed_tpu_torch.config import training_config
@@ -7546,11 +7559,12 @@ def p10_train(arm: str, cfg, batch, steps: int, warmup: int = 0) -> dict:
         make_train_step,
     )
 
-    schedule, V = P10_ARMS[arm]
-    config = training_config(
-        pipeline_parallel_size=P10_PP, num_microbatches=P10_M,
-        schedule=schedule, virtual_stages=V, learning_rate=1e-4,
-        max_grad_norm=1.0, seed=SEED)
+    if config is None:
+        schedule, V = P10_ARMS[arm]
+        config = training_config(
+            pipeline_parallel_size=P10_PP, num_microbatches=P10_M,
+            schedule=schedule, virtual_stages=V, learning_rate=1e-4,
+            max_grad_norm=1.0, seed=SEED)
     t_build = time.perf_counter()
     model = initialize_parallel_model(
         config, lambda d: LlamaForCausalLM(cfg, device=d), seed=SEED)
@@ -7605,6 +7619,10 @@ def p10_train(arm: str, cfg, batch, steps: int, warmup: int = 0) -> dict:
            - st_bytes,
            "pp": (mesh.get_pipeline_parallel_size(),
                   mesh.get_pipeline_parallel_rank()),
+           "cp": (mesh.get_context_parallel_size(),
+                  mesh.get_context_parallel_rank()),
+           "neighbours": mesh.get_pipeline_parallel_neighbors(),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
            "layers": stage.chunks,
            "embed": stage.has_embed, "head": stage.has_head}
     launches = out["launches"] = {w: getattr(fa, FLASH_KERNELS[w][0]).launches
@@ -7614,7 +7632,8 @@ def p10_train(arm: str, cfg, batch, steps: int, warmup: int = 0) -> dict:
         w: dict(getattr(fa, FLASH_KERNELS[w][0]).launches_by_shape)
         for w in FLASH_KERNELS}
     last = moved[-1]
-    log(f"phase10 {arm} pp rank {out['pp'][1]} (layers {stage.chunks}, "
+    log(f"{phase} {arm} pp rank {out['pp'][1]} cp {out['cp']} (layers "
+        f"{stage.chunks}, "
         f"embed {stage.has_embed}, head {stage.has_head}): losses "
         + ", ".join(f"{x:.6f}" for x in losses) + "; grad norms "
         + ", ".join(f"{x:.6f}" for x in norms)
@@ -8661,6 +8680,510 @@ def phase12(flash_entries: dict, decode_entry: dict) -> dict:
     return {"a": served, "b": trained, "c": clis, "seconds": seconds}
 
 
+# -- phase 13 ----------------------------------------------------------------
+
+# Gemma-2 past one rank and cp inside a pipeline stage, as gloo processes
+# sharing the card (correctness, launches, bytes and memory; not tp, cp or
+# pp speed).  (a) tp = 2 with sequence parallelism at 1 x 4096 and (b)
+# cp = 2 at 1 x 8192 (C = 4096 = the window) on Gemma-2-2B's full width
+# (H 2304, I 9216, 8 / 4 heads, D 256, vocab 256000, softcaps 50 / 30,
+# window 4096) cut to 2 of 26 layers (one sliding, one global), bf16 over
+# fp32 masters, flash, selective remat, the chunked loss head; the dense
+# core's arm on a 1-layer cut at 1 x 2048.  (c) pp = 2 x cp = 2, four
+# processes, on Llama-3-8B's width cut to 2 layers (one a stage), 1F1B, 2
+# microbatches of 1 x 8192 (1 x 4096 first: 8192 makes 9(b)'s contiguous
+# ring calls, 4096-token chunks at D = 128, so the cut of that arm costs
+# no kernels-line row its launches).  (a) runs 1 + 1 steps, each (b) arm
+# and (c) one step (the holds read the first)
+P13_LAYERS, P13_TP_S, P13_CP_S, P13_DENSE_S = 2, 4096, 8192, 2048
+P13_C = P13_CP_S // 2
+P13_TP_WARMUP, P13_TP_STEPS = 1, 1
+P13_PP_LAYERS, P13_PP_M, P13_PP_S = 2, 2, 8192
+# (c)'s chunk calls a step on each rank (one layer a stage), by cp rank:
+# each microbatch's contiguous ring, the diagonal on both, the
+# off-diagonal on cp rank 1
+P13_PP_C = P13_PP_S // 2
+P13_PP_CALLS = [{(P13_PP_C, P13_PP_C, True): P13_PP_M},
+                {(P13_PP_C, P13_PP_C, True): P13_PP_M,
+                 (P13_PP_C, P13_PP_C, False): P13_PP_M}]
+P13_WORLD_TIMEOUT_S = 600
+# the tied table scaled after init, so the logits (~1 at init) reach well
+# past the final softcap (30) and the cap decides the loss: a head that
+# left its vocab shard uncapped moves the first-step loss far outside
+# phase 7's 1e-2
+P13_EMBED_SCALE = 40.0
+# the blocks' cp schedule of each (b) arm (the Gemma configs carry no cp
+# field, as JAX's: the contiguous ring is their blocks' default)
+P13_CP_ARMS = ("ring", "ulysses")
+# each (b) arm's chunk calls a step on each cp rank, both layers together,
+# {(S, T, causal): calls}: the ring's window layer (W = C) calls rank 0's
+# own chunk, rank 1's [C] queries on [left | own] 2C keys; its global layer
+# the contiguous ring's diagonal (both ranks) and off-diagonal (rank 1);
+# ulysses one causal call a layer over the whole sequence on 4 q / 2 kv
+# heads
+P13_CALLS = {
+    "ring": [{(P13_C, P13_C, True): 2},
+             {(P13_C, 2 * P13_C, True): 1, (P13_C, P13_C, True): 1,
+              (P13_C, P13_C, False): 1}],
+    "ulysses": [{(P13_CP_S, P13_CP_S, True): 2}] * 2,
+}
+# B1-B3 at (b)'s new call shapes (D = 256, Gemma-2's heads), held against
+# their plain versions with Gemma-2's softcap (at SOFTCAP_SCALE, where it
+# bites) and an lse cotangent, model layout
+P13_FLASH_CASES = [
+    ("cp2_ring_diag_d256", 1, G2_NQ, G2_NKV, P13_C, P13_C, G2_D, True, None,
+     G2_CAP, SOFTCAP_SCALE, False, True, True),
+    ("cp2_ring_full_d256", 1, G2_NQ, G2_NKV, P13_C, P13_C, G2_D, False, None,
+     G2_CAP, SOFTCAP_SCALE, False, True, True),
+    ("cp2_window_left_d256", 1, G2_NQ, G2_NKV, P13_C, 2 * P13_C, G2_D, True,
+     P13_C, G2_CAP, SOFTCAP_SCALE, False, True, True),
+    ("cp2_ulysses_d256", 1, G2_NQ // 2, G2_NKV // 2, P13_CP_S, P13_CP_S,
+     G2_D, True, P13_C, G2_CAP, SOFTCAP_SCALE, False, True, True),
+]
+# the timed rows: suffix, (B, HQ, HKV, S, D) (None: the window call),
+# causal, the (b) arm and the call whose launches they carry
+P13_TIMED = [
+    ("_cp2_ring_diag_d256", (1, G2_NQ, G2_NKV, P13_C, G2_D), True, "ring",
+     (P13_C, P13_C, True)),
+    ("_cp2_ring_full_d256", (1, G2_NQ, G2_NKV, P13_C, G2_D), False, "ring",
+     (P13_C, P13_C, False)),
+    ("_cp2_window_left_d256", None, True, "ring", (P13_C, 2 * P13_C, True)),
+    ("_cp2_ulysses_d256", (1, G2_NQ // 2, G2_NKV // 2, P13_CP_S, G2_D), True,
+     "ulysses", (P13_CP_S, P13_CP_S, True)),
+]
+
+
+def gemma_cp_schedule(cfg, impl):
+    """``cfg`` (a Gemma-2 config) whose blocks run the cp schedule
+    ``impl``: a subclass of the config, which has no cp field."""
+    import dataclasses
+
+    base = type(cfg)
+
+    class Picked(base):
+        def block_config(self, *args):
+            return dataclasses.replace(super().block_config(*args),
+                                       cp_impl=impl)
+
+    return Picked(**{f.name: getattr(cfg, f.name)
+                     for f in dataclasses.fields(cfg)})
+
+
+def p13_gemma_cfg(layers, impl="ring", attention="flash", seq=P13_CP_S):
+    import torch
+
+    from neuronx_distributed_tpu_torch.models.gemma import Gemma2Config
+
+    cfg = Gemma2Config.gemma2_2b(num_layers=layers, attention_impl=attention,
+                                 remat="selective", max_seq_len=seq,
+                                 dtype=torch.bfloat16,
+                                 param_dtype=torch.float32)
+    return cfg if impl == "ring" else gemma_cp_schedule(cfg, impl)
+
+
+def p13_scale_table(module) -> None:
+    import torch
+
+    with torch.no_grad():
+        module.embed.embedding.mul_(P13_EMBED_SCALE)
+
+
+def phase13_kernels() -> dict:
+    """B1-B3 held at (b)'s D = 256 call shapes against their plain
+    versions, and timed at each beside SDPA and the bound."""
+    worst = {w: {"abs": 0.0, "row_rel": 0.0} for w in FLASH_KERNELS}
+    worst_lse = {"bfloat16": 0.0, "float32": 0.0}
+    hold_flash_cases(P13_FLASH_CASES, worst, worst_lse, seed0=1300)
+    source = "neuronx_distributed_tpu_torch/ops/csrc/flash_attention_d256.cu"
+    entries = {}
+    for suffix, shape, causal, _, _ in P13_TIMED:
+        if shape is None:
+            window = time_window_call(P13_C, G2_NQ, G2_NKV, G2_D, G2_SCALE,
+                                      phase="phase13")
+            entries[suffix] = {}
+            for w, (fn_name, _, _, line) in FLASH_KERNELS.items():
+                entries[suffix][w] = dict(
+                    window[w], name=fn_name + suffix, route="cuda",
+                    source=source,
+                    replaces=("neuronx_distributed_tpu/ops/"
+                              f"flash_attention.py:{line}"),
+                    launches=None, max_abs_err=worst[w]["abs"],
+                    max_err=worst[w]["row_rel"],
+                    max_err_is="largest relative L2 error of one row, bf16",
+                    tolerance=TOL["bfloat16"])
+            continue
+        variants = ((None, None), (None, G2_CAP))
+        if shape[3] == P13_CP_S:
+            variants += ((P13_C, G2_CAP),)
+        entries[suffix] = time_flash(shape, G2_SCALE, variants, worst,
+                                     source, suffix=suffix, causal=causal)
+    for row in entries.values():
+        for w in FLASH_KERNELS:
+            row[w]["shapes"]["cp"] = 2
+            row[w]["lse_max_abs_err"] = worst_lse
+    return entries
+
+
+def phase13_refs() -> dict:
+    """One process's references: (a) the first step's loss and grad norm
+    of the 2-layer Gemma-2 at 1 x 4096 (its table scaled), and its loss
+    without the final softcap on the same weights; (b) the same at 1 x
+    8192 (flash) and the 1-layer cut at 1 x 2048 (the dense core); (c)
+    the 2-layer Llama at 2 x 4096, one sequence at a time as the
+    microbatches run."""
+    import dataclasses
+
+    import torch
+
+    from neuronx_distributed_tpu_torch.config import training_config
+    from neuronx_distributed_tpu_torch.models.common import (
+        causal_lm_loss_sum,
+        make_causal_lm_loss_sum,
+    )
+    from neuronx_distributed_tpu_torch.models.gemma import Gemma2ForCausalLM
+    from neuronx_distributed_tpu_torch.models.llama import (
+        LlamaConfig,
+        LlamaForCausalLM,
+    )
+    from neuronx_distributed_tpu_torch.parallel.grads import get_grad_norm
+    from neuronx_distributed_tpu_torch.trainer import initialize_parallel_model
+
+    t0 = time.perf_counter()
+    refs = {}
+    loss_fn = make_causal_lm_loss_sum(P7_CHUNK)
+    for key, layers, seq, attention in (
+            ("a", P13_LAYERS, P13_TP_S, "flash"),
+            ("b", P13_LAYERS, P13_CP_S, "flash"),
+            ("dense", 1, P13_DENSE_S, "dense")):
+        cfg = p13_gemma_cfg(layers, attention=attention, seq=seq)
+        model = initialize_parallel_model(
+            training_config(seed=SEED),
+            lambda d, c=cfg: Gemma2ForCausalLM(c, device=d), seed=SEED)
+        module = model.module
+        p13_scale_table(module)
+        batch = {k: torch.as_tensor(v).cuda()
+                 for k, v in train_batch(cfg.vocab_size, 1, seq).items()}
+        loss, norm, _ = loss_and_grads(module, loss_fn, batch)
+        refs[key] = {"loss": loss, "grad_norm": norm}
+        if key == "a":
+            module.config = dataclasses.replace(cfg, final_softcap=0.0)
+            with torch.no_grad():
+                ls, tok = loss_fn(module, batch)
+            refs[key]["uncapped_loss"] = (ls / tok).item()
+        log(f"phase13 reference ({key}): Gemma-2-2B width, {layers} layers, "
+            f"1 x {seq}, {attention}: first-step loss {loss:.6f}, grad norm "
+            f"{norm:.6f}" + (f", without the final softcap "
+                             f"{refs[key]['uncapped_loss']:.6f}"
+                             if key == "a" else ""))
+        del model, module
+        gc.collect()
+        torch.cuda.empty_cache()
+    cfg = LlamaConfig.llama3_8b(num_layers=P13_PP_LAYERS,
+                                attention_impl="flash", remat="selective",
+                                dtype=torch.bfloat16,
+                                param_dtype=torch.float32)
+    model = initialize_parallel_model(
+        training_config(seed=SEED),
+        lambda d: LlamaForCausalLM(cfg, device=d), seed=SEED)
+    module = model.module
+    batch = train_batch(128256, P13_PP_M, P13_PP_S)
+    loss_sum, tok = 0.0, 0.0
+    for m in range(P13_PP_M):
+        mb = {k: torch.as_tensor(v[m:m + 1]).cuda() for k, v in batch.items()}
+        ls, n = causal_lm_loss_sum(module, mb)
+        ls.backward()
+        loss_sum += ls.item()
+        tok += n.item()
+    norm = get_grad_norm([p.grad / tok for p in module.parameters()]).item()
+    refs["c"] = {"loss": loss_sum / tok, "grad_norm": norm}
+    log(f"phase13 reference (c): Llama-3-8B width, {P13_PP_LAYERS} layers, "
+        f"{P13_PP_M} x {P13_PP_S} one sequence at a time: first-step loss "
+        f"{refs['c']['loss']:.6f}, grad norm {norm:.6f} "
+        f"({time.perf_counter() - t0:.1f} s for every reference)")
+    del model, module
+    gc.collect()
+    torch.cuda.empty_cache()
+    return refs
+
+
+def p13_rank(task: dict) -> dict:
+    """One rank of 13(a) and (b): tp = 2 with sequence parallelism (the
+    trainer's SP gradient sum counted), then each cp = 2 arm, each laid out
+    from its ``TrainingConfig``; then zigzag with the window must raise."""
+    import torch
+    import torch.distributed as dist
+
+    from neuronx_distributed_tpu_torch.config import training_config
+    from neuronx_distributed_tpu_torch.models.gemma import Gemma2ForCausalLM
+    from neuronx_distributed_tpu_torch.ops.ring_attention import ring_attention
+    from neuronx_distributed_tpu_torch.parallel import mappings, mesh
+    from neuronx_distributed_tpu_torch.trainer import trainer as tr
+    from neuronx_distributed_tpu_torch.utils.distributed import (
+        initialize_distributed,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(device="cuda", backend="gloo", timeout_s=300)
+    out = {"rank": dist.get_rank()}
+
+    def gemma(cfg):
+        return lambda d: Gemma2ForCausalLM(cfg, device=d)
+
+    # (a): the trainer's SP gradient sum, counted: the marked gradients it
+    # found and the all-reduces it took, a step
+    sums = []
+    plain = tr.allreduce_sequence_parallel_gradients
+
+    def counted(params):
+        params = list(params)
+        n0 = mappings.COUNTS["all_reduce"]
+        marked = sum(1 for p in params if p.grad is not None
+                     and getattr(p, "sequence_parallel", False))
+        plain(params)
+        sums.append((marked, mappings.COUNTS["all_reduce"] - n0))
+
+    tr.allreduce_sequence_parallel_gradients = counted
+    try:
+        out["a"] = p7_train(
+            "(a) Gemma-2 tp = 2 SP", training_config(
+                tensor_parallel_size=TP, learning_rate=1e-4,
+                max_grad_norm=1.0, seed=SEED), None,
+            train_batch(256000, 1, P13_TP_S), P13_TP_STEPS, P13_TP_WARMUP,
+            phase="phase13", build=gemma(p13_gemma_cfg(
+                P13_LAYERS, seq=P13_TP_S)), prepare=p13_scale_table)
+    finally:
+        tr.allreduce_sequence_parallel_gradients = plain
+    out["a"]["sp_sums"] = sums
+    # (b): cp = 2, each arm one step
+    cp_config = training_config(context_parallel_size=2, learning_rate=1e-4,
+                                max_grad_norm=1.0, seed=SEED)
+    out["b"] = {}
+    for arm in P13_CP_ARMS:
+        out["b"][arm] = p7_train(
+            f"(b) Gemma-2 cp = 2 {arm}", cp_config, None,
+            train_batch(256000, 1, P13_CP_S), 1, phase="phase13",
+            build=gemma(p13_gemma_cfg(P13_LAYERS, arm)),
+            prepare=p13_scale_table)
+    out["b"]["dense"] = p7_train(
+        "(b) Gemma-2 cp = 2 dense core", cp_config, None,
+        train_batch(256000, 1, P13_DENSE_S), 1, phase="phase13",
+        build=gemma(p13_gemma_cfg(1, attention="dense", seq=P13_DENSE_S)),
+        prepare=p13_scale_table)
+    # zigzag with a window raises, as JAX's ring does
+    mesh.initialize_model_parallel(context_parallel_size=2)
+    q = torch.zeros(1, 64, G2_NQ, G2_D, device="cuda", dtype=torch.bfloat16)
+    k = torch.zeros(1, 64, G2_NKV, G2_D, device="cuda", dtype=torch.bfloat16)
+    try:
+        ring_attention(q, k, k, True, None, "zigzag", "ring", window=32)
+        out["zigzag_window"] = None
+    except ValueError as e:
+        out["zigzag_window"] = str(e)
+    mesh.destroy_model_parallel()
+    dist.barrier()
+    return out
+
+
+def p13c_rank(task: dict) -> dict:
+    """One rank of 13(c): pp = 2 x cp = 2 from its ``TrainingConfig``, one
+    1F1B step."""
+    import torch
+    import torch.distributed as dist
+
+    from neuronx_distributed_tpu_torch.config import training_config
+    from neuronx_distributed_tpu_torch.models.llama import LlamaConfig
+    from neuronx_distributed_tpu_torch.utils.distributed import (
+        initialize_distributed,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(device="cuda", backend="gloo", timeout_s=300)
+    cfg = LlamaConfig.llama3_8b(num_layers=P13_PP_LAYERS,
+                                attention_impl="flash", remat="selective",
+                                dtype=torch.bfloat16,
+                                param_dtype=torch.float32)
+    config = training_config(
+        pipeline_parallel_size=2, context_parallel_size=2,
+        num_microbatches=P13_PP_M, schedule="1f1b", learning_rate=1e-4,
+        max_grad_norm=1.0, seed=SEED)
+    out = p10_train("1f1b pp = 2 x cp = 2", cfg,
+                    train_batch(128256, P13_PP_M, P13_PP_S), 1,
+                    config=config, phase="phase13 (c)")
+    out["rank"] = dist.get_rank()
+    dist.barrier()
+    return out
+
+
+def p13_first_step(label, got, ref, rtol_loss, rtol_norm) -> list:
+    rel = [abs(got["losses"][0] - ref["loss"]) / abs(ref["loss"]),
+           abs(got["grad_norms"][0] - ref["grad_norm"]) / ref["grad_norm"]]
+    if not (rel[0] <= rtol_loss and rel[1] <= rtol_norm):
+        raise AssertionError(
+            f"phase13 {label}: first-step loss {got['losses'][0]} and grad "
+            f"norm {got['grad_norms'][0]} against {ref['loss']} and "
+            f"{ref['grad_norm']}: rel {rel} > {rtol_loss}, {rtol_norm}")
+    return rel
+
+
+def phase13(refs: dict, entries: dict, p9_entries: dict) -> dict:
+    """Gemma-2 past one rank and cp inside a pipeline stage: (a) and (b)
+    in one 2-process world, (c) in a 4-process one, each held against its
+    one-process reference; B1-B3 launches of (b) and (c) by call shape
+    against the schedules' design (P13_CALLS, P13_PP_CALLS).  (c) fills
+    the launches of 9(b)'s contiguous-ring rows (``p9_entries``)."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.utils.distributed import spawn
+
+    t_phase = time.perf_counter()
+    ranks = spawn(p13_rank, 2, ({},), timeout_s=P13_WORLD_TIMEOUT_S,
+                  echo=True)
+    out = {"refs": refs, "a": [], "b": {}, "c": []}
+    per = {"fwd": 2, "dq": 1, "dkv": 1}    # selective remat: forward twice
+    for r in ranks:
+        a = r["a"]
+        rel = p13_first_step("(a) tp = 2 SP", a, refs["a"], P7_LOSS_RTOL,
+                             P7_NORM_RTOL)
+        gap = abs(refs["a"]["uncapped_loss"] - refs["a"]["loss"]) \
+            / abs(refs["a"]["loss"])
+        if not gap > P7_LOSS_RTOL:
+            raise AssertionError(f"phase13 (a): the uncapped loss "
+                                 f"{refs['a']['uncapped_loss']} lies within "
+                                 f"{P7_LOSS_RTOL} of the capped one: the cap "
+                                 f"does not bite")
+        if a["sp_sums"] != [(4 * P13_LAYERS + 1, 1)] * len(a["losses"]):
+            raise AssertionError(f"phase13 (a): SP gradient sums a step "
+                                 f"(marked gradients, all-reduces) "
+                                 f"{a['sp_sums']}, expected one coalesced "
+                                 f"sum of {4 * P13_LAYERS + 1} norms a step")
+        if a["tp"][:2] != (TP, r["rank"]) or not a["losses"][-1] < \
+                a["losses"][0]:
+            raise AssertionError(f"phase13 (a): layout {a['tp']}, losses "
+                                 f"{a['losses']}")
+        out["a"].append({
+            "losses": a["losses"], "grad_norms": a["grad_norms"],
+            "first_step_rel": rel, "uncapped_rel": gap,
+            "sp_sums": a["sp_sums"], "launches": a["launches"],
+            "step_ms": a["step_ms"], "counts": a["counts"][-1],
+            "collective_ms": a["collective_s"][-1] * 1e3,
+            "collective_bytes": a["collective_bytes"][-1],
+            "peak_gib": a["peak_bytes"] / 2**30})
+        log(f"phase13 (a) rank {r['rank']}: first-step loss "
+            f"{a['losses'][0]:.6f} (tp = 1 {refs['a']['loss']:.6f}, rel "
+            f"{rel[0]:.2e}; without the final softcap "
+            f"{refs['a']['uncapped_loss']:.6f}, rel {gap:.2e}), grad norm "
+            f"{a['grad_norms'][0]:.6f} (rel {rel[1]:.2e}); SP sums a step "
+            f"{a['sp_sums']}; peak {a['peak_bytes'] / 2**30:.2f} GiB")
+        if not (r["zigzag_window"] or "").startswith("zigzag is a FULL"):
+            raise AssertionError(f"phase13 (b): zigzag with a window gave "
+                                 f"{r['zigzag_window']!r}")
+    for arm in P13_CP_ARMS + ("dense",):
+        rows = []
+        for r in ranks:
+            b = r["b"][arm]
+            ref = refs["dense" if arm == "dense" else "b"]
+            rel = p13_first_step(f"(b) {arm}", b, ref, P9_LOSS_RTOL,
+                                 P9_NORM_RTOL)
+            cp_rank = b["cp"][1]
+            if arm == "dense":
+                want = {w: {} for w in per}
+            else:
+                want = {w: {key: per[w] * n for key, n in
+                            P13_CALLS[arm][cp_rank].items()} for w in per}
+            if b["launches_by_shape"] != want or b["cp"][0] != 2:
+                raise AssertionError(
+                    f"phase13 (b) {arm}: launches by (S, T, causal) "
+                    f"{b['launches_by_shape']} on cp rank {cp_rank}, "
+                    f"expected {want}")
+            rows.append({
+                "losses": b["losses"], "grad_norms": b["grad_norms"],
+                "first_step_rel": rel, "launches": b["launches"],
+                "launches_by_shape": {
+                    w: {f"{k[0]}x{k[1]} {'causal' if k[2] else 'full'}": n
+                        for k, n in v.items()}
+                    for w, v in b["launches_by_shape"].items()},
+                "step_ms": b["step_ms"], "counts": b["counts"][-1],
+                "collective_ms": b["collective_s"][-1] * 1e3,
+                "collective_bytes": b["collective_bytes"][-1],
+                "peak_gib": b["peak_bytes"] / 2**30})
+            log(f"phase13 (b) {arm} cp rank {cp_rank}: first-step loss "
+                f"{b['losses'][0]:.6f}, grad norm {b['grad_norms'][0]:.6f} "
+                f"(rel {rel[0]:.2e}, {rel[1]:.2e} of cp = 1); collectives "
+                f"{b['counts'][-1]}, {sum(b['collective_bytes'][-1].values()) / 1e6:.1f}"
+                f" MB; peak {b['peak_bytes'] / 2**30:.2f} GiB")
+        if ranks[0]["b"][arm]["losses"] != ranks[1]["b"][arm]["losses"]:
+            raise AssertionError(f"phase13 (b) {arm}: the ranks disagree")
+        out["b"][arm] = rows
+    for suffix, _, _, arm, key in P13_TIMED:
+        for w in FLASH_KERNELS:
+            entries[suffix][w]["launches"] = sum(
+                r["b"][arm]["launches_by_shape"][w].get(key, 0)
+                for r in ranks)
+            entries[suffix][w]["launches_are"] = (
+                f"13(b) {arm} arm, both cp ranks, 1 step")
+    del ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_c = time.perf_counter()
+    ranks = spawn(p13c_rank, 4, ({},), timeout_s=P13_WORLD_TIMEOUT_S,
+                  echo=True)
+    H = 4096
+    for r in ranks:
+        pp_rank, cp_rank = r["pp"][1], r["cp"][1]
+        rel = p13_first_step(f"(c) rank {r['rank']}", r, refs["c"],
+                             P9_LOSS_RTOL, P9_NORM_RTOL)
+        # the layout (dp, ep, pp, cp, kvr, tp): the neighbour stage of the
+        # same cp rank is 2 ranks away
+        nxt, prv = r["neighbours"]
+        if r["cp"][0] != 2 or (nxt - r["rank"]) % 4 != 2 or \
+                (r["rank"] - prv) % 4 != 2:
+            raise AssertionError(f"phase13 (c) rank {r['rank']}: layout "
+                                 f"{r['cp']}, neighbours {r['neighbours']}")
+        want = {w: {key: per[w] * n for key, n in
+                    P13_PP_CALLS[cp_rank].items()} for w in per}
+        if r["launches_by_shape"] != want:
+            raise AssertionError(f"phase13 (c) rank {r['rank']}: launches "
+                                 f"by (S, T, causal) "
+                                 f"{r['launches_by_shape']}, expected "
+                                 f"{want}")
+        sent = "pp_send_forward" if pp_rank == 0 else "pp_send_backward"
+        chunk = P13_PP_M * P13_PP_C * H * 2
+        if r["bytes"][-1].get(sent) != chunk:
+            raise AssertionError(f"phase13 (c) rank {r['rank']}: {sent} "
+                                 f"{r['bytes'][-1]}, expected {chunk} bytes "
+                                 f"(each microbatch's chunk once)")
+        out["c"].append({
+            "rank": r["rank"], "pp": r["pp"], "cp": r["cp"],
+            "neighbours": r["neighbours"], "losses": r["losses"],
+            "grad_norms": r["grad_norms"], "first_step_rel": rel,
+            "transfer_bytes": r["bytes"][-1], "launches": r["launches"],
+            "step_ms": r["step_ms"], "param_gib": r["param_bytes"] / 2**30,
+            "state_gib": r["state_bytes"] / 2**30,
+            "schedule_peak_gib": r["schedule_peak_bytes"] / 2**30})
+        log(f"phase13 (c) rank {r['rank']} (stage {pp_rank}, cp rank "
+            f"{cp_rank}, neighbours {r['neighbours']}): first-step loss "
+            f"{r['losses'][0]:.6f}, grad norm {r['grad_norms'][0]:.6f} (rel "
+            f"{rel[0]:.2e}, {rel[1]:.2e} of pp = cp = 1); transfers "
+            f"{r['bytes'][-1]}; parameters {r['param_bytes'] / 2**30:.2f} "
+            f"GiB, state {r['state_bytes'] / 2**30:.2f} GiB, schedule peak "
+            f"{r['schedule_peak_bytes'] / 2**30:.2f} GiB; {r['step_ms']:.1f} "
+            f"ms a step (host clock, four processes on one card)")
+    for suffix, _, _, arm, key in P9_TIMED:
+        if arm in P9_ARMS:
+            continue
+        for w in FLASH_KERNELS:
+            p9_entries[suffix][w]["launches"] = sum(
+                r["launches_by_shape"][w].get(key, 0) for r in ranks)
+            p9_entries[suffix][w]["launches_are"] = (
+                "13(c), pp = 2 x cp = 2, the four ranks, 1 step")
+    out["c_seconds"] = time.perf_counter() - t_c
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase13 took {out['seconds']:.1f} s ((c) {out['c_seconds']:.1f} "
+        f"s)")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -8802,6 +9325,16 @@ def main() -> int:
         log(f"phase12 summary: {json.dumps(conversion)}")
         log(f"phase12 with its kernel holds and timings took "
             f"{time.perf_counter() - t12:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t13 = time.perf_counter()
+        p13_entries = phase13_kernels()
+        log(f"phase13 kernel holds and timings took "
+            f"{time.perf_counter() - t13:.1f} s")
+        gemma_parallel = phase13(phase13_refs(), p13_entries, cp_entries)
+        log(f"phase13 summary: {json.dumps(gemma_parallel)}")
+        log(f"phase13 with its kernel holds and timings took "
+            f"{time.perf_counter() - t13:.1f} s")
         for w in FLASH_KERNELS:
             flash[w]["build"] = {d: guards[w][d] for d in (64, 128)}
             flash256[w]["build"] = {256: guards[w][256]}
@@ -8817,7 +9350,9 @@ def main() -> int:
                       for w in FLASH_KERNELS]
                    + [pp_entries[w] for w in FLASH_KERNELS]
                    + [p12["decode"]]
-                   + [p12["flash"][w] for w in FLASH_KERNELS])
+                   + [p12["flash"][w] for w in FLASH_KERNELS]
+                   + [p13_entries[sfx][w] for sfx, *_ in P13_TIMED
+                      for w in FLASH_KERNELS])
         for k in kernels:
             if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms",
                                                      "library_ms",

@@ -86,8 +86,7 @@ def build_model(args):
                      attention_impl="flash" if on_card else "dense",
                      dtype=torch.bfloat16 if on_card else torch.float32,
                      param_dtype=torch.float32)
-    if args.family == "llama":
-        overrides["sequence_parallel"] = args.tp > 1
+    overrides["sequence_parallel"] = args.tp > 1
     if args.num_layers is not None:
         overrides["num_layers"] = args.num_layers
     cfg = getattr(cfg_cls, args.preset)(**overrides)

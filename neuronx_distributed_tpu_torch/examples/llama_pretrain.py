@@ -25,6 +25,9 @@ pipeline stages under 1F1B (``--pp-schedule gpipe | interleaved``,
       neuronx_distributed_tpu_torch.examples.llama_pretrain --device cpu \\
       --preset tiny --num-layers 4 --pp 2 --microbatches 4 --steps 20
 
+``--pp`` composes with ``--cp``: each stage holds its cp rank's chunk of
+every microbatch (``--pp 2 --cp 2`` on four ranks).
+
 ``--preset mixtral_8x7b`` trains the Mixtral-8x7B-shaped MoE (8 experts,
 top-2, scatter dispatch; MFU over its active FLOPs); the experts shard
 over the expert-parallel degree of a ``TrainingConfig`` built in code

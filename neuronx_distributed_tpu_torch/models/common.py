@@ -211,12 +211,15 @@ def make_causal_lm_loss_sum(chunk_size: int = 0):
 
 def dense_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               mask: Optional[torch.Tensor] = None,
-              causal: bool = False) -> torch.Tensor:
+              causal: bool = False,
+              q_offset: Optional[int] = None) -> torch.Tensor:
     """Multi-head attention core over this rank's heads, ``q/k/v [B, S, N,
     D]`` -> ``[B, S, N, D]`` in q's type (no collective: each rank computes
     its own heads).  Scores in fp32 (q and k widened, as JAX's
     ``preferred_element_type=float32``), scaled by ``1/sqrt(D)``; the
-    causal mask keeps ``t <= s + (T - S)``; ``mask`` (boolean,
+    causal mask keeps ``t <= s + q_offset`` (default ``T - S``: the queries
+    are the last ``S`` of ``T`` positions; a context-parallel rank's chunk
+    passes its own offset); ``mask`` (boolean,
     broadcastable to ``[B, N, S, T]``, True = attend) and the causal mask
     fill with the fp32 minimum; softmax in fp32, the probabilities cast to
     q's type before the PV product."""
@@ -228,7 +231,8 @@ def dense_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if causal:
         t = torch.arange(T, device=q.device)
         s = torch.arange(S, device=q.device)
-        keep = t[None, :] <= s[:, None] + (T - S)
+        off = T - S if q_offset is None else q_offset
+        keep = t[None, :] <= s[:, None] + off
         scores = scores.masked_fill(~keep, low)
     if mask is not None:
         scores = scores.masked_fill(~mask.bool(), low)
@@ -296,25 +300,20 @@ def build_pipelined_causal_lm(
     whole sequence's length) and its random-init order ``init_plan``;
     this adds the vocab-parallel head loss, the remat policy per block,
     the sequence-parallel activation layout (a stage boundary carries a
-    rank's sequence slice) and builds this rank's
+    rank's sequence slice; at context-parallel degree > 1 the slice of
+    its cp chunk, and ``seq_len`` is the chunk's, so ``block_fn`` places
+    its positions at the cp rank's offset) and builds this rank's
     :class:`..pipeline.engine.PipelinedModel` on ``device``.
     ``block_aux``: ``block_fn`` returns ``(y, aux)`` (an MoE block's
     load-balancing term, ``MOE_AUX_COEF`` folded in) and the stage's run
     returns ``(x, the sum over its layers)`` for the engine's aux
     channel (JAX ``block_aux``)."""
-    from neuronx_distributed_tpu_torch.parallel.mesh import (
-        ContextParallel,
-        TensorParallel,
-    )
+    from neuronx_distributed_tpu_torch.parallel.mesh import TensorParallel
     from neuronx_distributed_tpu_torch.pipeline.engine import (
         build_pipelined_model,
     )
     from neuronx_distributed_tpu_torch.utils.device import resolve_device
 
-    if ContextParallel.current().size > 1:
-        raise NotImplementedError(
-            "context parallelism inside a pipeline stage is not ported "
-            "(ROADMAP, \"Then\")")
     tp = TensorParallel.current()
 
     def run_fn(blocks, x, extras, sp):

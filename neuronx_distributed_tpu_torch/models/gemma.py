@@ -26,10 +26,18 @@ check.  The forward signature is :class:`.llama.LlamaForCausalLM`'s, and the
 stack runs through :func:`.llama.run_layers` (one paged-step plan per
 forward, remat per block), so the trainer and the serving engine drive
 Gemma unchanged.  At tp > 1 the table is vocab-sharded and the tied head
-gives each rank its vocab slice; Gemma-2's final softcap is applied after
-:meth:`gather_logits` joins the slices.  The configs carry no
-``sequence_parallel``: the blocks are built without it (Gemma under
-sequence parallelism and its training at tp > 1 are a ROADMAP item).
+gives each rank its vocab slice, Gemma-2's softcapped in :meth:`head` (the
+cap is elementwise, so capping a slice caps the vocabulary: the training
+losses read the slice, :meth:`_TiedDecoder.gather_logits` only joins).
+``sequence_parallel`` (JAX's default on) runs the residual stream and every
+norm on a rank's slice of the sequence in cacheless forwards at tp > 1,
+the embedding's rows reduce-scattered before the scale, the sequence
+gathered after the final norm, before the tied head (JAX's order); cached
+decode keeps it off.  At context-parallel degree > 1 a rank holds its
+chunk of the sequence at its own positions and the blocks attend over the
+cp group as Llama's do: the ring or ulysses on the flash path (Gemma-2's
+window must fit one chunk on the ring; zigzag with a window raises), the
+gathered dense core otherwise.
 """
 
 from __future__ import annotations
@@ -40,20 +48,25 @@ from typing import List, Optional
 import torch
 from torch import nn
 
+from neuronx_distributed_tpu_torch.models.common import (
+    sequence_parallel_active,
+)
 from neuronx_distributed_tpu_torch.models.llama import (
     LlamaAttention,
     LlamaBlock,
     LlamaConfig,
     LlamaMLP,
+    norm,
     run_layers,
 )
 from neuronx_distributed_tpu_torch.parallel.layers import ParallelEmbedding
 from neuronx_distributed_tpu_torch.parallel.mappings import (
+    gather_from_sequence_parallel_region,
     gather_from_tensor_parallel_region,
 )
 from neuronx_distributed_tpu_torch.parallel.mesh import (
+    ContextParallel,
     TensorParallel,
-    get_context_parallel_size,
 )
 from neuronx_distributed_tpu_torch.parallel.norm import RMSNorm
 from neuronx_distributed_tpu_torch.utils.device import resolve_device
@@ -75,6 +88,7 @@ class GemmaConfig:
     max_seq_len: int = 8192
     rope_theta: float = 10000.0
     rms_eps: float = 1e-6
+    sequence_parallel: bool = True
     remat: str = "selective"
     attention_impl: str = "dense"
     dtype: torch.dtype = torch.bfloat16
@@ -97,7 +111,7 @@ class GemmaConfig:
             max_seq_len=self.max_seq_len, rope_theta=self.rope_theta,
             rms_eps=self.rms_eps, remat=self.remat,
             attention_impl=self.attention_impl, mlp_activation="gelu_tanh",
-            sequence_parallel=False, dtype=self.dtype,
+            sequence_parallel=self.sequence_parallel, dtype=self.dtype,
             param_dtype=self.param_dtype)
 
     @staticmethod
@@ -140,6 +154,7 @@ class Gemma2Config:
     max_seq_len: int = 8192
     rope_theta: float = 10000.0
     rms_eps: float = 1e-6
+    sequence_parallel: bool = True
     remat: str = "selective"
     attention_impl: str = "dense"
     dtype: torch.dtype = torch.bfloat16
@@ -166,7 +181,7 @@ class Gemma2Config:
             sliding_window=self.sliding_window if sliding else None,
             attn_softcap=self.attn_softcap,
             attn_scale=self.query_pre_attn_scalar ** -0.5,
-            sequence_parallel=False, dtype=self.dtype,
+            sequence_parallel=self.sequence_parallel, dtype=self.dtype,
             param_dtype=self.param_dtype)
 
     @staticmethod
@@ -200,15 +215,15 @@ class Gemma2Config:
 class Gemma2Block(nn.Module):
     """Sandwich-norm decoder block: ``x + post_attn_norm(attn(input_norm(
     x)))``, then ``x + post_ffw_norm(mlp(pre_ffw_norm(x)))``; the block
-    config carries the layer's window.  Same call as :class:`LlamaBlock`."""
+    config carries the layer's window.  Same call as :class:`LlamaBlock`;
+    under sequence parallelism the four norms act on sequence shards."""
 
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
         self.attn = LlamaAttention(cfg, device)
         for name in ("input_norm", "post_attn_norm", "pre_ffw_norm",
                      "post_ffw_norm"):
-            self.add_module(name, RMSNorm(cfg.hidden_size, cfg.rms_eps,
-                                          cfg.dtype, device, cfg.norm_dtype))
+            self.add_module(name, norm(cfg, device))
         self.mlp = LlamaMLP(cfg, device)
 
     def forward(self, x, positions, kv_cache=None, cache_offset=0,
@@ -231,20 +246,18 @@ class _TiedDecoder(nn.Module):
 
     def __init__(self, cfg, blocks, device=None):
         super().__init__()
-        if get_context_parallel_size() > 1:
-            raise NotImplementedError(
-                "Gemma at context-parallel degree > 1 is not ported yet: it "
-                "comes with Gemma's sequence parallelism (ROADMAP, \"Then\")")
         device = resolve_device(device)
         self.config = cfg
         self.tp = TensorParallel.current()
+        self.cp = ContextParallel.current()
         bcfg = blocks[0][1]
+        # the SP entry (the rows' reduce-scatter) is chosen per forward:
+        # cached decode keeps the sequence whole
         self.embed = ParallelEmbedding(cfg.vocab_size, cfg.hidden_size,
                                        bcfg.dtype, device, bcfg.weight_dtype)
         for i, (cls, block_cfg) in enumerate(blocks):
             self.add_module(f"layer_{i}", cls(block_cfg, device))
-        self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, bcfg.dtype,
-                                  device, bcfg.norm_dtype)
+        self.final_norm = norm(bcfg, device)
 
     def layers(self) -> List[nn.Module]:
         return [getattr(self, f"layer_{i}")
@@ -269,16 +282,28 @@ class _TiedDecoder(nn.Module):
     def _backbone(self, ids, positions=None, kv_caches=None, cache_offset=0,
                   kv_valid=None, block_table=None, paged_kernel=False,
                   segment_ids=None, adapters=None):
-        h = self.embed(ids)
+        sp = sequence_parallel_active(self.config.sequence_parallel, self.tp,
+                                      ids.shape[1], kv_caches is not None)
+        if positions is None:
+            # at cp > 1, ids are this rank's chunk: its slice of arange(S)
+            start = self.cp.rank * ids.shape[1]
+            positions = torch.arange(start, start + ids.shape[1],
+                                     device=ids.device).expand(ids.shape)
+        h = self.embed(ids, sp)
         # the scale rounded to the activation type first (as JAX), made on
         # the device: a host tensor here would be a copy, which a CUDA
         # graph cannot capture
         h = h * torch.full((), self.config.hidden_size ** 0.5,
                            dtype=h.dtype, device=h.device)
-        return self.final_norm(run_layers(
+        h = self.final_norm(run_layers(
             self.layers(), h, positions, kv_caches, cache_offset, kv_valid,
             block_table, paged_kernel, segment_ids, self.config.remat,
-            adapters))
+            adapters, sp))
+        if sp:
+            # the sequence gathered back before the tied head
+            h = gather_from_sequence_parallel_region(h, 1, False,
+                                                     self.tp.group)
+        return h
 
     def forward(self, ids, positions=None, kv_caches=None, cache_offset=0,
                 kv_valid=None, block_table=None, paged_kernel=False,
@@ -289,7 +314,8 @@ class _TiedDecoder(nn.Module):
         return (logits, kv_caches) if kv_caches is not None else logits
 
     def hidden(self, ids, positions=None, kv_valid=None, segment_ids=None):
-        """Backbone only: final-norm hidden states ``[B, S, H]``, the input
+        """Backbone only: final-norm hidden states ``[B, S, H]`` with the
+        whole sequence (gathered back from sequence parallelism), the input
         the chunked loss head (``models.common.make_causal_lm_loss_sum``)
         consumes."""
         return self._backbone(ids, positions, None, 0, kv_valid, None, False,
@@ -325,20 +351,13 @@ class Gemma2ForCausalLM(_TiedDecoder):
         super().__init__(cfg, [(Gemma2Block, cfg.block_config(i % 2 == 0))
                                for i in range(cfg.num_layers)], device)
 
-    def _final_softcap(self, logits):
+    def head(self, h):
+        """The tied head's logits, softcapped ``cap * tanh(s / cap)`` in
+        fp32 and cast back (JAX's ``_logits``): this rank's vocab slice
+        ``[..., V / tp]``, capped at every tp, so the training losses and
+        :meth:`gather_logits` (which only joins) see capped logits."""
+        logits = self.embed.attend(h)
         cap = self.config.final_softcap
         if cap:
             logits = (cap * torch.tanh(logits.float() / cap)).to(logits.dtype)
         return logits
-
-    def head(self, h):
-        """The tied head's logits, softcapped at tp = 1; a shard's slice
-        comes back uncapped and :meth:`gather_logits` caps the full
-        vocab."""
-        logits = self.embed.attend(h)
-        return self._final_softcap(logits) if self.tp.size == 1 else logits
-
-    def gather_logits(self, logits):
-        if self.tp.size == 1:
-            return logits
-        return self._final_softcap(super().gather_logits(logits))

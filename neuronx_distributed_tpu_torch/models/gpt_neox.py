@@ -18,7 +18,10 @@ gradients are on.  At tp > 1 each layer holds its shard (heads, MLP
 columns, vocab rows) and :meth:`GPTNeoXForCausalLM.gather_logits` joins the
 head's vocab slices; it trains there too.  ``sequence_parallel`` (JAX's
 default on) runs the residual stream and the LayerNorms on a rank's
-sequence slice (:func:`.common.sequence_parallel_active`).
+sequence slice (:func:`.common.sequence_parallel_active`).  At
+context-parallel degree > 1 a rank holds its contiguous chunk of the
+sequence and its attention reads every rank's keys and values, gathered
+over the cp group (JAX's GSPMD dense core on a sequence cut over cp).
 :func:`build_pipelined_gpt_neox` stages it for pipeline parallelism (the
 blocks run without dropout, as JAX's ``block_fn``).
 """
@@ -45,10 +48,14 @@ from neuronx_distributed_tpu_torch.parallel.layers import (
     RowParallelLinear,
 )
 from neuronx_distributed_tpu_torch.parallel.mappings import (
+    gather_from_context_parallel_region,
     gather_from_sequence_parallel_region,
     gather_from_tensor_parallel_region,
 )
-from neuronx_distributed_tpu_torch.parallel.mesh import TensorParallel
+from neuronx_distributed_tpu_torch.parallel.mesh import (
+    ContextParallel,
+    TensorParallel,
+)
 from neuronx_distributed_tpu_torch.parallel.norm import LayerNorm
 from neuronx_distributed_tpu_torch.utils.device import resolve_device
 
@@ -128,6 +135,7 @@ class GPTNeoXAttention(nn.Module):
                                        device=device,
                                        param_dtype=cfg.param_dtype,
                                        sequence_parallel=sp)
+        self.cp = ContextParallel.current()
 
     def reset_parameters(self, generator=None) -> None:
         self.qkv.reset_parameters(generator)
@@ -141,7 +149,13 @@ class GPTNeoXAttention(nn.Module):
                    for i in range(3))
         q = apply_partial_rope(q, positions, cfg.rotary_pct, cfg.rope_theta)
         k = apply_partial_rope(k, positions, cfg.rotary_pct, cfg.rope_theta)
-        out = dense_mha(q, k, v, causal=True)
+        if self.cp.size > 1:
+            k, v = (gather_from_context_parallel_region(t, 1, self.cp.group)
+                    for t in (k, v))
+            out = dense_mha(q, k, v, causal=True,
+                            q_offset=self.cp.rank * S)
+        else:
+            out = dense_mha(q, k, v, causal=True)
         return self.dense(out.reshape(B, S, self.heads * cfg.head_dim), sp)
 
 
@@ -203,6 +217,7 @@ class GPTNeoXForCausalLM(nn.Module):
         device = resolve_device(device)
         self.config = cfg
         self.tp = TensorParallel.current()
+        self.cp = ContextParallel.current()
         self.embed_in = ParallelEmbedding(
             cfg.vocab_size, cfg.hidden_size, cfg.dtype, device,
             cfg.param_dtype, sequence_parallel_output=cfg.sequence_parallel)
@@ -256,8 +271,10 @@ class GPTNeoXForCausalLM(nn.Module):
         sp = sequence_parallel_active(self.config.sequence_parallel,
                                       self.tp, ids.shape[1])
         if positions is None:
-            positions = torch.arange(ids.shape[1], device=ids.device
-                                     ).expand(ids.shape)
+            # at cp > 1 this rank's slice of arange(S)
+            start = self.cp.rank * ids.shape[1]
+            positions = torch.arange(start, start + ids.shape[1],
+                                     device=ids.device).expand(ids.shape)
         h = self.embed_in(ids, sp)
         remat = self.config.remat if torch.is_grad_enabled() else "none"
         for block in self.layers():
@@ -320,8 +337,11 @@ def build_pipelined_gpt_neox(cfg: GPTNeoXConfig, num_microbatches: int,
     ``layer_i`` blocks, :class:`GPTNeoXHead` on the last, the pp = 1
     model's weights from ``seed``."""
 
+    cp = ContextParallel.current()
+
     def block_fn(blk, x, extras, sp, S):
-        positions = torch.arange(S, device=x.device).expand(x.shape[0], S)
+        positions = torch.arange(cp.rank * S, (cp.rank + 1) * S,
+                                 device=x.device).expand(x.shape[0], S)
         return blk(x, positions, sp)
 
     def block_init(blk, g):

@@ -5,9 +5,11 @@ The module tree and parameter names follow the JAX package's param tree
 (``model.layer_0.attn.qkv.q_kernel`` ...), so a JAX checkpoint loads by
 path (:mod:`..convert.jax_params`).  Carried: RoPE with Llama-3.1
 frequency scaling; the dense GQA core (with packed-document segment ids)
-and, for training with ``attention_impl="flash"``, the flash kernels at
-context-parallel degree 1, over a rank's local heads at any tensor-parallel
-degree and KV replication; sequence parallelism (``sequence_parallel``:
+and, for training with ``attention_impl="flash"``, the flash kernels (at
+context-parallel degree > 1 through the ring or ulysses), over a rank's
+local heads at any tensor-parallel degree and KV replication; the dense
+core at cp > 1 over the gathered keys and values; sequence parallelism
+(``sequence_parallel``:
 the residual stream and the norms on a rank's slice of the sequence
 between the projections, for cacheless forwards); rematerialization (``remat``) at block
 granularity; ``hidden``/``head`` for the chunked loss; and three KV-cache
@@ -50,7 +52,10 @@ from neuronx_distributed_tpu_torch.ops.flash_attention import (
     flash_attention_segmented,
 )
 from neuronx_distributed_tpu_torch.ops.paged_attention import gather_pages, paged_attention
-from neuronx_distributed_tpu_torch.ops.ring_attention import ring_attention
+from neuronx_distributed_tpu_torch.ops.ring_attention import (
+    ring_attention,
+    zigzag_indices,
+)
 from neuronx_distributed_tpu_torch.parallel.layers import (
     ColumnParallelLinear,
     ParallelEmbedding,
@@ -58,6 +63,8 @@ from neuronx_distributed_tpu_torch.parallel.layers import (
     reset_lora_parameters,
 )
 from neuronx_distributed_tpu_torch.parallel.mappings import (
+    all_gather,
+    gather_from_context_parallel_region,
     gather_from_sequence_parallel_region,
     gather_from_tensor_parallel_region,
 )
@@ -318,12 +325,13 @@ def _score_scale(cfg: LlamaConfig, D: int) -> float:
 
 
 def core_attention(cfg: LlamaConfig, q, k, v, q_offset=0, kv_valid=None,
-                   segment_ids=None):
+                   segment_ids=None, kv_segment_ids=None):
     """Dense grouped (GQA) causal attention with an fp32 softmax: ``q [B, S,
     NQ, D]`` over ``k/v [B, T, NKV, D]``.  ``q_offset`` is a scalar or a
     per-slot ``[B]`` tensor; ``kv_valid [B, T]`` masks invalid keys;
-    ``segment_ids [B, S]`` (packed documents, ``S == T``) keeps attention
-    inside each nonzero id (0 is padding, blocked both ways)."""
+    ``segment_ids [B, S]`` (packed documents) keeps attention inside each
+    nonzero id (0 is padding, blocked both ways), against the keys'
+    ``kv_segment_ids [B, T]`` (default: the same ids, ``S == T``)."""
     B, S, NQ, D = q.shape
     T, NKV = k.shape[1], k.shape[2]
     G = NQ // NKV
@@ -337,7 +345,8 @@ def core_attention(cfg: LlamaConfig, q, k, v, q_offset=0, kv_valid=None,
     if kv_valid is not None:
         mask = mask & (kv_valid[:, None, None, None, :] > 0)
     if segment_ids is not None:
-        same = segment_ids[:, None, :] == segment_ids[:, :, None]   # [B,S,T]
+        kseg = segment_ids if kv_segment_ids is None else kv_segment_ids
+        same = kseg[:, None, :] == segment_ids[:, :, None]          # [B,S,T]
         live = (segment_ids > 0)[:, :, None]
         mask = mask & (same & live)[:, None, None]
     scores = torch.where(mask, scores,
@@ -345,6 +354,38 @@ def core_attention(cfg: LlamaConfig, q, k, v, q_offset=0, kv_valid=None,
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", probs, v.to(q.dtype))
     return out.reshape(B, S, NQ, D)
+
+
+def context_parallel_core(cfg: LlamaConfig, q, k, v, segment_ids,
+                          cp: ContextParallel):
+    """The dense core at context-parallel degree > 1 (what GSPMD runs for
+    JAX's dense core on a sequence cut over cp): every rank's k and v (and
+    key segment ids) gathered over the cp group, their gradients
+    reduce-scattered back, and this rank's q rows masked at their global
+    offsets.  Contiguous layout: rank r's rows start at ``r * C``.  Zigzag
+    (``cp_zigzag``: the chunk is the half-chunk pair ``(r, 2cp - 1 - r)``)
+    puts the gathered keys back in sequence order and masks each half at
+    its own offset, so the causal band is the sequence's, as the ring's
+    zigzag schedule applies it."""
+    kk = gather_from_context_parallel_region(k, 1, cp.group)
+    vv = gather_from_context_parallel_region(v, 1, cp.group)
+    kseg = (None if segment_ids is None else all_gather(
+        segment_ids, 1, cp.group, kind="cp_all_gather"))
+    C = q.shape[1]
+    if not cfg.cp_zigzag:
+        return core_attention(cfg, q, kk, vv, cp.rank * C, None,
+                              segment_ids, kseg)
+    inv = torch.argsort(zigzag_indices(C * cp.size, cp.size)).to(q.device)
+    kk, vv = kk.index_select(1, inv), vv.index_select(1, inv)
+    kseg = None if kseg is None else kseg.index_select(1, inv)
+    h = C // 2
+    outs = []
+    for rows, half in ((slice(0, h), cp.rank),
+                       (slice(h, C), 2 * cp.size - 1 - cp.rank)):
+        qseg = None if segment_ids is None else segment_ids[:, rows]
+        outs.append(core_attention(cfg, q[:, rows], kk, vv, half * h, None,
+                                   qseg, kseg))
+    return torch.cat(outs, dim=1)
 
 
 def flash_core(cfg: LlamaConfig, q, k, v, segment_ids=None,
@@ -558,13 +599,11 @@ class LlamaAttention(nn.Module):
         parallelism); q, k and v, and attention, cover the whole
         sequence."""
         cfg = self.config
-        if self.cp.size > 1 and (kv_cache is not None
-                                 or cfg.attention_impl != "flash"):
+        if self.cp.size > 1 and kv_cache is not None:
             raise NotImplementedError(
                 "at context-parallel degree > 1 the port runs the cacheless "
-                "flash path only (attention_impl='flash'): the dense core "
-                "and serving at cp > 1 are not ported (ROADMAP A14's "
-                "remainder)")
+                "(training) forward only: serving at cp > 1 is not ported "
+                "(JAX's engines do not take it either)")
         q, k, v = self.qkv(x, sp)
         if adapter is not None:
             # part of the projection: before RoPE and before the page
@@ -623,6 +662,11 @@ class LlamaAttention(nn.Module):
             if kv_valid is not None:
                 raise ValueError("the flash path has no padding-mask support")
             out = flash_core(cfg, q, k, v, segment_ids, self.cp)
+        elif kv_cache is None and self.cp.size > 1:
+            if kv_valid is not None:
+                raise ValueError("the dense core at context-parallel degree "
+                                 "> 1 has no padding mask")
+            out = context_parallel_core(cfg, q, k, v, segment_ids, self.cp)
         else:
             if kv_cache is None:
                 keys, values = k, v
@@ -972,9 +1016,13 @@ def build_pipelined_llama(cfg: LlamaConfig, num_microbatches: int,
     (``MOE_AUX_COEF`` folded in) to the engine's aux channel; at pp > 1
     and ep > 1 a rank holds ``num_experts // ep`` experts
     (``moe_local_experts``) and routes over its ep group, as JAX's manual
-    ep does."""
+    ep does.  At context-parallel degree > 1 each stage holds its cp
+    rank's chunk of every microbatch, and the blocks attend over the cp
+    group (the ring or ulysses on the flash path, the gathered dense core
+    otherwise), as at pp = 1."""
     moe = cfg.num_experts > 1
     ep = ExpertParallel.current().size
+    cp = ContextParallel.current()
     if moe and PipelineParallel.current().size > 1 and ep > 1:
         if cfg.num_experts % ep != 0:
             raise ValueError(
@@ -991,8 +1039,10 @@ def build_pipelined_llama(cfg: LlamaConfig, num_microbatches: int,
                     "(ids, labels, positions, segment_ids)")
             positions, segment_ids = extras
         else:
-            positions = torch.arange(S, device=x.device).expand(
-                x.shape[0], S)
+            # this cp rank's slice of arange (the layout's index order, as
+            # LlamaModel.forward's default)
+            positions = torch.arange(cp.rank * S, (cp.rank + 1) * S,
+                                     device=x.device).expand(x.shape[0], S)
             segment_ids = None
         if not moe:
             return blk(x, positions, None, 0, None, None, segment_ids, None,

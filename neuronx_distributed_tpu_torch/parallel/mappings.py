@@ -16,6 +16,7 @@ all-gather along seq dim                       reduce-scatter | split
 reduce-scatter along seq dim                   all-gather along seq dim
 all-gather along token dim (MoE, any group)    reduce-scatter
 reduce-scatter along token dim                 all-gather
+all-gather along seq dim over cp               reduce-scatter over cp
 =============================================  ==========================
 
 ``group`` defaults to the tensor-parallel group of :mod:`.mesh`; a group
@@ -31,8 +32,11 @@ reduce-scatter move 1/tp of those bytes; they come with the first
 two-card measurement (ROADMAP A9a).
 
 Context parallelism passes blocks around its ring (:func:`exchange`:
-point-to-point sends and receives) and re-shards sequence and heads
-(:func:`all_to_all`, its own conjugate).  Pipeline stages pass
+point-to-point sends and receives), re-shards sequence and heads
+(:func:`all_to_all`, its own conjugate), and gathers every rank's keys
+and values for the dense core
+(:func:`gather_from_context_parallel_region`, counted as
+``cp_all_gather`` and ``cp_reduce_scatter``).  Pipeline stages pass
 activations forward and their gradients back (:func:`stage_exchange`:
 one batch of tagged sends and receives whose receives are waited one by
 one, when their data is needed).  None of these has a CUDA path under
@@ -412,6 +416,18 @@ class _ReduceScatterTokens(torch.autograd.Function):
         return all_gather(g, 0, ctx.group, kind="ep_all_gather"), None
 
 
+class _GatherContext(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, seq_dim, group):
+        ctx.seq_dim, ctx.group = seq_dim, group
+        return all_gather(x, seq_dim, group, kind="cp_all_gather")
+
+    @staticmethod
+    def backward(ctx, g):
+        return (reduce_scatter(g, ctx.seq_dim, ctx.group,
+                               kind="cp_reduce_scatter"), None, None)
+
+
 def _trivial(group) -> bool:
     return group_size(group) == 1
 
@@ -476,3 +492,12 @@ def reduce_scatter_tokens(x: torch.Tensor, group) -> torch.Tensor:
     backward all-gather of it: an MoE layer's partial outputs back to the
     rank that holds each token."""
     return x if _trivial(group) else _ReduceScatterTokens.apply(x, group)
+
+
+def gather_from_context_parallel_region(x: torch.Tensor, seq_dim: int,
+                                        group) -> torch.Tensor:
+    """Forward all-gather of the sequence dim over the context-parallel
+    ``group`` in rank order (every rank's chunk), backward reduce-scatter
+    of it: the dense attention core's keys and values at cp > 1 (counted
+    as ``cp_all_gather`` and ``cp_reduce_scatter``)."""
+    return x if _trivial(group) else _GatherContext.apply(x, seq_dim, group)

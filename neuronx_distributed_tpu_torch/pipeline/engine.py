@@ -44,7 +44,13 @@ the token count comes from the global batch's labels, which every rank
 holds, so it needs no collective.  At dp > 1 a rank runs its rows of each
 microbatch (``microbatch(x, M)`` then its ``1 / dp``, as JAX splits the
 batch) and leaves its share of each gradient in ``.grad``: the trainer
-sums them over dp.
+sums them over dp.  At context-parallel degree > 1 (JAX leaves cp
+automatic inside a stage) each rank holds its cp rank's contiguous chunk
+of every microbatch's sequence (a zigzag model's batch arrives in
+``zigzag_permute`` order, as at pp = 1), its blocks attend over the cp
+group, a stage boundary carries the chunk to the neighbour stage of the
+same cp (and tp, dp) coordinates, the loss sum adds the cp ranks' once a
+step and the trainer sums the gradients over cp.
 """
 
 from __future__ import annotations
@@ -425,18 +431,27 @@ class PipelinedModel:
 
 
 class _Batch:
-    """A step's global batch: this dp rank's rows of each microbatch on
-    the device, and the global token count."""
+    """A step's global batch: this dp rank's rows of each microbatch, this
+    cp rank's chunk of their sequence, on the device, and the global
+    token count."""
 
     def __init__(self, ids, labels, extras, M: int, device):
         dp = mesh.get_data_parallel_size()
         rank = mesh.get_data_parallel_rank()
+        cp = mesh.get_context_parallel_size()
+        cp_rank = mesh.get_context_parallel_rank()
 
         def mine(x):
             x = microbatch(torch.as_tensor(x), M, dp)
             per = x.shape[1] // dp
-            return x[:, rank * per:(rank + 1) * per].contiguous().to(
-                device, non_blocking=True)
+            x = x[:, rank * per:(rank + 1) * per]
+            if cp > 1:
+                if x.shape[2] % cp:
+                    raise ValueError(f"sequence length {x.shape[2]} not "
+                                     f"divisible by cp degree {cp}")
+                C = x.shape[2] // cp
+                x = x[:, :, cp_rank * C:(cp_rank + 1) * C]
+            return x.contiguous().to(device, non_blocking=True)
 
         self.ids = mine(ids)
         self.labels = None if labels is None else mine(labels)
@@ -505,13 +520,17 @@ class _Engine:
         return b.tok / (self.num_layers * self.M * dp)
 
     def _sum_loss(self, loss_local):
-        """The loss sum over pp and dp (the same on every rank)."""
+        """The loss sum over pp, dp and cp (the same on every rank)."""
         if self.pp.size > 1:
             loss_local = mappings.all_reduce(loss_local, self.pp.group,
                                              kind="pp_loss")
         if mesh.get_data_parallel_size() > 1:
             loss_local = mappings.all_reduce(
                 loss_local, mesh.get_data_parallel_group(), kind="pp_loss")
+        if mesh.get_context_parallel_size() > 1:
+            loss_local = mappings.all_reduce(
+                loss_local, mesh.get_context_parallel_group(),
+                kind="pp_loss")
         return loss_local
 
     # the training schedules, with explicit backward
@@ -658,6 +677,9 @@ class _Engine:
             if self.pp.size > 1:
                 out = mappings.broadcast(out, self.pp.last, self.pp.group,
                                          kind="pp_broadcast")
+            if mesh.get_context_parallel_size() > 1:
+                out = mappings.all_gather(out, 2,
+                                          mesh.get_context_parallel_group())
             dp = mesh.get_data_parallel_size()
             if dp > 1:
                 out = mappings.all_gather(out, 1,

@@ -42,9 +42,14 @@ from neuronx_distributed_tpu_torch.examples import (
     convert_checkpoints,
     eval_perplexity,
 )
-from neuronx_distributed_tpu_torch.models.gemma import Gemma2Config
+from neuronx_distributed_tpu_torch.models.gemma import (
+    Gemma2Config,
+    Gemma2ForCausalLM,
+)
 from neuronx_distributed_tpu_torch.models.llama import LlamaConfig
 from neuronx_distributed_tpu_torch.trainer.checkpoint import save_checkpoint
+from neuronx_distributed_tpu_torch.utils.distributed import spawn
+import torch_tp_workers as workers
 
 B, S = 4, 32
 
@@ -215,3 +220,31 @@ def test_eval_perplexity_gemma2_from_the_seed(tmp_path):
          "--batch", str(B), "--seq", str(S), "--device", "cpu"])
     assert out["tokens"] > 0 and np.isfinite(out["value"])
     assert out["value"] > 1
+
+
+def test_eval_perplexity_gemma2_at_tp2_is_softcapped(tmp_path):
+    """Gemma-2 at tp = 2 evaluates through the softcapped head: a tiny
+    checkpoint whose tied table is scaled until the logits pass the final
+    softcap (30) well gives the tp = 1 loss in a 2-rank world (a head that
+    left the shards uncapped gave a loss far from it)."""
+    cfg = Gemma2Config.tiny(max_seq_len=S, dtype=torch.float32,
+                            param_dtype=torch.float32)
+    model = Gemma2ForCausalLM(cfg, device="cpu").init_random(0)
+    with torch.no_grad():
+        model.embed.embedding.mul_(200.0)
+    save_checkpoint(str(tmp_path / "ckpt"), "step_0", model.state_dict())
+    data = str(tmp_path / "t.nxdt")
+    write_token_file(data, np.random.default_rng(2).integers(
+        0, 256, size=1024, dtype=np.int32))
+    argv = ["--data", data, "--family", "gemma2", "--preset", "tiny",
+            "--batch", str(B), "--seq", str(S), "--ckpt",
+            str(tmp_path / "ckpt"), "--device", "cpu"]
+    one = eval_perplexity.evaluate(argv)
+    with torch.no_grad():
+        ids = torch.as_tensor(np.random.default_rng(3).integers(
+            0, 256, (1, S)))
+        assert model.embed.attend(model.hidden(ids)).abs().max() > 60.0
+    for loss, tokens in spawn(workers.eval_rank, 2, (argv + ["--tp", "2"],),
+                              timeout_s=170):
+        assert tokens == one["tokens"] > 0
+        assert loss == pytest.approx(one["loss"], rel=1e-5)

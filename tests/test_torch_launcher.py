@@ -6,7 +6,8 @@ checkpoints and resumes from them to the uninterrupted run's exact final
 loss, packs an eos-joined document stream (``--packed``: segment ids and
 per-document positions into the model), runs as ``python -m``, and
 refuses the JAX flags whose feature is not ported, naming the ROADMAP
-item; at ``--cp 2`` it trains in a 2-rank gloo world.  The supervisor's
+item; at ``--cp 2`` it trains in a 2-rank gloo world, at ``--pp 2 --cp
+2`` in a 4-rank one.  The supervisor's
 CLI restarts a crashing command and reports one
 JSON line.
 """
@@ -144,6 +145,21 @@ def test_pp_flag_trains_pipeline_stages():
         for loss, steps in ranks:
             assert steps == 3
             assert loss == pytest.approx(one.final_loss, rel=1e-5)
+
+
+def test_pp_with_cp_trains_stages_over_context_chunks():
+    """``--pp 2 --cp 2``: a world of four trains two pipeline stages, each
+    holding its cp rank's chunk of every microbatch (the ring on the flash
+    path), through ``fit`` to the loss of one process at pp = cp = 1 on
+    the same batches."""
+    argv = BASE + ["--steps", "3", "--attention", "flash"]
+    one = llama_pretrain.main(argv)
+    ranks = spawn(workers.launcher_rank, 4,
+                  (argv + ["--pp", "2", "--cp", "2", "--microbatches", "2"],),
+                  timeout_s=170)
+    for loss, steps in ranks:
+        assert steps == 3
+        assert loss == pytest.approx(one.final_loss, rel=1e-5)
 
 
 def test_flag_errors():

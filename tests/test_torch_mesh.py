@@ -33,6 +33,9 @@ CONFIGS = [
     (8, dict(tensor_parallel_size=2, context_parallel_size=2)),
     (2, dict(tensor_parallel_size=2)),
     (4, dict(tensor_parallel_size=2, pipeline_parallel_size=2)),
+    (4, dict(pipeline_parallel_size=2, context_parallel_size=2)),
+    (8, dict(tensor_parallel_size=2, pipeline_parallel_size=2,
+             context_parallel_size=2)),
 ]
 AXES = mesh.GROUP_AXES
 
@@ -78,6 +81,22 @@ def test_layout_and_groups_equal_the_jax_mesh(world, kw):
             cfg.context_parallel_size, ep) == (
         sizes["tp"], sizes["dp"], sizes["pp"], sizes["kvr"], sizes["cp"],
         sizes["ep"])
+
+
+def test_pp_neighbours_share_the_cp_rank():
+    """pp x cp (x tp): each pipeline line joins the ranks of one cp (and
+    tp) coordinate, so a stage sends its chunk to the neighbour stage
+    holding the same chunk; each cp line lies inside one stage."""
+    layout = mesh.rank_layout(8, tensor_parallel_size=2,
+                              pipeline_parallel_size=2,
+                              context_parallel_size=2)
+    coords = {int(r): dict(zip(mesh.MESH_AXES, c))
+              for c, r in np.ndenumerate(layout)}
+    for line in mesh.axis_lines(layout, "pp"):
+        assert len({(coords[r]["cp"], coords[r]["tp"]) for r in line}) == 1
+        assert [coords[r]["pp"] for r in line] == [0, 1]
+    for line in mesh.axis_lines(layout, "cp"):
+        assert len({coords[r]["pp"] for r in line}) == 1
 
 
 def test_tp_contiguity():

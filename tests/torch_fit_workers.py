@@ -144,7 +144,7 @@ def fsdp_tied_world(inp: dict):
 
     _world()
     f32 = dict(dtype=torch.float32, param_dtype=torch.float32)
-    gemma = GemmaConfig.tiny(max_seq_len=16, **f32)
+    gemma = GemmaConfig.tiny(max_seq_len=16, sequence_parallel=False, **f32)
     bert = BertConfig.tiny(**f32)
     models = {
         "gemma": (lambda d: GemmaForCausalLM(gemma, device=d),

@@ -44,15 +44,20 @@ def _load(model, case, family="llama"):
 
 
 def _grads(model):
-    """This rank's complete gradients: the sequence-parallel, kvr and dp
-    sums the train step would take."""
+    """This rank's complete gradients: the cp, sequence-parallel, kvr and
+    dp sums the train step would take."""
+    from neuronx_distributed_tpu_torch.parallel import mesh
     from neuronx_distributed_tpu_torch.parallel.grads import (
         allreduce_kv_replicated_gradients,
         allreduce_sequence_parallel_gradients,
+        coalesced_all_reduce,
         psum_over_data_parallel,
     )
 
     params = list(model.module.parameters())
+    if mesh.get_context_parallel_size() > 1:
+        coalesced_all_reduce([p.grad for p in params],
+                             mesh.get_context_parallel_group())
     allreduce_sequence_parallel_gradients(params)
     allreduce_kv_replicated_gradients(params)
     psum_over_data_parallel([p.grad for p in params], mean=False)
@@ -83,6 +88,8 @@ def _where(model):
                    stage.parts["tp"].kvr),
             "dp": (mesh.get_data_parallel_size(),
                    mesh.get_data_parallel_rank()),
+            "cp": (mesh.get_context_parallel_size(),
+                   mesh.get_context_parallel_rank()),
             "layers": stage.chunks, "rows": model.layer_rows,
             "embed": stage.has_embed, "head": stage.has_head}
 
@@ -98,7 +105,8 @@ def schedule_case(case, family="llama"):
               pipeline_cuts=case.get("cuts"),
               packed_inputs=case.get("packed", False),
               tensor_parallel_size=case.get("tp", 1),
-              kv_size_multiplier=case.get("kvr", 1))
+              kv_size_multiplier=case.get("kvr", 1),
+              context_parallel_size=case.get("cp", 1))
     cfg = (_llama(case) if family == "llama" else GPTNeoXConfig.tiny(
         dtype=torch.float32, param_dtype=torch.float32, max_seq_len=16,
         **case["cfg"]))
@@ -111,7 +119,7 @@ def schedule_case(case, family="llama"):
     loss_sum, tok = model.loss_and_grad_fn(*args)
     out = dict(_where(model), loss=loss_sum.item(), tok=tok.item(),
                grads=_grads(model), stats=dict(model.stats),
-               counts=dict(mappings.COUNTS))
+               counts=dict(mappings.COUNTS), bytes=dict(mappings.BYTES))
     if case.get("forward"):
         out["logits"] = _np(model.forward_fn(args[0], *args[2:]))
     if case.get("oracle"):
@@ -138,10 +146,16 @@ def train_case(case):
 
     config = _config(num_microbatches=case["M"], learning_rate=1e-3,
                      schedule=case.get("schedule", "1f1b"),
-                     zero_one_enabled=case.get("zero1", True))
+                     zero_one_enabled=case.get("zero1", True),
+                     context_parallel_size=case.get("cp", 1))
     model = _build(config, _llama(case))
     _load(model, case)
-    opt = initialize_parallel_optimizer(config, model)
+    trainable = None
+    if case.get("lora"):
+        from neuronx_distributed_tpu_torch import peft
+
+        trainable = peft.lora_trainable
+    opt = initialize_parallel_optimizer(config, model, trainable=trainable)
     step = make_train_step(config, model, opt)
     eval_loss = make_eval_step(config, model)(case["batches"][0])["loss"]
     logits = None
@@ -156,9 +170,16 @@ def train_case(case):
     out = dict(_where(model), losses=losses, norms=norms,
                eval_loss=eval_loss.item(), logits=logits,
                zero1=opt.zero1 is not None,
-               params={n: _np(p) for n, p in model.module.named_parameters()})
+               params={n: _np(p) for n, p in model.module.named_parameters()},
+               stateful=sorted(names_with_state(model, opt)))
     mesh.destroy_model_parallel()
     return out
+
+
+def names_with_state(model, opt):
+    """The parameters that hold AdamW state."""
+    names = {p: n for n, p in model.module.named_parameters()}
+    return [names[p] for p in opt.optimizer.state if p in names]
 
 
 def fit_case(case):
@@ -278,4 +299,74 @@ def pp4_cases(inp: dict):
     for name, case in inp["cases"].items():
         out[name] = schedule_case(case, case.get("family", "llama"))
     out["dp_train"] = train_case(inp["dp_train"])
+    return out
+
+
+def resume_case(case):
+    """``fit`` at pp = 2 x cp = ``case["cp"]`` with checkpoints: a
+    continuous run, and a run stopped at the middle and resumed from its
+    checkpoint: the losses, the final parameters, and the ranks that wrote
+    each payload's pieces of the last checkpoint."""
+    import json
+    import os
+
+    from neuronx_distributed_tpu_torch.parallel import mesh
+    from neuronx_distributed_tpu_torch.trainer import (
+        Callback,
+        fit,
+        initialize_parallel_optimizer,
+    )
+
+    config = _config(num_microbatches=case["M"], learning_rate=1e-3,
+                     context_parallel_size=case["cp"])
+    batches = case["batches"]
+
+    class Losses(Callback):
+        def __init__(self):
+            self.losses = []
+
+        def on_step(self, step, metrics):
+            self.losses.append(metrics["loss"])
+
+    def run(ckpt_dir, steps, resume):
+        model = _build(config, _llama(case))
+        opt = initialize_parallel_optimizer(config, model)
+        rec = Losses()
+        res = fit(config, model, opt, lambda i: batches[i], steps=steps,
+                  ckpt_dir=ckpt_dir, ckpt_every=2, resume=resume,
+                  log_every=0, callbacks=[rec], async_save=False)
+        params = {n: _np(p) for n, p in model.module.named_parameters()}
+        where = _where(model)
+        mesh.destroy_model_parallel()
+        return {"losses": rec.losses, "start": res.start_step,
+                "params": params, "where": where}
+
+    out = {"whole": run(case["dir_whole"], len(batches), False),
+           "first": run(case["dir_resume"], len(batches) // 2, False),
+           "resumed": run(case["dir_resume"], len(batches), True)}
+    with open(os.path.join(case["dir_whole"], f"step_{len(batches)}",
+                           "meta.json")) as f:
+        index = json.load(f)["tensors"]
+    # the ranks whose files hold each payload's pieces
+    out["writers"] = {name: sorted({sh["rank"] for rec in recs.values()
+                                    for sh in rec["shards"]})
+                      for name, recs in index.items()}
+    return out
+
+
+def ppcp_cases(inp: dict):
+    """The 4-rank world at pp = 2 x cp = 2: each schedule case (Llama on
+    the ring and on the dense core, GPT-NeoX), the training steps (with
+    and without LoRA) and the checkpoint resume."""
+    from neuronx_distributed_tpu_torch.utils.distributed import (
+        initialize_distributed,
+    )
+
+    initialize_distributed(device="cpu", timeout_s=GROUP_TIMEOUT_S)
+    out = {}
+    for name, case in inp["cases"].items():
+        out[name] = schedule_case(case, case.get("family", "llama"))
+    for name, case in inp["train"].items():
+        out[name] = train_case(case)
+    out["resume"] = resume_case(inp["resume"])
     return out

@@ -375,11 +375,12 @@ def _gemma(family, tree, rank, prompt):
     )
 
     if family == "gemma":
-        cfg = GemmaConfig.tiny(dtype=torch.float32, max_seq_len=32)
+        cfg = GemmaConfig.tiny(dtype=torch.float32, max_seq_len=32,
+                               sequence_parallel=False)
         model, conv = GemmaForCausalLM(cfg, device="cpu"), gemma_params_from_jax
     else:
         cfg = Gemma2Config.tiny(dtype=torch.float32, max_seq_len=32,
-                                sliding_window=8)
+                                sliding_window=8, sequence_parallel=False)
         model, conv = Gemma2ForCausalLM(cfg, device="cpu"), gemma2_params_from_jax
     model.load_state_dict(conv(shard_params_for_rank(tree, 2, rank), cfg,
                                tp=2))
@@ -1274,6 +1275,199 @@ def cp_train_cases(inp: dict):
     return out
 
 
+def _with_cp_schedule(cfg, impl, zigzag):
+    """``cfg`` (a Gemma or Gemma-2 config) whose blocks run the cp
+    schedule ``impl`` (``ring`` | ``ulysses``) in the ``zigzag`` layout or
+    not: the Gemma configs carry no cp field (JAX's lack one too), so the
+    test picks the blocks' through a subclass of the config."""
+    import dataclasses
+
+    base = type(cfg)
+
+    class Picked(base):
+        def block_config(self, *args):
+            return dataclasses.replace(super().block_config(*args),
+                                       cp_impl=impl, cp_zigzag=zigzag)
+
+    Picked.__name__ = base.__name__
+    return Picked(**{f.name: getattr(cfg, f.name)
+                     for f in dataclasses.fields(cfg)})
+
+
+def _gemma_build(case, device):
+    from neuronx_distributed_tpu_torch.models.gemma import (
+        Gemma2Config,
+        Gemma2ForCausalLM,
+        GemmaConfig,
+        GemmaForCausalLM,
+    )
+
+    f32 = dict(dtype=torch.float32, param_dtype=torch.float32)
+    if case["family"] == "gemma":
+        cfg, cls = GemmaConfig.tiny(**case["cfg"], **f32), GemmaForCausalLM
+    else:
+        cfg, cls = Gemma2Config.tiny(**case["cfg"], **f32), Gemma2ForCausalLM
+    if case.get("cp_impl"):
+        cfg = _with_cp_schedule(cfg, case["cp_impl"], case["zigzag"])
+    return cfg, cls(cfg, device=device)
+
+
+def _convert_gemma(case, tree, cfg, tp, rank):
+    from neuronx_distributed_tpu_torch.convert import (
+        gemma2_params_from_jax,
+        gemma_params_from_jax,
+        shard_params_for_rank,
+    )
+
+    conv = (gemma_params_from_jax if case["family"] == "gemma"
+            else gemma2_params_from_jax)
+    return conv(shard_params_for_rank(tree, tp, rank), cfg, tp=tp)
+
+
+def _complete_grads(module, cp_group):
+    """This rank's gradients summed as the train step sums them before
+    dp: over cp, then the sequence-parallel ones over tp."""
+    from neuronx_distributed_tpu_torch.parallel.grads import (
+        allreduce_sequence_parallel_gradients,
+        coalesced_all_reduce,
+    )
+
+    params = list(module.parameters())
+    coalesced_all_reduce([p.grad for p in params], cp_group)
+    allreduce_sequence_parallel_gradients(params)
+    return {n: _np(p.grad) for n, p in module.named_parameters()}
+
+
+def gemma_parallel_cases(inp: dict):
+    """Gemma and Gemma-2 trained past one rank in a world of 4 from each
+    rank's tp shard of the JAX tree (``inp["train"]``: ``_train``'s
+    results by case, e.g. tp = 2 x dp = 2 with sequence parallelism, tp =
+    2 x cp = 2 on the ring, ulysses, zigzag and the dense core), then the
+    forward cases (``inp["forward"]``): Gemma-2's tp = 2 logits through
+    the cacheless and the cached forward (the serving path,
+    ``gather_logits``), or the tiny Llama's dense core at tp = 2 x cp = 2
+    (contiguous or zigzag): this rank's logits and its gradients of
+    ``mean(logits ** 2)`` summed over cp and SP; with ``inp["refusals"]``
+    what stays refused at cp = 2."""
+    from neuronx_distributed_tpu_torch.config import training_config
+    from neuronx_distributed_tpu_torch.convert import (
+        llama_params_from_jax,
+        shard_params_for_rank,
+    )
+    from neuronx_distributed_tpu_torch.models.common import (
+        causal_lm_loss,
+        make_causal_lm_loss_sum,
+    )
+    from neuronx_distributed_tpu_torch.models.llama import (
+        LlamaConfig,
+        LlamaForCausalLM,
+    )
+    from neuronx_distributed_tpu_torch.parallel import mappings, mesh
+    from neuronx_distributed_tpu_torch.utils.distributed import (
+        initialize_distributed,
+    )
+
+    initialize_distributed(device="cpu", timeout_s=GROUP_TIMEOUT_S)
+    out = {}
+    for case in inp["train"]:
+        tp, cp = case["tp"], case["cp"]
+        config = training_config(
+            tensor_parallel_size=tp, context_parallel_size=cp,
+            zero_one_enabled=True, learning_rate=inp["lr"],
+            compute_dtype="float32", seed=0)
+        holder = {}
+
+        def build(d, case=case):
+            holder["cfg"], holder["model"] = _gemma_build(case, d)
+            return holder["model"]
+
+        def state(m, case=case, tp=tp):
+            return _convert_gemma(case, case["tree"], holder["cfg"], tp,
+                                  m.tp.rank)
+
+        loss_fn = (make_causal_lm_loss_sum(case["chunk"]) if case.get("chunk")
+                   else causal_lm_loss)
+        out[case["name"]] = _train(config, build, state, loss_fn,
+                                   case["batches"], counts=True)
+        out[case["name"]]["sp_marked"] = sorted(
+            n for n, p in holder["model"].named_parameters()
+            if getattr(p, "sequence_parallel", False))
+    # the forward cases
+    for case in inp["forward"]:
+        tp, cp = case["tp"], case["cp"]
+        mesh.initialize_model_parallel(tensor_parallel_size=tp,
+                                       context_parallel_size=cp)
+        r, tp_rank = mesh.get_context_parallel_rank(), None
+        ids = torch.as_tensor(case["ids"])
+        pos = torch.as_tensor(case["positions"])
+        C = ids.shape[1] // cp
+        chunk = (slice(None), slice(r * C, (r + 1) * C))
+        res = {"cp": (cp, r)}
+        if case["family"] == "gemma2":
+            cfg, model = _gemma_build(case, "cpu")
+            tp_rank = model.tp.rank
+            model.load_state_dict(_convert_gemma(case, case["tree"], cfg, tp,
+                                                 tp_rank))
+            with torch.no_grad():
+                res["logits"] = _np(model.gather_logits(model(ids)))
+                B, S = ids.shape
+                D, NKV = cfg.head_dim, cfg.num_kv_heads // tp
+                caches = [(torch.zeros(B, S, NKV, D), torch.zeros(B, S, NKV, D))
+                          for _ in range(cfg.num_layers)]
+                cached, _ = model(ids, kv_caches=caches)
+                res["cached_logits"] = _np(model.gather_logits(cached))
+        else:
+            cfg = LlamaConfig.tiny(**case["cfg"], dtype=torch.float32,
+                                   param_dtype=torch.float32)
+            model = LlamaForCausalLM(cfg, device="cpu")
+            tp_rank = model.tp.rank
+            model.load_state_dict(llama_params_from_jax(
+                shard_params_for_rank(case["tree"], tp, tp_rank), cfg, tp=tp))
+            mappings.reset_counts()
+            logits = model.gather_logits(model(ids[chunk], pos[chunk]))
+            n = ids.numel() * cfg.vocab_size
+            (logits.square().sum() / n).backward()
+            res["counts"] = dict(mappings.COUNTS)
+            res["logits"] = _np(logits)
+            res["grads"] = _complete_grads(
+                model, mesh.get_context_parallel_group())
+        res["tp"] = (tp, tp_rank)
+        out[case["name"]] = res
+        mesh.destroy_model_parallel()
+    if inp.get("refusals"):
+        out["refused"] = _cp_refusals()
+    return out
+
+
+def _cp_refusals() -> dict:
+    """What stays refused at cp = 2: an MoE block, and a forward with KV
+    caches (serving); the errors' texts by case."""
+    from neuronx_distributed_tpu_torch.models.llama import (
+        LlamaConfig,
+        LlamaForCausalLM,
+    )
+    from neuronx_distributed_tpu_torch.parallel import mesh
+
+    mesh.initialize_model_parallel(context_parallel_size=2,
+                                   tensor_parallel_size=2)
+    out = {}
+    try:
+        LlamaForCausalLM(LlamaConfig.tiny(num_experts=4), device="cpu")
+    except NotImplementedError as e:
+        out["moe"] = str(e)
+    cfg = LlamaConfig.tiny(dtype=torch.float32)
+    model = LlamaForCausalLM(cfg, device="cpu").init_random(0)
+    caches = [(torch.zeros(1, 8, 4, 8), torch.zeros(1, 8, 4, 8))
+              for _ in range(cfg.num_layers)]
+    try:
+        with torch.no_grad():
+            model(torch.zeros(1, 4, dtype=torch.long), kv_caches=caches)
+    except NotImplementedError as e:
+        out["serving"] = str(e)
+    mesh.destroy_model_parallel()
+    return out
+
+
 def launcher_rank(argv: list):
     """The Llama launcher's ``main`` in this rank (its world from the
     environment): the final loss and steps run."""
@@ -1281,6 +1475,15 @@ def launcher_rank(argv: list):
 
     res = llama_pretrain.main(list(argv))
     return res.final_loss, res.steps_run
+
+
+def eval_rank(argv: list):
+    """``eval_perplexity.evaluate`` in this rank (its world from the
+    environment): the mean loss and the token count."""
+    from neuronx_distributed_tpu_torch.examples import eval_perplexity
+
+    out = eval_perplexity.evaluate(list(argv))
+    return out["loss"], out["tokens"]
 
 
 def rank_threads():
